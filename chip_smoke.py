@@ -1,0 +1,529 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+
+1. device: the card, its power limit, torch and CUDA versions; TF32 off.
+2. build: compile every kernel from the checkout's sources (nvcc for the
+   CUDA C++ flash attention, Triton's JIT for rmsnorm), all at once.
+3. kernel_check: each kernel against its plain PyTorch twin on the card,
+   in bf16 and fp32, at the shapes the serving path gives it, with its
+   time, the twin's, one PyTorch library call's (a yardstick the port never
+   calls) and the least time the card could take (``bound_ms``).
+4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
+   generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
+   each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
+   ``DecoderLM.prefill`` / ``decode_step``.  Launch counters are zeroed
+   just before and read just after; every kernel must have launched, and
+   exactly as often as the path's shape implies.  Then two profile lines:
+   one prefill and eight decode steps under ``torch.profiler``, with wall
+   time, device busy time, idle share and the kernels that took longest.
+5. plain: the same prompts teacher-forced through the kernels and through
+   the plain twins on the card; cosine similarity of the logits and top-1
+   agreement must clear the stated tolerances.
+6. kernels: one line listing every ported kernel with its launches, error
+   and times.
+
+The last line is ``{"ok": true, "device": {...}}``.  Any failed check
+raises, and the script then exits non-zero without that line.  It exits
+non-zero at once when no CUDA device is present or when run outside a
+checkout of the repository.
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+import types
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# full-width serving workload of phase 4
+ARCH = "qwen2-0.5b"
+MAX_BATCH = 8
+NEW_TOKENS = 32
+REQUESTS = ((512, 16), (300, 4))        # (prompt length, count)
+
+# phase 5 tolerances: kernel path vs plain twins on the same weights,
+# teacher-forced.  Both compute in fp32 inside each op and round to bf16
+# at the same places; what differs is summation order, which flips the
+# odd bf16 rounding and compounds over 24 layers.
+MIN_COSINE = 0.999
+MIN_TOP1 = 0.9
+
+# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores,
+# fp32 outside the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+TOL = {"bfloat16": 2e-2, "float32": 2e-5}          # attention
+TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call between CUDA events around ``iters``
+    back-to-back calls: device time plus any gap the host's launches
+    leave."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_busy(torch, fn):
+    """Run ``fn`` once under the profiler (device activity only).
+    Returns (wall seconds ending in a synchronize, summed device time of
+    every kernel, memcpy and memset in seconds, key_averages)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avgs = prof.key_averages()
+    busy_us = sum(e.self_device_time_total for e in avgs)
+    return wall, busy_us / 1e6, avgs
+
+
+def device_ms(torch, fn, iters: int = 20):
+    """Device time of one call: the profiler's summed kernel time over
+    ``iters`` calls, without the host's launch gaps that ``time_ms`` sees.
+    Returns (ms, timer).  A profiler window that records no device
+    activity is retried; if none does, the time is taken with CUDA events
+    instead and ``timer`` says so."""
+    fn()
+    for _ in range(3):
+        _, busy, _ = device_busy(torch, lambda: [fn() for _ in range(iters)])
+        if busy > 0:
+            return busy * 1e3 / iters, "profiler"
+    return time_ms(fn, iters), "events"
+
+
+def profile_phase(torch, name: str, fn) -> dict:
+    """Wall time, device busy time and idle share of one window, and the
+    eight kernels that took the most device time in it."""
+    wall, busy, avgs = device_busy(torch, fn)
+    top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(window=name, wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                idle_share=1.0 - busy / wall,
+                top=[dict(kernel=e.key[:90], count=e.count,
+                          device_ms=e.self_device_time_total / 1e3)
+                     for e in top])
+
+
+def timings(torch, fns) -> dict:
+    """``<name>_ms`` (device time per call, from the profiler) and
+    ``<name>_event_ms`` (CUDA events around back-to-back calls, which also
+    counts the gaps while the host launches) for each function."""
+    out = {}
+    for name, fn in fns.items():
+        out[f"{name}_ms"], out[f"{name}_timer"] = device_ms(torch, fn)
+        out[f"{name}_event_ms"] = time_ms(fn)
+    return out
+
+
+def bound(flops: float, nbytes: float, dtype: str):
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def max_err(out, ref, tol: float) -> float:
+    import torch
+    a, b = out.float(), ref.float()
+    check(bool(torch.isfinite(a).all()), "kernel output is not finite")
+    err = (a - b).abs()
+    bad = err > tol + tol * b.abs()
+    check(not bool(bad.any()),
+          f"kernel disagrees with its plain twin: max err "
+          f"{float(err.max())}, tol {tol}")
+    return float(err.max())
+
+
+# --------------------------------------------------------------------------
+# phase 3: kernel checks
+# --------------------------------------------------------------------------
+def flash_pairs(S: int, T: int, causal: bool, window: int,
+                q_offset: int) -> int:
+    """Visible (query, key) pairs of one (batch, head)."""
+    n = 0
+    for i in range(S):
+        p = i + q_offset
+        hi = min(T, p + 1) if causal else T
+        lo = max(0, p - window + 1) if window > 0 else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
+                window=0, q_offset=0, strided=False):
+    """``strided``: q, k, v are views one element into rows of D + 2, so
+    their rows are not 16-byte aligned."""
+    rows = []
+    pad = 2 if strided else 0
+
+    def rand(shape, dt):
+        x = torch.randn(shape[:-1] + (shape[-1] + pad,), generator=gen,
+                        device="cuda").to(dt)
+        return x[..., pad // 2:pad // 2 + shape[-1]]
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v = (rand(shape, dt) for shape in
+                   ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q, k, v, **kw)
+        err = max_err(out, ref, TOL[dtype])
+
+        # yardstick: one SDPA call on (B,H,S,D) views with GQA
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        pos_q = torch.arange(S, device="cuda")[:, None] + q_offset
+        pos_k = torch.arange(T, device="cuda")[None, :]
+        mask = torch.ones((S, T), dtype=torch.bool, device="cuda")
+        if causal:
+            mask &= pos_k <= pos_q
+        if window > 0:
+            mask &= pos_q - pos_k < window
+        simple_causal = causal and window == 0 and q_offset == 0 and S == T
+        sdpa_kw = ({"is_causal": True} if simple_causal
+                   else {"attn_mask": mask})
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True, **sdpa_kw)
+
+        elem = q.element_size()
+        flops = 4.0 * B * H * D * flash_pairs(S, T, causal, window, q_offset)
+        nbytes = elem * (2 * B * S * H * D + 2 * B * T * K * D)
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        row = dict(kernel="flash_attention", case=name, dtype=dtype,
+                   shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
+                              window=window, q_offset=q_offset),
+                   max_abs_err=err, tol=TOL[dtype],
+                   **timings(torch, {
+                       "kernel": lambda: fa.flash_attention(q, k, v, **kw),
+                       "plain": lambda: fa.flash_attention_plain(q, k, v,
+                                                                 **kw),
+                       "library": library}),
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        emit("kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
+def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
+    out_rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows_, d), generator=gen, device="cuda").to(dt)
+        scale = torch.randn((d,), generator=gen, device="cuda")
+        out = rn.rmsnorm(x, scale, eps=1e-6)
+        torch.cuda.synchronize()
+        err = max_err(out, rn.rmsnorm_plain(x, scale, 1e-6), TOL_NORM[dtype])
+        scale_t = scale.to(dt)
+        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
+        bound_ms, bound_by = bound(4.0 * x.numel(), nbytes, "float32")
+        row = dict(kernel="rmsnorm", case=name, dtype=dtype,
+                   shape=dict(rows=rows_, d=d), max_abs_err=err,
+                   tol=TOL_NORM[dtype],
+                   **timings(torch, {
+                       "kernel": lambda: rn.rmsnorm(x, scale, eps=1e-6),
+                       "plain": lambda: rn.rmsnorm_plain(x, scale, 1e-6),
+                       "library": lambda: F.rms_norm(x, (d,), scale_t, 1e-6)}),
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   flops=4.0 * x.numel(), bytes=nbytes)
+        emit("kernel_check", **row)
+        out_rows.append(row)
+    return out_rows
+
+
+# --------------------------------------------------------------------------
+# phase 5: plain twins on the card
+# --------------------------------------------------------------------------
+@contextlib.contextmanager
+def plain_kernels(ops, fa, rn):
+    """Route the model's kernel calls to the plain twins for the block."""
+    saved = ops._fa, ops._rn
+    ops._fa = types.SimpleNamespace(flash_attention=fa.flash_attention_plain)
+    ops._rn = types.SimpleNamespace(
+        rmsnorm=lambda x, scale, *, eps: rn.rmsnorm_plain(x, scale, eps))
+    try:
+        yield
+    finally:
+        ops._fa, ops._rn = saved
+
+
+def forced_logits(torch, model, prompts, forced):
+    """Last-position logits of the prompt and of each teacher-forced step:
+    (B, n, V) fp32, for prompts (B,S) and forced tokens (B,n)."""
+    B, S = prompts.shape
+    n = forced.shape[1]
+    cache = model.init_cache(B, S + n)
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    outs = [logits[:, -1].float()]
+    pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
+    for j in range(n - 1):
+        logits, cache = model.decode_step(cache, forced[:, j:j + 1], pos)
+        outs.append(logits[:, -1].float())
+        pos = pos + 1
+    return torch.stack(outs, dim=1)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["REPRO_COMPUTE_DTYPE"] = "bfloat16"
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models.module import init_params
+    from repro_torch.serve.engine import BatchingFrontend, ServeEngine
+
+    # ---- 1. device ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, kind=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         allow_tf32=False)
+
+    # ---- 2. build: nvcc in the background while Triton compiles ------------
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        nvcc_job = pool.submit(_build.build, "flash_attention")
+        x = torch.randn((8, 896), device="cuda", dtype=torch.bfloat16)
+        rn.rmsnorm(x, torch.ones(896, device="cuda"))
+        torch.cuda.synchronize()
+        triton_s = time.perf_counter() - t0
+        lib = nvcc_job.result()["flash_attention"]
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in
+             lib.with_suffix(".log").read_text().splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit("build", seconds=build_s, triton_rmsnorm_s=triton_s,
+         flash_attention_so=lib.name, ptxas=ptxas)
+
+    # ---- 3. kernels against their plain twins ------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = {"flash_attention": [], "rmsnorm": []}
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "slice",
+                                             8, 512, 512, 14, 2, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "window48",
+                                             8, 512, 512, 14, 2, 64,
+                                             window=48)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "ragged300",
+                                             4, 300, 300, 14, 2, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "q_offset",
+                                             8, 64, 512, 14, 2, 64,
+                                             q_offset=448)
+    # the other head dims the kernel takes: qwen3's 128, the non-causal
+    # tiles of 16, and 24, which bf16 runs on the scalar kernel, as it does
+    # K/V rows that are not 16-byte aligned
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d128",
+                                             2, 256, 256, 16, 8, 128)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d16_full",
+                                             2, 48, 80, 6, 2, 16,
+                                             causal=False)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d24",
+                                             2, 100, 100, 4, 2, 24,
+                                             window=20)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "strided",
+                                             2, 128, 128, 14, 2, 64,
+                                             strided=True)
+    for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
+                        ("decode", 8)):
+        checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
+
+    # ---- 4. the serving path at full width ---------------------------------
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    wgen = torch.Generator(device="cuda").manual_seed(0)
+    params = init_params(DecoderLM.param_specs(cfg), wgen)
+    model = build_model(cfg, params, device="cuda")
+    del params
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+
+    results = []
+
+    class RecordingEngine(ServeEngine):
+        def generate(self, prompts, max_new_tokens, *, seed=0):
+            res = super().generate(prompts, max_new_tokens, seed=seed)
+            results.append(res)
+            return res
+
+    max_len = max(p for p, _ in REQUESTS) + NEW_TOKENS + 8
+    engine = RecordingEngine(model, max_batch=MAX_BATCH, max_len=max_len,
+                             device="cuda")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+               for plen, count in REQUESTS for _ in range(count)]
+    engine.generate(np.stack(prompts[:MAX_BATCH]), 4)     # warm-up
+    results.clear()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = 0
+    rn.rmsnorm.launches = 0
+    t0 = time.perf_counter()
+    frontend = BatchingFrontend(engine, max_wait_s=0.05)
+    try:
+        reqs = [frontend.submit(p, NEW_TOKENS) for p in prompts]
+        outs = [r.result.get(timeout=600) for r in reqs]
+    finally:
+        frontend.shutdown()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+
+    check(len(outs) == len(prompts), "not every request was answered")
+    for o in outs:
+        check(o.shape == (NEW_TOKENS,) and o.min() >= 0
+              and o.max() < cfg.vocab_size, f"bad answer {o!r}")
+    L = cfg.num_layers
+    batches = len(results)
+    steps = sum(r.steps - 1 for r in results)
+    expect = {"flash_attention": L * batches,
+              "rmsnorm": (2 * L + 1) * (batches + steps)}
+    check(launches == expect,
+          f"kernel launches {launches}, the path implies {expect}")
+    decode_tokens = sum(r.tokens.shape[0] * (r.steps - 1) for r in results)
+    decode_s = sum(r.decode_s for r in results)
+    emit("serve", arch=cfg.name, params=cfg.param_count(),
+         requests=len(outs), batches_served=frontend.batches_served,
+         prefill_s=[r.prefill_s for r in results],
+         decode_s=[r.decode_s for r in results],
+         decode_tokens_per_s=decode_tokens / decode_s,
+         wall_s=wall_s,
+         tokens_per_s_end_to_end=len(outs) * NEW_TOKENS / wall_s,
+         peak_mem_bytes=peak_bytes, weights_load_s=load_s,
+         launches=launches, expected_launches=expect)
+
+    # where the time goes: one prefill and eight decode steps of a full
+    # batch, under the profiler
+    pt = torch.as_tensor(np.stack(prompts[:MAX_BATCH]), dtype=torch.long,
+                         device="cuda")
+    cache = model.init_cache(MAX_BATCH, max_len)
+    emit("profile", **profile_phase(
+        torch, "prefill 8x512",
+        lambda: model.prefill({"tokens": pt}, cache)))
+    tok = pt[:, -1:]
+    pos = torch.full((MAX_BATCH,), pt.shape[1], dtype=torch.long,
+                     device="cuda")
+
+    def decode_steps():
+        for j in range(8):
+            model.decode_step(cache, tok, pos + j)
+
+    emit("profile", **profile_phase(torch, "8 decode steps, batch 8",
+                                    decode_steps))
+    del cache
+
+    # ---- 5. the same prompts through the plain twins -----------------------
+    # one batch of each prompt length, forced with what the path answered
+    n_short = REQUESTS[-1][1]
+    cos_all, top1_all = [], []
+    for sl in (slice(0, MAX_BATCH), slice(len(prompts) - n_short, None)):
+        g, fg = np.stack(prompts[sl]), np.stack(outs[sl])
+        pt = torch.as_tensor(g, dtype=torch.long, device="cuda")
+        ft = torch.as_tensor(fg, dtype=torch.long, device="cuda")
+        with_kernels = forced_logits(torch, model, pt, ft)
+        before = (fa.flash_attention.launches, rn.rmsnorm.launches)
+        with plain_kernels(ops, fa, rn):
+            plain = forced_logits(torch, model, pt, ft)
+        check((fa.flash_attention.launches, rn.rmsnorm.launches) == before,
+              "the plain run launched a kernel")
+        check(bool(torch.isfinite(with_kernels).all()), "logits not finite")
+        cos_all.append(F.cosine_similarity(with_kernels, plain, dim=-1))
+        top1_all.append((with_kernels.argmax(-1) == plain.argmax(-1)).float())
+    cos = torch.cat([c.flatten() for c in cos_all])
+    top1 = float(torch.cat([t.flatten() for t in top1_all]).mean())
+    prefill_cos = float(torch.cat([c[:, 0] for c in cos_all]).min())
+    emit("plain", positions=int(cos.numel()), cosine_min=float(cos.min()),
+         cosine_mean=float(cos.mean()), prefill_cosine_min=prefill_cos,
+         top1_agreement=top1, min_cosine=MIN_COSINE, min_top1=MIN_TOP1)
+    check(float(cos.min()) >= MIN_COSINE,
+          f"cosine {float(cos.min())} < {MIN_COSINE}")
+    check(top1 >= MIN_TOP1, f"top-1 agreement {top1} < {MIN_TOP1}")
+
+    # ---- 6. the kernels line ----------------------------------------------
+    main_case = {"flash_attention": "slice", "rmsnorm": "prefill"}
+    meta = {
+        "flash_attention": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:106"),
+        "rmsnorm": dict(
+            route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+            replaces="src/repro/kernels/rmsnorm.py:44"),
+    }
+    kernels = []
+    for name, rows_ in checks.items():
+        row = next(r for r in rows_ if r["case"] == main_case[name]
+                   and r["dtype"] == "bfloat16")
+        kernels.append(dict(
+            name=name, **meta[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows_
+                            if r["dtype"] == "bfloat16"),
+            ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

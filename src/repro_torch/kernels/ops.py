@@ -1,0 +1,47 @@
+"""Kernel entry points the models call, routed by the tensor's device.
+
+* A CUDA tensor goes to the hand-written kernel (``flash_attention``,
+  ``rmsnorm``), which launches or raises; nothing falls back.
+* A CPU tensor goes to the plain PyTorch version (``ref.py``), with the
+  chunked attention for sequences of 1024 or more, so peak memory stays
+  O(block * T).
+* Ragged attention (explicit positions, a valid-length bound, a softcap or
+  sinks) has no kernel on either backend and goes to ``ref.mha`` on every
+  device, as in the JAX package.  That covers all of decode.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rn
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              q_pos=None, kv_pos=None, kv_valid=None, softcap: float = 0.0,
+              q_offset: int = 0, scale: Optional[float] = None,
+              num_sink: int = 0):
+    """Multi-head (GQA) attention.  q: (B,S,H,D); k, v: (B,T,K,D)."""
+    ragged = q_pos is not None or kv_pos is not None or kv_valid is not None \
+        or softcap > 0.0 or num_sink > 0
+    if not ragged and q.device.type != "cpu":
+        return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, scale=scale)
+    if q_offset and q_pos is None:
+        B, S = q.shape[:2]
+        q_pos = (q_offset + torch.arange(S, device=q.device))[None].expand(B, S)
+    simple = (q_pos is None and kv_pos is None and kv_valid is None
+              and softcap == 0.0)
+    if simple and q.shape[1] >= 1024:
+        return _ref.mha_chunked(q, k, v, causal=causal, window=window,
+                                num_sink=num_sink, scale=scale)
+    return _ref.mha(q, k, v, causal=causal, window=window, q_pos=q_pos,
+                    kv_pos=kv_pos, kv_valid=kv_valid, softcap=softcap,
+                    scale=scale, num_sink=num_sink)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-6):
+    return _rn.rmsnorm(x, scale, eps=eps)

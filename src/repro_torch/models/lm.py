@@ -1,0 +1,111 @@
+"""DecoderLM for the dense family: prefill, decode step and cache.
+
+The counterpart of ``repro/models/lm.py`` (``DecoderLM``, ``build_model``)
+for dense configs (qwen2-0.5b, qwen3-1.7b, yi-34b, mistral-large-123b).
+The model is an ``nn.Module`` holding its parameters: a ``ModuleList`` of
+per-layer parameter dicts where JAX scans over stacked leaves.  Other
+families raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as ll
+from repro_torch.models import stack as stk
+from repro_torch.models.module import ParamSpec
+
+# leaves JAX uses uncast (fp32) at every use: the norm scales
+_FP32_LEAVES = frozenset({"scale", "q_norm", "k_norm"})
+
+
+def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None):
+    """A ParameterDict of one layer's (or one top-level group's) leaves:
+    checked against the spec, moved to ``device`` and cast once to the
+    compute dtype, except the norm scales."""
+    if set(values) != set(specs):
+        raise ValueError(f"parameter tree mismatch: expected "
+                         f"{sorted(specs)}, got {sorted(values)}")
+    out = {}
+    for name, s in specs.items():
+        t = values[name]
+        if index is not None:
+            t = t[index]
+        shape = s.shape[1:] if index is not None else s.shape
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        dtype = torch.float32 if name in _FP32_LEAVES else ll.COMPUTE_DTYPE
+        out[name] = nn.Parameter(t.to(device=device, dtype=dtype).contiguous(),
+                                 requires_grad=False)
+    return nn.ParameterDict(out)
+
+
+class DecoderLM(nn.Module):
+    """Dense decoder-only LM.  ``params`` is a tree with the JAX package's
+    layout and fp32 leaves (``init_params`` or ``convert.from_jax_params``)."""
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *, device):
+        super().__init__()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        specs = self.param_specs(cfg)
+        self.embed = _param_dict(specs["embed"], params["embed"], self.device)
+        self.final_norm = _param_dict(specs["final_norm"],
+                                      params["final_norm"], self.device)
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({group: _param_dict(s, params["layers"][group],
+                                              self.device, index=i)
+                           for group, s in specs["layers"].items()})
+            for i in range(cfg.num_layers))
+
+    @staticmethod
+    def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+        return {"embed": ll.embed_specs(cfg),
+                "layers": stk.stack_param_specs(cfg),
+                "final_norm": ll.norm_specs(cfg)}
+
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+        return stk.init_cache(self.cfg, batch, max_len, device=self.device,
+                              kv_dtype=kv_dtype)
+
+    @torch.no_grad()
+    def prefill(self, batch, cache):
+        """Run the prompt, fill the cache, return last-position logits
+        (B,1,V).  K/V are collected in the same pass over the layers and
+        written into ``cache`` in place; the cache is also returned."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        x = ll.embed(self.embed, cfg, tokens)
+        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        write = min(S, cache["k"].shape[2])
+        for i, p in enumerate(self.layers):
+            x, k, v = stk.block(p, cfg, x, positions=positions)
+            cache["k"][i, :, :write] = k[:, :write]
+            cache["v"][i, :, :write] = v[:, :write]
+        h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
+        return ll.unembed(self.embed, cfg, h[:, None]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, positions):
+        """tokens: (B,1); positions: (B,) absolute positions.  Writes this
+        step's K/V into ``cache`` in place.  Returns (logits, cache)."""
+        cfg = self.cfg
+        x = ll.embed(self.embed, cfg, tokens)
+        for i, p in enumerate(self.layers):
+            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions)
+        x = ll.norm(self.final_norm, x, cfg)
+        return ll.unembed(self.embed, cfg, x), cache
+
+
+def build_model(cfg: ModelConfig, params: Dict[str, Any], *,
+                device) -> DecoderLM:
+    """The model for ``cfg``; families other than dense raise
+    ``NotImplementedError``."""
+    return DecoderLM(cfg, params, device=device)
