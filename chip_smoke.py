@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card
+and check them.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
 1. device: the card, its power limit, torch and CUDA versions; TF32 off.
-2. build: compile every kernel from the checkout's sources (nvcc for the
-   CUDA C++ flash attention, Triton's JIT for rmsnorm), all at once.
+2. build: compile every kernel from the checkout's sources (one nvcc per
+   CUDA C++ source, flash attention and the SSD scan, all started
+   together; Triton's JIT for rmsnorm and rmsnorm_residual meanwhile),
+   with ptxas' registers and spills.
 3. kernel_check: each kernel against its plain PyTorch twin on the card,
-   in bf16 and fp32, at the shapes the serving path gives it, with its
-   time, the twin's, one PyTorch library call's (a yardstick the port never
-   calls) and the least time the card could take (``bound_ms``).
+   in bf16 and fp32, at the shapes the serving and training paths give it,
+   with its time, the twin's, one PyTorch library call's where one
+   computes the same function (a yardstick the port never calls) and the
+   least time the card could take (``bound_ms``).
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
    generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
    each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
@@ -23,8 +27,22 @@ Phases, each printing one JSON line:
 5. plain: the same prompts teacher-forced through the kernels and through
    the plain twins on the card; cosine similarity of the logits and top-1
    agreement must clear the stated tolerances.
-6. kernels: one line listing every ported kernel with its launches, error
-   and times.
+6. train: full-width mamba2-780m, bf16 compute with fp32 masters and
+   AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
+   tokens made from the seed, through ``init_train_state`` ->
+   ``make_train_step`` -> ``DecoderLM.loss``.  A warm-up step, then four
+   timed steps with the launch counters zeroed before and read after
+   (exactly 48 ssd_scan and 97 rmsnorm launches per forward); finite,
+   falling losses starting near ln(vocab); step time, tokens/s and peak
+   memory; one step under the profiler; one step with remat "full", whose
+   loss must equal the forward's and whose recompute launches are counted.
+7. train_plain: one loss and gradient on the same parameters and batch
+   through the kernels and through the plain twins, in bf16 compute (the
+   loss's relative difference and the mean gradient-leaf cosine) and in
+   fp32 compute (the loss and every gradient leaf's cosine), each against
+   a fixed tolerance.
+8. kernels: one line listing every ported kernel with its launches on the
+   paths above, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script then exits non-zero without that line.  It exits
@@ -64,7 +82,29 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}          # attention
-TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm
+TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm, rmsnorm_residual
+# ssd_scan: (rtol, atol as a fraction of max |y|).  fp32 inside both, but
+# the chunk's cumsum of dt*A reaches about -180 at chunk 256 and is summed
+# in another order (a warp scan against torch.cumsum): the two differ by
+# ~1e-4 in absolute terms, which exp turns into ~1e-4 relative error in
+# every decay.  bf16 adds one rounding of y.
+TOL_SSD = {"bfloat16": (2e-2, 2e-4), "float32": (1e-3, 1e-4)}
+
+# phase 6-7: full-width training workload
+TRAIN_ARCH = "mamba2-780m"
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+TRAIN_STEPS = 4                          # timed, after one warm-up step
+# phase 7 tolerances: the kernel path's loss and gradients against the
+# plain twins' on the same parameters and batch.  In bf16 compute the
+# activations are rounded at the same places on both paths; what differs
+# is summation order inside the SSD scan and the norms, which flips the
+# odd bf16 rounding and compounds over 48 layers.  The in_B / in_C
+# gradients sum all 48 heads' contributions, which largely cancel, so
+# single leaves there carry that noise at full size: bf16 is held on the
+# loss and the mean leaf cosine, and every leaf is held in fp32 compute,
+# where the two paths differ only by the scan's summation order.
+MAX_LOSS_REL = 2e-3
+MIN_GRAD_COSINE = 0.99
 
 
 def emit(phase: str, **fields) -> None:
@@ -124,13 +164,40 @@ def device_ms(torch, fn, iters: int = 20):
     return time_ms(fn, iters), "events"
 
 
+# device-time groups of a profile window, by kernel name: the first
+# pattern a name contains decides its group
+KERNEL_GROUPS = (
+    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("flash_attention", ("flash_",)),
+    ("rmsnorm (Triton)", ("rmsnorm",)),
+    ("fp32 matmuls", ("f32f32", "sgemm", "gemmSN", "gemv")),
+    ("bf16 matmuls", ("nvjet", "gemm", "xmma", "cutlass")),
+    ("reductions", ("reduce", "softmax", "logsumexp", "cumsum", "scan")),
+    ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset",
+                                "fill", "index", "cat", "CatArray")),
+)
+
+
+def kernel_group(name: str) -> str:
+    for group, patterns in KERNEL_GROUPS:
+        if any(p in name for p in patterns):
+            return group
+    return "other"
+
+
 def profile_phase(torch, name: str, fn) -> dict:
-    """Wall time, device busy time and idle share of one window, and the
-    eight kernels that took the most device time in it."""
+    """Wall time, device busy time and idle share of one window, device
+    time by kernel group, and the eight kernels that took the most device
+    time in it."""
     wall, busy, avgs = device_busy(torch, fn)
+    groups = {}
+    for e in avgs:
+        g = kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
     return dict(window=name, wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
                 idle_share=1.0 - busy / wall,
+                groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top=[dict(kernel=e.key[:90], count=e.count,
                           device_ms=e.self_device_time_total / 1e3)
                      for e in top])
@@ -154,15 +221,18 @@ def bound(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops > t_bytes else "bytes")
 
 
-def max_err(out, ref, tol: float) -> float:
+def max_err(out, ref, tol: float, atol=None) -> float:
+    """Largest |out - ref|; fails where it exceeds atol + tol * |ref|
+    (atol defaults to tol)."""
     import torch
     a, b = out.float(), ref.float()
     check(bool(torch.isfinite(a).all()), "kernel output is not finite")
     err = (a - b).abs()
-    bad = err > tol + tol * b.abs()
+    atol = tol if atol is None else atol
+    bad = err > atol + tol * b.abs()
     check(not bool(bad.any()),
           f"kernel disagrees with its plain twin: max err "
-          f"{float(err.max())}, tol {tol}")
+          f"{float(err.max())}, tol {tol}, atol {atol}")
     return float(err.max())
 
 
@@ -266,20 +336,132 @@ def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
     return out_rows
 
 
+def check_rmsnorm_residual(torch, rn, gen, name, rows_, d):
+    out_rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows_, d), generator=gen, device="cuda").to(dt)
+        res = torch.randn((rows_, d), generator=gen, device="cuda").to(dt)
+        scale = torch.randn((d,), generator=gen, device="cuda")
+        y, h = rn.rmsnorm_residual(x, res, scale, eps=1e-6)
+        torch.cuda.synchronize()
+        y_ref, h_ref = rn.rmsnorm_residual_plain(x, res, scale, 1e-6)
+        err = max(max_err(y, y_ref, TOL_NORM[dtype]),
+                  max_err(h, h_ref, TOL_NORM[dtype]))
+        nbytes = 4 * x.numel() * x.element_size() + scale.numel() * 4
+        bound_ms, bound_by = bound(5.0 * x.numel(), nbytes, "float32")
+        # no single PyTorch call adds and normalises with two outputs
+        row = dict(kernel="rmsnorm_residual", case=name, dtype=dtype,
+                   shape=dict(rows=rows_, d=d), max_abs_err=err,
+                   tol=TOL_NORM[dtype],
+                   **timings(torch, {
+                       "kernel": lambda: rn.rmsnorm_residual(x, res, scale),
+                       "plain": lambda: rn.rmsnorm_residual_plain(
+                           x, res, scale, 1e-6)}),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   flops=5.0 * x.numel(), bytes=nbytes)
+        emit("kernel_check", **row)
+        out_rows.append(row)
+    return out_rows
+
+
+def ssd_cost(b, s, h, p, g, n, chunk, elem):
+    """FLOPs the function needs per chunk (the causal triangle of C B^T
+    and its product with x dt, chunk (chunk + 1) / 2 pairs of 2 (n + p)
+    each, and the two state products) and the bytes of x, dt, A, B, C and
+    y."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2 * pairs * (n + p) + 4 * chunk * n * p
+    flops = float(per_chunk * b * h * (s // chunk))
+    nbytes = float(elem * (2 * b * s * h * p + 2 * b * s * g * n)
+                   + 4 * (b * s * h + h))
+    return flops, nbytes
+
+
+def ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type, strided):
+    """Inputs like the model's: dt = softplus(N(0,1)), A = -exp(N(0,1)/2);
+    ``strided``: x, B and C are views into one (b, s, h*p + 2*g*n) tensor,
+    as they are slices of the conv output in the model."""
+    F = torch.nn.functional
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((h,), generator=gen, device="cuda"))
+    if strided:
+        u = torch.randn((b, s, h * p + 2 * g * n), generator=gen,
+                        device="cuda").to(dt_type)
+        xs, Bm, Cm = torch.split(u, [h * p, g * n, g * n], dim=-1)
+        return (xs.reshape(b, s, h, p), dt, A, Bm.reshape(b, s, g, n),
+                Cm.reshape(b, s, g, n))
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dt_type)
+    B = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dt_type)
+    C = torch.randn((b, s, g, n), generator=gen, device="cuda").to(dt_type)
+    return x, dt, A, B, C
+
+
+def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
+              *, strided=False):
+    """``ops.ssd`` (which pads a sequence that is not a multiple of the
+    chunk) against the same call routed to the plain twin."""
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt_type = getattr(torch, dtype)
+        x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type,
+                                    strided)
+        out = ops.ssd(x, dt, A, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        with plain_ctx():
+            ref = ops.ssd(x, dt, A, B, C, chunk=chunk)
+        check(out.shape == x.shape and out.dtype == x.dtype,
+              f"ssd_scan output {tuple(out.shape)} {out.dtype}")
+        rtol, atol_of_max = TOL_SSD[dtype]
+        atol = atol_of_max * float(ref.float().abs().max())
+        err = max_err(out, ref, rtol, atol)
+        c = min(chunk, s)
+        s_pad = s + (-s) % c
+        flops, nbytes = ssd_cost(b, s_pad, h, p, g, n, c, x.element_size())
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+
+        def plain():
+            with plain_ctx():
+                return ops.ssd(x, dt, A, B, C, chunk=chunk)
+
+        fns = {"kernel": lambda: ops.ssd(x, dt, A, B, C, chunk=chunk),
+               "plain": plain}
+        if name == "slice":
+            # the train step's backward: the plain recompute, per layer
+            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dt_type)
+            fns["backward"] = lambda: ss.ssd_scan_backward(x, dt, A, B, C, dy,
+                                                           chunk=chunk)
+        # no PyTorch call computes a selective scan
+        row = dict(kernel="ssd_scan", case=name, dtype=dtype,
+                   shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
+                              strided=strided),
+                   max_abs_err=err, tol=rtol, atol=atol,
+                   **timings(torch, fns),
+                   library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                   fp32_fma_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                   flops=flops, bytes=nbytes)
+        emit("kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
 # --------------------------------------------------------------------------
-# phase 5: plain twins on the card
+# phases 5 and 7: plain twins on the card
 # --------------------------------------------------------------------------
 @contextlib.contextmanager
-def plain_kernels(ops, fa, rn):
+def plain_kernels(ops, fa, rn, ss):
     """Route the model's kernel calls to the plain twins for the block."""
-    saved = ops._fa, ops._rn
+    saved = ops._fa, ops._rn, ops._ssd
     ops._fa = types.SimpleNamespace(flash_attention=fa.flash_attention_plain)
     ops._rn = types.SimpleNamespace(
-        rmsnorm=lambda x, scale, *, eps: rn.rmsnorm_plain(x, scale, eps))
+        rmsnorm=lambda x, scale, *, eps: rn.rmsnorm_plain(x, scale, eps),
+        rmsnorm_residual=lambda x, r, scale, *, eps:
+            rn.rmsnorm_residual_plain(x, r, scale, eps))
+    ops._ssd = types.SimpleNamespace(ssd_scan=ss.ssd_scan_plain)
     try:
         yield
     finally:
-        ops._fa, ops._rn = saved
+        ops._fa, ops._rn, ops._ssd = saved
 
 
 def forced_logits(torch, model, prompts, forced):
@@ -298,91 +480,15 @@ def forced_logits(torch, model, prompts, forced):
     return torch.stack(outs, dim=1)
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on the card",
-              file=sys.stderr)
-        return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print("chip_smoke: src/repro_torch not found beside this script",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT / "src"))
-    os.environ["REPRO_COMPUTE_DTYPE"] = "bfloat16"
-    import numpy as np
-    import torch.nn.functional as F
-
+def serve_path(torch, np, F, modules) -> dict:
+    """Phases 4-5 at full width.  Returns the launches of the serving
+    run."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build, ops
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
-    # ---- 1. device ---------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    kind = torch.cuda.get_device_name(0)
-    emit("device", nvidia_smi=smi, kind=kind,
-         count=torch.cuda.device_count(), torch=torch.__version__,
-         cuda=torch.version.cuda, python=sys.version.split()[0],
-         allow_tf32=False)
-
-    # ---- 2. build: nvcc in the background while Triton compiles ------------
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        nvcc_job = pool.submit(_build.build, "flash_attention")
-        x = torch.randn((8, 896), device="cuda", dtype=torch.bfloat16)
-        rn.rmsnorm(x, torch.ones(896, device="cuda"))
-        torch.cuda.synchronize()
-        triton_s = time.perf_counter() - t0
-        lib = nvcc_job.result()["flash_attention"]
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             lib.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit("build", seconds=build_s, triton_rmsnorm_s=triton_s,
-         flash_attention_so=lib.name, ptxas=ptxas)
-
-    # ---- 3. kernels against their plain twins ------------------------------
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = {"flash_attention": [], "rmsnorm": []}
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "slice",
-                                             8, 512, 512, 14, 2, 64)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "window48",
-                                             8, 512, 512, 14, 2, 64,
-                                             window=48)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "ragged300",
-                                             4, 300, 300, 14, 2, 64)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "q_offset",
-                                             8, 64, 512, 14, 2, 64,
-                                             q_offset=448)
-    # the other head dims the kernel takes: qwen3's 128, the non-causal
-    # tiles of 16, and 24, which bf16 runs on the scalar kernel, as it does
-    # K/V rows that are not 16-byte aligned
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d128",
-                                             2, 256, 256, 16, 8, 128)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d16_full",
-                                             2, 48, 80, 6, 2, 16,
-                                             causal=False)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d24",
-                                             2, 100, 100, 4, 2, 24,
-                                             window=20)
-    checks["flash_attention"] += check_flash(torch, F, fa, gen, "strided",
-                                             2, 128, 128, 14, 2, 64,
-                                             strided=True)
-    for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
-                        ("decode", 8)):
-        checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
-
-    # ---- 4. the serving path at full width ---------------------------------
     cfg = get_config(ARCH)
     t0 = time.perf_counter()
     wgen = torch.Generator(device="cuda").manual_seed(0)
@@ -478,7 +584,7 @@ def main() -> int:
         ft = torch.as_tensor(fg, dtype=torch.long, device="cuda")
         with_kernels = forced_logits(torch, model, pt, ft)
         before = (fa.flash_attention.launches, rn.rmsnorm.launches)
-        with plain_kernels(ops, fa, rn):
+        with plain_kernels(ops, fa, rn, ss):
             plain = forced_logits(torch, model, pt, ft)
         check((fa.flash_attention.launches, rn.rmsnorm.launches) == before,
               "the plain run launched a kernel")
@@ -494,9 +600,293 @@ def main() -> int:
     check(float(cos.min()) >= MIN_COSINE,
           f"cosine {float(cos.min())} < {MIN_COSINE}")
     check(top1 >= MIN_TOP1, f"top-1 agreement {top1} < {MIN_TOP1}")
+    return launches
 
-    # ---- 6. the kernels line ----------------------------------------------
-    main_case = {"flash_attention": "slice", "rmsnorm": "prefill"}
+
+def train_path(torch, np, F, modules) -> dict:
+    """Phases 6-7 at full width.  Returns the launches of the timed
+    steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=100)
+    tcfg = TrainStepConfig(remat_policy="none", optimizer=opt)
+    t0 = time.perf_counter()
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state.model
+    step = make_train_step(model, tcfg)
+    rng = np.random.default_rng(0)
+    seq = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        dtype=torch.long, device="cuda")
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def counts():
+        return {"ssd_scan": ss.ssd_scan.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+
+    def zero():
+        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+        fa.flash_attention.launches = 0
+
+    t0 = time.perf_counter()
+    state, m = step(state, batch)                      # warm-up, step 1
+    losses = [float(m["loss"])]
+    grad_norms = [float(m["grad_norm"])]
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    step_s = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    launches = counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    expect = {"ssd_scan": L * TRAIN_STEPS,
+              "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+    ln_v = float(np.log(cfg.vocab_size))
+    emit("train", arch=cfg.name, params=cfg.param_count(),
+         batch=[TRAIN_BATCH, TRAIN_SEQ], remat_policy=tcfg.remat_policy,
+         init_s=init_s, warmup_step_s=warm_s, step_s=step_s,
+         tokens_per_s=tokens / (sum(step_s) / len(step_s)),
+         losses=losses, grad_norms=grad_norms, ln_vocab=ln_v,
+         peak_mem_bytes=peak_bytes, launches=launches,
+         expected_launches=expect,
+         flash_attention_launches=fa.flash_attention.launches)
+    check(all(np.isfinite(losses)) and all(np.isfinite(grad_norms)),
+          f"non-finite loss or gradient norm: {losses} {grad_norms}")
+    check(abs(losses[0] - ln_v) <= 0.1 * ln_v,
+          f"first loss {losses[0]} not within 10% of ln V = {ln_v}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == expect,
+          f"train launches {launches}, the path implies {expect}")
+    check(fa.flash_attention.launches == 0, "mamba2 launched attention")
+
+    emit("profile", **profile_phase(torch, "train step 4x2048",
+                                    lambda: step(state, batch)))
+
+    # remat "full": the same loss as a plain forward on these parameters,
+    # and each layer's forward launched again in the backward
+    with torch.no_grad():
+        fwd_loss = float(model.loss(batch, remat_policy="none")[0])
+    full_step = make_train_step(
+        model, TrainStepConfig(remat_policy="full", optimizer=opt))
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    t0 = time.perf_counter()
+    state, m = full_step(state, batch)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_launches = counts()
+    full_expect = {"ssd_scan": 2 * L, "rmsnorm": (2 * L + 1) + 2 * L}
+    full_loss = float(m["loss"])
+    emit("train_remat", remat_policy="full", loss=full_loss,
+         forward_loss=fwd_loss, step_s=full_s,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches=full_launches, expected_launches=full_expect)
+    check(abs(full_loss - fwd_loss) <= 1e-5 * abs(fwd_loss),
+          f"remat full loss {full_loss} != forward loss {fwd_loss}")
+    check(full_launches == full_expect,
+          f"remat launches {full_launches}, expected {full_expect}")
+
+    # ---- 7. one loss and gradient through the plain twins ------------------
+    from repro_torch.models import layers as ll
+    params = state.params
+
+    def loss_and_grads():
+        for p in params.values():
+            p.grad = None
+        loss, _ = model.loss(batch, remat_policy="full")
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten(), b.flatten(), dim=0,
+                                         eps=1e-30))
+
+    saved_dtype = ll.COMPUTE_DTYPE
+    for dtype in (torch.bfloat16, torch.float32):
+        ll.COMPUTE_DTYPE = dtype        # the masters are cast at each use
+        try:
+            k_loss, k_grads = loss_and_grads()
+            before = counts()
+            with plain_kernels(ops, fa, rn, ss):
+                p_loss, p_grads = loss_and_grads()
+        finally:
+            ll.COMPUTE_DTYPE = saved_dtype
+        check(counts() == before, "the plain run launched a kernel")
+        cosines = {k: cosine(k_grads[k], p_grads[k]) for k in k_grads}
+        del k_grads, p_grads
+        cos_min = min(cosines.values())
+        cos_mean = sum(cosines.values()) / len(cosines)
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        every_leaf = dtype == torch.float32
+        emit("train_plain", compute_dtype=str(dtype).removeprefix("torch."),
+             kernel_loss=k_loss, plain_loss=p_loss, loss_rel=loss_rel,
+             leaves=len(cosines), grad_cosine_min=cos_min,
+             grad_cosine_mean=cos_mean,
+             worst_leaves=[dict(leaf=k, cosine=cosines[k]) for k in
+                           sorted(cosines, key=cosines.get)[:5]],
+             max_loss_rel=MAX_LOSS_REL, min_grad_cosine=MIN_GRAD_COSINE,
+             cosine_held="every leaf" if every_leaf else "mean")
+        check(loss_rel <= MAX_LOSS_REL,
+              f"{dtype} loss rel {loss_rel} > {MAX_LOSS_REL}")
+        if every_leaf:
+            bad = [k for k in cosines if cosines[k] < MIN_GRAD_COSINE]
+            check(not bad, f"{dtype} gradient cosine below "
+                  f"{MIN_GRAD_COSINE} for {bad[:5]}")
+        else:
+            check(cos_mean >= MIN_GRAD_COSINE, f"{dtype} mean gradient "
+                  f"cosine {cos_mean} < {MIN_GRAD_COSINE}")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["REPRO_COMPUTE_DTYPE"] = "bfloat16"
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    modules = dict(ops=ops, fa=fa, rn=rn, ss=ss)
+
+    # ---- 1. device ---------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, kind=kind,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         allow_tf32=False)
+
+    # ---- 2. build: nvcc in the background while Triton compiles ------------
+    cuda_sources = ("flash_attention", "ssd_scan")
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        nvcc_job = pool.submit(_build.build, *cuda_sources)
+        x = torch.randn((8, 896), device="cuda", dtype=torch.bfloat16)
+        rn.rmsnorm(x, torch.ones(896, device="cuda"))
+        rn.rmsnorm_residual(x, x, torch.ones(896, device="cuda"))
+        torch.cuda.synchronize()
+        triton_s = time.perf_counter() - t0
+        libs = nvcc_job.result()
+    build_s = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in
+                    lib.with_suffix(".log").read_text().splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, lib in libs.items()}
+    emit("build", seconds=build_s, triton_s=triton_s,
+         libraries={k: v.name for k, v in libs.items()}, ptxas=ptxas)
+
+    # ---- 3. kernels against their plain twins ------------------------------
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    checks = {"flash_attention": [], "rmsnorm": [], "rmsnorm_residual": [],
+              "ssd_scan": []}
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "slice",
+                                             8, 512, 512, 14, 2, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "window48",
+                                             8, 512, 512, 14, 2, 64,
+                                             window=48)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "ragged300",
+                                             4, 300, 300, 14, 2, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "q_offset",
+                                             8, 64, 512, 14, 2, 64,
+                                             q_offset=448)
+    # the other head dims the kernel takes: qwen3's 128, the non-causal
+    # tiles of 16, and 24, which bf16 runs on the scalar kernel, as it does
+    # K/V rows that are not 16-byte aligned
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d128",
+                                             2, 256, 256, 16, 8, 128)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d16_full",
+                                             2, 48, 80, 6, 2, 16,
+                                             causal=False)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "d24",
+                                             2, 100, 100, 4, 2, 24,
+                                             window=20)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "strided",
+                                             2, 128, 128, 14, 2, 64,
+                                             strided=True)
+    for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
+                        ("decode", 8)):
+        checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
+    # the train path's norms: ln1 / final norm and the gate norm
+    checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "train_d1536",
+                                       TRAIN_BATCH * TRAIN_SEQ, 1536)
+    checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "train_d3072",
+                                       TRAIN_BATCH * TRAIN_SEQ, 3072)
+    checks["rmsnorm_residual"] += check_rmsnorm_residual(
+        torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
+
+    def plain_ctx():
+        return plain_kernels(ops, fa, rn, ss)
+
+    # the slice shape, as strided views of one conv output like the model's;
+    # the shapes of tests/test_kernels.py (g > 1, g = h, chunk 24); and a
+    # sequence that ops.ssd pads
+    for name, shape, kw in (
+            ("slice", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256),
+             dict(strided=True)),
+            ("t1", (1, 32, 2, 8, 1, 4, 8), {}),
+            ("t2_groups", (2, 64, 4, 16, 2, 8, 16), {}),
+            ("t3_g_eq_h", (2, 64, 4, 16, 4, 8, 32), {}),
+            ("t4_chunk24", (1, 96, 6, 8, 2, 16, 24), {}),
+            ("padded300", (2, 300, 48, 64, 1, 128, 256), {})):
+        checks["ssd_scan"] += check_ssd(torch, ops, ss, plain_ctx, gen, name,
+                                        *shape, **kw)
+
+    # ---- 4-5. the serving path at full width -------------------------------
+    serve_launches = serve_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+
+    # ---- 6-7. the training path at full width ------------------------------
+    train_launches = train_path(torch, np, F, modules)
+
+    # ---- 8. the kernels line ----------------------------------------------
+    by_path = {
+        "flash_attention": {"serve": serve_launches["flash_attention"]},
+        "rmsnorm": {"serve": serve_launches["rmsnorm"],
+                    "train": train_launches["rmsnorm"]},
+        "rmsnorm_residual": {},      # no model calls it
+        "ssd_scan": {"train": train_launches["ssd_scan"]},
+    }
+    main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
+                 "rmsnorm_residual": "slice", "ssd_scan": "slice"}
     meta = {
         "flash_attention": dict(
             route="cuda",
@@ -505,13 +895,20 @@ def main() -> int:
         "rmsnorm": dict(
             route="triton", source="src/repro_torch/kernels/rmsnorm.py",
             replaces="src/repro/kernels/rmsnorm.py:44"),
+        "rmsnorm_residual": dict(
+            route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+            replaces="src/repro/kernels/rmsnorm.py:83"),
+        "ssd_scan": dict(
+            route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:77"),
     }
     kernels = []
     for name, rows_ in checks.items():
         row = next(r for r in rows_ if r["case"] == main_case[name]
                    and r["dtype"] == "bfloat16")
         kernels.append(dict(
-            name=name, **meta[name], launches=launches[name],
+            name=name, **meta[name], launches=sum(by_path[name].values()),
+            launches_by_path=by_path[name],
             max_abs_err=max(r["max_abs_err"] for r in rows_
                             if r["dtype"] == "bfloat16"),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],

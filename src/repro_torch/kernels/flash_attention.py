@@ -82,6 +82,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      q_offset=q_offset, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("flash_attention has no backward yet")
     _check(q, k, v)
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]

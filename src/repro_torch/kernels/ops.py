@@ -1,7 +1,8 @@
 """Kernel entry points the models call, routed by the tensor's device.
 
 * A CUDA tensor goes to the hand-written kernel (``flash_attention``,
-  ``rmsnorm``), which launches or raises; nothing falls back.
+  ``rmsnorm``, ``rmsnorm_residual``, ``ssd_scan``), which launches or
+  raises; nothing falls back.
 * A CPU tensor goes to the plain PyTorch version (``ref.py``), with the
   chunked attention for sequences of 1024 or more, so peak memory stays
   O(block * T).
@@ -14,10 +15,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -45,3 +48,25 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     return _rn.rmsnorm(x, scale, eps=eps)
+
+
+def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-6):
+    """Returns (normed, new_residual) for a fused residual add + norm."""
+    return _rn.rmsnorm_residual(x, residual, scale, eps=eps)
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """Chunked SSD scan (training / prefill); shapes as ``ssd_scan``.  A
+    sequence that is not a multiple of the chunk is zero-padded at its end
+    (dt = 0 there, so the padding neither decays nor feeds the state) and
+    the output cut back."""
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    y = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    return y[:, :s] if pad else y

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention and norm kernels.
+"""Plain PyTorch versions of the attention, norm and SSD kernels.
 
 Each function computes what the JAX package's ``repro.kernels.ref`` computes
 (same masks, fp32 softmax and reductions, output in the input's type).  They
@@ -107,3 +107,83 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# mamba2 SSD (state-space duality) scan
+# --------------------------------------------------------------------------
+def ssd_naive(x, dt, A, B, C, *, initial_state=None):
+    """Sequential recurrence, the ground truth the chunked forms match.
+
+    x: (b, s, h, p); dt: (b, s, h); A: (h,) (negative); B, C: (b, s, g, n)
+    with h % g == 0.  Returns (y (b, s, h, p) in x's type, final state
+    (b, h, p, n) fp32).  Its decay ``exp(dt * A)`` is at most 1, so its
+    gradient is finite at any chunk length."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    Bh = B.repeat_interleave(rep, dim=2).float()          # (b,s,h,n)
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xf, dtf = x.float(), dt.float()
+    decay = torch.exp(dtf * A.float()[None, None, :])     # (b,s,h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(s):
+        state = state * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bhn->bhpn", xf[:, t] * dtf[:, t, :, None], Bh[:, t])
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, Ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
+    """Chunked SSD, the parallel form the kernel implements; same shapes and
+    result as ``ssd_naive`` (up to fp error).
+
+    Within a chunk, ``L[i, j] = exp(cum_i - cum_j)`` for j <= i.  The mask is
+    applied *before* the exp, as ``exp(where(causal, li - lj, -inf))``: for
+    j > i the difference is positive and, with real dt over a chunk of 256,
+    large enough for exp to overflow fp32; masking after the exp (as
+    ``repro.kernels.ref.ssd_chunked`` does) gives the same forward but
+    sends ``0 * inf = NaN`` into the gradient."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if s % chunk:
+        raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
+    nc = s // chunk
+    rep = h // g
+
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    Bh = B.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, h, n)
+    Ch = C.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, h, n)
+
+    cum = torch.cumsum(dtf * A.float()[None, None, None, :], dim=2)
+    total = cum[:, :, -1:, :]                              # (b,nc,1,h)
+
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,i,j,h)
+    L = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
+                                   float("-inf")))
+
+    xdt = xf * dtf[..., None]
+    scores = torch.einsum("bzihn,bzjhn->bzijh", Ch, Bh) * L
+    y_intra = torch.einsum("bzijh,bzjhp->bzihp", scores, xdt)
+
+    tail = torch.exp(total - cum)                          # (b,nc,c,h)
+    chunk_state = torch.einsum("bzjhn,bzjhp->bzhpn", Bh * tail[..., None],
+                               xdt)
+    chunk_decay = torch.exp(total[:, :, 0, :])             # (b,nc,h)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
+    prev_states = []
+    for z in range(nc):
+        prev_states.append(state)
+        state = state * chunk_decay[:, z, :, None, None] + chunk_state[:, z]
+    prev = torch.stack(prev_states, dim=1)                 # (b,nc,h,p,n)
+
+    y_inter = torch.einsum("bzihn,bzhpn->bzihp",
+                           Ch * torch.exp(cum)[..., None], prev)
+    y = (y_intra + y_inter).reshape(b, s, h, p)
+    return y.to(x.dtype), state

@@ -20,7 +20,17 @@ PERF.md).
 
 ``rmsnorm`` launches the kernel for a CUDA tensor and raises on anything it
 does not take; it uses the plain twin only for a tensor on the CPU.
-``rmsnorm.launches`` counts kernel launches.
+``rmsnorm.launches`` counts kernel launches.  When x or the scale requires
+a gradient the call goes through ``_RMSNorm``: the same forward, and a
+closed-form backward in fp32 (``rmsnorm_backward``, plain PyTorch: the TPU
+kernel has no backward to port).
+
+``rmsnorm_residual`` replaces ``repro/kernels/rmsnorm.py`` ·
+``rmsnorm_residual`` (body ``_kernel_residual``): h = x + residual in fp32,
+returned as (rmsnorm(h) * scale, h), both in x's type.  It is the same
+Triton program with a second load and a second store, bound by bytes in
+the same way; its twin is ``rmsnorm_residual_plain`` and its count
+``rmsnorm_residual.launches``.  No model calls it, and it has no backward.
 """
 from __future__ import annotations
 
@@ -62,7 +72,32 @@ def _kernel():
         tl.store(y_ptr + row * y_row_stride + cols,
                  y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return rmsnorm_kernel, triton.next_power_of_2
+    @triton.jit
+    def rmsnorm_residual_kernel(x_ptr, r_ptr, w_ptr, y_ptr, h_ptr,
+                                x_row_stride, r_row_stride, y_row_stride,
+                                h_row_stride, d, eps, BLOCK_D: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_D)
+        mask = cols < d
+        h = tl.load(x_ptr + row * x_row_stride + cols, mask=mask,
+                    other=0.0).to(tl.float32)
+        h += tl.load(r_ptr + row * r_row_stride + cols, mask=mask,
+                     other=0.0).to(tl.float32)
+        tl.store(h_ptr + row * h_row_stride + cols,
+                 h.to(h_ptr.dtype.element_ty), mask=mask)
+        var = tl.sum(h * h, axis=0) / d
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        y = h * (1.0 / tl.sqrt(var + eps)) * w
+        tl.store(y_ptr + row * y_row_stride + cols,
+                 y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    return rmsnorm_kernel, rmsnorm_residual_kernel, triton.next_power_of_2
+
+
+def _grid(d: int):
+    """BLOCK_D and num_warps for rows of d."""
+    block_d = _kernel()[2](d)
+    return dict(BLOCK_D=block_d, num_warps=4 if block_d <= 2048 else 8)
 
 
 def _launch(x2: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -70,39 +105,113 @@ def _launch(x2: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     out = torch.empty((rows, d), dtype=x2.dtype, device=x2.device)
     if rows == 0:
         return out
-    kernel, next_pow2 = _kernel()
-    block_d = next_pow2(d)
-    num_warps = 4 if block_d <= 2048 else 8
-    kernel[(rows,)](x2, scale, out, x2.stride(0), out.stride(0), d,
-                    float(eps), BLOCK_D=block_d, num_warps=num_warps)
+    _kernel()[0][(rows,)](x2, scale, out, x2.stride(0), out.stride(0), d,
+                          float(eps), **_grid(d))
     with _count_lock:
         rmsnorm.launches += 1
     return out
 
 
+def _check_scale(name: str, x: torch.Tensor, scale: torch.Tensor) -> None:
+    d = x.shape[-1]
+    if x.dtype not in _SUPPORTED:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported")
+    if scale.shape != (d,) or scale.device != x.device \
+            or scale.dtype not in _SUPPORTED or not scale.is_contiguous():
+        raise ValueError(f"{name}: scale must be a contiguous ({d},) float "
+                         f"tensor on {x.device}, got {tuple(scale.shape)} "
+                         f"{scale.dtype} on {scale.device}")
+
+
+def _rows(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x as (rows, d) without a copy: rows may be strided in 2-D."""
+    if x.dim() == 2 and x.stride(1) == 1:
+        return x
+    if x.is_contiguous():
+        return x.view(-1, x.shape[-1])
+    raise ValueError(f"{name}: x must be contiguous, or 2-D with unit "
+                     f"stride in its last dimension")
+
+
+def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return rmsnorm_plain(x, scale, eps)
+    _check_scale("rmsnorm", x, scale)
+    return _launch(_rows("rmsnorm", x), scale, eps).view(x.shape)
+
+
+def rmsnorm_backward(x, scale, dy, eps: float):
+    """Closed-form gradients of ``sum(rmsnorm(x) * scale * dy)`` for x and
+    scale, in fp32: with r = rsqrt(mean(x²) + eps) and u = dy * scale,
+    dx = r u - x r³ mean(u x) and dscale = sum over rows of dy x r."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    u = dyf * scale.float()
+    dx = r * (u - xf * (r * r) * (u * xf).mean(-1, keepdim=True))
+    dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        return (*rmsnorm_backward(x, scale, dy, ctx.eps), None)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d); scale: (d,).  Returns rmsnorm(x) * scale in x's type."""
-    if x.device.type == "cpu":
-        return rmsnorm_plain(x, scale, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
-    d = x.shape[-1]
-    if x.dtype not in _SUPPORTED:
-        raise TypeError(f"rmsnorm: dtype {x.dtype} not supported")
-    if scale.shape != (d,) or scale.device != x.device \
-            or scale.dtype not in _SUPPORTED or not scale.is_contiguous():
-        raise ValueError(f"rmsnorm: scale must be a contiguous ({d},) float "
-                         f"tensor on {x.device}, got {tuple(scale.shape)} "
-                         f"{scale.dtype} on {scale.device}")
-    if x.dim() == 2 and x.stride(1) == 1:
-        x2 = x                      # rows may be strided
-    elif x.is_contiguous():
-        x2 = x.view(-1, d)          # (..., d) viewed as rows, no copy
-    else:
-        raise ValueError("rmsnorm: x must be contiguous, or 2-D with "
-                         "unit stride in its last dimension")
-    return _launch(x2, scale, eps).view(x.shape)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _forward(x, scale, eps)
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_residual_plain(x, residual, scale, eps: float = 1e-6):
+    """The plain twin: h = x + residual in fp32, normed from the fp32 h."""
+    h = x.float() + residual.float()
+    return ref.rmsnorm(h, scale, eps).to(x.dtype), h.to(x.dtype)
+
+
+def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
+                     scale: torch.Tensor, *, eps: float = 1e-6):
+    """x, residual: (..., d); scale: (d,).  Returns (rmsnorm(x + residual)
+    * scale, x + residual), both in x's type.  Forward only."""
+    if x.device.type == "cpu":
+        return rmsnorm_residual_plain(x, residual, scale, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_residual: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, residual, scale)):
+        raise NotImplementedError("rmsnorm_residual has no backward")
+    _check_scale("rmsnorm_residual", x, scale)
+    if residual.shape != x.shape or residual.device != x.device:
+        raise ValueError(f"rmsnorm_residual: residual {tuple(residual.shape)}"
+                         f" on {residual.device} does not match x "
+                         f"{tuple(x.shape)} on {x.device}")
+    x2 = _rows("rmsnorm_residual", x)
+    r2 = _rows("rmsnorm_residual", residual)
+    rows, d = x2.shape
+    y = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    h = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    if rows:
+        _kernel()[1][(rows,)](x2, r2, scale, y, h, x2.stride(0), r2.stride(0),
+                              y.stride(0), h.stride(0), d, float(eps),
+                              **_grid(d))
+        with _count_lock:
+            rmsnorm_residual.launches += 1
+    return y.view(x.shape), h.view(x.shape)
+
+
+rmsnorm_residual.launches = 0

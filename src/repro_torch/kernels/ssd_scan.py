@@ -1,0 +1,147 @@
+"""Mamba2 SSD chunked scan: a hand-written CUDA C++ kernel for Hopper, its
+plain PyTorch twin, and its gradient.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
+``repro/kernels/ssd_scan.py`` · ``ssd_scan``; its header says what bounds
+it on an H100 and how the design answers that.  It is compiled by nvcc for
+``sm_90a`` at first use (``_build.py``) and called through ctypes on
+PyTorch's current stream.
+
+Why CUDA C++ and not Triton: per chunk the scan is four small matrix
+products with a state carried from one chunk to the next inside the
+program, not a fused elementwise pass or a reduction.
+
+``ssd_scan`` launches the kernel for CUDA tensors and raises on anything
+the kernel does not take; it uses the plain twin (``ref.ssd_chunked``) only
+for tensors on the CPU.  ``ssd_scan.launches`` counts kernel launches.
+
+The gradient: when an input requires one, the call goes through
+``_SSDScan``, whose forward is the kernel and whose backward,
+``ssd_scan_backward``, recomputes y through the masked chunked form under
+autograd from the saved inputs.  The TPU kernel has no backward (the JAX
+package differentiates its jnp reference), so there is no backward kernel
+yet.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+MAX_P, MAX_N, MAX_CHUNK = 64, 128, 512
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_count_lock = threading.Lock()
+
+
+def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256):
+    """The plain twin: the same function through ``ref.ssd_chunked``."""
+    return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)[0]
+
+
+def ssd_scan_backward(x, dt, A, B, C, dy, *, chunk: int):
+    """Gradients of ``sum(y * dy)`` for x, dt, A, B and C, by recomputing y
+    through ``ref.ssd_chunked`` (masked before its exp, so finite at any
+    chunk) under autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+        y, _ = ref.ssd_chunked(*leaves, chunk=chunk)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [i64] * 15 + [ptr]
+    lib.ssd_scan_fwd.restype = ctypes.c_int
+    return lib
+
+
+def _check(x, dt, A, B, C, chunk: int) -> None:
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or B.dim() != 4:
+        raise ValueError("ssd_scan: x (b,s,h,p), dt (b,s,h), A (h,), "
+                         "B, C (b,s,g,n) expected")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    if tuple(dt.shape) != (b, s, h) or tuple(A.shape) != (h,) \
+            or tuple(B.shape[:2]) != (b, s) or C.shape != B.shape:
+        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)} disagree")
+    if h % g:
+        raise ValueError(f"ssd_scan: h={h} not a multiple of g={g}")
+    if p > MAX_P or n > MAX_N:
+        raise ValueError(f"ssd_scan: p={p} > {MAX_P} or n={n} > {MAX_N}")
+    if not 0 < chunk <= MAX_CHUNK or s % chunk:
+        raise ValueError(f"ssd_scan: chunk {chunk} must be in 1..{MAX_CHUNK} "
+                         f"and divide s={s} (ops.ssd pads)")
+    if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd_scan: dtypes x {x.dtype}, B {B.dtype}, C "
+                        f"{C.dtype}; need one of float32 / bfloat16")
+    if any(t.device != x.device for t in (dt, A, B, C)):
+        raise ValueError("ssd_scan: inputs on different devices")
+    if x.stride(3) != 1 or B.stride(3) != 1 or C.stride(3) != 1:
+        raise ValueError("ssd_scan: the last dim of x, B, C must have unit "
+                         "stride")
+
+
+def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    _check(x, dt, A, B, C, chunk)
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    dt = dt.float()
+    A = A.float().contiguous()
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, s, h, p, g, n,
+            chunk, *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+            *C.stride()[:3], *y.stride()[:3], stream)
+    if err:
+        raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "
+                           f"{err}")
+    with _count_lock:
+        ssd_scan.launches += 1
+    return y
+
+
+def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    return _launch(x, dt, A, B, C, chunk)
+
+
+class _SSDScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        grads = ssd_scan_backward(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 256) -> torch.Tensor:
+    """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n), h % g == 0, s a
+    multiple of ``chunk``.  Returns y: (b,s,h,p) in x's type."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        return _SSDScan.apply(x, dt, A, B, C, chunk)
+    return _forward(x, dt, A, B, C, chunk)
+
+
+ssd_scan.launches = 0

@@ -6,9 +6,12 @@ Conventions:
 * ``p`` is a mapping of parameter name to tensor (a ``ParameterDict``).
   Weights keep JAX's ``(d_in, d_out)`` orientation and are applied as
   ``x @ W``, so nothing is transposed when parameters are carried across.
-* The weights JAX casts to the compute dtype at every use are cast once,
-  when the model loads them (``lm.DecoderLM``); norm scales stay fp32, as
-  they do in JAX.  Activations are in the compute dtype.
+* Weights are cast to the compute dtype where JAX casts them, at every
+  use.  A serving model stores them in the compute dtype already, cast
+  once at load, so there the cast returns the tensor itself; a training
+  model holds fp32 masters and the cast is part of the autograd graph
+  (``lm.DecoderLM``).  Norm scales stay fp32, as they do in JAX.
+  Activations are in the compute dtype.
 * Projections keep flattened feature dims, q: (D, H*hd), and reshape to
   heads after the matmul.
 """
@@ -95,13 +98,14 @@ def attention_specs(cfg: ModelConfig):
 
 def _project_qkv(p, cfg: ModelConfig, x):
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
+    x = cast(x)
+    q = x @ cast(p["wq"])
+    k = x @ cast(p["wk"])
+    v = x @ cast(p["wv"])
     if "bq" in p:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        q = q + cast(p["bq"])
+        k = k + cast(p["bk"])
+        v = v + cast(p["bv"])
     q = q.view(B, S, cfg.num_heads, cfg.head_dim)
     k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
     v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
@@ -123,7 +127,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
     k = rotary(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window,
                         num_sink=num_sink)
-    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ cast(p["wo"])
     return y, k, v
 
 
@@ -150,7 +154,7 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
                         q_pos=positions[:, None], kv_pos=kv_pos,
                         kv_valid=positions + 1, window=window,
                         num_sink=num_sink)
-    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ p["wo"]
+    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ cast(p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -169,8 +173,9 @@ def mlp_specs(cfg: ModelConfig):
 
 
 def mlp(p, cfg: ModelConfig, x):
-    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+    x = cast(x)
+    h = F.silu(x @ cast(p["wg"])) * (x @ cast(p["wi"]))
+    return h @ cast(p["wo"])
 
 
 # --------------------------------------------------------------------------
@@ -186,12 +191,28 @@ def embed_specs(cfg: ModelConfig):
 
 
 def embed(p, cfg: ModelConfig, tokens):
-    return p["tokens"][tokens]
+    return cast(p["tokens"])[tokens]
 
 
 def unembed(p, cfg: ModelConfig, x):
-    w = p["tokens"].t() if cfg.tie_embeddings else p["unembed"]
-    logits = x @ w
+    w = cast(p["tokens"]).t() if cfg.tie_embeddings else cast(p["unembed"])
+    logits = cast(x) @ w
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def xent_sum(logits, targets, mask):
+    """fp32 cross-entropy (logsumexp, no z-loss) summed over the tokens
+    where mask (B,S) is 1.  Returns (ce_sum, denom), denom at least 1."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return ((lse - gold) * mask).sum(), torch.clamp(mask.sum(), min=1.0)
+
+
+def unembed_xent(p, cfg: ModelConfig, x, targets, mask):
+    """Unembed and cross-entropy, the dense path of JAX's ``unembed_xent``
+    (the vocab-sharded one waits for the distributed port): fp32
+    logsumexp over the compute-dtype logits.  Returns (ce_sum, denom)."""
+    return xent_sum(unembed(p, cfg, x), targets, mask)

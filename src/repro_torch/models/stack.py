@@ -1,31 +1,40 @@
-"""Decoder block and decode cache for the dense family.
+"""Decoder blocks, the layer stack for training, and the decode cache.
 
-The counterpart of the dense subset of ``repro/models/stack.py``.  JAX
-scans one block over stacked parameters; here the model keeps a
-``ModuleList`` of per-layer parameter dicts and loops over it (``lm.py``).
-The MoE, SSM, hybrid and cross-attention branches are not ported yet and
-raise.
+The counterpart of the dense and SSM subsets of ``repro/models/stack.py``.
+JAX scans one block over stacked parameters; here the model keeps a
+``ModuleList`` of per-layer parameter dicts and loops over it
+(``run_stack``, ``lm.py``).  The MoE, hybrid and cross-attention branches
+are not ported yet and raise; the SSM family has no decode cache yet.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import stack_specs
 
+PORTED_FAMILIES = ("dense", "ssm")
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+
+def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
+    """Raise ``NotImplementedError`` unless cfg's family is in ``families``
+    (the decode cache covers only the dense family so far)."""
+    if cfg.family not in families:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; the "
-            f"port covers the dense family")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet here; "
+            f"the port covers {', '.join(families)}")
 
 
 def block_specs(cfg: ModelConfig):
-    _check_family(cfg)
+    check_family(cfg)
+    if cfg.family == "ssm":
+        return {"ln1": ll.norm_specs(cfg), "ssm": ssm_mod.ssm_specs(cfg)}
     return {"ln1": ll.norm_specs(cfg), "attn": ll.attention_specs(cfg),
             "ln2": ll.norm_specs(cfg), "mlp": ll.mlp_specs(cfg)}
 
@@ -36,13 +45,54 @@ def stack_param_specs(cfg: ModelConfig):
 
 def block(p, cfg: ModelConfig, x, *, positions, causal: bool = True):
     """One full-sequence layer.  Returns (x, k, v), with k and v the
-    layer's post-rotary keys and values for the decode cache."""
+    layer's post-rotary keys and values for the decode cache (None for the
+    SSM family, which has no attention)."""
     h = ll.norm(p["ln1"], x, cfg)
+    if cfg.family == "ssm":
+        return x + ssm_mod.ssm(p["ssm"], cfg, h), None, None
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=cfg.sliding_window)
     x = x + attn_y
     h2 = ll.norm(p["ln2"], x, cfg)
     return x + ll.mlp(p["mlp"], cfg, h2), k, v
+
+
+# matmuls without batch dims: what JAX's checkpoint_dots_with_no_batch_dims
+# saves (``x @ W`` on a (B,S,D) activation runs as one aten.mm)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
+              remat_policy: str = "none"):
+    """Every layer over x, for training.  Returns (x, aux); aux is 0 for
+    the ported families (only MoE adds a load-balancing loss).
+
+    ``remat_policy`` maps JAX's ``jax.checkpoint`` of the scan body onto
+    ``torch.utils.checkpoint`` per layer: "none" keeps every activation;
+    "full" and "nothing" keep only each layer's input and recompute the
+    layer in the backward pass; "dots" also keeps the outputs of its
+    matmuls (``create_selective_checkpoint_contexts``)."""
+    if remat_policy not in ("none", "full", "nothing", "dots"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+
+    def layer(p, xc):
+        return block(p, cfg, xc, positions=positions, causal=causal)[0]
+
+    for p in layers:
+        if remat_policy == "none":
+            x = layer(p, x)
+            continue
+        kw = {}
+        if remat_policy == "dots":
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots)
+        x = ckpt.checkpoint(layer, p, x, use_reentrant=False, **kw)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions):
@@ -64,7 +114,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Shapes and dtypes of the stacked decode cache (leading dim = layers).
     bf16 by default, whatever the compute dtype, as in JAX."""
-    _check_family(cfg)
+    check_family(cfg, ("dense",))
     if use_ring_cache(cfg):
         raise NotImplementedError("the ring (sliding-window) cache is not "
                                   "ported yet")

@@ -73,7 +73,7 @@ def test_torch_decode_logits_match_jax(pair):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-1.7b", "yi-34b",
-                                  "mistral-large-123b"])
+                                  "mistral-large-123b", "mamba2-780m"])
 def test_torch_param_specs_match_jax(arch):
     """Full-width spec trees: same leaves, shapes and init kinds (no
     parameter is allocated)."""
@@ -158,9 +158,25 @@ def test_torch_convert_rejects_a_mismatched_tree():
                                   "hymba-1.5b", "whisper-large-v3",
                                   "phi-3-vision-4.2b"])
 def test_torch_unported_families_raise(arch):
+    """Families the port does not cover raise at build time; the SSM
+    family trains, and its decode cache (init_cache, prefill, decode_step)
+    still raises."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models.module import init_params
     cfg = reduced(get_config(arch))
+    if cfg.family == "ssm":
+        params = init_params(DecoderLM.param_specs(cfg),
+                             torch.Generator().manual_seed(0))
+        model = build_model(cfg, params, device="cpu")
+        tokens = torch.zeros((1, 4), dtype=torch.long)
+        with pytest.raises(NotImplementedError):
+            model.init_cache(1, 8)
+        with pytest.raises(NotImplementedError):
+            model.prefill({"tokens": tokens}, {})
+        with pytest.raises(NotImplementedError):
+            model.decode_step({}, tokens[:, :1], torch.zeros(1, dtype=torch.long))
+        return
     with pytest.raises(NotImplementedError):
         build_model(cfg, {}, device="cpu")
     with pytest.raises(NotImplementedError):

@@ -190,11 +190,15 @@ sys.modules["jax"] = None
 import numpy as np, torch
 import repro_torch
 from repro_torch.configs import get_config, reduced
-from repro_torch.kernels import _build, flash_attention, ops, ref, rmsnorm
-from repro_torch.models import DecoderLM, build_model, convert, layers, stack
+from repro_torch.kernels import (_build, flash_attention, ops, ref, rmsnorm,
+                                 ssd_scan)
+from repro_torch.models import (DecoderLM, build_model, convert, layers, ssm,
+                                stack)
 from repro_torch.models.module import init_params
 from repro_torch.data import costs
+from repro_torch.distributed import grad_compress
 from repro_torch.serve.engine import BatchingFrontend, ServeEngine
+from repro_torch.train import optimizer, train_step
 from repro_torch.launch import serve
 cfg = reduced(get_config("qwen2-0.5b"))
 params = init_params(DecoderLM.param_specs(cfg), torch.Generator().manual_seed(0))
@@ -202,6 +206,15 @@ eng = ServeEngine(build_model(cfg, params, device="cpu"), max_batch=2,
                   max_len=16, device="cpu")
 res = eng.generate(np.zeros((2, 5), np.int32), 3)
 assert res.tokens.shape == (2, 3), res.tokens.shape
+# one compressed, microbatched train step of reduced mamba2
+mcfg = reduced(get_config("mamba2-780m"))
+tcfg = train_step.TrainStepConfig(microbatches=2, compress_grads=True)
+state = train_step.init_train_state(mcfg, torch.Generator().manual_seed(0),
+                                    tcfg, device="cpu")
+tokens = torch.zeros((2, 12), dtype=torch.long)
+state, m = train_step.make_train_step(state.model, tcfg)(
+    state, {"tokens": tokens, "targets": tokens})
+assert state.opt.step == 1 and bool(torch.isfinite(m["loss"])), m
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 print("ok")
 """
@@ -223,7 +236,11 @@ def _imports(path: Path):
 def test_torch_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    port = ROOT / "src" / "repro_torch"
+    for module in ("models/ssm.py", "train/optimizer.py",
+                   "train/train_step.py", "distributed/grad_compress.py",
+                   "kernels/ssd_scan.py"):
+        assert port / module in files, module
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
