@@ -10,12 +10,16 @@ Phases, each printing one JSON line:
 2. build: compile every kernel from the checkout's sources (one nvcc per
    CUDA C++ source, flash attention and the SSD scan, all started
    together; Triton's JIT for rmsnorm and rmsnorm_residual meanwhile),
-   with ptxas' registers and spills.
+   with ptxas' registers, static shared memory and spills for every CUDA
+   kernel and the dynamic shared memory the launches ask for, as the
+   kernels' own launch code computes it.
 3. kernel_check: each kernel against its plain PyTorch twin on the card,
    in bf16 and fp32, at the shapes the serving and training paths give it,
    with its time, the twin's, one PyTorch library call's where one
    computes the same function (a yardstick the port never calls) and the
-   least time the card could take (``bound_ms``).
+   least time the card could take (``bound_ms``); and each bf16 stage
+   kernel of the SSD scan (chunk state, state passing, chunk scan) against
+   its plain stage function, timed alone (``ssd_stage`` lines).
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
    generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
    each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
@@ -23,7 +27,8 @@ Phases, each printing one JSON line:
    just before and read just after; every kernel must have launched, and
    exactly as often as the path's shape implies.  Then two profile lines:
    one prefill and eight decode steps under ``torch.profiler``, with wall
-   time, device busy time, idle share and the kernels that took longest.
+   time, device busy time, idle share and the kernels that took longest;
+   the prefill window must show the flash kernel.
 5. plain: the same prompts teacher-forced through the kernels and through
    the plain twins on the card; cosine similarity of the logits and top-1
    agreement must clear the stated tolerances.
@@ -34,7 +39,8 @@ Phases, each printing one JSON line:
    timed steps with the launch counters zeroed before and read after
    (exactly 48 ssd_scan and 97 rmsnorm launches per forward); finite,
    falling losses starting near ln(vocab); step time, tokens/s and peak
-   memory; one step under the profiler; one step with remat "full", whose
+   memory; one step under the profiler, which must show the SSD stage
+   kernels; one step with remat "full", whose
    loss must equal the forward's and whose recompute launches are counted.
 7. train_plain: one loss and gradient on the same parameters and batch
    through the kernels and through the plain twins, in bf16 compute (the
@@ -83,12 +89,22 @@ PEAK_BYTES = 3.35e12
 
 TOL = {"bfloat16": 2e-2, "float32": 2e-5}          # attention
 TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm, rmsnorm_residual
-# ssd_scan: (rtol, atol as a fraction of max |y|).  fp32 inside both, but
-# the chunk's cumsum of dt*A reaches about -180 at chunk 256 and is summed
-# in another order (a warp scan against torch.cumsum): the two differ by
-# ~1e-4 in absolute terms, which exp turns into ~1e-4 relative error in
-# every decay.  bf16 adds one rounding of y.
-TOL_SSD = {"bfloat16": (2e-2, 2e-4), "float32": (1e-3, 1e-4)}
+# ssd_scan: (rtol, atol as a fraction of max |y|).  fp32: fp32 inside
+# both, but the chunk's cumsum of dt*A reaches about -180 at chunk 256 and
+# is summed in another order (a warp scan against torch.cumsum): the two
+# differ by ~1e-4 in absolute terms, which exp turns into ~1e-4 relative
+# error in every decay.  bf16: the tensor-core kernels round each product
+# operand to bf16 once (x dt exp(total - cum) in the chunk state, the
+# decayed scores in the chunk scan), where the plain twin keeps them fp32;
+# an output near 0 is a sum of terms each off by up to one bf16 rounding
+# (2^-9 relative), so its error scales with the terms, not with itself:
+# atol 4e-3 of max |y|, about one bf16 rounding of the largest output.
+# Each row's ``atol_needed_of_max`` is the least atol that case needs: on
+# an NVIDIA H100 80GB HBM3 at 700 W the bf16 cases needed 2.9e-4 to
+# 1.13e-3 of max |y| (PERF.md section 6), so the fp32-era 2e-4 would not
+# hold, and 4e-3 stands 3.5x above the worst.  The stage checks hold cum
+# and the state passing, fp32 on both sides, to the fp32 pair.
+TOL_SSD = {"bfloat16": (2e-2, 4e-3), "float32": (1e-3, 1e-4)}
 
 # phase 6-7: full-width training workload
 TRAIN_ARCH = "mamba2-780m"
@@ -167,7 +183,7 @@ def device_ms(torch, fn, iters: int = 20):
 # device-time groups of a profile window, by kernel name: the first
 # pattern a name contains decides its group
 KERNEL_GROUPS = (
-    ("ssd_scan", ("ssd_scan_kernel",)),
+    ("ssd_scan", ("ssd_scan",)),
     ("flash_attention", ("flash_",)),
     ("rmsnorm (Triton)", ("rmsnorm",)),
     ("fp32 matmuls", ("f32f32", "sgemm", "gemmSN", "gemv")),
@@ -185,17 +201,22 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_phase(torch, name: str, fn) -> dict:
+def profile_phase(torch, name: str, fn, expect=()) -> dict:
     """Wall time, device busy time and idle share of one window, device
     time by kernel group, and the eight kernels that took the most device
-    time in it."""
+    time in it.  Each name in ``expect`` must be part of a kernel that ran
+    in the window (the main path went through it); its launches there are
+    returned."""
     wall, busy, avgs = device_busy(torch, fn)
+    seen = {k: sum(e.count for e in avgs if k in e.key) for k in expect}
+    check(all(seen.values()), f"profile {name!r}: kernels {seen} expected")
     groups = {}
     for e in avgs:
         g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3
     top = sorted(avgs, key=lambda e: -e.self_device_time_total)[:8]
     return dict(window=name, wall_ms=wall * 1e3, device_busy_ms=busy * 1e3,
+                expected_kernels=seen,
                 idle_share=1.0 - busy / wall,
                 groups_ms=dict(sorted(groups.items(), key=lambda kv: -kv[1])),
                 top=[dict(kernel=e.key[:90], count=e.count,
@@ -221,6 +242,13 @@ def bound(flops: float, nbytes: float, dtype: str):
             "operations" if t_ops > t_bytes else "bytes")
 
 
+def atol_needed(out, ref, rtol: float) -> float:
+    """The least absolute tolerance under which ``out`` passes against
+    ``ref`` at relative tolerance ``rtol``."""
+    a, b = out.float(), ref.float()
+    return max(0.0, float(((a - b).abs() - rtol * b.abs()).max()))
+
+
 def max_err(out, ref, tol: float, atol=None) -> float:
     """Largest |out - ref|; fails where it exceeds atol + tol * |ref|
     (atol defaults to tol)."""
@@ -234,6 +262,41 @@ def max_err(out, ref, tol: float, atol=None) -> float:
           f"kernel disagrees with its plain twin: max err "
           f"{float(err.max())}, tol {tol}, atol {atol}")
     return float(err.max())
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: ptxas' resource lines} from nvcc's -Xptxas -v log: each
+    entry function, named name<template ints>, with its registers, static
+    shared memory and spills."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            k = re.search(r"\d+((?:flash|ssd_scan)\w*?_kernel)(I\w+?E)?E",
+                          name)
+            if k:
+                args = (["float"] if k.group(2) == "IfE"
+                        else re.findall(r"Li(\d+)E", k.group(2) or ""))
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif name and ("registers" in ln or "spill" in ln):
+            out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
+def dynamic_smem(_build) -> dict:
+    """Dynamic shared memory each tensor-core launch asks for at the
+    shapes of the main paths, from the libraries' own size functions
+    (ptxas reports only static shared memory)."""
+    fl, sl = _build.load("flash_attention"), _build.load("ssd_scan")
+    out = {f"flash_mma_kernel<{D}>": fl.flash_attention_smem_bytes(D)
+           for D in (64, 128)}
+    for stage, kernel in ((1, "ssd_scan_chunk_state_kernel"),
+                          (3, "ssd_scan_chunk_scan_kernel")):
+        out[f"{kernel} (chunk 256)"] = sl.ssd_scan_smem_bytes(stage, 256)
+    check(all(v > 0 for v in out.values()), f"shared memory sizes {out}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -294,15 +357,14 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         flops = 4.0 * B * H * D * flash_pairs(S, T, causal, window, q_offset)
         nbytes = elem * (2 * B * S * H * D + 2 * B * T * K * D)
         bound_ms, bound_by = bound(flops, nbytes, dtype)
+        fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
+               "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
+               "library": library}
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                               window=window, q_offset=q_offset),
                    max_abs_err=err, tol=TOL[dtype],
-                   **timings(torch, {
-                       "kernel": lambda: fa.flash_attention(q, k, v, **kw),
-                       "plain": lambda: fa.flash_attention_plain(q, k, v,
-                                                                 **kw),
-                       "library": library}),
+                   **timings(torch, fns),
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         emit("kernel_check", **row)
@@ -413,8 +475,8 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
         check(out.shape == x.shape and out.dtype == x.dtype,
               f"ssd_scan output {tuple(out.shape)} {out.dtype}")
         rtol, atol_of_max = TOL_SSD[dtype]
-        atol = atol_of_max * float(ref.float().abs().max())
-        err = max_err(out, ref, rtol, atol)
+        y_max = float(ref.float().abs().max())
+        err = max_err(out, ref, rtol, atol_of_max * y_max)
         c = min(chunk, s)
         s_pad = s + (-s) % c
         flops, nbytes = ssd_cost(b, s_pad, h, p, g, n, c, x.element_size())
@@ -435,12 +497,84 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
         row = dict(kernel="ssd_scan", case=name, dtype=dtype,
                    shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
                               strided=strided),
-                   max_abs_err=err, tol=rtol, atol=atol,
+                   max_abs_err=err, tol=rtol, atol=atol_of_max * y_max,
+                   # what the check's atol has to be, against its limit
+                   atol_needed_of_max=atol_needed(out, ref, rtol) / y_max,
+                   atol_of_max=atol_of_max,
                    **timings(torch, fns),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
                    fp32_fma_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
                    flops=flops, bytes=nbytes)
         emit("kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
+def check_ssd_stages(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
+                     *, strided=False):
+    """Each bf16 stage kernel alone against its plain stage function, on
+    the same inputs: stage 2 and 3 take the plain stage before's outputs,
+    so a fault shows in the stage that has it.  cum and the state passing
+    are fp32 on both sides (the fp32 tolerance); the states of stage 1 and
+    y of stage 3 round a product operand to bf16 (the bf16 one).  Each
+    stage's time is its C entry's alone, on buffers made once outside the
+    timed calls (state passing works in place, which changes the values
+    but not the work)."""
+    x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, torch.bfloat16,
+                                strided)
+    cum, states = ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)
+    entering, _ = ref.ssd_state_passing(states, cum)
+    y = ref.ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk)
+    k_cum, k_states = ss.run_stage("chunk_state", x, dt, A, B, C, chunk=chunk)
+    k_entering = ss.run_stage("state_passing", x, dt, A, B, C, chunk=chunk,
+                              cum=cum, states=states)
+    k_y = ss.run_stage("chunk_scan", x, dt, A, B, C, chunk=chunk, cum=cum,
+                       states=entering)
+    torch.cuda.synchronize()
+
+    def err(out, ref_, dtype):
+        rtol, atol_of_max = TOL_SSD[dtype]
+        y_max = float(ref_.float().abs().max())
+        return (max_err(out, ref_, rtol, atol_of_max * y_max), rtol,
+                atol_needed(out, ref_, rtol) / y_max)
+
+    # the C entries alone: scratch, a copy of stage 1's states for the
+    # in-place stage 2, and contiguous cum / entering states, made once
+    y_buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    cum_buf, states_buf = ss._scratch(x, B, chunk)
+    cum_c, entering_c = cum.contiguous(), entering.contiguous()
+    passing_buf = states.contiguous().clone()
+
+    def entry(stage, cum_, states_):
+        return lambda: ss._call(ss.STAGES[stage], x, dt, A, B, C, y_buf,
+                                cum_, states_, chunk)
+
+    cases = {
+        "chunk_state": (
+            [err(k_cum, cum, "float32"), err(k_states, states, "bfloat16")],
+            entry("chunk_state", cum_buf, states_buf),
+            lambda: ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)),
+        "state_passing": (
+            [err(k_entering, entering, "float32")],
+            entry("state_passing", cum_c, passing_buf),
+            lambda: ref.ssd_state_passing(states, cum)),
+        "chunk_scan": (
+            [err(k_y, y, "bfloat16")],
+            entry("chunk_scan", cum_c, entering_c),
+            lambda: ref.ssd_chunk_scan(x, dt, B, C, cum, entering,
+                                       chunk=chunk)),
+    }
+    rows = []
+    for stage, (errs, kernel, plain) in cases.items():
+        row = dict(kernel="ssd_scan", stage=stage, case=name,
+                   dtype="bfloat16",
+                   shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
+                              strided=strided),
+                   max_abs_err=max(e for e, _, _ in errs),
+                   tol=[t for _, t, _ in errs],
+                   atol_needed_of_max=[a for _, _, a in errs],
+                   **timings(torch, {"kernel": kernel, "plain": plain}))
+        emit("ssd_stage", **row)
         rows.append(row)
     return rows
 
@@ -561,7 +695,8 @@ def serve_path(torch, np, F, modules) -> dict:
     cache = model.init_cache(MAX_BATCH, max_len)
     emit("profile", **profile_phase(
         torch, "prefill 8x512",
-        lambda: model.prefill({"tokens": pt}, cache)))
+        lambda: model.prefill({"tokens": pt}, cache),
+        expect=("flash_mma_kernel",)))
     tok = pt[:, -1:]
     pos = torch.full((MAX_BATCH,), pt.shape[1], dtype=torch.long,
                      device="cuda")
@@ -678,8 +813,11 @@ def train_path(torch, np, F, modules) -> dict:
           f"train launches {launches}, the path implies {expect}")
     check(fa.flash_attention.launches == 0, "mamba2 launched attention")
 
-    emit("profile", **profile_phase(torch, "train step 4x2048",
-                                    lambda: step(state, batch)))
+    emit("profile", **profile_phase(
+        torch, "train step 4x2048", lambda: step(state, batch),
+        expect=("ssd_scan_chunk_state_kernel",
+                "ssd_scan_state_passing_kernel",
+                "ssd_scan_chunk_scan_kernel")))
 
     # remat "full": the same loss as a plain forward on these parameters,
     # and each layer's forward launched again in the backward
@@ -775,7 +913,7 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
@@ -807,12 +945,11 @@ def main() -> int:
         triton_s = time.perf_counter() - t0
         libs = nvcc_job.result()
     build_s = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in
-                    lib.with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(lib.with_suffix(".log").read_text())
              for name, lib in libs.items()}
     emit("build", seconds=build_s, triton_s=triton_s,
-         libraries={k: v.name for k, v in libs.items()}, ptxas=ptxas)
+         libraries={k: v.name for k, v in libs.items()}, ptxas=ptxas,
+         dynamic_smem_bytes=dynamic_smem(_build))
 
     # ---- 3. kernels against their plain twins ------------------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -828,6 +965,16 @@ def main() -> int:
     checks["flash_attention"] += check_flash(torch, F, fa, gen, "q_offset",
                                              8, 64, 512, 14, 2, 64,
                                              q_offset=448)
+    # the tensor-core kernel's split KV loop: queries off the tile grid,
+    # a window whose lower edge cuts tiles, and (ragged300 above) S not a
+    # multiple of the query block
+    checks["flash_attention"] += check_flash(torch, F, fa, gen,
+                                             "q_offset_off_grid",
+                                             8, 63, 512, 14, 2, 64,
+                                             q_offset=449)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "window100",
+                                             8, 512, 512, 14, 2, 64,
+                                             window=100)
     # the other head dims the kernel takes: qwen3's 128, the non-causal
     # tiles of 16, and 24, which bf16 runs on the scalar kernel, as it does
     # K/V rows that are not 16-byte aligned
@@ -866,9 +1013,19 @@ def main() -> int:
             ("t2_groups", (2, 64, 4, 16, 2, 8, 16), {}),
             ("t3_g_eq_h", (2, 64, 4, 16, 4, 8, 32), {}),
             ("t4_chunk24", (1, 96, 6, 8, 2, 16, 24), {}),
-            ("padded300", (2, 300, 48, 64, 1, 128, 256), {})):
+            ("padded300", (2, 300, 48, 64, 1, 128, 256), {}),
+            # rows that are not whole 16-byte chunks (p = 12, n = 10): the
+            # bf16 kernels' element-by-element loads and stores
+            ("unaligned", (1, 64, 3, 12, 1, 10, 32), {})):
         checks["ssd_scan"] += check_ssd(torch, ops, ss, plain_ctx, gen, name,
                                         *shape, **kw)
+    stage_rows = []
+    for name, shape, kw in (
+            ("slice", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256),
+             dict(strided=True)),
+            ("t4_chunk24", (1, 96, 6, 8, 2, 16, 24), {})):
+        stage_rows += check_ssd_stages(torch, ss, ref, gen, name, *shape,
+                                       **kw)
 
     # ---- 4-5. the serving path at full width -------------------------------
     serve_launches = serve_path(torch, np, F, modules)
@@ -914,6 +1071,11 @@ def main() -> int:
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
+    # the SSD scan's three stage kernels, each timed alone (the slice shape)
+    by_name = {k["name"]: k for k in kernels}
+    by_name["ssd_scan"]["stages_ms"] = {r["stage"]: r["kernel_ms"]
+                                        for r in stage_rows
+                                        if r["case"] == "slice"}
     print(json.dumps({"kernels": kernels}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by hand
 (``nvcc -shared``, no PyTorch headers, which keeps a build to seconds) into
 ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout, where
-the hash covers the source and the flags, so an edited source is rebuilt.
+the hash covers the source, every shared header ``csrc/*.cuh`` and the
+flags, so an edited source or header is rebuilt.
 The build runs at first use; ``build(*names)`` starts one nvcc per source,
 all together, and waits for them.
 """
@@ -40,8 +41,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    digest = hashlib.sha256()
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest = hashlib.sha256(digest.digest()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -58,7 +61,8 @@ def build(*names: str) -> Dict[str, Path]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT)
         running[name] = (proc, tmp, out)

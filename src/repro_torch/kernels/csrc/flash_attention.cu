@@ -14,15 +14,39 @@
 // K/V byte from device memory about once per query block.
 //
 // Two kernels, one function:
-//  * flash_mma_kernel, for bf16 with D a multiple of 16 and K/V rows
-//    16-byte aligned (the serving path): products on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//    fp32 accumulate).  Each warp owns 16 query rows; S = Q K^T stays in
-//    registers and is reused in place as the A operand of P V (the FA2
-//    layout), so P never touches shared memory.  K and V tiles (64 keys)
-//    are staged in shared memory with 16-byte loads, V transposed, rows
-//    padded by 8 elements so the fragment loads hit 32 distinct banks.  Loads are not overlapped with
-//    the products; cp.async / TMA pipelining, wgmma and warp
-//    specialisation are later work.
+//  * flash_mma_kernel, for bf16 with D a multiple of 16 and every row of
+//    q, k, v and o 16-byte aligned (the serving path), with
+//    FlashAttention-2's techniques on mma.sync m16n8k16 (bf16 in, fp32
+//    accumulate).  The first version of this kernel loaded K/V with
+//    plain loads between two barriers, transposed V by hand, read Q in
+//    2-byte pairs and fragments with 32-bit shared loads, masked every
+//    element of every tile, stored 2 bytes at a time and launched causal
+//    blocks lightest first: 0.0730 ms at the serving shape, 3.7x SDPA.
+//    What it does now, against each of those:
+//    - K/V tiles of 64 keys go through a ring of two shared-memory stages
+//      filled by cp.async.cg 16-byte copies (commit / wait groups): tile
+//      j + 1 is in flight while tile j is computed.  Q is staged once
+//      through the same copies.  Keys past T are zero-filled.
+//    - Shared tiles are stored as they arrive, rows XOR-swizzled by 16-byte
+//      chunk (mma_utils.cuh), no padding; fragments come from ldmatrix.x4
+//      for Q and K and ldmatrix.x4.trans for V, so V is never transposed.
+//    - Each warp owns 16 query rows; S = Q K^T stays in registers and is
+//      reused in place as the A operand of P V, so P never touches shared
+//      memory.
+//    - The KV loop is split per warp: a tile that no row of the warp masks
+//      runs with no mask code; only the tiles that cross the causal
+//      diagonal, the window's lower edge or T take it; a tile every row
+//      masks is skipped.
+//    - Causal grids launch the heaviest query blocks first (grid y counts
+//      down), so the longest blocks do not form the grid's tail.
+//    - O is normalised in registers, staged through the Q tile and written
+//      with 16-byte stores.
+//    BLOCK_Q is 64 (4 warps of 16 rows), measured against 128 (8 warps)
+//    at the serving shape, and the ring has two stages, measured against
+//    three (PERF.md section 6 has both readings).  At the serving shape on
+//    an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0306 ms, against
+//    0.0730 ms before, SDPA's 0.0199 ms and a bound of 0.0050 ms.  Not done
+//    here: wgmma, TMA and warp specialisation (ROADMAP Queue 2).
 //  * flash_fwd_kernel, for fp32, for head dims the mma tiles do not cover
 //    (24), and for K/V rows not 16-byte aligned (strided views): scalar
 //    fp32 FMAs through shared memory, any strides.  GROUP threads
@@ -32,10 +56,9 @@
 //    which the hardware broadcasts.
 //
 // Common design.
-//  * grid = (ceil(S / 64), B * H).  Each block owns 64 query rows of one
-//    (b, h) and loops over KV tiles itself: that loop takes the place of
-//    the TPU's sequential KV grid axis and its VMEM scratch (m, l, acc live
-//    in registers here).
+//  * Each block owns a run of query rows of one (b, h) and loops over KV
+//    tiles itself: that loop takes the place of the TPU's sequential KV
+//    grid axis and its VMEM scratch (m, l, acc live in registers here).
 //  * The loop's bounds come from causal, window and q_offset, so tiles that
 //    every row of the block would mask are never visited (the TPU kernel
 //    skips them with pl.when).
@@ -48,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_utils.cuh"
 
 namespace {
 
@@ -198,81 +223,190 @@ cudaError_t launch(const Params& p, int D, dim3 grid, cudaStream_t stream) {
 
 
 // ---------------------------------------------------------------------------
-// tensor-core path (bf16, D % 16 == 0)
+// tensor-core path (bf16, D % 16 == 0, every row of q, k, v, o 16-byte
+// aligned)
 // ---------------------------------------------------------------------------
-constexpr int MMA_BQ = 64;   // query rows per block: 4 warps x 16
-constexpr int MMA_BK = 64;   // keys per shared-memory tile
-constexpr int MMA_THREADS = 128;
+constexpr int MMA_BK = 64;      // keys per K / V tile
+// K / V tiles in flight.  A third stage lost to two at the serving shape
+// (PERF.md section 6): it costs shared memory and registers, and a block
+// of 64 rows visits at most 8 tiles.
+constexpr int MMA_STAGES = 2;
+// 4 warps of 16 query rows: BLOCK_Q 64.  8 warps (128 rows) lost at the
+// serving shape (PERF.md section 6): half as many blocks leave a ragged
+// last wave on 132 SMs, and a causal block carries twice the diagonal.
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_BQ = 16 * MMA_WARPS;    // query rows per block
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
 
-// c += a * b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// c 16x8 fp32.  Lane l holds rows l/4 and l/4 + 8, columns 2*(l%4) + {0,1}.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+template <int D>
+constexpr int mma_smem_bytes() {
+  return (MMA_BQ * D + MMA_STAGES * 2 * MMA_BK * D) * 2;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// One K / V tile for one warp's 16 query rows: S = Q K^T, mask (MASK only),
+// online softmax in log2 units, O += P V with P reused from registers as
+// the A operand.  Lane l holds rows g = l/4 and g + 8 of the warp.
+template <int D, bool MASK>
+__device__ __forceinline__ void flash_tile(
+    const Params& p, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
+    const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4], float (&m)[2],
+    float (&l)[2], int start, int row0, float scale_log2, int lane) {
+  constexpr int NB_S = MMA_BK / 8;  // 8-key column blocks of S
+  constexpr int NB_O = D / 8;       // 8-dim column blocks of O
+  const int g = lane >> 2, tig = lane & 3;
+  const int r8 = lane & 7, mi = lane >> 3;
 
-// two consecutive bf16 of a row as one A/B register (0 past the end)
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* row,
-                                              bool valid, int col) {
-  if (!valid) return 0u;
-  __nv_bfloat162 v;
-  v.x = row[col];
-  v.y = row[col + 1];
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+  float s[NB_S][4];
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb)
+    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nb = 0; nb < NB_S; nb += 2) {
+      // keys nb*8 .. nb*8+15, dims kk*16 .. kk*16+15: two B fragments
+      uint32_t b[4];
+      mma::ldmatrix_x4(b, ks + mma::tile_off<D>(nb * 8 + r8 + (mi >> 1) * 8,
+                                                2 * kk + (mi & 1)));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma::mma_16816(s[nb], qf[kk], b0);
+      mma::mma_16816(s[nb + 1], qf[kk], b1);
+    }
+  }
 
-__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = s[nb][i] * scale_log2;
+      if constexpr (MASK) {
+        const int t = start + nb * 8 + tig * 2 + (i & 1);
+        const int qp = row0 + g + (i >> 1) * 8 + p.q_offset;
+        bool ok = t < p.T;
+        if (p.causal) ok = ok && t <= qp;
+        if (p.window > 0) ok = ok && qp - t < p.window;
+        v = ok ? v : -INFINITY;
+      }
+      s[nb][i] = v;
+      mx[i >> 1] = fmaxf(mx[i >> 1], v);
+    }
+  }
+  float alpha[2], base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
+    alpha[r] = exp2f(m[r] - base[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nb][i] = exp2f(s[nb][i] - base[i >> 1]);  // masked -> 0
+      l[i >> 1] += s[nb][i];
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB_O; ++nb) {
+    acc[nb][0] *= alpha[0];
+    acc[nb][1] *= alpha[0];
+    acc[nb][2] *= alpha[1];
+    acc[nb][3] *= alpha[1];
+  }
+  // O += P V: two adjacent 8-key blocks of S are one A fragment; V is read
+  // as stored ([key][dim]) through ldmatrix.trans
+#pragma unroll
+  for (int kk = 0; kk < MMA_BK / 16; ++kk) {
+    const uint32_t af[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                            mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                            mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                            mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+    for (int nb = 0; nb < NB_O; nb += 2) {
+      uint32_t b[4];
+      mma::ldmatrix_x4_trans(
+          b, vs + mma::tile_off<D>(kk * 16 + r8 + (mi & 1) * 8, nb + (mi >> 1)));
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma::mma_16816(acc[nb], af, b0);
+      mma::mma_16816(acc[nb + 1], af, b1);
+    }
+  }
 }
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(const Params p) {
   static_assert(D % 16 == 0, "tensor-core path needs D % 16 == 0");
-  constexpr int KP = D + 8;        // padded shared row of K (elements)
-  constexpr int VP = MMA_BK + 8;   // padded shared row of V^T
-  constexpr int NB_S = MMA_BK / 8; // 8-key column blocks of S
-  constexpr int NB_O = D / 8;      // 8-dim column blocks of O
-  __shared__ __align__(16) __nv_bfloat16 ks[MMA_BK * KP];
-  __shared__ __align__(16) __nv_bfloat16 vt[D * VP];
+  constexpr int BQ = MMA_BQ;
+  constexpr int THREADS = MMA_THREADS;
+  constexpr int TILE = MMA_BK * D;  // elements of one K or V tile
+  constexpr int NB_O = D / 8;
+  constexpr int CPR = D / 8;        // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // Q tile (BQ x D), reused for O; then MMA_STAGES x (K tile, V tile)
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* kvs = qs + BQ * D;
 
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
 
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
+  // causal: the heaviest query blocks (most KV tiles) are launched first
+  const int qb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int b = blockIdx.x / p.H;
+  const int h = blockIdx.x % p.H;
   const int kvh = h / p.group;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;   // fragment row (and row + 8)
-  const int tig = lane & 3;  // fragment column pair
-  const int q0 = blockIdx.x * MMA_BQ + warp * 16;  // this warp's first row
-  const int row[2] = {q0 + g, q0 + g + 8};
-  const bool row_ok[2] = {row[0] < p.S, row[1] < p.S};
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r8 = lane & 7, mi = lane >> 3, g = lane >> 2, tig = lane & 3;
+  const int q_block0 = qb * BQ;
+  const int row0 = q_block0 + warp * 16;  // this warp's first query row
 
-  // Q fragments for every 16-wide slice of D, loaded once
-  uint32_t qf[D / 16][4];
-  const __nv_bfloat16* qrow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    qrow[r] = q + b * p.q_sb + (long long)(row_ok[r] ? row[r] : 0) * p.q_ss + h * p.q_sh;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = load_pair(qrow[0], row_ok[0], kk * 16 + tig * 2);
-    qf[kk][1] = load_pair(qrow[1], row_ok[1], kk * 16 + tig * 2);
-    qf[kk][2] = load_pair(qrow[0], row_ok[0], kk * 16 + 8 + tig * 2);
-    qf[kk][3] = load_pair(qrow[1], row_ok[1], kk * 16 + 8 + tig * 2);
+  const __nv_bfloat16* qg =
+      q + b * p.q_sb + (long long)q_block0 * p.q_ss + h * p.q_sh;
+  const __nv_bfloat16* kbase = k + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vbase = v + b * p.v_sb + kvh * p.v_sh;
+
+  // keys any row of this block can see, in whole tiles
+  const int first_pos = q_block0 + p.q_offset;
+  const int last_pos = min(q_block0 + BQ, p.S) - 1 + p.q_offset;
+  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
+  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
+  const int t_first = kv_lo / MMA_BK * MMA_BK;
+  const int ntiles =
+      kv_hi > t_first ? (kv_hi - t_first + MMA_BK - 1) / MMA_BK : 0;
+
+  // keys past T are zero-filled, never read
+  auto load_kv = [&](int tile, int stage) {
+    const int t0 = t_first + tile * MMA_BK;
+    __nv_bfloat16* ks = kvs + stage * 2 * TILE;
+    mma::load_tile<MMA_BK, D>(ks, kbase + (long long)t0 * p.k_st, p.k_st,
+                              p.T - t0, D, true, tid, THREADS);
+    mma::load_tile<MMA_BK, D>(ks + TILE, vbase + (long long)t0 * p.v_st,
+                              p.v_st, p.T - t0, D, true, tid, THREADS);
+  };
+
+  // groups in flight: Q, then K / V tiles 0 .. MMA_STAGES - 2; every step
+  // commits one group (empty past the last tile), so wait<MMA_STAGES - 1>
+  // always means "this tile landed"
+  mma::load_tile<BQ, D>(qs, qg, p.q_ss, p.S - q_block0, D, true, tid, THREADS);
+  mma::cp_async_commit();
+  for (int s = 0; s < MMA_STAGES - 1; ++s) {
+    if (s < ntiles) load_kv(s, s);
+    mma::cp_async_commit();
   }
+  mma::cp_async_wait<MMA_STAGES - 1>();
+  __syncthreads();
+
+  uint32_t qf[D / 16][4];  // this warp's Q fragments, kept for every tile
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma::ldmatrix_x4(qf[kk], qs + mma::tile_off<D>(warp * 16 + r8 + (mi & 1) * 8,
+                                                   2 * kk + (mi >> 1)));
 
   float acc[NB_O][4];
 #pragma unroll
@@ -282,148 +416,105 @@ __global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(const Params p) 
   float l[2] = {0.f, 0.f};              // this lane's part of the row sum
   const float scale_log2 = p.scale * 1.4426950408889634f;
 
-  const int first_pos = blockIdx.x * MMA_BQ + p.q_offset;
-  const int last_pos = min(blockIdx.x * MMA_BQ + MMA_BQ, p.S) - 1 + p.q_offset;
-  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
-  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
-  const int warp_first = q0 + p.q_offset;
-  const int warp_last = min(q0 + 15, p.S - 1) + p.q_offset;
+  const bool warp_live = row0 < p.S;
+  const int warp_first = row0 + p.q_offset;
+  const int warp_last = min(row0 + 15, p.S - 1) + p.q_offset;
 
-  const __nv_bfloat16* kbase = k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = v + b * p.v_sb + kvh * p.v_sh;
-
-  for (int start = kv_lo; start < kv_hi; start += MMA_BK) {
-    __syncthreads();  // the previous tile is no longer read
-    constexpr int VEC = 8;  // bf16 per 16-byte load (rows are 16-byte aligned)
-    for (int e = threadIdx.x; e < MMA_BK * D / VEC; e += MMA_THREADS) {
-      const int j = e / (D / VEC);
-      const int d = (e % (D / VEC)) * VEC;
-      const int t = start + j;
-      uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
-      if (t < kv_hi) {
-        kx = *reinterpret_cast<const uint4*>(kbase + (long long)t * p.k_st + d);
-        vx = *reinterpret_cast<const uint4*>(vbase + (long long)t * p.v_st + d);
-      }
-      *reinterpret_cast<uint4*>(ks + j * KP + d) = kx;
-      const __nv_bfloat16* vv = reinterpret_cast<const __nv_bfloat16*>(&vx);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) vt[(d + i) * VP + j] = vv[i];
-    }
+  for (int it = 0; it < ntiles; ++it) {
+    // tiles it + 1 .. are copied while tile it is computed
+    const int next = it + MMA_STAGES - 1;
+    if (next < ntiles) load_kv(next, next % MMA_STAGES);
+    mma::cp_async_commit();
+    mma::cp_async_wait<MMA_STAGES - 1>();
     __syncthreads();
-
-    // a tile every row of this warp masks contributes nothing
-    bool skip = q0 >= p.S;
-    if (p.causal) skip = skip || start > warp_last;
-    if (p.window > 0) skip = skip || start + MMA_BK - 1 <= warp_first - p.window;
-    if (skip) continue;
-
-    float s[NB_S][4];
-#pragma unroll
-    for (int nb = 0; nb < NB_S; ++nb) {
-      s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = ks + (nb * 8 + g) * KP + kk * 16 + tig * 2;
-        const uint32_t bf[2] = {smem_pair(kr), smem_pair(kr + 8)};
-        mma_16816(s[nb], qf[kk], bf);
-      }
+    const int start = t_first + it * MMA_BK;
+    const __nv_bfloat16* ks = kvs + (it % MMA_STAGES) * 2 * TILE;
+    if (warp_live) {
+      // a tile every row of this warp masks contributes nothing; only the
+      // tiles that cross the diagonal, the window's lower edge or T take
+      // the mask
+      const bool skip =
+          (p.causal && start > warp_last) ||
+          (p.window > 0 && start + MMA_BK - 1 <= warp_first - p.window);
+      const bool full =
+          start + MMA_BK <= p.T &&
+          (!p.causal || start + MMA_BK - 1 <= warp_first) &&
+          (p.window <= 0 || warp_last - start < p.window);
+      if (!skip && full)
+        flash_tile<D, false>(p, ks, ks + TILE, qf, acc, m, l, start, row0,
+                             scale_log2, lane);
+      else if (!skip)
+        flash_tile<D, true>(p, ks, ks + TILE, qf, acc, m, l, start, row0,
+                            scale_log2, lane);
     }
-
-    // mask, scale to log2 units, row max over the 4 lanes of a row
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nb = 0; nb < NB_S; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = i >> 1;
-        const int t = start + nb * 8 + tig * 2 + (i & 1);
-        const int qp = row[r] + p.q_offset;
-        bool ok = t < kv_hi;
-        if (p.causal) ok = ok && t <= qp;
-        if (p.window > 0) ok = ok && qp - t < p.window;
-        s[nb][i] = ok ? s[nb][i] * scale_log2 : -INFINITY;
-        mx[r] = fmaxf(mx[r], s[nb][i]);
-      }
-    }
-    float alpha[2], base[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      base[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
-      alpha[r] = exp2f(m[r] - base[r]);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB_S; ++nb) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[nb][i] = exp2f(s[nb][i] - base[i >> 1]);  // masked -> 0
-        l[i >> 1] += s[nb][i];
-      }
-    }
-#pragma unroll
-    for (int nb = 0; nb < NB_O; ++nb) {
-      acc[nb][0] *= alpha[0];
-      acc[nb][1] *= alpha[0];
-      acc[nb][2] *= alpha[1];
-      acc[nb][3] *= alpha[1];
-    }
-    // O += P V: two adjacent 8-key blocks of S are one A fragment
-#pragma unroll
-    for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-      const uint32_t af[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int nb = 0; nb < NB_O; ++nb) {
-        const __nv_bfloat16* vr = vt + (nb * 8 + g) * VP + kk * 16 + tig * 2;
-        const uint32_t bf[2] = {smem_pair(vr), smem_pair(vr + 8)};
-        mma_16816(acc[nb], af, bf);
-      }
-    }
+    __syncthreads();  // this stage is refilled MMA_STAGES tiles on
   }
+  mma::cp_async_wait<0>();
 
+  // normalise in registers, stage this warp's rows of O in its own rows of
+  // the Q tile (read by no other warp), then 16-byte stores of whole rows
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    l[r] = l[r] == 0.f ? 1.f : l[r];  // no visible key -> acc = 0
+    inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];  // no visible key -> 0
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (!row_ok[r]) continue;
-    __nv_bfloat16* orow = o + b * p.o_sb + (long long)row[r] * p.o_ss + h * p.o_sh;
+  for (int nb = 0; nb < NB_O; ++nb) {
 #pragma unroll
-    for (int nb = 0; nb < NB_O; ++nb) {
-      orow[nb * 8 + tig * 2] = __float2bfloat16(acc[nb][2 * r] / l[r]);
-      orow[nb * 8 + tig * 2 + 1] = __float2bfloat16(acc[nb][2 * r + 1] / l[r]);
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      const int col = nb * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(qs + mma::tile_off<D>(row, col / 8) +
+                                   col % 8) =
+          mma::pack_bf16(acc[nb][2 * r] * inv[r], acc[nb][2 * r + 1] * inv[r]);
     }
   }
-}
-
-// every row of a (B, T, K, D) view starts on a 16-byte boundary
-bool aligned16(const void* ptr, long long sb, long long st, long long sh) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && sb % 8 == 0 &&
-         st % 8 == 0 && sh % 8 == 0;
-}
-
-cudaError_t launch_mma(const Params& p, int B, int D, cudaStream_t stream) {
-  const dim3 grid((p.S + MMA_BQ - 1) / MMA_BQ, B * p.H);
-  switch (D) {
-    case 16: flash_mma_kernel<16><<<grid, MMA_THREADS, 0, stream>>>(p); break;
-    case 32: flash_mma_kernel<32><<<grid, MMA_THREADS, 0, stream>>>(p); break;
-    case 64: flash_mma_kernel<64><<<grid, MMA_THREADS, 0, stream>>>(p); break;
-    case 128: flash_mma_kernel<128><<<grid, MMA_THREADS, 0, stream>>>(p); break;
-    default: return cudaErrorInvalidValue;
+  __syncthreads();
+  __nv_bfloat16* og = o + b * p.o_sb + (long long)q_block0 * p.o_ss + h * p.o_sh;
+  for (int e = tid; e < BQ * CPR; e += THREADS) {
+    const int r = e / CPR, ch = e % CPR;
+    if (q_block0 + r < p.S)
+      *reinterpret_cast<uint4*>(og + r * p.o_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(qs + mma::tile_off<D>(r, ch));
   }
+}
+
+template <int D>
+cudaError_t launch_mma_t(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = mma_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * p.H, (p.S + MMA_BQ - 1) / MMA_BQ);
+  flash_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+cudaError_t launch_mma(const Params& p, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch_mma_t<16>(p, B, stream);
+    case 32: return launch_mma_t<32>(p, B, stream);
+    case 64: return launch_mma_t<64>(p, B, stream);
+    case 128: return launch_mma_t<128>(p, B, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// Dynamic shared memory of one flash_mma_kernel<D> launch in bytes, -1 for
+// a head dim the tensor-core path does not take.
+extern "C" int flash_attention_smem_bytes(int D) {
+  switch (D) {
+    case 16: return mma_smem_bytes<16>();
+    case 32: return mma_smem_bytes<32>();
+    case 64: return mma_smem_bytes<64>();
+    case 128: return mma_smem_bytes<128>();
+    default: return -1;
+  }
+}
 
 // q: (B,S,H,D), k and v: (B,T,K,D), o: (B,S,H,D), each with unit stride in
 // D and the other strides given in elements.  dtype: 0 = float32,
@@ -443,10 +534,12 @@ extern "C" int flash_attention_fwd(
   const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  const bool tiles16 = D % 16 == 0 && aligned16(k, k_sb, k_st, k_sh) &&
-                       aligned16(v, v_sb, v_st, v_sh);
+  const bool tiles16 = D % 16 == 0 && mma::aligned16(q, q_sb, q_ss, q_sh) &&
+                       mma::aligned16(k, k_sb, k_st, k_sh) &&
+                       mma::aligned16(v, v_sb, v_st, v_sh) &&
+                       mma::aligned16(o, o_sb, o_ss, o_sh);
   if (dtype == 1 && tiles16)
-    err = launch_mma(p, B, D, st);  // tensor cores
+    err = launch_mma(p, B, D, st);
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(p, D, grid, st);
   else if (dtype == 0)

@@ -10,17 +10,60 @@
 // final state is not returned, as on the TPU.
 //
 // What bounds it on an H100.  At mamba2-780m's training shape (b=4,
-// s=2048, h=48, p=64, g=1, n=128, chunk 256, bf16) the four products come
-// to about 51.5 GFLOP against about 106 MB of x, dt, B, C and y, about 490
-// FLOP per byte: above the ~295 at which bf16 tensor cores become the
-// limit, so the bound is the operations, ~52 us at 989 TFLOP/s.  This
-// first kernel computes on the CUDA cores in fp32, as the TPU kernel does
-// inside, so its own floor is ~0.77 ms (51.5 GFLOP at 67 TFLOP/s); moving
-// the products to mma.sync / wgmma and splitting the scan into the chunk-
-// state, state-passing and chunk-scan kernels of the Mamba2 paper
-// (arXiv:2405.21060) is later work.
+// s=2048, h=48, p=64, g=1, n=128, chunk 256, bf16) the function needs
+// about 32.3 GFLOP (the causal triangle of each chunk's scores and the two
+// state products) against about 106 MB of x, dt, B, C and y: above the
+// ~295 FLOP per byte at which bf16 tensor cores become the limit, so the
+// bound is the operations, ~0.033 ms at 989 TFLOP/s.
 //
-// Design.
+// Two paths, one function (ssd_scan_fwd):
+//
+// bf16: the three stages of the Mamba2 paper's chunked algorithm
+// (arXiv:2405.21060), three kernels launched in order on the stream, with
+// every product on mma.sync m16n8k16 (bf16 in, fp32 accumulate).  The
+// first version of this kernel (one block per (b, h) walking its
+// chunks in order, scalar fp32 FMAs out of shared memory, element loads,
+// warp 0 alone computing the cumsum) took 4.4703 ms, 137x its bound: 192
+// blocks of 138 KB each ran one per SM in two uneven waves, the chunks were
+// serial, and scalar FMAs set a floor of 0.48 ms.  Now:
+//  * ssd_scan_chunk_state_kernel, grid (b*h, chunks): the chunk's cum by a
+//    block scan (all warps), written to an fp32 scratch (b, h, chunks, c),
+//    and its own state addition S_z = (x o dt exp(total - cum))^T B, a
+//    (p x c)(c x n) product over 64-row sub-blocks, written to an fp32
+//    scratch (b, h, chunks, p, n).
+//  * ssd_scan_state_passing_kernel: per state element, in chunk order,
+//    in_0 = 0 and in_z = in_{z-1} exp(total_{z-1}) + S_{z-1}, in place over
+//    the scratch: the only serial part left, elementwise and bytes-bound.
+//  * ssd_scan_chunk_scan_kernel, one block per (b*h, chunk, pair of 64-row
+//    query blocks), a chunk's blocks side by side, heaviest first:
+//    y_i = exp(cum_i) C_i in_z^T
+//    + sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j, each warp 16
+//    query rows; key blocks at or below the diagonal only.  Two query
+//    blocks a block (CQ_QPC) halve the L2 reads of the chunk's state, B
+//    and x against one, measured 0.225 ms against 0.320 ms.
+//  At the training shape that is 1,536 + 1,536 + 3,072 blocks where there
+//  were 192, and the three kernels take 0.3277 ms together on an NVIDIA
+//  H100 80GB HBM3 at 700 W (chunk state 0.0626, state passing 0.0495,
+//  chunk scan 0.2245 ms, each timed alone; chip_smoke.py, PERF.md section
+//  6), against 4.4703 ms before and a bound of 0.0326 ms.
+//  Numerics: fp32 accumulation, each product operand rounded to bf16
+//  once: dt_j exp(total - cum_j) is folded into x before stage 1 rounds
+//  it; dt_j exp(cum_i - cum_j) into the fp32 score before it is rounded
+//  (as flash rounds P) and reused from registers as the A operand; the
+//  carried fp32 state enters stage 3 as a hi / lo pair of bf16 (two mma
+//  passes), so chunks keep its precision.  Tiles are zero-padded in
+//  shared memory to p = 64 and n = 128, so every shape the wrapper takes
+//  (p <= 64, n <= 128, any chunk <= 512, including 24 and 8) runs here.
+//  Shared tiles are XOR-swizzled (mma_utils.cuh) and read by ldmatrix
+//  (.trans where a tile is stored [j][.] and the product wants it the
+//  other way);
+//  tiles of views whose rows are 16-byte aligned (the model's conv-output
+//  slices are) are copied by cp.async 16 bytes at a time, two deep, and
+//  others element by element.  The wrapper allocates the scratch (50.3 MB
+//  of states plus cum at the training shape); the kernels allocate
+//  nothing.  Not done here: wgmma and TMA (ROADMAP Queue 2).
+//
+// fp32: ssd_scan_kernel<float>, the first version, unchanged:
 //  * grid = b * h blocks of 256 threads.  Each block owns one (b, h) and
 //    loops over the chunks itself, in order: that loop takes the place of
 //    the TPU's sequential ("arbitrary") chunk grid axis, and the state
@@ -54,6 +97,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_utils.cuh"
 
 namespace {
 
@@ -324,31 +369,629 @@ cudaError_t launch(const Params& p, int B, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the three stages of the Mamba2 chunked algorithm on mma.sync
+// ---------------------------------------------------------------------------
+constexpr int SUB = 64;    // rows of a chunk's sub-block (query or key block)
+constexpr int PT = 64;     // p, zero-padded to the tiles
+constexpr int NT = 128;    // n, zero-padded to the tiles
+constexpr int CS_THREADS = 256;  // chunk_state: 8 warps
+constexpr int CS_STAGES = 2;  // sub-blocks in flight
+constexpr int SP_THREADS = 256;  // state_passing
+// Measured at the training shape on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md section 6):
+//  * chunk_state blocks per SM the registers must allow: 4 (64 registers)
+//    took 0.062 ms against 0.068 ms for 1 (105 registers);
+//  * 64-row query blocks per chunk_scan block: 2 (8 warps, held to 128
+//    registers so two blocks fit an SM) took 0.225 ms against 0.320 ms for
+//    1, since a chunk's state, B and x are then read from L2 by half as
+//    many blocks.
+constexpr int CS_MINB = 4;
+constexpr int CQ_QPC = 2;
+constexpr int CQ_THREADS = 128 * CQ_QPC;  // 4 warps of 16 rows a query block
+constexpr int CQ_MINB = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct StageParams {
+  const __nv_bfloat16* x;
+  const float* dt;
+  const float* A;
+  const __nv_bfloat16* B;
+  const __nv_bfloat16* C;
+  __nv_bfloat16* y;
+  float* cum;     // (b, h, chunks, chunk): inclusive cumsum of dt * A
+  float* states;  // (b, h, chunks, P, N): S_z from stage 1, in_z after 2
+  int S, H, P, G, N, chunk, nc;
+  long long x_sb, x_ss, x_sh;
+  long long dt_sb, dt_ss, dt_sh;
+  long long B_sb, B_ss, B_sg;
+  long long C_sb, C_ss, C_sg;
+  long long y_sb, y_ss, y_sh;
+  // rows start on 16-byte boundaries (and widths are whole chunks): copy by
+  // cp.async / store 16 bytes at a time, else element by element
+  int vec_x, vec_bc, vec_y, vec_state;
+};
+
+__host__ __device__ __forceinline__ int round_up(int a, int m) {
+  return (a + m - 1) / m * m;
+}
+
+// Stage 1, grid (b*h, chunks): cum of the chunk by a block scan (written to
+// the scratch), then S_z = (x o dt exp(total - cum))^T B, a (p x c)(c x n)
+// product on mma.sync over 64-row sub-blocks copied by cp.async two deep.
+// x is rounded to bf16 once, after dt_j exp(total - cum_j) is folded in.
+__global__ void __launch_bounds__(CS_THREADS, CS_MINB)
+    ssd_scan_chunk_state_kernel(const StageParams p) {
+  constexpr int XT = SUB * PT, BT = SUB * NT;  // elements of one stage's tiles
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int c = p.chunk, cpad = round_up(c, SUB);
+  float* s_cum = reinterpret_cast<float*>(st + CS_STAGES * (XT + BT));
+  float* s_w = s_cum + cpad;   // dt_j exp(total - cum_j), 0 past the chunk
+  float* s_red = s_w + cpad;   // warp totals of the scan
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r8 = lane & 7, mi = lane >> 3, g = lane >> 2, tig = lane & 3;
+  const int bh = blockIdx.x, z = blockIdx.y;
+  const int b = bh / p.H, h = bh % p.H, grp = h / (p.H / p.G);
+  const long long t0 = (long long)z * c;
+  const __nv_bfloat16* xg = p.x + b * p.x_sb + t0 * p.x_ss + h * p.x_sh;
+  const float* dtg = p.dt + b * p.dt_sb + t0 * p.dt_ss + h * p.dt_sh;
+  const __nv_bfloat16* bg = p.B + b * p.B_sb + t0 * p.B_ss + grp * p.B_sg;
+
+  auto load_sub = [&](int sb, int stage) {
+    const int r0 = sb * SUB;
+    __nv_bfloat16* xs = st + stage * (XT + BT);
+    mma::load_tile<SUB, PT>(xs, xg + r0 * p.x_ss, p.x_ss, c - r0, p.P,
+                            p.vec_x, tid, CS_THREADS);
+    mma::load_tile<SUB, NT>(xs + XT, bg + r0 * p.B_ss, p.B_ss, c - r0, p.N,
+                            p.vec_bc, tid, CS_THREADS);
+  };
+  const int nsub = cpad / SUB;
+  // a ring of CS_STAGES sub-blocks; every step commits one group (empty
+  // past the chunk), so wait<CS_STAGES - 1> always means "this one landed"
+  for (int s = 0; s < CS_STAGES - 1; ++s) {
+    if (s < nsub) load_sub(s, s);
+    mma::cp_async_commit();
+  }
+
+  // cum: each thread sums a run of consecutive rows, a shuffle scan over the
+  // lanes and one over the warps' totals give each run its offset
+  {
+    const float a_h = p.A[h];
+    const int per = (c + CS_THREADS - 1) / CS_THREADS;
+    const int lo = min(c, tid * per), hi = min(c, lo + per);
+    float run = 0.f;
+    for (int r = lo; r < hi; ++r) run += dtg[r * p.dt_ss] * a_h;
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) s_red[warp] = incl;
+    float before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = 0.f;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) before += s_red[w];
+    float* cum_out = p.cum + ((long long)bh * p.nc + z) * c;
+    for (int r = lo; r < hi; ++r) {
+      before += dtg[r * p.dt_ss] * a_h;
+      s_cum[r] = before;
+      cum_out[r] = before;
+    }
+    __syncthreads();
+    const float total = s_cum[c - 1];
+    for (int r = tid; r < cpad; r += CS_THREADS)
+      s_w[r] = r < c ? dtg[r * p.dt_ss] * __expf(total - s_cum[r]) : 0.f;
+  }
+
+  // warp w: state rows 16 (w % 4) .. +15, columns 64 (w / 4) .. +63
+  const int mt = warp & 3, n0 = (warp >> 2) * 64;
+  float acc[8][4];
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+
+  for (int sb = 0; sb < nsub; ++sb) {
+    const int next = sb + CS_STAGES - 1;
+    if (next < nsub) load_sub(next, next % CS_STAGES);
+    mma::cp_async_commit();
+    mma::cp_async_wait<CS_STAGES - 1>();
+    __syncthreads();
+    __nv_bfloat16* xs = st + (sb % CS_STAGES) * (XT + BT);
+    const __nv_bfloat16* bs = xs + XT;
+    // x~ = bf16(x dt_j exp(total - cum_j)), in place, 8 values a step
+    for (int e = tid; e < SUB * PT / 8; e += CS_THREADS) {
+      const int r = e / (PT / 8), ch = e % (PT / 8);
+      uint4* ptr = reinterpret_cast<uint4*>(xs + mma::tile_off<PT>(r, ch));
+      uint4 v = *ptr;
+      __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&v);
+      const float w = s_w[sb * SUB + r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h2[i]);
+        h2[i] = __floats2bfloat162_rn(f.x * w, f.y * w);
+      }
+      *ptr = v;
+    }
+    __syncthreads();
+    // S += x~^T B: A = x~^T and B both read as stored ([j][.]) through
+    // ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < SUB / 16; ++kk) {
+      uint32_t a[4];
+      mma::ldmatrix_x4_trans(
+          a, xs + mma::tile_off<PT>(kk * 16 + r8 + (mi >> 1) * 8,
+                                    2 * mt + (mi & 1)));
+#pragma unroll
+      for (int nb = 0; nb < 8; nb += 2) {
+        uint32_t bb[4];
+        mma::ldmatrix_x4_trans(
+            bb, bs + mma::tile_off<NT>(kk * 16 + r8 + (mi & 1) * 8,
+                                       n0 / 8 + nb + (mi >> 1)));
+        const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+        mma::mma_16816(acc[nb], a, b0);
+        mma::mma_16816(acc[nb + 1], a, b1);
+      }
+    }
+    __syncthreads();  // this stage is refilled CS_STAGES sub-blocks on
+  }
+
+  // pairs of columns as one 8-byte store where N is even (the rows of a
+  // warp's store then fill whole 32-byte sectors)
+  float* out = p.states + ((long long)bh * p.nc + z) * p.P * p.N;
+#pragma unroll
+  for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = mt * 16 + g + r * 8;
+      const int col = n0 + nb * 8 + tig * 2;
+      if (row >= p.P || col >= p.N) continue;
+      float* o = out + row * p.N + col;
+      if (p.N % 2 == 0) {
+        *reinterpret_cast<float2*>(o) = make_float2(acc[nb][2 * r], acc[nb][2 * r + 1]);
+      } else {
+        o[0] = acc[nb][2 * r];
+        if (col + 1 < p.N) o[1] = acc[nb][2 * r + 1];
+      }
+    }
+  }
+}
+
+// Stage 2, grid (b*h, ceil(P*N / (4 * SP_THREADS))): in place over the
+// scratch, per state element in chunk order, in_0 = 0 and
+// in_z = in_{z-1} exp(total_{z-1}) + S_{z-1}.  Elementwise, bytes-bound:
+// each thread owns 4 consecutive elements and loads SP_BATCH chunks' worth
+// before it stores any, so the loads of a batch are in flight together.
+constexpr int SP_BATCH = 8;
+__global__ void __launch_bounds__(SP_THREADS)
+    ssd_scan_state_passing_kernel(const StageParams p) {
+  const int bh = blockIdx.x;
+  const long long PN = (long long)p.P * p.N;
+  const long long e0 = ((long long)blockIdx.y * SP_THREADS + threadIdx.x) * 4;
+  if (e0 >= PN) return;
+  const float* __restrict__ cum = p.cum + (long long)bh * p.nc * p.chunk;
+  float* __restrict__ base = p.states + (long long)bh * p.nc * PN + e0;
+  const int n = (int)min(4LL, PN - e0);
+  const bool vec = PN % 4 == 0;  // then every 4-float group is aligned
+  float run[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int z0 = 0; z0 < p.nc; z0 += SP_BATCH) {
+    float s[SP_BATCH][4], decay[SP_BATCH];
+#pragma unroll
+    for (int k = 0; k < SP_BATCH; ++k) {
+      if (z0 + k >= p.nc) break;
+      const float* ptr = base + (z0 + k) * PN;
+      decay[k] = __expf(cum[(long long)(z0 + k) * p.chunk + p.chunk - 1]);
+      if (vec) {
+        const float4 v = *reinterpret_cast<const float4*>(ptr);
+        s[k][0] = v.x, s[k][1] = v.y, s[k][2] = v.z, s[k][3] = v.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[k][i] = i < n ? ptr[i] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SP_BATCH; ++k) {
+      if (z0 + k >= p.nc) break;
+      float* ptr = base + (z0 + k) * PN;
+      if (vec) {
+        *reinterpret_cast<float4*>(ptr) =
+            make_float4(run[0], run[1], run[2], run[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < n) ptr[i] = run[i];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) run[i] = run[i] * decay[k] + s[k][i];
+    }
+  }
+}
+
+// chunk_scan's shared memory: stage 0 (B_j, x_j), then a region that holds
+// the fp32 entering state and later stage 1, then C of the block's query
+// rows, then cum (log2 units) and dt of the chunk
+constexpr int CQ_STAGE = SUB * NT + SUB * PT;          // bf16 elements
+constexpr int CQ_STATE_BYTES = PT * NT * 4;            // >= one stage
+static_assert(CQ_STATE_BYTES >= CQ_STAGE * 2, "stage 1 fits the state");
+
+size_t chunk_scan_smem(int chunk) {
+  return CQ_STAGE * 2 + CQ_STATE_BYTES + CQ_QPC * SUB * NT * 2 +
+         2 * sizeof(float) * round_up(chunk, SUB);
+}
+
+// float2 slot of state element (row, col pair n2) in shared memory: XOR by
+// row, so the 8 rows of a B fragment fall on 4 distinct bank groups
+__device__ __forceinline__ int state_slot(int row, int n2) {
+  return row * (NT / 2) + (n2 ^ ((row & 3) << 2));
+}
+
+// Stage 3: one block per (b*h, chunk, CQ_QPC query blocks of 64 rows); the
+// blocks of a chunk are launched side by side, heaviest first, so that the
+// chunk's state, B and x are read from device memory about once:
+//   y_i = exp(cum_i) C_i in_z^T + sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+// on mma.sync.  Each warp owns 16 query rows (4 warps a query block).  The
+// fp32 entering state is split into a hi / lo pair of bf16 (two mma
+// passes); the scores take dt_j exp(cum_i - cum_j) in fp32 before their one
+// rounding to bf16 and are reused from registers as the A operand of P x.
+// Key blocks at or below the diagonal only; the diagonal block masks by
+// selection, so exp is only taken of cum_i - cum_j <= 0.
+__global__ void __launch_bounds__(CQ_THREADS, CQ_MINB)
+    ssd_scan_chunk_scan_kernel(const StageParams p) {
+  constexpr int ROWS = CQ_QPC * SUB;  // query rows of the block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  unsigned char* region = smem_raw + CQ_STAGE * 2;
+  __nv_bfloat16* stage1 = reinterpret_cast<__nv_bfloat16*>(region);
+  float2* s_state = reinterpret_cast<float2*>(region);
+  __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(region + CQ_STATE_BYTES);
+  const int c = p.chunk, cpad = round_up(c, SUB);
+  float* s_cum = reinterpret_cast<float*>(cs + ROWS * NT);
+  float* s_dt = s_cum + cpad;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r8 = lane & 7, mi = lane >> 3, g = lane >> 2, tig = lane & 3;
+  const int nqb = cpad / SUB;
+  const int nblk = (nqb + CQ_QPC - 1) / CQ_QPC;
+  const long long chunk_id = blockIdx.x / nblk;  // bh * nc + z
+  const int blk = nblk - 1 - blockIdx.x % nblk;  // most key blocks first
+  const int bh = chunk_id / p.nc, z = chunk_id % p.nc;
+  const int i0 = blk * ROWS;
+  const int my_qb = blk * CQ_QPC + warp / 4;  // this warp's query block
+  const int last_kb = min(nqb - 1, blk * CQ_QPC + CQ_QPC - 1);
+  const int b = bh / p.H, h = bh % p.H, grp = h / (p.H / p.G);
+  const long long t0 = (long long)z * c;
+  const __nv_bfloat16* xg = p.x + b * p.x_sb + t0 * p.x_ss + h * p.x_sh;
+  const float* dtg = p.dt + b * p.dt_sb + t0 * p.dt_ss + h * p.dt_sh;
+  const __nv_bfloat16* bg = p.B + b * p.B_sb + t0 * p.B_ss + grp * p.B_sg;
+  const __nv_bfloat16* cg = p.C + b * p.C_sb + t0 * p.C_ss + grp * p.C_sg;
+
+  auto load_keys = [&](int kb, __nv_bfloat16* dst) {
+    const int j0 = kb * SUB;
+    mma::load_tile<SUB, NT>(dst, bg + j0 * p.B_ss, p.B_ss, c - j0, p.N,
+                            p.vec_bc, tid, CQ_THREADS);
+    mma::load_tile<SUB, PT>(dst + SUB * NT, xg + j0 * p.x_ss, p.x_ss,
+                            c - j0, p.P, p.vec_x, tid, CQ_THREADS);
+  };
+
+  // two groups: C of the query rows and the entering state, then key
+  // block 0, which lands while the state's product runs
+  mma::load_tile<ROWS, NT>(cs, cg + i0 * p.C_ss, p.C_ss, c - i0, p.N,
+                           p.vec_bc, tid, CQ_THREADS);
+  {
+    const float* sg = p.states + chunk_id * p.P * p.N;
+    for (int e = tid; e < PT * NT / 4; e += CQ_THREADS) {
+      const int row = e / (NT / 4), q4 = e % (NT / 4);  // 4 floats = 2 slots
+      float2* d = s_state + state_slot(row, 2 * q4);
+      const bool ok = row < p.P && 4 * q4 < p.N;
+      if (p.vec_state) {
+        mma::cp_async16(d, ok ? sg + row * p.N + 4 * q4 : sg, ok ? 16 : 0);
+      } else {
+        float v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 4 * q4 + i;
+          v[i] = row < p.P && col < p.N ? sg[row * p.N + col] : 0.f;
+        }
+        d[0] = make_float2(v[0], v[1]);
+        d[1] = make_float2(v[2], v[3]);
+      }
+    }
+  }
+  mma::cp_async_commit();
+  load_keys(0, stage0);
+  mma::cp_async_commit();
+  {
+    const float* cum = p.cum + chunk_id * c;
+    const float total = cum[c - 1];
+    for (int r = tid; r < cpad; r += CQ_THREADS) {
+      // past the chunk: cum = total (every decay stays <= 1), dt = 0
+      s_cum[r] = (r < c ? cum[r] : total) * LOG2E;
+      s_dt[r] = r < c ? dtg[r * p.dt_ss] : 0.f;
+    }
+  }
+  mma::cp_async_wait<1>();
+  __syncthreads();
+
+  // this warp's C rows as A fragments, read from the tile each time they
+  // are used (which keeps 32 registers free)
+  auto c_frag = [&](uint32_t (&a)[4], int kk) {
+    mma::ldmatrix_x4(a, cs + mma::tile_off<NT>(warp * 16 + r8 + (mi & 1) * 8,
+                                               2 * kk + (mi >> 1)));
+  };
+  const int ri[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
+  const float cum_i[2] = {s_cum[min(ri[0], cpad - 1)],
+                          s_cum[min(ri[1], cpad - 1)]};
+  const bool live = my_qb < nqb;
+
+  // y = exp(cum_i) C_i (hi + lo)^T
+  float acc[PT / 8][4];
+#pragma unroll
+  for (int pt = 0; pt < PT / 8; ++pt) acc[pt][0] = acc[pt][1] = acc[pt][2] = acc[pt][3] = 0.f;
+  if (live) {
+#pragma unroll
+    for (int kk = 0; kk < NT / 16; ++kk) {
+      uint32_t cf[4];
+      c_frag(cf, kk);
+#pragma unroll
+      for (int pt = 0; pt < PT / 8; ++pt) {
+        const int row = pt * 8 + g;
+        const float2 v0 = s_state[state_slot(row, kk * 8 + tig)];
+        const float2 v1 = s_state[state_slot(row, kk * 8 + 4 + tig)];
+        const __nv_bfloat162 h0 = __floats2bfloat162_rn(v0.x, v0.y);
+        const __nv_bfloat162 h1 = __floats2bfloat162_rn(v1.x, v1.y);
+        const float2 f0 = __bfloat1622float2(h0), f1 = __bfloat1622float2(h1);
+        const uint32_t hi[2] = {*reinterpret_cast<const uint32_t*>(&h0),
+                                *reinterpret_cast<const uint32_t*>(&h1)};
+        const uint32_t lo[2] = {mma::pack_bf16(v0.x - f0.x, v0.y - f0.y),
+                                mma::pack_bf16(v1.x - f1.x, v1.y - f1.y)};
+        mma::mma_16816(acc[pt], cf, hi);
+        mma::mma_16816(acc[pt], cf, lo);
+      }
+    }
+    const float e0 = exp2f(cum_i[0]), e1 = exp2f(cum_i[1]);
+#pragma unroll
+    for (int pt = 0; pt < PT / 8; ++pt) {
+      acc[pt][0] *= e0;
+      acc[pt][1] *= e0;
+      acc[pt][2] *= e1;
+      acc[pt][3] *= e1;
+    }
+  }
+  __syncthreads();  // the state's region becomes stage 1
+
+  for (int kb = 0; kb <= last_kb; ++kb) {
+    if (kb + 1 <= last_kb) {
+      load_keys(kb + 1, ((kb + 1) & 1) ? stage1 : stage0);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live && kb <= my_qb) {
+      const __nv_bfloat16* bs = (kb & 1) ? stage1 : stage0;
+      const __nv_bfloat16* xs = bs + SUB * NT;
+      const int j0 = kb * SUB;
+
+      // scores C_i . B_j, 64 keys
+      float s[SUB / 8][4];
+#pragma unroll
+      for (int nb = 0; nb < SUB / 8; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < NT / 16; ++kk) {
+        uint32_t cf[4];
+        c_frag(cf, kk);
+#pragma unroll
+        for (int nb = 0; nb < SUB / 8; nb += 2) {
+          uint32_t bb[4];
+          mma::ldmatrix_x4(bb, bs + mma::tile_off<NT>(nb * 8 + r8 + (mi >> 1) * 8,
+                                                      2 * kk + (mi & 1)));
+          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+          mma::mma_16816(s[nb], cf, b0);
+          mma::mma_16816(s[nb + 1], cf, b1);
+        }
+      }
+      // times dt_j exp(cum_i - cum_j), masked by selection on the diagonal
+      const bool diag = kb == my_qb;
+#pragma unroll
+      for (int nb = 0; nb < SUB / 8; ++nb) {
+        const int jl = nb * 8 + tig * 2;
+        const float2 cj = *reinterpret_cast<const float2*>(s_cum + j0 + jl);
+        const float2 dj = *reinterpret_cast<const float2*>(s_dt + j0 + jl);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const float cjv = (i & 1) ? cj.y : cj.x;
+          const float djv = (i & 1) ? dj.y : dj.x;
+          const bool ok = !diag || j0 + jl + (i & 1) <= ri[r];
+          s[nb][i] = ok ? s[nb][i] * djv * exp2f(cum_i[r] - cjv) : 0.f;
+        }
+      }
+      // y += P x_j, P from registers, x_j read as stored through .trans
+#pragma unroll
+      for (int kk = 0; kk < SUB / 16; ++kk) {
+        const uint32_t af[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                                mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                                mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int pt = 0; pt < PT / 8; pt += 2) {
+          uint32_t bb[4];
+          mma::ldmatrix_x4_trans(
+              bb, xs + mma::tile_off<PT>(kk * 16 + r8 + (mi & 1) * 8, pt + (mi >> 1)));
+          const uint32_t b0[2] = {bb[0], bb[1]}, b1[2] = {bb[2], bb[3]};
+          mma::mma_16816(acc[pt], af, b0);
+          mma::mma_16816(acc[pt + 1], af, b1);
+        }
+      }
+    }
+    __syncthreads();  // this stage is refilled two key blocks on
+  }
+
+  // y through shared memory (the C tile, no longer read), then whole rows
+#pragma unroll
+  for (int pt = 0; pt < PT / 8; ++pt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      const int col = pt * 8 + tig * 2;
+      *reinterpret_cast<uint32_t*>(cs + mma::tile_off<PT>(row, col / 8) + col % 8) =
+          mma::pack_bf16(acc[pt][2 * r], acc[pt][2 * r + 1]);
+    }
+  }
+  __syncthreads();
+  __nv_bfloat16* yg = p.y + b * p.y_sb + (t0 + i0) * p.y_ss + h * p.y_sh;
+  const int rows = min(ROWS, c - i0);
+  for (int e = tid; e < ROWS * PT / 8; e += CQ_THREADS) {
+    const int r = e / (PT / 8), ch = e % (PT / 8);
+    if (r >= rows || ch * 8 >= p.P) continue;
+    const __nv_bfloat16* src = cs + mma::tile_off<PT>(r, ch);
+    if (p.vec_y) {
+      *reinterpret_cast<uint4*>(yg + r * p.y_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int i = 0; i < 8 && ch * 8 + i < p.P; ++i)
+        yg[r * p.y_ss + ch * 8 + i] = src[i];
+    }
+  }
+}
+
+size_t chunk_state_smem(int chunk) {
+  return CS_STAGES * (SUB * PT + SUB * NT) * 2 +
+         sizeof(float) * (2 * round_up(chunk, SUB) + CS_THREADS / 32);
+}
+
+// stages: bit 0 chunk_state, bit 1 state_passing, bit 2 chunk_scan
+cudaError_t launch_stages(const StageParams& p, int B, int stages,
+                          cudaStream_t st) {
+  cudaError_t err;
+  if (stages & 1) {
+    const size_t smem = chunk_state_smem(p.chunk);
+    err = cudaFuncSetAttribute(ssd_scan_chunk_state_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    ssd_scan_chunk_state_kernel<<<dim3(B * p.H, p.nc), CS_THREADS, smem, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 2) {
+    const int per_block = 4 * SP_THREADS;
+    const dim3 grid(B * p.H, (p.P * p.N + per_block - 1) / per_block);
+    ssd_scan_state_passing_kernel<<<grid, SP_THREADS, 0, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if (stages & 4) {
+    const size_t smem = chunk_scan_smem(p.chunk);
+    err = cudaFuncSetAttribute(ssd_scan_chunk_scan_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    const int nqb = (p.chunk + SUB - 1) / SUB;
+    const long long blocks =
+        (long long)B * p.H * p.nc * ((nqb + CQ_QPC - 1) / CQ_QPC);
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    ssd_scan_chunk_scan_kernel<<<static_cast<unsigned>(blocks), CQ_THREADS,
+                                 smem, st>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
+
+namespace {
+
+// The run of stages `stages` (see launch_stages) for bf16, or the fp32
+// kernel, from the arguments of ssd_scan_fwd.
+int run(int stages, const void* x, const void* dt, const void* A,
+        const void* Bm, const void* Cm, void* y, void* cum, void* states,
+        int dtype, int B, int S, int H, int P, int G, int N, int chunk,
+        long long x_sb, long long x_ss, long long x_sh, long long dt_sb,
+        long long dt_ss, long long dt_sh, long long B_sb, long long B_ss,
+        long long B_sg, long long C_sb, long long C_ss, long long C_sg,
+        long long y_sb, long long y_ss, long long y_sh, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
+      P > MAX_P || N <= 0 || N > MAX_N || chunk <= 0 || chunk > MAX_CHUNK ||
+      S % chunk != 0 || (long long)B * H > 0x7fffffffLL ||
+      S / chunk > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && stages == 7) {
+    const Params p{x,    static_cast<const float*>(dt),
+                   static_cast<const float*>(A), Bm, Cm, y,
+                   S,    H, P, G, N, chunk,
+                   x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
+                   B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,
+                   y_sb, y_ss, y_sh};
+    return static_cast<int>(launch<float>(p, B, st));
+  }
+  if (dtype != 1 || cum == nullptr || states == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  using mma::aligned16;
+  StageParams p{static_cast<const __nv_bfloat16*>(x),
+                static_cast<const float*>(dt),
+                static_cast<const float*>(A),
+                static_cast<const __nv_bfloat16*>(Bm),
+                static_cast<const __nv_bfloat16*>(Cm),
+                static_cast<__nv_bfloat16*>(y),
+                static_cast<float*>(cum),
+                static_cast<float*>(states),
+                S, H, P, G, N, chunk, S / chunk,
+                x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
+                B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,
+                y_sb, y_ss, y_sh,
+                aligned16(x, x_sb, x_ss, x_sh) && P % 8 == 0,
+                aligned16(Bm, B_sb, B_ss, B_sg) &&
+                    aligned16(Cm, C_sb, C_ss, C_sg) && N % 8 == 0,
+                aligned16(y, y_sb, y_ss, y_sh) && P % 8 == 0,
+                reinterpret_cast<uintptr_t>(states) % 16 == 0 && N % 4 == 0};
+  return static_cast<int>(launch_stages(p, B, stages, st));
+}
+
+}  // namespace
+
+// Dynamic shared memory in bytes of one launch of a bf16 stage kernel at
+// this chunk: stage 1 chunk_state, 2 state_passing, 3 chunk_scan; -1 for
+// another stage.
+extern "C" int ssd_scan_smem_bytes(int stage, int chunk) {
+  switch (stage) {
+    case 1: return static_cast<int>(chunk_state_smem(chunk));
+    case 2: return 0;
+    case 3: return static_cast<int>(chunk_scan_smem(chunk));
+    default: return -1;
+  }
+}
+
+#define SSD_ARGS                                                             \
+  const void *x, const void *dt, const void *A, const void *Bm,              \
+      const void *Cm, void *y, void *cum, void *states, int dtype, int B,    \
+      int S, int H, int P, int G, int N, int chunk, long long x_sb,          \
+      long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,      \
+      long long dt_sh, long long B_sb, long long B_ss, long long B_sg,       \
+      long long C_sb, long long C_ss, long long C_sg, long long y_sb,        \
+      long long y_ss, long long y_sh, void *stream
+#define SSD_PASS                                                             \
+  x, dt, A, Bm, Cm, y, cum, states, dtype, B, S, H, P, G, N, chunk, x_sb,    \
+      x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,   \
+      y_sb, y_ss, y_sh, stream
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and A are float32.
 // Strides are in elements; the last dimension of x, B, C and y is
-// contiguous.  Returns a cudaError_t (0 on success).
-extern "C" int ssd_scan_fwd(
-    const void* x, const void* dt, const void* A, const void* Bm,
-    const void* Cm, void* y, int dtype, int B, int S, int H, int P, int G,
-    int N, int chunk, long long x_sb, long long x_ss, long long x_sh,
-    long long dt_sb, long long dt_ss, long long dt_sh, long long B_sb,
-    long long B_ss, long long B_sg, long long C_sb, long long C_ss,
-    long long C_sg, long long y_sb, long long y_ss, long long y_sh,
-    void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
-      P > MAX_P || N <= 0 || N > MAX_N || chunk <= 0 || chunk > MAX_CHUNK ||
-      S % chunk != 0 || (long long)B * H > 0x7fffffffLL)
-    return cudaErrorInvalidValue;
-  const Params p{x,    static_cast<const float*>(dt),
-                 static_cast<const float*>(A), Bm, Cm, y,
-                 S,    H, P, G, N, chunk,
-                 x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
-                 B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,
-                 y_sb, y_ss, y_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return static_cast<int>(launch<float>(p, B, st));
-  if (dtype == 1) return static_cast<int>(launch<__nv_bfloat16>(p, B, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+// contiguous.  cum (b, h, chunks, chunk) and states (b, h, chunks, p, n)
+// are fp32 scratch the caller allocates, used by bf16 only (null for
+// fp32).  Returns a cudaError_t (0 on success).  bf16 launches the three
+// stage kernels in order; fp32 launches ssd_scan_kernel<float>.
+extern "C" int ssd_scan_fwd(SSD_ARGS) { return run(7, SSD_PASS); }
+
+// Each stage alone (bf16 only), with the same arguments, so that a check
+// can hold each against its plain stage function:
+//   chunk_state reads x, dt, A, B and writes cum and states (S_z);
+//   state_passing turns states (S_z) into the entering states in place,
+//     reading cum;
+//   chunk_scan reads x, dt, B, C, cum and the entering states, writes y.
+extern "C" int ssd_scan_chunk_state_fwd(SSD_ARGS) { return run(1, SSD_PASS); }
+extern "C" int ssd_scan_state_passing_fwd(SSD_ARGS) {
+  return run(2, SSD_PASS);
 }
+extern "C" int ssd_scan_chunk_scan_fwd(SSD_ARGS) { return run(4, SSD_PASS); }

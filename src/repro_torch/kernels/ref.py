@@ -136,54 +136,90 @@ def ssd_naive(x, dt, A, B, C, *, initial_state=None):
     return torch.stack(ys, dim=1).to(x.dtype), state
 
 
-def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
-    """Chunked SSD, the parallel form the kernel implements; same shapes and
-    result as ``ssd_naive`` (up to fp error).
-
-    Within a chunk, ``L[i, j] = exp(cum_i - cum_j)`` for j <= i.  The mask is
-    applied *before* the exp, as ``exp(where(causal, li - lj, -inf))``: for
-    j > i the difference is positive and, with real dt over a chunk of 256,
-    large enough for exp to overflow fp32; masking after the exp (as
-    ``repro.kernels.ref.ssd_chunked`` does) gives the same forward but
-    sends ``0 * inf = NaN`` into the gradient."""
-    b, s, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
+def _chunked(t, chunk):
+    """(b, s, ...) -> (b, s // chunk, chunk, ...) in fp32."""
+    b, s = t.shape[:2]
     if s % chunk:
         raise ValueError(f"sequence {s} is not a multiple of chunk {chunk}")
-    nc = s // chunk
-    rep = h // g
+    return t.float().reshape(b, s // chunk, chunk, *t.shape[2:])
 
-    xf = x.float().reshape(b, nc, chunk, h, p)
-    dtf = dt.float().reshape(b, nc, chunk, h)
-    Bh = B.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, h, n)
-    Ch = C.repeat_interleave(rep, dim=2).float().reshape(b, nc, chunk, h, n)
 
+def _per_head(M, h):
+    """B or C (b, s, g, n) -> (b, s, h, n): head h reads group h // (h/g)."""
+    return M.repeat_interleave(h // M.shape[2], dim=2)
+
+
+def ssd_chunk_state(x, dt, A, B, *, chunk: int):
+    """Stage 1 of the chunked scan, per chunk z: ``cum``, the inclusive
+    cumsum of dt * A over the chunk, and the chunk's own addition to the
+    state, ``S_z = (x o dt exp(total - cum))^T B`` with total = cum[-1].
+
+    Returns (cum (b, h, chunks, chunk), S (b, h, chunks, p, n)), both fp32:
+    the layouts of the kernel's scratch."""
+    h = x.shape[2]
+    xf, dtf = _chunked(x, chunk), _chunked(dt, chunk)     # (b,z,c,h[,p])
+    Bh = _chunked(_per_head(B, h), chunk)                  # (b,z,c,h,n)
     cum = torch.cumsum(dtf * A.float()[None, None, None, :], dim=2)
-    total = cum[:, :, -1:, :]                              # (b,nc,1,h)
+    tail = torch.exp(cum[:, :, -1:, :] - cum)              # (b,z,c,h)
+    states = torch.einsum("bzjhn,bzjhp->bhzpn", Bh * tail[..., None],
+                          xf * dtf[..., None])
+    return cum.permute(0, 3, 1, 2), states
 
+
+def ssd_state_passing(states, cum, *, initial_state=None):
+    """Stage 2: the state entering each chunk, in chunk order:
+    ``in_0 = initial`` (0 by default) and
+    ``in_z = in_{z-1} exp(total_{z-1}) + S_{z-1}``.
+
+    states: (b, h, chunks, p, n) from stage 1; cum: (b, h, chunks, chunk).
+    Returns (in (b, h, chunks, p, n), final state (b, h, p, n)), fp32."""
+    b, h, nc, p, n = states.shape
+    decay = torch.exp(cum[..., -1])                        # (b,h,z)
+    state = (torch.zeros((b, h, p, n), dtype=torch.float32,
+                         device=states.device)
+             if initial_state is None else initial_state.float())
+    entering = []
+    for z in range(nc):
+        entering.append(state)
+        state = state * decay[:, :, z, None, None] + states[:, :, z]
+    return torch.stack(entering, dim=2), state
+
+
+def ssd_chunk_scan(x, dt, B, C, cum, entering, *, chunk: int):
+    """Stage 3: y_i = exp(cum_i) C_i in_z^T
+    + sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j within each chunk.
+
+    The causal mask is applied *before* the exp, as
+    ``exp(where(j <= i, cum_i - cum_j, -inf))``: for j > i the difference
+    is positive and, with real dt over a chunk of 256, large enough for exp
+    to overflow fp32; masking after the exp (as
+    ``repro.kernels.ref.ssd_chunked`` does) gives the same forward but sends
+    ``0 * inf = NaN`` into the gradient.  Returns y (b, s, h, p) in x's
+    type."""
+    b, s, h, p = x.shape
+    xf, dtf = _chunked(x, chunk), _chunked(dt, chunk)
+    Bh = _chunked(_per_head(B, h), chunk)
+    Ch = _chunked(_per_head(C, h), chunk)
+    cum = cum.permute(0, 2, 3, 1)                          # (b,z,c,h)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
-    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,i,j,h)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,z,i,j,h)
     L = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
                                    float("-inf")))
-
-    xdt = xf * dtf[..., None]
     scores = torch.einsum("bzihn,bzjhn->bzijh", Ch, Bh) * L
-    y_intra = torch.einsum("bzijh,bzjhp->bzihp", scores, xdt)
+    y_intra = torch.einsum("bzijh,bzjhp->bzihp", scores, xf * dtf[..., None])
+    y_inter = torch.einsum("bzihn,bhzpn->bzihp",
+                           Ch * torch.exp(cum)[..., None], entering)
+    return (y_intra + y_inter).reshape(b, s, h, p).to(x.dtype)
 
-    tail = torch.exp(total - cum)                          # (b,nc,c,h)
-    chunk_state = torch.einsum("bzjhn,bzjhp->bzhpn", Bh * tail[..., None],
-                               xdt)
-    chunk_decay = torch.exp(total[:, :, 0, :])             # (b,nc,h)
-    state = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
-    prev_states = []
-    for z in range(nc):
-        prev_states.append(state)
-        state = state * chunk_decay[:, z, :, None, None] + chunk_state[:, z]
-    prev = torch.stack(prev_states, dim=1)                 # (b,nc,h,p,n)
 
-    y_inter = torch.einsum("bzihn,bzhpn->bzihp",
-                           Ch * torch.exp(cum)[..., None], prev)
-    y = (y_intra + y_inter).reshape(b, s, h, p)
-    return y.to(x.dtype), state
+def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
+    """Chunked SSD, the parallel form the kernel implements; same shapes and
+    result as ``ssd_naive`` (up to fp error): the three stages of the Mamba2
+    paper's chunked algorithm (arXiv:2405.21060), ``ssd_chunk_state`` ->
+    ``ssd_state_passing`` -> ``ssd_chunk_scan``.  Returns (y in x's type,
+    final state (b, h, p, n) fp32)."""
+    cum, states = ssd_chunk_state(x, dt, A, B, chunk=chunk)
+    entering, state = ssd_state_passing(states, cum,
+                                        initial_state=initial_state)
+    return ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk), state

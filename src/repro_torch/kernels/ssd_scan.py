@@ -1,11 +1,15 @@
 """Mamba2 SSD chunked scan: a hand-written CUDA C++ kernel for Hopper, its
 plain PyTorch twin, and its gradient.
 
-The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan.py`` · ``ssd_scan``; its header says what bounds
-it on an H100 and how the design answers that.  It is compiled by nvcc for
-``sm_90a`` at first use (``_build.py``) and called through ctypes on
-PyTorch's current stream.
+The kernels (``csrc/ssd_scan.cu``) replace the Pallas TPU kernel
+``repro/kernels/ssd_scan.py`` · ``ssd_scan``; the source's header says what
+bounds them on an H100 and how the design answers that.  They are compiled
+by nvcc for ``sm_90a`` at first use (``_build.py``) and called through
+ctypes on PyTorch's current stream.  In bf16 one ``ssd_scan_fwd`` call
+launches the three stages of the Mamba2 chunked algorithm (chunk state,
+state passing, chunk scan, the plain ``ref.ssd_chunk_state`` /
+``ssd_state_passing`` / ``ssd_chunk_scan``) on tensor cores, through fp32
+scratch the wrapper allocates; fp32 inputs take the first, scalar kernel.
 
 Why CUDA C++ and not Triton: per chunk the scan is four small matrix
 products with a state carried from one chunk to the next inside the
@@ -13,7 +17,9 @@ program, not a fused elementwise pass or a reduction.
 
 ``ssd_scan`` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; it uses the plain twin (``ref.ssd_chunked``) only
-for tensors on the CPU.  ``ssd_scan.launches`` counts kernel launches.
+for tensors on the CPU.  ``ssd_scan.launches`` counts ``ssd_scan_fwd``
+calls, one per forward, whichever path it takes.  ``run_stage`` launches one
+bf16 stage alone, to hold it against its stage function; it is not counted.
 
 The gradient: when an input requires one, the call goes through
 ``_SSDScan``, whose forward is the kernel and whose backward,
@@ -35,6 +41,10 @@ from repro_torch.kernels import _build, ref
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
+# the bf16 stage kernels' C entries, in the order ssd_scan_fwd runs them
+STAGES = {"chunk_state": "ssd_scan_chunk_state_fwd",
+          "state_passing": "ssd_scan_state_passing_fwd",
+          "chunk_scan": "ssd_scan_chunk_scan_fwd"}
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256):
@@ -56,8 +66,10 @@ def ssd_scan_backward(x, dt, A, B, C, dy, *, chunk: int):
 def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssd_scan_fwd.argtypes = [ptr] * 6 + [i32] * 8 + [i64] * 15 + [ptr]
-    lib.ssd_scan_fwd.restype = ctypes.c_int
+    for entry in ("ssd_scan_fwd", *STAGES.values()):
+        fn = getattr(lib, entry)
+        fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 15 + [ptr]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -89,29 +101,76 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
                          "stride")
 
 
-def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
-    _check(x, dt, A, B, C, chunk)
+def _scratch(x, B, chunk: int):
+    """The bf16 path's fp32 scratch: cum (b, h, chunks, chunk) and the
+    states (b, h, chunks, p, n)."""
+    b, s, h, p = x.shape
+    n = B.shape[3]
+    kw = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((b, h, s // chunk, chunk), **kw),
+            torch.empty((b, h, s // chunk, p, n), **kw))
+
+
+def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int) -> None:
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    dt = dt.float()
-    A = A.float().contiguous()
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ssd_scan_fwd(
+        err = getattr(lib, entry)(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), _DTYPES[x.dtype], b, s, h, p, g, n,
-            chunk, *x.stride()[:3], *dt.stride(), *B.stride()[:3],
-            *C.stride()[:3], *y.stride()[:3], stream)
+            C.data_ptr(), y.data_ptr(),
+            None if cum is None else cum.data_ptr(),
+            None if states is None else states.data_ptr(),
+            _DTYPES[x.dtype], b, s, h, p, g, n, chunk, *x.stride()[:3],
+            *dt.stride(), *B.stride()[:3], *C.stride()[:3], *y.stride()[:3],
+            stream)
     if err:
-        raise RuntimeError(f"ssd_scan: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"ssd_scan: {entry} failed with CUDA error {err}")
+
+
+def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+    _check(x, dt, A, B, C, chunk)
+    dt = dt.float()
+    A = A.float().contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    cum = states = None
+    if x.dtype == torch.bfloat16:
+        cum, states = _scratch(x, B, chunk)
+    _call("ssd_scan_fwd", x, dt, A, B, C, y, cum, states, chunk)
     with _count_lock:
         ssd_scan.launches += 1
     return y
+
+
+def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
+              states=None):
+    """One bf16 stage kernel alone on CUDA tensors, to hold it against its
+    plain stage function in ``ref``; not counted in ``ssd_scan.launches``.
+
+    ``chunk_state`` returns new (cum, states) like ``ref.ssd_chunk_state``;
+    ``state_passing`` returns the states entering each chunk, computed in
+    place on a copy of ``states`` (from stage 1) with ``cum``;
+    ``chunk_scan`` returns y from ``cum`` and the entering ``states``."""
+    if stage not in STAGES:
+        raise ValueError(f"ssd_scan: no stage {stage!r}; one of "
+                         f"{list(STAGES)}")
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("ssd_scan: the stage kernels take bf16 CUDA tensors")
+    _check(x, dt, A, B, C, chunk)
+    dt = dt.float()
+    A = A.float().contiguous()
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    if stage == "chunk_state":
+        cum, states = _scratch(x, B, chunk)
+    elif stage == "state_passing":
+        states = states.contiguous().clone()
+    _call(STAGES[stage], x, dt, A, B, C, y, cum.contiguous(),
+          states.contiguous(), chunk)
+    return {"chunk_state": (cum, states), "state_passing": states,
+            "chunk_scan": y}[stage]
 
 
 def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
