@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card
-and check them.
+"""Drive the PyTorch port's serving, training and data-loading paths on one
+NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -47,7 +47,24 @@ Phases, each printing one JSON line:
    loss's relative difference and the mean gradient-leaf cosine) and in
    fp32 compute (the loss and every gradient leaf's cosine), each against
    a fixed tolerance.
-8. kernels: one line listing every ported kernel with its launches on the
+8. device_edge: 1,024 ImageNet-crop images (224 x 224 x 3 uint8, seed 0)
+   behind a ``LatencyStorage`` (2 ms, 400 MB/s), global batch 64 (38.5 MB
+   of float32), 16 batches through ``DataLoader.stream(to_device=True)``
+   with 4 workers, once with pageable puts and once through the pinned
+   staging ring (``zero_copy``); every delivered CUDA tensor must equal the
+   host batch of the sampler's indices byte for byte.  The edge's bound is
+   the rate of 20 ``non_blocking`` copies of one pinned 38.5 MB buffer.
+9. dpt: Algorithm 1 (``DPT(LoaderEvaluator(loader, to_device=True))``) on
+   the same data, 8 cores x 4 prefetch values, 16 batches a cell: every
+   trial, the pick and its speedup over the default; every trial's window
+   must hold at least 0.9 of its bytes over the bound, and the pick must
+   beat the (G, 1) cell.
+10. train_stream: a DPT-tuned loader over a token dataset (64 x 2048
+   tokens) streams int32 batches through the CUDA edge into four steps of
+   the phase 6 train state: the first batch equals the host batch byte for
+   byte, losses are finite and fall, launches are exactly 48 ssd_scan and
+   97 rmsnorm a step; one streamed step under the profiler.
+11. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -60,6 +77,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -121,6 +139,13 @@ TRAIN_STEPS = 4                          # timed, after one warm-up step
 # where the two paths differ only by the scan's summation order.
 MAX_LOSS_REL = 2e-3
 MIN_GRAD_COSINE = 0.99
+
+# phases 8-9: the device edge and DPT on ImageNet-crop images (224 x 224
+# x 3 uint8, 154 MB raw in host RAM), global batch 64 (38.5 MB of float32
+# a batch), 16 batches a stream and a DPT cell
+EDGE_ITEMS, EDGE_RES, EDGE_BATCH = 1024, 224, 64
+EDGE_STEPS = 16
+EDGE_COPIES = 20                # pinned copies timed for the edge's bound
 
 
 def emit(phase: str, **fields) -> None:
@@ -738,9 +763,10 @@ def serve_path(torch, np, F, modules) -> dict:
     return launches
 
 
-def train_path(torch, np, F, modules) -> dict:
-    """Phases 6-7 at full width.  Returns the launches of the timed
-    steps."""
+def train_path(torch, np, F, modules):
+    """Phases 6-7 at full width.  Returns the launches of the timed steps,
+    the train state and the step function (phase 10 trains on), and the
+    profiled step's idle share."""
     from repro_torch.configs import get_config
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (TrainStepConfig,
@@ -813,11 +839,12 @@ def train_path(torch, np, F, modules) -> dict:
           f"train launches {launches}, the path implies {expect}")
     check(fa.flash_attention.launches == 0, "mamba2 launched attention")
 
-    emit("profile", **profile_phase(
+    prof = profile_phase(
         torch, "train step 4x2048", lambda: step(state, batch),
         expect=("ssd_scan_chunk_state_kernel",
                 "ssd_scan_state_passing_kernel",
-                "ssd_scan_chunk_scan_kernel")))
+                "ssd_scan_chunk_scan_kernel"))
+    emit("profile", **prof)
 
     # remat "full": the same loss as a plain forward on these parameters,
     # and each layer's forward launched again in the backward
@@ -895,6 +922,213 @@ def train_path(torch, np, F, modules) -> dict:
         else:
             check(cos_mean >= MIN_GRAD_COSINE, f"{dtype} mean gradient "
                   f"cosine {cos_mean} < {MIN_GRAD_COSINE}")
+    return launches, state, step, prof["idle_share"]
+
+
+def edge_dataset(tdata, latency_s: float, bandwidth: float, raw):
+    """``raw`` behind a ``LatencyStorage`` (the storage the loader reads)."""
+    return raw.with_storage(tdata.LatencyStorage(
+        raw.storage, latency_s=latency_s, bandwidth=bandwidth))
+
+
+def copy_rate(torch, nbytes: int, *, pinned: bool) -> float:
+    """Bytes per second of 20 back-to-back ``non_blocking`` host-to-device
+    copies of one ``nbytes`` buffer on a stream of their own, between CUDA
+    events: the edge's bound (pinned) or a pageable copy's rate."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned)
+    host.fill_(1)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.Stream()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(stream):
+        dev.copy_(host, non_blocking=True)          # warm-up
+        start.record()
+        for _ in range(EDGE_COPIES):
+            dev.copy_(host, non_blocking=True)
+        end.record()
+    end.synchronize()
+    return EDGE_COPIES * nbytes / (start.elapsed_time(end) / 1e3)
+
+
+def device_edge_path(torch, np, tdata) -> dict:
+    """Phase 8: stream ImageNet-crop batches through the CUDA edge, pageable
+    and through the pinned staging ring, and hold every delivered tensor
+    against the host batch of the same indices, byte for byte.  Returns
+    what the dpt phase reuses."""
+    t0 = time.perf_counter()
+    raw = tdata.synthetic_image_dataset(EDGE_ITEMS, EDGE_RES, seed=0)
+    dataset = edge_dataset(tdata, 2e-3, 400e6, raw)
+    probe = tdata.DataLoader(dataset, EDGE_BATCH, seed=0, device="cuda")
+    per_epoch = probe.sampler.batches_per_epoch(0)
+    expect = [raw.get_batch(probe.sampler.local_indices(*divmod(k, per_epoch)))
+              for k in range(EDGE_STEPS)]
+    setup_s = time.perf_counter() - t0
+    batch_bytes = sum(v.nbytes for v in expect[0].values())
+    rate = copy_rate(torch, batch_bytes, pinned=True)
+    pageable_rate = copy_rate(torch, batch_bytes, pinned=False)
+    runs = []
+    for zero_copy in (False, True):
+        params = tdata.LoaderParams(num_workers=4, device_prefetch=2,
+                                    ordered=True, zero_copy=zero_copy)
+        loader = tdata.DataLoader(dataset, EDGE_BATCH, params=params,
+                                  seed=0, device="cuda")
+        stream = loader.stream(to_device=True)
+        kept = []
+        t0 = time.perf_counter()
+        try:
+            for _ in range(EDGE_STEPS):
+                kept.append(next(stream))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            stream.close()
+        pf = stream._prefetcher
+        staging = pf._staging
+        mismatched = [
+            k for k, (got, want) in enumerate(zip(kept, expect))
+            if got.keys() != want.keys() or any(
+                got[f].device.type != "cuda"
+                or got[f].cpu().numpy().tobytes() != want[f].tobytes()
+                for f in want)]
+        run = dict(zero_copy=zero_copy, batches=len(kept), wall_s=wall,
+                   delivered_gbps=len(kept) * batch_bytes / wall / 1e9,
+                   staging_hit_rate=pf.staging_hit_rate,
+                   retired=staging.retired if staging is not None else 0,
+                   mismatched_batches=mismatched)
+        runs.append(run)
+        del kept
+        check(not mismatched, f"device edge zero_copy={zero_copy}: "
+              f"batches {mismatched} differ from the host batches")
+        check(run["retired"] == 0, f"staging retired {run['retired']}")
+    check(runs[1]["staging_hit_rate"] is not None
+          and runs[1]["staging_hit_rate"] > 0,
+          f"the pinned staging ring was never reused: {runs[1]}")
+    emit("device_edge", items=EDGE_ITEMS, resolution=EDGE_RES,
+         global_batch=EDGE_BATCH, batch_bytes=batch_bytes,
+         dataset_setup_s=setup_s, runs=runs,
+         pinned_copy_gbps=rate / 1e9, pageable_copy_gbps=pageable_rate / 1e9,
+         copies_timed=EDGE_COPIES)
+    return dict(dataset=dataset, batch_bytes=batch_bytes, rate=rate)
+
+
+class Recorded:
+    """An evaluator that keeps every ``TransferStats`` it returns."""
+
+    def __init__(self, evaluator):
+        self.evaluator = evaluator
+        self.stats = []
+
+    def __call__(self, nworker, nprefetch, **kw):
+        stats = self.evaluator(nworker, nprefetch, **kw)
+        self.stats.append(((nworker, nprefetch), stats))
+        return stats
+
+
+def dpt_path(torch, tdata, core, edge) -> None:
+    """Phase 9: DPT's Algorithm 1 over the real loader and the CUDA edge."""
+    loader = tdata.DataLoader(edge["dataset"], EDGE_BATCH, seed=0,
+                              device="cuda")
+    ev = Recorded(core.LoaderEvaluator(loader, to_device=True))
+    cfg = core.DPTConfig(num_cpu_cores=min(8, os.cpu_count() or 1),
+                         num_devices=None, max_prefetch=4,
+                         num_batches=EDGE_STEPS)
+    t0 = time.perf_counter()
+    result = core.DPT(ev, cfg).run()
+    wall = time.perf_counter() - t0
+    n_cores, g = cfg.resolve()
+    trials = [dict(nworker=cell[0], nprefetch=cell[1], seconds=s.seconds,
+                   bytes=s.bytes, bytes_per_second=s.bytes_per_second,
+                   peak_loader_bytes=s.peak_loader_bytes,
+                   least_seconds=s.bytes / edge["rate"])
+              for cell, s in ev.stats]
+    emit("dpt", cores=n_cores, devices=g, max_prefetch=cfg.max_prefetch,
+         num_batches=cfg.num_batches, trials=trials,
+         pick=[result.nworker, result.nprefetch],
+         default=list(core.default_params(n_cores)),
+         default_time=result.default_time,
+         optimal_time=result.optimal_time,
+         speedup_vs_default=result.speedup_vs_default, wall_s=wall,
+         pinned_copy_gbps=edge["rate"] / 1e9)
+    check(g == torch.cuda.device_count(), f"DPT read G = {g} devices")
+    short = [t for t in trials if math.isfinite(t["seconds"])
+             and t["seconds"] < 0.9 * t["least_seconds"]]
+    check(not short, f"trial windows shorter than their copies: {short}")
+    first = [t["seconds"] for t in trials
+             if (t["nworker"], t["nprefetch"]) == (g, 1)]
+    check(first and result.optimal_time < first[0],
+          f"pick {result.optimal_time} s not below the ({g}, 1) cell "
+          f"{first}")
+
+
+def train_stream_path(torch, np, tdata, core, modules, state, step,
+                      synthetic_idle: float) -> dict:
+    """Phase 10: a DPT-tuned token stream through the CUDA edge into the
+    full-width train step.  Returns the launches of the streamed steps."""
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    cfg = state.model.cfg
+    L = cfg.num_layers
+    raw = tdata.token_dataset(64, TRAIN_SEQ, cfg.vocab_size, seed=0)
+    loader = tdata.DataLoader(edge_dataset(tdata, 1e-3, 1e9, raw),
+                              TRAIN_BATCH, seed=0, device="cuda")
+    t0 = time.perf_counter()
+    result = core.DPT(core.LoaderEvaluator(loader, to_device=True),
+                      core.DPTConfig(num_cpu_cores=min(4, os.cpu_count() or 1),
+                                     num_devices=None, max_prefetch=2,
+                                     num_batches=4)).run()
+    tune_s = time.perf_counter() - t0
+    loader.with_params(loader.params.replace(
+        num_workers=result.nworker, prefetch_factor=result.nprefetch))
+    s0 = loader.sampler.state
+    first_expect = raw.get_batch(loader.sampler.local_indices(
+        s0.epoch, s0.batch_offset))
+    stream = loader.stream(to_device=True)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    try:
+        batch = next(stream)
+        check(batch["tokens"].dtype == torch.int32
+              and batch["tokens"].device.type == "cuda",
+              f"streamed tokens {batch['tokens'].dtype} on "
+              f"{batch['tokens'].device}")
+        same = batch.keys() == first_expect.keys() and all(
+            batch[k].cpu().numpy().tobytes() == first_expect[k].tobytes()
+            for k in first_expect)
+        check(same, "the first streamed batch differs from the host batch")
+        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+        fa.flash_attention.launches = 0
+        losses, step_s = [], []
+        for i in range(TRAIN_STEPS):
+            if i:
+                batch = next(stream)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(m["loss"]))
+        launches = {"ssd_scan": ss.ssd_scan.launches,
+                    "rmsnorm": rn.rmsnorm.launches}
+        flash = fa.flash_attention.launches
+        expect = {"ssd_scan": L * TRAIN_STEPS,
+                  "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+        prof = profile_phase(torch, "streamed train step 4x2048",
+                             lambda: step(state, next(stream)),
+                             expect=("ssd_scan_chunk_scan_kernel",))
+    finally:
+        stream.close()
+    emit("profile", **prof)
+    emit("train_stream", arch=cfg.name, batch=[TRAIN_BATCH, TRAIN_SEQ],
+         items=64, tune_s=tune_s, pick=[result.nworker, result.nprefetch],
+         speedup_vs_default=result.speedup_vs_default,
+         tokens_dtype=str(batch["tokens"].dtype), step_s=step_s,
+         tokens_per_s=tokens / (sum(step_s) / len(step_s)),
+         losses=losses, launches=launches, expected_launches=expect,
+         flash_attention_launches=flash, idle_share=prof["idle_share"],
+         synthetic_batch_idle_share=synthetic_idle)
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"streamed loss did not fall: {losses}")
+    check(launches == expect,
+          f"streamed launches {launches}, the path implies {expect}")
+    check(flash == 0, "mamba2 launched attention")
     return launches
 
 
@@ -1032,15 +1266,28 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6-7. the training path at full width ------------------------------
-    train_launches = train_path(torch, np, F, modules)
+    train_launches, state, step, train_idle = train_path(torch, np, F,
+                                                         modules)
 
-    # ---- 8. the kernels line ----------------------------------------------
+    # ---- 8-10. the data plane: device edge, DPT, a tuned stream ------------
+    import repro_torch.core as core
+    import repro_torch.data as tdata
+    edge = device_edge_path(torch, np, tdata)
+    dpt_path(torch, tdata, core, edge)
+    del edge
+    stream_launches = train_stream_path(torch, np, tdata, core, modules,
+                                        state, step, train_idle)
+    del state, step
+
+    # ---- 11. the kernels line ---------------------------------------------
     by_path = {
         "flash_attention": {"serve": serve_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
-                    "train": train_launches["rmsnorm"]},
+                    "train": train_launches["rmsnorm"],
+                    "train_stream": stream_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
-        "ssd_scan": {"train": train_launches["ssd_scan"]},
+        "ssd_scan": {"train": train_launches["ssd_scan"],
+                     "train_stream": stream_launches["ssd_scan"]},
     }
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
                  "rmsnorm_residual": "slice", "ssd_scan": "slice"}

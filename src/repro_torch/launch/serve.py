@@ -31,8 +31,8 @@ def main() -> int:
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
-    from repro_torch.serve.engine import (BatchingFrontend, ServeEngine,
-                                          resolve_device)
+    from repro_torch.serve.engine import BatchingFrontend, ServeEngine
+    from repro_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)

@@ -1,6 +1,6 @@
 """Carry parameters and train states from the JAX package into the port.
 
-``from_jax_params(cfg, tree)`` takes the tree ``repro``'s model builds
+``from_jax_params(cfg, tree, device=...)`` takes the tree ``repro``'s model builds
 (``jax.tree_util.tree_map(np.asarray, model.init(key))``: nested dicts of
 numpy arrays, per-layer leaves stacked on a leading ``(L, ...)`` axis) and
 loads it into the port's ``DecoderLM``, layer by layer: the dense leaves
@@ -33,7 +33,7 @@ def _to_torch(tree):
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-def from_jax_params(cfg: ModelConfig, tree, *, device="cpu",
+def from_jax_params(cfg: ModelConfig, tree, *, device,
                     trainable: bool = False) -> DecoderLM:
     return build_model(cfg, _to_torch(tree), device=device,
                        trainable=trainable)
@@ -58,7 +58,7 @@ def named_from_tree(tree, num_layers: int) -> Dict[str, np.ndarray]:
     return out
 
 
-def from_jax_train_state(cfg: ModelConfig, state, *, device="cpu"):
+def from_jax_train_state(cfg: ModelConfig, state, *, device):
     """A port ``TrainState`` from a JAX ``TrainState`` whose leaves are
     numpy arrays (``jax.tree_util.tree_map(np.asarray, state)``)."""
     model = from_jax_params(cfg, state.params, device=device, trainable=True)

@@ -17,16 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.costs import KeyedCostTracker, percentile
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; raises if it is CUDA and there is
-    no card (the port never falls back to the CPU on its own)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
+from repro_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass

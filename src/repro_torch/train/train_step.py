@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import grad_compress
 from repro_torch.models.lm import DecoderLM, build_model
 from repro_torch.models.module import init_params
-from repro_torch.serve.engine import resolve_device
+from repro_torch.utils.device import resolve_device
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_update, init_adamw)
 

@@ -54,3 +54,51 @@ def jax_and_port(arch: str, seed: int = 0):
 
 def long_tensor(a) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=torch.long)
+
+
+# ---- the data plane: one dataset and loader in each package ---------------
+
+def image_loaders(params=None, *, n: int = 96, res: int = 8, gb: int = 8,
+                  seed: int = 0, latency_s: float = 0.0, fault_spec=None,
+                  shuffle: bool = True):
+    """The same seeded ``synthetic_image_dataset`` and ``LoaderParams`` in
+    both packages: (repro loader, port loader on the CPU).  With
+    ``latency_s`` the items sit behind a ``LatencyStorage``; with
+    ``fault_spec`` (``StorageFaultSpec`` fields) each package wraps them in
+    its own ``FaultyStorage``."""
+    import repro.data as jdata
+    import repro_torch.data as tdata
+
+    out = []
+    for pkg in (jdata, tdata):
+        ds = pkg.synthetic_image_dataset(n, res, seed=seed)
+        storage = ds.storage
+        if latency_s:
+            storage = pkg.LatencyStorage(storage, latency_s=latency_s,
+                                         bandwidth=1e9)
+        if fault_spec is not None:
+            storage = pkg.FaultyStorage(
+                storage, pkg.StorageFaultSpec(**fault_spec))
+        ds = ds.with_storage(storage)
+        kw = {} if pkg is jdata else {"device": "cpu"}
+        out.append(pkg.DataLoader(ds, gb, params=pkg.LoaderParams(
+            **(params or {})), seed=seed, shuffle=shuffle, **kw))
+    return tuple(out)
+
+
+def host_copy(batch) -> dict:
+    """A delivered batch (numpy, JAX or torch fields) as private numpy
+    arrays, taken at once (a zero-copy slab is recycled later)."""
+    return {k: (v.numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)).copy() for k, v in batch.items()}
+
+
+def same_bytes(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(
+        a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+        and a[k].tobytes() == b[k].tobytes() for k in a)
+
+
+def batch_key(batch: dict) -> bytes:
+    """One batch's bytes, field by field in name order (for multisets)."""
+    return b"".join(k.encode() + batch[k].tobytes() for k in sorted(batch))

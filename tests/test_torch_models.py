@@ -149,9 +149,10 @@ def test_torch_convert_rejects_a_mismatched_tree():
     tree = jax.tree_util.tree_map(np.asarray, params)
     cfg = reduced(get_config("qwen2-0.5b"))
     with pytest.raises(ValueError, match="mismatch"):      # no qk-norm leaves
-        from_jax_params(reduced(get_config("qwen3-1.7b")), tree)
+        from_jax_params(reduced(get_config("qwen3-1.7b")), tree, device="cpu")
     with pytest.raises(ValueError, match="shape"):
-        from_jax_params(dataclasses.replace(cfg, d_ff=96), tree)
+        from_jax_params(dataclasses.replace(cfg, d_ff=96), tree,
+                        device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "granite-moe-3b-a800m",

@@ -195,7 +195,12 @@ from repro_torch.kernels import (_build, flash_attention, ops, ref, rmsnorm,
 from repro_torch.models import (DecoderLM, build_model, convert, layers, ssm,
                                 stack)
 from repro_torch.models.module import init_params
-from repro_torch.data import costs
+from repro_torch.data import (arena, cache, costs, dataset, faults, loader,
+                              prefetcher, sampler, storage, worker_pool)
+from repro_torch.core import dpt, evaluators, monitor, simulator
+from repro_torch.tuning import base, strategies
+from repro_torch.utils import device, fingerprint
+import repro_torch.core, repro_torch.data, repro_torch.tuning, repro_torch.utils
 from repro_torch.distributed import grad_compress
 from repro_torch.serve.engine import BatchingFrontend, ServeEngine
 from repro_torch.train import optimizer, train_step
@@ -215,6 +220,18 @@ tokens = torch.zeros((2, 12), dtype=torch.long)
 state, m = train_step.make_train_step(state.model, tcfg)(
     state, {"tokens": tokens, "targets": tokens})
 assert state.opt.step == 1 and bool(torch.isfinite(m["loss"])), m
+# Algorithm 1 on the simulator, and one real trial through the CPU edge
+sim = simulator.LoaderSimulator(storage.cifar10_profile(),
+                                simulator.MachineProfile())
+res = dpt.DPT(evaluators.SimulatorEvaluator(sim, batch_size=32),
+              dpt.DPTConfig(num_cpu_cores=4, num_devices=1, max_prefetch=2,
+                            num_batches=8)).run()
+assert len(res.trials) >= 8 and res.nworker >= 1, res
+dl = loader.DataLoader(dataset.synthetic_image_dataset(32, 8), 8,
+                       params=loader.LoaderParams(zero_copy=True),
+                       device="cpu")
+stats = dl.measure_transfer_time(3, to_device=True)
+assert stats.batches == 3 and stats.staging_hit_rate is not None, stats
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 print("ok")
 """
@@ -239,7 +256,9 @@ def test_torch_port_imports_neither_jax_nor_repro():
     port = ROOT / "src" / "repro_torch"
     for module in ("models/ssm.py", "train/optimizer.py",
                    "train/train_step.py", "distributed/grad_compress.py",
-                   "kernels/ssd_scan.py"):
+                   "kernels/ssd_scan.py", "data/prefetcher.py",
+                   "data/loader.py", "core/dpt.py", "tuning/base.py",
+                   "utils/fingerprint.py"):
         assert port / module in files, module
     for f in files:
         for mod in _imports(f):

@@ -201,7 +201,8 @@ def test_torch_loss_and_grads_match_jax(pair):
     (jloss, jmetrics), jgrads = jax.jit(jax.value_and_grad(
         lambda p: jmodel.loss(p, jb, remat_policy="none"),
         has_aux=True))(pair["params"])
-    model = from_jax_params(pair["port_cfg"], pair["tree"], trainable=True)
+    model = from_jax_params(pair["port_cfg"], pair["tree"], device="cpu",
+                            trainable=True)
     assert all(p.requires_grad and p.dtype == torch.float32
                for p in model.parameters())
     loss, metrics = model.loss(tb, remat_policy="none")
@@ -251,7 +252,7 @@ def _jax_step(pair, tcfg_kw):
 def _port_step(pair, before, tcfg_kw):
     tcfg = tts.TrainStepConfig(optimizer=topt.AdamWConfig(**STEP_OPT),
                                **tcfg_kw)
-    state = from_jax_train_state(pair["port_cfg"], before)
+    state = from_jax_train_state(pair["port_cfg"], before, device="cpu")
     _, tb = _batch(pair["cfg"], seed=3)
     step = tts.make_train_step(state.model, tcfg)
     return step(state, tb)
@@ -319,7 +320,8 @@ def test_torch_remat_policies_give_the_same_step(pair, policy):
 
 
 def test_torch_run_stack_rejects_an_unknown_policy(pair):
-    model = from_jax_params(pair["port_cfg"], pair["tree"], trainable=True)
+    model = from_jax_params(pair["port_cfg"], pair["tree"], device="cpu",
+                            trainable=True)
     _, tb = _batch(pair["cfg"])
     with pytest.raises(ValueError, match="remat_policy"):
         model.loss(tb, remat_policy="everything")
