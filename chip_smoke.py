@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and data-loading paths on one
-NVIDIA card and check them.
+"""Drive the PyTorch port's serving, training and data-loading paths and
+its Trainer on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
@@ -64,7 +64,23 @@ Phases, each printing one JSON line:
    the phase 6 train state: the first batch equals the host batch byte for
    byte, losses are finite and fall, launches are exactly 48 ssd_scan and
    97 rmsnorm a step; one streamed step under the profiler.
-11. kernels: one line listing every ported kernel with its launches on the
+11. hot_swap: the OnlineTuner's act step on the live CUDA edge: a stream
+   of 16 ImageNet-crop batches starts at (2 workers, prefetch 2) and
+   ``apply_params`` swaps in (4, 3) after batch 5; every delivered tensor
+   equals the host batch of its position byte for byte, the positions
+   cover the epoch exactly once, and the stream's second pool has the new
+   params.
+12. trainer: ``Trainer`` on full-width mamba2-780m (phase 6's state is
+   released first) over phase 10's token data, DPT cache and checkpoints
+   in a temporary directory removed at the end.  Run A trains 4 steps
+   straight (DPT runs and fills the cache); B1 trains 2 steps and saves a
+   blocking checkpoint (9.36 GB in ``repro``'s on-disk layout); B2 resumes
+   it and trains to step 4, saving asynchronously at step 3 during step
+   4's compute.  B1 and B2 tune from the cache (no trial, A's pick); B2
+   starts at step 2 with every restored leaf bit-equal to B1's live state;
+   B2's losses within 2e-3 of A's; launches exactly 48 ssd_scan and 97
+   rmsnorm a step.  Free disk for three checkpoints is checked first.
+13. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -146,6 +162,14 @@ MIN_GRAD_COSINE = 0.99
 EDGE_ITEMS, EDGE_RES, EDGE_BATCH = 1024, 224, 64
 EDGE_STEPS = 16
 EDGE_COPIES = 20                # pinned copies timed for the edge's bound
+HOT_SWAP_AFTER = 5              # phase 11: batches before apply_params
+
+# phase 12: the Trainer on the phase 10 token data.  Run A takes 4 steps,
+# B1 2 and B2 the last 2 from B1's checkpoint; B2's losses must be A's to
+# within this (the same init, batches and steps from a bit-equal restore:
+# what differs is the order of atomic adds on the card).
+TRAINER_STEPS = 4
+TRAINER_LOSS_ATOL = 2e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -1009,7 +1033,8 @@ def device_edge_path(torch, np, tdata) -> dict:
          dataset_setup_s=setup_s, runs=runs,
          pinned_copy_gbps=rate / 1e9, pageable_copy_gbps=pageable_rate / 1e9,
          copies_timed=EDGE_COPIES)
-    return dict(dataset=dataset, batch_bytes=batch_bytes, rate=rate)
+    return dict(dataset=dataset, batch_bytes=batch_bytes, rate=rate,
+                expect=expect)
 
 
 class Recorded:
@@ -1129,6 +1154,232 @@ def train_stream_path(torch, np, tdata, core, modules, state, step,
     check(launches == expect,
           f"streamed launches {launches}, the path implies {expect}")
     check(flash == 0, "mamba2 launched attention")
+    return launches
+
+
+def hot_swap_path(torch, np, tdata, edge) -> dict:
+    """Phase 11: the OnlineTuner's act step on the live CUDA edge.  A
+    stream of ImageNet-crop batches starts at (2 workers, prefetch 2); after
+    batch 5 ``apply_params`` swaps in (4, 3).  Every delivered tensor must
+    equal the host batch of the sampler's indices for its position, byte
+    for byte; the indices of the 16 positions cover one epoch exactly once;
+    the stream's pools have the old and then the new params."""
+    expect = edge["expect"]
+    old = tdata.LoaderParams(num_workers=2, prefetch_factor=2)
+    new = old.replace(num_workers=4, prefetch_factor=3)
+    loader = tdata.DataLoader(edge["dataset"], EDGE_BATCH, params=old,
+                              seed=0, device="cuda")
+    per_epoch = loader.sampler.batches_per_epoch(0)
+    indices = np.concatenate([loader.sampler.local_indices(
+        *divmod(k, per_epoch)) for k in range(EDGE_STEPS)])
+    # record the (workers, prefetch) of every pool the stream builds
+    pools, make_pool = [], loader._pool
+
+    def recorded_pool(*args, **kw):
+        pool, monitor = make_pool(*args, **kw)
+        pools.append([pool.num_workers, pool.prefetch_factor])
+        return pool, monitor
+
+    loader._pool = recorded_pool
+    stream = loader.stream(to_device=True)
+    kept = []
+    t0 = time.perf_counter()
+    try:
+        for k in range(EDGE_STEPS):
+            kept.append(next(stream))
+            if k == HOT_SWAP_AFTER - 1:
+                loader.apply_params(new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        stream.close()
+    mismatched = [
+        k for k, (got, want) in enumerate(zip(kept, expect))
+        if got.keys() != want.keys() or any(
+            got[f].device.type != "cuda"
+            or got[f].cpu().numpy().tobytes() != want[f].tobytes()
+            for f in want)]
+    del kept
+    n_items = len(edge["dataset"])
+    emit("hot_swap", batches=EDGE_STEPS, swap_after=HOT_SWAP_AFTER,
+         old=[old.num_workers, old.prefetch_factor],
+         new=[new.num_workers, new.prefetch_factor], pools=pools,
+         swaps=stream.swaps, wall_s=wall, mismatched_batches=mismatched,
+         indices=int(indices.size), distinct_indices=int(
+             np.unique(indices).size), dataset_items=n_items)
+    check(not mismatched, f"hot swap: batches {mismatched} differ from "
+          "the host batches of their positions")
+    check(sorted(indices.tolist()) == list(range(n_items)),
+          "hot swap: the 16 positions do not cover the epoch exactly once")
+    check(stream.swaps == 1, f"hot swap: {stream.swaps} swaps, expected 1")
+    check(pools == [[2, 2], [4, 3]], f"hot swap: pools {pools}")
+    check(loader.params == new, f"hot swap: params {loader.params}")
+    return dict(wall_s=wall)
+
+
+def trainer_path(torch, np, tdata, modules) -> dict:
+    """Phase 12: the Trainer at full width, full depth: startup DPT tune,
+    the DPT cache, the OnlineTuner and checkpoint/restart in ``repro``'s
+    on-disk layout.  Three runs: A straight (4 steps), B1 (2 steps, a
+    blocking checkpoint at step 2), B2 (resumes B1's checkpoint; an async
+    checkpoint at step 3 written during step 4's compute, a blocking one at
+    step 4).  Returns the launches of the eight steps."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+
+    cfg = get_config(TRAIN_ARCH)
+    raw = tdata.token_dataset(64, TRAIN_SEQ, cfg.vocab_size, seed=0)
+    dataset = edge_dataset(tdata, 1e-3, 1e9, raw)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # the masters and both AdamW moments, fp32
+    ckpt_bytes = 3 * 4 * cfg.param_count()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+
+    def make(steps, checkpoint_dir=None):
+        tc = TrainerConfig(
+            total_steps=steps, log_every=1, checkpoint_every=3,
+            checkpoint_dir=checkpoint_dir, seed=0, autotune=True,
+            autotune_strategy="grid", autotune_budget_batches=4,
+            autotune_max_prefetch=2,
+            autotune_num_cpu_cores=min(4, os.cpu_count() or 1),
+            dpt_cache_path=os.path.join(workdir, "dpt.json"),
+            step_config=TrainStepConfig(
+                remat_policy="none",
+                optimizer=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                      total_steps=100)))
+        loader = tdata.DataLoader(dataset, TRAIN_BATCH, seed=0,
+                                  device="cuda")
+        return Trainer(cfg, loader, tc, device="cuda")
+
+    def summary(tr):
+        steps = [r for r in tr.history if "loss" in r]
+        ot = tr.online_tuner
+        return dict(pick=[tr.loader.params.num_workers,
+                          tr.loader.params.prefetch_factor],
+                    tune_s=tr.tune_s, tune_trials=tr.tune_trials,
+                    start_step=tr.start_step,
+                    losses=[r["loss"] for r in steps],
+                    step_s=[r["step_s"] for r in steps],
+                    data_s=[r["data_s"] for r in steps],
+                    tokens_per_s=[tokens / r["step_s"] for r in steps],
+                    stall_ratio=ot.stall_ratio, retunes=ot.retunes,
+                    retune_history=ot.history,
+                    straggler_medians=tr.straggler.medians())
+
+    ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+    fa.flash_attention.launches = 0
+    try:
+        # ---- A: straight, no checkpoint; DPT runs and fills the cache ----
+        tr = make(TRAINER_STEPS)
+        tr.run()
+        a = summary(tr)
+        a_params = {k: p.detach().cpu() for k, p in tr.state.params.items()}
+        del tr
+        torch.cuda.empty_cache()
+
+        # ---- B1: two steps, a blocking checkpoint at step 2 ---------------
+        ckdir = os.path.join(workdir, "ckpt")
+        free = shutil.disk_usage(workdir).free
+        if free < 3 * ckpt_bytes:
+            raise RuntimeError(
+                f"chip_smoke: {free / 1e9:.2f} GB free under {workdir}, the "
+                f"trainer phase keeps three checkpoints of "
+                f"{ckpt_bytes / 1e9:.2f} GB ({3 * ckpt_bytes / 1e9:.2f} GB)")
+        b1 = make(TRAINER_STEPS // 2, ckdir)
+        b1.run()
+        b1_sum = summary(b1)
+        on_disk = sum(os.path.getsize(os.path.join(r, f))
+                      for r, _, fs in os.walk(ckdir) for f in fs)
+
+        # ---- B2: resume B1's checkpoint; compare before training ----------
+        b2 = make(TRAINER_STEPS, ckdir)
+        held = [b1.state]                # only this reference remains
+        b1.state = b1.step_fn = None
+        restored = {}
+        restore = b2._maybe_restore
+
+        def compare(live, got):
+            pairs = [("params", live.params, got.params),
+                     ("mu", live.opt.mu, got.opt.mu),
+                     ("nu", live.opt.nu, got.opt.nu)]
+            unequal = [f"{kind}:{k}" for kind, x, y in pairs for k in x
+                       if not torch.equal(x[k], y[k])]
+            return dict(leaves=sum(len(x) for _, x, _ in pairs) + 1,
+                        unequal=unequal[:5], n_unequal=len(unequal),
+                        step=[live.opt.step, got.opt.step])
+
+        def restore_and_compare():
+            restore()
+            restored.update(compare(held[0], b2.state),
+                            restore_s=b2.checkpointer.restore_s)
+            held.clear()                 # B1's state leaves the card
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        b2._maybe_restore = restore_and_compare
+        b2.run()
+        b2_sum = summary(b2)
+        peak = torch.cuda.max_memory_allocated()
+        saves = b1.checkpointer.saves + b2.checkpointer.saves
+        param_diff = max(
+            float((p.detach() - a_params[k].to(p.device)).abs().max())
+            for k, p in b2.state.params.items())
+        del b1, b2, a_params
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = {"ssd_scan": ss.ssd_scan.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    flash = fa.flash_attention.launches
+    L = cfg.num_layers
+    n_steps = 2 * TRAINER_STEPS           # A, then B1 and B2 between them
+    expect = {"ssd_scan": L * n_steps, "rmsnorm": (2 * L + 1) * n_steps}
+    loss_diff = [abs(x - y) for x, y in
+                 zip(a["losses"][TRAINER_STEPS // 2:], b2_sum["losses"])]
+    emit("trainer", arch=cfg.name, batch=[TRAIN_BATCH, TRAIN_SEQ],
+         items=64, remat_policy="none",
+         a=a, b1=b1_sum, b2=b2_sum,
+         tune_s=a["tune_s"], cache_hit_tune_s=[b1_sum["tune_s"],
+                                               b2_sum["tune_s"]],
+         b2_step_with_async_save_s=b2_sum["step_s"][-1],
+         checkpoint_gb=ckpt_bytes / 1e9, checkpoint_bytes_on_disk=on_disk,
+         free_disk_gb_before_saves=free / 1e9,
+         saves=[dict(r, snapshot_gbps=ckpt_bytes / r["snapshot_s"] / 1e9,
+                     write_gbps=ckpt_bytes / r["write_s"] / 1e9)
+                for r in saves], restore=restored,
+         restore_gbps=ckpt_bytes / restored["restore_s"] / 1e9,
+         loss_diff_a_b2=loss_diff, max_loss_diff=TRAINER_LOSS_ATOL,
+         max_param_diff_a_b2=param_diff, peak_mem_bytes=peak,
+         launches=launches, expected_launches=expect,
+         flash_attention_launches=flash)
+    check(a["tune_trials"] > 0, f"A did not run DPT: {a['tune_trials']}")
+    for name, run in (("B1", b1_sum), ("B2", b2_sum)):
+        check(run["tune_trials"] == 0 and run["pick"] == a["pick"],
+              f"{name} did not tune from the cache: {run['tune_trials']} "
+              f"trials, pick {run['pick']} against A's {a['pick']}")
+    check(b2_sum["start_step"] == TRAINER_STEPS // 2,
+          f"B2 resumed at {b2_sum['start_step']}")
+    check(restored["n_unequal"] == 0
+          and restored["step"] == [TRAINER_STEPS // 2] * 2,
+          f"restored state differs from B1's: {restored}")
+    check(all(np.isfinite(a["losses"] + b1_sum["losses"] + b2_sum["losses"])),
+          "non-finite loss")
+    check(len(b2_sum["losses"]) == TRAINER_STEPS // 2
+          and max(loss_diff) <= TRAINER_LOSS_ATOL,
+          f"B2's losses {b2_sum['losses']} against A's {a['losses']}")
+    check(launches == expect,
+          f"trainer launches {launches}, the path implies {expect}")
+    check(flash == 0, "mamba2 launched attention")
+    check(math.isfinite(param_diff), f"A - B2 params: {param_diff}")
+    check([r["step"] for r in saves] == [TRAINER_STEPS // 2, 3,
+                                         TRAINER_STEPS],
+          f"checkpoints saved at steps {[r['step'] for r in saves]}")
     return launches
 
 
@@ -1274,20 +1525,27 @@ def main() -> int:
     import repro_torch.data as tdata
     edge = device_edge_path(torch, np, tdata)
     dpt_path(torch, tdata, core, edge)
-    del edge
     stream_launches = train_stream_path(torch, np, tdata, core, modules,
                                         state, step, train_idle)
-    del state, step
+    del state, step                # room for two 780M states in phase 12
+    torch.cuda.empty_cache()
 
-    # ---- 11. the kernels line ---------------------------------------------
+    # ---- 11-12. a hot swap on the live edge; the Trainer -------------------
+    hot_swap_path(torch, np, tdata, edge)
+    del edge
+    trainer_launches = trainer_path(torch, np, tdata, modules)
+
+    # ---- 13. the kernels line ---------------------------------------------
     by_path = {
         "flash_attention": {"serve": serve_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "train": train_launches["rmsnorm"],
-                    "train_stream": stream_launches["rmsnorm"]},
+                    "train_stream": stream_launches["rmsnorm"],
+                    "trainer": trainer_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"train": train_launches["ssd_scan"],
-                     "train_stream": stream_launches["ssd_scan"]},
+                     "train_stream": stream_launches["ssd_scan"],
+                     "trainer": trainer_launches["ssd_scan"]},
     }
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
                  "rmsnorm_residual": "slice", "ssd_scan": "slice"}

@@ -1,7 +1,7 @@
 """DPT core package.  Imports are lazy to avoid data<->core import cycles
 (data.loader uses core.monitor; core.dpt uses data.loader).  ``repro``'s
-``DPTCache``, ``search``, ``FleetResult`` and ``MultiHostDPT`` are not
-ported yet."""
+``search``, ``FleetResult`` and ``MultiHostDPT`` belong to the fleet control
+plane and are not ported yet."""
 import importlib
 
 _EXPORTS = {
@@ -18,6 +18,7 @@ _EXPORTS = {
     "SimResult": "repro_torch.core.simulator",
     "LoaderEvaluator": "repro_torch.core.evaluators",
     "SimulatorEvaluator": "repro_torch.core.evaluators",
+    "DPTCache": "repro_torch.core.cache",
 }
 
 

@@ -1,9 +1,13 @@
 """repro_torch.tuning — the unified tuning layer, as ported to PyTorch.
 
 ``tune(evaluator=..., strategy=..., config=...)`` is the single front door
-to every search policy (see ``base.py``).  Strategy implementations live in
-``strategies.py`` and self-register; third-party strategies register the
-same way::
+to every search policy (see ``base.py``); ``OnlineTuner`` turns tuning into
+a continuous background activity against a live, hot-swappable DataLoader
+(``online.py``: split into observe/decide/act components), and
+``locality.py`` holds the online locality, cache and slow-lane sweeps and
+the counter-driven ``AdaptiveLocalityController``.  Strategy
+implementations live in ``strategies.py`` and self-register; third-party
+strategies register the same way::
 
     from repro_torch.tuning import register_strategy
 
@@ -11,9 +15,8 @@ same way::
     class MyPolicy:
         def tune(self, recorder, **kwargs): ...
 
-``repro``'s online tuner, locality sweeps, transport and fleet control
-plane (``online``, ``locality``, ``transport``, ``fleet``) are not ported
-yet.
+``repro``'s transport and fleet control plane (``transport``, ``fleet``)
+are not ported yet.
 """
 from repro_torch.tuning.base import (  # noqa: F401
     TrialRecorder,
@@ -34,4 +37,21 @@ from repro_torch.tuning.strategies import (  # noqa: F401
     SuccessiveHalving,
     WarmstartHillClimb,
     cost_model_warmstart,
+)
+from repro_torch.tuning.locality import (  # noqa: F401
+    AdaptiveLocalityConfig,
+    AdaptiveLocalityController,
+    cache_win,
+    locality_win,
+    slow_lane_win,
+    sweep_cache,
+    sweep_locality,
+    sweep_slow_lanes,
+)
+from repro_torch.tuning.online import (  # noqa: F401
+    GoodputMonitor,
+    OnlineTuner,
+    OnlineTunerConfig,
+    RetuneExecutor,
+    RetunePolicy,
 )

@@ -197,14 +197,19 @@ from repro_torch.models import (DecoderLM, build_model, convert, layers, ssm,
 from repro_torch.models.module import init_params
 from repro_torch.data import (arena, cache, costs, dataset, faults, loader,
                               prefetcher, sampler, storage, worker_pool)
+from repro_torch.core import cache as dpt_cache
 from repro_torch.core import dpt, evaluators, monitor, simulator
-from repro_torch.tuning import base, strategies
+from repro_torch.tuning import base, locality, online, strategies
 from repro_torch.utils import device, fingerprint
 import repro_torch.core, repro_torch.data, repro_torch.tuning, repro_torch.utils
-from repro_torch.distributed import grad_compress
+from repro_torch.core import DPTCache
+from repro_torch.tuning import AdaptiveLocalityController, OnlineTuner
+from repro_torch.distributed import fault_tolerance, grad_compress
+from repro_torch.checkpoint import Checkpointer, checkpointer
 from repro_torch.serve.engine import BatchingFrontend, ServeEngine
-from repro_torch.train import optimizer, train_step
+from repro_torch.train import optimizer, train_step, trainer
 from repro_torch.launch import serve
+from repro_torch.launch import train as train_launcher
 cfg = reduced(get_config("qwen2-0.5b"))
 params = init_params(DecoderLM.param_specs(cfg), torch.Generator().manual_seed(0))
 eng = ServeEngine(build_model(cfg, params, device="cpu"), max_batch=2,
@@ -232,6 +237,17 @@ dl = loader.DataLoader(dataset.synthetic_image_dataset(32, 8), 8,
                        device="cpu")
 stats = dl.measure_transfer_time(3, to_device=True)
 assert stats.batches == 3 and stats.staging_hit_rate is not None, stats
+# the Trainer: two steps of reduced qwen2 with a checkpoint in repro's layout
+import tempfile
+ckdir = tempfile.mkdtemp()
+qcfg = reduced(get_config("qwen2-0.5b"))
+tr = trainer.Trainer(qcfg, loader.DataLoader(
+    dataset.token_dataset(16, 8, qcfg.vocab_size), 4,
+    params=loader.LoaderParams(num_workers=0), device="cpu"),
+    trainer.TrainerConfig(total_steps=2, autotune=False, checkpoint_dir=ckdir),
+    device="cpu")
+assert tr.run()["final_step"] == 2
+assert Checkpointer(ckdir).latest_step() == 2
 assert not any(m == "repro" or m.startswith("repro.") for m in sys.modules)
 print("ok")
 """
@@ -258,7 +274,11 @@ def test_torch_port_imports_neither_jax_nor_repro():
                    "train/train_step.py", "distributed/grad_compress.py",
                    "kernels/ssd_scan.py", "data/prefetcher.py",
                    "data/loader.py", "core/dpt.py", "tuning/base.py",
-                   "utils/fingerprint.py"):
+                   "utils/fingerprint.py", "core/cache.py",
+                   "tuning/online.py", "tuning/locality.py",
+                   "distributed/fault_tolerance.py",
+                   "checkpoint/checkpointer.py", "train/trainer.py",
+                   "launch/train.py"):
         assert port / module in files, module
     for f in files:
         for mod in _imports(f):
