@@ -1,7 +1,7 @@
 """DPT core package.  Imports are lazy to avoid data<->core import cycles
 (data.loader uses core.monitor; core.dpt uses data.loader).  ``repro``'s
-``search``, ``FleetResult`` and ``MultiHostDPT`` belong to the fleet control
-plane and are not ported yet."""
+``FleetResult`` and ``MultiHostDPT`` belong to the fleet control plane and
+are not ported yet."""
 import importlib
 
 _EXPORTS = {
@@ -19,10 +19,13 @@ _EXPORTS = {
     "LoaderEvaluator": "repro_torch.core.evaluators",
     "SimulatorEvaluator": "repro_torch.core.evaluators",
     "DPTCache": "repro_torch.core.cache",
+    "search": "repro_torch.core",
 }
 
 
 def __getattr__(name):
+    if name == "search":
+        return importlib.import_module("repro_torch.core.search")
     if name in _EXPORTS:
         mod = importlib.import_module(_EXPORTS[name])
         return getattr(mod, name)

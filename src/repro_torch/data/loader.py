@@ -8,8 +8,8 @@ Hot-swap: ``DataLoader.apply_params`` reconfigures a *running* stream.
 batch the pool already pulled is delivered; the stateful ShardedSampler is
 never rewound) and restarts with the new (nWorker, nPrefetch) — zero
 batches lost or duplicated.  This is what lets an online tuner
-(``repro.tuning.online``; not ported yet) retune mid-training instead of
-only as a preamble.
+(``repro_torch.tuning.online``) retune mid-training instead of only as a
+preamble.
 
 ``device`` (default ``"cuda"``) is where ``stream()`` and
 ``measure_transfer_time`` deliver with ``to_device=True``; the loader

@@ -215,6 +215,7 @@ cudaError_t launch(const Params& p, int D, dim3 grid, cudaStream_t stream) {
     case 24: flash_fwd_kernel<T, 24><<<grid, THREADS, 0, stream>>>(p); break;
     case 32: flash_fwd_kernel<T, 32><<<grid, THREADS, 0, stream>>>(p); break;
     case 64: flash_fwd_kernel<T, 64><<<grid, THREADS, 0, stream>>>(p); break;
+    case 96: flash_fwd_kernel<T, 96><<<grid, THREADS, 0, stream>>>(p); break;
     case 128: flash_fwd_kernel<T, 128><<<grid, THREADS, 0, stream>>>(p); break;
     default: return cudaErrorInvalidValue;
   }
@@ -497,6 +498,7 @@ cudaError_t launch_mma(const Params& p, int B, int D, cudaStream_t stream) {
     case 16: return launch_mma_t<16>(p, B, stream);
     case 32: return launch_mma_t<32>(p, B, stream);
     case 64: return launch_mma_t<64>(p, B, stream);
+    case 96: return launch_mma_t<96>(p, B, stream);
     case 128: return launch_mma_t<128>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -511,6 +513,7 @@ extern "C" int flash_attention_smem_bytes(int D) {
     case 16: return mma_smem_bytes<16>();
     case 32: return mma_smem_bytes<32>();
     case 64: return mma_smem_bytes<64>();
+    case 96: return mma_smem_bytes<96>();
     case 128: return mma_smem_bytes<128>();
     default: return -1;
   }

@@ -76,11 +76,19 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // physical 16-byte chunk of logical chunk ch in row r of a tile whose rows
 // hold COLS bf16 (COLS / 8 chunks): the eight rows an 8x8 matrix spans get
-// eight distinct bank groups whatever the row length
+// eight distinct bank groups whatever the row length.  The XOR stays inside
+// the row: rows of a multiple of 8 chunks XOR by r & 7; rows of 12 (head
+// dim 96, a row 48 words long, so consecutive rows start 0 or 4 bank groups
+// apart) XOR chunks 0-7 by r & 7 and chunks 8-11 among themselves by
+// (r >> 1) & 3, which also gives eight rows eight distinct bank groups.
 template <int COLS>
 __device__ __forceinline__ int swizzle(int r, int ch) {
   constexpr int CPR = COLS / 8;
-  if constexpr (CPR >= 8) return ch ^ (r & 7);
+  static_assert(CPR % 8 == 0 || CPR == 12 || CPR <= 4,
+                "no swizzle for this row length");
+  if constexpr (CPR == 12)
+    return ch < 8 ? ch ^ (r & 7) : 8 + ((ch - 8) ^ ((r >> 1) & 3));
+  else if constexpr (CPR >= 8) return ch ^ (r & 7);
   else if constexpr (CPR == 4) return ch ^ ((r >> 1) & 3);
   else if constexpr (CPR == 2) return ch ^ ((r >> 2) & 1);
   else return ch;

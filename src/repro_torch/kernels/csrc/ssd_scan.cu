@@ -6,8 +6,12 @@
 //   y_intra = ((C B^T) o L) (x dt),  L[i,j] = exp(cum_i - cum_j), j <= i
 //   y_inter = (C o exp(cum)) state^T
 //   state  <- state exp(cum_last) + (x dt)^T (B o exp(cum_last - cum))
-// with the (p, n) state in fp32, carried from chunk to chunk.  y only: the
-// final state is not returned, as on the TPU.
+// with the (p, n) state in fp32, carried from chunk to chunk.  When the
+// caller passes a final_state buffer (b, h, p, n) fp32, the state after the
+// last chunk is stored there too: prefill hands it to the decode
+// recurrence.  The TPU kernel returns y only (the JAX package's prefill
+// takes its jnp chunked path for the state); here both paths write it from
+// what they already hold, at the cost of one (p, n) store per (b, h).
 //
 // What bounds it on an H100.  At mamba2-780m's training shape (b=4,
 // s=2048, h=48, p=64, g=1, n=128, chunk 256, bf16) the function needs
@@ -117,6 +121,7 @@ struct Params {
   const void* B;
   const void* C;
   void* y;
+  float* final_state;  // (b, h, P, N) or null
   int S, H, P, G, N, chunk;
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
@@ -348,6 +353,14 @@ __global__ void __launch_bounds__(THREADS) ssd_scan_kernel(Params p) {
     }
     __syncthreads();
   }
+  // the state after the last chunk (complete behind the barrier above)
+  if (p.final_state != nullptr) {
+    float* fs = p.final_state + (long long)blockIdx.x * P * N;
+    for (int e = tid; e < P * N; e += THREADS) {
+      const int r = e / N, k = e - r * N;
+      fs[e] = s_state[r * NS + k];
+    }
+  }
 }
 
 size_t smem_bytes(int P, int N, int chunk) {
@@ -401,6 +414,7 @@ struct StageParams {
   __nv_bfloat16* y;
   float* cum;     // (b, h, chunks, chunk): inclusive cumsum of dt * A
   float* states;  // (b, h, chunks, P, N): S_z from stage 1, in_z after 2
+  float* final_state;  // (b, h, P, N) or null: written by stage 2
   int S, H, P, G, N, chunk, nc;
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
@@ -563,6 +577,9 @@ __global__ void __launch_bounds__(CS_THREADS, CS_MINB)
 // in_z = in_{z-1} exp(total_{z-1}) + S_{z-1}.  Elementwise, bytes-bound:
 // each thread owns 4 consecutive elements and loads SP_BATCH chunks' worth
 // before it stores any, so the loads of a batch are in flight together.
+// After the last chunk run[] holds in_{nc-1} exp(total_{nc-1}) + S_{nc-1},
+// the final state, which the in-place overwrite leaves nowhere else: it is
+// stored to final_state when the caller asks for it.
 constexpr int SP_BATCH = 8;
 __global__ void __launch_bounds__(SP_THREADS)
     ssd_scan_state_passing_kernel(const StageParams p) {
@@ -604,6 +621,17 @@ __global__ void __launch_bounds__(SP_THREADS)
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) run[i] = run[i] * decay[k] + s[k][i];
+    }
+  }
+  if (p.final_state != nullptr) {
+    float* out = p.final_state + (long long)bh * PN + e0;
+    if (vec && reinterpret_cast<uintptr_t>(p.final_state) % 16 == 0) {
+      *reinterpret_cast<float4*>(out) =
+          make_float4(run[0], run[1], run[2], run[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (i < n) out[i] = run[i];
     }
   }
 }
@@ -906,7 +934,8 @@ namespace {
 // kernel, from the arguments of ssd_scan_fwd.
 int run(int stages, const void* x, const void* dt, const void* A,
         const void* Bm, const void* Cm, void* y, void* cum, void* states,
-        int dtype, int B, int S, int H, int P, int G, int N, int chunk,
+        void* final_state, int dtype, int B, int S, int H, int P, int G,
+        int N, int chunk,
         long long x_sb, long long x_ss, long long x_sh, long long dt_sb,
         long long dt_ss, long long dt_sh, long long B_sb, long long B_ss,
         long long B_sg, long long C_sb, long long C_ss, long long C_sg,
@@ -920,6 +949,7 @@ int run(int stages, const void* x, const void* dt, const void* A,
   if (dtype == 0 && stages == 7) {
     const Params p{x,    static_cast<const float*>(dt),
                    static_cast<const float*>(A), Bm, Cm, y,
+                   static_cast<float*>(final_state),
                    S,    H, P, G, N, chunk,
                    x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
                    B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,
@@ -937,6 +967,7 @@ int run(int stages, const void* x, const void* dt, const void* A,
                 static_cast<__nv_bfloat16*>(y),
                 static_cast<float*>(cum),
                 static_cast<float*>(states),
+                static_cast<float*>(final_state),
                 S, H, P, G, N, chunk, S / chunk,
                 x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh,
                 B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,
@@ -965,30 +996,33 @@ extern "C" int ssd_scan_smem_bytes(int stage, int chunk) {
 
 #define SSD_ARGS                                                             \
   const void *x, const void *dt, const void *A, const void *Bm,              \
-      const void *Cm, void *y, void *cum, void *states, int dtype, int B,    \
-      int S, int H, int P, int G, int N, int chunk, long long x_sb,          \
+      const void *Cm, void *y, void *cum, void *states, void *final_state,   \
+      int dtype, int B, int S, int H, int P, int G, int N, int chunk,        \
+      long long x_sb,                                                        \
       long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,      \
       long long dt_sh, long long B_sb, long long B_ss, long long B_sg,       \
       long long C_sb, long long C_ss, long long C_sg, long long y_sb,        \
       long long y_ss, long long y_sh, void *stream
 #define SSD_PASS                                                             \
-  x, dt, A, Bm, Cm, y, cum, states, dtype, B, S, H, P, G, N, chunk, x_sb,    \
-      x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg, C_sb, C_ss, C_sg,   \
-      y_sb, y_ss, y_sh, stream
+  x, dt, A, Bm, Cm, y, cum, states, final_state, dtype, B, S, H, P, G, N,   \
+      chunk, x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg, C_sb,  \
+      C_ss, C_sg, y_sb, y_ss, y_sh, stream
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C and y); dt and A are float32.
 // Strides are in elements; the last dimension of x, B, C and y is
 // contiguous.  cum (b, h, chunks, chunk) and states (b, h, chunks, p, n)
 // are fp32 scratch the caller allocates, used by bf16 only (null for
-// fp32).  Returns a cudaError_t (0 on success).  bf16 launches the three
-// stage kernels in order; fp32 launches ssd_scan_kernel<float>.
+// fp32).  final_state (b, h, p, n), contiguous fp32, receives the state
+// after the last chunk, or is null when the caller needs y only.  Returns
+// a cudaError_t (0 on success).  bf16 launches the three stage kernels in
+// order; fp32 launches ssd_scan_kernel<float>.
 extern "C" int ssd_scan_fwd(SSD_ARGS) { return run(7, SSD_PASS); }
 
 // Each stage alone (bf16 only), with the same arguments, so that a check
 // can hold each against its plain stage function:
 //   chunk_state reads x, dt, A, B and writes cum and states (S_z);
 //   state_passing turns states (S_z) into the entering states in place,
-//     reading cum;
+//     reading cum, and writes final_state if it is not null;
 //   chunk_scan reads x, dt, B, C, cum and the entering states, writes y.
 extern "C" int ssd_scan_chunk_state_fwd(SSD_ARGS) { return run(1, SSD_PASS); }
 extern "C" int ssd_scan_state_passing_fwd(SSD_ARGS) {

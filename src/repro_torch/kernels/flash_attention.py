@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-HEAD_DIMS = (16, 24, 32, 64, 128)
+HEAD_DIMS = (16, 24, 32, 64, 96, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 

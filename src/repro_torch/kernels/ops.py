@@ -1,14 +1,19 @@
 """Kernel entry points the models call, routed by the tensor's device.
 
 * A CUDA tensor goes to the hand-written kernel (``flash_attention``,
-  ``rmsnorm``, ``rmsnorm_residual``, ``ssd_scan``), which launches or
-  raises; nothing falls back.
+  ``rmsnorm``, ``rmsnorm_residual``, ``ssd_scan``, and for prefill
+  ``ssd_scan_state``, the same kernel writing its final state too), which
+  launches or raises; nothing falls back.
 * A CPU tensor goes to the plain PyTorch version (``ref.py``), with the
   chunked attention for sequences of 1024 or more, so peak memory stays
   O(block * T).
 * Ragged attention (explicit positions, a valid-length bound, a softcap or
   sinks) has no kernel on either backend and goes to ``ref.mha`` on every
   device, as in the JAX package.  That covers all of decode.
+* The one-token SSD recurrence of decode (``ssd_step``) is plain PyTorch
+  on every device, as the JAX package computes it outside any Pallas
+  kernel: a few elementwise ops and two small contractions per layer,
+  bound by reading and writing the (b, h, p, n) fp32 state.
 """
 from __future__ import annotations
 
@@ -55,11 +60,11 @@ def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-6):
     return _rn.rmsnorm_residual(x, residual, scale, eps=eps)
 
 
-def ssd(x, dt, A, B, C, *, chunk: int = 256):
-    """Chunked SSD scan (training / prefill); shapes as ``ssd_scan``.  A
-    sequence that is not a multiple of the chunk is zero-padded at its end
-    (dt = 0 there, so the padding neither decays nor feeds the state) and
-    the output cut back."""
+def _pad_to_chunk(x, dt, B, C, chunk: int):
+    """Zero-pad the sequence to a multiple of the chunk (at most the
+    sequence).  dt = 0 on the padding gives exp(0 * A) = 1, no decay, and
+    adds nothing to the state, so the padding neither changes y on the
+    real steps nor the state after them.  Returns (x, dt, B, C, chunk)."""
     s = x.shape[1]
     chunk = min(chunk, s)
     pad = (-s) % chunk
@@ -68,5 +73,29 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
         B = F.pad(B, (0, 0, 0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, 0, 0, pad))
         dt = F.pad(dt, (0, 0, 0, pad))
-    y = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
-    return y[:, :s] if pad else y
+    return x, dt, B, C, chunk
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 256):
+    """Chunked SSD scan (training / prefill); shapes as ``ssd_scan``.  A
+    sequence that is not a multiple of the chunk is padded
+    (``_pad_to_chunk``) and the output cut back."""
+    s = x.shape[1]
+    x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+    return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)[:, :s]
+
+
+def ssd_prefill(x, dt, A, B, C, *, chunk: int = 256):
+    """The SSD scan of a prompt with its final state, for prefill -> decode:
+    (y (b,s,h,p), state (b,h,p,n) fp32), padded as ``ssd`` pads.  A CUDA
+    tensor runs the kernel, which writes the state itself."""
+    s = x.shape[1]
+    x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+    y, state = _ssd.ssd_scan_state(x, dt, A, B, C, chunk=chunk)
+    return y[:, :s], state
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """One decode token of the SSD recurrence: (y (b,h,p), new state).
+    Plain PyTorch on every device (see the module docstring)."""
+    return _ref.ssd_step(state, x, dt, A, B, C)

@@ -223,3 +223,19 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
     entering, state = ssd_state_passing(states, cum,
                                         initial_state=initial_state)
     return ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk), state
+
+
+def ssd_step(state, x, dt, A, B, C):
+    """One token of the SSD recurrence (decode).  state: (b, h, p, n) fp32;
+    x: (b, h, p); dt: (b, h); A: (h,); B, C: (b, g, n).  Returns (y (b, h,
+    p) in x's type, new state (b, h, p, n) fp32)."""
+    h = x.shape[1]
+    rep = h // B.shape[1]
+    Bh = B.repeat_interleave(rep, dim=1).float()            # (b,h,n)
+    Ch = C.repeat_interleave(rep, dim=1).float()
+    dtf = dt.float()
+    decay = torch.exp(dtf * A.float()[None, :])
+    state = state * decay[..., None, None] + torch.einsum(
+        "bhp,bhn->bhpn", x.float() * dtf[..., None], Bh)
+    y = torch.einsum("bhpn,bhn->bhp", state, Ch)
+    return y.to(x.dtype), state

@@ -17,9 +17,14 @@ program, not a fused elementwise pass or a reduction.
 
 ``ssd_scan`` launches the kernel for CUDA tensors and raises on anything
 the kernel does not take; it uses the plain twin (``ref.ssd_chunked``) only
-for tensors on the CPU.  ``ssd_scan.launches`` counts ``ssd_scan_fwd``
-calls, one per forward, whichever path it takes.  ``run_stage`` launches one
-bf16 stage alone, to hold it against its stage function; it is not counted.
+for tensors on the CPU.  ``ssd_scan_state`` is the same for prefill: it
+also returns the state after the last chunk, which the kernel writes into
+a buffer the wrapper allocates (the TPU kernel returns y only; the JAX
+package's prefill takes its jnp chunked path instead).  No gradient flows
+through it: serving only.  ``ssd_scan.launches`` counts the
+``ssd_scan_fwd`` calls of both, one per forward, bf16 or fp32; the CPU
+path counts none.  ``run_stage`` launches one bf16 stage alone, to hold it
+against its stage function; it is not counted.
 
 The gradient: when an input requires one, the call goes through
 ``_SSDScan``, whose forward is the kernel and whose backward,
@@ -52,6 +57,11 @@ def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256):
     return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)[0]
 
 
+def ssd_scan_state_plain(x, dt, A, B, C, *, chunk: int = 256):
+    """The plain twin of ``ssd_scan_state``: (y, final state)."""
+    return ref.ssd_chunked(x, dt, A, B, C, chunk=chunk)
+
+
 def ssd_scan_backward(x, dt, A, B, C, dy, *, chunk: int):
     """Gradients of ``sum(y * dy)`` for x, dt, A, B and C, by recomputing y
     through ``ref.ssd_chunked`` (masked before its exp, so finite at any
@@ -68,7 +78,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for entry in ("ssd_scan_fwd", *STAGES.values()):
         fn = getattr(lib, entry)
-        fn.argtypes = [ptr] * 8 + [i32] * 8 + [i64] * 15 + [ptr]
+        fn.argtypes = [ptr] * 9 + [i32] * 8 + [i64] * 15 + [ptr]
         fn.restype = ctypes.c_int
     return lib
 
@@ -111,7 +121,10 @@ def _scratch(x, B, chunk: int):
             torch.empty((b, h, s // chunk, p, n), **kw))
 
 
-def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int) -> None:
+def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int,
+          final=None) -> None:
+    """One C entry.  ``final``: a contiguous fp32 (b, h, p, n) buffer for
+    the state after the last chunk, or None."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     lib = _library()
@@ -122,6 +135,7 @@ def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int) -> None:
             C.data_ptr(), y.data_ptr(),
             None if cum is None else cum.data_ptr(),
             None if states is None else states.data_ptr(),
+            None if final is None else final.data_ptr(),
             _DTYPES[x.dtype], b, s, h, p, g, n, chunk, *x.stride()[:3],
             *dt.stride(), *B.stride()[:3], *C.stride()[:3], *y.stride()[:3],
             stream)
@@ -129,20 +143,29 @@ def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int) -> None:
         raise RuntimeError(f"ssd_scan: {entry} failed with CUDA error {err}")
 
 
-def _launch(x, dt, A, B, C, chunk: int) -> torch.Tensor:
+def _launch(x, dt, A, B, C, chunk: int, *, with_state: bool = False):
+    """Launch ``ssd_scan_fwd``: y, or (y, final state) ``with_state``."""
     _check(x, dt, A, B, C, chunk)
     dt = dt.float()
     A = A.float().contiguous()
+    b, _, h, p = x.shape
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    # its own contiguous buffer, apart from the states scratch (which has a
+    # chunk axis and is overwritten in place); torch's allocation keeps it
+    # 16-byte aligned for the kernel's vector stores
+    final = (torch.empty((b, h, p, B.shape[3]), dtype=torch.float32,
+                         device=x.device) if with_state else None)
     if y.numel() == 0:
-        return y
+        if final is not None:
+            final.zero_()
+        return (y, final) if with_state else y
     cum = states = None
     if x.dtype == torch.bfloat16:
         cum, states = _scratch(x, B, chunk)
-    _call("ssd_scan_fwd", x, dt, A, B, C, y, cum, states, chunk)
+    _call("ssd_scan_fwd", x, dt, A, B, C, y, cum, states, chunk, final)
     with _count_lock:
         ssd_scan.launches += 1
-    return y
+    return (y, final) if with_state else y
 
 
 def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
@@ -151,8 +174,9 @@ def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
     plain stage function in ``ref``; not counted in ``ssd_scan.launches``.
 
     ``chunk_state`` returns new (cum, states) like ``ref.ssd_chunk_state``;
-    ``state_passing`` returns the states entering each chunk, computed in
-    place on a copy of ``states`` (from stage 1) with ``cum``;
+    ``state_passing`` returns (the states entering each chunk, computed in
+    place on a copy of ``states`` (from stage 1) with ``cum``, and the
+    final state);
     ``chunk_scan`` returns y from ``cum`` and the entering ``states``."""
     if stage not in STAGES:
         raise ValueError(f"ssd_scan: no stage {stage!r}; one of "
@@ -163,13 +187,17 @@ def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
     dt = dt.float()
     A = A.float().contiguous()
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    final = None
     if stage == "chunk_state":
         cum, states = _scratch(x, B, chunk)
     elif stage == "state_passing":
         states = states.contiguous().clone()
+        b, _, h, p = x.shape
+        final = torch.empty((b, h, p, B.shape[3]), dtype=torch.float32,
+                            device=x.device)
     _call(STAGES[stage], x, dt, A, B, C, y, cum.contiguous(),
-          states.contiguous(), chunk)
-    return {"chunk_state": (cum, states), "state_passing": states,
+          states.contiguous(), chunk, final)
+    return {"chunk_state": (cum, states), "state_passing": (states, final),
             "chunk_scan": y}[stage]
 
 
@@ -204,3 +232,19 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256) -> torch.Tensor:
 
 
 ssd_scan.launches = 0
+
+
+def ssd_scan_state(x, dt, A, B, C, *, chunk: int = 256):
+    """``ssd_scan`` that also returns the state after the last chunk, for
+    prefill: (y (b,s,h,p) in x's type, state (b,h,p,n) fp32).  The kernel
+    writes both on CUDA (counted in ``ssd_scan.launches``); the plain twin
+    computes them on the CPU.  No gradient: serving only."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (x, dt, A, B, C)):
+        raise NotImplementedError("ssd_scan_state has no backward: it "
+                                  "serves prefill only")
+    if x.device.type == "cpu":
+        return ssd_scan_state_plain(x, dt, A, B, C, chunk=chunk)
+    return _launch(x, dt, A, B, C, chunk, with_state=True)

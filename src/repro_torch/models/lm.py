@@ -3,8 +3,9 @@ decode step and cache.
 
 The counterpart of ``repro/models/lm.py`` (``cross_entropy``,
 ``DecoderLM``, ``build_model``) for dense configs (qwen2-0.5b, qwen3-1.7b,
-yi-34b, mistral-large-123b) and the SSM family (mamba2-780m, training
-only: its decode cache waits for the SSM serving slice).  The model is an
+yi-34b, mistral-large-123b) and the SSM family (mamba2-780m), in training
+and in serving (a K/V cache for the dense family, the conv tail and SSD
+state for the SSM family).  The model is an
 ``nn.Module`` holding its parameters: a ``ModuleList`` of per-layer
 parameter dicts where JAX scans over stacked leaves.  Other families raise
 ``NotImplementedError``.
@@ -124,31 +125,35 @@ class DecoderLM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch, cache):
         """Run the prompt, fill the cache, return last-position logits
-        (B,1,V).  K/V are collected in the same pass over the layers and
+        (B,1,V).  Each layer's cache leaves (K/V, or the SSM's conv tail and
+        final state) are collected in the same pass over the layers and
         written into ``cache`` in place; the cache is also returned."""
         cfg = self.cfg
-        stk.check_family(cfg, ("dense",))
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = ll.embed(self.embed, cfg, tokens)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
-        write = min(S, cache["k"].shape[2])
         for i, p in enumerate(self.layers):
-            x, k, v = stk.block(p, cfg, x, positions=positions)
-            cache["k"][i, :, :write] = k[:, :write]
-            cache["v"][i, :, :write] = v[:, :write]
+            x, leaves = stk.block(p, cfg, x, positions=positions,
+                                  ssm_state=True)
+            for name, t in leaves.items():
+                if name in ("k", "v"):
+                    write = min(S, cache[name].shape[2])
+                    cache[name][i, :, :write] = t[:, :write]
+                else:
+                    cache[name][i] = t
         h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
         return ll.unembed(self.embed, cfg, h[:, None]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
-        """tokens: (B,1); positions: (B,) absolute positions.  Writes this
-        step's K/V into ``cache`` in place.  Returns (logits, cache)."""
+        """tokens: (B,1); positions: (B,) absolute positions (unused by the
+        SSM family).  Writes this step's K/V, or each SSM layer's conv tail
+        and state, into ``cache`` in place.  Returns (logits, cache)."""
         cfg = self.cfg
-        stk.check_family(cfg, ("dense",))
         x = ll.embed(self.embed, cfg, tokens)
         for i, p in enumerate(self.layers):
-            layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+            layer_cache = {name: t[i] for name, t in cache.items()}
             x = stk.decode_block(p, cfg, x, layer_cache, positions=positions)
         x = ll.norm(self.final_norm, x, cfg)
         return ll.unembed(self.embed, cfg, x), cache

@@ -3,8 +3,10 @@
 The counterpart of the dense and SSM subsets of ``repro/models/stack.py``.
 JAX scans one block over stacked parameters; here the model keeps a
 ``ModuleList`` of per-layer parameter dicts and loops over it
-(``run_stack``, ``lm.py``).  The MoE, hybrid and cross-attention branches
-are not ported yet and raise; the SSM family has no decode cache yet.
+(``run_stack``, ``lm.py``).  The decode cache holds K/V for the dense
+family and the conv tail and SSD state for the SSM family, under JAX's
+leaf names.  The MoE, hybrid and cross-attention branches and the ring
+(sliding-window) cache are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ PORTED_FAMILIES = ("dense", "ssm")
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
     """Raise ``NotImplementedError`` unless cfg's family is in ``families``
-    (the decode cache covers only the dense family so far)."""
+    (training and the decode cache both cover the dense and SSM
+    families)."""
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet here; "
@@ -43,18 +46,23 @@ def stack_param_specs(cfg: ModelConfig):
     return stack_specs(block_specs(cfg), cfg.num_layers)
 
 
-def block(p, cfg: ModelConfig, x, *, positions, causal: bool = True):
-    """One full-sequence layer.  Returns (x, k, v), with k and v the
-    layer's post-rotary keys and values for the decode cache (None for the
-    SSM family, which has no attention)."""
+def block(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
+          ssm_state: bool = False):
+    """One full-sequence layer.  Returns (x, leaves): this layer's decode
+    cache leaves under the cache's names, the post-rotary ``k`` and ``v``
+    for the dense family, and for the SSM family ``ssm_conv`` and
+    ``ssm_state`` if ``ssm_state`` (prefill) or none."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
-        return x + ssm_mod.ssm(p["ssm"], cfg, h), None, None
+        if not ssm_state:
+            return x + ssm_mod.ssm(p["ssm"], cfg, h), {}
+        y, c = ssm_mod.ssm(p["ssm"], cfg, h, return_state=True)
+        return x + y, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=cfg.sliding_window)
     x = x + attn_y
     h2 = ll.norm(p["ln2"], x, cfg)
-    return x + ll.mlp(p["mlp"], cfg, h2), k, v
+    return x + ll.mlp(p["mlp"], cfg, h2), {"k": k, "v": v}
 
 
 # matmuls without batch dims: what JAX's checkpoint_dots_with_no_batch_dims
@@ -96,8 +104,16 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
 
 
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions):
-    """One decode layer; writes this step's K/V into ``cache_layer``."""
+    """One decode layer; writes this step's K/V, or the SSM's new conv tail
+    and state, into ``cache_layer`` (views of the stacked cache)."""
     h = ll.norm(p["ln1"], x, cfg)
+    if cfg.family == "ssm":
+        y, c = ssm_mod.ssm_decode(
+            p["ssm"], cfg, h,
+            {"conv": cache_layer["ssm_conv"], "state": cache_layer["ssm_state"]})
+        cache_layer["ssm_conv"].copy_(c["conv"])
+        cache_layer["ssm_state"].copy_(c["state"])
+        return x + y
     x = x + ll.attention_decode(p["attn"], cfg, h, cache_layer,
                                 positions=positions,
                                 window=cfg.sliding_window)
@@ -112,14 +128,26 @@ def use_ring_cache(cfg: ModelConfig) -> bool:
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16) -> Dict[str, Tuple[tuple, torch.dtype]]:
-    """Shapes and dtypes of the stacked decode cache (leading dim = layers).
-    bf16 by default, whatever the compute dtype, as in JAX."""
-    check_family(cfg, ("dense",))
-    if use_ring_cache(cfg):
-        raise NotImplementedError("the ring (sliding-window) cache is not "
-                                  "ported yet")
-    kvshape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": (kvshape, kv_dtype), "v": (kvshape, kv_dtype)}
+    """Shapes and dtypes of the stacked decode cache (leading dim = layers):
+    K/V (``kv_dtype``, bf16 by default whatever the compute dtype, as in
+    JAX) for a family with attention; ``ssm_conv`` (bf16) and
+    ``ssm_state`` (fp32) for one with an SSM, whose size does not depend on
+    ``max_len``."""
+    check_family(cfg)
+    L = cfg.num_layers
+    out = {}
+    if cfg.uses_attention:
+        if use_ring_cache(cfg):
+            raise NotImplementedError("the ring (sliding-window) cache is "
+                                      "not ported yet")
+        kvshape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        out["k"] = (kvshape, kv_dtype)
+        out["v"] = (kvshape, kv_dtype)
+    if cfg.ssm_state_dim:
+        shapes = ssm_mod.ssm_cache_shapes(cfg, batch)
+        out["ssm_conv"] = ((L,) + shapes["conv"][0], shapes["conv"][1])
+        out["ssm_state"] = ((L,) + shapes["state"][0], shapes["state"][1])
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,

@@ -55,7 +55,9 @@ def machine_fingerprint(*, cpu_count: int | None = None,
     if device_count is None:
         import torch
 
-        device_count = torch.cuda.device_count()
+        # at least 1, as ``repro`` counts the CPU device of a host without
+        # an accelerator: a DPT cache entry keys the same in both packages
+        device_count = max(1, torch.cuda.device_count())
     if host_ram_bytes is None:
         try:
             host_ram_bytes = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")

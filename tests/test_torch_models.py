@@ -159,9 +159,11 @@ def test_torch_convert_rejects_a_mismatched_tree():
                                   "hymba-1.5b", "whisper-large-v3",
                                   "phi-3-vision-4.2b"])
 def test_torch_unported_families_raise(arch):
-    """Families the port does not cover raise at build time; the SSM
-    family trains, and its decode cache (init_cache, prefill, decode_step)
-    still raises."""
+    """Families the port does not cover raise at build time.  The SSM
+    family is ported in training and serving: its decode cache holds JAX's
+    ``ssm_conv`` / ``ssm_state`` leaves and no K/V, and prefill and
+    decode_step run (tests/test_torch_ssm_serve.py holds them against
+    ``repro``)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
@@ -171,12 +173,13 @@ def test_torch_unported_families_raise(arch):
                              torch.Generator().manual_seed(0))
         model = build_model(cfg, params, device="cpu")
         tokens = torch.zeros((1, 4), dtype=torch.long)
-        with pytest.raises(NotImplementedError):
-            model.init_cache(1, 8)
-        with pytest.raises(NotImplementedError):
-            model.prefill({"tokens": tokens}, {})
-        with pytest.raises(NotImplementedError):
-            model.decode_step({}, tokens[:, :1], torch.zeros(1, dtype=torch.long))
+        cache = model.init_cache(1, 8)
+        assert set(cache) == {"ssm_conv", "ssm_state"}
+        logits, cache = model.prefill({"tokens": tokens}, cache)
+        logits, cache = model.decode_step(
+            cache, tokens[:, :1], torch.full((1,), 4, dtype=torch.long))
+        assert logits.shape == (1, 1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
         return
     with pytest.raises(NotImplementedError):
         build_model(cfg, {}, device="cpu")

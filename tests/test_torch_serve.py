@@ -198,7 +198,7 @@ from repro_torch.models.module import init_params
 from repro_torch.data import (arena, cache, costs, dataset, faults, loader,
                               prefetcher, sampler, storage, worker_pool)
 from repro_torch.core import cache as dpt_cache
-from repro_torch.core import dpt, evaluators, monitor, simulator
+from repro_torch.core import dpt, evaluators, monitor, search, simulator
 from repro_torch.tuning import base, locality, online, strategies
 from repro_torch.utils import device, fingerprint
 import repro_torch.core, repro_torch.data, repro_torch.tuning, repro_torch.utils
@@ -278,7 +278,7 @@ def test_torch_port_imports_neither_jax_nor_repro():
                    "tuning/online.py", "tuning/locality.py",
                    "distributed/fault_tolerance.py",
                    "checkpoint/checkpointer.py", "train/trainer.py",
-                   "launch/train.py"):
+                   "launch/train.py", "core/search.py"):
         assert port / module in files, module
     for f in files:
         for mod in _imports(f):
