@@ -18,9 +18,12 @@ Phases, each printing one JSON line:
    with its time, the twin's, one PyTorch library call's where one
    computes the same function (a yardstick the port never calls) and the
    least time the card could take (``bound_ms``); flash also at
-   phi-3-vision's head dim 96 (``d96``); the SSD scan also with its final
-   state through ``ops.ssd_prefill`` at the serving prefill shapes (8 x 512
-   and 4 x 300, padded), y and the state each held to its own tolerance
+   phi-3-vision's head dim 96 (``d96``) and at the MoE paths' prefills
+   (``granite``; ``mixtral_window``, where SDPA takes the window as an
+   explicit mask; every row names the backend SDPA picked); the SSD scan
+   also with its final state through ``ops.ssd_prefill`` at the serving
+   prefill shapes (8 x 512 and 4 x 300, padded), y and the state each
+   held to its own tolerance
    and timed against the y-only scan; and each bf16 stage kernel of the
    SSD scan (chunk state, state passing with the final state, chunk scan)
    against its plain stage function, timed alone (``ssd_stage`` lines).
@@ -47,6 +50,25 @@ Phases, each printing one JSON line:
    and the forced tokens, both through the kernels, to the same
    tolerances, in fp32 and, at the prompt's last position and the first
    decode step of every sequence, in bf16 on the served model.
+6b. serve_moe: phases 4-5 for full-width, full-depth granite-moe-3b-a800m
+   (32 layers, d_model 1536, 24 / 8 heads of 64, 40 experts of 512, top
+   8, capacity 1.25): exactly 32 flash launches a prefill batch and 65
+   rmsnorm a forward; each profile line also splits the MoE layers'
+   device time between routing and dispatch and the three batched expert
+   products (``moe_split``).  Then ``plain_moe``: the kernels against the
+   plain twins in fp32 compute to phase 5's bounds, in bf16 by distance
+   to an fp32 plain reference against the plain bf16 path's own (an
+   rmsnorm with a coarser output must fail that bound), and the route
+   agreement of the two paths, layer by layer.
+6c. serve_ring: mixtral-8x22b at published widths and depth 2, dropless
+   (``RING_REDUCED`` says why), two prompts of 4,608 tokens through the
+   frontend: flash with window 4,096 at head dim 128 (2 launches a
+   prefill), a K/V ring of 4,096 slots that wraps at prefill and again in
+   decode.  ``ring_vs_full``: each ring slot holds the K of its position,
+   and prefill + decode equals one full-sequence forward (4,640
+   positions) in fp32 at every position and in bf16 at the handoff; the
+   fp32 full forward through the kernels equals the one through the plain
+   twins to phase 5's bounds.
 7. train: full-width mamba2-780m, bf16 compute with fp32 masters and
    AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
    tokens made from the seed, through ``init_train_state`` ->
@@ -141,10 +163,25 @@ MIN_TOP1 = 0.9
 # phase 6 (mamba2) holds its kernels against the plain twins in fp32
 # compute to those bounds, and in bf16 compute holds the kernel path's mean
 # logit cosine to an fp32 plain reference within this margin of the plain
-# bf16 path's own, which is about 0.97 on an NVIDIA H100 80GB HBM3 at 700 W
-# (random weights at 48 layers amplify bf16 rounding, PERF.md section 6):
-# a third of the plain path's own distance from 1.
-SSM_BF16_MARGIN = 0.01
+# bf16 path's own, which is about 0.97 for mamba2 on an NVIDIA H100 80GB
+# HBM3 at 700 W (random weights at 48 layers amplify bf16 rounding,
+# PERF.md section 6): a third of the plain path's own distance from 1.
+BF16_MARGIN = 0.01
+# the MoE phase's bf16 bound, by distance (1 - mean cosine) to the fp32
+# plain reference: the kernel path's at most MOE_BF16_RATIO times the plain
+# bf16 path's own, plus MOE_BF16_SLACK.  On granite the plain path sits
+# 1.35e-3 to 1.46e-3 from fp32 and the kernel path 1.19e-3 to 1.29e-3
+# (NVIDIA H100 80GB HBM3, 700 W), so mamba2's margin of 0.01 would pass a
+# kernel path seven times farther.  The ratio leaves room for the run-to-
+# run route flips of index_add's unordered atomics.  The same distance is
+# read for the kernel path with one kernel's output rounded to fewer of
+# bf16's 7 mantissa bits (kernel, bits); the last must fail the bound: an
+# rmsnorm keeping 3 bits read 4.6e-3 against a bound of 2.2e-3, 4 bits
+# 2.6e-3 and 5 bits 1.9e-3, a flash keeping 3 bits 2.5e-3 and 4 bits 1.5e-3
+# (7 of every 8 logits checked are decode steps, where flash does not run)
+MOE_BF16_RATIO, MOE_BF16_SLACK = 1.5, 1e-4
+MOE_FAULTS = (("rmsnorm", 5), ("flash_attention", 3), ("rmsnorm", 4),
+              ("rmsnorm", 3))
 # phase 6's bf16 handoff on the served model: the prompt's last position
 # to MIN_COSINE, the first decode step to this.  The step runs the fp32
 # recurrence and GEMMs of 8 rows where the full forward runs the chunk
@@ -179,6 +216,24 @@ TOL_SSD = {"bfloat16": (2e-2, 4e-3), "float32": (1e-3, 1e-4)}
 
 # phase 6: full-width SSM serving workload, the same REQUESTS
 SSM_ARCH = "mamba2-780m"
+
+# phase 6b: full-width, full-depth MoE serving workload, the same REQUESTS;
+# its logit checks force the first MOE_FORCED answered tokens (decode is
+# host-bound at ~0.15 s a step, and eight forced runs of 32 steps would
+# add ~30 s to the script)
+MOE_ARCH = "granite-moe-3b-a800m"
+MOE_FORCED = 8
+
+# phase 6c: mixtral's ring cache at published widths, cut in depth; two
+# prompts longer than the 4,096-token window, so the ring wraps at prefill
+# and again in decode
+RING_ARCH = "mixtral-8x22b"
+RING_BATCH, RING_PROMPT = 2, 4608
+RING_REDUCED = {
+    "num_layers": "56 -> 2 (281 GB of bf16 weights do not fit one 80 GB "
+                  "card)",
+    "capacity_factor": "1.25 -> 8 (dropless, so that prefill + decode can "
+                       "equal one full-sequence forward)"}
 
 # phases 7-8: full-width training workload
 TRAIN_ARCH = "mamba2-780m"
@@ -281,6 +336,11 @@ KERNEL_GROUPS = (
     ("ssd_scan", ("ssd_scan",)),
     ("flash_attention", ("flash_",)),
     ("rmsnorm (Triton)", ("rmsnorm",)),
+    # sorts and top-k (MoE routing's argsort and top-k; the scatters,
+    # gathers and index_add_ stay under elementwise, and moe_split
+    # attributes the MoE layers' time exactly)
+    ("sort and top-k", ("RadixSort", "radixSort", "topk", "TopK",
+                        "bitonicSort", "sortKeyValue")),
     ("fp32 matmuls", ("f32f32", "sgemm", "gemmSN", "gemv")),
     ("bf16 matmuls", ("nvjet", "gemm", "xmma", "cutlass")),
     ("reductions", ("reduce", "softmax", "logsumexp", "cumsum", "scan")),
@@ -317,6 +377,63 @@ def profile_phase(torch, name: str, fn, expect=()) -> dict:
                 top=[dict(kernel=e.key[:90], count=e.count,
                           device_ms=e.self_device_time_total / 1e3)
                      for e in top])
+
+
+def moe_split(torch, ll, fn) -> dict:
+    """Device time inside the MoE layers of one window, split between the
+    three batched expert products (``aten::bmm``) and the routing and
+    dispatch around them (router product, softmax, top-k, stable argsort,
+    one-hot / cumsum, slot tables, gather, gating, ``index_add``), from a
+    trace that records the CPU ops too: each ``ll.moe`` call runs in a
+    ``record_function`` range, and a kernel counts for the aten op that
+    launched it.  The model is not instrumented; the range is added only
+    for this window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    orig = ll.moe
+
+    def traced(*args, **kwargs):
+        with record_function("moe"):
+            return orig(*args, **kwargs)
+
+    ll.moe = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        ll.moe = orig
+    calls, moe_us, bmm_us = 0, 0.0, 0.0
+
+    def products(ev) -> float:
+        return sum(ch.device_time_total if ch.name == "aten::bmm"
+                   else products(ch) for ch in ev.cpu_children)
+
+    for ev in prof.events():
+        if ev.name == "moe" and ev.device_type == DeviceType.CPU:
+            calls += 1
+            moe_us += ev.device_time_total
+            bmm_us += products(ev)
+    check(calls > 0 and moe_us > 0,
+          f"moe_split: {calls} MoE ranges with {moe_us} us of device time")
+    return dict(moe_calls=calls, moe_device_ms=moe_us / 1e3,
+                expert_products_ms=bmm_us / 1e3,
+                routing_and_dispatch_ms=(moe_us - bmm_us) / 1e3)
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The backend SDPA picked for ``fn``, from the kernels one call
+    launches: flash, efficient (the CUTLASS memory-efficient kernel),
+    cudnn or math (plain GEMMs and a softmax)."""
+    _, _, avgs = device_busy(torch, fn)
+    names = " ".join(e.key for e in avgs)
+    for backend, pattern in (("flash", "flash_fwd"), ("efficient", "fmha"),
+                             ("cudnn", "cudnn")):
+        if pattern in names:
+            return backend
+    return "math"
 
 
 def timings(torch, fns) -> dict:
@@ -455,11 +572,14 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
                "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
                "library": library}
+        # SDPA has no window argument: a windowed case passes the
+        # explicit boolean mask, and the row names the backend it took
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                               window=window, q_offset=q_offset),
                    max_abs_err=err, tol=TOL[dtype],
                    **timings(torch, fns),
+                   library_backend=sdpa_backend(torch, library),
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         emit("kernel_check", **row)
@@ -755,12 +875,43 @@ def plain_kernels(ops, fa, rn, ss):
         ops._fa, ops._rn, ops._ssd = saved
 
 
-def forced_logits(torch, model, prompts, forced):
+@contextlib.contextmanager
+def coarse_kernel(torch, ops, fa, rn, kernel: str, bits: int):
+    """A faulty kernel for the block: the output of ``kernel``
+    ("flash_attention" or "rmsnorm") rounded to nearest with ``bits``
+    mantissa bits (bf16 keeps 7), as a kernel that lost precision would
+    give.  The kernel still launches, and counts."""
+    drop = 23 - bits
+
+    def coarse(out):
+        i = out.float().view(torch.int32)
+        i = (i + (1 << (drop - 1))) & -(1 << drop)
+        return i.view(torch.float32).to(out.dtype)
+
+    saved = ops._fa, ops._rn
+    if kernel == "flash_attention":
+        ops._fa = types.SimpleNamespace(
+            flash_attention=lambda *a, **kw: coarse(fa.flash_attention(*a,
+                                                                       **kw)))
+    else:
+        ops._rn = types.SimpleNamespace(
+            rmsnorm=lambda x, scale, *, eps: coarse(rn.rmsnorm(x, scale,
+                                                               eps=eps)),
+            rmsnorm_residual=rn.rmsnorm_residual)
+    try:
+        yield
+    finally:
+        ops._fa, ops._rn = saved
+
+
+def forced_logits(torch, model, prompts, forced, kv_dtype=None):
     """Last-position logits of the prompt and of each teacher-forced step:
-    (B, n, V) fp32, for prompts (B,S) and forced tokens (B,n)."""
+    (B, n, V) fp32, for prompts (B,S) and forced tokens (B,n), over a
+    cache of ``kv_dtype`` (the model's default, bf16, if None)."""
     B, S = prompts.shape
     n = forced.shape[1]
-    cache = model.init_cache(B, S + n)
+    cache = model.init_cache(B, S + n, **(
+        {} if kv_dtype is None else {"kv_dtype": kv_dtype}))
     logits, cache = model.prefill({"tokens": prompts}, cache)
     outs = [logits[:, -1].float()]
     pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
@@ -788,20 +939,23 @@ def full_sequence_logits(torch, model, tokens, first: int):
 
 
 def serve_path(torch, np, F, modules, arch: str) -> dict:
-    """Phases 4-5 (qwen2-0.5b) and 6 (mamba2-780m) at full width: serve
-    ``REQUESTS`` through the frontend with exact launch counts, profile a
-    prefill and eight decode steps, then hold teacher-forced logits against
-    the plain twins' (and, for the SSM, against a full-sequence forward).
-    Returns the launches of the serving run."""
+    """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m) and 6b (granite-moe) at
+    full width: serve ``REQUESTS`` through the frontend with exact launch
+    counts, profile a prefill and eight decode steps, then hold
+    teacher-forced logits against the plain twins' (and, for the SSM,
+    against a full-sequence forward).  Returns the launches of the serving
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
+    from repro_torch.models import layers as ll
     cfg = get_config(arch)
     ssm = cfg.family == "ssm"
-    tag = "_ssm" if ssm else ""
+    moe = cfg.family == "moe"
+    tag = {"ssm": "_ssm", "moe": "_moe"}.get(cfg.family, "")
     t0 = time.perf_counter()
     wgen = torch.Generator(device="cuda").manual_seed(0)
     params = init_params(DecoderLM.param_specs(cfg), wgen)
@@ -882,11 +1036,9 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     pt = torch.as_tensor(np.stack(prompts[:MAX_BATCH]), dtype=torch.long,
                          device="cuda")
     cache = model.init_cache(MAX_BATCH, max_len)
-    emit("profile", **profile_phase(
-        torch, f"{cfg.name} prefill 8x512",
-        lambda: model.prefill({"tokens": pt}, cache),
-        expect=(("ssd_scan_state_passing_kernel",) if ssm
-                else ("flash_mma_kernel",))))
+    def prefill():
+        model.prefill({"tokens": pt}, cache)
+
     tok = pt[:, -1:]
     pos = torch.full((MAX_BATCH,), pt.shape[1], dtype=torch.long,
                      device="cuda")
@@ -895,9 +1047,16 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
         for j in range(8):
             model.decode_step(cache, tok, pos + j)
 
-    emit("profile", **profile_phase(
-        torch, f"{cfg.name} 8 decode steps, batch 8", decode_steps,
-        expect=("rmsnorm",) if ssm else ()))
+    for window, fn, expect in (
+            (f"{cfg.name} prefill 8x512", prefill,
+             ("ssd_scan_state_passing_kernel",) if ssm
+             else ("flash_mma_kernel",)),
+            (f"{cfg.name} 8 decode steps, batch 8", decode_steps,
+             ("rmsnorm",) if ssm or moe else ())):
+        row = profile_phase(torch, window, fn, expect=expect)
+        if moe:
+            row["moe_split"] = moe_split(torch, ll, fn)
+        emit("profile", **row)
     del cache
 
     # ---- the same prompts through the plain twins ---------------------------
@@ -910,6 +1069,9 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
             for a in (prompts, outs)))
     if ssm:
         ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts)
+        return launches
+    if moe:
+        moe_logit_checks(torch, F, modules, cfg, model, batches_, counts)
         return launches
     cos_all, top1_all = [], []
     for pt, ft in batches_:
@@ -944,7 +1106,7 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     plain twins in fp32 compute (the same weights; both paths fp32, they
     differ by summation order), to the qwen2 bounds; in bf16 the kernel
     path's mean cosine to the fp32 plain reference must be within
-    ``SSM_BF16_MARGIN`` of the plain bf16 path's.
+    ``BF16_MARGIN`` of the plain bf16 path's.
 
     ``prefill_vs_full``: fp32 prefill + decode logits (kernels) against one
     full-sequence forward of the prompt and the forced tokens (kernels),
@@ -1034,11 +1196,11 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
          bf16_kernel_to_fp32_cosine_mean=float(k16_ref.mean()),
          bf16_plain_to_fp32_cosine_mean=float(p16_ref.mean()),
          min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
-         bf16_margin=SSM_BF16_MARGIN)
+         bf16_margin=BF16_MARGIN)
     check(float(c32.min()) >= MIN_COSINE,
           f"fp32 cosine {float(c32.min())} < {MIN_COSINE}")
     check(t32 >= MIN_TOP1, f"fp32 top-1 agreement {t32} < {MIN_TOP1}")
-    check(float(k16_ref.mean()) >= float(p16_ref.mean()) - SSM_BF16_MARGIN,
+    check(float(k16_ref.mean()) >= float(p16_ref.mean()) - BF16_MARGIN,
           f"bf16 kernels' mean cosine to the fp32 reference "
           f"{float(k16_ref.mean())}, the plain twins' {float(p16_ref.mean())}")
 
@@ -1067,6 +1229,342 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     check(float(rolled.max()) < SSM_BF16_DECODE_MIN_COSINE,
           f"a neighbour's state passes the bf16 decode bound: cosine "
           f"{float(rolled.max())}")
+
+
+def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
+    """Phase 6b's logit checks on the forced batches ``batches_`` [(prompts,
+    forced tokens)], ``model`` being the served bf16 granite-moe.
+
+    ``plain_moe``: in fp32 compute the kernels are held against the plain
+    twins to phase 5's bounds (the same weights; the two paths differ by
+    summation order).  In bf16 compute a rounding difference between flash
+    and its twin can move a top-8 choice in one of 32 layers, and at
+    capacity 1.25 push another token out of its expert, so bf16 is held by
+    distance (1 - mean cosine) to the fp32 plain reference: the kernel
+    path's at most ``MOE_BF16_RATIO`` times the plain bf16 path's, plus
+    ``MOE_BF16_SLACK``.  The same distance is read for the kernel path
+    with each of ``MOE_FAULTS``' kernels made coarse (``coarse_kernel``),
+    and the last must fail the bound.  The route
+    agreement is the share of (token, k) expert choices the kernel path
+    and the plain path share, layer by layer, over the prompts and the
+    forced steps (the first ``MOE_FORCED`` answered tokens)."""
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models import layers as ll
+    from repro_torch.models.module import init_params
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    L = cfg.num_layers
+
+    def run(m, pt, ft, plain, fault=None):
+        """Forced logits and each ``_route`` call's top-k experts."""
+        routes, orig = [], ll._route
+
+        def recording(p, cfg_, xf):
+            out = orig(p, cfg_, xf)
+            routes.append(out[1])
+            return out
+
+        before = counts()
+        ll._route = recording
+        try:
+            with (plain_kernels(ops, fa, rn, ss) if plain
+                  else coarse_kernel(torch, ops, fa, rn, *fault)
+                  if fault else contextlib.nullcontext()):
+                out = forced_logits(torch, m, pt, ft)
+        finally:
+            ll._route = orig
+        if plain:
+            check(counts() == before, "the plain run launched a kernel")
+        check(bool(torch.isfinite(out).all()), "logits not finite")
+        check(len(routes) == L * ft.shape[1], f"{len(routes)} routings")
+        return out, routes
+
+    def agreement(a, b):
+        """Per layer: the share of a's (token, k) choices that b also made
+        for that token."""
+        shared, total = [0.0] * L, [0] * L
+        for i, (x, y) in enumerate(zip(a, b)):
+            shared[i % L] += float((x[:, :, None] == y[:, None, :])
+                                   .any(-1).sum())
+            total[i % L] += x.numel()
+        return [sh / t for sh, t in zip(shared, total)]
+
+    def cos(a, b):
+        return F.cosine_similarity(a, b, dim=-1)
+
+    batches_ = [(pt, ft[:, :MOE_FORCED]) for pt, ft in batches_]
+    runs = {}
+    for i, (pt, ft) in enumerate(batches_):
+        runs[("bf16", "kernel", i)] = run(model, pt, ft, False)
+        runs[("bf16", "plain", i)] = run(model, pt, ft, True)
+        for fault in MOE_FAULTS:
+            runs[("bf16", fault, i)] = run(model, pt, ft, False, fault)
+    saved = ll.COMPUTE_DTYPE
+    ll.COMPUTE_DTYPE = torch.float32
+    try:
+        params = init_params(DecoderLM.param_specs(cfg),
+                             torch.Generator(device="cuda").manual_seed(0))
+        m32 = build_model(cfg, params, device="cuda")
+        del params
+        for i, (pt, ft) in enumerate(batches_):
+            runs[("fp32", "kernel", i)] = run(m32, pt, ft, False)
+            runs[("fp32", "plain", i)] = run(m32, pt, ft, True)
+        del m32
+    finally:
+        ll.COMPUTE_DTYPE = saved
+    n = len(batches_)
+
+    def cat(f):
+        return torch.cat([f(i).flatten() for i in range(n)])
+
+    def logits(dt, path, i):
+        return runs[(dt, path, i)][0]
+
+    c32 = cat(lambda i: cos(logits("fp32", "kernel", i),
+                            logits("fp32", "plain", i)))
+    t32 = float(cat(lambda i: (logits("fp32", "kernel", i).argmax(-1)
+                               == logits("fp32", "plain", i).argmax(-1))
+                    .float()).mean())
+    k16 = cat(lambda i: cos(logits("bf16", "kernel", i),
+                            logits("fp32", "plain", i)))
+    p16 = cat(lambda i: cos(logits("bf16", "plain", i),
+                            logits("fp32", "plain", i)))
+    c16 = cat(lambda i: cos(logits("bf16", "kernel", i),
+                            logits("bf16", "plain", i)))
+    p_dist = 1.0 - float(p16.mean())
+    bound16 = MOE_BF16_RATIO * p_dist + MOE_BF16_SLACK
+    k_dist = 1.0 - float(k16.mean())
+    fault_dist = {
+        fault: 1.0 - float(cat(lambda i: cos(logits("bf16", fault, i),
+                                             logits("fp32", "plain", i)))
+                           .mean())
+        for fault in MOE_FAULTS}
+    route = {}
+    for dt in ("bf16", "fp32"):
+        per_layer = [agreement(runs[(dt, "kernel", i)][1],
+                               runs[(dt, "plain", i)][1]) for i in range(n)]
+        layer = [min(v[j] for v in per_layer) for j in range(L)]
+        route[dt] = dict(min=min(layer), mean=sum(layer) / L,
+                         by_layer=[round(v, 6) for v in layer])
+    emit("plain_moe", positions=int(c32.numel()),
+         fp32_cosine_min=float(c32.min()), fp32_cosine_mean=float(c32.mean()),
+         fp32_top1_agreement=t32,
+         bf16_cosine_min=float(c16.min()), bf16_cosine_mean=float(c16.mean()),
+         bf16_kernel_to_fp32_cosine_mean=float(k16.mean()),
+         bf16_plain_to_fp32_cosine_mean=float(p16.mean()),
+         bf16_kernel_distance=k_dist, bf16_plain_distance=p_dist,
+         bf16_distance_bound=bound16,
+         bf16_coarse_kernel_distance={f"{k} {b} bits": d
+                                      for (k, b), d in fault_dist.items()},
+         route_agreement=route, min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
+         bf16_ratio=MOE_BF16_RATIO, bf16_slack=MOE_BF16_SLACK)
+    check(float(c32.min()) >= MIN_COSINE,
+          f"fp32 cosine {float(c32.min())} < {MIN_COSINE}")
+    check(t32 >= MIN_TOP1, f"fp32 top-1 agreement {t32} < {MIN_TOP1}")
+    check(k_dist <= bound16,
+          f"bf16 kernels' distance to the fp32 reference {k_dist} > "
+          f"{bound16} (the plain twins' {p_dist})")
+    kernel, bits = MOE_FAULTS[-1]
+    check(fault_dist[MOE_FAULTS[-1]] > bound16,
+          f"{kernel} keeping {bits} mantissa bits passes the bf16 bound: "
+          f"distance {fault_dist[MOE_FAULTS[-1]]} <= {bound16}")
+
+
+def ring_path(torch, np, F, modules) -> dict:
+    """Phase 6c: mixtral-8x22b at published widths and depth 2 (dropless),
+    served through the frontend: two prompts of ``RING_PROMPT`` tokens,
+    longer than the 4,096-token window, so the K/V ring of 4,096 slots
+    wraps at prefill (the roll) and again in decode; exact launches (flash
+    with window 4,096 at head dim 128, L a prefill).  Then
+    ``ring_vs_full``: every slot of the first layer's ring holds the K of
+    the position it must (p % 4,096) after prefill and after 32 decode
+    steps, which a ring holding the prompt's first 4,096 positions (what a
+    prefill that does not roll keeps) fails; prefill + 32 teacher-forced
+    decode steps against one full-sequence forward of the prompt and the
+    forced tokens (4,640 positions), both through the kernels, in fp32
+    compute over an fp32 cache at every position, and in bf16 on the
+    served model at the prompt's last position and the first decode step;
+    and that fp32 full forward against the same forward through the plain
+    twins, which holds the windowed flash at head dim 128 and rmsnorm at
+    d_model 6144 against their twins on the served inputs.
+    Random weights attend nearly uniformly over a window of 4,096, so the
+    logits alone barely see which positions a ring holds: the slot check
+    is the one that tells a misplaced ring.  Returns the launches of the
+    serving run."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models import layers as ll
+    from repro_torch.models import stack as stk
+    from repro_torch.models.module import init_params
+    from repro_torch.serve.engine import BatchingFrontend, ServeEngine
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+
+    base = get_config(RING_ARCH)
+    cfg = dataclasses.replace(base, num_layers=2,
+                              capacity_factor=float(base.num_experts))
+    check(stk.use_ring_cache(cfg), "mixtral should decode over a ring")
+    L, W = cfg.num_layers, cfg.sliding_window
+
+    def load():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(DecoderLM.param_specs(cfg), gen)
+        return build_model(cfg, params, device="cuda")
+
+    t0 = time.perf_counter()
+    model = load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    results = []
+
+    class RecordingEngine(ServeEngine):
+        def generate(self, prompts_, max_new_tokens, *, seed=0):
+            res = super().generate(prompts_, max_new_tokens, seed=seed)
+            results.append(res)
+            return res
+
+    max_len = RING_PROMPT + NEW_TOKENS + 8
+    engine = RecordingEngine(model, max_batch=RING_BATCH, max_len=max_len,
+                             device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (RING_BATCH, RING_PROMPT)).astype(np.int32)
+    engine.generate(prompts, 2)                            # warm-up
+    results.clear()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = rn.rmsnorm.launches = 0
+    t0 = time.perf_counter()
+    frontend = BatchingFrontend(engine, max_wait_s=0.05)
+    try:
+        reqs = [frontend.submit(p, NEW_TOKENS) for p in prompts]
+        outs = [r.result.get(timeout=600) for r in reqs]
+    finally:
+        frontend.shutdown()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    batches = len(results)
+    steps = sum(r.steps - 1 for r in results)
+    expect = {"flash_attention": L * batches,
+              "rmsnorm": (2 * L + 1) * (batches + steps)}
+    slots = model.init_cache(RING_BATCH, max_len)["k"].shape[2]
+    emit("serve_ring", arch=cfg.name, layers=L, window=W,
+         params=cfg.param_count(), reduced=RING_REDUCED,
+         requests=len(outs), prompt_tokens=RING_PROMPT,
+         batches_served=frontend.batches_served, cache_slots=slots,
+         prefill_s=[r.prefill_s for r in results],
+         decode_s=[r.decode_s for r in results],
+         decode_tokens_per_s=sum(r.tokens.shape[0] * (r.steps - 1)
+                                 for r in results)
+         / sum(r.decode_s for r in results),
+         wall_s=wall_s, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         weights_load_s=load_s, launches=launches,
+         expected_launches=expect)
+    check(slots == W, f"ring of {slots} slots, the window is {W}")
+    for o in outs:
+        check(o.shape == (NEW_TOKENS,) and o.min() >= 0
+              and o.max() < cfg.vocab_size, f"bad answer {o!r}")
+    check(launches == expect,
+          f"kernel launches {launches}, the path implies {expect}")
+
+    # ---- the ring's slots, and prefill + decode against a full forward ----
+    pt = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    extra = rng.integers(0, cfg.vocab_size, (RING_BATCH, 1))
+    ft = torch.as_tensor(np.concatenate([np.stack(outs), extra], axis=1),
+                         dtype=torch.long, device="cuda")      # (B, 33)
+    S, n = RING_PROMPT, ft.shape[1]
+    seq = torch.cat([pt, ft[:, :-1]], dim=1)                   # 4,640
+
+    def cos(a, b):
+        return F.cosine_similarity(a, b, dim=-1)
+
+    def slot_cosines(cache, last: int):
+        """Per-slot cosine of the first layer's cached K against the K of
+        the position the slot must hold (p % W for the W positions up to
+        ``last``), recomputed from the tokens: layer 0's K depends on its
+        token and position alone."""
+        with torch.no_grad():
+            p0 = model.layers[0]
+            x = ll.embed(model.embed, cfg, seq[:, :last + 1])
+            pos = torch.arange(last + 1, device="cuda")[None].expand(
+                RING_BATCH, -1)
+            _, k, _ = ll._project_qkv(p0["attn"], cfg,
+                                      ll.norm(p0["ln1"], x, cfg))
+            k = ll.rotary(k, pos, cfg.rope_theta)[:, last + 1 - W:]
+            slots = (torch.arange(last + 1 - W, last + 1, device="cuda")
+                     % W)
+            want = torch.empty_like(k)
+            want[:, slots] = k
+            return cos(cache["k"][0].flatten(2).float(),
+                       want.flatten(2).float())                # (B, W)
+
+    cache = model.init_cache(RING_BATCH, S + n)
+    logits, cache = model.prefill({"tokens": pt}, cache)
+    after_prefill = slot_cosines(cache, S - 1)
+    k16 = [logits[:, -1].float()]
+    pos = torch.full((RING_BATCH,), S, dtype=torch.long, device="cuda")
+    for j in range(n - 1):
+        logits, cache = model.decode_step(cache, ft[:, j:j + 1], pos + j)
+        k16.append(logits[:, -1].float())
+    after_decode = slot_cosines(cache, S + n - 2)
+    # what a prefill that does not roll keeps: the prompt's first W
+    # positions in slots 0..W-1
+    stale = model.init_cache(RING_BATCH, S + n)
+    model.prefill({"tokens": pt[:, :W]}, stale)
+    stale_slots = slot_cosines(stale, S - 1)
+    del cache, stale
+    full16 = full_sequence_logits(torch, model, seq[:, :S + 1], S - 1)
+    h16 = cos(torch.stack(k16[:2], 1), full16)                 # (B, 2)
+    del model, engine
+    torch.cuda.empty_cache()
+    saved = ll.COMPUTE_DTYPE
+    ll.COMPUTE_DTYPE = torch.float32
+    try:
+        m32 = load()
+        k32 = forced_logits(torch, m32, pt, ft, kv_dtype=torch.float32)
+        full32 = full_sequence_logits(torch, m32, seq, S - 1)
+        before = (fa.flash_attention.launches, rn.rmsnorm.launches)
+        with plain_kernels(ops, fa, rn, ss):
+            plain32 = full_sequence_logits(torch, m32, seq, S - 1)
+        check((fa.flash_attention.launches, rn.rmsnorm.launches) == before,
+              "the plain run launched a kernel")
+        del m32
+    finally:
+        ll.COMPUTE_DTYPE = saved
+    c32 = cos(k32, full32)                                      # (B, 33)
+    cp = cos(full32, plain32)
+    tp = float((full32.argmax(-1) == plain32.argmax(-1)).float().mean())
+    emit("ring_vs_full", positions=int(c32.numel()),
+         full_sequence=int(seq.shape[1]),
+         slot_cosine_min_after_prefill=float(after_prefill.min()),
+         slot_cosine_min_after_decode=float(after_decode.min()),
+         stale_ring_slot_cosine_min=float(stale_slots.min()),
+         stale_ring_wrong_slot_share=float(
+             (stale_slots < MIN_COSINE).float().mean()),
+         fp32_cosine_min=float(c32.min()),
+         fp32_cosine_min_by_step=[float(v) for v in c32.min(0)[0]],
+         bf16_handoff_cosine_min_by_step=[float(v) for v in h16.min(0)[0]],
+         fp32_full_kernels_vs_plain_cosine_min=float(cp.min()),
+         fp32_full_kernels_vs_plain_top1_agreement=tp,
+         min_cosine=MIN_COSINE, min_top1=MIN_TOP1)
+    check(float(after_prefill.min()) >= MIN_COSINE
+          and float(after_decode.min()) >= MIN_COSINE,
+          f"ring slots: cosine {float(after_prefill.min())} after prefill, "
+          f"{float(after_decode.min())} after decode < {MIN_COSINE}")
+    check(float(stale_slots.min()) < MIN_COSINE,
+          f"a ring of the prompt's first {W} positions passes the slot "
+          f"check: cosine {float(stale_slots.min())}")
+    check(float(c32.min()) >= MIN_COSINE,
+          f"fp32 prefill + decode against the full sequence: cosine "
+          f"{float(c32.min())} < {MIN_COSINE}")
+    check(float(h16.min()) >= MIN_COSINE,
+          f"bf16 handoff against the full sequence: cosine "
+          f"{float(h16.min())} < {MIN_COSINE}")
+    check(float(cp.min()) >= MIN_COSINE and tp >= MIN_TOP1,
+          f"fp32 full forward, kernels against plain twins: cosine "
+          f"{float(cp.min())}, top-1 agreement {tp}")
+    return launches
 
 
 def train_path(torch, np, F, modules):
@@ -1849,9 +2347,23 @@ def main() -> int:
     checks["flash_attention"] += check_flash(torch, F, fa, gen, "strided",
                                              2, 128, 128, 14, 2, 64,
                                              strided=True)
+    # the MoE paths' prefills: granite's 8 x 512 (24 / 8 heads of 64) and
+    # mixtral's two prompts of 4,608 under its 4,096 window at head dim 128
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "granite",
+                                             8, 512, 512, 24, 8, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen,
+                                             "mixtral_window", RING_BATCH,
+                                             RING_PROMPT, RING_PROMPT, 48, 8,
+                                             128, window=4096)
     for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
                         ("decode", 8)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
+    # mixtral's norms on the ring path (d_model 6144, its own BLOCK_D):
+    # prefill of two 4,608-token prompts and a decode step
+    checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "mixtral_d6144",
+                                       RING_BATCH * RING_PROMPT, 6144)
+    checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen,
+                                       "mixtral_decode", RING_BATCH, 6144)
     # the train path's norms: ln1 / final norm and the gate norm
     checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "train_d1536",
                                        TRAIN_BATCH * TRAIN_SEQ, 1536)
@@ -1894,10 +2406,14 @@ def main() -> int:
         stage_rows += check_ssd_stages(torch, ss, ref, gen, name, *shape,
                                        **kw)
 
-    # ---- 4-6. the serving paths at full width ------------------------------
+    # ---- 4-6c. the serving paths at full width -----------------------------
     serve_launches = serve_path(torch, np, F, modules, ARCH)
     torch.cuda.empty_cache()
     serve_ssm_launches = serve_path(torch, np, F, modules, SSM_ARCH)
+    torch.cuda.empty_cache()
+    serve_moe_launches = serve_path(torch, np, F, modules, MOE_ARCH)
+    torch.cuda.empty_cache()
+    serve_ring_launches = ring_path(torch, np, F, modules)
     torch.cuda.empty_cache()
 
     # ---- 7-8. the training path at full width ------------------------------
@@ -1922,9 +2438,14 @@ def main() -> int:
 
     # ---- 15. the kernels line ---------------------------------------------
     by_path = {
-        "flash_attention": {"serve": serve_launches["flash_attention"]},
+        "flash_attention": {"serve": serve_launches["flash_attention"],
+                            "serve_moe": serve_moe_launches["flash_attention"],
+                            "serve_ring":
+                                serve_ring_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
+                    "serve_moe": serve_moe_launches["rmsnorm"],
+                    "serve_ring": serve_ring_launches["rmsnorm"],
                     "train": train_launches["rmsnorm"],
                     "train_stream": stream_launches["rmsnorm"],
                     "trainer": trainer_launches["rmsnorm"]},
@@ -1964,8 +2485,7 @@ def main() -> int:
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
     # the SSD scan's three stage kernels, each timed alone (the slice
-    # shape); the scan with its final state at the serving prefill shape;
-    # flash at phi-3-vision's head dim
+    # shape); the scan with its final state at the serving prefill shape
     by_name = {k["name"]: k for k in kernels}
     by_name["ssd_scan"]["stages_ms"] = {r["stage"]: r["kernel_ms"]
                                         for r in stage_rows
@@ -1975,10 +2495,21 @@ def main() -> int:
                      and r["dtype"] == "bfloat16")
     by_name["ssd_scan"]["serve_prefill_state_ms"] = state_row["kernel_ms"]
     by_name["ssd_scan"]["serve_prefill_y_only_ms"] = state_row["y_only_ms"]
-    d96 = next(r for r in checks["flash_attention"]
-               if r["case"] == "d96" and r["dtype"] == "bfloat16")
-    by_name["flash_attention"]["d96_ms"] = d96["kernel_ms"]
-    by_name["flash_attention"]["d96_library_ms"] = d96["library_ms"]
+    # flash at phi-3-vision's head dim and at the MoE paths' prefills
+    by_name["flash_attention"]["cases"] = {
+        r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], library_ms=r["library_ms"],
+                        library_backend=r["library_backend"])
+        for r in checks["flash_attention"]
+        if r["case"] in ("d96", "granite", "mixtral_window")
+        and r["dtype"] == "bfloat16"}
+    # rmsnorm at mixtral's d_model, on the ring path
+    by_name["rmsnorm"]["cases"] = {
+        r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                        bound_ms=r["bound_ms"], library_ms=r["library_ms"])
+        for r in checks["rmsnorm"]
+        if r["case"] in ("mixtral_d6144", "mixtral_decode")
+        and r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

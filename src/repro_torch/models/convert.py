@@ -3,10 +3,13 @@
 ``from_jax_params(cfg, tree, device=...)`` takes the tree ``repro``'s model builds
 (``jax.tree_util.tree_map(np.asarray, model.init(key))``: nested dicts of
 numpy arrays, per-layer leaves stacked on a leading ``(L, ...)`` axis) and
-loads it into the port's ``DecoderLM``, layer by layer: the dense leaves
-and the twelve SSM leaves of a mamba2 layer (``A_log, D, conv_b, conv_w,
-dt_bias, gate_norm, in_B, in_C, in_dt, in_x, in_z, out``).  Both packages
-keep weights as ``(d_in, d_out)`` and compute ``x @ W``, so nothing is
+loads it into the port's ``DecoderLM``, layer by layer: the dense leaves,
+the four MoE leaves (``router``, and ``wi`` / ``wg`` / ``wo`` in JAX's
+layout: plain ``(E, d, f)`` or, for fewer than 16 experts, the virtual
+``(V, d, f/parts)``, which the port un-virtualises only at use) and the
+twelve SSM leaves of a mamba2 layer (``A_log, D, conv_b, conv_w, dt_bias,
+gate_norm, in_B, in_C, in_dt, in_x, in_z, out``).  Both packages keep
+weights as ``(d_in, d_out)`` and compute ``x @ W``, so nothing is
 transposed.
 
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` with numpy

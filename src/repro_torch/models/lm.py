@@ -1,14 +1,15 @@
-"""DecoderLM for the dense and SSM families: training loss, prefill,
+"""DecoderLM for the dense, MoE and SSM families: training loss, prefill,
 decode step and cache.
 
 The counterpart of ``repro/models/lm.py`` (``cross_entropy``,
 ``DecoderLM``, ``build_model``) for dense configs (qwen2-0.5b, qwen3-1.7b,
-yi-34b, mistral-large-123b) and the SSM family (mamba2-780m), in training
-and in serving (a K/V cache for the dense family, the conv tail and SSD
-state for the SSM family).  The model is an
-``nn.Module`` holding its parameters: a ``ModuleList`` of per-layer
-parameter dicts where JAX scans over stacked leaves.  Other families raise
-``NotImplementedError``.
+yi-34b, mistral-large-123b), the MoE family (granite-moe-3b-a800m,
+mixtral-8x22b, whose windowed layers decode over a ring cache) and the
+SSM family (mamba2-780m), in training and in serving (a K/V cache for the
+families with attention, the conv tail and SSD state for the SSM family).
+The model is an ``nn.Module`` holding its parameters: a ``ModuleList`` of
+per-layer parameter dicts where JAX scans over stacked leaves.  Other
+families (hybrid, encdec, vlm) raise ``NotImplementedError``.
 
 Two ways to hold the parameters:
 * serving (``trainable=False``): cast once at load to the compute dtype,
@@ -67,7 +68,7 @@ def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None,
 
 
 class DecoderLM(nn.Module):
-    """Decoder-only LM, dense or SSM.  ``params`` is a tree with the JAX
+    """Decoder-only LM, dense, MoE or SSM.  ``params`` is a tree with the JAX
     package's layout and fp32 leaves (``init_params`` or
     ``convert.from_jax_params``)."""
 
@@ -98,8 +99,9 @@ class DecoderLM(nn.Module):
 
     def loss(self, batch, *, remat_policy: str = "dots"):
         """Mean next-token cross-entropy over ``batch`` ({"tokens",
-        "targets", optional "loss_mask"}, (B,S) each).  Returns (loss,
-        metrics)."""
+        "targets", optional "loss_mask"}, (B,S) each), plus the layers'
+        summed MoE load-balancing loss (``metrics["aux_loss"]``, 0 for the
+        other families).  Returns (loss, metrics)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -127,29 +129,38 @@ class DecoderLM(nn.Module):
         """Run the prompt, fill the cache, return last-position logits
         (B,1,V).  Each layer's cache leaves (K/V, or the SSM's conv tail and
         final state) are collected in the same pass over the layers and
-        written into ``cache`` in place; the cache is also returned."""
+        written into ``cache`` in place; the cache is also returned.  A
+        ring cache of T slots keeps the prompt's last T positions, rolled
+        so position p sits in slot p % T, as ``repro``'s prefill does."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
         x = ll.embed(self.embed, cfg, tokens)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        ring = stk.use_ring_cache(cfg)
         for i, p in enumerate(self.layers):
-            x, leaves = stk.block(p, cfg, x, positions=positions,
-                                  ssm_state=True)
+            x, _, leaves = stk.block(p, cfg, x, positions=positions,
+                                     ssm_state=True)
             for name, t in leaves.items():
-                if name in ("k", "v"):
-                    write = min(S, cache[name].shape[2])
-                    cache[name][i, :, :write] = t[:, :write]
-                else:
+                if name not in ("k", "v"):
                     cache[name][i] = t
+                    continue
+                T = cache[name].shape[2]
+                if ring and S >= T:
+                    cache[name][i] = torch.roll(t[:, S - T:], (S - T) % T,
+                                                dims=1)
+                else:
+                    write = min(S, T)
+                    cache[name][i, :, :write] = t[:, :write]
         h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
         return ll.unembed(self.embed, cfg, h[:, None]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
         """tokens: (B,1); positions: (B,) absolute positions (unused by the
-        SSM family).  Writes this step's K/V, or each SSM layer's conv tail
-        and state, into ``cache`` in place.  Returns (logits, cache)."""
+        SSM family).  Writes this step's K/V (slot ``position % T`` of a
+        ring cache), or each SSM layer's conv tail and state, into
+        ``cache`` in place.  Returns (logits, cache)."""
         cfg = self.cfg
         x = ll.embed(self.embed, cfg, tokens)
         for i, p in enumerate(self.layers):
@@ -161,6 +172,6 @@ class DecoderLM(nn.Module):
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], *, device,
                 trainable: bool = False) -> DecoderLM:
-    """The model for ``cfg``; families other than dense and SSM raise
+    """The model for ``cfg``; families other than dense, MoE and SSM raise
     ``NotImplementedError``."""
     return DecoderLM(cfg, params, device=device, trainable=trainable)

@@ -1,12 +1,13 @@
 """Decoder blocks, the layer stack for training, and the decode cache.
 
-The counterpart of the dense and SSM subsets of ``repro/models/stack.py``.
-JAX scans one block over stacked parameters; here the model keeps a
-``ModuleList`` of per-layer parameter dicts and loops over it
-(``run_stack``, ``lm.py``).  The decode cache holds K/V for the dense
-family and the conv tail and SSD state for the SSM family, under JAX's
-leaf names.  The MoE, hybrid and cross-attention branches and the ring
-(sliding-window) cache are not ported yet and raise.
+The counterpart of the dense, MoE and SSM subsets of
+``repro/models/stack.py``.  JAX scans one block over stacked parameters;
+here the model keeps a ``ModuleList`` of per-layer parameter dicts and
+loops over it (``run_stack``, ``lm.py``).  The decode cache holds K/V for
+the dense and MoE families (a ring of ``min(max_len, window)`` slots when
+every layer is windowed, ``use_ring_cache``) and the conv tail and SSD
+state for the SSM family, under JAX's leaf names.  The hybrid and
+cross-attention branches are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -21,12 +22,12 @@ from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import stack_specs
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
     """Raise ``NotImplementedError`` unless cfg's family is in ``families``
-    (training and the decode cache both cover the dense and SSM
+    (training and the decode cache both cover the dense, MoE and SSM
     families)."""
     if cfg.family not in families:
         raise NotImplementedError(
@@ -38,31 +39,46 @@ def block_specs(cfg: ModelConfig):
     check_family(cfg)
     if cfg.family == "ssm":
         return {"ln1": ll.norm_specs(cfg), "ssm": ssm_mod.ssm_specs(cfg)}
-    return {"ln1": ll.norm_specs(cfg), "attn": ll.attention_specs(cfg),
-            "ln2": ll.norm_specs(cfg), "mlp": ll.mlp_specs(cfg)}
+    p = {"ln1": ll.norm_specs(cfg), "attn": ll.attention_specs(cfg),
+         "ln2": ll.norm_specs(cfg)}
+    if cfg.family == "moe":
+        p["moe"] = ll.moe_specs(cfg)
+    else:
+        p["mlp"] = ll.mlp_specs(cfg)
+    return p
 
 
 def stack_param_specs(cfg: ModelConfig):
     return stack_specs(block_specs(cfg), cfg.num_layers)
 
 
+def _ffn(p, cfg: ModelConfig, h):
+    """The layer's feed-forward half: (y, aux), aux the MoE router's
+    load-balancing loss, 0 for a dense MLP."""
+    if cfg.family == "moe":
+        return ll.moe(p["moe"], cfg, h)
+    return ll.mlp(p["mlp"], cfg, h), torch.zeros((), device=h.device)
+
+
 def block(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
           ssm_state: bool = False):
-    """One full-sequence layer.  Returns (x, leaves): this layer's decode
-    cache leaves under the cache's names, the post-rotary ``k`` and ``v``
-    for the dense family, and for the SSM family ``ssm_conv`` and
+    """One full-sequence layer.  Returns (x, aux, leaves): the layer's
+    load-balancing loss (0-d fp32, 0 but for MoE) and its decode cache
+    leaves under the cache's names, the post-rotary ``k`` and ``v`` for
+    the families with attention, and for the SSM family ``ssm_conv`` and
     ``ssm_state`` if ``ssm_state`` (prefill) or none."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
+        zero = torch.zeros((), device=x.device)
         if not ssm_state:
-            return x + ssm_mod.ssm(p["ssm"], cfg, h), {}
+            return x + ssm_mod.ssm(p["ssm"], cfg, h), zero, {}
         y, c = ssm_mod.ssm(p["ssm"], cfg, h, return_state=True)
-        return x + y, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
+        return x + y, zero, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=cfg.sliding_window)
     x = x + attn_y
-    h2 = ll.norm(p["ln2"], x, cfg)
-    return x + ll.mlp(p["mlp"], cfg, h2), {"k": k, "v": v}
+    y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
+    return x + y, aux, {"k": k, "v": v}
 
 
 # matmuls without batch dims: what JAX's checkpoint_dots_with_no_batch_dims
@@ -77,30 +93,35 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
               remat_policy: str = "none"):
-    """Every layer over x, for training.  Returns (x, aux); aux is 0 for
-    the ported families (only MoE adds a load-balancing loss).
+    """Every layer over x, for training.  Returns (x, aux), aux the sum of
+    the layers' load-balancing losses (0 but for MoE).
 
     ``remat_policy`` maps JAX's ``jax.checkpoint`` of the scan body onto
     ``torch.utils.checkpoint`` per layer: "none" keeps every activation;
     "full" and "nothing" keep only each layer's input and recompute the
     layer in the backward pass; "dots" also keeps the outputs of its
-    matmuls (``create_selective_checkpoint_contexts``)."""
+    matmuls (``create_selective_checkpoint_contexts``).  The aux loss is
+    an output of the checkpointed layer, so it is summed under every
+    policy."""
     if remat_policy not in ("none", "full", "nothing", "dots"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
 
     def layer(p, xc):
-        return block(p, cfg, xc, positions=positions, causal=causal)[0]
+        return block(p, cfg, xc, positions=positions, causal=causal)[:2]
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p in layers:
         if remat_policy == "none":
-            x = layer(p, x)
-            continue
-        kw = {}
-        if remat_policy == "dots":
-            kw["context_fn"] = functools.partial(
-                ckpt.create_selective_checkpoint_contexts, _save_dots)
-        x = ckpt.checkpoint(layer, p, x, use_reentrant=False, **kw)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux_l = layer(p, x)
+        else:
+            kw = {}
+            if remat_policy == "dots":
+                kw["context_fn"] = functools.partial(
+                    ckpt.create_selective_checkpoint_contexts, _save_dots)
+            x, aux_l = ckpt.checkpoint(layer, p, x, use_reentrant=False,
+                                       **kw)
+        aux = aux + aux_l
+    return x, aux
 
 
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions):
@@ -116,9 +137,10 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions):
         return x + y
     x = x + ll.attention_decode(p["attn"], cfg, h, cache_layer,
                                 positions=positions,
-                                window=cfg.sliding_window)
-    h2 = ll.norm(p["ln2"], x, cfg)
-    return x + ll.mlp(p["mlp"], cfg, h2)
+                                window=cfg.sliding_window,
+                                ring=use_ring_cache(cfg))
+    y, _ = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
+    return x + y
 
 
 def use_ring_cache(cfg: ModelConfig) -> bool:
@@ -130,17 +152,16 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Shapes and dtypes of the stacked decode cache (leading dim = layers):
     K/V (``kv_dtype``, bf16 by default whatever the compute dtype, as in
-    JAX) for a family with attention; ``ssm_conv`` (bf16) and
-    ``ssm_state`` (fp32) for one with an SSM, whose size does not depend on
-    ``max_len``."""
+    JAX) for a family with attention, ``min(max_len, window)`` slots long
+    for a ring cache; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one
+    with an SSM, whose size does not depend on ``max_len``."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}
     if cfg.uses_attention:
-        if use_ring_cache(cfg):
-            raise NotImplementedError("the ring (sliding-window) cache is "
-                                      "not ported yet")
-        kvshape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        T = min(max_len, cfg.sliding_window) if use_ring_cache(cfg) \
+            else max_len
+        kvshape = (L, batch, T, cfg.num_kv_heads, cfg.head_dim)
         out["k"] = (kvshape, kv_dtype)
         out["v"] = (kvshape, kv_dtype)
     if cfg.ssm_state_dim:

@@ -73,7 +73,8 @@ def test_torch_decode_logits_match_jax(pair):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-1.7b", "yi-34b",
-                                  "mistral-large-123b", "mamba2-780m"])
+                                  "mistral-large-123b", "mamba2-780m",
+                                  "granite-moe-3b-a800m", "mixtral-8x22b"])
 def test_torch_param_specs_match_jax(arch):
     """Full-width spec trees: same leaves, shapes and init kinds (no
     parameter is allocated)."""
@@ -159,22 +160,23 @@ def test_torch_convert_rejects_a_mismatched_tree():
                                   "hymba-1.5b", "whisper-large-v3",
                                   "phi-3-vision-4.2b"])
 def test_torch_unported_families_raise(arch):
-    """Families the port does not cover raise at build time.  The SSM
-    family is ported in training and serving: its decode cache holds JAX's
-    ``ssm_conv`` / ``ssm_state`` leaves and no K/V, and prefill and
-    decode_step run (tests/test_torch_ssm_serve.py holds them against
-    ``repro``)."""
+    """Families the port does not cover raise at build time.  The SSM and
+    MoE families are ported in training and serving and build, prefill and
+    decode here: the SSM cache holds JAX's ``ssm_conv`` / ``ssm_state``
+    leaves and no K/V, the MoE cache K/V (tests/test_torch_ssm_serve.py
+    and tests/test_torch_moe.py hold them against ``repro``)."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
     cfg = reduced(get_config(arch))
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "moe"):
         params = init_params(DecoderLM.param_specs(cfg),
                              torch.Generator().manual_seed(0))
         model = build_model(cfg, params, device="cpu")
         tokens = torch.zeros((1, 4), dtype=torch.long)
         cache = model.init_cache(1, 8)
-        assert set(cache) == {"ssm_conv", "ssm_state"}
+        assert set(cache) == ({"ssm_conv", "ssm_state"} if cfg.family == "ssm"
+                              else {"k", "v"})
         logits, cache = model.prefill({"tokens": tokens}, cache)
         logits, cache = model.decode_step(
             cache, tokens[:, :1], torch.full((1,), 4, dtype=torch.long))
