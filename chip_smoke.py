@@ -18,11 +18,13 @@ Phases, each printing one JSON line:
    with its time, the twin's, one PyTorch library call's where one
    computes the same function (a yardstick the port never calls) and the
    least time the card could take (``bound_ms``); flash also at
-   phi-3-vision's head dim 96 (``d96``) and at the MoE paths' prefills
+   phi-3-vision's head dim 96 (``d96``), at the MoE paths' prefills
    (``granite``; ``mixtral_window``, where SDPA takes the window as an
-   explicit mask; every row names the backend SDPA picked); the SSD scan
-   also with its final state through ``ops.ssd_prefill`` at the serving
-   prefill shapes (8 x 512 and 4 x 300, padded), y and the state each
+   explicit mask; every row names the backend SDPA picked) and at the
+   prefix families' (``hymba_global``, ``phi3v``); rmsnorm also at their
+   widths; the SSD scan also with its final state through
+   ``ops.ssd_prefill`` at the serving prefill shapes (8 x 512 and 4 x
+   300, padded, and hymba's 8 x 640 at state n = 16), y and the state each
    held to its own tolerance
    and timed against the y-only scan; and each bf16 stage kernel of the
    SSD scan (chunk state, state passing with the final state, chunk scan)
@@ -69,6 +71,30 @@ Phases, each printing one JSON line:
    positions) in fp32 at every position and in bf16 at the handoff; the
    fp32 full forward through the kernels equals the one through the plain
    twins to phase 5's bounds.
+6d. serve_hybrid: phases 4-5 for hymba-1.5b at its published config,
+   uncut (32 layers, d_model 1,600, 25 / 5 heads of 64 beside 50 SSD
+   heads of 64 with state 16 in every layer, 128 meta tokens, window
+   1,024 with layers 0 / 15 / 31 global): exactly 3 flash launches (the
+   global layers; the windowed ones keep the meta tokens as sinks, plain
+   ``ref.mha``) and 32 ssd_scan a prefill, 161 rmsnorm a forward.
+   ``plain_hybrid`` holds the kernels against the plain twins as
+   ``plain_moe`` does (fp32 over an fp32 K/V cache; bf16 by distance, with
+   coarse kernels that must fail), and ``handoff_hybrid`` prefill +
+   decode against one full-sequence forward (fp32 at every forced
+   position, bf16 at the prompt's end and the first decode step).
+6e. hybrid_window: two prompts of 1,536 text tokens (1,664 internal
+   positions, past the window) and 32 new tokens through the engine,
+   exact launches; prefill + decode against a full forward of 1,696
+   positions (fp32 everywhere, bf16 at the handoff); the first windowed
+   layer's attention output at the prompt and at the last step against
+   an independent masked SDPA, which a mask without the sinks or with
+   half the window must fail.
+6f. serve_vlm: phases 4-5 for phi-3-vision-4.2b at its published config,
+   uncut (32 layers, d_model 3,072, 32 heads of 96, 576 patches of 1,024
+   projected in front of the text), each request with seeded patch
+   embeddings passed to ``ServeEngine.generate`` as ``extra_inputs``:
+   exactly 32 flash launches a prefill (8 x 1,088 positions), 65 rmsnorm
+   a forward; ``plain_vlm`` and ``handoff_vlm`` as for hymba.
 7. train: full-width mamba2-780m, bf16 compute with fp32 masters and
    AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
    tokens made from the seed, through ``init_train_state`` ->
@@ -167,21 +193,23 @@ MIN_TOP1 = 0.9
 # HBM3 at 700 W (random weights at 48 layers amplify bf16 rounding,
 # PERF.md section 6): a third of the plain path's own distance from 1.
 BF16_MARGIN = 0.01
-# the MoE phase's bf16 bound, by distance (1 - mean cosine) to the fp32
-# plain reference: the kernel path's at most MOE_BF16_RATIO times the plain
-# bf16 path's own, plus MOE_BF16_SLACK.  On granite the plain path sits
-# 1.35e-3 to 1.46e-3 from fp32 and the kernel path 1.19e-3 to 1.29e-3
-# (NVIDIA H100 80GB HBM3, 700 W), so mamba2's margin of 0.01 would pass a
-# kernel path seven times farther.  The ratio leaves room for the run-to-
-# run route flips of index_add's unordered atomics.  The same distance is
-# read for the kernel path with one kernel's output rounded to fewer of
-# bf16's 7 mantissa bits (kernel, bits); the last must fail the bound: an
-# rmsnorm keeping 3 bits read 4.6e-3 against a bound of 2.2e-3, 4 bits
-# 2.6e-3 and 5 bits 1.9e-3, a flash keeping 3 bits 2.5e-3 and 4 bits 1.5e-3
-# (7 of every 8 logits checked are decode steps, where flash does not run)
-MOE_BF16_RATIO, MOE_BF16_SLACK = 1.5, 1e-4
-MOE_FAULTS = (("rmsnorm", 5), ("flash_attention", 3), ("rmsnorm", 4),
-              ("rmsnorm", 3))
+# the bf16 bound of the MoE, hybrid and vlm phases, by distance (1 - mean
+# cosine) to the fp32 plain reference: the kernel path's at most BF16_RATIO
+# times the plain bf16 path's own, plus BF16_SLACK.  On granite the plain
+# path sits 1.35e-3 to 1.46e-3 from fp32 and the kernel path 1.19e-3 to
+# 1.29e-3 (NVIDIA H100 80GB HBM3, 700 W), so mamba2's margin of 0.01 would
+# pass a kernel path seven times farther.  The ratio leaves room for the
+# run-to-run route flips of index_add's unordered atomics.  The same
+# distance is read for the kernel path with one kernel's output rounded to
+# fewer of bf16's 7 mantissa bits (kernel, bits): a coarse flash, read to
+# show how far flash is seen, then the control, which must fail the bound.
+# Granite's control keeps 3 bits of rmsnorm (4.6e-3 against a bound of
+# 2.2e-3); hymba and phi-3-vision, with more norms a layer, fail at 5 bits
+# (4.9e-3 against 2.2e-3, 2.0e-3 against 1.0e-3).  The finer readings that
+# chose these are in PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W)
+BF16_RATIO, BF16_SLACK = 1.5, 1e-4
+FAULTS = {"moe": (("flash_attention", 3), ("rmsnorm", 3)),
+          "prefix": (("flash_attention", 3), ("rmsnorm", 5))}
 # phase 6's bf16 handoff on the served model: the prompt's last position
 # to MIN_COSINE, the first decode step to this.  The step runs the fp32
 # recurrence and GEMMs of 8 rows where the full forward runs the chunk
@@ -218,11 +246,21 @@ TOL_SSD = {"bfloat16": (2e-2, 4e-3), "float32": (1e-3, 1e-4)}
 SSM_ARCH = "mamba2-780m"
 
 # phase 6b: full-width, full-depth MoE serving workload, the same REQUESTS;
-# its logit checks force the first MOE_FORCED answered tokens (decode is
-# host-bound at ~0.15 s a step, and eight forced runs of 32 steps would
-# add ~30 s to the script)
+# its logit checks, and those of phases 6d and 6f, force the first
+# FORCED_STEPS answered tokens (decode is host-bound at ~0.15 s a step,
+# and eight forced runs of 32 steps would add ~30 s to the script)
 MOE_ARCH = "granite-moe-3b-a800m"
-MOE_FORCED = 8
+FORCED_STEPS = 8
+
+# phases 6d-6e: hymba-1.5b at its published config, uncut, the same
+# REQUESTS; then two prompts of WINDOW_PROMPT text tokens (with its 128
+# meta tokens 1,664 internal positions, past the 1,024 window)
+HYBRID_ARCH = "hymba-1.5b"
+WINDOW_BATCH, WINDOW_PROMPT = 2, 1536
+
+# phase 6f: phi-3-vision-4.2b at its published config, uncut, the same
+# REQUESTS, each prompt with seeded patch embeddings (576 x 1,024)
+VLM_ARCH = "phi-3-vision-4.2b"
 
 # phase 6c: mixtral's ring cache at published widths, cut in depth; two
 # prompts longer than the 4,096-token window, so the ring wraps at prefill
@@ -319,13 +357,17 @@ def device_busy(torch, fn):
 def device_ms(torch, fn, iters: int = 20):
     """Device time of one call: the profiler's summed kernel time over
     ``iters`` calls, without the host's launch gaps that ``time_ms`` sees.
-    Returns (ms, timer).  A profiler window that records no device
-    activity is retried; if none does, the time is taken with CUDA events
-    instead and ``timer`` says so."""
+    Returns (ms, timer).  Every function timed here runs at least one
+    device operation a call, so a profiler window that records fewer than
+    ``iters`` (a window whose tracing started late: one window read one
+    kernel of 20) is retried; if none records them all, the time is taken
+    with CUDA events instead and ``timer`` says so."""
     fn()
     for _ in range(3):
-        _, busy, _ = device_busy(torch, lambda: [fn() for _ in range(iters)])
-        if busy > 0:
+        _, busy, avgs = device_busy(torch,
+                                    lambda: [fn() for _ in range(iters)])
+        ops = sum(e.count for e in avgs if e.self_device_time_total > 0)
+        if busy > 0 and ops >= iters:
             return busy * 1e3 / iters, "profiler"
     return time_ms(fn, iters), "events"
 
@@ -643,13 +685,17 @@ def check_rmsnorm_residual(torch, rn, gen, name, rows_, d):
 
 
 def ssd_cost(b, s, h, p, g, n, chunk, elem):
-    """FLOPs the function needs per chunk (the causal triangle of C B^T
-    and its product with x dt, chunk (chunk + 1) / 2 pairs of 2 (n + p)
-    each, and the two state products) and the bytes of x, dt, A, B, C and
-    y."""
-    pairs = chunk * (chunk + 1) // 2
-    per_chunk = 2 * pairs * (n + p) + 4 * chunk * n * p
-    flops = float(per_chunk * b * h * (s // chunk))
+    """FLOPs the function needs over the ``s`` positions it is given, in
+    chunks of ``chunk`` and a last partial one (per chunk of c positions:
+    the causal triangle of C B^T and its product with x dt, c (c + 1) / 2
+    pairs of 2 (n + p) each, and the two state products), and the bytes of
+    x, dt, A, B, C and y.  The padding a wrapper adds is its own choice,
+    not work the function needs, so it is not counted."""
+    def per_chunk(c):
+        return 2 * (c * (c + 1) // 2) * (n + p) + 4 * c * n * p
+
+    flops = float(b * h * ((s // chunk) * per_chunk(chunk)
+                           + per_chunk(s % chunk)))
     nbytes = float(elem * (2 * b * s * h * p + 2 * b * s * g * n)
                    + 4 * (b * s * h + h))
     return flops, nbytes
@@ -692,9 +738,7 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
         rtol, atol_of_max = TOL_SSD[dtype]
         y_max = float(ref.float().abs().max())
         err = max_err(out, ref, rtol, atol_of_max * y_max)
-        c = min(chunk, s)
-        s_pad = s + (-s) % c
-        flops, nbytes = ssd_cost(b, s_pad, h, p, g, n, c, x.element_size())
+        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk, x.element_size())
         bound_ms, bound_by = bound(flops, nbytes, dtype)
 
         def plain():
@@ -752,9 +796,7 @@ def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
         s_max = float(state_ref.abs().max())
         err_y = max_err(y, y_ref, rtol, atol_of_max * y_max)
         err_s = max_err(state, state_ref, rtol, atol_of_max * s_max)
-        c = min(chunk, s)
-        s_pad = s + (-s) % c
-        flops, nbytes = ssd_cost(b, s_pad, h, p, g, n, c, x.element_size())
+        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk, x.element_size())
         nbytes += 4.0 * b * h * p * n                  # the state written
         bound_ms, bound_by = bound(flops, nbytes, dtype)
 
@@ -904,15 +946,18 @@ def coarse_kernel(torch, ops, fa, rn, kernel: str, bits: int):
         ops._fa, ops._rn = saved
 
 
-def forced_logits(torch, model, prompts, forced, kv_dtype=None):
+def forced_logits(torch, model, prompts, forced, kv_dtype=None,
+                  extra=None):
     """Last-position logits of the prompt and of each teacher-forced step:
     (B, n, V) fp32, for prompts (B,S) and forced tokens (B,n), over a
-    cache of ``kv_dtype`` (the model's default, bf16, if None)."""
+    cache of ``kv_dtype`` (the model's default, bf16, if None); ``extra``:
+    more fields of the prefill batch (a vlm's patches)."""
     B, S = prompts.shape
     n = forced.shape[1]
     cache = model.init_cache(B, S + n, **(
         {} if kv_dtype is None else {"kv_dtype": kv_dtype}))
-    logits, cache = model.prefill({"tokens": prompts}, cache)
+    logits, cache = model.prefill({"tokens": prompts, **(extra or {})},
+                                  cache)
     outs = [logits[:, -1].float()]
     pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
     for j in range(n - 1):
@@ -922,62 +967,152 @@ def forced_logits(torch, model, prompts, forced, kv_dtype=None):
     return torch.stack(outs, dim=1)
 
 
-def full_sequence_logits(torch, model, tokens, first: int):
-    """Logits (B, n, V) fp32 of positions ``first`` .. S-1 of one
-    full-sequence forward of ``tokens`` (B,S) through the kernels: the
-    training forward, with no cache."""
+def full_sequence_logits(torch, model, tokens, first: int, extra=None):
+    """Logits (B, n, V) fp32 of text positions ``first`` .. S-1 of one
+    full-sequence forward of ``tokens`` (B,S), behind the model's prefix
+    (``extra``: a vlm's patches), through the kernels: the training
+    forward, with no cache."""
     from repro_torch.models import layers as ll
     from repro_torch.models import stack as stk
     cfg = model.cfg
-    B, S = tokens.shape
     with torch.no_grad():
-        x = ll.embed(model.embed, cfg, tokens)
-        pos = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, pos, prefix = model._compose_input({"tokens": tokens,
+                                               **(extra or {})})
         x, _ = stk.run_stack(model.layers, cfg, x, positions=pos)
-        h = ll.norm(model.final_norm, x[:, first:].contiguous(), cfg)
+        h = ll.norm(model.final_norm, x[:, prefix + first:].contiguous(),
+                    cfg)
         return ll.unembed(model.embed, cfg, h).float()
 
 
-def serve_path(torch, np, F, modules, arch: str) -> dict:
-    """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m) and 6b (granite-moe) at
-    full width: serve ``REQUESTS`` through the frontend with exact launch
-    counts, profile a prefill and eight decode steps, then hold
-    teacher-forced logits against the plain twins' (and, for the SSM,
-    against a full-sequence forward).  Returns the launches of the serving
-    run."""
-    from repro_torch.configs import get_config
+def seeded_model(torch, cfg):
+    """``cfg``'s model on the card, its weights drawn from seed 0, in the
+    compute dtype ``layers.COMPUTE_DTYPE`` holds."""
     from repro_torch.models import DecoderLM, build_model
     from repro_torch.models.module import init_params
+    params = init_params(DecoderLM.param_specs(cfg),
+                         torch.Generator(device="cuda").manual_seed(0))
+    return build_model(cfg, params, device="cuda")
+
+
+@contextlib.contextmanager
+def fp32_model(torch, cfg):
+    """The served model rebuilt from the same seed in fp32 compute, for
+    the block; the caller deletes it inside the block to free it."""
+    from repro_torch.models import layers as ll
+    saved = ll.COMPUTE_DTYPE
+    ll.COMPUTE_DTYPE = torch.float32
+    try:
+        yield seeded_model(torch, cfg)
+    finally:
+        ll.COMPUTE_DTYPE = saved
+        torch.cuda.empty_cache()
+
+
+def handoff(torch, F, model, prompts, forced, decoded=None, kv_dtype=None,
+            extra=None):
+    """Prefill + decode against one full-sequence forward: per sequence
+    and position (B, n), the cosine of the logits at the prompt's last
+    position and at each teacher-forced step (``forced_logits`` of
+    ``prompts`` and ``forced`` (B, n), or ``decoded`` where the caller
+    has them) to the same positions of one forward of the prompt (behind
+    its prefix) and forced[:, :n-1], both through the kernels.  Returns
+    (cosines, the full forward's logits)."""
+    if decoded is None:
+        decoded = forced_logits(torch, model, prompts, forced,
+                                kv_dtype=kv_dtype, extra=extra)
+    full = full_sequence_logits(torch, model,
+                                torch.cat([prompts, forced[:, :-1]], dim=1),
+                                prompts.shape[1] - 1, extra=extra)
+    return F.cosine_similarity(decoded, full, dim=-1), full
+
+
+def neighbour_state_logits(torch, model, prompts, forced, extra=None):
+    """The first decode step's logits (B, V) fp32 after a prefill of
+    ``prompts`` whose final SSM states were each handed to the next slot:
+    what a final-state store that writes the wrong slot gives."""
+    B, S = prompts.shape
+    cache = model.init_cache(B, S + 1)
+    model.prefill({"tokens": prompts, **(extra or {})}, cache)
+    cache["ssm_state"].copy_(cache["ssm_state"].roll(1, dims=1))
+    logits, _ = model.decode_step(
+        cache, forced[:, :1], torch.full((B,), S, dtype=torch.long,
+                                         device=prompts.device))
+    return logits[:, -1].float()
+
+
+def hold_handoff(h32, h16, decode_min=MIN_COSINE, faulty=None):
+    """The handoff bounds: fp32 prefill + decode against the full sequence
+    (``h32``, every position held) to ``MIN_COSINE``; the served bf16
+    model's (``h16``: the prompt's last position, the first decode step)
+    to ``MIN_COSINE`` and ``decode_min``; and a faulty first decode step
+    (``faulty``, per sequence) must fall below ``decode_min``."""
+    check(float(h32.min()) >= MIN_COSINE,
+          f"fp32 prefill + decode against the full sequence: cosine "
+          f"{float(h32.min())} < {MIN_COSINE}")
+    check(float(h16[:, 0].min()) >= MIN_COSINE,
+          f"bf16 prefill against the bf16 full sequence: cosine "
+          f"{float(h16[:, 0].min())} < {MIN_COSINE}")
+    check(float(h16[:, 1].min()) >= decode_min,
+          f"bf16 first decode step against the bf16 full sequence: cosine "
+          f"{float(h16[:, 1].min())} < {decode_min}")
+    if faulty is not None:
+        check(float(faulty.max()) < decode_min,
+              f"a neighbour's state passes the bf16 decode bound: cosine "
+              f"{float(faulty.max())}")
+
+
+def serve_path(torch, np, F, modules, arch: str) -> dict:
+    """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m), 6b (granite-moe), 6d
+    (hymba-1.5b) and 6f (phi-3-vision-4.2b) at full width: serve
+    ``REQUESTS`` through the frontend with exact launch counts, profile a
+    prefill and eight decode steps, then hold teacher-forced logits
+    against the plain twins' (and, for the SSM and the prefix families,
+    against a full-sequence forward).  A vlm request carries seeded patch
+    embeddings: the frontend passes none (as ``repro``'s), so the engine
+    here adds each prompt's patches to its ``generate`` call as
+    ``extra_inputs``.  Returns the launches of the serving run."""
+    from repro_torch.configs import get_config
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
     from repro_torch.models import layers as ll
     cfg = get_config(arch)
-    ssm = cfg.family == "ssm"
-    moe = cfg.family == "moe"
-    tag = {"ssm": "_ssm", "moe": "_moe"}.get(cfg.family, "")
+    family = cfg.family
+    tag = "" if family == "dense" else "_" + family
     t0 = time.perf_counter()
-    wgen = torch.Generator(device="cuda").manual_seed(0)
-    params = init_params(DecoderLM.param_specs(cfg), wgen)
-    model = build_model(cfg, params, device="cuda")
-    del params
+    model = seeded_model(torch, cfg)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+               for plen, count in REQUESTS for _ in range(count)]
+    patches = {}
+    if cfg.num_patches:
+        pgen = torch.Generator(device="cuda").manual_seed(1)
+        patches = {p.tobytes(): torch.randn(
+            (cfg.num_patches, cfg.patch_embed_dim), generator=pgen,
+            device="cuda") for p in prompts}
+
+    def extra_for(rows):
+        """The prefill's extra inputs for prompts ``rows`` (B, S)."""
+        if not patches:
+            return None
+        return {"patch_embeds": torch.stack(
+            [patches[np.asarray(r, np.int32).tobytes()] for r in rows])}
 
     results = []
 
     class RecordingEngine(ServeEngine):
-        def generate(self, prompts, max_new_tokens, *, seed=0):
-            res = super().generate(prompts, max_new_tokens, seed=seed)
+        def generate(self, prompts_, max_new_tokens, *, seed=0):
+            res = super().generate(prompts_, max_new_tokens, seed=seed,
+                                   extra_inputs=extra_for(prompts_))
             results.append(res)
             return res
 
     max_len = max(p for p, _ in REQUESTS) + NEW_TOKENS + 8
     engine = RecordingEngine(model, max_batch=MAX_BATCH, max_len=max_len,
                              device="cuda")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
-               for plen, count in REQUESTS for _ in range(count)]
     engine.generate(np.stack(prompts[:MAX_BATCH]), 4)     # warm-up
     results.clear()
 
@@ -1008,18 +1143,25 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     L = cfg.num_layers
     batches = len(results)
     steps = sum(r.steps - 1 for r in results)
-    # one scan (SSM) or attention (dense) per layer and prefill; decode
-    # runs the recurrence or ragged attention, no kernel; two norms a
-    # layer and the final norm in every forward
-    mixer = L * batches
-    expect = {"flash_attention": 0 if ssm else mixer,
-              "rmsnorm": (2 * L + 1) * (batches + steps),
-              "ssd_scan": mixer if ssm else 0}
+    # a prefill runs the flash kernel in every layer whose attention is
+    # not ragged (all but the SSM's; hymba's three global layers: its
+    # windowed layers keep the meta tokens as sinks, which go to
+    # ref.mha) and the scan in every layer with an SSM; decode runs
+    # ragged attention and the recurrence, no kernel.  Norms a forward:
+    # ln1 (and ln2 with attention) a layer, hymba's two mixing norms and
+    # the SSM's gate norm, and the final norm
+    flash_layers = {"ssm": 0, "hybrid": len(cfg.global_attn_layers)}.get(
+        family, L)
+    norms = {"ssm": 2, "hybrid": 5}.get(family, 2) * L + 1
+    expect = {"flash_attention": flash_layers * batches,
+              "rmsnorm": norms * (batches + steps),
+              "ssd_scan": L * batches if cfg.ssm_state_dim else 0}
     decode_tokens = sum(r.tokens.shape[0] * (r.steps - 1) for r in results)
     decode_s = sum(r.decode_s for r in results)
     cache_bytes = sum(t.numel() * t.element_size() for t in
                       model.init_cache(MAX_BATCH, max_len).values())
     emit("serve" + tag, arch=cfg.name, params=cfg.param_count(),
+         layers=L, prefix_positions=model.prefix_len,
          requests=len(outs), batches_served=frontend.batches_served,
          prefill_s=[r.prefill_s for r in results],
          decode_s=[r.decode_s for r in results],
@@ -1035,9 +1177,11 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     # batch, under the profiler
     pt = torch.as_tensor(np.stack(prompts[:MAX_BATCH]), dtype=torch.long,
                          device="cuda")
+    pbatch = {"tokens": pt, **(extra_for(prompts[:MAX_BATCH]) or {})}
     cache = model.init_cache(MAX_BATCH, max_len)
+
     def prefill():
-        model.prefill({"tokens": pt}, cache)
+        model.prefill(pbatch, cache)
 
     tok = pt[:, -1:]
     pos = torch.full((MAX_BATCH,), pt.shape[1], dtype=torch.long,
@@ -1047,14 +1191,16 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
         for j in range(8):
             model.decode_step(cache, tok, pos + j)
 
+    expect_prefill = (("flash_mma_kernel",) if flash_layers else ()) + (
+        ("ssd_scan_state_passing_kernel",) if cfg.ssm_state_dim else ())
+    prefill_tokens = pt.shape[1] + model.prefix_len
     for window, fn, expect in (
-            (f"{cfg.name} prefill 8x512", prefill,
-             ("ssd_scan_state_passing_kernel",) if ssm
-             else ("flash_mma_kernel",)),
+            (f"{cfg.name} prefill 8x{prefill_tokens}", prefill,
+             expect_prefill),
             (f"{cfg.name} 8 decode steps, batch 8", decode_steps,
-             ("rmsnorm",) if ssm or moe else ())):
+             ("rmsnorm",) if family != "dense" else ())):
         row = profile_phase(torch, window, fn, expect=expect)
-        if moe:
+        if family == "moe":
             row["moe_split"] = moe_split(torch, ll, fn)
         emit("profile", **row)
     del cache
@@ -1062,16 +1208,18 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     # ---- the same prompts through the plain twins ---------------------------
     # one batch of each prompt length, forced with what the path answered
     n_short = REQUESTS[-1][1]
-    batches_ = []
+    batches_, extras = [], []
     for sl in (slice(0, MAX_BATCH), slice(len(prompts) - n_short, None)):
         batches_.append(tuple(
             torch.as_tensor(np.stack(a[sl]), dtype=torch.long, device="cuda")
             for a in (prompts, outs)))
-    if ssm:
+        extras.append(extra_for(prompts[sl]))
+    if family == "ssm":
         ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts)
         return launches
-    if moe:
-        moe_logit_checks(torch, F, modules, cfg, model, batches_, counts)
+    if family in ("moe", "hybrid", "vlm"):
+        distance_logit_checks(torch, F, modules, cfg, model, batches_,
+                              counts, extras)
         return launches
     cos_all, top1_all = [], []
     for pt, ft in batches_:
@@ -1120,9 +1268,6 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     hands to each slot (the prompt's last position to ``MIN_COSINE``, the
     first decode step to ``SSM_BF16_DECODE_MIN_COSINE``, which a slot
     handed its neighbour's state must fail)."""
-    from repro_torch.models import DecoderLM, build_model
-    from repro_torch.models import layers as ll
-    from repro_torch.models.module import init_params
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
     def plain_run(m, pt, ft):
@@ -1148,45 +1293,27 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
         # of the prompt and the first forced token, both through the
         # kernels (the three bf16 stage kernels, and in prefill the final
         # state store), held per sequence and per position
-        seq = torch.cat([pt, ft[:, :1]], dim=1)
-        full16 = full_sequence_logits(torch, model, seq, pt.shape[1] - 1)
-        handoff16.append(cos(k16[:, :2], full16))
+        h16, full16 = handoff(torch, F, model, pt, ft[:, :2],
+                              decoded=k16[:, :2])
+        handoff16.append(h16)
     # what the bf16 bound separates: the first decode step of the last
     # batch with each slot handed its neighbour's final state
-    B, S = pt.shape
-    cache = model.init_cache(B, S + 1)
-    model.prefill({"tokens": pt}, cache)
-    cache["ssm_state"].copy_(cache["ssm_state"].roll(1, dims=1))
-    logits, _ = model.decode_step(
-        cache, ft[:, :1], torch.full((B,), S, dtype=torch.long,
-                                     device=pt.device))
-    rolled = cos(logits[:, -1].float(), full16[:, 1])
-    del cache
-    saved = ll.COMPUTE_DTYPE
-    ll.COMPUTE_DTYPE = torch.float32
-    try:
-        params = init_params(DecoderLM.param_specs(cfg),
-                             torch.Generator(device="cuda").manual_seed(0))
-        m32 = build_model(cfg, params, device="cuda")
-        del params
+    rolled = cos(neighbour_state_logits(torch, model, pt, ft), full16[:, 1])
+    with fp32_model(torch, cfg) as m32:
         fp32 = []
         for pt, ft in batches_:
-            seq = torch.cat([pt, ft[:, :-1]], dim=1)
-            fp32.append((forced_logits(torch, m32, pt, ft),
-                         plain_run(m32, pt, ft),
-                         full_sequence_logits(torch, m32, seq,
-                                              pt.shape[1] - 1)))
+            k32 = forced_logits(torch, m32, pt, ft)
+            fp32.append((k32, plain_run(m32, pt, ft),
+                         *handoff(torch, F, m32, pt, ft, decoded=k32)))
         del m32
-    finally:
-        ll.COMPUTE_DTYPE = saved
 
     def cat(xs):
         return torch.cat([x.flatten() for x in xs])
 
-    c32 = cat([cos(k, p) for k, p, _ in fp32])
-    t32 = float(cat([top1(k, p) for k, p, _ in fp32]).mean())
-    k16_ref = cat([cos(k, p32) for (k, _), (_, p32, _) in zip(bf16, fp32)])
-    p16_ref = cat([cos(p, p32) for (_, p), (_, p32, _) in zip(bf16, fp32)])
+    c32 = cat([cos(k, p) for k, p, _, _ in fp32])
+    t32 = float(cat([top1(k, p) for k, p, _, _ in fp32]).mean())
+    k16_ref = cat([cos(k, p32) for (k, _), (_, p32, _, _) in zip(bf16, fp32)])
+    p16_ref = cat([cos(p, p32) for (_, p), (_, p32, _, _) in zip(bf16, fp32)])
     c16 = cat([cos(k, p) for k, p in bf16])
     emit("plain_ssm", positions=int(c32.numel()),
          fp32_cosine_min=float(c32.min()), fp32_cosine_mean=float(c32.mean()),
@@ -1204,11 +1331,11 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
           f"bf16 kernels' mean cosine to the fp32 reference "
           f"{float(k16_ref.mean())}, the plain twins' {float(p16_ref.mean())}")
 
-    full = torch.cat([cos(k, f) for k, _, f in fp32])     # (sequences, n)
-    handoff = full[:, :2]
+    full = torch.cat([h for _, _, h, _ in fp32])          # (sequences, n)
+    handoff32 = full[:, :2]
     h16 = torch.cat(handoff16)                            # (sequences, 2)
     emit("prefill_vs_full", positions=int(full.numel()),
-         handoff_cosine_min=float(handoff.min()),
+         handoff_cosine_min=float(handoff32.min()),
          bf16_handoff_cosine_min_by_step=[float(v) for v in h16.min(0)[0]],
          bf16_handoff_cosine_min_by_sequence=[
              float(v) for v in h16.min(1)[0]],
@@ -1216,46 +1343,49 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
          bf16_neighbour_state_cosine_max=float(rolled.max()),
          cosine_mean_by_step=[float(v) for v in full.mean(0)],
          cosine_min=float(full.min()), min_cosine=MIN_COSINE,
-         top1_agreement=float(cat([top1(k, f) for k, _, f in fp32]).mean()))
-    check(float(handoff.min()) >= MIN_COSINE,
-          f"prefill + first decode step against the full sequence: cosine "
-          f"{float(handoff.min())} < {MIN_COSINE}")
-    check(float(h16[:, 0].min()) >= MIN_COSINE,
-          f"bf16 prefill against the bf16 full sequence: cosine "
-          f"{float(h16[:, 0].min())} < {MIN_COSINE}")
-    check(float(h16[:, 1].min()) >= SSM_BF16_DECODE_MIN_COSINE,
-          f"bf16 first decode step against the bf16 full sequence: cosine "
-          f"{float(h16[:, 1].min())} < {SSM_BF16_DECODE_MIN_COSINE}")
-    check(float(rolled.max()) < SSM_BF16_DECODE_MIN_COSINE,
-          f"a neighbour's state passes the bf16 decode bound: cosine "
-          f"{float(rolled.max())}")
+         top1_agreement=float(cat([top1(k, f) for k, _, _, f in fp32])
+                              .mean()))
+    hold_handoff(handoff32, h16, SSM_BF16_DECODE_MIN_COSINE, rolled)
 
 
-def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
-    """Phase 6b's logit checks on the forced batches ``batches_`` [(prompts,
-    forced tokens)], ``model`` being the served bf16 granite-moe.
+def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
+                          extras=None):
+    """The logit checks of phases 6b (granite-moe), 6d (hymba) and 6f
+    (phi-3-vision) on the forced batches ``batches_`` [(prompts, forced
+    tokens)], ``model`` being the served bf16 model; ``extras`` holds each
+    batch's extra prefill inputs (the vlm's patches) or is None.
 
-    ``plain_moe``: in fp32 compute the kernels are held against the plain
-    twins to phase 5's bounds (the same weights; the two paths differ by
-    summation order).  In bf16 compute a rounding difference between flash
-    and its twin can move a top-8 choice in one of 32 layers, and at
-    capacity 1.25 push another token out of its expert, so bf16 is held by
+    ``plain_<family>``: in fp32 compute over an fp32 K/V cache the kernels
+    are held against the plain twins to phase 5's bounds (the same
+    weights; the two paths differ by summation order).  In bf16 compute a
+    rounding difference between a kernel and its twin compounds over 32
+    random layers (and for the MoE can move a top-8 choice and at capacity
+    1.25 push another token out of its expert), so bf16 is held by
     distance (1 - mean cosine) to the fp32 plain reference: the kernel
-    path's at most ``MOE_BF16_RATIO`` times the plain bf16 path's, plus
-    ``MOE_BF16_SLACK``.  The same distance is read for the kernel path
-    with each of ``MOE_FAULTS``' kernels made coarse (``coarse_kernel``),
-    and the last must fail the bound.  The route
-    agreement is the share of (token, k) expert choices the kernel path
-    and the plain path share, layer by layer, over the prompts and the
-    forced steps (the first ``MOE_FORCED`` answered tokens)."""
-    from repro_torch.models import DecoderLM, build_model
-    from repro_torch.models import layers as ll
-    from repro_torch.models.module import init_params
-    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
-    L = cfg.num_layers
+    path's at most ``BF16_RATIO`` times the plain bf16 path's, plus
+    ``BF16_SLACK``.  The same distance is read for the kernel path with
+    each of the family's ``FAULTS`` made coarse (``coarse_kernel``), and
+    the last must fail the bound.  For the MoE the route agreement is the
+    share of (token, k) expert choices the kernel path and the plain path
+    share, layer by layer, over the prompts and the forced steps (the
+    first ``FORCED_STEPS`` answered tokens).
 
-    def run(m, pt, ft, plain, fault=None):
-        """Forced logits and each ``_route`` call's top-k experts."""
+    ``handoff_<family>`` (the prefix families): prefill + decode against
+    one full-sequence forward of the prompt (with its prefix) and the
+    forced tokens, both through the kernels: in fp32 at every forced
+    position, in bf16 on the served model at the prompt's last position
+    and the first decode step, each to ``MIN_COSINE``."""
+    from repro_torch.models import layers as ll
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    L, family = cfg.num_layers, cfg.family
+    moe, prefix = family == "moe", family in ("hybrid", "vlm")
+    faults = FAULTS["moe" if moe else "prefix"]
+    extras = extras or [None] * len(batches_)
+
+    def run(m, i, plain, fault=None, kv_dtype=None):
+        """Forced logits of batch i and each ``_route`` call's top-k
+        experts (none but for the MoE)."""
+        pt, ft = batches_[i]
         routes, orig = [], ll._route
 
         def recording(p, cfg_, xf):
@@ -1269,13 +1399,15 @@ def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
             with (plain_kernels(ops, fa, rn, ss) if plain
                   else coarse_kernel(torch, ops, fa, rn, *fault)
                   if fault else contextlib.nullcontext()):
-                out = forced_logits(torch, m, pt, ft)
+                out = forced_logits(torch, m, pt, ft, kv_dtype=kv_dtype,
+                                    extra=extras[i])
         finally:
             ll._route = orig
         if plain:
             check(counts() == before, "the plain run launched a kernel")
         check(bool(torch.isfinite(out).all()), "logits not finite")
-        check(len(routes) == L * ft.shape[1], f"{len(routes)} routings")
+        check(len(routes) == (L * ft.shape[1] if moe else 0),
+              f"{len(routes)} routings")
         return out, routes
 
     def agreement(a, b):
@@ -1291,27 +1423,32 @@ def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     def cos(a, b):
         return F.cosine_similarity(a, b, dim=-1)
 
-    batches_ = [(pt, ft[:, :MOE_FORCED]) for pt, ft in batches_]
-    runs = {}
-    for i, (pt, ft) in enumerate(batches_):
-        runs[("bf16", "kernel", i)] = run(model, pt, ft, False)
-        runs[("bf16", "plain", i)] = run(model, pt, ft, True)
-        for fault in MOE_FAULTS:
-            runs[("bf16", fault, i)] = run(model, pt, ft, False, fault)
-    saved = ll.COMPUTE_DTYPE
-    ll.COMPUTE_DTYPE = torch.float32
-    try:
-        params = init_params(DecoderLM.param_specs(cfg),
-                             torch.Generator(device="cuda").manual_seed(0))
-        m32 = build_model(cfg, params, device="cuda")
-        del params
-        for i, (pt, ft) in enumerate(batches_):
-            runs[("fp32", "kernel", i)] = run(m32, pt, ft, False)
-            runs[("fp32", "plain", i)] = run(m32, pt, ft, True)
-        del m32
-    finally:
-        ll.COMPUTE_DTYPE = saved
+    batches_ = [(pt, ft[:, :FORCED_STEPS]) for pt, ft in batches_]
     n = len(batches_)
+    runs, h16, h32 = {}, [], []
+    for i in range(n):
+        runs[("bf16", "kernel", i)] = run(model, i, False)
+        runs[("bf16", "plain", i)] = run(model, i, True)
+        for fault in faults:
+            runs[("bf16", fault, i)] = run(model, i, False, fault)
+        if prefix:
+            pt, ft = batches_[i]
+            h16.append(handoff(torch, F, model, pt, ft[:, :2],
+                               decoded=runs[("bf16", "kernel", i)][0][:, :2],
+                               extra=extras[i])[0])
+    with fp32_model(torch, cfg) as m32:
+        for i in range(n):
+            runs[("fp32", "kernel", i)] = run(m32, i, False,
+                                              kv_dtype=torch.float32)
+            runs[("fp32", "plain", i)] = run(m32, i, True,
+                                             kv_dtype=torch.float32)
+            if prefix:
+                pt, ft = batches_[i]
+                h32.append(handoff(
+                    torch, F, m32, pt, ft,
+                    decoded=runs[("fp32", "kernel", i)][0],
+                    extra=extras[i])[0])
+        del m32
 
     def cat(f):
         return torch.cat([f(i).flatten() for i in range(n)])
@@ -1331,21 +1468,25 @@ def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     c16 = cat(lambda i: cos(logits("bf16", "kernel", i),
                             logits("bf16", "plain", i)))
     p_dist = 1.0 - float(p16.mean())
-    bound16 = MOE_BF16_RATIO * p_dist + MOE_BF16_SLACK
+    bound16 = BF16_RATIO * p_dist + BF16_SLACK
     k_dist = 1.0 - float(k16.mean())
     fault_dist = {
         fault: 1.0 - float(cat(lambda i: cos(logits("bf16", fault, i),
                                              logits("fp32", "plain", i)))
                            .mean())
-        for fault in MOE_FAULTS}
-    route = {}
-    for dt in ("bf16", "fp32"):
-        per_layer = [agreement(runs[(dt, "kernel", i)][1],
-                               runs[(dt, "plain", i)][1]) for i in range(n)]
-        layer = [min(v[j] for v in per_layer) for j in range(L)]
-        route[dt] = dict(min=min(layer), mean=sum(layer) / L,
-                         by_layer=[round(v, 6) for v in layer])
-    emit("plain_moe", positions=int(c32.numel()),
+        for fault in faults}
+    extra_fields = {}
+    if moe:
+        route = {}
+        for dt in ("bf16", "fp32"):
+            per_layer = [agreement(runs[(dt, "kernel", i)][1],
+                                   runs[(dt, "plain", i)][1])
+                         for i in range(n)]
+            layer = [min(v[j] for v in per_layer) for j in range(L)]
+            route[dt] = dict(min=min(layer), mean=sum(layer) / L,
+                             by_layer=[round(v, 6) for v in layer])
+        extra_fields["route_agreement"] = route
+    emit("plain_" + family, positions=int(c32.numel()),
          fp32_cosine_min=float(c32.min()), fp32_cosine_mean=float(c32.mean()),
          fp32_top1_agreement=t32,
          bf16_cosine_min=float(c16.min()), bf16_cosine_mean=float(c16.mean()),
@@ -1355,18 +1496,27 @@ def moe_logit_checks(torch, F, modules, cfg, model, batches_, counts):
          bf16_distance_bound=bound16,
          bf16_coarse_kernel_distance={f"{k} {b} bits": d
                                       for (k, b), d in fault_dist.items()},
-         route_agreement=route, min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
-         bf16_ratio=MOE_BF16_RATIO, bf16_slack=MOE_BF16_SLACK)
+         **extra_fields, min_cosine=MIN_COSINE, min_top1=MIN_TOP1,
+         bf16_ratio=BF16_RATIO, bf16_slack=BF16_SLACK)
     check(float(c32.min()) >= MIN_COSINE,
           f"fp32 cosine {float(c32.min())} < {MIN_COSINE}")
     check(t32 >= MIN_TOP1, f"fp32 top-1 agreement {t32} < {MIN_TOP1}")
     check(k_dist <= bound16,
           f"bf16 kernels' distance to the fp32 reference {k_dist} > "
           f"{bound16} (the plain twins' {p_dist})")
-    kernel, bits = MOE_FAULTS[-1]
-    check(fault_dist[MOE_FAULTS[-1]] > bound16,
+    kernel, bits = faults[-1]
+    check(fault_dist[faults[-1]] > bound16,
           f"{kernel} keeping {bits} mantissa bits passes the bf16 bound: "
-          f"distance {fault_dist[MOE_FAULTS[-1]]} <= {bound16}")
+          f"distance {fault_dist[faults[-1]]} <= {bound16}")
+    if not prefix:
+        return
+    h32, h16 = torch.cat(h32), torch.cat(h16)   # (sequences, n), (.., 2)
+    emit("handoff_" + family, sequences=int(h32.shape[0]),
+         fp32_cosine_min=float(h32.min()),
+         fp32_cosine_min_by_step=[float(v) for v in h32.min(0)[0]],
+         bf16_handoff_cosine_min_by_step=[float(v) for v in h16.min(0)[0]],
+         min_cosine=MIN_COSINE)
+    hold_handoff(h32, h16)
 
 
 def ring_path(torch, np, F, modules) -> dict:
@@ -1393,10 +1543,8 @@ def ring_path(torch, np, F, modules) -> dict:
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.models import DecoderLM, build_model
     from repro_torch.models import layers as ll
     from repro_torch.models import stack as stk
-    from repro_torch.models.module import init_params
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
@@ -1406,13 +1554,8 @@ def ring_path(torch, np, F, modules) -> dict:
     check(stk.use_ring_cache(cfg), "mixtral should decode over a ring")
     L, W = cfg.num_layers, cfg.sliding_window
 
-    def load():
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        params = init_params(DecoderLM.param_specs(cfg), gen)
-        return build_model(cfg, params, device="cuda")
-
     t0 = time.perf_counter()
-    model = load()
+    model = seeded_model(torch, cfg)
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     results = []
@@ -1514,25 +1657,19 @@ def ring_path(torch, np, F, modules) -> dict:
     model.prefill({"tokens": pt[:, :W]}, stale)
     stale_slots = slot_cosines(stale, S - 1)
     del cache, stale
-    full16 = full_sequence_logits(torch, model, seq[:, :S + 1], S - 1)
-    h16 = cos(torch.stack(k16[:2], 1), full16)                 # (B, 2)
+    h16, _ = handoff(torch, F, model, pt, ft[:, :2],
+                     decoded=torch.stack(k16[:2], 1))          # (B, 2)
     del model, engine
     torch.cuda.empty_cache()
-    saved = ll.COMPUTE_DTYPE
-    ll.COMPUTE_DTYPE = torch.float32
-    try:
-        m32 = load()
-        k32 = forced_logits(torch, m32, pt, ft, kv_dtype=torch.float32)
-        full32 = full_sequence_logits(torch, m32, seq, S - 1)
+    with fp32_model(torch, cfg) as m32:
+        c32, full32 = handoff(torch, F, m32, pt, ft,
+                              kv_dtype=torch.float32)          # (B, 33)
         before = (fa.flash_attention.launches, rn.rmsnorm.launches)
         with plain_kernels(ops, fa, rn, ss):
             plain32 = full_sequence_logits(torch, m32, seq, S - 1)
         check((fa.flash_attention.launches, rn.rmsnorm.launches) == before,
               "the plain run launched a kernel")
         del m32
-    finally:
-        ll.COMPUTE_DTYPE = saved
-    c32 = cos(k32, full32)                                      # (B, 33)
     cp = cos(full32, plain32)
     tp = float((full32.argmax(-1) == plain32.argmax(-1)).float().mean())
     emit("ring_vs_full", positions=int(c32.numel()),
@@ -1555,15 +1692,166 @@ def ring_path(torch, np, F, modules) -> dict:
     check(float(stale_slots.min()) < MIN_COSINE,
           f"a ring of the prompt's first {W} positions passes the slot "
           f"check: cosine {float(stale_slots.min())}")
-    check(float(c32.min()) >= MIN_COSINE,
-          f"fp32 prefill + decode against the full sequence: cosine "
-          f"{float(c32.min())} < {MIN_COSINE}")
-    check(float(h16.min()) >= MIN_COSINE,
-          f"bf16 handoff against the full sequence: cosine "
-          f"{float(h16.min())} < {MIN_COSINE}")
+    hold_handoff(c32, h16)
     check(float(cp.min()) >= MIN_COSINE and tp >= MIN_TOP1,
           f"fp32 full forward, kernels against plain twins: cosine "
           f"{float(cp.min())}, top-1 agreement {tp}")
+    return launches
+
+
+def hybrid_window_path(torch, np, F, modules) -> dict:
+    """Phase 6e: hymba-1.5b (published config, uncut) past its window.
+    Two prompts of ``WINDOW_PROMPT`` text tokens (1,664 internal
+    positions with the 128 meta tokens, past the 1,024 window) and 32 new
+    tokens through ``ServeEngine.generate``, with exact launches (flash on
+    the 3 global layers and the scan on all 32 a prefill, rmsnorm 161 a
+    forward).  The K/V cache is not a ring: the windowed layers decode
+    over a full-length cache through a window mask that keeps the meta
+    tokens visible as sinks.  Then: prefill + 32 teacher-forced decode
+    steps against one full-sequence forward of 1,696 internal positions,
+    in fp32 over an fp32 K/V cache at every position and in bf16 on the
+    served model at the handoff, each to ``MIN_COSINE``.  The fp32 model
+    runs the scalar scan kernel; only the bf16 handoff holds the final
+    state the bf16 stage kernels hand to decode, so a slot handed its
+    neighbour's state must fail its bound, and the plain twins' own bf16
+    handoff is read beside it.  Then the window control.  Random weights
+    attend nearly uniformly, so the logits barely see which keys a mask
+    keeps: the first windowed layer's attention output at the prompt
+    (1,664 queries, ``ref.mha_chunked``) and at the last decode step
+    (``ref.mha`` over the cache), recorded from the fp32 run, is held
+    against an independent masked SDPA with the right window and sinks
+    (``MIN_COSINE`` at every row), and the same SDPA with the sinks
+    dropped and with half the window must fail that bound.
+    Returns the launches of the serving run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import stack as stk
+    from repro_torch.serve.engine import ServeEngine
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+
+    cfg = get_config(HYBRID_ARCH)
+    L, W, M = cfg.num_layers, cfg.sliding_window, cfg.num_meta_tokens
+    S, Bw = WINDOW_PROMPT, WINDOW_BATCH
+    check(not stk.use_ring_cache(cfg), "hymba should not decode over a ring")
+    check(S + M > W, f"{S} + {M} positions do not pass the window {W}")
+
+    model = seeded_model(torch, cfg)
+    max_len = S + NEW_TOKENS + 8
+    engine = ServeEngine(model, max_batch=Bw, max_len=max_len,
+                         device="cuda")
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, (Bw, S)).astype(np.int32)
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention.launches = rn.rmsnorm.launches = 0
+    ss.ssd_scan.launches = 0
+    res = engine.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches,
+                "ssd_scan": ss.ssd_scan.launches}
+    expect = {"flash_attention": len(cfg.global_attn_layers),
+              "rmsnorm": (5 * L + 1) * res.steps, "ssd_scan": L}
+    cache_slots = model.init_cache(Bw, max_len)["k"].shape[2]
+    emit("hybrid_window", arch=cfg.name, window=W, sinks=M,
+         prompt_tokens=S, internal_positions=S + M, cache_slots=cache_slots,
+         prefill_s=res.prefill_s, decode_s=res.decode_s,
+         decode_tokens_per_s=res.tokens_per_second,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, expected_launches=expect)
+    check(launches == expect,
+          f"kernel launches {launches}, the path implies {expect}")
+    check(cache_slots == max_len + M,
+          f"{cache_slots} cache slots for {max_len} + {M} positions")
+    check(res.tokens.shape == (Bw, NEW_TOKENS) and res.tokens.min() >= 0
+          and res.tokens.max() < cfg.vocab_size, f"bad answer {res.tokens}")
+
+    def cos(a, b):
+        return F.cosine_similarity(a, b, dim=-1)
+
+    pt = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+    extra = rng.integers(0, cfg.vocab_size, (Bw, 1))
+    ft = torch.as_tensor(np.concatenate([res.tokens, extra], axis=1),
+                         dtype=torch.long, device="cuda")      # (B, 33)
+    n = ft.shape[1]
+    seq = torch.cat([pt, ft[:, :-1]], dim=1)                   # 1,568 text
+    h16, full16 = handoff(torch, F, model, pt, ft[:, :2])     # (B, 2)
+    # what the bf16 decode bound separates: each slot handed its
+    # neighbour's final SSM state; and the plain twins' own bf16 handoff
+    rolled = cos(neighbour_state_logits(torch, model, pt, ft), full16[:, 1])
+    before = (fa.flash_attention.launches, rn.rmsnorm.launches,
+              ss.ssd_scan.launches)
+    with plain_kernels(ops, fa, rn, ss):
+        p16, _ = handoff(torch, F, model, pt, ft[:, :2])
+    check((fa.flash_attention.launches, rn.rmsnorm.launches,
+           ss.ssd_scan.launches) == before, "the plain run launched a kernel")
+    del model, engine
+    torch.cuda.empty_cache()
+
+    # the first windowed layer's attention calls in the fp32 run
+    first_windowed = stk.global_flags(cfg).index(False)
+    calls, orig = [], ops.attention
+
+    def recording(q, k, v, **kw):
+        out = orig(q, k, v, **kw)
+        if kw.get("num_sink"):
+            calls.append((q, k, v, kw, out))
+        return out
+
+    with fp32_model(torch, cfg) as m32:
+        ops.attention = recording
+        try:
+            k32 = forced_logits(torch, m32, pt, ft, kv_dtype=torch.float32)
+        finally:
+            ops.attention = orig
+        c32, _ = handoff(torch, F, m32, pt, ft, decoded=k32)    # (B, 33)
+        del m32
+    windowed = L - len(cfg.global_attn_layers)
+    check(len(calls) == windowed * n,
+          f"{len(calls)} windowed attention calls, {windowed * n} expected")
+    # the first windowed layer's calls: the prompt's and the last step's
+    layer_calls = calls[::windowed]
+    prompt_call, step_call = layer_calls[0], layer_calls[-1]
+    del calls
+
+    def sdpa_rows(call, window, sinks):
+        """Per (batch, query, head) row: the recorded output's cosine to a
+        masked SDPA of the same q, k, v where query p sees key j iff
+        j <= p and (p - j < window or j < sinks)."""
+        q, k, v, kw, out = call
+        T = k.shape[1]
+        q_pos = kw.get("q_pos")
+        if q_pos is None:
+            q_pos = torch.arange(q.shape[1], device="cuda")[None]
+        j = torch.arange(T, device="cuda")[None, None, :]
+        p = q_pos[:, :, None]
+        visible = (j <= p) & ((p - j < window) | (j < sinks))
+        ref = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=visible[:, None], enable_gqa=True).transpose(1, 2)
+        return cos(out.float(), ref.float())                  # (B, S, H)
+
+    control = {}
+    for name, call in (("prompt", prompt_call), ("last_step", step_call)):
+        control[name] = {
+            "right": float(sdpa_rows(call, W, M).min()),
+            "no_sinks": float(sdpa_rows(call, W, 0).min()),
+            "half_window": float(sdpa_rows(call, W // 2, M).min())}
+    emit("hybrid_window_vs_full", positions=int(c32.numel()),
+         full_sequence=int(seq.shape[1]) + M,
+         fp32_cosine_min=float(c32.min()),
+         fp32_cosine_min_by_step=[float(v) for v in c32.min(0)[0]],
+         bf16_handoff_cosine_min_by_step=[float(v) for v in h16.min(0)[0]],
+         bf16_plain_handoff_cosine_min_by_step=[
+             float(v) for v in p16.min(0)[0]],
+         bf16_neighbour_state_cosine_max=float(rolled.max()),
+         window_layer=first_windowed,
+         window_control_cosine_min=control, min_cosine=MIN_COSINE)
+    hold_handoff(c32, h16, faulty=rolled)
+    for name, c in control.items():
+        check(c["right"] >= MIN_COSINE,
+              f"{name}: windowed attention against the masked SDPA: "
+              f"cosine {c['right']} < {MIN_COSINE}")
+        check(c["no_sinks"] < MIN_COSINE and c["half_window"] < MIN_COSINE,
+              f"{name}: a wrong mask passes the window check: {c}")
     return launches
 
 
@@ -2306,6 +2594,9 @@ def main() -> int:
          dynamic_smem_bytes=dynamic_smem(_build))
 
     # ---- 3. kernels against their plain twins ------------------------------
+    # a first profiler window starts the device tracing, which can miss
+    # the first kernels of the window it starts in
+    device_busy(torch, lambda: torch.ones(1, device="cuda").add_(1))
     gen = torch.Generator(device="cuda").manual_seed(0)
     checks = {"flash_attention": [], "rmsnorm": [], "rmsnorm_residual": [],
               "ssd_scan": []}
@@ -2355,6 +2646,14 @@ def main() -> int:
                                              "mixtral_window", RING_BATCH,
                                              RING_PROMPT, RING_PROMPT, 48, 8,
                                              128, window=4096)
+    # the prefix families' prefills: hymba's global layers (8 x 512 text
+    # behind 128 meta tokens, 25 / 5 heads of 64) and every phi-3-vision
+    # layer (8 x 512 text behind 576 patches, 32 heads of 96)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen,
+                                             "hymba_global", 8, 640, 640,
+                                             25, 5, 64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "phi3v",
+                                             8, 1088, 1088, 32, 32, 96)
     for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
                         ("decode", 8)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
@@ -2369,6 +2668,13 @@ def main() -> int:
                                        TRAIN_BATCH * TRAIN_SEQ, 1536)
     checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "train_d3072",
                                        TRAIN_BATCH * TRAIN_SEQ, 3072)
+    # the prefix families' prefill norms: hymba's d_model 1,600 (ln1, ln2,
+    # the mixing norms) and its SSM gate norm over d_inner 3,200, and
+    # phi-3-vision's d_model 3,072
+    for name, rows_, d in (("hymba_d1600", 8 * 640, 1600),
+                           ("hymba_gate_d3200", 8 * 640, 3200),
+                           ("phi3v_d3072", 8 * 1088, 3072)):
+        checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, d)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
 
@@ -2394,8 +2700,12 @@ def main() -> int:
     # prefill's scan with its final state: the serving batch of 8 x 512 and
     # the 4 prompts of 300 that ops.ssd_prefill pads to 512, as strided
     # views of one conv output like the model's
+    # and hymba's prefill: 8 x (128 + 512) positions, padded to 768, 50
+    # heads of 64 and state n = 16, which the bf16 stage kernels pad to
+    # their 128-wide tiles
     for name, shape in (("serve_prefill", (8, 512, 48, 64, 1, 128, 256)),
-                        ("serve_prefill300", (4, 300, 48, 64, 1, 128, 256))):
+                        ("serve_prefill300", (4, 300, 48, 64, 1, 128, 256)),
+                        ("hymba_prefill", (8, 640, 50, 64, 1, 16, 256))):
         checks["ssd_scan"] += check_ssd_state(torch, ops, plain_ctx, gen,
                                               name, *shape)
     stage_rows = []
@@ -2414,6 +2724,14 @@ def main() -> int:
     serve_moe_launches = serve_path(torch, np, F, modules, MOE_ARCH)
     torch.cuda.empty_cache()
     serve_ring_launches = ring_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+
+    # ---- 6d-6f. the prefix families at full width ---------------------------
+    serve_hybrid_launches = serve_path(torch, np, F, modules, HYBRID_ARCH)
+    torch.cuda.empty_cache()
+    hybrid_window_launches = hybrid_window_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+    serve_vlm_launches = serve_path(torch, np, F, modules, VLM_ARCH)
     torch.cuda.empty_cache()
 
     # ---- 7-8. the training path at full width ------------------------------
@@ -2437,20 +2755,28 @@ def main() -> int:
     trainer_launches = trainer_path(torch, np, tdata, modules)
 
     # ---- 15. the kernels line ---------------------------------------------
+    prefix_paths = {"serve_hybrid": serve_hybrid_launches,
+                    "hybrid_window": hybrid_window_launches,
+                    "serve_vlm": serve_vlm_launches}
     by_path = {
         "flash_attention": {"serve": serve_launches["flash_attention"],
                             "serve_moe": serve_moe_launches["flash_attention"],
                             "serve_ring":
-                                serve_ring_launches["flash_attention"]},
+                                serve_ring_launches["flash_attention"],
+                            **{k: v["flash_attention"]
+                               for k, v in prefix_paths.items()}},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
                     "serve_ring": serve_ring_launches["rmsnorm"],
+                    **{k: v["rmsnorm"] for k, v in prefix_paths.items()},
                     "train": train_launches["rmsnorm"],
                     "train_stream": stream_launches["rmsnorm"],
                     "trainer": trainer_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
+                     "serve_hybrid": serve_hybrid_launches["ssd_scan"],
+                     "hybrid_window": hybrid_window_launches["ssd_scan"],
                      "train": train_launches["ssd_scan"],
                      "train_stream": stream_launches["ssd_scan"],
                      "trainer": trainer_launches["ssd_scan"]},
@@ -2495,20 +2821,33 @@ def main() -> int:
                      and r["dtype"] == "bfloat16")
     by_name["ssd_scan"]["serve_prefill_state_ms"] = state_row["kernel_ms"]
     by_name["ssd_scan"]["serve_prefill_y_only_ms"] = state_row["y_only_ms"]
-    # flash at phi-3-vision's head dim and at the MoE paths' prefills
+    # the scan with its final state at hymba's prefill (n = 16)
+    by_name["ssd_scan"]["cases"] = {
+        r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                        y_only_ms=r["y_only_ms"], bound_ms=r["bound_ms"],
+                        bound_by=r["bound_by"], library_ms=None)
+        for r in checks["ssd_scan"]
+        if r["case"] == "hymba_prefill" and r["dtype"] == "bfloat16"}
+    # flash at phi-3-vision's head dim and at the MoE and prefix paths'
+    # prefills
     by_name["flash_attention"]["cases"] = {
         r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], library_ms=r["library_ms"],
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"],
                         library_backend=r["library_backend"])
         for r in checks["flash_attention"]
-        if r["case"] in ("d96", "granite", "mixtral_window")
+        if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
+                         "phi3v")
         and r["dtype"] == "bfloat16"}
-    # rmsnorm at mixtral's d_model, on the ring path
+    # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
+    # families' widths
     by_name["rmsnorm"]["cases"] = {
         r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                        bound_ms=r["bound_ms"], library_ms=r["library_ms"])
+                        bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                        library_ms=r["library_ms"])
         for r in checks["rmsnorm"]
-        if r["case"] in ("mixtral_d6144", "mixtral_decode")
+        if r["case"] in ("mixtral_d6144", "mixtral_decode", "hymba_d1600",
+                         "hymba_gate_d3200", "phi3v_d3072")
         and r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -4,7 +4,8 @@ Builds the model with weights drawn from a seeded generator, spins up the
 batching frontend and runs a synthetic request workload through prefill
 and decode (greedy or sampled), printing a JSON summary.  Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; without
-``--reduced`` it serves the full-width config.
+``--reduced`` it serves the full-width config.  Requests are text only,
+as in ``repro``'s launcher: a vlm is served without patches.
 """
 from __future__ import annotations
 

@@ -7,14 +7,38 @@ straggler/retune hooks, and prints the run's summary as one JSON line.
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given.  The loader's host index and count are the rank and world size
 of an initialised ``torch.distributed`` group, else 0 and 1 (the port's
-train step does not synchronise gradients across processes yet).  The
-modality stubs of the vlm and encdec families wait for the port of those
-families.
+train step does not synchronise gradients across processes yet).  A vlm
+trains on the stub frontend of ``repro``'s launcher: token items with
+seeded patch embeddings drawn in the same order from one generator.  The
+encdec family waits for its own slice of the port.
 """
 from __future__ import annotations
 
 import argparse
 import json
+
+
+def patch_dataset(cfg, num_items: int, seq_len: int, seed: int):
+    """The vlm stub frontend: ``num_items`` token sequences and, per item
+    as it is transformed, patch embeddings (num_patches, patch_embed_dim)
+    of N(0, 1), both drawn from one ``np.random.default_rng(seed)`` in
+    ``repro``'s launcher's order (so the items are equal; the patches
+    are when the items are transformed in the same order)."""
+    import numpy as np
+
+    from repro_torch.data import ArrayStorage, Dataset
+    rng = np.random.default_rng(seed)
+    items = [rng.integers(0, cfg.vocab_size, (seq_len + 1,)).astype(np.int32)
+             for _ in range(num_items)]
+
+    def transform(arr):
+        return {"tokens": arr[:-1], "targets": arr[1:],
+                "loss_mask": np.ones(seq_len, np.float32),
+                "patch_embeds": rng.normal(
+                    0, 1, (cfg.num_patches, cfg.patch_embed_dim)
+                ).astype(np.float32)}
+
+    return Dataset(ArrayStorage(items), transform=transform)
 
 
 def main() -> int:
@@ -50,12 +74,15 @@ def main() -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.family in ("vlm", "encdec"):
+    if cfg.family == "encdec":
         raise NotImplementedError(
-            f"{cfg.family} models (patch / frame frontends) are not ported "
-            "yet")
-    ds = token_dataset(args.num_items, args.seq_len, cfg.vocab_size,
-                       seed=args.seed)
+            "encdec models (whisper's frame frontend, cross-attention) wait "
+            "for the next slice of the port")
+    if cfg.family == "vlm":
+        ds = patch_dataset(cfg, args.num_items, args.seq_len, args.seed)
+    else:
+        ds = token_dataset(args.num_items, args.seq_len, cfg.vocab_size,
+                           seed=args.seed)
     distributed = dist.is_available() and dist.is_initialized()
     loader = DataLoader(ds, args.global_batch,
                         params=LoaderParams(num_workers=2),

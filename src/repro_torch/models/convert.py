@@ -6,11 +6,13 @@ numpy arrays, per-layer leaves stacked on a leading ``(L, ...)`` axis) and
 loads it into the port's ``DecoderLM``, layer by layer: the dense leaves,
 the four MoE leaves (``router``, and ``wi`` / ``wg`` / ``wo`` in JAX's
 layout: plain ``(E, d, f)`` or, for fewer than 16 experts, the virtual
-``(V, d, f/parts)``, which the port un-virtualises only at use) and the
+``(V, d, f/parts)``, which the port un-virtualises only at use), the
 twelve SSM leaves of a mamba2 layer (``A_log, D, conv_b, conv_w, dt_bias,
-gate_norm, in_B, in_C, in_dt, in_x, in_z, out``).  Both packages keep
-weights as ``(d_in, d_out)`` and compute ``x @ W``, so nothing is
-transposed.
+gate_norm, in_B, in_C, in_dt, in_x, in_z, out``), a hybrid layer's
+attention, MLP, SSM and two mixing norms, and the prefix's top-level
+leaves: the bare ``meta_tokens`` (hybrid) and the ``patch_proj`` group
+(vlm).  Both packages keep weights as ``(d_in, d_out)`` and compute
+``x @ W``, so nothing is transposed.
 
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` with numpy
 leaves (params, AdamW step / mu / nu, error feedback).  ``named_from_tree``
@@ -52,7 +54,8 @@ def from_jax_params(cfg: ModelConfig, tree, *, device,
 
 def named_from_tree(tree, num_layers: int) -> Dict[str, np.ndarray]:
     """A JAX-layout tree as {port parameter name: leaf}, the stacked
-    per-layer leaves split into ``layers.<i>.<group>.<leaf>``."""
+    per-layer leaves split into ``layers.<i>.<group>.<leaf>``; a top-level
+    bare leaf keeps its own name (``meta_tokens``)."""
     out = {}
 
     def walk(node, path):

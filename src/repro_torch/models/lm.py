@@ -1,15 +1,26 @@
-"""DecoderLM for the dense, MoE and SSM families: training loss, prefill,
-decode step and cache.
+"""DecoderLM for every decoder family: training loss, prefill, decode
+step and cache.
 
 The counterpart of ``repro/models/lm.py`` (``cross_entropy``,
 ``DecoderLM``, ``build_model``) for dense configs (qwen2-0.5b, qwen3-1.7b,
 yi-34b, mistral-large-123b), the MoE family (granite-moe-3b-a800m,
-mixtral-8x22b, whose windowed layers decode over a ring cache) and the
-SSM family (mamba2-780m), in training and in serving (a K/V cache for the
-families with attention, the conv tail and SSD state for the SSM family).
-The model is an ``nn.Module`` holding its parameters: a ``ModuleList`` of
-per-layer parameter dicts where JAX scans over stacked leaves.  Other
-families (hybrid, encdec, vlm) raise ``NotImplementedError``.
+mixtral-8x22b, whose windowed layers decode over a ring cache), the SSM
+family (mamba2-780m), the hybrid family (hymba-1.5b: attention and SSD
+heads in every layer, meta tokens, windowed and global layers) and the
+vlm family (phi-3-vision-4.2b, whose CLIP frontend is a stub: a batch
+carries precomputed ``patch_embeds``), in training and in serving (a K/V
+cache for the families with attention, the conv tail and SSD state for
+those with an SSM).  The model is an ``nn.Module`` holding its
+parameters: a ``ModuleList`` of per-layer parameter dicts where JAX scans
+over stacked leaves.  The encdec family (whisper) raises
+``NotImplementedError``.
+
+The prefix: the model runs ``[meta tokens | patch embeddings | text]``
+(``_compose_input``), cuts the prefix before the unembedding in the loss,
+makes the cache longer by ``prefix_len`` and offsets decode positions by
+it, as ``repro`` does.  ``prefix_len`` counts the patches whether or not
+a batch carries them, so a vlm served text-only decodes ``num_patches``
+positions past its prompt (the reference's behaviour, kept).
 
 Two ways to hold the parameters:
 * serving (``trainable=False``): cast once at load to the compute dtype,
@@ -28,7 +39,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stack as stk
-from repro_torch.models.module import ParamSpec
+from repro_torch.models.module import ParamSpec, spec
 
 # leaves JAX uses uncast (fp32) at every use: the norm scales and the SSM's
 # dt_bias, A_log and gate_norm
@@ -42,29 +53,37 @@ def cross_entropy(logits, targets, mask):
     return ce_sum / denom
 
 
-def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None,
-                trainable: bool = False):
-    """A ParameterDict of one layer's (or one top-level group's) leaves,
-    checked against the spec and moved to ``device``: fp32 masters that
-    take gradients if ``trainable``, else cast once to the compute dtype,
-    except the leaves JAX keeps in fp32."""
+def _param(name: str, s: ParamSpec, t, device, index=None,
+           trainable: bool = False) -> nn.Parameter:
+    """One leaf, checked against its spec and moved to ``device``: an fp32
+    master that takes gradients if ``trainable``, else cast once to the
+    compute dtype, unless JAX keeps the leaf in fp32."""
+    if index is not None:
+        t = t[index]
+    shape = s.shape[1:] if index is not None else s.shape
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    dtype = torch.float32 if trainable or name in _FP32_LEAVES \
+        else ll.COMPUTE_DTYPE
+    return nn.Parameter(t.to(device=device, dtype=dtype).contiguous(),
+                        requires_grad=trainable)
+
+
+def _check_tree(specs, values) -> None:
     if set(values) != set(specs):
         raise ValueError(f"parameter tree mismatch: expected "
                          f"{sorted(specs)}, got {sorted(values)}")
-    out = {}
-    for name, s in specs.items():
-        t = values[name]
-        if index is not None:
-            t = t[index]
-        shape = s.shape[1:] if index is not None else s.shape
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
-                             f"expected {tuple(shape)}")
-        dtype = torch.float32 if trainable or name in _FP32_LEAVES \
-            else ll.COMPUTE_DTYPE
-        out[name] = nn.Parameter(t.to(device=device, dtype=dtype).contiguous(),
-                                 requires_grad=trainable)
-    return nn.ParameterDict(out)
+
+
+def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None,
+                trainable: bool = False):
+    """A ParameterDict of one layer's (or one top-level group's) leaves
+    (``_param`` each)."""
+    _check_tree(specs, values)
+    return nn.ParameterDict({
+        name: _param(name, s, values[name], device, index, trainable)
+        for name, s in specs.items()})
 
 
 class DecoderLM(nn.Module):
@@ -79,6 +98,7 @@ class DecoderLM(nn.Module):
         self.device = torch.device(device)
         self.trainable = trainable
         specs = self.param_specs(cfg)
+        _check_tree(specs, params)
         self.embed = _param_dict(specs["embed"], params["embed"], self.device,
                                  trainable=trainable)
         self.final_norm = _param_dict(specs["final_norm"],
@@ -90,30 +110,78 @@ class DecoderLM(nn.Module):
                                               trainable=trainable)
                            for group, s in specs["layers"].items()})
             for i in range(cfg.num_layers))
+        if "meta_tokens" in specs:
+            self.meta_tokens = _param("meta_tokens", specs["meta_tokens"],
+                                      params["meta_tokens"], self.device,
+                                      trainable=trainable)
+        if "patch_proj" in specs:
+            self.patch_proj = _param_dict(specs["patch_proj"],
+                                          params["patch_proj"], self.device,
+                                          trainable=trainable)
 
     @staticmethod
     def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-        return {"embed": ll.embed_specs(cfg),
-                "layers": stk.stack_param_specs(cfg),
-                "final_norm": ll.norm_specs(cfg)}
+        p = {"embed": ll.embed_specs(cfg),
+             "layers": stk.stack_param_specs(cfg),
+             "final_norm": ll.norm_specs(cfg)}
+        if cfg.num_meta_tokens:
+            p["meta_tokens"] = spec((cfg.num_meta_tokens, cfg.d_model),
+                                    (None, "embed"), scale=0.02)
+        if cfg.num_patches:
+            p["patch_proj"] = {
+                "w": spec((cfg.patch_embed_dim, cfg.d_model),
+                          (None, "embed")),
+                "b": spec((cfg.d_model,), ("embed",), init="zeros"),
+            }
+        return p
+
+    @property
+    def prefix_len(self) -> int:
+        """Internal positions before the text: the meta tokens and the
+        patches (counted whether or not a batch carries them, as
+        ``repro``'s ``_prefix_len``)."""
+        return self.cfg.num_meta_tokens + self.cfg.num_patches
+
+    def _compose_input(self, batch):
+        """The embedded tokens with the patch embeddings (vlm, when the
+        batch has ``patch_embeds`` (B, P, patch_embed_dim)) and then the
+        meta tokens (hybrid) in front.  Returns (x, positions 0 ..
+        S_internal - 1, prefix): the prefix the text starts after."""
+        cfg = self.cfg
+        x = ll.embed(self.embed, cfg, batch["tokens"])
+        B = x.shape[0]
+        prefix = 0
+        if cfg.num_patches and "patch_embeds" in batch:
+            pe = ll.cast(batch["patch_embeds"]) @ ll.cast(self.patch_proj["w"])
+            x = torch.cat([pe + ll.cast(self.patch_proj["b"]), x], dim=1)
+            prefix += cfg.num_patches
+        if cfg.num_meta_tokens:
+            meta = ll.cast(self.meta_tokens)[None].expand(
+                B, cfg.num_meta_tokens, cfg.d_model)
+            x = torch.cat([meta, x], dim=1)
+            prefix += cfg.num_meta_tokens
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        return x, positions, prefix
 
     def loss(self, batch, *, remat_policy: str = "dots"):
         """Mean next-token cross-entropy over ``batch`` ({"tokens",
-        "targets", optional "loss_mask"}, (B,S) each), plus the layers'
-        summed MoE load-balancing loss (``metrics["aux_loss"]``, 0 for the
-        other families).  Returns (loss, metrics)."""
+        "targets", optional "loss_mask"}, (B,S) each, and for the vlm
+        family optional "patch_embeds"), plus the layers' summed MoE
+        load-balancing loss (``metrics["aux_loss"]``, 0 for the other
+        families).  The prefix is cut before the unembedding.  Returns
+        (loss, metrics)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = ll.embed(self.embed, cfg, tokens)
-        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+        x, positions, prefix = self._compose_input(batch)
         x, aux = stk.run_stack(self.layers, cfg, x, positions=positions,
                                causal=True, remat_policy=remat_policy)
         x = ll.norm(self.final_norm, x, cfg)
+        if prefix:
+            x = x[:, prefix:]
         mask = batch.get("loss_mask")
         if mask is None:
             mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
-                              device=tokens.device)
+                              device=x.device)
         ce_sum, denom = ll.unembed_xent(self.embed, cfg, x, batch["targets"],
                                         mask)
         loss = ce_sum / denom + aux
@@ -121,26 +189,28 @@ class DecoderLM(nn.Module):
 
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
-        return stk.init_cache(self.cfg, batch, max_len, device=self.device,
-                              kv_dtype=kv_dtype)
+        """The decode cache for ``max_len`` text positions: K/V as long as
+        ``max_len + prefix_len``."""
+        return stk.init_cache(self.cfg, batch, max_len + self.prefix_len,
+                              device=self.device, kv_dtype=kv_dtype)
 
     @torch.no_grad()
     def prefill(self, batch, cache):
-        """Run the prompt, fill the cache, return last-position logits
-        (B,1,V).  Each layer's cache leaves (K/V, or the SSM's conv tail and
-        final state) are collected in the same pass over the layers and
-        written into ``cache`` in place; the cache is also returned.  A
-        ring cache of T slots keeps the prompt's last T positions, rolled
-        so position p sits in slot p % T, as ``repro``'s prefill does."""
+        """Run the prompt (with its prefix), fill the cache, return
+        last-position logits (B,1,V).  Each layer's cache leaves (K/V and
+        the SSM's conv tail and final state) are collected in the same
+        pass over the layers and written into ``cache`` in place; the
+        cache is also returned.  A ring cache of T slots keeps the
+        prompt's last T positions, rolled so position p sits in slot
+        p % T, as ``repro``'s prefill does."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = ll.embed(self.embed, cfg, tokens)
-        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        x, positions, _ = self._compose_input(batch)
+        S = x.shape[1]
         ring = stk.use_ring_cache(cfg)
-        for i, p in enumerate(self.layers):
+        for i, (p, is_global) in enumerate(zip(self.layers,
+                                               stk.global_flags(cfg))):
             x, _, leaves = stk.block(p, cfg, x, positions=positions,
-                                     ssm_state=True)
+                                     is_global=is_global, ssm_state=True)
             for name, t in leaves.items():
                 if name not in ("k", "v"):
                     cache[name][i] = t
@@ -157,21 +227,25 @@ class DecoderLM(nn.Module):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
-        """tokens: (B,1); positions: (B,) absolute positions (unused by the
-        SSM family).  Writes this step's K/V (slot ``position % T`` of a
-        ring cache), or each SSM layer's conv tail and state, into
-        ``cache`` in place.  Returns (logits, cache)."""
+        """tokens: (B,1); positions: (B,) text positions (unused by the SSM
+        family), offset here by ``prefix_len``.  Writes this step's K/V
+        (slot ``position % T`` of a ring cache) and each SSM layer's conv
+        tail and state into ``cache`` in place.  Returns (logits,
+        cache)."""
         cfg = self.cfg
         x = ll.embed(self.embed, cfg, tokens)
-        for i, p in enumerate(self.layers):
+        positions = positions + self.prefix_len
+        for i, (p, is_global) in enumerate(zip(self.layers,
+                                               stk.global_flags(cfg))):
             layer_cache = {name: t[i] for name, t in cache.items()}
-            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions)
+            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions,
+                                 is_global=is_global)
         x = ll.norm(self.final_norm, x, cfg)
         return ll.unembed(self.embed, cfg, x), cache
 
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], *, device,
                 trainable: bool = False) -> DecoderLM:
-    """The model for ``cfg``; families other than dense, MoE and SSM raise
+    """The model for ``cfg``; the encdec family raises
     ``NotImplementedError``."""
     return DecoderLM(cfg, params, device=device, trainable=trainable)

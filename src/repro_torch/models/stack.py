@@ -1,13 +1,18 @@
 """Decoder blocks, the layer stack for training, and the decode cache.
 
-The counterpart of the dense, MoE and SSM subsets of
-``repro/models/stack.py``.  JAX scans one block over stacked parameters;
-here the model keeps a ``ModuleList`` of per-layer parameter dicts and
-loops over it (``run_stack``, ``lm.py``).  The decode cache holds K/V for
-the dense and MoE families (a ring of ``min(max_len, window)`` slots when
-every layer is windowed, ``use_ring_cache``) and the conv tail and SSD
-state for the SSM family, under JAX's leaf names.  The hybrid and
-cross-attention branches are not ported yet and raise.
+The counterpart of the decoder subset of ``repro/models/stack.py``: the
+dense, MoE, SSM, hybrid and vlm families.  JAX scans one block over
+stacked parameters; here the model keeps a ``ModuleList`` of per-layer
+parameter dicts and loops over it (``run_stack``, ``lm.py``), so JAX's
+``jax.lax.cond`` between full and windowed attention on a hybrid layer is
+a Python branch on the layer's flag (``global_flags``).  A hybrid layer
+runs attention and the SSM side by side on the same normed input and adds
+half the sum of their normed outputs.  The decode cache holds K/V for the
+families with attention (a ring of ``min(max_len, window)`` slots when
+every layer is windowed and there are no meta tokens, ``use_ring_cache``;
+otherwise full length, windowing being a mask) and the conv tail and SSD
+state for the families with an SSM, under JAX's leaf names.  The
+cross-attention (encdec) branches are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -22,13 +27,12 @@ from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import stack_specs
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
     """Raise ``NotImplementedError`` unless cfg's family is in ``families``
-    (training and the decode cache both cover the dense, MoE and SSM
-    families)."""
+    (training and the decode cache both cover every decoder family)."""
     if cfg.family not in families:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet here; "
@@ -45,7 +49,34 @@ def block_specs(cfg: ModelConfig):
         p["moe"] = ll.moe_specs(cfg)
     else:
         p["mlp"] = ll.mlp_specs(cfg)
+    if cfg.family == "hybrid":
+        p["ssm"] = ssm_mod.ssm_specs(cfg)
+        p["mix_norm_attn"] = ll.rmsnorm_specs(cfg.d_model)
+        p["mix_norm_ssm"] = ll.rmsnorm_specs(cfg.d_model)
     return p
+
+
+def global_flags(cfg: ModelConfig) -> Tuple[bool, ...]:
+    """Per layer: does it attend over the whole sequence (one of
+    ``global_attn_layers``)?"""
+    return tuple(i in cfg.global_attn_layers for i in range(cfg.num_layers))
+
+
+def _attn_window(cfg: ModelConfig, is_global: bool) -> Tuple[int, int]:
+    """(window, num_sink) of a layer's attention: a global layer of a
+    config with global layers and a window sees everything; every other
+    windowed layer keeps the meta tokens visible as sinks."""
+    if cfg.global_attn_layers and cfg.sliding_window and is_global:
+        return 0, 0
+    window = cfg.sliding_window
+    return window, cfg.num_meta_tokens if window else 0
+
+
+def _mix(p, cfg: ModelConfig, attn_y, ssm_y):
+    """The hybrid layer's residual update: half the sum of the normed
+    attention and SSM outputs."""
+    return 0.5 * (ll.rmsnorm(p["mix_norm_attn"], attn_y, cfg.norm_eps)
+                  + ll.rmsnorm(p["mix_norm_ssm"], ssm_y, cfg.norm_eps))
 
 
 def stack_param_specs(cfg: ModelConfig):
@@ -60,25 +91,40 @@ def _ffn(p, cfg: ModelConfig, h):
     return ll.mlp(p["mlp"], cfg, h), torch.zeros((), device=h.device)
 
 
-def block(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
-          ssm_state: bool = False):
+def _ssm_branch(p, cfg: ModelConfig, h, ssm_state: bool):
+    """The SSM mixer on h: (y, its cache leaves if ``ssm_state``, else
+    none)."""
+    if not ssm_state:
+        return ssm_mod.ssm(p["ssm"], cfg, h), {}
+    y, c = ssm_mod.ssm(p["ssm"], cfg, h, return_state=True)
+    return y, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
+
+
+def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
+          causal: bool = True, ssm_state: bool = False):
     """One full-sequence layer.  Returns (x, aux, leaves): the layer's
     load-balancing loss (0-d fp32, 0 but for MoE) and its decode cache
-    leaves under the cache's names, the post-rotary ``k`` and ``v`` for
-    the families with attention, and for the SSM family ``ssm_conv`` and
-    ``ssm_state`` if ``ssm_state`` (prefill) or none."""
+    leaves under the cache's names: the post-rotary ``k`` and ``v`` for
+    the families with attention, and for those with an SSM ``ssm_conv``
+    and ``ssm_state`` if ``ssm_state`` (prefill).  ``is_global``: the
+    layer's flag (``global_flags``)."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
-        zero = torch.zeros((), device=x.device)
-        if not ssm_state:
-            return x + ssm_mod.ssm(p["ssm"], cfg, h), zero, {}
-        y, c = ssm_mod.ssm(p["ssm"], cfg, h, return_state=True)
-        return x + y, zero, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
+        y, leaves = _ssm_branch(p, cfg, h, ssm_state)
+        return x + y, torch.zeros((), device=x.device), leaves
+    window, num_sink = _attn_window(cfg, is_global)
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
-                                causal=causal, window=cfg.sliding_window)
-    x = x + attn_y
+                                causal=causal, window=window,
+                                num_sink=num_sink)
+    leaves = {"k": k, "v": v}
+    if cfg.family == "hybrid":
+        ssm_y, ssm_leaves = _ssm_branch(p, cfg, h, ssm_state)
+        leaves.update(ssm_leaves)
+        x = x + _mix(p, cfg, attn_y, ssm_y)
+    else:
+        x = x + attn_y
     y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
-    return x + y, aux, {"k": k, "v": v}
+    return x + y, aux, leaves
 
 
 # matmuls without batch dims: what JAX's checkpoint_dots_with_no_batch_dims
@@ -106,39 +152,52 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
     if remat_policy not in ("none", "full", "nothing", "dots"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
 
-    def layer(p, xc):
-        return block(p, cfg, xc, positions=positions, causal=causal)[:2]
+    def layer(p, xc, is_global):
+        return block(p, cfg, xc, positions=positions, is_global=is_global,
+                     causal=causal)[:2]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layers:
+    for p, is_global in zip(layers, global_flags(cfg)):
         if remat_policy == "none":
-            x, aux_l = layer(p, x)
+            x, aux_l = layer(p, x, is_global)
         else:
             kw = {}
             if remat_policy == "dots":
                 kw["context_fn"] = functools.partial(
                     ckpt.create_selective_checkpoint_contexts, _save_dots)
-            x, aux_l = ckpt.checkpoint(layer, p, x, use_reentrant=False,
-                                       **kw)
+            x, aux_l = ckpt.checkpoint(layer, p, x, is_global,
+                                       use_reentrant=False, **kw)
         aux = aux + aux_l
     return x, aux
 
 
-def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions):
-    """One decode layer; writes this step's K/V, or the SSM's new conv tail
-    and state, into ``cache_layer`` (views of the stacked cache)."""
+def _ssm_decode(p, cfg: ModelConfig, h, cache_layer):
+    """The SSM mixer's decode step on h; writes the new conv tail and
+    state into ``cache_layer`` in place."""
+    y, c = ssm_mod.ssm_decode(
+        p["ssm"], cfg, h,
+        {"conv": cache_layer["ssm_conv"], "state": cache_layer["ssm_state"]})
+    cache_layer["ssm_conv"].copy_(c["conv"])
+    cache_layer["ssm_state"].copy_(c["state"])
+    return y
+
+
+def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
+                 is_global: bool):
+    """One decode layer; writes this step's K/V and the SSM's new conv
+    tail and state into ``cache_layer`` (views of the stacked cache).
+    ``is_global``: the layer's flag (``global_flags``)."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
-        y, c = ssm_mod.ssm_decode(
-            p["ssm"], cfg, h,
-            {"conv": cache_layer["ssm_conv"], "state": cache_layer["ssm_state"]})
-        cache_layer["ssm_conv"].copy_(c["conv"])
-        cache_layer["ssm_state"].copy_(c["state"])
-        return x + y
-    x = x + ll.attention_decode(p["attn"], cfg, h, cache_layer,
-                                positions=positions,
-                                window=cfg.sliding_window,
-                                ring=use_ring_cache(cfg))
+        return x + _ssm_decode(p, cfg, h, cache_layer)
+    window, num_sink = _attn_window(cfg, is_global)
+    attn_y = ll.attention_decode(p["attn"], cfg, h, cache_layer,
+                                 positions=positions, window=window,
+                                 num_sink=num_sink, ring=use_ring_cache(cfg))
+    if cfg.family == "hybrid":
+        x = x + _mix(p, cfg, attn_y, _ssm_decode(p, cfg, h, cache_layer))
+    else:
+        x = x + attn_y
     y, _ = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
     return x + y
 
@@ -154,7 +213,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     K/V (``kv_dtype``, bf16 by default whatever the compute dtype, as in
     JAX) for a family with attention, ``min(max_len, window)`` slots long
     for a ring cache; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one
-    with an SSM, whose size does not depend on ``max_len``."""
+    with an SSM (the hybrid family has both), whose size does not depend
+    on ``max_len``."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}

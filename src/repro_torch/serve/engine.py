@@ -62,19 +62,27 @@ class ServeEngine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0]
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
-                 *, seed: int = 0) -> GenerateResult:
-        """prompts: (B, S) integer ids, all of one length."""
+                 *, seed: int = 0, extra_inputs: Optional[dict] = None
+                 ) -> GenerateResult:
+        """prompts: (B, S) integer ids, all of one length.
+        ``extra_inputs``: more fields of the prefill batch, each moved to
+        the engine's device as it is (a vlm's ``patch_embeds`` (B, P,
+        patch_embed_dim)); the cache holds ``max_len`` text positions past
+        the model's prefix."""
         B, S = prompts.shape
         if B > self.max_batch or S + max_new_tokens > self.max_len:
             raise ValueError(f"batch {B} x ({S} + {max_new_tokens}) exceeds "
                              f"max_batch {self.max_batch} / max_len "
                              f"{self.max_len}")
         cache = self.model.init_cache(B, self.max_len)
-        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
-                                 device=self.device)
+        batch = {"tokens": torch.as_tensor(np.asarray(prompts),
+                                           dtype=torch.long,
+                                           device=self.device)}
+        for k, v in (extra_inputs or {}).items():
+            batch[k] = torch.as_tensor(v, device=self.device)
 
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill({"tokens": tokens}, cache)
+        logits, cache = self.model.prefill(batch, cache)
         self._sync()
         t_prefill = time.perf_counter() - t0
 
