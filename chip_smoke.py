@@ -20,8 +20,12 @@ Phases, each printing one JSON line:
    least time the card could take (``bound_ms``); flash also at
    phi-3-vision's head dim 96 (``d96``), at the MoE paths' prefills
    (``granite``; ``mixtral_window``, where SDPA takes the window as an
-   explicit mask; every row names the backend SDPA picked) and at the
-   prefix families' (``hymba_global``, ``phi3v``); rmsnorm also at their
+   explicit mask; every row names the backend SDPA picked, which takes
+   no mask where none is needed), at the prefix families'
+   (``hymba_global``, ``phi3v``) and at whisper's serving shapes
+   (``whisper_enc`` non-causal over 1,500 frames, ``whisper_cross`` and
+   ``whisper_cross_decode`` a prompt of 224 and one query row over them,
+   ``whisper_self`` causal over 224); rmsnorm also at their
    widths; the SSD scan also with its final state through
    ``ops.ssd_prefill`` at the serving prefill shapes (8 x 512 and 4 x
    300, padded, and hymba's 8 x 640 at state n = 16), y and the state each
@@ -95,6 +99,17 @@ Phases, each printing one JSON line:
    embeddings passed to ``ServeEngine.generate`` as ``extra_inputs``:
    exactly 32 flash launches a prefill (8 x 1,088 positions), 65 rmsnorm
    a forward; ``plain_vlm`` and ``handoff_vlm`` as for hymba.
+6g. serve_encdec: phases 4-5 for whisper-large-v3 at its published
+   config, uncut (32 encoder and 32 decoder layers, d_model 1,280, 20 / 20
+   heads of 64, gelu MLPs of 5,120, layernorms, 1,500 source positions),
+   batch 8, 16 prompts of 224 tokens and 4 of 96, each with seeded frame
+   embeddings passed to ``ServeEngine.generate`` as ``extra_inputs``:
+   exactly 96 flash launches a prefill (32 encoder, 32 decoder self, 32
+   cross) and 32 a decode step (the cross-attention over the cached cross
+   K/V), no rmsnorm.  ``plain_encdec`` as for hymba, its bf16 control a
+   coarse flash (the path has no rmsnorm), plus the encoder's output held
+   apart from the logits; ``handoff_encdec`` as for hymba, where a slot
+   handed its neighbour's cross K/V must fail the bf16 decode bound.
 7. train: full-width mamba2-780m, bf16 compute with fp32 masters and
    AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
    tokens made from the seed, through ``init_train_state`` ->
@@ -201,15 +216,21 @@ BF16_MARGIN = 0.01
 # pass a kernel path seven times farther.  The ratio leaves room for the
 # run-to-run route flips of index_add's unordered atomics.  The same
 # distance is read for the kernel path with one kernel's output rounded to
-# fewer of bf16's 7 mantissa bits (kernel, bits): a coarse flash, read to
-# show how far flash is seen, then the control, which must fail the bound.
+# fewer of bf16's 7 mantissa bits (kernel, bits): the last is the
+# control, which must fail the bound (the MoE and prefix families first
+# read a coarse flash, to show how far flash is seen).
 # Granite's control keeps 3 bits of rmsnorm (4.6e-3 against a bound of
 # 2.2e-3); hymba and phi-3-vision, with more norms a layer, fail at 5 bits
-# (4.9e-3 against 2.2e-3, 2.0e-3 against 1.0e-3).  The finer readings that
-# chose these are in PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W)
+# (4.9e-3 against 2.2e-3, 2.0e-3 against 1.0e-3).  Whisper runs no
+# rmsnorm, and flash in every layer of a prefill and in every decode
+# step's cross-attention: its control is flash at 3 bits (6.8e-4 against
+# 2.6e-4; 4 bits read 2.1e-4, under), and it must also fail the bound on
+# the encoder's output.  The finer readings that chose these are in
+# PERF.md section 6 (NVIDIA H100 80GB HBM3, 700 W)
 BF16_RATIO, BF16_SLACK = 1.5, 1e-4
 FAULTS = {"moe": (("flash_attention", 3), ("rmsnorm", 3)),
-          "prefix": (("flash_attention", 3), ("rmsnorm", 5))}
+          "prefix": (("flash_attention", 3), ("rmsnorm", 5)),
+          "encdec": (("flash_attention", 3),)}
 # phase 6's bf16 handoff on the served model: the prompt's last position
 # to MIN_COSINE, the first decode step to this.  The step runs the fp32
 # recurrence and GEMMs of 8 rows where the full forward runs the chunk
@@ -223,7 +244,25 @@ SSM_BF16_DECODE_MIN_COSINE = 0.998
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-TOL = {"bfloat16": 2e-2, "float32": 2e-5}          # attention
+# flash_attention, against the plain twin computed in fp32 from the same
+# inputs: fp32 to 2e-5 absolute and relative.  bf16: rtol 2^-8 (the
+# output's one rounding, at most half an ulp) and atol a fraction of
+# max |ref|.  The tensor-core kernel also rounds P to bf16 for the PV
+# product: noise of about 2^-8 / sqrt(3) of the output's rms, whose
+# largest value over millions of outputs (~5.5 sigma) is under 2e-3 of
+# max |ref| where the rms is under a fifth of the max.  The fault the
+# limit must catch is a last tile whose zero-filled keys count at score 0
+# (36 of them past T = 1,500 shrink an output by up to ~1.4%, less in a
+# row one key dominates, where the largest outputs sit).  It is checked
+# on each non-causal case with a partial last tile (``tail_unmasked``),
+# which must fail; each row records the atol it needed.  On an NVIDIA
+# H100 80GB HBM3 at 700 W the bf16 rows needed at most 1.16e-3 of
+# max |ref| (whisper_cross_decode) and the control 4.46e-3 (whisper_enc)
+# to 0.19 (d16_full), PERF.md section 6: 2e-3 sits between.  The fp32
+# rows go to the scalar flash_fwd_kernel, not the tensor-core kernel that
+# serves bf16
+TOL = {"bfloat16": (2 ** -8, 2e-3), "float32": (2e-5, None)}   # attention
+FLASH_KEY_TILE = 64     # MMA_BK of csrc/flash_attention.cu
 TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm, rmsnorm_residual
 # ssd_scan: (rtol, atol as a fraction of max |y|).  fp32: fp32 inside
 # both, but the chunk's cumsum of dt*A reaches about -180 at chunk 256 and
@@ -261,6 +300,12 @@ WINDOW_BATCH, WINDOW_PROMPT = 2, 1536
 # phase 6f: phi-3-vision-4.2b at its published config, uncut, the same
 # REQUESTS, each prompt with seeded patch embeddings (576 x 1,024)
 VLM_ARCH = "phi-3-vision-4.2b"
+
+# phase 6g: whisper-large-v3 at its published config, uncut, each prompt
+# with seeded frame embeddings (1,500 x 1,280).  224 is whisper's prompt
+# limit, half its 448-token text context, so prompt and answer fit in it
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_REQUESTS = ((224, 16), (96, 4))
 
 # phase 6c: mixtral's ring cache at published widths, cut in depth; two
 # prompts longer than the 4,096-token window, so the ring wraps at prefill
@@ -587,8 +632,27 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         kw = dict(causal=causal, window=window, q_offset=q_offset)
         out = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
-        ref = fa.flash_attention_plain(q, k, v, **kw)
-        err = max_err(out, ref, TOL[dtype])
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        rtol, atol_of_max = TOL[dtype]
+        ref_max = float(ref.abs().max())
+        atol = rtol if atol_of_max is None else atol_of_max * ref_max
+        err = max_err(out, ref, rtol, atol)
+        control = {}
+        tail = -T % FLASH_KEY_TILE
+        if dtype == "bfloat16" and not causal and window == 0 and tail:
+            # what a kernel whose last tile skipped the mask would give:
+            # the zero-filled keys past T counted at score 0
+            zk = k.new_zeros((B, tail, K, D))
+            faulty = fa.flash_attention_plain(
+                q.float(), torch.cat([k, zk], 1).float(),
+                torch.cat([v, zk], 1).float(), **kw).to(dt)
+            need = atol_needed(faulty, ref, rtol) / ref_max
+            check(need > atol_of_max,
+                  f"{name}: a last tile counting its {tail} zero-filled "
+                  f"keys passes the bf16 limit (needs {need} of max |ref|, "
+                  f"limit {atol_of_max})")
+            control = dict(tail_unmasked_atol_needed_of_max=need)
+            del faulty
 
         # yardstick: one SDPA call on (B,H,S,D) views with GQA
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -599,9 +663,14 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
             mask &= pos_k <= pos_q
         if window > 0:
             mask &= pos_q - pos_k < window
-        simple_causal = causal and window == 0 and q_offset == 0 and S == T
-        sdpa_kw = ({"is_causal": True} if simple_causal
-                   else {"attn_mask": mask})
+        # no mask where none is needed, so SDPA may take its fused
+        # backends (an explicit mask keeps cuDNN and flash out)
+        if causal and window == 0 and q_offset == 0 and S == T:
+            sdpa_kw = {"is_causal": True}
+        elif not causal and window == 0:
+            sdpa_kw = {}
+        else:
+            sdpa_kw = {"attn_mask": mask}
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt,
@@ -614,13 +683,15 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
                "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
                "library": library}
-        # SDPA has no window argument: a windowed case passes the
-        # explicit boolean mask, and the row names the backend it took
+        # SDPA has no window argument: a windowed case (or a causal one
+        # off the diagonal) passes the explicit boolean mask, and the row
+        # names the backend it took
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                               window=window, q_offset=q_offset),
-                   max_abs_err=err, tol=TOL[dtype],
-                   **timings(torch, fns),
+                   max_abs_err=err, rtol=rtol, atol=atol,
+                   atol_needed_of_max=atol_needed(out, ref, rtol) / ref_max,
+                   **control, **timings(torch, fns),
                    library_backend=sdpa_backend(torch, library),
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
@@ -970,26 +1041,22 @@ def forced_logits(torch, model, prompts, forced, kv_dtype=None,
 def full_sequence_logits(torch, model, tokens, first: int, extra=None):
     """Logits (B, n, V) fp32 of text positions ``first`` .. S-1 of one
     full-sequence forward of ``tokens`` (B,S), behind the model's prefix
-    (``extra``: a vlm's patches), through the kernels: the training
-    forward, with no cache."""
+    (``extra``: a vlm's patches; for whisper its frames, which the
+    decoder attends over), through the kernels: the training forward,
+    with no cache."""
     from repro_torch.models import layers as ll
-    from repro_torch.models import stack as stk
-    cfg = model.cfg
     with torch.no_grad():
-        x, pos, prefix = model._compose_input({"tokens": tokens,
-                                               **(extra or {})})
-        x, _ = stk.run_stack(model.layers, cfg, x, positions=pos)
-        h = ll.norm(model.final_norm, x[:, prefix + first:].contiguous(),
-                    cfg)
-        return ll.unembed(model.embed, cfg, h).float()
+        h, _ = model.final_hidden({"tokens": tokens, **(extra or {})})
+        return ll.unembed(model.embed, model.cfg,
+                          h[:, first:].contiguous()).float()
 
 
 def seeded_model(torch, cfg):
     """``cfg``'s model on the card, its weights drawn from seed 0, in the
     compute dtype ``layers.COMPUTE_DTYPE`` holds."""
-    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models import build_model, param_specs
     from repro_torch.models.module import init_params
-    params = init_params(DecoderLM.param_specs(cfg),
+    params = init_params(param_specs(cfg),
                          torch.Generator(device="cuda").manual_seed(0))
     return build_model(cfg, params, device="cuda")
 
@@ -1026,14 +1093,17 @@ def handoff(torch, F, model, prompts, forced, decoded=None, kv_dtype=None,
     return F.cosine_similarity(decoded, full, dim=-1), full
 
 
-def neighbour_state_logits(torch, model, prompts, forced, extra=None):
+def neighbour_state_logits(torch, model, prompts, forced, extra=None,
+                           leaves=("ssm_state",)):
     """The first decode step's logits (B, V) fp32 after a prefill of
-    ``prompts`` whose final SSM states were each handed to the next slot:
-    what a final-state store that writes the wrong slot gives."""
+    ``prompts`` whose cache ``leaves`` (the final SSM states, or
+    whisper's cross K/V) were each handed to the next slot: what a store
+    that writes the wrong slot gives."""
     B, S = prompts.shape
     cache = model.init_cache(B, S + 1)
     model.prefill({"tokens": prompts, **(extra or {})}, cache)
-    cache["ssm_state"].copy_(cache["ssm_state"].roll(1, dims=1))
+    for name in leaves:
+        cache[name].copy_(cache[name].roll(1, dims=1))
     logits, _ = model.decode_step(
         cache, forced[:, :1], torch.full((B,), S, dtype=torch.long,
                                          device=prompts.device))
@@ -1061,15 +1131,17 @@ def hold_handoff(h32, h16, decode_min=MIN_COSINE, faulty=None):
               f"{float(faulty.max())}")
 
 
-def serve_path(torch, np, F, modules, arch: str) -> dict:
+def serve_path(torch, np, F, modules, arch: str,
+               requests=REQUESTS) -> dict:
     """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m), 6b (granite-moe), 6d
-    (hymba-1.5b) and 6f (phi-3-vision-4.2b) at full width: serve
-    ``REQUESTS`` through the frontend with exact launch counts, profile a
-    prefill and eight decode steps, then hold teacher-forced logits
-    against the plain twins' (and, for the SSM and the prefix families,
-    against a full-sequence forward).  A vlm request carries seeded patch
-    embeddings: the frontend passes none (as ``repro``'s), so the engine
-    here adds each prompt's patches to its ``generate`` call as
+    (hymba-1.5b), 6f (phi-3-vision-4.2b) and 6g (whisper-large-v3) at
+    full width: serve ``requests`` through the frontend with exact launch
+    counts, profile a prefill and eight decode steps, then hold
+    teacher-forced logits against the plain twins' (and, for the SSM, the
+    prefix families and whisper, against a full-sequence forward).  A vlm
+    request carries seeded patch embeddings and a whisper request seeded
+    frame embeddings: the frontend passes none (as ``repro``'s), so the
+    engine here adds each prompt's to its ``generate`` call as
     ``extra_inputs``.  Returns the launches of the serving run."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
@@ -1086,20 +1158,25 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
 
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
-               for plen, count in REQUESTS for _ in range(count)]
-    patches = {}
+               for plen, count in requests for _ in range(count)]
+    # the stub frontends' inputs, one per prompt: a vlm's patches,
+    # whisper's frames
+    stub, stubs = None, {}
     if cfg.num_patches:
+        stub = ("patch_embeds", (cfg.num_patches, cfg.patch_embed_dim))
+    elif cfg.encoder_layers:
+        stub = ("frames", (cfg.max_source_positions, cfg.d_model))
+    if stub:
         pgen = torch.Generator(device="cuda").manual_seed(1)
-        patches = {p.tobytes(): torch.randn(
-            (cfg.num_patches, cfg.patch_embed_dim), generator=pgen,
-            device="cuda") for p in prompts}
+        stubs = {p.tobytes(): torch.randn(stub[1], generator=pgen,
+                                          device="cuda") for p in prompts}
 
     def extra_for(rows):
         """The prefill's extra inputs for prompts ``rows`` (B, S)."""
-        if not patches:
+        if not stub:
             return None
-        return {"patch_embeds": torch.stack(
-            [patches[np.asarray(r, np.int32).tobytes()] for r in rows])}
+        return {stub[0]: torch.stack(
+            [stubs[np.asarray(r, np.int32).tobytes()] for r in rows])}
 
     results = []
 
@@ -1110,7 +1187,7 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
             results.append(res)
             return res
 
-    max_len = max(p for p, _ in REQUESTS) + NEW_TOKENS + 8
+    max_len = max(p for p, _ in requests) + NEW_TOKENS + 8
     engine = RecordingEngine(model, max_batch=MAX_BATCH, max_len=max_len,
                              device="cuda")
     engine.generate(np.stack(prompts[:MAX_BATCH]), 4)     # warm-up
@@ -1146,14 +1223,18 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     # a prefill runs the flash kernel in every layer whose attention is
     # not ragged (all but the SSM's; hymba's three global layers: its
     # windowed layers keep the meta tokens as sinks, which go to
-    # ref.mha) and the scan in every layer with an SSM; decode runs
-    # ragged attention and the recurrence, no kernel.  Norms a forward:
+    # ref.mha; whisper's encoder, decoder self and cross layers) and the
+    # scan in every layer with an SSM; decode runs ragged attention and
+    # the recurrence, no kernel, but for whisper's cross-attention over
+    # its cached cross K/V, flash in every layer.  rmsnorms a forward:
     # ln1 (and ln2 with attention) a layer, hymba's two mixing norms and
-    # the SSM's gate norm, and the final norm
-    flash_layers = {"ssm": 0, "hybrid": len(cfg.global_attn_layers)}.get(
-        family, L)
-    norms = {"ssm": 2, "hybrid": 5}.get(family, 2) * L + 1
-    expect = {"flash_attention": flash_layers * batches,
+    # the SSM's gate norm, and the final norm; whisper's are layernorms
+    flash_layers = {"ssm": 0, "hybrid": len(cfg.global_attn_layers),
+                    "encdec": L + cfg.encoder_layers + L}.get(family, L)
+    flash_step = L if family == "encdec" else 0
+    norms = {"ssm": 2, "hybrid": 5, "encdec": 0}.get(family, 2) * L \
+        + (family != "encdec")
+    expect = {"flash_attention": flash_layers * batches + flash_step * steps,
               "rmsnorm": norms * (batches + steps),
               "ssd_scan": L * batches if cfg.ssm_state_dim else 0}
     decode_tokens = sum(r.tokens.shape[0] * (r.steps - 1) for r in results)
@@ -1198,7 +1279,8 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
             (f"{cfg.name} prefill 8x{prefill_tokens}", prefill,
              expect_prefill),
             (f"{cfg.name} 8 decode steps, batch 8", decode_steps,
-             ("rmsnorm",) if family != "dense" else ())):
+             ("flash_mma_kernel",) if flash_step
+             else ("rmsnorm",) if family != "dense" else ())):
         row = profile_phase(torch, window, fn, expect=expect)
         if family == "moe":
             row["moe_split"] = moe_split(torch, ll, fn)
@@ -1207,7 +1289,7 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
 
     # ---- the same prompts through the plain twins ---------------------------
     # one batch of each prompt length, forced with what the path answered
-    n_short = REQUESTS[-1][1]
+    n_short = requests[-1][1]
     batches_, extras = [], []
     for sl in (slice(0, MAX_BATCH), slice(len(prompts) - n_short, None)):
         batches_.append(tuple(
@@ -1217,7 +1299,7 @@ def serve_path(torch, np, F, modules, arch: str) -> dict:
     if family == "ssm":
         ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts)
         return launches
-    if family in ("moe", "hybrid", "vlm"):
+    if family in ("moe", "hybrid", "vlm", "encdec"):
         distance_logit_checks(torch, F, modules, cfg, model, batches_,
                               counts, extras)
         return launches
@@ -1350,10 +1432,11 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
 
 def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
                           extras=None):
-    """The logit checks of phases 6b (granite-moe), 6d (hymba) and 6f
-    (phi-3-vision) on the forced batches ``batches_`` [(prompts, forced
-    tokens)], ``model`` being the served bf16 model; ``extras`` holds each
-    batch's extra prefill inputs (the vlm's patches) or is None.
+    """The logit checks of phases 6b (granite-moe), 6d (hymba), 6f
+    (phi-3-vision) and 6g (whisper) on the forced batches ``batches_``
+    [(prompts, forced tokens)], ``model`` being the served bf16 model;
+    ``extras`` holds each batch's extra prefill inputs (the vlm's
+    patches, whisper's frames) or is None.
 
     ``plain_<family>``: in fp32 compute over an fp32 K/V cache the kernels
     are held against the plain twins to phase 5's bounds (the same
@@ -1370,16 +1453,26 @@ def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
     share, layer by layer, over the prompts and the forced steps (the
     first ``FORCED_STEPS`` answered tokens).
 
-    ``handoff_<family>`` (the prefix families): prefill + decode against
-    one full-sequence forward of the prompt (with its prefix) and the
-    forced tokens, both through the kernels: in fp32 at every forced
-    position, in bf16 on the served model at the prompt's last position
-    and the first decode step, each to ``MIN_COSINE``."""
+    ``handoff_<family>`` (the prefix families and whisper): prefill +
+    decode against one full-sequence forward of the prompt (with its
+    prefix, or whisper's frames) and the forced tokens, both through the
+    kernels: in fp32 at every forced position, in bf16 on the served model
+    at the prompt's last position and the first decode step, each to
+    ``MIN_COSINE``; for whisper a first decode step with each slot handed
+    its neighbour's cross K/V (another request's frames) must fall below
+    it.  Whisper's encoder output is also held apart from the logits,
+    which see it weakly (random weights attend broadly over 1,500 frames:
+    a neighbour's whole cross K/V moves the first step's logits only to
+    ~0.9985): kernels against plain twins (fp32, to ``MIN_COSINE``) and,
+    in bf16, by distance to the fp32 plain encoder (``BF16_RATIO`` times
+    the plain bf16 encoder's, plus ``BF16_SLACK``), which the family's
+    coarse flash must fail as it fails the logits' bound."""
     from repro_torch.models import layers as ll
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
     L, family = cfg.num_layers, cfg.family
-    moe, prefix = family == "moe", family in ("hybrid", "vlm")
-    faults = FAULTS["moe" if moe else "prefix"]
+    moe, encdec = family == "moe", family == "encdec"
+    handoffs = family in ("hybrid", "vlm", "encdec")
+    faults = FAULTS["moe" if moe else "encdec" if encdec else "prefix"]
     extras = extras or [None] * len(batches_)
 
     def run(m, i, plain, fault=None, kv_dtype=None):
@@ -1423,31 +1516,57 @@ def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
     def cos(a, b):
         return F.cosine_similarity(a, b, dim=-1)
 
+    def encoded(m, plain, fault=None):
+        """The encoder's output (fp32) for the first batch's frames."""
+        before = counts()
+        with (plain_kernels(ops, fa, rn, ss) if plain
+              else coarse_kernel(torch, ops, fa, rn, *fault) if fault
+              else contextlib.nullcontext()), torch.no_grad():
+            out = m.encode(extras[0]["frames"]).float()
+        if plain:
+            check(counts() == before, "the plain run launched a kernel")
+        return out
+
     batches_ = [(pt, ft[:, :FORCED_STEPS]) for pt, ft in batches_]
     n = len(batches_)
-    runs, h16, h32 = {}, [], []
+    runs, h16, h32, faulty, enc = {}, [], [], [], {}
     for i in range(n):
         runs[("bf16", "kernel", i)] = run(model, i, False)
         runs[("bf16", "plain", i)] = run(model, i, True)
         for fault in faults:
             runs[("bf16", fault, i)] = run(model, i, False, fault)
-        if prefix:
+        if handoffs:
             pt, ft = batches_[i]
-            h16.append(handoff(torch, F, model, pt, ft[:, :2],
-                               decoded=runs[("bf16", "kernel", i)][0][:, :2],
-                               extra=extras[i])[0])
+            c16, full16 = handoff(
+                torch, F, model, pt, ft[:, :2],
+                decoded=runs[("bf16", "kernel", i)][0][:, :2],
+                extra=extras[i])
+            h16.append(c16)
+        if encdec:
+            # what the bf16 decode bound separates: each slot handed its
+            # neighbour's cross K/V
+            faulty.append(cos(neighbour_state_logits(
+                torch, model, pt, ft, extra=extras[i],
+                leaves=("cross_k", "cross_v")), full16[:, 1]))
+    if encdec:
+        enc["bf16 kernel"] = encoded(model, False)
+        enc["bf16 plain"] = encoded(model, True)
+        enc["bf16 coarse"] = encoded(model, False, faults[-1])
     with fp32_model(torch, cfg) as m32:
         for i in range(n):
             runs[("fp32", "kernel", i)] = run(m32, i, False,
                                               kv_dtype=torch.float32)
             runs[("fp32", "plain", i)] = run(m32, i, True,
                                              kv_dtype=torch.float32)
-            if prefix:
+            if handoffs:
                 pt, ft = batches_[i]
                 h32.append(handoff(
                     torch, F, m32, pt, ft,
                     decoded=runs[("fp32", "kernel", i)][0],
                     extra=extras[i])[0])
+        if encdec:
+            enc["fp32 kernel"] = encoded(m32, False)
+            enc["fp32 plain"] = encoded(m32, True)
         del m32
 
     def cat(f):
@@ -1486,6 +1605,19 @@ def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
             route[dt] = dict(min=min(layer), mean=sum(layer) / L,
                              by_layer=[round(v, 6) for v in layer])
         extra_fields["route_agreement"] = route
+    if encdec:
+        def enc_cos(a):
+            return F.cosine_similarity(enc[a], enc["fp32 plain"], dim=-1)
+        enc32 = enc_cos("fp32 kernel")
+        enc_dist = {a: 1.0 - float(enc_cos(a).mean())
+                    for a in ("bf16 kernel", "bf16 plain", "bf16 coarse")}
+        enc_bound = BF16_RATIO * enc_dist["bf16 plain"] + BF16_SLACK
+        extra_fields["encoder"] = dict(
+            positions=int(enc32.numel()), fp32_cosine_min=float(enc32.min()),
+            bf16_kernel_distance=enc_dist["bf16 kernel"],
+            bf16_plain_distance=enc_dist["bf16 plain"],
+            bf16_coarse_kernel_distance=enc_dist["bf16 coarse"],
+            bf16_distance_bound=enc_bound)
     emit("plain_" + family, positions=int(c32.numel()),
          fp32_cosine_min=float(c32.min()), fp32_cosine_mean=float(c32.mean()),
          fp32_top1_agreement=t32,
@@ -1508,15 +1640,29 @@ def distance_logit_checks(torch, F, modules, cfg, model, batches_, counts,
     check(fault_dist[faults[-1]] > bound16,
           f"{kernel} keeping {bits} mantissa bits passes the bf16 bound: "
           f"distance {fault_dist[faults[-1]]} <= {bound16}")
-    if not prefix:
+    if encdec:
+        check(float(enc32.min()) >= MIN_COSINE,
+              f"fp32 encoder output, kernels against plain twins: cosine "
+              f"{float(enc32.min())} < {MIN_COSINE}")
+        check(enc_dist["bf16 kernel"] <= enc_bound,
+              f"bf16 encoder output's distance to the fp32 reference "
+              f"{enc_dist['bf16 kernel']} > {enc_bound}")
+        check(enc_dist["bf16 coarse"] > enc_bound,
+              f"{kernel} keeping {bits} mantissa bits passes the bf16 "
+              f"encoder bound: distance {enc_dist['bf16 coarse']} <= "
+              f"{enc_bound}")
+    if not handoffs:
         return
     h32, h16 = torch.cat(h32), torch.cat(h16)   # (sequences, n), (.., 2)
+    faulty = torch.cat(faulty) if faulty else None
     emit("handoff_" + family, sequences=int(h32.shape[0]),
          fp32_cosine_min=float(h32.min()),
          fp32_cosine_min_by_step=[float(v) for v in h32.min(0)[0]],
          bf16_handoff_cosine_min_by_step=[float(v) for v in h16.min(0)[0]],
+         **({} if faulty is None else
+            {"neighbour_cross_kv_cosine_max": float(faulty.max())}),
          min_cosine=MIN_COSINE)
-    hold_handoff(h32, h16)
+    hold_handoff(h32, h16, faulty=faulty)
 
 
 def ring_path(torch, np, F, modules) -> dict:
@@ -2654,6 +2800,18 @@ def main() -> int:
                                              25, 5, 64)
     checks["flash_attention"] += check_flash(torch, F, fa, gen, "phi3v",
                                              8, 1088, 1088, 32, 32, 96)
+    # whisper's serving shapes (batch 8, 20 / 20 heads of 64): the
+    # encoder's non-causal self-attention over 1,500 frames (23 whole
+    # tiles of 64 and one of 28), the cross-attention of a 224-token
+    # prompt and of one decode step over them, the decoder's causal
+    # self-attention
+    for name, S, T, causal in (("whisper_enc", 1500, 1500, False),
+                               ("whisper_cross", 224, 1500, False),
+                               ("whisper_cross_decode", 1, 1500, False),
+                               ("whisper_self", 224, 224, True)):
+        checks["flash_attention"] += check_flash(torch, F, fa, gen, name,
+                                                 8, S, T, 20, 20, 64,
+                                                 causal=causal)
     for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
                         ("decode", 8)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
@@ -2734,6 +2892,11 @@ def main() -> int:
     serve_vlm_launches = serve_path(torch, np, F, modules, VLM_ARCH)
     torch.cuda.empty_cache()
 
+    # ---- 6g. the encdec family at full width -------------------------------
+    serve_encdec_launches = serve_path(torch, np, F, modules, ENCDEC_ARCH,
+                                       ENCDEC_REQUESTS)
+    torch.cuda.empty_cache()
+
     # ---- 7-8. the training path at full width ------------------------------
     train_launches, state, step, train_idle = train_path(torch, np, F,
                                                          modules)
@@ -2755,21 +2918,22 @@ def main() -> int:
     trainer_launches = trainer_path(torch, np, tdata, modules)
 
     # ---- 15. the kernels line ---------------------------------------------
-    prefix_paths = {"serve_hybrid": serve_hybrid_launches,
+    later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
-                    "serve_vlm": serve_vlm_launches}
+                    "serve_vlm": serve_vlm_launches,
+                    "serve_encdec": serve_encdec_launches}
     by_path = {
         "flash_attention": {"serve": serve_launches["flash_attention"],
                             "serve_moe": serve_moe_launches["flash_attention"],
                             "serve_ring":
                                 serve_ring_launches["flash_attention"],
                             **{k: v["flash_attention"]
-                               for k, v in prefix_paths.items()}},
+                               for k, v in later_paths.items()}},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
                     "serve_ring": serve_ring_launches["rmsnorm"],
-                    **{k: v["rmsnorm"] for k, v in prefix_paths.items()},
+                    **{k: v["rmsnorm"] for k, v in later_paths.items()},
                     "train": train_launches["rmsnorm"],
                     "train_stream": stream_launches["rmsnorm"],
                     "trainer": trainer_launches["rmsnorm"]},
@@ -2828,8 +2992,8 @@ def main() -> int:
                         bound_by=r["bound_by"], library_ms=None)
         for r in checks["ssd_scan"]
         if r["case"] == "hymba_prefill" and r["dtype"] == "bfloat16"}
-    # flash at phi-3-vision's head dim and at the MoE and prefix paths'
-    # prefills
+    # flash at phi-3-vision's head dim, at the MoE and prefix paths'
+    # prefills and at whisper's shapes
     by_name["flash_attention"]["cases"] = {
         r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -2837,7 +3001,8 @@ def main() -> int:
                         library_backend=r["library_backend"])
         for r in checks["flash_attention"]
         if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
-                         "phi3v")
+                         "phi3v", "whisper_enc", "whisper_cross",
+                         "whisper_cross_decode", "whisper_self")
         and r["dtype"] == "bfloat16"}
     # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
     # families' widths

@@ -5,7 +5,11 @@ batching frontend and runs a synthetic request workload through prefill
 and decode (greedy or sampled), printing a JSON summary.  Runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` is given; without
 ``--reduced`` it serves the full-width config.  Requests are text only,
-as in ``repro``'s launcher: a vlm is served without patches.
+as in ``repro``'s launcher: a vlm is served without patches.  An encdec
+model (whisper) is refused at the start: it needs frame embeddings with
+every prompt, which this launcher does not make (``repro``'s launcher
+starts and its prefill then fails for want of them); serve it through
+``ServeEngine.generate(prompts, n, extra_inputs={"frames": ...})``.
 """
 from __future__ import annotations
 
@@ -30,17 +34,23 @@ def main() -> int:
     args = ap.parse_args()
 
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models import build_model, param_specs
     from repro_torch.models.module import init_params
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
     from repro_torch.utils.device import resolve_device
 
-    device = resolve_device(args.device)
     cfg = get_config(args.arch)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: this launcher sends text-only requests, and an "
+            f"encdec model needs frame embeddings with each one; serve it "
+            f"through ServeEngine.generate(prompts, n, "
+            f"extra_inputs={{'frames': ...}})")
+    device = resolve_device(args.device)
     if args.reduced:
         cfg = reduced(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_params(DecoderLM.param_specs(cfg), gen)
+    params = init_params(param_specs(cfg), gen)
     model = build_model(cfg, params, device=device)
     del params
     engine = ServeEngine(model, max_batch=args.max_batch,

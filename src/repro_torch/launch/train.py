@@ -8,9 +8,11 @@ Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given.  The loader's host index and count are the rank and world size
 of an initialised ``torch.distributed`` group, else 0 and 1 (the port's
 train step does not synchronise gradients across processes yet).  A vlm
-trains on the stub frontend of ``repro``'s launcher: token items with
-seeded patch embeddings drawn in the same order from one generator.  The
-encdec family waits for its own slice of the port.
+and whisper (encdec) train on the stub frontends of ``repro``'s launcher:
+token items with seeded patch embeddings or frame embeddings drawn in the
+same order from one generator.  Training whisper on the card waits for
+the flash-attention backward (``flash_attention`` raises when a CUDA
+tensor needs a gradient); on the CPU it trains.
 """
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ import argparse
 import json
 
 
-def patch_dataset(cfg, num_items: int, seq_len: int, seed: int):
-    """The vlm stub frontend: ``num_items`` token sequences and, per item
-    as it is transformed, patch embeddings (num_patches, patch_embed_dim)
-    of N(0, 1), both drawn from one ``np.random.default_rng(seed)`` in
-    ``repro``'s launcher's order (so the items are equal; the patches
-    are when the items are transformed in the same order)."""
+def stub_dataset(cfg, num_items: int, seq_len: int, seed: int):
+    """The vlm and encdec stub frontends: ``num_items`` token sequences
+    and, per item as it is transformed, patch embeddings (num_patches,
+    patch_embed_dim) for a vlm and frame embeddings (max_source_positions,
+    d_model) for whisper, of N(0, 1), all drawn from one
+    ``np.random.default_rng(seed)`` in ``repro``'s launcher's order (so
+    the items are equal; the embeddings are when the items are
+    transformed in the same order)."""
     import numpy as np
 
     from repro_torch.data import ArrayStorage, Dataset
@@ -32,11 +36,17 @@ def patch_dataset(cfg, num_items: int, seq_len: int, seed: int):
              for _ in range(num_items)]
 
     def transform(arr):
-        return {"tokens": arr[:-1], "targets": arr[1:],
-                "loss_mask": np.ones(seq_len, np.float32),
-                "patch_embeds": rng.normal(
-                    0, 1, (cfg.num_patches, cfg.patch_embed_dim)
-                ).astype(np.float32)}
+        out = {"tokens": arr[:-1], "targets": arr[1:],
+               "loss_mask": np.ones(seq_len, np.float32)}
+        if cfg.num_patches:
+            out["patch_embeds"] = rng.normal(
+                0, 1, (cfg.num_patches, cfg.patch_embed_dim)
+            ).astype(np.float32)
+        if cfg.encoder_layers:
+            out["frames"] = rng.normal(
+                0, 1, (cfg.max_source_positions, cfg.d_model)
+            ).astype(np.float32)
+        return out
 
     return Dataset(ArrayStorage(items), transform=transform)
 
@@ -74,12 +84,8 @@ def main() -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            "encdec models (whisper's frame frontend, cross-attention) wait "
-            "for the next slice of the port")
-    if cfg.family == "vlm":
-        ds = patch_dataset(cfg, args.num_items, args.seq_len, args.seed)
+    if cfg.family in ("vlm", "encdec"):
+        ds = stub_dataset(cfg, args.num_items, args.seq_len, args.seed)
     else:
         ds = token_dataset(args.num_items, args.seq_len, cfg.vocab_size,
                            seed=args.seed)

@@ -1,1 +1,2 @@
-from repro_torch.models.lm import DecoderLM, build_model  # noqa: F401
+from repro_torch.models.lm import (DecoderLM, EncDecLM,  # noqa: F401
+                                   build_model, param_specs)

@@ -3,25 +3,29 @@
 ``from_jax_params(cfg, tree, device=...)`` takes the tree ``repro``'s model builds
 (``jax.tree_util.tree_map(np.asarray, model.init(key))``: nested dicts of
 numpy arrays, per-layer leaves stacked on a leading ``(L, ...)`` axis) and
-loads it into the port's ``DecoderLM``, layer by layer: the dense leaves,
-the four MoE leaves (``router``, and ``wi`` / ``wg`` / ``wo`` in JAX's
-layout: plain ``(E, d, f)`` or, for fewer than 16 experts, the virtual
-``(V, d, f/parts)``, which the port un-virtualises only at use), the
+loads it into the port's ``DecoderLM`` (or ``EncDecLM``), layer by layer:
+the dense leaves, the four MoE leaves (``router``, and ``wi`` / ``wg`` /
+``wo`` in JAX's layout: plain ``(E, d, f)`` or, for fewer than 16
+experts, the virtual ``(V, d, f/parts)``, which the port un-virtualises
+only at use), the
 twelve SSM leaves of a mamba2 layer (``A_log, D, conv_b, conv_w, dt_bias,
 gate_norm, in_B, in_C, in_dt, in_x, in_z, out``), a hybrid layer's
-attention, MLP, SSM and two mixing norms, and the prefix's top-level
+attention, MLP, SSM and two mixing norms, the prefix's top-level
 leaves: the bare ``meta_tokens`` (hybrid) and the ``patch_proj`` group
-(vlm).  Both packages keep weights as ``(d_in, d_out)`` and compute
+(vlm), and whisper's (encdec) second stacked group, the ``encoder``, beside
+the decoder's ``layers`` with their cross-attention, layernorms and gelu
+MLPs.  Both packages keep weights as ``(d_in, d_out)`` and compute
 ``x @ W``, so nothing is transposed.
 
 ``from_jax_train_state`` carries a whole JAX ``TrainState`` with numpy
 leaves (params, AdamW step / mu / nu, error feedback).  ``named_from_tree``
 maps JAX's stacked layout to the port's parameter names (``embed.tokens``,
-``layers.3.ssm.in_x``, ...).
+``layers.3.ssm.in_x``, ``encoder.3.attn.wq``, ...).
 
 The other way, ``to_jax_named`` writes a port ``TrainState`` in the names
 ``repro``'s checkpointer gives a JAX ``TrainState`` (``0/layers/ssm/in_x``
-stacked on ``(L, ...)``, ``1/.step``, ``1/.mu/...``, ``1/.nu/...``, ``2/...``
+stacked on ``(L, ...)``, ``0/encoder/attn/wq`` on ``(encoder_layers, ...)``,
+``1/.step``, ``1/.mu/...``, ``1/.nu/...``, ``2/...``
 for the error feedback), in JAX's flatten order, and ``load_jax_named``
 copies such arrays back into a port ``TrainState`` in place.  This module
 does not import JAX.
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import DecoderLM, build_model
+from repro_torch.models.lm import build_model
 from repro_torch.train.optimizer import AdamWState
 from repro_torch.train.train_step import TrainState
 
@@ -47,24 +51,34 @@ def _to_torch(tree):
 
 
 def from_jax_params(cfg: ModelConfig, tree, *, device,
-                    trainable: bool = False) -> DecoderLM:
+                    trainable: bool = False):
     return build_model(cfg, _to_torch(tree), device=device,
                        trainable=trainable)
 
 
-def named_from_tree(tree, num_layers: int) -> Dict[str, np.ndarray]:
+def _stacked_counts(num_layers: int, encoder_layers: int) -> Dict[str, int]:
+    """The stacked groups of a tree and each one's layer count.  Each
+    count comes from its own config field: whisper's encoder and decoder
+    both have 32 layers (2 reduced), so a test cannot tell them apart."""
+    return {"layers": num_layers, "encoder": encoder_layers}
+
+
+def named_from_tree(tree, num_layers: int,
+                    encoder_layers: int = 0) -> Dict[str, np.ndarray]:
     """A JAX-layout tree as {port parameter name: leaf}, the stacked
-    per-layer leaves split into ``layers.<i>.<group>.<leaf>``; a top-level
-    bare leaf keeps its own name (``meta_tokens``)."""
+    per-layer leaves split into ``layers.<i>.<group>.<leaf>`` (and an
+    encdec tree's ``encoder.<i>.<group>.<leaf>``); a top-level bare leaf
+    keeps its own name (``meta_tokens``)."""
+    counts = _stacked_counts(num_layers, encoder_layers)
     out = {}
 
     def walk(node, path):
         for k, v in node.items():
             if isinstance(v, dict):
                 walk(v, path + (k,))
-            elif path and path[0] == "layers":
-                for i in range(num_layers):
-                    out[".".join(("layers", str(i)) + path[1:] + (k,))] = v[i]
+            elif path and path[0] in counts:
+                for i in range(counts[path[0]]):
+                    out[".".join((path[0], str(i)) + path[1:] + (k,))] = v[i]
             else:
                 out[".".join(path + (k,))] = v
 
@@ -79,7 +93,8 @@ def from_jax_train_state(cfg: ModelConfig, state, *, device):
 
     def tensors(tree):
         return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-                for k, v in named_from_tree(tree, cfg.num_layers).items()}
+                for k, v in named_from_tree(tree, cfg.num_layers,
+                                            cfg.encoder_layers).items()}
 
     opt = AdamWState(int(np.asarray(state.opt.step)), tensors(state.opt.mu),
                      tensors(state.opt.nu))
@@ -87,18 +102,23 @@ def from_jax_train_state(cfg: ModelConfig, state, *, device):
     return TrainState(model, opt, err)
 
 
-def jax_layout(names, num_layers: int) -> List[Tuple[str, List[str], bool]]:
+def jax_layout(names, num_layers: int, encoder_layers: int = 0
+               ) -> List[Tuple[str, List[str], bool]]:
     """JAX's leaves of a parameter tree, in its flatten order (dict keys
     sorted at every level): ``[(path, port names, stacked), ...]``, where
-    ``path`` is ``embed/tokens`` or ``layers/ssm/in_x`` and a stacked leaf
-    lists its ``num_layers`` port names in layer order."""
+    ``path`` is ``embed/tokens``, ``layers/ssm/in_x`` or
+    ``encoder/attn/wq`` and a stacked leaf lists its group's port names
+    (``num_layers`` or ``encoder_layers`` of them) in layer order."""
+    counts = _stacked_counts(num_layers, encoder_layers)
     leaves: Dict[Tuple[str, ...], List[str]] = {}
     stacked = set()
     for name in names:
-        m = re.fullmatch(r"layers\.(\d+)\.(.+)", name)
+        m = re.fullmatch(r"(layers|encoder)\.(\d+)\.(.+)", name)
         if m:
-            key = ("layers",) + tuple(m.group(2).split("."))
-            leaves.setdefault(key, [None] * num_layers)[int(m.group(1))] = name
+            group = m.group(1)
+            key = (group,) + tuple(m.group(3).split("."))
+            leaves.setdefault(key, [None] * counts[group])[
+                int(m.group(2))] = name
             stacked.add(key)
         else:
             leaves[tuple(name.split("."))] = [name]
@@ -127,8 +147,8 @@ def to_jax_named(state: TrainState) -> Dict[str, np.ndarray]:
     ``TrainState`` of the same model: params under ``0/``, the AdamW step
     (0-d int32) and moments under ``1/``, the error feedback under ``2/``
     (absent without compression)."""
-    params = state.params
-    layout = jax_layout(params, state.model.cfg.num_layers)
+    params, cfg = state.params, state.model.cfg
+    layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
     out: Dict[str, np.ndarray] = {}
 
     def put(prefix, tree):
@@ -150,8 +170,8 @@ def load_jax_named(template: TrainState, arrays: Mapping) -> TrainState:
     ``np.load``) into ``template``'s tensors in place, leaf by leaf, and
     return a ``TrainState`` over them: the device never holds a second
     state.  The error feedback is read only when ``template`` has one."""
-    params = template.params
-    layout = jax_layout(params, template.model.cfg.num_layers)
+    params, cfg = template.params, template.model.cfg
+    layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
 
     def fill(prefix, tree):
         for path, names, stacked in layout:

@@ -1,7 +1,7 @@
-"""Layers of the dense and MoE decoders: norms, rotary, GQA attention
-(with the ring cache's decode), SwiGLU MLP, top-k MoE, embedding.  The
-PyTorch counterpart of the dense and MoE subsets of
-``repro/models/layers.py``.
+"""Layers of every family: rmsnorm and layernorm, rotary, GQA attention
+(self and cross, with the ring cache's decode and the cross cache's),
+SwiGLU and gelu MLPs, top-k MoE, embedding.  The PyTorch counterpart of
+``repro/models/layers.py`` on one device.
 
 Conventions:
 * ``p`` is a mapping of parameter name to tensor (a ``ParameterDict``).
@@ -47,14 +47,31 @@ def rmsnorm(p, x, eps: float):
     return ops.rmsnorm(x, p["scale"], eps=eps)
 
 
+def layernorm_specs(d: int):
+    return {"scale": spec((d,), ("embed",), init="ones"),
+            "bias": spec((d,), ("embed",), init="zeros")}
+
+
+def layernorm(p, x, eps: float):
+    """In fp32 with the population variance (JAX's ``jnp.var``; note
+    ``torch.var`` defaults to the sample variance), cast back to x's
+    type.  Plain PyTorch on every device: JAX computes it outside any
+    Pallas kernel."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(x.dtype)
+
+
 def norm_specs(cfg: ModelConfig):
-    if cfg.family == "encdec":
-        raise NotImplementedError("layernorm (encdec) is not ported yet")
-    return rmsnorm_specs(cfg.d_model)
+    return layernorm_specs(cfg.d_model) if cfg.family == "encdec" \
+        else rmsnorm_specs(cfg.d_model)
 
 
 def norm(p, x, cfg: ModelConfig):
-    return rmsnorm(p, x, cfg.norm_eps)
+    return layernorm(p, x, cfg.norm_eps) if "bias" in p \
+        else rmsnorm(p, x, cfg.norm_eps)
 
 
 # --------------------------------------------------------------------------
@@ -79,7 +96,7 @@ def rotary(x, positions, theta: float):
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
-def attention_specs(cfg: ModelConfig):
+def attention_specs(cfg: ModelConfig, cross: bool = False):
     d, nq = cfg.d_model, cfg.num_heads * cfg.head_dim
     nkv = cfg.num_kv_heads * cfg.head_dim
     p = {
@@ -92,25 +109,33 @@ def attention_specs(cfg: ModelConfig):
         p["bq"] = spec((nq,), ("heads",), init="zeros")
         p["bk"] = spec((nkv,), ("kv_heads",), init="zeros")
         p["bv"] = spec((nkv,), ("kv_heads",), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = spec((cfg.head_dim,), (None,), init="ones")
         p["k_norm"] = spec((cfg.head_dim,), (None,), init="ones")
     return p
 
 
-def _project_qkv(p, cfg: ModelConfig, x):
+def _project_q(p, cfg: ModelConfig, x):
     B, S, _ = x.shape
-    x = cast(x)
-    q = x @ cast(p["wq"])
-    k = x @ cast(p["wk"])
-    v = x @ cast(p["wv"])
+    q = cast(x) @ cast(p["wq"])
     if "bq" in p:
         q = q + cast(p["bq"])
+    return q.view(B, S, cfg.num_heads, cfg.head_dim)
+
+
+def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
+    """Q from x, K and V from ``kv_x`` (x itself unless cross-attention),
+    each viewed as heads over its own length."""
+    kv_x = cast(x if kv_x is None else kv_x)
+    B, T, _ = kv_x.shape
+    q = _project_q(p, cfg, x)
+    k = kv_x @ cast(p["wk"])
+    v = kv_x @ cast(p["wv"])
+    if "bk" in p:
         k = k + cast(p["bk"])
         v = v + cast(p["bv"])
-    q = q.view(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.view(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = v.view(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     if "q_norm" in p:
         q = ops.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
         k = ops.rmsnorm(k, p["k_norm"], eps=cfg.norm_eps)
@@ -118,15 +143,19 @@ def _project_qkv(p, cfg: ModelConfig, x):
 
 
 def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
-              window: int = 0, num_sink: int = 0):
-    """Full-sequence self-attention (prefill).  x: (B,S,D).
+              window: int = 0, num_sink: int = 0, kv_x=None,
+              rope: bool = True):
+    """Full-sequence attention (train, prefill, the encoder, and with
+    ``kv_x`` (B,T,D) cross-attention over it).  x: (B,S,D).
 
-    Returns (y, k, v): the output and the post-rotary K and V, which
-    prefill writes into the decode cache, so the layer stack runs once."""
+    Returns (y, k, v): the output and the K and V attended over (after
+    rotary if ``rope``), which prefill writes into the decode cache, so
+    the layer stack runs once."""
     B, S, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x)
-    q = rotary(q, positions, cfg.rope_theta)
-    k = rotary(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    if rope:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window,
                         num_sink=num_sink)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ cast(p["wo"])
@@ -134,9 +163,14 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
 
 
 def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
-                     window: int = 0, num_sink: int = 0, ring: bool = False):
+                     window: int = 0, num_sink: int = 0, ring: bool = False,
+                     rope: bool = True, cross_kv=None):
     """Single-step decode.  x: (B,1,D); positions: (B,) absolute positions;
     kv_cache: {"k","v"} of shape (B,T,K,hd).
+
+    With ``cross_kv`` (the cached cross K and V, (B,T_src,K,hd) each) it
+    is cross-attention: Q alone is projected and attends, not causally,
+    over them; ``kv_cache`` is not read or written.
 
     The new K/V are written into ``kv_cache`` in place (the engine owns
     the cache, as JAX's donated buffer).  Without ``ring`` T is the full
@@ -145,9 +179,16 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
     is written to slot p % T and each slot is masked by the absolute
     position it holds, as ``repro``'s ``attention_decode`` does."""
     B = x.shape[0]
+    if cross_kv is not None:
+        q = _project_q(p, cfg, x)
+        k, v = (t.to(q.dtype) for t in cross_kv)    # no copy when equal
+        out = ops.attention(q, k, v, causal=False)
+        return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
+            @ cast(p["wo"])
     q, k_new, v_new = _project_qkv(p, cfg, x)
-    q = rotary(q, positions[:, None], cfg.rope_theta)
-    k_new = rotary(k_new, positions[:, None], cfg.rope_theta)
+    if rope:
+        q = rotary(q, positions[:, None], cfg.rope_theta)
+        k_new = rotary(k_new, positions[:, None], cfg.rope_theta)
 
     k_cache, v_cache = kv_cache["k"], kv_cache["v"]
     T = k_cache.shape[1]
@@ -174,13 +215,17 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
 
 
 # --------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU, or gelu with biases)
 # --------------------------------------------------------------------------
 def mlp_specs(cfg: ModelConfig):
-    if cfg.mlp_activation != "swiglu":
-        raise NotImplementedError(
-            f"mlp activation {cfg.mlp_activation!r} is not ported yet")
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_activation == "gelu":
+        return {
+            "wi": spec((d, f), ("embed", "mlp")),
+            "bi": spec((f,), ("mlp",), init="zeros"),
+            "wo": spec((f, d), ("mlp", "embed")),
+            "bo": spec((d,), ("embed",), init="zeros"),
+        }
     return {
         "wi": spec((d, f), ("embed", "mlp")),
         "wg": spec((d, f), ("embed", "mlp")),
@@ -189,7 +234,12 @@ def mlp_specs(cfg: ModelConfig):
 
 
 def mlp(p, cfg: ModelConfig, x):
+    """The gelu MLP is ``jax.nn.gelu``'s default, the tanh approximation
+    (``F.gelu``'s default is the exact erf form)."""
     x = cast(x)
+    if "bi" in p:
+        h = F.gelu(x @ cast(p["wi"]) + cast(p["bi"]), approximate="tanh")
+        return h @ cast(p["wo"]) + cast(p["bo"])
     h = F.silu(x @ cast(p["wg"])) * (x @ cast(p["wi"]))
     return h @ cast(p["wo"])
 

@@ -1,19 +1,22 @@
-"""DecoderLM for every decoder family: training loss, prefill, decode
-step and cache.
+"""DecoderLM for every decoder family and EncDecLM for whisper: training
+loss, prefill, decode step and cache.
 
 The counterpart of ``repro/models/lm.py`` (``cross_entropy``,
-``DecoderLM``, ``build_model``) for dense configs (qwen2-0.5b, qwen3-1.7b,
-yi-34b, mistral-large-123b), the MoE family (granite-moe-3b-a800m,
-mixtral-8x22b, whose windowed layers decode over a ring cache), the SSM
+``DecoderLM``, ``EncDecLM``, ``build_model``) for dense configs
+(qwen2-0.5b, qwen3-1.7b, yi-34b, mistral-large-123b), the MoE family
+(granite-moe-3b-a800m, mixtral-8x22b, whose windowed layers decode over a
+ring cache), the SSM
 family (mamba2-780m), the hybrid family (hymba-1.5b: attention and SSD
 heads in every layer, meta tokens, windowed and global layers) and the
 vlm family (phi-3-vision-4.2b, whose CLIP frontend is a stub: a batch
 carries precomputed ``patch_embeds``), in training and in serving (a K/V
 cache for the families with attention, the conv tail and SSD state for
-those with an SSM).  The model is an ``nn.Module`` holding its
-parameters: a ``ModuleList`` of per-layer parameter dicts where JAX scans
-over stacked leaves.  The encdec family (whisper) raises
-``NotImplementedError``.
+those with an SSM), and the encdec family (whisper-large-v3, whose audio
+frontend is a stub: a batch carries frame embeddings ``frames`` (B,
+max_source_positions, d_model)).  The model is an ``nn.Module`` holding
+its parameters: a ``ModuleList`` of per-layer parameter dicts where JAX
+scans over stacked leaves (two of them for encdec: ``encoder`` and the
+decoder's ``layers``).
 
 The prefix: the model runs ``[meta tokens | patch embeddings | text]``
 (``_compose_input``), cuts the prefix before the unembedding in the loss,
@@ -30,6 +33,7 @@ Two ways to hold the parameters:
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict
 
 import torch
@@ -41,9 +45,10 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stack as stk
 from repro_torch.models.module import ParamSpec, spec
 
-# leaves JAX uses uncast (fp32) at every use: the norm scales and the SSM's
-# dt_bias, A_log and gate_norm
-_FP32_LEAVES = frozenset({"scale", "q_norm", "k_norm"}) | ssm_mod.FP32_LEAVES
+# leaves JAX uses uncast (fp32) at every use: the norm scales, the
+# layernorm's bias and the SSM's dt_bias, A_log and gate_norm
+_FP32_LEAVES = frozenset({"scale", "bias", "q_norm", "k_norm"}) \
+    | ssm_mod.FP32_LEAVES
 
 
 def cross_entropy(logits, targets, mask):
@@ -86,6 +91,49 @@ def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None,
         for name, s in specs.items()})
 
 
+def _layer_list(specs, values, num_layers: int, device,
+                trainable: bool) -> nn.ModuleList:
+    """One ``ModuleDict`` of parameter groups per layer, each cut from the
+    stacked (L, ...) leaves of ``values``."""
+    return nn.ModuleList(
+        nn.ModuleDict({group: _param_dict(s, values[group], device, index=i,
+                                          trainable=trainable)
+                       for group, s in specs.items()})
+        for i in range(num_layers))
+
+
+def _store_leaves(cache, i: int, leaves, S: int, ring: bool) -> None:
+    """Write layer i's cache leaves from a prefill of S positions into
+    ``cache`` in place: K/V up to the cache's length (a ring of T slots
+    keeps the last T positions, rolled so position p sits in slot p % T),
+    every other leaf whole, each cast to its cache dtype."""
+    for name, t in leaves.items():
+        if name not in ("k", "v"):
+            cache[name][i] = t
+            continue
+        T = cache[name].shape[2]
+        if ring and S >= T:
+            cache[name][i] = torch.roll(t[:, S - T:], (S - T) % T, dims=1)
+        else:
+            write = min(S, T)
+            cache[name][i, :, :write] = t[:, :write]
+
+
+def _next_token_loss(model, batch, remat_policy: str):
+    """The loss of either model class: mean cross-entropy of
+    ``model.final_hidden``'s unembedding against ``batch["targets"]``
+    where ``loss_mask`` (default all ones) is 1, plus the aux loss."""
+    x, aux = model.final_hidden(batch, remat_policy=remat_policy)
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
+                          device=x.device)
+    ce_sum, denom = ll.unembed_xent(model.embed, model.cfg, x,
+                                    batch["targets"], mask)
+    loss = ce_sum / denom + aux
+    return loss, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
+
+
 class DecoderLM(nn.Module):
     """Decoder-only LM, dense, MoE or SSM.  ``params`` is a tree with the JAX
     package's layout and fp32 leaves (``init_params`` or
@@ -104,12 +152,8 @@ class DecoderLM(nn.Module):
         self.final_norm = _param_dict(specs["final_norm"],
                                       params["final_norm"], self.device,
                                       trainable=trainable)
-        self.layers = nn.ModuleList(
-            nn.ModuleDict({group: _param_dict(s, params["layers"][group],
-                                              self.device, index=i,
-                                              trainable=trainable)
-                           for group, s in specs["layers"].items()})
-            for i in range(cfg.num_layers))
+        self.layers = _layer_list(specs["layers"], params["layers"],
+                                  cfg.num_layers, self.device, trainable)
         if "meta_tokens" in specs:
             self.meta_tokens = _param("meta_tokens", specs["meta_tokens"],
                                       params["meta_tokens"], self.device,
@@ -160,9 +204,18 @@ class DecoderLM(nn.Module):
                 B, cfg.num_meta_tokens, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
             prefix += cfg.num_meta_tokens
-        S = x.shape[1]
-        positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        return x, positions, prefix
+        return x, _arange_positions(B, x.shape[1], x.device), prefix
+
+    def final_hidden(self, batch, *, remat_policy: str = "none"):
+        """One full-sequence forward of ``batch`` through the stack and
+        the final norm, with no cache.  Returns (the text positions'
+        hidden states (B,S,d_model), the prefix cut; the layers' summed
+        aux loss)."""
+        cfg = self.cfg
+        x, positions, prefix = self._compose_input(batch)
+        x, aux = stk.run_stack(self.layers, cfg, x, positions=positions,
+                               causal=True, remat_policy=remat_policy)
+        return ll.norm(self.final_norm, x, cfg)[:, prefix:], aux
 
     def loss(self, batch, *, remat_policy: str = "dots"):
         """Mean next-token cross-entropy over ``batch`` ({"tokens",
@@ -171,21 +224,7 @@ class DecoderLM(nn.Module):
         load-balancing loss (``metrics["aux_loss"]``, 0 for the other
         families).  The prefix is cut before the unembedding.  Returns
         (loss, metrics)."""
-        cfg = self.cfg
-        x, positions, prefix = self._compose_input(batch)
-        x, aux = stk.run_stack(self.layers, cfg, x, positions=positions,
-                               causal=True, remat_policy=remat_policy)
-        x = ll.norm(self.final_norm, x, cfg)
-        if prefix:
-            x = x[:, prefix:]
-        mask = batch.get("loss_mask")
-        if mask is None:
-            mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
-                              device=x.device)
-        ce_sum, denom = ll.unembed_xent(self.embed, cfg, x, batch["targets"],
-                                        mask)
-        loss = ce_sum / denom + aux
-        return loss, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
+        return _next_token_loss(self, batch, remat_policy)
 
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
@@ -211,17 +250,7 @@ class DecoderLM(nn.Module):
                                                stk.global_flags(cfg))):
             x, _, leaves = stk.block(p, cfg, x, positions=positions,
                                      is_global=is_global, ssm_state=True)
-            for name, t in leaves.items():
-                if name not in ("k", "v"):
-                    cache[name][i] = t
-                    continue
-                T = cache[name].shape[2]
-                if ring and S >= T:
-                    cache[name][i] = torch.roll(t[:, S - T:], (S - T) % T,
-                                                dims=1)
-                else:
-                    write = min(S, T)
-                    cache[name][i, :, :write] = t[:, :write]
+            _store_leaves(cache, i, leaves, S, ring)
         h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
         return ll.unembed(self.embed, cfg, h[:, None]), cache
 
@@ -244,8 +273,149 @@ class DecoderLM(nn.Module):
         return ll.unembed(self.embed, cfg, x), cache
 
 
+def _arange_positions(B: int, S: int, device):
+    """Positions 0 .. S-1 of each of B rows: (B,S)."""
+    return torch.arange(S, device=device)[None].expand(B, S)
+
+
+def _sinusoidal(positions, d: int):
+    """positions (B,S) -> (B,S,d) fp32 fixed sinusoids, [sin | cos], as
+    ``repro``'s: the frequencies are computed in float64 and rounded to
+    fp32, the angles in fp32."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float64)
+                      / max(half - 1, 1)).float().to(positions.device)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+class EncDecLM(nn.Module):
+    """Whisper-style encoder-decoder.  The audio conv frontend is a stub:
+    a batch carries frame embeddings ``frames`` (B, max_source_positions,
+    d_model).  ``params`` has the JAX package's layout (``embed``, the
+    stacked ``encoder`` of ``encoder_layers``, ``enc_norm``, the stacked
+    decoder ``layers`` with cross-attention, ``final_norm``) and fp32
+    leaves.  Positions are sinusoids added to the input (no rotary).
+
+    Prefill runs the encoder once and each decoder layer once: the cross
+    K/V a layer attends over are the ones it writes into the cache, so
+    they are projected once where ``repro`` projects them twice (inside
+    the layer and again to fill the cache; the values are equal).  Decode
+    reads them back rounded to the cache's dtype, as ``repro``'s does."""
+
+    prefix_len = 0
+
+    def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *, device,
+                 trainable: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.trainable = trainable
+        specs = self.param_specs(cfg)
+        _check_tree(specs, params)
+        for name in ("embed", "enc_norm", "final_norm"):
+            setattr(self, name, _param_dict(specs[name], params[name],
+                                            self.device,
+                                            trainable=trainable))
+        self.encoder = _layer_list(specs["encoder"], params["encoder"],
+                                   cfg.encoder_layers, self.device, trainable)
+        self.layers = _layer_list(specs["layers"], params["layers"],
+                                  cfg.num_layers, self.device, trainable)
+
+    @staticmethod
+    def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+        return {"embed": ll.embed_specs(cfg),
+                "encoder": stk.stack_param_specs(cfg, cfg.encoder_layers),
+                "enc_norm": ll.norm_specs(cfg),
+                "layers": stk.stack_param_specs(cfg, cross=True),
+                "final_norm": ll.norm_specs(cfg)}
+
+    def encode(self, frames):
+        """frames (B, T_src, d_model) -> the encoder's output (B, T_src,
+        d_model) in the compute dtype: sinusoids added, the non-causal
+        stack (never rematerialised), ``enc_norm``."""
+        pos = _arange_positions(*frames.shape[:2], frames.device)
+        x = ll.cast(frames) + ll.cast(_sinusoidal(pos, self.cfg.d_model))
+        x, _ = stk.run_stack(self.encoder, self.cfg, x, positions=pos,
+                             causal=False)
+        return ll.norm(self.enc_norm, x, self.cfg)
+
+    def _embed_dec(self, tokens, positions):
+        x = ll.embed(self.embed, self.cfg, tokens)
+        return x + _sinusoidal(positions, self.cfg.d_model).to(x.dtype)
+
+    def final_hidden(self, batch, *, remat_policy: str = "none"):
+        """One full-sequence forward of ``batch`` ({"frames", "tokens"}):
+        the encoder (never rematerialised), the decoder under
+        ``remat_policy`` attending over its output, the final norm, with
+        no cache.  Returns (hidden states (B,S,d_model), aux loss 0)."""
+        cfg = self.cfg
+        enc = self.encode(batch["frames"])
+        pos = _arange_positions(*batch["tokens"].shape, enc.device)
+        x = self._embed_dec(batch["tokens"], pos)
+        x, aux = stk.run_stack(self.layers, cfg, x, positions=pos,
+                               causal=True, remat_policy=remat_policy,
+                               enc_out=enc)
+        return ll.norm(self.final_norm, x, cfg), aux
+
+    def loss(self, batch, *, remat_policy: str = "dots"):
+        """Mean next-token cross-entropy over ``batch`` ({"frames",
+        "tokens", "targets", optional "loss_mask"}); the decoder runs
+        under ``remat_policy``, the encoder without remat, as ``repro``'s.
+        Returns (loss, metrics), ``aux_loss`` 0."""
+        return _next_token_loss(self, batch, remat_policy)
+
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+        """Self K/V for ``max_len`` positions and the cross K/V over
+        ``max_source_positions``, each in ``kv_dtype``."""
+        return stk.init_cache(self.cfg, batch, max_len, device=self.device,
+                              kv_dtype=kv_dtype)
+
+    @torch.no_grad()
+    def prefill(self, batch, cache):
+        """Encode ``batch["frames"]``, run the prompt ``batch["tokens"]``
+        through the decoder, write each layer's self K/V (up to the
+        cache's length) and cross K/V into ``cache`` in place, and return
+        the last position's logits (B,1,V) and the cache."""
+        cfg = self.cfg
+        enc = self.encode(batch["frames"])
+        pos = _arange_positions(*batch["tokens"].shape, enc.device)
+        x = self._embed_dec(batch["tokens"], pos)
+        for i, p in enumerate(self.layers):
+            x, _, leaves = stk.block(p, cfg, x, positions=pos,
+                                     is_global=False, enc_out=enc)
+            _store_leaves(cache, i, leaves, x.shape[1], ring=False)
+        h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
+        return ll.unembed(self.embed, cfg, h[:, None]), cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, positions):
+        """tokens (B,1), positions (B,): one step, this step's self K/V
+        written into ``cache`` in place.  Returns (logits, cache)."""
+        cfg = self.cfg
+        x = self._embed_dec(tokens, positions[:, None])
+        for i, p in enumerate(self.layers):
+            layer_cache = {name: t[i] for name, t in cache.items()}
+            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions,
+                                 is_global=False)
+        x = ll.norm(self.final_norm, x, cfg)
+        return ll.unembed(self.embed, cfg, x), cache
+
+
+def model_class(cfg: ModelConfig):
+    """The model class of ``cfg``'s family."""
+    return EncDecLM if cfg.family == "encdec" else DecoderLM
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The spec tree of ``cfg``'s model, in the JAX package's layout."""
+    return model_class(cfg).param_specs(cfg)
+
+
 def build_model(cfg: ModelConfig, params: Dict[str, Any], *, device,
-                trainable: bool = False) -> DecoderLM:
-    """The model for ``cfg``; the encdec family raises
-    ``NotImplementedError``."""
-    return DecoderLM(cfg, params, device=device, trainable=trainable)
+                trainable: bool = False):
+    """The model for ``cfg``: ``EncDecLM`` for the encdec family, else
+    ``DecoderLM``."""
+    return model_class(cfg)(cfg, params, device=device, trainable=trainable)

@@ -1,7 +1,8 @@
-"""Decoder blocks, the layer stack for training, and the decode cache.
+"""Blocks, the layer stack for training and the encoder, and the decode
+cache.
 
-The counterpart of the decoder subset of ``repro/models/stack.py``: the
-dense, MoE, SSM, hybrid and vlm families.  JAX scans one block over
+The counterpart of ``repro/models/stack.py`` on one device: the dense,
+MoE, SSM, hybrid, vlm and encdec families.  JAX scans one block over
 stacked parameters; here the model keeps a ``ModuleList`` of per-layer
 parameter dicts and loops over it (``run_stack``, ``lm.py``), so JAX's
 ``jax.lax.cond`` between full and windowed attention on a hybrid layer is
@@ -11,8 +12,11 @@ half the sum of their normed outputs.  The decode cache holds K/V for the
 families with attention (a ring of ``min(max_len, window)`` slots when
 every layer is windowed and there are no meta tokens, ``use_ring_cache``;
 otherwise full length, windowing being a mask) and the conv tail and SSD
-state for the families with an SSM, under JAX's leaf names.  The
-cross-attention (encdec) branches are not ported yet and raise.
+state for the families with an SSM, under JAX's leaf names.  An encdec
+decoder layer (whisper) also attends, not causally, over the encoder's
+output: its cross K/V are projected once at prefill, returned as the
+layer's ``cross_k`` / ``cross_v`` leaves and read by every decode step;
+encdec uses no rotary embedding anywhere.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import stack_specs
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
@@ -39,12 +43,17 @@ def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
             f"the port covers {', '.join(families)}")
 
 
-def block_specs(cfg: ModelConfig):
+def block_specs(cfg: ModelConfig, cross: bool = False):
+    """One layer's specs; ``cross``: an encdec decoder layer, with
+    ``ln_cross`` and ``cross`` (attention without qk-norm)."""
     check_family(cfg)
     if cfg.family == "ssm":
         return {"ln1": ll.norm_specs(cfg), "ssm": ssm_mod.ssm_specs(cfg)}
     p = {"ln1": ll.norm_specs(cfg), "attn": ll.attention_specs(cfg),
          "ln2": ll.norm_specs(cfg)}
+    if cross:
+        p["ln_cross"] = ll.norm_specs(cfg)
+        p["cross"] = ll.attention_specs(cfg, cross=True)
     if cfg.family == "moe":
         p["moe"] = ll.moe_specs(cfg)
     else:
@@ -56,10 +65,16 @@ def block_specs(cfg: ModelConfig):
     return p
 
 
-def global_flags(cfg: ModelConfig) -> Tuple[bool, ...]:
-    """Per layer: does it attend over the whole sequence (one of
-    ``global_attn_layers``)?"""
-    return tuple(i in cfg.global_attn_layers for i in range(cfg.num_layers))
+def global_flags(cfg: ModelConfig, num_layers: int = 0) -> Tuple[bool, ...]:
+    """Per layer of a stack of ``num_layers`` (the decoder's
+    ``cfg.num_layers`` if 0): does it attend over the whole sequence (one
+    of ``global_attn_layers``)?"""
+    n = num_layers or cfg.num_layers
+    return tuple(i in cfg.global_attn_layers for i in range(n))
+
+
+def _use_rope(cfg: ModelConfig) -> bool:
+    return cfg.family != "encdec"
 
 
 def _attn_window(cfg: ModelConfig, is_global: bool) -> Tuple[int, int]:
@@ -79,8 +94,12 @@ def _mix(p, cfg: ModelConfig, attn_y, ssm_y):
                   + ll.rmsnorm(p["mix_norm_ssm"], ssm_y, cfg.norm_eps))
 
 
-def stack_param_specs(cfg: ModelConfig):
-    return stack_specs(block_specs(cfg), cfg.num_layers)
+def stack_param_specs(cfg: ModelConfig, num_layers: int = 0,
+                      cross: bool = False):
+    """The stacked specs of ``num_layers`` layers (``cfg.num_layers`` if
+    0: the encoder passes its own ``encoder_layers``)."""
+    return stack_specs(block_specs(cfg, cross=cross),
+                       num_layers or cfg.num_layers)
 
 
 def _ffn(p, cfg: ModelConfig, h):
@@ -101,13 +120,15 @@ def _ssm_branch(p, cfg: ModelConfig, h, ssm_state: bool):
 
 
 def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
-          causal: bool = True, ssm_state: bool = False):
+          causal: bool = True, ssm_state: bool = False, enc_out=None):
     """One full-sequence layer.  Returns (x, aux, leaves): the layer's
     load-balancing loss (0-d fp32, 0 but for MoE) and its decode cache
     leaves under the cache's names: the post-rotary ``k`` and ``v`` for
-    the families with attention, and for those with an SSM ``ssm_conv``
-    and ``ssm_state`` if ``ssm_state`` (prefill).  ``is_global``: the
-    layer's flag (``global_flags``)."""
+    the families with attention, for those with an SSM ``ssm_conv`` and
+    ``ssm_state`` if ``ssm_state`` (prefill), and for an encdec decoder
+    layer given the encoder's output ``enc_out`` the ``cross_k`` and
+    ``cross_v`` it attends over (unrounded; the cache rounds them to its
+    dtype).  ``is_global``: the layer's flag (``global_flags``)."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
         y, leaves = _ssm_branch(p, cfg, h, ssm_state)
@@ -115,7 +136,7 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     window, num_sink = _attn_window(cfg, is_global)
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=window,
-                                num_sink=num_sink)
+                                num_sink=num_sink, rope=_use_rope(cfg))
     leaves = {"k": k, "v": v}
     if cfg.family == "hybrid":
         ssm_y, ssm_leaves = _ssm_branch(p, cfg, h, ssm_state)
@@ -123,6 +144,11 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
         x = x + _mix(p, cfg, attn_y, ssm_y)
     else:
         x = x + attn_y
+    if enc_out is not None and "cross" in p:
+        cross_y, leaves["cross_k"], leaves["cross_v"] = ll.attention(
+            p["cross"], cfg, ll.norm(p["ln_cross"], x, cfg),
+            positions=positions, causal=False, kv_x=enc_out, rope=False)
+        x = x + cross_y
     y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
     return x + y, aux, leaves
 
@@ -138,9 +164,11 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
-              remat_policy: str = "none"):
-    """Every layer over x, for training.  Returns (x, aux), aux the sum of
-    the layers' load-balancing losses (0 but for MoE).
+              remat_policy: str = "none", enc_out=None):
+    """Every layer over x, for training and the encoder (``causal``
+    false), an encdec decoder's layers attending over ``enc_out``.
+    Returns (x, aux), aux the sum of the layers' load-balancing losses (0
+    but for MoE).
 
     ``remat_policy`` maps JAX's ``jax.checkpoint`` of the scan body onto
     ``torch.utils.checkpoint`` per layer: "none" keeps every activation;
@@ -154,10 +182,10 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
 
     def layer(p, xc, is_global):
         return block(p, cfg, xc, positions=positions, is_global=is_global,
-                     causal=causal)[:2]
+                     causal=causal, enc_out=enc_out)[:2]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, is_global in zip(layers, global_flags(cfg)):
+    for p, is_global in zip(layers, global_flags(cfg, len(layers))):
         if remat_policy == "none":
             x, aux_l = layer(p, x, is_global)
         else:
@@ -185,7 +213,8 @@ def _ssm_decode(p, cfg: ModelConfig, h, cache_layer):
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
                  is_global: bool):
     """One decode layer; writes this step's K/V and the SSM's new conv
-    tail and state into ``cache_layer`` (views of the stacked cache).
+    tail and state into ``cache_layer`` (views of the stacked cache); an
+    encdec layer then attends over the cached ``cross_k`` / ``cross_v``.
     ``is_global``: the layer's flag (``global_flags``)."""
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
@@ -193,11 +222,17 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
     window, num_sink = _attn_window(cfg, is_global)
     attn_y = ll.attention_decode(p["attn"], cfg, h, cache_layer,
                                  positions=positions, window=window,
-                                 num_sink=num_sink, ring=use_ring_cache(cfg))
+                                 num_sink=num_sink, ring=use_ring_cache(cfg),
+                                 rope=_use_rope(cfg))
     if cfg.family == "hybrid":
         x = x + _mix(p, cfg, attn_y, _ssm_decode(p, cfg, h, cache_layer))
     else:
         x = x + attn_y
+    if "cross" in p:
+        x = x + ll.attention_decode(
+            p["cross"], cfg, ll.norm(p["ln_cross"], x, cfg), None,
+            positions=positions,
+            cross_kv=(cache_layer["cross_k"], cache_layer["cross_v"]))
     y, _ = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
     return x + y
 
@@ -214,7 +249,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     JAX) for a family with attention, ``min(max_len, window)`` slots long
     for a ring cache; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one
     with an SSM (the hybrid family has both), whose size does not depend
-    on ``max_len``."""
+    on ``max_len``; for encdec the cross K/V ``cross_k`` / ``cross_v``
+    (``kv_dtype``) over the ``max_source_positions`` encoder outputs."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}
@@ -228,6 +264,11 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
         shapes = ssm_mod.ssm_cache_shapes(cfg, batch)
         out["ssm_conv"] = ((L,) + shapes["conv"][0], shapes["conv"][1])
         out["ssm_state"] = ((L,) + shapes["state"][0], shapes["state"][1])
+    if cfg.encoder_layers:
+        enc_kv = (L, batch, cfg.max_source_positions, cfg.num_kv_heads,
+                  cfg.head_dim)
+        out["cross_k"] = (enc_kv, kv_dtype)
+        out["cross_v"] = (enc_kv, kv_dtype)
     return out
 
 

@@ -34,8 +34,9 @@ class GenerateResult:
 
 
 class ServeEngine:
-    """Runs ``model`` (a ``DecoderLM`` holding its parameters) on
-    ``device``, moving the model there if it is elsewhere."""
+    """Runs ``model`` (a ``DecoderLM`` or ``EncDecLM`` holding its
+    parameters) on ``device``, moving the model there if it is
+    elsewhere."""
 
     def __init__(self, model, *, max_batch: int, max_len: int,
                  temperature: float = 0.0, eos_id: Optional[int] = None,
@@ -67,7 +68,8 @@ class ServeEngine:
         """prompts: (B, S) integer ids, all of one length.
         ``extra_inputs``: more fields of the prefill batch, each moved to
         the engine's device as it is (a vlm's ``patch_embeds`` (B, P,
-        patch_embed_dim)); the cache holds ``max_len`` text positions past
+        patch_embed_dim), whisper's ``frames`` (B, max_source_positions,
+        d_model)); the cache holds ``max_len`` text positions past
         the model's prefix."""
         B, S = prompts.shape
         if B > self.max_batch or S + max_new_tokens > self.max_len:

@@ -4,8 +4,8 @@ int8 error-feedback gradient compression, then an in-place AdamW update.
 The counterpart of ``repro/train/train_step.py`` off a mesh
 (``make_train_step``'s pjit path; ``dp_manual`` has no mesh to act on here
 and takes the same path, as JAX does off a mesh).  The model holds the fp32
-master parameters (``DecoderLM(trainable=True)``); the step updates them,
-the AdamW moments and the error feedback in place.
+master parameters (``build_model(..., trainable=True)``); the step updates
+them, the AdamW moments and the error feedback in place.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import grad_compress
-from repro_torch.models.lm import DecoderLM, build_model
+from repro_torch.models.lm import build_model, param_specs
 from repro_torch.models.module import init_params
 from repro_torch.utils.device import resolve_device
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
@@ -37,7 +37,7 @@ class TrainState:
     """The trainable model (its parameters are the fp32 masters), the
     AdamW state and the error feedback (None without compression)."""
 
-    def __init__(self, model: DecoderLM, opt: AdamWState,
+    def __init__(self, model, opt: AdamWState,
                  err: Optional[Dict[str, torch.Tensor]] = None):
         self.model = model
         self.opt = opt
@@ -55,10 +55,11 @@ def init_train_state(model_or_cfg, generator: Optional[torch.Generator],
     """A fresh train state on ``device`` (the card unless ``"cpu"`` is
     given; raises if there is no card).  Given a ``ModelConfig``, the
     masters are drawn from ``generator``, on the generator's device; given
-    a trainable ``DecoderLM``, its parameters are the masters."""
+    a trainable model (``build_model(..., trainable=True)``), its
+    parameters are the masters."""
     dev = resolve_device(device)
     if isinstance(model_or_cfg, ModelConfig):
-        params = init_params(DecoderLM.param_specs(model_or_cfg), generator)
+        params = init_params(param_specs(model_or_cfg), generator)
         model = build_model(model_or_cfg, params, device=dev, trainable=True)
         del params
     else:
@@ -76,9 +77,10 @@ def init_train_state(model_or_cfg, generator: Optional[torch.Generator],
 
 def stacked_name(name: str) -> str:
     """The leaf of JAX's stacked tree a parameter belongs to:
-    ``layers.3.ssm.in_x`` -> ``layers.ssm.in_x``.  JAX compresses each
-    stacked (L, ...) leaf as one tensor, so the layers share its scale."""
-    return re.sub(r"^layers\.\d+\.", "layers.", name)
+    ``layers.3.ssm.in_x`` -> ``layers.ssm.in_x``, ``encoder.3.attn.wq`` ->
+    ``encoder.attn.wq``.  JAX compresses each stacked (L, ...) leaf as one
+    tensor, so the layers of a group share its scale."""
+    return re.sub(r"^(layers|encoder)\.\d+\.", r"\1.", name)
 
 
 def _split_microbatches(batch, n: int):
@@ -91,12 +93,14 @@ def _split_microbatches(batch, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
-def make_train_step(model: DecoderLM, cfg: TrainStepConfig):
+def make_train_step(model, cfg: TrainStepConfig):
     """Returns step(state, batch) -> (state, metrics) for ``model``, the
     model ``state`` holds.  ``batch``: {"tokens", "targets", optional
-    "loss_mask"}, (B,S) tensors on the model's device.  Metrics are 0-d
-    tensors (read them with ``float``) and the lr, a float; with
-    microbatches, loss and metrics are the last microbatch's, as in JAX."""
+    "loss_mask"}, (B,S) tensors on the model's device, and the stub
+    frontends' fields (a vlm's ``patch_embeds``, whisper's ``frames``).
+    Metrics are 0-d tensors (read them with ``float``) and the lr, a
+    float; with microbatches, loss and metrics are the last microbatch's,
+    as in JAX."""
 
     def loss_and_grads(params, mb):
         for p in params.values():

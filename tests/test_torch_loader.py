@@ -141,9 +141,14 @@ def test_torch_loader_reshard_on_a_live_stream_matches_repro():
     makeup = [np.arange(60, 64)]
     try:
         ref, port = _take(js, 3), _take(ts, 3)
-        barrier = js.position + 2
-        assert jl.reshard(2, 1, at_batch=barrier, makeup=makeup) == \
-            tl.reshard(2, 1, at_batch=barrier, makeup=makeup) == barrier
+        # the port's stream prefetches to the device, so its producer may
+        # already have yielded past js.position + 2: settle the barrier as
+        # a fleet coordinator does, the reference following the port's
+        # effective one (a pending request holds the stream there)
+        barrier = tl.reshard(2, 1, at_batch=js.position + 2, makeup=makeup)
+        assert js.position + 2 <= barrier <= \
+            js.position + tl.params.device_prefetch + 1
+        assert jl.reshard(2, 1, at_batch=barrier, makeup=makeup) == barrier
         ref += _take(js, NB)
         port += _take(ts, NB)
         assert js.reshards == ts.reshards == 1

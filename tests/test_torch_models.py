@@ -160,51 +160,56 @@ def test_torch_convert_rejects_a_mismatched_tree():
                                   "hymba-1.5b", "whisper-large-v3",
                                   "phi-3-vision-4.2b"])
 def test_torch_unported_families_raise(arch):
-    """The one family the port does not cover yet (encdec) raises at build
-    time.  The SSM, MoE, hybrid and vlm families are ported in training
-    and serving and build, prefill and decode here: the SSM cache holds
-    JAX's ``ssm_conv`` / ``ssm_state`` leaves and no K/V, the MoE and vlm
+    """Every family is ported now, in training and serving, and each
+    builds, prefills and decodes here: the SSM cache holds JAX's
+    ``ssm_conv`` / ``ssm_state`` leaves and no K/V, the MoE and vlm
     caches K/V, the hybrid cache both, K/V as long as the text and the
-    prefix (meta tokens or patches); tests/test_torch_ssm_serve.py,
-    tests/test_torch_moe.py and tests/test_torch_prefix_families.py hold
-    them against ``repro``."""
+    prefix (meta tokens or patches), and the encdec cache (whisper, fed
+    frame embeddings) self K/V and the cross K/V over its source
+    positions; tests/test_torch_ssm_serve.py, tests/test_torch_moe.py,
+    tests/test_torch_prefix_families.py and tests/test_torch_encdec.py
+    hold them against ``repro``.  (The name is kept from when a family
+    still raised.)"""
     from repro_torch.configs import get_config, reduced
-    from repro_torch.models import DecoderLM, build_model
+    from repro_torch.models import build_model, param_specs
     from repro_torch.models.module import init_params
     cfg = reduced(get_config(arch))
     leaves = {"ssm": {"ssm_conv", "ssm_state"}, "moe": {"k", "v"},
               "vlm": {"k", "v"},
-              "hybrid": {"k", "v", "ssm_conv", "ssm_state"}}
-    if cfg.family in leaves:
-        params = init_params(DecoderLM.param_specs(cfg),
-                             torch.Generator().manual_seed(0))
-        model = build_model(cfg, params, device="cpu")
-        tokens = torch.zeros((1, 4), dtype=torch.long)
-        cache = model.init_cache(1, 8)
-        assert set(cache) == leaves[cfg.family]
-        prefix = cfg.num_meta_tokens + cfg.num_patches
-        if "k" in cache:
-            assert cache["k"].shape == (cfg.num_layers, 1, 8 + prefix,
-                                        cfg.num_kv_heads, cfg.head_dim)
-        batch = {"tokens": tokens}
-        if cfg.num_patches:
-            batch["patch_embeds"] = torch.ones(
-                (1, cfg.num_patches, cfg.patch_embed_dim))
-        logits, cache = model.prefill(batch, cache)
-        if "k" in cache:
-            written = cache["k"].abs().sum(dim=(0, 1, 3, 4)) > 0
-            assert bool(written[:4 + prefix].all())
-            assert not bool(written[4 + prefix:].any())
-        if "ssm_state" in cache:
-            assert bool((cache["ssm_state"] != 0).any())
-        logits, cache = model.decode_step(
-            cache, tokens[:, :1], torch.full((1,), 4, dtype=torch.long))
-        assert logits.shape == (1, 1, cfg.vocab_size)
-        assert bool(torch.isfinite(logits).all())
-        if "k" in cache:
-            assert bool((cache["k"][:, :, 4 + prefix] != 0).any())
-        return
-    with pytest.raises(NotImplementedError):
-        build_model(cfg, {}, device="cpu")
-    with pytest.raises(NotImplementedError):
-        DecoderLM.param_specs(cfg)
+              "hybrid": {"k", "v", "ssm_conv", "ssm_state"},
+              "encdec": {"k", "v", "cross_k", "cross_v"}}
+    params = init_params(param_specs(cfg), torch.Generator().manual_seed(0))
+    model = build_model(cfg, params, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.long)
+    cache = model.init_cache(1, 8)
+    assert set(cache) == leaves[cfg.family]
+    prefix = cfg.num_meta_tokens + cfg.num_patches
+    if "k" in cache:
+        assert cache["k"].shape == (cfg.num_layers, 1, 8 + prefix,
+                                    cfg.num_kv_heads, cfg.head_dim)
+    if "cross_k" in cache:
+        assert cache["cross_k"].shape == (cfg.num_layers, 1,
+                                          cfg.max_source_positions,
+                                          cfg.num_kv_heads, cfg.head_dim)
+    batch = {"tokens": tokens}
+    if cfg.num_patches:
+        batch["patch_embeds"] = torch.ones(
+            (1, cfg.num_patches, cfg.patch_embed_dim))
+    if cfg.encoder_layers:
+        batch["frames"] = torch.ones(
+            (1, cfg.max_source_positions, cfg.d_model))
+    logits, cache = model.prefill(batch, cache)
+    if "k" in cache:
+        written = cache["k"].abs().sum(dim=(0, 1, 3, 4)) > 0
+        assert bool(written[:4 + prefix].all())
+        assert not bool(written[4 + prefix:].any())
+    if "cross_k" in cache:
+        assert bool((cache["cross_k"].abs().sum(dim=(0, 1, 3, 4)) > 0).all())
+    if "ssm_state" in cache:
+        assert bool((cache["ssm_state"] != 0).any())
+    logits, cache = model.decode_step(
+        cache, tokens[:, :1], torch.full((1,), 4, dtype=torch.long))
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    if "k" in cache:
+        assert bool((cache["k"][:, :, 4 + prefix] != 0).any())
