@@ -25,12 +25,12 @@ Phases, each printing one JSON line:
    (``hymba_global``, ``phi3v``) and at whisper's serving shapes
    (``whisper_enc`` non-causal over 1,500 frames, ``whisper_cross`` and
    ``whisper_cross_decode`` a prompt of 224 and one query row over them,
-   ``whisper_self`` causal over 224); rmsnorm also at their
-   widths; the SSD scan also with its final state through
-   ``ops.ssd_prefill`` at the serving prefill shapes (8 x 512 and 4 x
-   300, padded, and hymba's 8 x 640 at state n = 16), y and the state each
-   held to its own tolerance
-   and timed against the y-only scan; and each bf16 stage kernel of the
+   ``whisper_self`` causal over 224); rmsnorm also at their widths
+   and, with the SSD scan, at the fleet phase's 6 x 2048; the SSD scan
+   also with its final state through ``ops.ssd_prefill`` at the serving
+   prefill shapes (8 x 512 and 4 x 300, padded, and hymba's 8 x 640 at
+   state n = 16), y and the state each held to its own tolerance and
+   timed against the y-only scan; and each bf16 stage kernel of the
    SSD scan (chunk state, state passing with the final state, chunk scan)
    against its plain stage function, timed alone (``ssd_stage`` lines).
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
@@ -166,7 +166,37 @@ Phases, each printing one JSON line:
    starts at step 2 with every restored leaf bit-equal to B1's live state;
    B2's losses within 2e-3 of A's; launches exactly 48 ssd_scan and 97
    rmsnorm a step.  Free disk for three checkpoints is checked first.
-15. kernels: one line listing every ported kernel with its launches on the
+15. fleet_train: the fleet control plane (the scenario of
+   ``benchmarks/bench_fleet.py``) with a full-width mamba2-780m ``Trainer``
+   on the card as host 0, attached with ``connect_fleet``, beside two
+   host-side loaders attached with ``connect_host``, over a
+   ``FaultyTransport`` (seeded drops and duplicates) to a
+   ``CoordinatorServer`` with a standby ``CoordinatorReplica``, a
+   ``LeaderLease`` and a ``SnapshotStore``, one fleet round per card step
+   on a clock the phase moves: a startup uniform consensus whose trials on
+   host 0 run on the CUDA edge, pushed to every host; a straggler
+   re-consensus after host 1's storage turns 25x slower, and none before;
+   host 2's death, one reshard at a common barrier with its undelivered
+   slices as makeup, 6-row slices to the epoch's end, then the geometry
+   latch at global batch 8 and the Trainer's LR rescaled by 8/12; the
+   leader's crash after the reshard, the standby's promotion with a fence
+   one higher, and the old leader's command rejected by host 0's link.
+   Every index of the epoch across the death is delivered exactly once
+   (and not without the makeup); every card batch equals the host batch
+   its samplers name, byte for byte, in the order they name it; losses
+   finite and falling; exactly 48 ssd_scan and 97 rmsnorm launches a step.
+   The line has the events with their rounds, each step's wall and device
+   time and local batch, the peak memory and the transport's counts.
+16. fleet_serve: full-width qwen2-0.5b's ``BatchingFrontend`` attached
+   with ``connect_fleet(transport, loader, host="serve0")`` beside one
+   host-side peer; its feature loader delivers to the card and is read
+   once a served group.  The serve phase's 20 requests in three waves:
+   one report a served batch, idle heartbeats, a batch-mix drift that
+   makes the fleet push a cell into the feature loader while serving;
+   tokens equal to the engine's without a fleet, feature batches equal
+   to their host batches, launches exactly those of the prefills and
+   decode steps served.
+17. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -178,6 +208,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import os
@@ -348,6 +379,33 @@ HOT_SWAP_AFTER = 5              # phase 12: batches before apply_params
 # what differs is the order of atomic adds on the card).
 TRAINER_STEPS = 4
 TRAINER_LOSS_ATOL = 2e-3
+
+# phase 15: the fleet control plane with the card as host 0 (the scenario
+# of benchmarks/bench_fleet.py).  Global batch 12 over three hosts, 4 rows
+# of 2,048 tokens each, 20 batches to the first epoch; every host's
+# storage pays FLEET_LATENCY_S an item.  host1's storage is 25x slower
+# from round 2 (a batch then takes ~2.5 s against a ~1.4 s card step: a
+# straggler) until the fleet's straggler re-consensus, when it recovers;
+# host2 falls silent from round 5, or the round after that consensus;
+# the leader crashes a round after the reshard.  The coordinator, its
+# lease and the heartbeats run on a clock the phase moves on by one each
+# round (one card step), and every host reads its goodput over the last
+# two rounds.  The token rows draw from the first 4,096 ids, so the loss
+# has somewhere to fall.
+FLEET_GB, FLEET_BPE = 12, 20
+FLEET_LATENCY_S = 0.05
+FLEET_DEGRADE, FLEET_DEGRADE_AT = 25.0, 2
+FLEET_DEATH_AT = 5
+FLEET_TIMEOUT, FLEET_TTL = 2.0, 3.0
+FLEET_WINDOW = 2
+FLEET_CRASH_AFTER = 1
+FLEET_EPOCH1_STEPS = 2
+FLEET_MAX_ROUNDS = 40
+FLEET_VOCAB = 4096
+# phase 16: qwen2-0.5b serving as a fleet host; its feature loader reads
+# ImageNet-crop-like images of 32 x 32 x 3 behind 2 ms storage, 8 a batch
+FLEET_SERVE_WAVES = ((300, 4), (512, 8), (512, 8))   # (prompt, requests)
+FLEET_FEATURES, FLEET_FEATURE_RES, FLEET_FEATURE_BATCH = 256, 32, 16
 
 # phase 13: the online tuner's drift flow (examples/torch_online_tuning.py),
 # then the degraded steady state without the tuner, at the start and at
@@ -2686,6 +2744,625 @@ def trainer_path(torch, np, tdata, modules) -> dict:
     return launches
 
 
+class _Tap:
+    """The Trainer's batch iterator over a live stream, keeping a host copy
+    of every batch the consumer takes (the stream stays the loader's live
+    one, which the fleet agent reads)."""
+
+    def __init__(self, stream, sink):
+        self.stream, self.sink = stream, sink
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        batch = next(self.stream)
+        self.sink.append({k: (v.device.type, v.cpu().numpy())
+                          for k, v in batch.items()})
+        return batch
+
+    def close(self):
+        self.stream.close()
+
+
+def merge_check(seq, regular, makeup):
+    """Walk ``seq`` (index lists, in order) against two queues: the
+    regular slices the samplers name, in order, and the makeup chunks
+    dealt, in order.  Every entry must be the next of one of them.
+    Returns (entries matched as regular, as makeup, the first mismatch's
+    position or None)."""
+    r = m = 0
+    for k, idx in enumerate(seq):
+        if r < len(regular) and idx == regular[r]:
+            r += 1
+        elif m < len(makeup) and idx == makeup[m]:
+            m += 1
+        else:
+            return r, m, k
+    return r, m, None
+
+
+def fleet_train_path(torch, np, tdata, modules) -> dict:
+    """Phase 15: the fleet control plane with a full-width mamba2-780m
+    ``Trainer`` on the card as host 0, attached with ``connect_fleet``, and
+    two host-side loaders attached with ``connect_host``, over a
+    ``FaultyTransport`` (seeded drops and duplicates) to a
+    ``CoordinatorServer`` with a standby ``CoordinatorReplica``, a
+    ``LeaderLease`` and a ``SnapshotStore``.  host0's agent's ``observe``
+    is wrapped so that every card step ends with one fleet round: the
+    peers' batches and reports, the pump, the leader's tick and poll, the
+    standby's watch.  Events in order: a startup consensus pushed to every
+    host, a straggler re-consensus after host1 degrades, host2's death and
+    one reshard with makeup, the geometry latch and the LR rescale at the
+    next epoch, the leader's crash, the standby's promotion and a stale
+    command rejected.  Returns the launches of the card's steps."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.cluster import FleetEvent, FleetSchedule
+    from repro_torch.core.evaluators import LoaderEvaluator
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.tuning import (FaultSpec, FaultyTransport, FleetConfig,
+                                    FleetCoordinator, GoodputMonitor,
+                                    LeaderLease, LinkConfig, SnapshotStore,
+                                    StaleLeaderError, connect_host)
+    from repro_torch.tuning.fleet import CoordinatorReplica, CoordinatorServer
+    from repro_torch.tuning.transport import to_wire
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    n = FLEET_GB * FLEET_BPE
+    t_phase = time.perf_counter()
+
+    raw = tdata.token_dataset(n, TRAIN_SEQ, FLEET_VOCAB, seed=0)
+    row_of = {raw.storage.read(i).tobytes(): i for i in range(n)}
+
+    def indices(batch):
+        rows_ = np.concatenate([batch["tokens"], batch["targets"][:, -1:]], 1)
+        return [row_of.get(r.astype(np.int32).tobytes(), -1) for r in rows_]
+
+    # ---- the control plane ------------------------------------------------
+    clock = [0.0]
+    ck = lambda: clock[0]  # noqa: E731
+    transport = FaultyTransport(FaultSpec(drop=0.02, duplicate=0.02, seed=5))
+    lease = LeaderLease(ttl_s=FLEET_TTL, clock=ck)
+    store = SnapshotStore()
+    coord = FleetCoordinator(
+        config=FleetConfig(heartbeat_timeout_s=FLEET_TIMEOUT,
+                           warmup_steps=2, cooldown_steps=2,
+                           straggler_window=2, num_cpu_cores=2,
+                           num_devices=1, max_prefetch=1,
+                           retune_budget_batches=2),
+        clock=ck)
+    servers = [CoordinatorServer(coord, transport, owner="coord-0",
+                                 lease=lease, store=store)]
+    replica = CoordinatorReplica(transport, lease, store,
+                                 owner="coord-standby", clock=ck)
+
+    # ---- the hosts: host0 the Trainer on the card, host1 / host2 loaders ---
+    storages = [tdata.LatencyStorage(raw.storage, latency_s=FLEET_LATENCY_S,
+                                     bandwidth=1e9) for _ in range(3)]
+    loaders = [tdata.DataLoader(
+        raw.with_storage(storages[h]), FLEET_GB, shuffle=True, seed=0,
+        host_index=h, host_count=3, device="cuda",
+        params=tdata.LoaderParams(num_workers=1, prefetch_factor=1,
+                                  device_prefetch=1)) for h in range(3)]
+    old_sampler = copy.deepcopy(loaders[0].sampler)
+    tc = trainer_mod.TrainerConfig(
+        total_steps=FLEET_MAX_ROUNDS, log_every=1, seed=0, autotune=False,
+        step_config=TrainStepConfig(
+            remat_policy="none",
+            optimizer=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                  total_steps=100)))
+    tr = trainer_mod.Trainer(cfg, loaders[0], tc, host_name="host0",
+                             device="cuda")
+    agent = tr.connect_fleet(transport, clock=ck,
+                             link_config=LinkConfig(seed=0, jitter=0.0))
+    agent.monitor = GoodputMonitor(window=FLEET_WINDOW)
+    peers = [connect_host(transport, f"host{h}", loaders[h],
+                          evaluator=LoaderEvaluator(loaders[h],
+                                                    to_device=False),
+                          clock=ck, window=FLEET_WINDOW,
+                          link_config=LinkConfig(seed=h, jitter=0.0))
+             for h in (1, 2)]
+    dealt = []                          # makeup chunks dealt to host0
+    real_add_makeup = agent.add_makeup
+
+    def add_makeup(makeup, *, op_id=None):
+        dealt.extend(np.asarray(c).tolist() for c in makeup)
+        return real_add_makeup(makeup, op_id=op_id)
+    agent.add_makeup = add_makeup
+
+    events, seen = [], set()             # (round, event), by the log's seq
+    st = dict(round=0, healed=None, crash=None, old=None, stale=None,
+              stop=None)
+
+    def log_events():
+        for e in servers[0].coord.events:
+            if e["seq"] not in seen:
+                seen.add(e["seq"])
+                events.append((st["round"], dict(e)))
+
+    def of_kind(kind, reason=""):
+        return [(r, e) for r, e in events if e["kind"] == kind
+                and str(e.get("reason", "")).startswith(reason)]
+
+    # ---- 1. the startup consensus: host0's trials on the card's edge -------
+    t0 = time.perf_counter()
+    for _ in range(3):                   # a dropped trial aborts the run
+        coord.request_consensus(reason="startup")
+        servers[0].poll()
+        log_events()
+        if of_kind("consensus", "startup"):
+            break
+    startup_s = time.perf_counter() - t0
+    cells_after_startup = [dl.params.num_workers for dl in loaders], [
+        dl.params.prefetch_factor for dl in loaders]
+
+    # ---- 2-4. the rounds: one card step and one fleet round each -----------
+    schedule = FleetSchedule([
+        FleetEvent(step=FLEET_DEGRADE_AT, kind="degrade", host="host1",
+                   io_scale=FLEET_DEGRADE)])
+    alive = {"host1", "host2"}
+    streams = [p.loader.stream(to_device=False) for p in peers]
+    peer_seen = {"host1": [], "host2": []}   # (indices, position or None)
+    rounds_ = []
+    real_observe = agent.observe
+
+    def fleet_round(compute_s):
+        st["round"] += 1
+        r = st["round"]
+        clock[0] += 1.0
+        for ev in schedule.at(r):
+            storages[1].latency_s *= ev.io_scale
+        if st["healed"] is not None and r >= FLEET_DEATH_AT:
+            alive.discard("host2")           # host2 falls silent
+        waits = {}
+        for p, s in zip(peers, streams):
+            if p.host not in alive:
+                continue
+            before = s.position
+            t1 = time.perf_counter()
+            batch = next(s)
+            waits[p.host] = time.perf_counter() - t1
+            peer_seen[p.host].append(
+                (indices(batch), before if s.position > before else None))
+            # a peer steps the same model as the card in lockstep
+            p.observe(data_s=waits[p.host],
+                      step_s=waits[p.host] + compute_s)
+        transport.pump()
+        servers[0].tick()
+        servers[0].poll()
+        promoted = replica.tick()
+        if promoted is not None:
+            servers.insert(0, promoted)
+        log_events()
+        rounds_.append(dict(round=r, peer_wait_s=waits))
+        if st["healed"] is None and of_kind("consensus", "straggler"):
+            storages[1].latency_s = FLEET_LATENCY_S   # host1's recovers
+            st["healed"] = r
+        resh = of_kind("reshard")
+        if st["crash"] is None and resh \
+                and r >= resh[0][0] + FLEET_CRASH_AFTER:
+            st["old"] = servers[0]
+            st["old_fence"] = servers[0].fence
+            servers[0].crash()
+            st["crash"] = r
+        if (st["stale"] is None and replica.promoted
+                and agent.link.fence == servers[0].fence):
+            try:
+                st["old"].send("host0", "ping", {})
+                st["stale"] = "accepted"
+            except StaleLeaderError as e:
+                st["stale"] = str(e)
+            st["stale_round"] = r
+        if (st["stop"] is None and st["stale"] is not None
+                and agent.consumed_position() >= FLEET_BPE
+                + FLEET_EPOCH1_STEPS):
+            st["stop"] = r
+            tr.cfg.total_steps = agent.steps     # this step is the last
+
+    def observe(*, data_s, step_s):
+        real_observe(data_s=data_s, step_s=step_s)
+        fleet_round(step_s - data_s)
+    agent.observe = observe
+
+    taken = []
+    real_stream = loaders[0].stream
+    loaders[0].stream = lambda **kw: _Tap(real_stream(**kw), taken)
+    step_events = []
+    real_make = trainer_mod.make_train_step
+
+    def make_timed(model, config):
+        step = real_make(model, config)
+
+        def timed(state, batch):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = step(state, batch)
+            b.record()
+            step_events.append((a, b))
+            return out
+        return timed
+
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+    fa.flash_attention.launches = 0
+    trainer_mod.make_train_step = make_timed
+    t0 = time.perf_counter()
+    try:
+        tr.run()
+    finally:
+        trainer_mod.make_train_step = real_make
+        for s in streams:
+            s.close()
+    run_s = time.perf_counter() - t0
+    launches = {"ssd_scan": ss.ssd_scan.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    flash = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    device_ms = [a.elapsed_time(b) for a, b in step_events]
+
+    # ---- what the card trained on ------------------------------------------
+    steps = [r for r in tr.history if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    seqs = [indices({k: v for k, (_, v) in b.items()}) for b in taken]
+    local = [len(i) for i in seqs]
+    on_card = all(d == "cuda" for b in taken for d, _ in b.values())
+    unequal = [k for k, (b, idx) in enumerate(zip(taken, seqs))
+               if -1 in idx or any(
+                   b[f][1].tobytes() != v.tobytes()
+                   for f, v in raw.get_batch(idx).items())]
+    resh = of_kind("reshard")
+    rr, reshard = resh[0] if resh else (None, {})
+    barrier = reshard.get("barrier") or 0
+    dead_consumed = (reshard.get("dead_consumed") or {}).get("host2", 0)
+    new = loaders[0].sampler
+    regular = ([old_sampler.local_indices(0, p).tolist()
+                for p in range(barrier)]
+               + [new.local_indices(0, p).tolist()
+                  for p in range(barrier, FLEET_BPE)]
+               + [new.local_indices(1, p).tolist()
+                  for p in range(new.batches_per_epoch(1))])
+    n_reg, n_makeup, bad = merge_check(seqs, regular, dealt)
+    # the epoch across the death: host0's old- and new-shard slices and
+    # makeup, host1's the same, host2's deliveries up to its last
+    # reported position; the control leaves the makeup out
+    e0 = regular[:FLEET_BPE]
+    h0_regular = [i for i in seqs if i in e0]
+    h0_makeup = [i for i in seqs if i in dealt]
+    h1_regular = [i for i, pos in peer_seen["host1"]
+                  if pos is not None and pos < FLEET_BPE]
+    h1_makeup = [i for i, pos in peer_seen["host1"] if pos is None]
+    h2 = [i for i, _ in peer_seen["host2"][:dead_consumed]]
+
+    def flat(*groups):
+        return sorted(x for g in groups for b in g for x in b)
+    coverage = flat(h0_regular, h0_makeup, h1_regular, h1_makeup,
+                    h2) == list(range(n))
+    control = flat(h0_regular, h1_regular, h2) == list(range(n))
+    rescales = [r for r in tr.history if r.get("event") == "lr_rescale"]
+    k = next((k for k, r in enumerate(tr.history)
+              if r.get("event") == "lr_rescale"), len(tr.history))
+    rescale_step = sum(1 for r in tr.history[:k] if "loss" in r)
+    first_e1 = next((k for k, i in enumerate(seqs)
+                     if i in regular[FLEET_BPE:]), len(seqs))
+    promote = of_kind("promote")
+    consensus = of_kind("consensus")
+    # the pinned staging ring of host0's edge across the shape changes
+    pool = loaders[0]._live_stream._prefetcher._staging
+    staging = dict(zero_copy=loaders[0].params.zero_copy,
+                   hits=pool.hits if pool else None,
+                   misses=pool.misses if pool else None,
+                   retired=pool.retired if pool else None)
+    stats = dict(
+        sent_msgs=transport.sent_msgs, sent_bytes=transport.sent_bytes,
+        kind_msgs=dict(transport.kind_msgs), dropped=transport.dropped,
+        duplicated=transport.duplicated,
+        report_full=[[s.report_full_msgs, s.report_full_bytes]
+                     for s in servers],
+        report_delta=[[s.report_delta_msgs, s.report_delta_bytes]
+                      for s in servers])
+    emit("fleet_train", arch=cfg.name, layers=L, seq=TRAIN_SEQ,
+         global_batch=FLEET_GB, batches_epoch0=FLEET_BPE,
+         storage_latency_s=FLEET_LATENCY_S, rounds=st["round"],
+         card_steps=len(losses), agent_steps=agent.steps,
+         startup_consensus_s=startup_s,
+         cells_after_startup=cells_after_startup,
+         events=to_wire([dict(round=r, **{
+             k: v for k, v in e.items()
+             if k in ("kind", "reason", "params", "cell_applied", "lost",
+                      "barrier", "geometry_epoch", "makeup_batches",
+                      "dead_consumed", "fence", "sizes", "seq")})
+             for r, e in events]),
+         plan=str(reshard.get("plan")), healed_round=st["healed"],
+         crash_round=st["crash"], stale_round=st.get("stale_round"),
+         stale=st["stale"], stop_round=st["stop"],
+         fences=[st.get("old_fence"), servers[0].fence, agent.link.fence],
+         link_rejected=[r["fence"] for r in agent.link.rejected],
+         local_batch=local, step_s=[r["step_s"] for r in steps],
+         data_s=[r["data_s"] for r in steps], device_ms=device_ms,
+         lr=[r["lr"] for r in steps], losses=losses,
+         lr_rescale=rescales, lr_rescale_from_step=rescale_step,
+         first_epoch1_step=first_e1, peer_rounds=to_wire(rounds_),
+         makeup_dealt_to_host0=len(dealt), dead_consumed=dead_consumed,
+         coverage_exact=coverage, control_without_makeup_exact=control,
+         merge=dict(regular=n_reg, makeup=n_makeup, mismatch_at=bad),
+         bytes_unequal=unequal, staging=staging,
+         mem_before_run_bytes=mem_before, peak_mem_bytes=peak, run_s=run_s,
+         phase_s=time.perf_counter() - t_phase, transport=stats,
+         launches=launches, expected_launches={
+             "ssd_scan": L * len(losses),
+             "rmsnorm": (2 * L + 1) * len(losses)},
+         flash_attention_launches=flash)
+
+    # ---- the checks ------------------------------------------------------
+    check(st["stop"] is not None, f"the scenario did not finish in "
+          f"{FLEET_MAX_ROUNDS} rounds: {st}")
+    start = of_kind("consensus", "startup")
+    check(len(start) == 1 and start[0][1]["cell_applied"],
+          f"startup consensus: {start}")
+    cell = list(start[0][1]["params"])
+    check([list(c) for c in zip(*cells_after_startup)] == [cell] * 3,
+          f"startup cell {cell} not on every host: {cells_after_startup}")
+    strag = of_kind("consensus", "straggler")
+    check(strag and strag[0][1]["reason"] == "straggler-divergence:host1"
+          and strag[0][0] >= FLEET_DEGRADE_AT,
+          f"straggler consensus: {strag}")
+    before = [e for r, e in consensus if r < FLEET_DEGRADE_AT
+              and e["reason"] != "startup"]
+    check(not before, f"consensus before the degradation: {before}")
+    check(len(resh) == 1 and reshard["reason"] == "dead"
+          and reshard["lost"] == ["host2"] and rr >= FLEET_DEATH_AT
+          and dead_consumed < barrier < FLEET_BPE,
+          f"reshards: {[e for _, e in resh]}")
+    check(reshard["geometry_epoch"] == 1
+          and reshard["plan"].new_global_batch == 8
+          and loaders[0].global_batch == 8
+          and new.gb_for_epoch(0) == FLEET_GB and new.gb_for_epoch(1) == 8,
+          f"geometry latch: {reshard}")
+    tails = {6} | {len(c) for c in dealt}     # a ragged last makeup chunk
+    check(local[:barrier] == [4] * barrier
+          and set(local[barrier:first_e1]) <= tails
+          and local[first_e1:] == [4] * (len(local) - first_e1),
+          f"host0's local batches {local} (barrier {barrier})")
+    check(len(rescales) == 1 and abs(rescales[0]["scale"] - 8 / 12) < 1e-12
+          and abs(rescales[0]["peak_lr"] - 1e-3 * 8 / 12) < 1e-15,
+          f"LR rescale: {rescales}")
+    check(len(promote) == 1 and promote[0][0] > rr
+          and promote[0][1]["fence"] == st["old_fence"] + 1
+          and agent.link.fence == st["old_fence"] + 1,
+          f"promotion: {promote}, fences {st.get('old_fence')} -> "
+          f"{agent.link.fence}")
+    check(str(st["stale"]).startswith("coord(fence=")
+          and agent.link.rejected
+          and agent.link.rejected[-1]["fence"] == st["old_fence"],
+          f"the old leader's command was not rejected: {st['stale']}")
+    check(on_card, "a batch host0 trained on was not on the card")
+    check(not unequal, f"card batches {unequal} differ from their host "
+          f"batches")
+    check(bad is None and n_makeup == len(dealt) and dealt
+          and n_reg == len(seqs) - n_makeup,
+          f"host0's batches against its samplers: regular {n_reg}, makeup "
+          f"{n_makeup} of {len(dealt)}, first mismatch at {bad}")
+    check(coverage, "the epoch across the death is not covered exactly once")
+    check(not control, "the tally without the makeup covers the epoch")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(sum(losses[-3:]) < sum(losses[:3]), f"loss did not fall: {losses}")
+    check(agent.steps == st["round"] == len(losses) == len(taken),
+          f"steps {agent.steps}, rounds {st['round']}, losses "
+          f"{len(losses)}, batches {len(taken)}")
+    check(launches == {"ssd_scan": L * len(losses),
+                       "rmsnorm": (2 * L + 1) * len(losses)},
+          f"fleet_train launches {launches} over {len(losses)} steps")
+    check(flash == 0, "mamba2 launched attention")
+    tr.state = tr.step_fn = None         # the next phase needs the memory
+    return launches
+
+
+def fleet_serve_path(torch, np, tdata, modules) -> dict:
+    """Phase 16: a full-width qwen2-0.5b ``BatchingFrontend`` on the card
+    attached to a fleet with ``connect_fleet(transport, loader,
+    host="serve0")`` beside one host-side peer, over a ``LocalTransport``.
+    Its feature loader delivers to the card and is read once per served
+    group.  serve0's agent's ``observe`` (one a served batch) is wrapped to
+    run the fleet round: the peer's batch and report, the pump, the tick
+    and poll, then serve0's feature batch; its ``heartbeat`` (the idle
+    frontend's) is counted.  A ``BatchMixMonitor`` asks the fleet for a
+    re-consensus when the shape mix moves, which pushes a cell into the
+    feature loader while serving.  Returns the launches of the served
+    run."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.evaluators import LoaderEvaluator
+    from repro_torch.serve.engine import (BatchingFrontend, BatchMixMonitor,
+                                          ServeEngine)
+    from repro_torch.tuning import (FleetConfig, FleetCoordinator,
+                                    LocalTransport, connect_host)
+    from repro_torch.tuning.fleet import CoordinatorServer
+    from repro_torch.tuning.transport import to_wire
+    fa, rn = modules["fa"], modules["rn"]
+    t_phase = time.perf_counter()
+    cfg = get_config(ARCH)
+    model = seeded_model(torch, cfg)
+    rng = np.random.default_rng(0)
+    by_len = {}
+    for plen, count in REQUESTS:       # the serve phase's 20 prompts
+        by_len.setdefault(plen, []).extend(
+            rng.integers(0, cfg.vocab_size, (plen,)).astype(np.int32)
+            for _ in range(count))
+    waves = []
+    for plen, count in FLEET_SERVE_WAVES:
+        waves.append(by_len[plen][:count])
+        by_len[plen] = by_len[plen][count:]
+    results = []
+
+    class RecordingEngine(ServeEngine):
+        def generate(self, prompts_, max_new_tokens, *, seed=0):
+            res = super().generate(prompts_, max_new_tokens, seed=seed)
+            results.append((np.array(prompts_), res))
+            return res
+
+    max_len = max(p for p, _ in REQUESTS) + NEW_TOKENS + 8
+    engine = RecordingEngine(model, max_batch=MAX_BATCH, max_len=max_len,
+                             device="cuda")
+    engine.generate(np.stack(waves[1][:MAX_BATCH]), 4)       # warm-up
+    results.clear()
+
+    # ---- the fleet: serve0 and one host-side peer -----------------------
+    clock = [0.0]
+    ck = lambda: clock[0]  # noqa: E731
+    transport = LocalTransport()
+    coord = FleetCoordinator(
+        config=FleetConfig(heartbeat_timeout_s=30.0, warmup_steps=10_000,
+                           num_cpu_cores=2, num_devices=1, max_prefetch=1,
+                           retune_budget_batches=2),
+        clock=ck)
+    server = CoordinatorServer(coord, transport, owner="coord-0")
+    ingested = []
+    real_ingest = coord.ingest
+
+    def ingest(report):
+        ingested.append((report.host, report.steps))
+        return real_ingest(report)
+    coord.ingest = ingest
+    raw = tdata.synthetic_image_dataset(FLEET_FEATURES, FLEET_FEATURE_RES,
+                                        seed=0)
+
+    def loader(h):
+        return tdata.DataLoader(
+            edge_dataset(tdata, 2e-3, 1e9, raw), FLEET_FEATURE_BATCH,
+            shuffle=True, seed=0, host_index=h, host_count=2, device="cuda",
+            params=tdata.LoaderParams(num_workers=1, prefetch_factor=1))
+    peer_loader = loader(1)
+    peer = connect_host(transport, "host1", peer_loader,
+                        evaluator=LoaderEvaluator(peer_loader,
+                                                  to_device=False),
+                        clock=ck)
+    features = loader(0)
+    frontend = BatchingFrontend(engine, max_wait_s=0.05)
+    agent = frontend.connect_fleet(transport, features, host="serve0",
+                                   clock=ck)
+    frontend.mix_monitor = BatchMixMonitor(
+        window=1, threshold=0.3, cooldown=2,
+        on_drift=lambda mix: agent.notify_drift("batch-mix"))
+    stream = features.stream(to_device=True)
+    peer_stream = peer_loader.stream(to_device=False)
+    served, beats = [], [0]
+    real_observe, real_beat = agent.observe, agent.heartbeat
+
+    def observe(*, data_s, step_s):
+        real_observe(data_s=data_s, step_s=step_s)
+        clock[0] += 1.0
+        next(peer_stream)
+        peer.observe(data_s=0.001, step_s=step_s)
+        transport.pump()
+        server.tick()
+        server.poll()
+        # the stream is read once a served group, after the poll: a cell
+        # pushed in this round swaps in at this batch's boundary
+        batch = next(stream)
+        served.append(dict(position=len(served),
+                           cell=list(agent.param_cell()),
+                           batch={k: (v.device.type, v.cpu().numpy())
+                                  for k, v in batch.items()}))
+
+    def heartbeat():
+        beats[0] += 1
+        real_beat()
+    agent.observe, agent.heartbeat = observe, heartbeat
+
+    fa.flash_attention.launches = rn.rmsnorm.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    t0 = time.perf_counter()
+    try:
+        for wave in waves:
+            reqs = [frontend.submit(p, NEW_TOKENS) for p in wave]
+            outs += [r.result.get(timeout=600) for r in reqs]
+            time.sleep(0.3)              # idle: the frontend heartbeats
+    finally:
+        frontend.shutdown()
+        frontend._thread.join(timeout=30)
+        stream.close()
+        peer_stream.close()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "rmsnorm": rn.rmsnorm.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    # ---- the same groups through the engine with no fleet ---------------
+    unequal = []
+    for k, (prompts, res) in enumerate(list(results)):
+        again = ServeEngine.generate(engine, prompts, NEW_TOKENS)
+        if not np.array_equal(again.tokens, res.tokens):
+            unequal.append(k)
+    L = cfg.num_layers
+    batches = len(results)
+    steps = sum(r.steps - 1 for _, r in results)
+    expect = {"flash_attention": L * batches,
+              "rmsnorm": (2 * L + 1) * (batches + steps)}
+    consensus = [e for e in coord.events if e["kind"] == "consensus"]
+    cell = list(consensus[0]["params"]) if consensus else None
+    sampler = features.sampler
+    feature_unequal = [
+        k for k, s in enumerate(served)
+        if any(s["batch"][f][0] != "cuda"
+               or s["batch"][f][1].tobytes() != v.tobytes()
+               for f, v in raw.get_batch(sampler.local_indices(
+                   *divmod(s["position"],
+                           sampler.batches_per_epoch(0)))).items())]
+    reports = [s for h, s in ingested if h == "serve0"]
+    emit("fleet_serve", arch=cfg.name, requests=len(outs),
+         waves=[[p, c] for p, c in FLEET_SERVE_WAVES],
+         batches_served=frontend.batches_served, reports=reports,
+         heartbeats=beats[0], alive=sorted(coord.registry.alive_hosts()),
+         consensus=to_wire([{k: e[k] for k in ("reason", "params",
+                                                "cell_applied", "hosts")}
+                            for e in consensus]),
+         cells_served=[s["cell"] for s in served],
+         loader_cell=[features.params.num_workers,
+                      features.params.prefetch_factor],
+         feature_batches=len(served), feature_unequal=feature_unequal,
+         tokens_unequal_to_engine=unequal, wall_s=wall_s,
+         prefill_s=[r.prefill_s for _, r in results],
+         decode_s=[r.decode_s for _, r in results],
+         peak_mem_bytes=peak, transport=dict(
+             sent_msgs=transport.sent_msgs, sent_bytes=transport.sent_bytes,
+             kind_msgs=dict(transport.kind_msgs)),
+         launches=launches, expected_launches=expect,
+         phase_s=time.perf_counter() - t_phase)
+    check(len(outs) == sum(len(w) for w in waves) and all(
+        o.shape == (NEW_TOKENS,) and 0 <= o.min() and o.max() < cfg.vocab_size
+        for o in outs), "not every request was answered")
+    check(frontend.batches_served == len(FLEET_SERVE_WAVES) == batches,
+          f"{frontend.batches_served} batches served for "
+          f"{len(FLEET_SERVE_WAVES)} waves")
+    check(reports == list(range(1, batches + 1)),
+          f"serve0's reports {reports} for {batches} served batches")
+    check(beats[0] > 0 and "serve0" in coord.registry.alive_hosts(),
+          f"heartbeats {beats[0]}, alive {coord.registry.alive_hosts()}")
+    check(len(consensus) == 1 and consensus[0]["reason"] == "batch-mix"
+          and consensus[0]["cell_applied"],
+          f"batch-mix consensus: {consensus}")
+    check(cell == list(agent.param_cell()) and served[0]["cell"] != cell
+          and served[-1]["cell"] == cell,
+          f"pushed cell {cell}; cells while serving "
+          f"{[s['cell'] for s in served]}")
+    check(not unequal, f"groups {unequal} differ from the engine's tokens")
+    check(len(served) == batches and not feature_unequal,
+          f"feature batches {feature_unequal} differ from their host "
+          f"batches ({len(served)} read)")
+    check(launches == expect,
+          f"fleet_serve launches {launches}, the path implies {expect}")
+    del engine, model
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2833,6 +3510,10 @@ def main() -> int:
                            ("hymba_gate_d3200", 8 * 640, 3200),
                            ("phi3v_d3072", 8 * 1088, 3072)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, d)
+    # the fleet phase's survivors step 6 x 2048 after the reshard
+    for name, d in (("fleet_d1536", 1536), ("fleet_d3072", 3072)):
+        checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name,
+                                           6 * TRAIN_SEQ, d)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
 
@@ -2844,6 +3525,8 @@ def main() -> int:
     # sequence that ops.ssd pads
     for name, shape, kw in (
             ("slice", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256),
+             dict(strided=True)),
+            ("fleet6", (6, TRAIN_SEQ, 48, 64, 1, 128, 256),
              dict(strided=True)),
             ("t1", (1, 32, 2, 8, 1, 4, 8), {}),
             ("t2_groups", (2, 64, 4, 16, 2, 8, 16), {}),
@@ -2916,6 +3599,16 @@ def main() -> int:
     del edge
     drift_retune_path(torch, np, tdata)
     trainer_launches = trainer_path(torch, np, tdata, modules)
+    # phase 14's Trainer B and its patched restore hold each other: only
+    # the collector frees its 9.36 GB state before the next 780M state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- 15-16. the fleet control plane: a Trainer and a frontend as hosts
+    fleet_train_launches = fleet_train_path(torch, np, tdata, modules)
+    torch.cuda.empty_cache()
+    fleet_serve_launches = fleet_serve_path(torch, np, tdata, modules)
+    torch.cuda.empty_cache()
 
     # ---- 15. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
@@ -2928,7 +3621,9 @@ def main() -> int:
                             "serve_ring":
                                 serve_ring_launches["flash_attention"],
                             **{k: v["flash_attention"]
-                               for k, v in later_paths.items()}},
+                               for k, v in later_paths.items()},
+                            "fleet_serve":
+                                fleet_serve_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
@@ -2936,14 +3631,17 @@ def main() -> int:
                     **{k: v["rmsnorm"] for k, v in later_paths.items()},
                     "train": train_launches["rmsnorm"],
                     "train_stream": stream_launches["rmsnorm"],
-                    "trainer": trainer_launches["rmsnorm"]},
+                    "trainer": trainer_launches["rmsnorm"],
+                    "fleet_train": fleet_train_launches["rmsnorm"],
+                    "fleet_serve": fleet_serve_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
                      "hybrid_window": hybrid_window_launches["ssd_scan"],
                      "train": train_launches["ssd_scan"],
                      "train_stream": stream_launches["ssd_scan"],
-                     "trainer": trainer_launches["ssd_scan"]},
+                     "trainer": trainer_launches["ssd_scan"],
+                     "fleet_train": fleet_train_launches["ssd_scan"]},
     }
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
                  "rmsnorm_residual": "slice", "ssd_scan": "slice"}
@@ -2985,13 +3683,15 @@ def main() -> int:
                      and r["dtype"] == "bfloat16")
     by_name["ssd_scan"]["serve_prefill_state_ms"] = state_row["kernel_ms"]
     by_name["ssd_scan"]["serve_prefill_y_only_ms"] = state_row["y_only_ms"]
-    # the scan with its final state at hymba's prefill (n = 16)
+    # the scan with its final state at hymba's prefill (n = 16), and the
+    # fleet phase's 6 x 2048 training shape
     by_name["ssd_scan"]["cases"] = {
         r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
-                        y_only_ms=r["y_only_ms"], bound_ms=r["bound_ms"],
+                        y_only_ms=r.get("y_only_ms"), bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=None)
         for r in checks["ssd_scan"]
-        if r["case"] == "hymba_prefill" and r["dtype"] == "bfloat16"}
+        if r["case"] in ("hymba_prefill", "fleet6")
+        and r["dtype"] == "bfloat16"}
     # flash at phi-3-vision's head dim, at the MoE and prefix paths'
     # prefills and at whisper's shapes
     by_name["flash_attention"]["cases"] = {
@@ -3012,7 +3712,8 @@ def main() -> int:
                         library_ms=r["library_ms"])
         for r in checks["rmsnorm"]
         if r["case"] in ("mixtral_d6144", "mixtral_decode", "hymba_d1600",
-                         "hymba_gate_d3200", "phi3v_d3072")
+                         "hymba_gate_d3200", "phi3v_d3072", "fleet_d1536",
+                         "fleet_d3072")
         and r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -1,13 +1,13 @@
 """DPT core package.  Imports are lazy to avoid data<->core import cycles
-(data.loader uses core.monitor; core.dpt uses data.loader).  ``repro``'s
-``FleetResult`` and ``MultiHostDPT`` belong to the fleet control plane and
-are not ported yet."""
+(data.loader uses core.monitor; core.dpt uses data.loader)."""
 import importlib
 
 _EXPORTS = {
     "DPT": "repro_torch.core.dpt",
     "DPTConfig": "repro_torch.core.dpt",
     "DPTResult": "repro_torch.core.dpt",
+    "FleetResult": "repro_torch.core.dpt",
+    "MultiHostDPT": "repro_torch.core.dpt",
     "Trial": "repro_torch.core.dpt",
     "default_params": "repro_torch.core.dpt",
     "MemoryBudget": "repro_torch.core.monitor",

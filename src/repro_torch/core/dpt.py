@@ -16,8 +16,7 @@ drive unit tests, paper-table benchmarks and the multi-host simulation.
 The search loop itself now lives in the unified strategy layer
 (``repro_torch.tuning``): ``DPT.run`` delegates to the registered ``"grid"``
 strategy, and this module keeps the shared dataclasses (DPTConfig,
-Trial, DPTResult).  ``repro``'s fleet tuner (``FleetResult``,
-``MultiHostDPT``) needs the fleet control plane and comes with it.
+Trial, DPTResult) plus the fleet tuner built on top.
 """
 from __future__ import annotations
 
@@ -156,3 +155,52 @@ class DPT:
                 except MemoryOverflow:
                     out[(i, j)] = math.inf
         return out
+
+
+# --------------------------------------------------------------------------
+# multi-host fleet tuning (beyond paper; DESIGN.md §2 "Multi-pod semantics")
+# --------------------------------------------------------------------------
+@dataclasses.dataclass
+class FleetResult:
+    mode: str                             # "uniform" | "per_host"
+    per_host: List[DPTResult]
+    fleet_params: List[Tuple[int, int]]   # chosen (nworker, nprefetch)/host
+    fleet_time: float                     # max over hosts (lockstep step time)
+    uniform_params: Optional[Tuple[int, int]] = None
+
+
+class MultiHostDPT:
+    """Tunes a fleet where hosts may be heterogeneous (stragglers).
+
+    The fleet steps in lockstep, so the effective transfer time is the MAX
+    over hosts.  Two modes:
+
+    * ``per_host``: each host tunes independently (optimal when per-host
+      configs are allowed — independent minimization minimizes the max);
+    * ``uniform``: one (nWorker, nPrefetch) for every host (common fleet
+      constraint) chosen to minimize the max over hosts — a straggler-aware
+      consensus the single-machine paper has no analogue of.
+    """
+
+    def __init__(self, evaluators: Sequence[Evaluator],
+                 config: DPTConfig = DPTConfig()):
+        self.evaluators = list(evaluators)
+        self.config = config
+
+    def run_per_host(self) -> FleetResult:
+        results = [DPT(ev, self.config).run(measure_default=False)
+                   for ev in self.evaluators]
+        params = [(r.nworker, r.nprefetch) for r in results]
+        fleet_time = max(r.optimal_time for r in results)
+        return FleetResult("per_host", results, params, fleet_time)
+
+    def run_uniform(self) -> FleetResult:
+        """Per-host sweeps + straggler-aware consensus.  The consensus math
+        lives in the fleet control plane (``repro_torch.tuning.fleet``),
+        which the FleetCoordinator also uses for online re-consensus."""
+        from repro_torch.tuning.fleet import uniform_consensus
+        results = [DPT(ev, self.config).run(measure_default=False)
+                   for ev in self.evaluators]
+        best, fleet_time = uniform_consensus(results)
+        return FleetResult("uniform", results, [best] * len(results),
+                           fleet_time, uniform_params=best)

@@ -233,6 +233,21 @@ class BatchingFrontend:
                                                  daemon=True)
             self._slow_thread.start()
 
+    def connect_fleet(self, transport, loader, *, host: str = "serve0",
+                      join: bool = False, coord: str = "coord",
+                      link_config=None, clock=time.monotonic):
+        """Attach this frontend to a fleet over a message transport: the
+        serving host then reports/heartbeats over the wire exactly like a
+        training host (``consumes_stream=False`` — serving observes per
+        request-group, so loader consumption comes from the stream
+        cursor).  A coordinator outage never stalls serving; the host
+        keeps batching on its last latched params."""
+        from repro_torch.tuning.fleet import connect_host
+        self.agent = connect_host(
+            transport, host, loader, coord=coord, link_config=link_config,
+            clock=clock, join=join, consumes_stream=False)
+        return self.agent
+
     def submit(self, prompt: np.ndarray, max_new_tokens: int) -> Request:
         req = Request(np.asarray(prompt, np.int32), max_new_tokens,
                       t_submit=time.perf_counter())

@@ -20,8 +20,10 @@ train state from it with a ``torch.Generator`` seeded with
 ``TrainerConfig.seed`` on the Trainer's device (the card unless
 ``device="cpu"``): a port model holds its fp32 masters and the step
 updates them in place, so no two Trainers may share one, and a restart
-must never start from the crashed run's weights.  ``connect_fleet`` waits
-for the port of ``repro``'s fleet control plane (its HostAgent).
+must never start from the crashed run's weights.  ``connect_fleet``
+attaches the Trainer to a fleet (a transport-attached HostAgent of
+``repro_torch.tuning.fleet``): the coordinator's reshards and pushed
+params then reach its live stream.
 """
 from __future__ import annotations
 
@@ -161,9 +163,23 @@ class Trainer:
         self.tune_s: Optional[float] = None
         self.tune_trials: Optional[int] = None
 
-    def connect_fleet(self, transport, **kwargs):
-        raise NotImplementedError(
-            "the fleet control plane (repro.tuning.fleet) is not ported yet")
+    def connect_fleet(self, transport, *, join: bool = False,
+                      coord: str = "coord", link_config=None,
+                      clock=time.monotonic):
+        """Attach this trainer to a fleet over a message transport.
+
+        Builds a transport-attached HostAgent around ``self.loader`` and
+        registers (or ``join=True`` mid-run admits) it with the
+        coordinator endpoint.  After this, ``run()`` streams observations
+        over the wire and the coordinator's pushes (params, reshards,
+        schedules) arrive as fenced commands — and a coordinator outage
+        never blocks the step loop: the host trains on its last
+        latched params and re-syncs on reconnect."""
+        from repro_torch.tuning.fleet import connect_host
+        self.agent = connect_host(
+            transport, self.host_name, self.loader, coord=coord,
+            link_config=link_config, clock=clock, join=join)
+        return self.agent
 
     # ---- DPT integration ----------------------------------------------------
     def tune_loader(self, *, force: bool = False) -> LoaderParams:

@@ -5,18 +5,17 @@ to every search policy (see ``base.py``); ``OnlineTuner`` turns tuning into
 a continuous background activity against a live, hot-swappable DataLoader
 (``online.py``: split into observe/decide/act components), and
 ``locality.py`` holds the online locality, cache and slow-lane sweeps and
-the counter-driven ``AdaptiveLocalityController``.  Strategy
-implementations live in ``strategies.py`` and self-register; third-party
-strategies register the same way::
+the counter-driven ``AdaptiveLocalityController``; the fleet control plane
+(``fleet.py``: HostAgent + FleetCoordinator, over ``transport.py``)
+recomposes those components across hosts — coordinated re-consensus and
+elastic resharding.  Strategy implementations live in ``strategies.py``
+and self-register; third-party strategies register the same way::
 
     from repro_torch.tuning import register_strategy
 
     @register_strategy("my_policy")
     class MyPolicy:
         def tune(self, recorder, **kwargs): ...
-
-``repro``'s transport and fleet control plane (``transport``, ``fleet``)
-are not ported yet.
 """
 from repro_torch.tuning.base import (  # noqa: F401
     TrialRecorder,
@@ -54,4 +53,27 @@ from repro_torch.tuning.online import (  # noqa: F401
     OnlineTunerConfig,
     RetuneExecutor,
     RetunePolicy,
+)
+from repro_torch.tuning.transport import (  # noqa: F401
+    AgentLink,
+    FaultSpec,
+    FaultyTransport,
+    LeaderLease,
+    LinkConfig,
+    LocalTransport,
+    SnapshotStore,
+    StaleLeaderError,
+    Transport,
+    TransportError,
+)
+from repro_torch.tuning.fleet import (  # noqa: F401
+    CoordinatorReplica,
+    CoordinatorServer,
+    FleetConfig,
+    FleetCoordinator,
+    HostAgent,
+    HostReport,
+    RemoteAgent,
+    connect_host,
+    uniform_consensus,
 )

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 # The tensors here are tiny; one intra-op thread keeps these tests from
@@ -102,3 +103,225 @@ def same_bytes(a: dict, b: dict) -> bool:
 def batch_key(batch: dict) -> bytes:
     """One batch's bytes, field by field in name order (for multisets)."""
     return b"".join(k.encode() + batch[k].tobytes() for k in sorted(batch))
+
+
+# ---- the fleet control plane: the reference tests' harness, in either
+# package (``port=False`` builds ``repro``'s, for parity runs) ------------
+
+def fleet_modules(port: bool = True):
+    """(data, tuning, tuning.fleet, core.cluster) of one package."""
+    if port:
+        import repro_torch.core.cluster as cluster
+        import repro_torch.data as data
+        import repro_torch.tuning as tuning
+        import repro_torch.tuning.fleet as fleet
+    else:
+        import repro.core.cluster as cluster
+        import repro.data as data
+        import repro.tuning as tuning
+        import repro.tuning.fleet as fleet
+    return data, tuning, fleet, cluster
+
+
+def make_index_dataset(n, *, width=4, transform=None, port=True):
+    """Dataset whose sample VALUES are their indices (see
+    ``flat_indices``); ``transform`` receives the raw ``(width,)`` array."""
+    data = fleet_modules(port)[0]
+    items = [np.full((width,), i, np.int32) for i in range(n)]
+    return data.Dataset(data.ArrayStorage(items),
+                        transform=transform or (lambda a: {"x": a}))
+
+
+def fleet_loader(dataset, global_batch, *, port=True, **kw):
+    """A DataLoader of either package; the port's delivers to the CPU."""
+    data = fleet_modules(port)[0]
+    if port:
+        kw.setdefault("device", "cpu")
+    return data.DataLoader(dataset, global_batch, **kw)
+
+
+def flat_indices(batches):
+    """Sorted sample indices recovered from index-dataset batches."""
+    return sorted(np.concatenate(
+        [np.asarray(b["x"])[:, 0] for b in batches]).tolist())
+
+
+def make_table_evaluator(fn, *, locality=False, cache=False, port=True):
+    """Synthetic evaluator over a (nworker, nprefetch[, chunk]) table that
+    records its calls and budgets (``tests/conftest.py``'s, in either
+    package)."""
+    TransferStats = fleet_modules(port)[0].TransferStats
+
+    if cache:
+        def ev(i, j, *, num_batches=16, epoch=0, locality_chunk=None,
+               cache_budget_bytes=None):
+            ev.calls += 1
+            ev.budgets.append(num_batches)
+            ev.epochs.append(epoch)
+            return TransferStats(fn(i, j, locality_chunk or 0,
+                                    cache_budget_bytes or 0, epoch),
+                                 num_batches, 0)
+    elif locality:
+        def ev(i, j, *, num_batches=16, epoch=0, locality_chunk=None):
+            ev.calls += 1
+            ev.budgets.append(num_batches)
+            return TransferStats(fn(i, j, locality_chunk or 0),
+                                 num_batches, 0)
+    else:
+        def ev(i, j, *, num_batches=16, epoch=0):
+            ev.calls += 1
+            ev.budgets.append(num_batches)
+            return TransferStats(fn(i, j), num_batches, 0)
+    ev.calls = 0
+    ev.budgets = []
+    ev.epochs = []
+    return ev
+
+
+class FleetHarness:
+    """A live in-process fleet: coordinator + one HostAgent/loader/stream
+    per host, driven by a fake clock."""
+
+    def __init__(self, n=480, gb=12, hosts=3, *, timeout=5.0, seed=5,
+                 evaluator_fn=lambda i, j: 4.0 / i + 0.1 * j,
+                 config=None, port=True, **cfg_kw):
+        _, tuning, _, _ = fleet_modules(port)
+        self.clock = [0.0]
+        defaults = dict(heartbeat_timeout_s=timeout, warmup_steps=2,
+                        cooldown_steps=4, num_cpu_cores=4, num_devices=1,
+                        max_prefetch=2, retune_budget_batches=2)
+        defaults.update(cfg_kw)
+        cfg = config or tuning.FleetConfig(**defaults)
+        self.coord = tuning.FleetCoordinator(config=cfg,
+                                             clock=lambda: self.clock[0])
+        LoaderParams = fleet_modules(port)[0].LoaderParams
+        self.agents, self.streams = [], []
+        for h in range(hosts):
+            dl = fleet_loader(make_index_dataset(n, port=port), gb,
+                              shuffle=True, seed=seed,
+                              params=LoaderParams(num_workers=2,
+                                                  prefetch_factor=2),
+                              host_index=h, host_count=hosts, port=port)
+            self.agents.append(self.coord.register(tuning.HostAgent(
+                f"host{h}", dl,
+                evaluator=make_table_evaluator(evaluator_fn, port=port))))
+            self.streams.append(dl.stream(to_device=False))
+
+    def tick(self, dt=1.0):
+        self.clock[0] += dt
+
+    def close(self):
+        for s in self.streams:
+            try:
+                s.close()
+            except Exception:
+                pass
+
+
+class WireFleet:
+    """A transport-mode fleet (``tests/conftest.py``'s, in either
+    package): hosts talk to a ``CoordinatorServer`` over a fault-injectable
+    transport, a lease + snapshot store back a standby replica, and a fake
+    clock drives heartbeats, lease expiry and failover.  ``rounds`` is one
+    lockstep step of every alive host, then pump, tick, poll and the
+    standby's watch (a promotion swaps ``server`` / ``coord``)."""
+
+    def __init__(self, *, hosts=3, n=480, gb=12, faults=None, ttl=4.0,
+                 heartbeat_timeout=6.0, link_config=None, port=True,
+                 **cfg_kw):
+        data, tuning, fleet, _ = fleet_modules(port)
+        self.n, self.gb = n, gb
+        self.bpe = n // gb
+        self.clock = [0.0]
+        ck = lambda: self.clock[0]  # noqa: E731
+        self.transport = tuning.FaultyTransport(faults or tuning.FaultSpec())
+        self.lease = tuning.LeaderLease(ttl_s=ttl, clock=ck)
+        self.store = tuning.SnapshotStore()
+        defaults = dict(heartbeat_timeout_s=heartbeat_timeout,
+                        warmup_steps=2, cooldown_steps=4, num_cpu_cores=4,
+                        num_devices=1, max_prefetch=2,
+                        retune_budget_batches=2)
+        defaults.update(cfg_kw)
+        self.coord = tuning.FleetCoordinator(
+            config=tuning.FleetConfig(**defaults), clock=ck)
+        self.server = fleet.CoordinatorServer(
+            self.coord, self.transport, owner="coord-0", lease=self.lease,
+            store=self.store)
+        self.replica = fleet.CoordinatorReplica(
+            self.transport, self.lease, self.store, owner="coord-standby",
+            clock=ck)
+        self.agents, self.streams = [], []
+        for h in range(hosts):
+            dl = fleet_loader(make_index_dataset(n, port=port), gb,
+                              shuffle=True, seed=5,
+                              params=data.LoaderParams(num_workers=2,
+                                                       prefetch_factor=2),
+                              host_index=h, host_count=hosts, port=port)
+            self.agents.append(tuning.connect_host(
+                self.transport, f"host{h}", dl,
+                evaluator=make_table_evaluator(
+                    lambda i, j: 4.0 / i + 0.1 * j, port=port),
+                clock=ck,
+                link_config=link_config or tuning.LinkConfig(seed=h,
+                                                             jitter=0.0)))
+            self.streams.append(dl.stream(to_device=False))
+        self.transport.pump()
+        self.delivered = []
+
+    def rounds(self, k, alive=None, *, poll=True):
+        alive = list(alive if alive is not None else range(len(self.agents)))
+        for _ in range(k):
+            self.clock[0] += 1.0
+            for h in alive:
+                self.delivered.append(next(self.streams[h]))
+                self.agents[h].observe(data_s=0.001, step_s=0.05)
+            self.transport.pump()
+            self.server.tick()
+            if poll:
+                self.server.poll()
+            promoted = self.replica.tick()
+            if promoted is not None:
+                self.server = promoted
+                self.coord = promoted.coord
+
+    def drain(self, alive):
+        for h in alive:
+            s = self.streams[h]
+            while s.position < self.bpe:
+                self.delivered.append(next(s))
+
+    def close(self):
+        for s in self.streams:
+            try:
+                s.close()
+            except Exception:
+                pass
+
+
+@pytest.fixture
+def fleet_factory():
+    """Factory for a live port fleet (see ``FleetHarness``); its streams
+    close at teardown even when a test bails early."""
+    built = []
+
+    def build(*args, **kw):
+        built.append(FleetHarness(*args, **kw))
+        return built[-1]
+
+    yield build
+    for h in built:
+        h.close()
+
+
+@pytest.fixture
+def wire_fleet():
+    """Factory for a port :class:`WireFleet`; streams close at teardown."""
+    built = []
+
+    def build(**kw):
+        built.append(WireFleet(**kw))
+        return built[-1]
+
+    yield build
+    for f in built:
+        f.close()

@@ -278,7 +278,9 @@ def test_torch_port_imports_neither_jax_nor_repro():
                    "tuning/online.py", "tuning/locality.py",
                    "distributed/fault_tolerance.py",
                    "checkpoint/checkpointer.py", "train/trainer.py",
-                   "launch/train.py", "core/search.py"):
+                   "launch/train.py", "core/search.py",
+                   "core/cluster.py", "tuning/transport.py",
+                   "tuning/fleet.py"):
         assert port / module in files, module
     for f in files:
         for mod in _imports(f):

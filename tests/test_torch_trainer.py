@@ -150,15 +150,22 @@ def test_torch_trainer_no_controller_on_sharded_loader():
 
 def test_torch_trainer_runs_on_the_card_by_default():
     """The entry point defaults to the card: without one it raises, and it
-    refuses a loader that delivers to another device."""
+    refuses a model given as anything but its config.  On the CPU it
+    attaches to a fleet over a transport."""
     cfg = reduced(get_config("qwen2-0.5b"))
     dl = DataLoader(token_dataset(16, 8, cfg.vocab_size), 4, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             Trainer(cfg, dl, TrainerConfig())
     tr = Trainer(cfg, dl, TrainerConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tr.connect_fleet(object())
+    from repro_torch.tuning import (CoordinatorServer, FleetCoordinator,
+                                    LocalTransport)
+    transport = LocalTransport()
+    coord = FleetCoordinator()
+    CoordinatorServer(coord, transport, owner="coord-0")
+    agent = tr.connect_fleet(transport)
+    assert tr.agent is agent and agent.link is not None
+    assert list(coord.agents) == ["host0"]      # registered over the wire
     with pytest.raises(TypeError):
         Trainer(object(), dl, TrainerConfig(), device="cpu")
 
