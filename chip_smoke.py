@@ -196,7 +196,23 @@ Phases, each printing one JSON line:
    tokens equal to the engine's without a fleet, feature batches equal
    to their host batches, launches exactly those of the prefills and
    decode steps served.
-17. kernels: one line listing every ported kernel with its launches on the
+17. dp_train: the data-parallel step (``distributed/dp_shard.py``,
+   ``make_train_step`` with ``dp_manual``) on full-width mamba2-780m over a
+   one-rank NCCL group (a ``FileStore`` in a temporary directory), under
+   ``use_rules(make_local_mesh(), rules_for("train"))``: phase 7's masters
+   and batch, 2 microbatches of 2 x 2048, remat "none".  One dp step
+   against the plain step over the whole batch from identical masters
+   (loss, gradient norm, every leaf's update cosine), and a control
+   without the deferred scale's 1/n_mb that must fail it; exactly 96
+   ssd_scan and 194 rmsnorm launches a step, no flash; ``compressed_psum``
+   over the step's gradients on NCCL equal to ``compress_decompress`` at
+   world 1; a sharded checkpoint (published widths, 4 layers) restored
+   through ``restore(shardings=)`` bit-equal.  The line has three timed
+   steps (step s, tokens/s, peak memory), a profiled step's idle share, the
+   collectives of a step beside those the design implies, and the plain
+   step at 6 x 2048 under remat "full" (recorded, not held).  World size 1
+   runs the NCCL path, not cross-rank traffic.
+18. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
@@ -406,6 +422,31 @@ FLEET_VOCAB = 4096
 # ImageNet-crop-like images of 32 x 32 x 3 behind 2 ms storage, 8 a batch
 FLEET_SERVE_WAVES = ((300, 4), (512, 8), (512, 8))   # (prompt, requests)
 FLEET_FEATURES, FLEET_FEATURE_RES, FLEET_FEATURE_BATCH = 256, 32, 16
+
+# phase 17: the data-parallel step (distributed/dp_shard.py) on one card,
+# a one-rank NCCL group: phase 7's masters and batch, DP_MICROBATCHES
+# microbatches of 2 x 2048 a step, DP_STEPS timed steps after the checked
+# one.  Check 1 holds one dp step against the plain step over the whole
+# batch (microbatches 1: the plain step reports its last microbatch's loss,
+# the dp step the mean, and with an all-ones mask and equal microbatches
+# the whole batch has the same loss and gradient as that mean) to
+# MAX_LOSS_REL on the loss, DP_NORM_REL on the gradient norm and
+# MIN_GRAD_COSINE on every leaf's update.  The two steps' AdamW takes eps
+# DP_ADAM_EPS, as the repo's tests compare steps: with eps 1e-8 the first
+# update is about sign(g) * lr, so an entry whose gradient is rounding
+# noise moves by +-lr at random and the cosine counts sign flips of noise
+# (in a CPU rehearsal at reduced size, gradients at a cosine of 0.9998 to
+# each other gave updates at 0.968); a gradient clipped to norm 1 over
+# 780M entries has an rms entry of 3.6e-5, so at 1e-4 the update follows
+# the gradient.  Check 5 saves and restores a
+# sharded state of mamba2 at published widths and DP_CKPT_LAYERS layers.
+# Then the plain step at REMAT_BATCH x 2048 under remat "full", one warm-up
+# and REMAT_STEPS timed steps (recorded, not held)
+DP_MICROBATCHES, DP_STEPS = 2, 3
+DP_NORM_REL = 2e-3
+DP_ADAM_EPS = 1e-4
+DP_CKPT_LAYERS = 4
+REMAT_BATCH, REMAT_STEPS = 6, 2
 
 # phase 13: the online tuner's drift flow (examples/torch_online_tuning.py),
 # then the degraded steady state without the tuner, at the start and at
@@ -3363,6 +3404,305 @@ def fleet_serve_path(torch, np, tdata, modules) -> dict:
     return launches
 
 
+def dp_train_path(torch, np, modules) -> dict:
+    """Phase 17: the data-parallel step on the card, over a one-rank NCCL
+    group joined through a ``FileStore`` in a temporary directory (no
+    network), under ``use_rules(make_local_mesh(), rules_for("train"))``:
+    full-width mamba2-780m from phase 7's seeded masters and batch,
+    ``dp_manual`` with DP_MICROBATCHES microbatches, remat "none", bf16
+    compute.  Checks, each fatal: (1) one dp step against the plain step
+    over the whole batch from identical masters (loss, gradient norm,
+    every leaf's update cosine) and (2) a control without the deferred
+    scale's 1/n_mb, which must fail check 1; (3) launches exactly 48
+    ssd_scan and 97 rmsnorm a microbatch, no flash; (4) ``compressed_psum``
+    over the step's gradients on NCCL equal to ``compress_decompress``,
+    mean and error feedback, over two steps of error feedback; (5) a
+    sharded checkpoint restored through ``restore(shardings=)`` bit-equal.
+    Then DP_STEPS timed steps (step s, tokens/s, peak memory), one
+    profiled step (idle share) and the collectives a step issues beside
+    the count the design implies; and, recorded only, the plain step at
+    REMAT_BATCH x 2048 under remat "full".  World size 1 runs the NCCL
+    path and the sharded optimizer and restore, not cross-rank traffic.
+    Returns the launches of the timed steps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import dp_shard, grad_compress
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+
+    # an earlier phase's reference cycle can hold a 9.4 GB state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(TRAIN_ARCH)
+    L = cfg.num_layers
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=100,
+                      eps=DP_ADAM_EPS)
+    plain_cfg = TrainStepConfig(remat_policy="none", optimizer=opt)
+    dp_cfg = dataclasses.replace(plain_cfg, microbatches=DP_MICROBATCHES,
+                                 dp_manual=True)
+    rng = np.random.default_rng(0)
+    seq = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        dtype=torch.long, device="cuda")
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def masters(c=cfg, seed=0):
+        return init_train_state(
+            c, torch.Generator(device="cuda").manual_seed(seed), plain_cfg,
+            device="cuda")
+
+    def counts():
+        return {"ssd_scan": ss.ssd_scan.launches,
+                "rmsnorm": rn.rmsnorm.launches,
+                "flash_attention": fa.flash_attention.launches}
+
+    def zero():
+        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+        fa.flash_attention.launches = 0
+
+    def cosine(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0, eps=1e-30))
+
+    per_step = {"ssd_scan": L * DP_MICROBATCHES,
+                "rmsnorm": (2 * L + 1) * DP_MICROBATCHES,
+                "flash_attention": 0}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    t0 = time.perf_counter()
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+        rank=0, world_size=1, device_id=torch.device("cuda:0"))
+    nccl_init_s = time.perf_counter() - t0
+    try:
+        mesh = make_local_mesh()
+        with use_rules(mesh, rules_for("train")) as ctx:
+            # ---- 1. one dp step against the plain step ----------------------
+            plain = masters()
+            init = {k: p.detach().clone() for k, p in plain.params.items()}
+            dp = masters()
+            check(all(torch.equal(p, init[k])
+                      for k, p in dp.params.items()),
+                  "the dp and plain states' masters differ")
+            dp = shard_train_state(dp, ctx)
+            dp_step = make_train_step(dp.model, dp_cfg)
+            check(dp_step.path == "dp_manual",
+                  f"dp_manual under a mesh took the {dp_step.path} step")
+            zero()
+            dp_shard.collectives.clear()
+            t0 = time.perf_counter()
+            dp, m_dp = dp_step(dp, batch)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            first_launches = counts()
+            step_collectives = dict(dp_shard.collectives)
+            check(first_launches == per_step,
+                  f"dp step launches {first_launches}, the path implies "
+                  f"{per_step}")
+            plain_step = make_train_step(plain.model, plain_cfg)
+            check(plain_step.path == "plain", "the plain step is not plain")
+            plain, m_plain = plain_step(plain, batch)
+
+            def hold(state, m):
+                """Check 1's failures for ``state`` after its step."""
+                cos = {k: cosine(p.detach() - init[k],
+                                 plain.params[k].detach() - init[k])
+                       for k, p in state.params.items()}
+                grad_cos = {k: cosine(v, plain.opt.mu[k])
+                            for k, v in state.opt.mu.items()}
+                loss_rel = abs(float(m["loss"]) - float(m_plain["loss"])) \
+                    / abs(float(m_plain["loss"]))
+                norm_rel = abs(float(m["grad_norm"])
+                               - float(m_plain["grad_norm"])) \
+                    / float(m_plain["grad_norm"])
+                fails = []
+                if loss_rel > MAX_LOSS_REL:
+                    fails.append(f"loss rel {loss_rel}")
+                if norm_rel > DP_NORM_REL:
+                    fails.append(f"grad norm rel {norm_rel}")
+                low = sorted(k for k in cos if cos[k] < MIN_GRAD_COSINE)
+                if low:
+                    fails.append(f"update cosine below {MIN_GRAD_COSINE}: "
+                                 f"{low[:5]}")
+                worst = sorted(cos, key=cos.get)[:5]
+                return fails, dict(
+                    loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                    loss_rel=loss_rel, grad_norm_rel=norm_rel,
+                    update_cosine_min=min(cos.values()),
+                    update_cosine_mean=sum(cos.values()) / len(cos),
+                    grad_cosine_min=min(grad_cos.values()),
+                    worst_leaves=[dict(leaf=k, cosine=cos[k])
+                                  for k in worst])
+
+            fails, held = hold(dp, m_dp)
+            check(not fails, f"dp step against the plain step: {fails}")
+
+            # ---- 2. the control: no 1/n_mb in the deferred scale ------------
+            ctrl = shard_train_state(masters(), ctx)
+            psum = dp_shard.deferred_psum
+            dp_shard.deferred_psum = lambda g, plan, scale: psum(
+                g, plan, scale * DP_MICROBATCHES)
+            try:
+                ctrl, m_ctrl = make_train_step(ctrl.model, dp_cfg)(ctrl, batch)
+            finally:
+                dp_shard.deferred_psum = psum
+            ctrl_fails, ctrl_held = hold(ctrl, m_ctrl)
+            check(ctrl_fails, "the control without 1/n_mb passed check 1")
+            del ctrl, init
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ---- 3-4. timed steps; compressed_psum on the step's gradients ---
+            captured = {}
+
+            def keep(g, plan, scale):
+                captured.update(psum(g, plan, scale))
+                return g
+
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            step_s = []
+            for i in range(DP_STEPS):
+                if i == DP_STEPS - 1:
+                    dp_shard.deferred_psum = keep
+                try:
+                    t0 = time.perf_counter()
+                    dp, m = dp_step(dp, batch)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t0)
+                finally:
+                    dp_shard.deferred_psum = psum
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+            expect = {k: v * DP_STEPS for k, v in per_step.items()}
+            check(launches == expect,
+                  f"dp launches {launches}, the path implies {expect}")
+            prof = profile_phase(
+                torch, "dp step 4x2048", lambda: dp_step(dp, batch),
+                expect=("ssd_scan_chunk_scan_kernel",))
+            emit("profile", **prof)
+
+            psum_exact, psum_leaves = True, 0
+            err_p = {k: torch.zeros_like(g, dtype=torch.float32)
+                     for k, g in captured.items()}
+            err_c = {k: e.clone() for k, e in err_p.items()}
+            for _ in range(2):                     # two steps of feedback
+                for k, g in captured.items():
+                    mean, err_p[k] = grad_compress.compressed_psum(g,
+                                                                   err_p[k])
+                    ref, err_c[k] = grad_compress.compress_decompress(
+                        g, err_c[k])
+                    psum_exact &= bool(torch.equal(mean, ref)
+                                       and torch.equal(err_p[k], err_c[k]))
+                    psum_leaves += 1
+            check(psum_exact, "compressed_psum at world 1 differs from "
+                  "compress_decompress")
+            del captured, err_p, err_c
+
+            # the collectives of one step, against the JAX design: a gather
+            # and a reduce-scatter per FSDP leaf per microbatch, one
+            # all-reduce per remaining leaf per step, and one each for the
+            # loss, its three metrics and the norm's sum of squares
+            plan = dp.plan
+            n_fsdp, n_leaves = len(plan.dims), len(dp.params)
+            design = {"all_gather": DP_MICROBATCHES * n_fsdp,
+                      "reduce_scatter": DP_MICROBATCHES * n_fsdp,
+                      "all_reduce": (n_leaves - n_fsdp) + 5}
+            check(step_collectives == design,
+                  f"dp step collectives {step_collectives}, the design "
+                  f"implies {design}")
+            del dp
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            # ---- 5. a sharded checkpoint, restored with shardings= ----------
+            cfg4 = dataclasses.replace(cfg, num_layers=DP_CKPT_LAYERS)
+            small = shard_train_state(masters(cfg4, seed=1), ctx)
+            small, _ = make_train_step(small.model, dp_cfg)(small, batch)
+            ck = Checkpointer(os.path.join(workdir, "ck"))
+            t0 = time.perf_counter()
+            ck.save(1, small, block=True)
+            save_s = time.perf_counter() - t0
+            template = shard_train_state(masters(cfg4, seed=2), ctx)
+            t0 = time.perf_counter()
+            got, aux = ck.restore(template, shardings=template.plan)
+            restore_s = time.perf_counter() - t0
+            pairs = [(got.params, small.params), (got.opt.mu, small.opt.mu),
+                     (got.opt.nu, small.opt.nu)]
+            restored_equal = got.opt.step == small.opt.step and all(
+                torch.equal(a[k].detach(), b[k].detach())
+                for a, b in pairs for k in b)
+            check(restored_equal and aux["step"] == 1,
+                  "the sharded restore is not bit-equal")
+            step_dir = os.path.join(workdir, "ck", "step_00000001")
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in os.listdir(step_dir))
+            del small, template, got
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # ---- remat "full" at REMAT_BATCH x 2048, recorded ---------------------
+    big = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                          (REMAT_BATCH, TRAIN_SEQ + 1)),
+        dtype=torch.long, device="cuda")
+    big = {"tokens": big[:, :-1], "targets": big[:, 1:]}
+    full_step = make_train_step(
+        plain.model, dataclasses.replace(plain_cfg, remat_policy="full"))
+    plain, m = full_step(plain, big)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    remat_s, remat_losses = [], []
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        plain, m = full_step(plain, big)
+        torch.cuda.synchronize()
+        remat_s.append(time.perf_counter() - t0)
+        remat_losses.append(float(m["loss"]))
+    remat_peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(remat_losses)), f"remat losses {remat_losses}")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    emit("dp_train", arch=cfg.name, world_size=1, backend="nccl",
+         mesh={"data": 1, "model": 1}, nccl_init_s=nccl_init_s,
+         batch=[TRAIN_BATCH, TRAIN_SEQ], microbatches=DP_MICROBATCHES,
+         remat_policy="none", path=dp_step.path,
+         check1=dict(held, plain_loss=float(m_plain["loss"]),
+                     plain_grad_norm=float(m_plain["grad_norm"]),
+                     max_loss_rel=MAX_LOSS_REL, max_grad_norm_rel=DP_NORM_REL,
+                     min_update_cosine=MIN_GRAD_COSINE),
+         control_no_inv_microbatches=dict(ctrl_held, fails=ctrl_fails),
+         first_step_s=first_s, first_step_launches=first_launches,
+         step_s=step_s, tokens_per_s=tokens / (sum(step_s) / len(step_s)),
+         idle_share=prof["idle_share"], peak_mem_bytes=peak,
+         peak_gb=peak / 1e9, launches=launches, expected_launches=expect,
+         collectives_per_step=step_collectives,
+         collectives_design=design, fsdp_leaves=n_fsdp, leaves=n_leaves,
+         compressed_psum=dict(exact=psum_exact, leaf_calls=psum_leaves),
+         checkpoint=dict(layers=DP_CKPT_LAYERS, bytes=ckpt_bytes,
+                         save_s=save_s, restore_s=restore_s,
+                         bit_equal=restored_equal),
+         remat_full=dict(batch=[REMAT_BATCH, TRAIN_SEQ], step_s=remat_s,
+                         losses=remat_losses, peak_mem_bytes=remat_peak,
+                         peak_gb=remat_peak / 1e9))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3510,10 +3850,15 @@ def main() -> int:
                            ("hymba_gate_d3200", 8 * 640, 3200),
                            ("phi3v_d3072", 8 * 1088, 3072)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, d)
-    # the fleet phase's survivors step 6 x 2048 after the reshard
+    # the fleet phase's survivors step 6 x 2048 after the reshard, and the
+    # dp phase's microbatches of 2 x 2048
     for name, d in (("fleet_d1536", 1536), ("fleet_d3072", 3072)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name,
                                            6 * TRAIN_SEQ, d)
+    for name, d in (("dp_mb_d1536", 1536), ("dp_mb_d3072", 3072)):
+        checks["rmsnorm"] += check_rmsnorm(
+            torch, F, rn, gen, name,
+            TRAIN_BATCH // DP_MICROBATCHES * TRAIN_SEQ, d)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
 
@@ -3528,6 +3873,8 @@ def main() -> int:
              dict(strided=True)),
             ("fleet6", (6, TRAIN_SEQ, 48, 64, 1, 128, 256),
              dict(strided=True)),
+            ("dp_mb", (TRAIN_BATCH // DP_MICROBATCHES, TRAIN_SEQ, 48, 64, 1,
+                       128, 256), dict(strided=True)),
             ("t1", (1, 32, 2, 8, 1, 4, 8), {}),
             ("t2_groups", (2, 64, 4, 16, 2, 8, 16), {}),
             ("t3_g_eq_h", (2, 64, 4, 16, 4, 8, 32), {}),
@@ -3610,7 +3957,11 @@ def main() -> int:
     fleet_serve_launches = fleet_serve_path(torch, np, tdata, modules)
     torch.cuda.empty_cache()
 
-    # ---- 15. the kernels line ---------------------------------------------
+    # ---- 17. the data-parallel step over a one-rank NCCL group -------------
+    dp_train_launches = dp_train_path(torch, np, modules)
+    torch.cuda.empty_cache()
+
+    # ---- 18. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
                     "serve_vlm": serve_vlm_launches,
@@ -3633,7 +3984,8 @@ def main() -> int:
                     "train_stream": stream_launches["rmsnorm"],
                     "trainer": trainer_launches["rmsnorm"],
                     "fleet_train": fleet_train_launches["rmsnorm"],
-                    "fleet_serve": fleet_serve_launches["rmsnorm"]},
+                    "fleet_serve": fleet_serve_launches["rmsnorm"],
+                    "dp_train": dp_train_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
@@ -3641,7 +3993,8 @@ def main() -> int:
                      "train": train_launches["ssd_scan"],
                      "train_stream": stream_launches["ssd_scan"],
                      "trainer": trainer_launches["ssd_scan"],
-                     "fleet_train": fleet_train_launches["ssd_scan"]},
+                     "fleet_train": fleet_train_launches["ssd_scan"],
+                     "dp_train": dp_train_launches["ssd_scan"]},
     }
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
                  "rmsnorm_residual": "slice", "ssd_scan": "slice"}
@@ -3690,7 +4043,7 @@ def main() -> int:
                         y_only_ms=r.get("y_only_ms"), bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=None)
         for r in checks["ssd_scan"]
-        if r["case"] in ("hymba_prefill", "fleet6")
+        if r["case"] in ("hymba_prefill", "fleet6", "dp_mb")
         and r["dtype"] == "bfloat16"}
     # flash at phi-3-vision's head dim, at the MoE and prefix paths'
     # prefills and at whisper's shapes
@@ -3713,7 +4066,7 @@ def main() -> int:
         for r in checks["rmsnorm"]
         if r["case"] in ("mixtral_d6144", "mixtral_decode", "hymba_d1600",
                          "hymba_gate_d3200", "phi3v_d3072", "fleet_d1536",
-                         "fleet_d3072")
+                         "fleet_d3072", "dp_mb_d1536", "dp_mb_d3072")
         and r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -17,6 +17,14 @@ as ``repro.utils.tree.flatten_with_names`` names a dict (keys sorted, joined
 by ``/``).  The process index in the file name is the ``torch.distributed``
 rank when a group is up, else 0.
 
+Sharded states (``train_step.shard_train_state``): a save gathers each
+leaf to its global shape on every rank, and rank 0 alone writes the files,
+names and bytes a world-1 save writes, while the other ranks wait at a
+barrier; ``restore(template, shardings=plan)`` reads the global leaves and
+keeps this rank's slice of each planned leaf, as ``jax.device_put(arr,
+sharding)`` does in ``repro``.  So a checkpoint written at one world size
+restores at another.
+
 Async: ``save`` copies the leaves to host memory synchronously (the
 device-to-host part, each stacked leaf straight into one array allocated
 up front) and writes them in a background thread, so the train loop only
@@ -116,12 +124,21 @@ class Checkpointer:
     # ---- save ------------------------------------------------------------------
     def save(self, step: int, state, aux: Optional[Dict[str, Any]] = None,
              *, block: bool = False) -> None:
+        """Snapshot ``state`` to the host now and write it in the
+        background (at once if ``block``).  A sharded ``TrainState`` is
+        saved by every rank of its group together: rank 0 writes, the
+        others wait at a barrier until it has, and the save blocks."""
+        import torch.distributed as dist
         self.wait()  # backpressure: at most one save in flight
         t0 = time.perf_counter()
+        sharded = isinstance(state, TrainState) and state.plan is not None
         if isinstance(state, TrainState):
             host = to_jax_named(state)
         else:
             host = {name: _to_host(leaf) for name, leaf in _flatten(state)}
+        if sharded and dist.get_rank() != 0:
+            dist.barrier()
+            return
         record = {"step": step, "snapshot_s": time.perf_counter() - t0,
                   "write_s": None}
         self.saves.append(record)
@@ -134,7 +151,7 @@ class Checkpointer:
             if os.path.exists(tmp):
                 shutil.rmtree(tmp)
             os.makedirs(tmp)
-            pid = process_index()
+            pid = 0 if sharded else process_index()
             np.savez(os.path.join(tmp, f"arrays_p{pid}.npz"), **host)
             manifest = {n: {"shape": list(a.shape), "dtype": str(a.dtype)}
                         for n, a in host.items()}
@@ -153,8 +170,10 @@ class Checkpointer:
         t.start()
         with self._lock:
             self._pending = t
-        if block:
+        if block or sharded:
             self.wait()
+        if sharded:
+            dist.barrier()
 
     def wait(self) -> None:
         with self._lock:
@@ -175,12 +194,13 @@ class Checkpointer:
                 *, shardings=None) -> Tuple[Any, Dict[str, Any]]:
         """Restore into the structure of ``state_template``.  A
         ``TrainState`` template's tensors receive the values in place; a
-        nested dict's values are ignored.  ``shardings`` (a resharded
-        restore) has no counterpart in the port yet."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "resharded restore needs a device mesh, which the port "
-                "does not have yet")
+        nested dict's values are ignored.  ``shardings``: the
+        ``dp_shard.ShardPlan`` of a sharded ``TrainState`` template
+        (``template.plan``); each planned leaf receives this rank's slice
+        of the saved global leaf, whatever world size wrote it."""
+        if shardings is not None and not isinstance(state_template,
+                                                    TrainState):
+            raise TypeError("shardings applies to a TrainState template")
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -194,7 +214,7 @@ class Checkpointer:
             aux = json.load(f)
         with np.load(path) as arrays:
             if isinstance(state_template, TrainState):
-                state = load_jax_named(state_template, arrays)
+                state = load_jax_named(state_template, arrays, shardings)
             else:
                 state = _unflatten(state_template, arrays)
         self.restore_s = time.perf_counter() - t0

@@ -57,6 +57,12 @@ def put_global_batch(batch, device, *, donate: bool = False,
                      stream=None) -> Dict[str, torch.Tensor]:
     """Host batch (numpy dict) -> dict of tensors on ``device``.
 
+    Under a process group of more than one rank, ``batch`` is this rank's
+    rows (the loader's ``host_index`` / ``host_count`` slice) and each rank
+    copies them to its own device: the counterpart of ``repro``'s
+    ``make_array_from_process_local_data``, with the ranks' rows together
+    making the global batch.
+
     On a CUDA device each field is copied with ``non_blocking=True`` on
     ``stream`` (the current stream when None): the copy may still be
     reading the host array when this returns, so the caller records an
@@ -64,10 +70,6 @@ def put_global_batch(batch, device, *, donate: bool = False,
     CPU each field is copied at once.  ``donate`` has no effect on host
     inputs.
     """
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError(
-            "multi-process device puts come with the distributed slice")
     device = torch.device(device)
     if device.type != "cuda":
         return {k: torch.tensor(np.asarray(v), device=device)

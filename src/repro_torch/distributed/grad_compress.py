@@ -1,17 +1,18 @@
 """Int8 error-feedback gradient compression: the lossy channel a
 data-parallel all-reduce's payload passes through.
 
-The counterpart of ``repro/distributed/grad_compress.py`` without its
-collective (``compressed_psum`` waits for the distributed port): symmetric
+The counterpart of ``repro/distributed/grad_compress.py``: symmetric
 per-tensor int8 quantisation with the quantisation error carried to the
 next step in an fp32 accumulator (EF-SGD), which keeps the mean applied
-update on the true gradient.
+update on the true gradient; ``compressed_psum`` runs it through a
+``torch.distributed`` all-reduce whose payload is the quantised integers.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
 
@@ -41,6 +42,26 @@ def compress_decompress(g: torch.Tensor, err: torch.Tensor):
     corrected = g.float() + err
     g_hat = dequantize_int8(*quantize_int8(corrected))
     return g_hat, corrected - g_hat
+
+
+def compressed_psum(g: torch.Tensor, err: torch.Tensor, group=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Error-feedback int8 all-reduce over the process group ``group`` (the
+    default group if None).  Every rank quantises against the group's
+    largest scale (an all-reduce MAX), sums the quantised values as int32
+    (an all-reduce SUM) and divides by the group's size.  Returns
+    (mean gradient, new error), the error measured against this rank's
+    own scale, as in ``repro``."""
+    corrected = g.float() + err
+    q, scale = quantize_int8(corrected)
+    new_err = corrected - dequantize_int8(q, scale)
+    scale_max = scale.clone()
+    dist.all_reduce(scale_max, op=dist.ReduceOp.MAX, group=group)
+    q2 = torch.clamp(torch.round(corrected / scale_max), -127, 127
+                     ).to(torch.int32)
+    dist.all_reduce(q2, op=dist.ReduceOp.SUM, group=group)
+    size = float(dist.get_world_size(group))
+    return q2.float() * scale_max / size, new_err
 
 
 def compress_tree(grads: Tree, err: Tree, *,

@@ -6,8 +6,13 @@ step, checkpoint/restart in ``repro``'s on-disk layout and the
 straggler/retune hooks, and prints the run's summary as one JSON line.
 Runs on the card (``--device cuda``, the default) unless ``--device cpu``
 is given.  The loader's host index and count are the rank and world size
-of an initialised ``torch.distributed`` group, else 0 and 1 (the port's
-train step does not synchronise gradients across processes yet).  A vlm
+of an initialised ``torch.distributed`` group, else 0 and 1.  The launcher
+runs the plain step on each process; the step that synchronises gradients
+across processes is ``make_train_step(model, TrainStepConfig(dp_manual=
+True))`` under ``use_rules(launch.mesh.make_local_mesh(),
+rules_for("train"))`` over a ``shard_train_state`` state
+(``train/train_step.py``), as in ``repro``, whose launcher runs no mesh
+either.  A vlm
 and whisper (encdec) train on the stub frontends of ``repro``'s launcher:
 token items with seeded patch embeddings or frame embeddings drawn in the
 same order from one generator.  Training whisper on the card waits for

@@ -125,19 +125,19 @@ def jax_layout(names, num_layers: int, encoder_layers: int = 0
     return [("/".join(k), leaves[k], k in stacked) for k in sorted(leaves)]
 
 
-def _host_leaf(tree, names: List[str], stacked: bool) -> np.ndarray:
-    """One JAX leaf on the host, copied layer by layer into one array
-    allocated up front (the host holds one copy, and training may go on
-    updating the tensors in place once this returns)."""
-    first = tree[names[0]]
-    shape = ((len(names),) if stacked else ()) + tuple(first.shape)
-    host = torch.empty(shape, dtype=first.dtype)
+def _host_leaf(leaf, names: List[str], stacked: bool) -> np.ndarray:
+    """One JAX leaf on the host, copied layer by layer (``leaf(name)`` is
+    each layer's tensor) into one array allocated up front (the host holds
+    one copy, and training may go on updating the tensors in place once
+    this returns)."""
+    host = None
     with torch.no_grad():
-        if stacked:
-            for i, n in enumerate(names):
-                host[i].copy_(tree[n])
-        else:
-            host.copy_(first)
+        for i, n in enumerate(names):
+            t = leaf(n)
+            if host is None:
+                shape = ((len(names),) if stacked else ()) + tuple(t.shape)
+                host = torch.empty(shape, dtype=t.dtype)
+            (host[i] if stacked else host).copy_(t)
     return host.numpy()
 
 
@@ -146,14 +146,20 @@ def to_jax_named(state: TrainState) -> Dict[str, np.ndarray]:
     the order ``repro.utils.tree.flatten_with_names`` gives a JAX
     ``TrainState`` of the same model: params under ``0/``, the AdamW step
     (0-d int32) and moments under ``1/``, the error feedback under ``2/``
-    (absent without compression)."""
+    (absent without compression).  A sharded state (``state.plan``) has
+    each planned leaf gathered to its global shape first: every rank of
+    the group must call this, in the same order."""
     params, cfg = state.params, state.model.cfg
     layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
     out: Dict[str, np.ndarray] = {}
 
     def put(prefix, tree):
+        def leaf(n):
+            if state.plan is None:
+                return tree[n]
+            return state.plan.full(n, tree[n])
         for path, names, stacked in layout:
-            out[prefix + path] = _host_leaf(tree, names, stacked)
+            out[prefix + path] = _host_leaf(leaf, names, stacked)
 
     put("0/", params)
     out["1/.step"] = np.asarray(state.opt.step, np.int32)
@@ -165,25 +171,33 @@ def to_jax_named(state: TrainState) -> Dict[str, np.ndarray]:
 
 
 @torch.no_grad()
-def load_jax_named(template: TrainState, arrays: Mapping) -> TrainState:
+def load_jax_named(template: TrainState, arrays: Mapping,
+                   plan=None) -> TrainState:
     """Copy arrays named as ``to_jax_named`` names them (a JAX checkpoint's
     ``np.load``) into ``template``'s tensors in place, leaf by leaf, and
     return a ``TrainState`` over them: the device never holds a second
-    state.  The error feedback is read only when ``template`` has one."""
+    state.  The error feedback is read only when ``template`` has one.
+    ``plan`` (a ``dp_shard.ShardPlan``): each planned leaf's full array is
+    cut to this rank's slice first, and the state returned carries the
+    plan."""
     params, cfg = template.params, template.model.cfg
     layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
 
     def fill(prefix, tree):
         for path, names, stacked in layout:
             a = np.asarray(arrays[prefix + path])
-            want = ((len(names),) if stacked else ()) \
-                + tuple(tree[names[0]].shape)
-            if a.shape != want:
-                raise ValueError(f"{prefix + path}: shape {a.shape}, the "
-                                 f"model needs {want}")
+            if stacked and a.shape[0] != len(names):
+                raise ValueError(f"{prefix + path}: {a.shape[0]} layers, "
+                                 f"the model has {len(names)}")
             for i, n in enumerate(names):
-                tree[n].copy_(torch.from_numpy(
-                    np.ascontiguousarray(a[i] if stacked else a)))
+                ai = a[i] if stacked else a
+                if plan is not None:
+                    ai = plan.local(n, ai)
+                if ai.shape != tuple(tree[n].shape):
+                    raise ValueError(f"{prefix + path}: shape {ai.shape}, "
+                                     f"the model needs "
+                                     f"{tuple(tree[n].shape)}")
+                tree[n].copy_(torch.from_numpy(np.ascontiguousarray(ai)))
 
     fill("0/", params)
     fill("1/.mu/", template.opt.mu)
@@ -192,4 +206,5 @@ def load_jax_named(template: TrainState, arrays: Mapping) -> TrainState:
         fill("2/", template.err)
     opt = AdamWState(int(np.asarray(arrays["1/.step"])), template.opt.mu,
                      template.opt.nu)
-    return TrainState(template.model, opt, template.err)
+    return TrainState(template.model, opt, template.err,
+                      plan if plan is not None else template.plan)

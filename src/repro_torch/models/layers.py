@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding_rules import require_no_model_axis
 from repro_torch.kernels import ops
 from repro_torch.models.module import spec
 
@@ -151,6 +152,7 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
     Returns (y, k, v): the output and the K and V attended over (after
     rotary if ``rope``), which prefill writes into the decode cache, so
     the layer stack runs once."""
+    require_no_model_axis("attention-head padding across shards")
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if rope:
@@ -392,8 +394,9 @@ def _moe_reference(p, cfg: ModelConfig, x):
 def moe(p, cfg: ModelConfig, x):
     """Top-k MoE on one device: ``_moe_reference``.  ``repro``'s
     expert-parallel branch (a ``shard_map`` over the model axis with one
-    combine psum) waits for the port's distributed slice.
-    Returns (y, aux_loss)."""
+    combine psum) is not ported: it raises under a model axis larger than
+    1, where ``repro`` takes it.  Returns (y, aux_loss)."""
+    require_no_model_axis("the expert-parallel MoE")
     return _moe_reference(p, cfg, x)
 
 
@@ -432,6 +435,8 @@ def xent_sum(logits, targets, mask):
 
 def unembed_xent(p, cfg: ModelConfig, x, targets, mask):
     """Unembed and cross-entropy, the dense path of JAX's ``unembed_xent``
-    (the vocab-sharded one waits for the distributed port): fp32
-    logsumexp over the compute-dtype logits.  Returns (ce_sum, denom)."""
+    (the vocab-sharded one is not ported: it raises under a model axis
+    larger than 1): fp32 logsumexp over the compute-dtype logits.
+    Returns (ce_sum, denom)."""
+    require_no_model_axis("the vocab-sharded cross-entropy")
     return xent_sum(unembed(p, cfg, x), targets, mask)

@@ -119,16 +119,19 @@ def _store_leaves(cache, i: int, leaves, S: int, ring: bool) -> None:
             cache[name][i, :, :write] = t[:, :write]
 
 
-def _next_token_loss(model, batch, remat_policy: str):
+def _next_token_loss(model, batch, remat_policy: str, params):
     """The loss of either model class: mean cross-entropy of
     ``model.final_hidden``'s unembedding against ``batch["targets"]``
-    where ``loss_mask`` (default all ones) is 1, plus the aux loss."""
-    x, aux = model.final_hidden(batch, remat_policy=remat_policy)
+    where ``loss_mask`` (default all ones) is 1, plus the aux loss.
+    ``params``: the top-level groups to use (``top_params`` by default)."""
+    params = params or model.top_params()
+    x, aux = model.final_hidden(batch, remat_policy=remat_policy,
+                                params=params)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
                           device=x.device)
-    ce_sum, denom = ll.unembed_xent(model.embed, model.cfg, x,
+    ce_sum, denom = ll.unembed_xent(params["embed"], model.cfg, x,
                                     batch["targets"], mask)
     loss = ce_sum / denom + aux
     return loss, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
@@ -179,6 +182,16 @@ class DecoderLM(nn.Module):
             }
         return p
 
+    def top_params(self) -> Dict[str, Any]:
+        """The parameter groups outside the layer stack, by name: what
+        the data-parallel step gathers before the loss
+        (``dp_shard.gather_params``) and passes back as ``params``."""
+        top = {"embed": self.embed, "final_norm": self.final_norm}
+        for name in ("meta_tokens", "patch_proj"):
+            if hasattr(self, name):
+                top[name] = getattr(self, name)
+        return top
+
     @property
     def prefix_len(self) -> int:
         """Internal positions before the text: the meta tokens and the
@@ -186,45 +199,53 @@ class DecoderLM(nn.Module):
         ``repro``'s ``_prefix_len``)."""
         return self.cfg.num_meta_tokens + self.cfg.num_patches
 
-    def _compose_input(self, batch):
+    def _compose_input(self, batch, params=None):
         """The embedded tokens with the patch embeddings (vlm, when the
         batch has ``patch_embeds`` (B, P, patch_embed_dim)) and then the
-        meta tokens (hybrid) in front.  Returns (x, positions 0 ..
-        S_internal - 1, prefix): the prefix the text starts after."""
+        meta tokens (hybrid) in front, from ``params`` (``top_params`` by
+        default).  Returns (x, positions 0 .. S_internal - 1, prefix): the
+        prefix the text starts after."""
         cfg = self.cfg
-        x = ll.embed(self.embed, cfg, batch["tokens"])
+        top = params or self.top_params()
+        x = ll.embed(top["embed"], cfg, batch["tokens"])
         B = x.shape[0]
         prefix = 0
         if cfg.num_patches and "patch_embeds" in batch:
-            pe = ll.cast(batch["patch_embeds"]) @ ll.cast(self.patch_proj["w"])
-            x = torch.cat([pe + ll.cast(self.patch_proj["b"]), x], dim=1)
+            proj = top["patch_proj"]
+            pe = ll.cast(batch["patch_embeds"]) @ ll.cast(proj["w"])
+            x = torch.cat([pe + ll.cast(proj["b"]), x], dim=1)
             prefix += cfg.num_patches
         if cfg.num_meta_tokens:
-            meta = ll.cast(self.meta_tokens)[None].expand(
+            meta = ll.cast(top["meta_tokens"])[None].expand(
                 B, cfg.num_meta_tokens, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
             prefix += cfg.num_meta_tokens
         return x, _arange_positions(B, x.shape[1], x.device), prefix
 
-    def final_hidden(self, batch, *, remat_policy: str = "none"):
+    def final_hidden(self, batch, *, remat_policy: str = "none",
+                     params=None):
         """One full-sequence forward of ``batch`` through the stack and
-        the final norm, with no cache.  Returns (the text positions'
+        the final norm, with no cache; ``params``: the top-level groups
+        to use (``top_params`` by default).  Returns (the text positions'
         hidden states (B,S,d_model), the prefix cut; the layers' summed
         aux loss)."""
         cfg = self.cfg
-        x, positions, prefix = self._compose_input(batch)
+        top = params or self.top_params()
+        x, positions, prefix = self._compose_input(batch, top)
         x, aux = stk.run_stack(self.layers, cfg, x, positions=positions,
                                causal=True, remat_policy=remat_policy)
-        return ll.norm(self.final_norm, x, cfg)[:, prefix:], aux
+        return ll.norm(top["final_norm"], x, cfg)[:, prefix:], aux
 
-    def loss(self, batch, *, remat_policy: str = "dots"):
+    def loss(self, batch, *, remat_policy: str = "dots", params=None):
         """Mean next-token cross-entropy over ``batch`` ({"tokens",
         "targets", optional "loss_mask"}, (B,S) each, and for the vlm
         family optional "patch_embeds"), plus the layers' summed MoE
         load-balancing loss (``metrics["aux_loss"]``, 0 for the other
-        families).  The prefix is cut before the unembedding.  Returns
-        (loss, metrics)."""
-        return _next_token_loss(self, batch, remat_policy)
+        families).  The prefix is cut before the unembedding.
+        ``params``: the top-level groups to use in place of the model's
+        own (the data-parallel step's gathered ones).  Returns (loss,
+        metrics)."""
+        return _next_token_loss(self, batch, remat_policy, params)
 
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
@@ -331,40 +352,52 @@ class EncDecLM(nn.Module):
                 "layers": stk.stack_param_specs(cfg, cross=True),
                 "final_norm": ll.norm_specs(cfg)}
 
-    def encode(self, frames):
+    def top_params(self) -> Dict[str, Any]:
+        """The parameter groups outside the two layer stacks, by name."""
+        return {"embed": self.embed, "enc_norm": self.enc_norm,
+                "final_norm": self.final_norm}
+
+    def encode(self, frames, params=None):
         """frames (B, T_src, d_model) -> the encoder's output (B, T_src,
         d_model) in the compute dtype: sinusoids added, the non-causal
-        stack (never rematerialised), ``enc_norm``."""
+        stack (never rematerialised), ``enc_norm`` (from ``params``,
+        ``top_params`` by default)."""
+        top = params or self.top_params()
         pos = _arange_positions(*frames.shape[:2], frames.device)
         x = ll.cast(frames) + ll.cast(_sinusoidal(pos, self.cfg.d_model))
         x, _ = stk.run_stack(self.encoder, self.cfg, x, positions=pos,
                              causal=False)
-        return ll.norm(self.enc_norm, x, self.cfg)
+        return ll.norm(top["enc_norm"], x, self.cfg)
 
-    def _embed_dec(self, tokens, positions):
-        x = ll.embed(self.embed, self.cfg, tokens)
+    def _embed_dec(self, tokens, positions, params=None):
+        top = params or self.top_params()
+        x = ll.embed(top["embed"], self.cfg, tokens)
         return x + _sinusoidal(positions, self.cfg.d_model).to(x.dtype)
 
-    def final_hidden(self, batch, *, remat_policy: str = "none"):
+    def final_hidden(self, batch, *, remat_policy: str = "none",
+                     params=None):
         """One full-sequence forward of ``batch`` ({"frames", "tokens"}):
         the encoder (never rematerialised), the decoder under
         ``remat_policy`` attending over its output, the final norm, with
-        no cache.  Returns (hidden states (B,S,d_model), aux loss 0)."""
+        no cache; ``params``: the top-level groups to use (``top_params``
+        by default).  Returns (hidden states (B,S,d_model), aux loss 0)."""
         cfg = self.cfg
-        enc = self.encode(batch["frames"])
+        top = params or self.top_params()
+        enc = self.encode(batch["frames"], top)
         pos = _arange_positions(*batch["tokens"].shape, enc.device)
-        x = self._embed_dec(batch["tokens"], pos)
+        x = self._embed_dec(batch["tokens"], pos, top)
         x, aux = stk.run_stack(self.layers, cfg, x, positions=pos,
                                causal=True, remat_policy=remat_policy,
                                enc_out=enc)
-        return ll.norm(self.final_norm, x, cfg), aux
+        return ll.norm(top["final_norm"], x, cfg), aux
 
-    def loss(self, batch, *, remat_policy: str = "dots"):
+    def loss(self, batch, *, remat_policy: str = "dots", params=None):
         """Mean next-token cross-entropy over ``batch`` ({"frames",
         "tokens", "targets", optional "loss_mask"}); the decoder runs
         under ``remat_policy``, the encoder without remat, as ``repro``'s.
-        Returns (loss, metrics), ``aux_loss`` 0."""
-        return _next_token_loss(self, batch, remat_policy)
+        ``params``: as ``DecoderLM.loss``.  Returns (loss, metrics),
+        ``aux_loss`` 0."""
+        return _next_token_loss(self, batch, remat_policy, params)
 
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:

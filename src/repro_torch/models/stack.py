@@ -27,9 +27,11 @@ import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import dp_shard
+from repro_torch.distributed.sharding_rules import current_ctx
 from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.module import stack_specs
+from repro_torch.models.module import map_specs, stack_specs
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
@@ -63,6 +65,18 @@ def block_specs(cfg: ModelConfig, cross: bool = False):
         p["mix_norm_attn"] = ll.rmsnorm_specs(cfg.d_model)
         p["mix_norm_ssm"] = ll.rmsnorm_specs(cfg.d_model)
     return p
+
+
+def manual_layer_hook(cfg: ModelConfig, *, cross: bool = False):
+    """Per-layer FSDP gather hook (bf16) for ``run_stack``: a layer's
+    parameters -> the same tree as plain dicts with their manual-sharded
+    dims gathered (``dp_shard.layer_hook``).  None outside a manual region
+    (no mesh, or a mesh outside the data-parallel step)."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.manual:
+        return None
+    return dp_shard.layer_hook(map_specs(lambda s: s.axes,
+                                         block_specs(cfg, cross=cross)))
 
 
 def global_flags(cfg: ModelConfig, num_layers: int = 0) -> Tuple[bool, ...]:
@@ -176,11 +190,20 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
     layer in the backward pass; "dots" also keeps the outputs of its
     matmuls (``create_selective_checkpoint_contexts``).  The aux loss is
     an output of the checkpointed layer, so it is summed under every
-    policy."""
+    policy.
+
+    Inside the data-parallel step's manual region each layer's parameters
+    pass through ``manual_layer_hook`` inside the checkpointed function,
+    so a rematerialised layer gathers its FSDP leaves again in the
+    backward, as the hook inside ``repro``'s checkpointed scan body does."""
     if remat_policy not in ("none", "full", "nothing", "dots"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    hook = manual_layer_hook(cfg, cross=len(layers) > 0
+                             and "cross" in layers[0])
 
     def layer(p, xc, is_global):
+        if hook is not None:
+            p = hook(p)
         return block(p, cfg, xc, positions=positions, is_global=is_global,
                      causal=causal, enc_out=enc_out)[:2]
 

@@ -1,11 +1,12 @@
 """The train step: loss and gradients, optional microbatch accumulation and
 int8 error-feedback gradient compression, then an in-place AdamW update.
 
-The counterpart of ``repro/train/train_step.py`` off a mesh
-(``make_train_step``'s pjit path; ``dp_manual`` has no mesh to act on here
-and takes the same path, as JAX does off a mesh).  The model holds the fp32
-master parameters (``build_model(..., trainable=True)``); the step updates
-them, the AdamW moments and the error feedback in place.
+The counterpart of ``repro/train/train_step.py``: the plain step, and with
+``dp_manual`` under a ``use_rules`` mesh the explicit data-parallel step
+(``_make_manual_dp_step``, on ``distributed/dp_shard.py``) over a state
+that ``shard_train_state`` sharded.  The model holds the fp32 master
+parameters (``build_model(..., trainable=True)``); the step updates them,
+the AdamW moments and the error feedback in place.
 """
 from __future__ import annotations
 
@@ -16,9 +17,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import grad_compress
+from repro_torch.distributed import dp_shard, grad_compress
+from repro_torch.distributed.sharding_rules import ShardingCtx, current_ctx
 from repro_torch.models.lm import build_model, param_specs
-from repro_torch.models.module import init_params
+from repro_torch.models.module import init_params, map_specs
 from repro_torch.utils.device import resolve_device
 from repro_torch.train.optimizer import (AdamWConfig, AdamWState,
                                          adamw_update, init_adamw)
@@ -29,19 +31,27 @@ class TrainStepConfig:
     remat_policy: str = "dots"         # none | dots | nothing | full
     microbatches: int = 1              # gradient accumulation steps
     compress_grads: bool = False       # int8 EF-compression of the DP sync
-    dp_manual: bool = False            # no mesh in the port yet: same path
+    dp_manual: bool = False            # the explicit data-parallel step
+                                       # under a use_rules mesh (see
+                                       # distributed/dp_shard.py); the plain
+                                       # step off a mesh
     optimizer: AdamWConfig = AdamWConfig()
 
 
 class TrainState:
     """The trainable model (its parameters are the fp32 masters), the
-    AdamW state and the error feedback (None without compression)."""
+    AdamW state and the error feedback (None without compression).
+    ``plan``: the ``dp_shard.ShardPlan`` of a state ``shard_train_state``
+    sharded (its planned leaves, moments and error feedback are this
+    rank's shards), else None."""
 
     def __init__(self, model, opt: AdamWState,
-                 err: Optional[Dict[str, torch.Tensor]] = None):
+                 err: Optional[Dict[str, torch.Tensor]] = None,
+                 plan: Optional[dp_shard.ShardPlan] = None):
         self.model = model
         self.opt = opt
         self.err = err
+        self.plan = plan
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -75,6 +85,33 @@ def init_train_state(model_or_cfg, generator: Optional[torch.Generator],
     return TrainState(model, init_adamw(params), err)
 
 
+def param_plan(cfg: ModelConfig, ctx: ShardingCtx) -> dp_shard.ShardPlan:
+    """The data-parallel plan of ``cfg``'s parameters on ``ctx``'s mesh:
+    each leaf's dims that the rules map to a manual axis."""
+    axes = dp_shard.named_axes(param_specs(cfg), cfg.num_layers,
+                               cfg.encoder_layers)
+    return dp_shard.ShardPlan.for_axes(ctx, axes,
+                                       dp_shard.manual_axes(ctx.mesh))
+
+
+@torch.no_grad()
+def shard_train_state(state: TrainState, ctx: ShardingCtx) -> TrainState:
+    """``state`` with each planned leaf's data replaced by this rank's
+    shard, and the AdamW moments and the error feedback shaped like the
+    shards (ZeRO: the moments live on the same shards).  The returned
+    state carries the plan."""
+    plan = param_plan(state.model.cfg, ctx)
+    for name, p in state.params.items():
+        if name in plan.dims:
+            p.data = plan.local(name, p.data).contiguous()
+    mu = dp_shard.shard_tree(state.opt.mu, plan)
+    nu = dp_shard.shard_tree(state.opt.nu, plan)
+    err = dp_shard.shard_tree(state.err, plan) if state.err is not None \
+        else None
+    return TrainState(state.model, AdamWState(state.opt.step, mu, nu), err,
+                      plan)
+
+
 def stacked_name(name: str) -> str:
     """The leaf of JAX's stacked tree a parameter belongs to:
     ``layers.3.ssm.in_x`` -> ``layers.ssm.in_x``, ``encoder.3.attn.wq`` ->
@@ -93,6 +130,79 @@ def _split_microbatches(batch, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
+                         manual):
+    """Train step with EXPLICIT data parallelism (distributed/dp_shard.py)
+    over a state ``shard_train_state`` sharded; ``batch`` is this rank's
+    rows.
+
+    * the microbatches split the LOCAL batch, their count clamped to it;
+    * FSDP leaves are gathered at use (the top-level groups here, before
+      the loss; the layers' inside ``run_stack``), in bf16 for 2D+ leaves,
+      and their gradients reduce-scattered once per microbatch;
+    * every gradient is summed locally over the microbatches and reduced
+      once per step over the manual axes that do not shard it, scaled by
+      1/(R n_mb) (R ranks over the manual axes, n_mb microbatches);
+    * loss and metrics are the mean over microbatches, summed over the
+      ranks and divided by R;
+    * the global gradient norm is exact: each leaf's local sum of squares
+      divided by how many ranks hold it, summed over the ranks;
+    * AdamW updates the shards and their moments in place; the error
+      feedback passes through untouched (``repro``'s manual step does not
+      compress)."""
+    mc = model.cfg
+    R = dp_shard.manual_size(ctx.mesh)
+    plan = param_plan(mc, ctx)
+    specs = param_specs(mc)
+    top_axes = {k: v for k, v in map_specs(lambda s: s.axes, specs).items()
+                if k not in ("layers", "encoder")}
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        if state.plan is None:
+            raise ValueError("the data-parallel step needs a state that "
+                             "shard_train_state sharded")
+        params = state.params
+        local_b = batch["tokens"].shape[0]
+        n_mb = max(1, min(cfg.microbatches, local_b))
+        mbs = _split_microbatches(batch, n_mb) if n_mb > 1 else [batch]
+        for p in params.values():
+            p.grad = None
+        losses, per_mb = [], []
+        with ctx.manual_region(manual):
+            for mb in mbs:
+                # the top-level groups gathered here, inside the graph, so
+                # their gradients come back through the reduce-scatter; the
+                # layers' leaves per layer inside run_stack.  The gradients
+                # of the microbatches accumulate in .grad
+                top = dp_shard.gather_params(model.top_params(), top_axes)
+                loss, metrics = model.loss(mb, remat_policy=cfg.remat_policy,
+                                           params=top)
+                loss.backward()
+                losses.append(loss.detach())
+                per_mb.append({k: v.detach() for k, v in metrics.items()})
+            grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                     for k, p in params.items()}
+            for p in params.values():
+                p.grad = None
+            dp_shard.deferred_psum(grads, plan, 1.0 / (R * n_mb))
+            loss = dp_shard.all_reduce(torch.stack(losses).mean(), manual,
+                                       ctx.mesh) / R
+            metrics = {k: dp_shard.all_reduce(
+                torch.stack([m[k] for m in per_mb]).float().mean(), manual,
+                ctx.mesh) / R for k in per_mb[0]}
+            sq = sum(torch.sum(torch.square(g.float())) / plan.replication(k)
+                     for k, g in grads.items())
+            gnorm = torch.sqrt(dp_shard.all_reduce(sq, manual, ctx.mesh))
+            _, opt, opt_metrics = adamw_update(cfg.optimizer, params, grads,
+                                               state.opt, grad_norm=gnorm)
+        metrics.update(opt_metrics)
+        metrics["loss"] = loss
+        return TrainState(state.model, opt, state.err, state.plan), metrics
+
+    step.path = "dp_manual"
+    return step
+
+
 def make_train_step(model, cfg: TrainStepConfig):
     """Returns step(state, batch) -> (state, metrics) for ``model``, the
     model ``state`` holds.  ``batch``: {"tokens", "targets", optional
@@ -100,7 +210,21 @@ def make_train_step(model, cfg: TrainStepConfig):
     frontends' fields (a vlm's ``patch_embeds``, whisper's ``frames``).
     Metrics are 0-d tensors (read them with ``float``) and the lr, a
     float; with microbatches, loss and metrics are the last microbatch's,
-    as in JAX."""
+    as in JAX.
+
+    With ``cfg.dp_manual``, a ``use_rules`` context active, manual axes on
+    its mesh and every planned dim dividing its global size, the step is
+    the explicit data-parallel one (``_make_manual_dp_step``); otherwise
+    the plain step, as in JAX.  ``step.path`` says which
+    (``"dp_manual"`` or ``"plain"``)."""
+    if cfg.dp_manual:
+        ctx = current_ctx()
+        if ctx is not None:
+            manual = dp_shard.manual_axes(ctx.mesh)
+            specs = param_specs(model.cfg)
+            if manual and dp_shard.validate_manual_divisibility(
+                    ctx, map_specs(lambda s: s.axes, specs), specs, manual):
+                return _make_manual_dp_step(model, cfg, ctx, manual)
 
     def loss_and_grads(params, mb):
         for p in params.values():
@@ -136,4 +260,5 @@ def make_train_step(model, cfg: TrainStepConfig):
         metrics["loss"] = loss
         return TrainState(state.model, opt, err), metrics
 
+    step.path = "plain"
     return step

@@ -142,8 +142,9 @@ class Trainer:
             raise ValueError(f"the loader delivers to {loader.device}, the "
                              f"trainer runs on {self.device}")
         # fleet mode: an agent whose ``observe`` takes the goodput signal
-        # and whose ``notify_locality`` takes locality proposals; the local
-        # OnlineTuner stays off.  ``repro``'s HostAgent is not ported yet.
+        # and whose ``notify_locality`` takes locality proposals (a
+        # ``tuning.fleet.HostAgent``, which ``connect_fleet`` builds); the
+        # local OnlineTuner stays off.
         self.agent = agent
         self.checkpointer = Checkpointer(cfg.checkpoint_dir) \
             if cfg.checkpoint_dir else None

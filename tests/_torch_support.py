@@ -6,6 +6,8 @@ parameters are drawn by the JAX package and carried into the port with
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -325,3 +327,80 @@ def wire_fleet():
     yield build
     for f in built:
         f.close()
+
+
+# ---- multi-rank tests: gloo ranks in processes of their own ----------------
+
+RANK_TIMEOUT_S = 120
+
+
+class RankFailure(AssertionError):
+    """A spawned rank exited non-zero or outlived its timeout."""
+
+
+def spawn_ranks(workdir, world: int, jobs):
+    """Start ``world`` processes, each one rank of a gloo group that joins
+    through a ``FileStore`` in ``workdir`` (no TCP port: the tests run
+    under several xdist workers), running ``tests/_torch_dp_ranks.py``'s
+    ``jobs`` in turn.  Returns the processes; ``join_ranks`` waits for
+    them."""
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [here, os.path.join(here, "..", "src"),
+                    os.environ.get("PYTHONPATH", "")]))
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"log_{jobs[0]}_w{world}_r{rank}"),
+                   "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", "import _torch_dp_ranks as r; r.main()",
+             str(workdir), str(world), str(rank), ",".join(jobs)],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
+    return procs
+
+
+def join_ranks(procs, timeout: float = RANK_TIMEOUT_S) -> None:
+    """Wait for every rank, at most ``timeout`` seconds in all; as soon as
+    one exits non-zero or the time runs out, kill all of them and raise
+    ``RankFailure`` with each log's tail, so a hung collective fails the
+    test instead of holding the suite."""
+    import time
+    deadline = time.monotonic() + timeout
+    why = None
+    try:
+        while why is None:
+            rcs = [p.poll() for p, _ in procs]
+            bad = [i for i, rc in enumerate(rcs) if rc not in (None, 0)]
+            if bad:
+                why = ", ".join(f"rank {i} rc {rcs[i]}" for i in bad)
+            elif all(rc == 0 for rc in rcs):
+                return
+            elif time.monotonic() > deadline:
+                why = f"timed out after {timeout} s"
+            else:
+                time.sleep(0.05)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    tails = []
+    for _, log in procs:
+        with open(log.name) as f:
+            tails.append(f"{log.name}:\n{f.read()[-2000:]}")
+    raise RankFailure(why + "\n" + "\n".join(tails))
+
+
+def rank_results(workdir, job: str, world: int):
+    """Each rank's result of ``job`` at ``world``, in rank order."""
+    import pickle
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"res_{job}_w{world}_r{rank}.pkl"),
+                  "rb") as f:
+            out.append(pickle.load(f))
+    return out

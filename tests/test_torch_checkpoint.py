@@ -88,13 +88,6 @@ def test_torch_restore_missing_raises(tmp_path):
         ck.restore(_state())
 
 
-def test_torch_restore_with_shardings_raises(tmp_path):
-    ck = Checkpointer(str(tmp_path))
-    ck.save(1, _state(), block=True)
-    with pytest.raises(NotImplementedError):
-        ck.restore(_state(), shardings={"params": None})
-
-
 def test_torch_atomicity_no_partial_dirs(tmp_path):
     ck = Checkpointer(str(tmp_path))
     ck.save(3, _state(), block=True)
@@ -274,3 +267,55 @@ def test_torch_and_jax_manifests_identical(tmp_path):
     names = [sorted(np.load(tmp_path / d / "step_00000004" / "arrays_p0.npz")
                     .files) for d in ("jax", "port")]
     assert names[0] == names[1]
+
+
+def test_torch_restore_with_shardings_single_process(tmp_path):
+    """The resharded restore in one process (a one-rank gloo group):
+    a sharded state saves the files, names and bytes an unsharded save
+    writes, and ``restore(shardings=plan)`` into a sharded template gives
+    every leaf back bit-equal, in place.  ``tests/test_torch_dp.py``
+    crosses world sizes."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.convert import from_jax_train_state
+    from repro_torch.train.train_step import shard_train_state
+
+    cfg = reduced(get_config(ARCH))
+    jstate = _jax_state(4)
+    Checkpointer(str(tmp_path / "plain")).save(
+        3, from_jax_train_state(cfg, jstate, device="cpu"), block=True)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with use_rules(make_local_mesh(device="cpu"),
+                       rules_for("train")) as ctx:
+            state = shard_train_state(
+                from_jax_train_state(cfg, jstate, device="cpu"), ctx)
+            Checkpointer(str(tmp_path / "sharded")).save(3, state,
+                                                         block=True)
+            template = shard_train_state(
+                from_jax_train_state(cfg, _jax_state(5), device="cpu"), ctx)
+            ids = {k: id(v) for k, v in _port_named(template).items()
+                   if k != "step"}
+            got, aux = Checkpointer(str(tmp_path / "sharded")).restore(
+                template, shardings=template.plan)
+    finally:
+        dist.destroy_process_group()
+    assert aux == {"step": 3} and got.plan is template.plan
+    want = _port_named(state)
+    for k, v in _port_named(got).items():
+        assert v.dtype == want[k].dtype and torch.equal(v, want[k]), k
+        if k != "step":
+            assert id(v) == ids[k], f"{k} was not restored in place"
+    dirs = [tmp_path / d / "step_00000003" for d in ("plain", "sharded")]
+    assert [sorted(os.listdir(d)) for d in dirs] == \
+        [["arrays_p0.npz", "aux.json", "manifest.json"]] * 2
+    assert (dirs[0] / "manifest.json").read_text() == \
+        (dirs[1] / "manifest.json").read_text()
+    with np.load(dirs[0] / "arrays_p0.npz") as a, \
+            np.load(dirs[1] / "arrays_p0.npz") as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].tobytes() == b[k].tobytes(), k

@@ -280,7 +280,9 @@ def test_torch_port_imports_neither_jax_nor_repro():
                    "checkpoint/checkpointer.py", "train/trainer.py",
                    "launch/train.py", "core/search.py",
                    "core/cluster.py", "tuning/transport.py",
-                   "tuning/fleet.py"):
+                   "tuning/fleet.py", "launch/mesh.py",
+                   "distributed/sharding_rules.py",
+                   "distributed/dp_shard.py"):
         assert port / module in files, module
     for f in files:
         for mod in _imports(f):
