@@ -33,6 +33,16 @@ Phases, each printing one JSON line:
    timed against the y-only scan; and each bf16 stage kernel of the
    SSD scan (chunk state, state passing with the final state, chunk scan)
    against its plain stage function, timed alone (``ssd_stage`` lines).
+   The flash-attention backward (``flash_attention_backward`` rows, through
+   ``_FlashAttention`` as the models call it) at the dense training shape
+   (``train``: 4 x 2048, 14 / 2 heads of 64, causal), ``window48``,
+   ``ragged300``, ``q_offset``, ``gqa1`` (H = K), ``d32`` (the example's
+   smoke preset) and ``d128``: dq, dk, dv against autograd through the
+   fp32 plain twin, each within 2x the bf16 plain twins' own distance plus
+   1e-3 of its largest entry, and the kernels' gradients at 4 mantissa
+   bits must fail that; the three launches timed together and each alone,
+   beside the plain backward, SDPA's backward and the bound; an fp32 or
+   unaligned input that needs a gradient must raise.
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
    generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
    each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
@@ -212,8 +222,26 @@ Phases, each printing one JSON line:
    collectives of a step beside those the design implies, and the plain
    step at 6 x 2048 under remat "full" (recorded, not held).  World size 1
    runs the NCCL path, not cross-rank traffic.
-18. kernels: one line listing every ported kernel with its launches on the
-   paths above, error and times.
+18. train_dense: uncut qwen2-0.5b (24 layers, d_model 896, 14 / 2 heads
+   of 64, vocab 151,936) on phase 7's 4 x 2048 batch from seeded masters,
+   bf16 compute: one step's loss and every gradient leaf through the flash
+   forward and backward kernels against the plain twins (loss to 2e-3,
+   each leaf's cosine >= 0.99 and its distance to an fp32 plain reference
+   within 1.5x the plain bf16 path's + 1e-4), remat "dots" against "none",
+   a backward coarsened to 2 mantissa bits that must fail the gradient
+   check, exactly 24 flash forward and 24 backward launches a step at
+   "none" (48 / 24 at "dots"), then timed steps (step s, tokens/s, peak
+   memory) and a profiled one (idle share, device time by group).
+19. trainer_dense: the ``Trainer`` on the same model, remat "dots", over
+   LCG token data (``examples/torch_train_lm.py``'s ``lcg_dataset``, ids
+   under 4,096): a startup DPT grid tune, 4 steps with the loss falling,
+   2 steps and a blocking checkpoint, a resume whose restored state is
+   bit-equal and whose steps give the straight run's losses; exact
+   launches; then ``examples/torch_train_lm.py --preset smoke`` on the
+   card, whose assertion that the loss fell must hold.
+20. kernels: one line listing every ported kernel with its launches on the
+   paths above, error and times; flash's row also carries the backward's
+   launches by path, errors and times (``backward_*``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script then exits non-zero without that line.  It exits
@@ -447,6 +475,44 @@ DP_NORM_REL = 2e-3
 DP_ADAM_EPS = 1e-4
 DP_CKPT_LAYERS = 4
 REMAT_BATCH, REMAT_STEPS = 6, 2
+
+# phase 3: the flash-attention backward against autograd through the fp32
+# plain twin on the same bf16 inputs: each of dq, dk, dv within
+# BWD_TWIN_RATIO x the bf16 plain twins' own largest distance from it
+# (their backward computes in fp32 from bf16 q, k, v, dO and the bf16 o,
+# and rounds its outputs to bf16) plus BWD_ATOL_OF_MAX of its largest
+# entry.  The kernels round P to bf16 for the dV product and carry dS as
+# a bf16 pair (hi + lo) into dK and dQ: with dS rounded once, dQ at
+# window48 read 1.05 of this limit (NVIDIA H100 80GB HBM3, 700 W; PERF.md
+# section 6).  The kernels' gradients rounded to BWD_CONTROL_BITS mantissa
+# bits (bf16 keeps 7) must fail the limit
+BWD_TWIN_RATIO, BWD_ATOL_OF_MAX, BWD_CONTROL_BITS = 2.0, 1e-3, 4
+
+# phases 18-19: the dense LM trained at full width and depth (qwen2-0.5b:
+# 24 layers, d_model 896, 14 / 2 heads of 64 with QKV bias, d_ff 4,864,
+# vocab 151,936, tied embeddings) on phase 7's 4 x 2048 batch, bf16
+# compute with fp32 masters.  Phase 18 holds one step's loss to
+# MAX_LOSS_REL and its gradients leaf by leaf against the plain twins (see
+# ``held`` in train_dense_path), a step under remat "dots" to the "none"
+# step (the same loss to DOTS_LOSS_REL; every leaf's gradient cosine at
+# least DOTS_MIN_COSINE: the kernels are deterministic, the embedding's
+# scatter-add is not), and a backward whose outputs keep
+# DENSE_CONTROL_BITS mantissa bits must fail the gradient check; then
+# DENSE_STEPS timed steps.  Phase 19 runs the Trainer DENSE_TRAINER_STEPS
+# steps on LCG token data whose ids stay under DENSE_LCG_VOCAB (so the
+# loss has somewhere to fall in a few steps), and then
+# examples/torch_train_lm.py --preset smoke for EXAMPLE_STEPS steps.  On
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6) the kernels' worst
+# leaf (a key bias, whose gradient the attention backward alone feeds)
+# sat at 0.89 of its distance limit, and the control at 2 bits failed 93
+# of the 290 leaves
+DENSE_ARCH = "qwen2-0.5b"
+DOTS_LOSS_REL, DOTS_MIN_COSINE = 1e-6, 0.99999
+DENSE_CONTROL_BITS = 2
+DENSE_STEPS = 2
+DENSE_TRAINER_STEPS = 4
+DENSE_LCG_VOCAB = 4096
+EXAMPLE_STEPS = 100
 
 # phase 13: the online tuner's drift flow (examples/torch_online_tuning.py),
 # then the degraded steady state without the tuner, at the start and at
@@ -690,6 +756,11 @@ def dynamic_smem(_build) -> dict:
     fl, sl = _build.load("flash_attention"), _build.load("ssd_scan")
     out = {f"flash_mma_kernel<{D}>": fl.flash_attention_smem_bytes(D)
            for D in (64, 96, 128)}
+    for D in (32, 64, 128):          # the backward's: d32, train, d128
+        out[f"flash_bwd_dkdv_kernel<{D}>"] = \
+            fl.flash_attention_bwd_smem_bytes(2, D)
+        out[f"flash_bwd_dq_kernel<{D}>"] = \
+            fl.flash_attention_bwd_smem_bytes(4, D)
     for stage, kernel in ((1, "ssd_scan_chunk_state_kernel"),
                           (3, "ssd_scan_chunk_scan_kernel")):
         out[f"{kernel} (chunk 256)"] = sl.ssd_scan_smem_bytes(stage, 256)
@@ -755,21 +826,7 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
 
         # yardstick: one SDPA call on (B,H,S,D) views with GQA
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pos_q = torch.arange(S, device="cuda")[:, None] + q_offset
-        pos_k = torch.arange(T, device="cuda")[None, :]
-        mask = torch.ones((S, T), dtype=torch.bool, device="cuda")
-        if causal:
-            mask &= pos_k <= pos_q
-        if window > 0:
-            mask &= pos_q - pos_k < window
-        # no mask where none is needed, so SDPA may take its fused
-        # backends (an explicit mask keeps cuDNN and flash out)
-        if causal and window == 0 and q_offset == 0 and S == T:
-            sdpa_kw = {"is_causal": True}
-        elif not causal and window == 0:
-            sdpa_kw = {}
-        else:
-            sdpa_kw = {"attn_mask": mask}
+        sdpa_kw = sdpa_kwargs(torch, S, T, causal, window, q_offset)
 
         def library():
             return F.scaled_dot_product_attention(qt, kt, vt,
@@ -782,9 +839,7 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
                "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
                "library": library}
-        # SDPA has no window argument: a windowed case (or a causal one
-        # off the diagonal) passes the explicit boolean mask, and the row
-        # names the backend it took
+        # the row names the backend SDPA took
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                               window=window, q_offset=q_offset),
@@ -797,6 +852,143 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         emit("kernel_check", **row)
         rows.append(row)
     return rows
+
+
+def sdpa_kwargs(torch, S, T, causal, window, q_offset):
+    """SDPA's arguments for the same masks: none where none is needed, so
+    SDPA may take its fused backends (an explicit mask keeps cuDNN and
+    flash out); SDPA has no window argument, so a windowed case (or a
+    causal one off the diagonal) passes the explicit boolean mask."""
+    if causal and window == 0 and q_offset == 0 and S == T:
+        return {"is_causal": True}
+    if not causal and window == 0:
+        return {}
+    pos_q = torch.arange(S, device="cuda")[:, None] + q_offset
+    pos_k = torch.arange(T, device="cuda")[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= pos_k <= pos_q
+    if window > 0:
+        mask &= pos_q - pos_k < window
+    return {"attn_mask": mask}
+
+
+def raises(fn, exc) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def check_flash_backward(torch, F, fa, gen, name, B, S, T, H, K, D, *,
+                         causal=True, window=0, q_offset=0):
+    """The backward kernels (through ``_FlashAttention``, as the models call
+    them) against autograd through the fp32 plain twin on the same bf16
+    inputs, each of dq, dk, dv to 2x the bf16 plain twins' own distance
+    from it plus 1e-3 of its largest entry; the kernels' gradients rounded
+    to BWD_CONTROL_BITS mantissa bits must fail that limit.  Times the
+    three launches together and each alone on buffers made once, the
+    plain backward and SDPA's backward."""
+    dt = torch.bfloat16
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, do)
+    torch.cuda.synchronize()
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = torch.autograd.grad(fa.flash_attention_plain(*ref_leaves, **kw),
+                              ref_leaves, do.float())
+    del ref_leaves
+    o_t, lse_t = fa.flash_attention_plain_lse(q, k, v, **kw)
+    twin = fa.flash_attention_backward_plain(q, k, v, o_t, lse_t, do, **kw)
+    grads = {}
+    for gname, g, r, t in zip(("dq", "dk", "dv"), got, ref, twin):
+        check(bool(torch.isfinite(g.float()).all()),
+              f"flash backward {name}: {gname} is not finite")
+        ref_max = float(r.abs().max())
+        err = float((g.float() - r).abs().max())
+        twin_err = float((t.float() - r).abs().max())
+        limit = BWD_TWIN_RATIO * twin_err + BWD_ATOL_OF_MAX * ref_max
+        control = float((coarsen(torch, g, BWD_CONTROL_BITS).float()
+                         - r).abs().max())
+        grads[gname] = dict(max_abs_err=err, twin_err=twin_err, limit=limit,
+                            ref_max=ref_max, control_err=control)
+        check(err <= limit, f"flash backward {name}: {gname} off by {err}, "
+              f"limit {limit} (bf16 twin {twin_err}, max |ref| {ref_max})")
+        check(control > limit,
+              f"flash backward {name}: {gname} at {BWD_CONTROL_BITS} "
+              f"mantissa bits ({control}) passes the limit {limit}")
+    del got, ref, twin
+    refused = {}
+    if name == "train":
+        # what the backward does not take raises, and nothing falls back
+        q32 = q.float().requires_grad_()
+        wide = torch.randn((B, S, H, D + 2), generator=gen,
+                           device="cuda").to(dt).requires_grad_()
+        refused = dict(
+            float32=raises(lambda: fa.flash_attention(
+                q32, k.float(), v.float(), **kw), NotImplementedError),
+            unaligned=raises(lambda: fa.flash_attention(
+                wide[..., 1:D + 1], k, v, **kw), NotImplementedError))
+        check(all(refused.values()),
+              f"flash backward: an input it does not take did not raise: "
+              f"{refused}")
+        del q32, wide
+
+    # timings on buffers made once
+    scale = D ** -0.5
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    o = fa._forward_kernel(q, k, v, causal, window, q_offset, scale, lse)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    bufs = tuple(torch.empty_like(x) for x in (q, k, v))
+
+    def kernel(which):
+        return lambda: fa.backward_kernel(q, k, v, o, lse, do, **kw,
+                                          which=which, delta=delta,
+                                          grads=bufs)
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_kw = sdpa_kwargs(torch, S, T, causal, window, q_offset)
+
+    def forward():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **sdpa_kw)
+
+    sout = forward()
+
+    def library():
+        return torch.autograd.grad(sout, (qt, kt, vt), dot,
+                                   retain_graph=True)
+
+    pairs = flash_pairs(S, T, causal, window, q_offset)
+    flops = 10.0 * B * H * D * pairs            # five products, 2 FLOP each
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * T * K * D) + 4 * B * H * S
+    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+    fns = {"kernel": kernel(7), "preprocess": kernel(1), "dkdv": kernel(2),
+           "dq": kernel(4),
+           "plain": lambda: fa.flash_attention_backward_plain(
+               q, k, v, o_t, lse_t, do, **kw),
+           "library": library}
+    row = dict(kernel="flash_attention_backward", case=name,
+               dtype="bfloat16",
+               shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
+                          window=window, q_offset=q_offset),
+               max_abs_err=max(g["max_abs_err"] for g in grads.values()),
+               grads=grads, control_bits=BWD_CONTROL_BITS, refused=refused,
+               **timings(torch, fns),
+               library_backend=sdpa_backend(torch, forward),
+               bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+               bytes=nbytes)
+    emit("kernel_check", **row)
+    del sout, qt, kt, vt, o_t, lse_t
+    torch.cuda.empty_cache()
+    return [row]
 
 
 def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
@@ -1087,18 +1279,23 @@ def plain_kernels(ops, fa, rn, ss):
         ops._fa, ops._rn, ops._ssd = saved
 
 
+def coarsen(torch, out, bits: int):
+    """``out`` rounded to nearest with ``bits`` mantissa bits (bf16 keeps
+    7), as a kernel that lost precision would give it."""
+    drop = 23 - bits
+    i = out.float().view(torch.int32)
+    i = (i + (1 << (drop - 1))) & -(1 << drop)
+    return i.view(torch.float32).to(out.dtype)
+
+
 @contextlib.contextmanager
 def coarse_kernel(torch, ops, fa, rn, kernel: str, bits: int):
     """A faulty kernel for the block: the output of ``kernel``
-    ("flash_attention" or "rmsnorm") rounded to nearest with ``bits``
-    mantissa bits (bf16 keeps 7), as a kernel that lost precision would
-    give.  The kernel still launches, and counts."""
-    drop = 23 - bits
+    ("flash_attention" or "rmsnorm") rounded by ``coarsen``.  The
+    kernel still launches, and counts."""
 
     def coarse(out):
-        i = out.float().view(torch.int32)
-        i = (i + (1 << (drop - 1))) & -(1 << drop)
-        return i.view(torch.float32).to(out.dtype)
+        return coarsen(torch, out, bits)
 
     saved = ops._fa, ops._rn
     if kernel == "flash_attention":
@@ -3703,6 +3900,365 @@ def dp_train_path(torch, np, modules) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def coarse_backward(fa, torch, bits: int):
+    """A faulty flash backward for the block: the kernels' dq, dk and dv
+    rounded to ``bits`` mantissa bits.  The kernels still launch, and
+    count."""
+    saved = fa.backward_kernel
+
+    def coarse(*args, **kwargs):
+        return tuple(coarsen(torch, g, bits) for g in saved(*args, **kwargs))
+
+    fa.backward_kernel = coarse
+    try:
+        yield
+    finally:
+        fa.backward_kernel = saved
+
+
+def dense_launches(fa, rn) -> dict:
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_backward": fa.flash_attention.backward_launches,
+            "rmsnorm": rn.rmsnorm.launches}
+
+
+def zero_launches(fa, rn, ss) -> None:
+    fa.flash_attention.launches = fa.flash_attention.backward_launches = 0
+    rn.rmsnorm.launches = ss.ssd_scan.launches = 0
+
+
+def dense_expect(L: int, policy: str, steps: int = 1) -> dict:
+    """Launches of ``steps`` steps of a dense LM of L layers: one flash
+    forward a layer and one backward, 2L + 1 norms; a remat policy other
+    than "none" runs each layer's forward again in the backward."""
+    again = 0 if policy == "none" else 1
+    return {"flash_attention": (1 + again) * L * steps,
+            "flash_attention_backward": L * steps,
+            "rmsnorm": (2 * L + 1 + again * 2 * L) * steps}
+
+
+def train_dense_path(torch, np, F, modules) -> dict:
+    """Phase 18: full-width, full-depth qwen2-0.5b, one step's loss and
+    gradients through the flash forward and backward kernels against the
+    plain twins, remat "none" and "dots", a coarse-backward control, then
+    timed steps and a profiled one.  Returns the launches of one step at
+    each policy."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ll
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import (TrainStepConfig,
+                                              init_train_state,
+                                              make_train_step)
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    cfg = get_config(DENSE_ARCH)
+    L = cfg.num_layers
+    opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=100)
+    tcfg = TrainStepConfig(remat_policy="none", optimizer=opt)
+    t0 = time.perf_counter()
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = state.model
+    params = state.params
+    rng = np.random.default_rng(0)
+    seq = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1)),
+        dtype=torch.long, device="cuda")
+    batch = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def loss_and_grads(policy):
+        for p in params.values():
+            p.grad = None
+        loss, _ = model.loss(batch, remat_policy=policy)
+        loss.backward()
+        grads = {k: p.grad for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def cosine(a, b):
+        return float(F.cosine_similarity(a.flatten().float(),
+                                         b.flatten().float(), dim=0,
+                                         eps=1e-30))
+
+    # ---- one step's loss and gradients: kernels, remat none and dots -------
+    zero_launches(fa, rn, ss)
+    k_loss, k_grads = loss_and_grads("none")
+    launches = {"none": dense_launches(fa, rn)}
+    zero_launches(fa, rn, ss)
+    d_loss, d_grads = loss_and_grads("dots")
+    launches["dots"] = dense_launches(fa, rn)
+    dots_cos = min(cosine(d_grads[k], k_grads[k]) for k in k_grads)
+    del d_grads
+    # ---- the plain twins, bf16 and fp32 compute (remat full: the plain
+    # attention keeps (B, H, S, T) scores a layer) ---------------------------
+    before = dense_launches(fa, rn)
+    with plain_kernels(ops, fa, rn, ss):
+        p_loss, p_grads = loss_and_grads("full")
+        saved_dtype = ll.COMPUTE_DTYPE
+        ll.COMPUTE_DTYPE = torch.float32      # the masters cast at each use
+        try:
+            r_loss, r_grads = loss_and_grads("full")
+        finally:
+            ll.COMPUTE_DTYPE = saved_dtype
+    check(dense_launches(fa, rn) == before, "the plain run launched a kernel")
+
+    def held(grads):
+        """Each leaf's cosine to the plain bf16 gradient, its distance
+        (1 - cosine) to the fp32 one against the plain bf16 path's, and
+        the leaves that fail: a leaf that is signal in bf16 (the plain
+        bf16 gradient within MIN_GRAD_COSINE of fp32) must be within
+        MIN_GRAD_COSINE of the plain bf16 gradient, and every leaf's
+        distance to fp32 must be at most BF16_RATIO x the plain bf16
+        path's + BF16_SLACK."""
+        rows, bad = {}, []
+        for k in grads:
+            cos_p = cosine(grads[k], p_grads[k])
+            d_k = 1.0 - cosine(grads[k], r_grads[k])
+            d_p = 1.0 - cosine(p_grads[k], r_grads[k])
+            noise = 1.0 - d_p < MIN_GRAD_COSINE
+            ok = (noise or cos_p >= MIN_GRAD_COSINE) and \
+                d_k <= BF16_RATIO * d_p + BF16_SLACK
+            rows[k] = dict(cosine_to_plain=cos_p, distance_to_fp32=d_k,
+                           plain_distance_to_fp32=d_p, noise=noise)
+            if not ok:
+                bad.append(k)
+        return rows, bad
+
+    rows, bad = held(k_grads)
+    del k_grads
+    # ---- the control: the backward's outputs coarsened --------------------
+    zero_launches(fa, rn, ss)
+    with coarse_backward(fa, torch, DENSE_CONTROL_BITS):
+        c_loss, c_grads = loss_and_grads("none")
+    c_rows, c_bad = held(c_grads)
+    del c_grads, p_grads, r_grads
+    torch.cuda.empty_cache()
+    loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+    worst = sorted(rows, key=lambda k: rows[k]["distance_to_fp32"]
+                   - BF16_RATIO * rows[k]["plain_distance_to_fp32"])[-5:]
+    emit("train_dense_plain", arch=cfg.name, batch=[TRAIN_BATCH, TRAIN_SEQ],
+         kernel_loss=k_loss, plain_loss=p_loss, fp32_loss=r_loss,
+         loss_rel=loss_rel, dots_loss=d_loss, dots_min_cosine=dots_cos,
+         leaves=len(rows), noise_leaves=sorted(k for k in rows
+                                               if rows[k]["noise"]),
+         cosine_to_plain_min=min(r["cosine_to_plain"] for r in rows.values()),
+         worst_leaves={k: rows[k] for k in worst}, failing=bad,
+         control_bits=DENSE_CONTROL_BITS, control_loss=c_loss,
+         control_failing=c_bad[:8], control_n_failing=len(c_bad),
+         control_worst={k: c_rows[k] for k in sorted(
+             c_rows, key=lambda k: c_rows[k]["distance_to_fp32"]
+             - BF16_RATIO * c_rows[k]["plain_distance_to_fp32"])[-3:]},
+         launches=launches, expected_launches={
+             p: dense_expect(L, p) for p in ("none", "dots")},
+         max_loss_rel=MAX_LOSS_REL, min_grad_cosine=MIN_GRAD_COSINE,
+         bf16_ratio=BF16_RATIO, bf16_slack=BF16_SLACK)
+    check(loss_rel <= MAX_LOSS_REL,
+          f"dense loss {k_loss} against the plain twins' {p_loss}")
+    check(not bad, f"dense gradients off the plain twins / fp32: {bad[:5]}")
+    check(c_bad, f"a backward at {DENSE_CONTROL_BITS} mantissa bits passes "
+          f"the dense gradient check")
+    check(abs(d_loss - k_loss) <= DOTS_LOSS_REL * abs(k_loss)
+          and dots_cos >= DOTS_MIN_COSINE,
+          f"remat dots: loss {d_loss} against {k_loss}, gradient cosine "
+          f"{dots_cos}")
+    for policy in ("none", "dots"):
+        check(launches[policy] == dense_expect(L, policy),
+              f"dense launches at {policy}: {launches[policy]}, the path "
+              f"implies {dense_expect(L, policy)}")
+
+    # ---- timed steps, a profiled one, a step under remat dots -------------
+    step = make_train_step(model, tcfg)
+    state, m = step(state, batch)                          # warm-up
+    losses = [float(m["loss"])]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches(fa, rn, ss)
+    step_s = []
+    for _ in range(DENSE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    step_launches = dense_launches(fa, rn)
+    peak = torch.cuda.max_memory_allocated()
+    prof = profile_phase(torch, "dense train step 4x2048",
+                         lambda: step(state, batch),
+                         expect=("flash_mma_kernel", "flash_bwd_dkdv_kernel",
+                                 "flash_bwd_dq_kernel",
+                                 "flash_bwd_preprocess_kernel"))
+    emit("profile", **prof)
+    dots_step = make_train_step(model, TrainStepConfig(remat_policy="dots",
+                                                       optimizer=opt))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = dots_step(state, batch)
+    torch.cuda.synchronize()
+    dots_s = time.perf_counter() - t0
+    dots_peak = torch.cuda.max_memory_allocated()
+    losses.append(float(m["loss"]))
+    emit("train_dense", arch=cfg.name, params=cfg.param_count(),
+         batch=[TRAIN_BATCH, TRAIN_SEQ], remat_policy="none", init_s=init_s,
+         step_s=step_s, tokens_per_s=tokens / (sum(step_s) / len(step_s)),
+         losses=losses, peak_mem_bytes=peak, launches=step_launches,
+         expected_launches=dense_expect(L, "none", DENSE_STEPS),
+         idle_share=prof["idle_share"], groups_ms=prof["groups_ms"],
+         dots_step_s=dots_s, dots_tokens_per_s=tokens / dots_s,
+         dots_peak_mem_bytes=dots_peak)
+    check(all(np.isfinite(losses)), f"non-finite dense loss: {losses}")
+    check(losses[-1] < losses[0], f"dense loss did not fall: {losses}")
+    check(step_launches == dense_expect(L, "none", DENSE_STEPS),
+          f"dense step launches {step_launches}")
+    del state, step, dots_step, model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def trainer_dense_path(torch, np, tdata, modules) -> dict:
+    """Phase 19: the Trainer on full-width qwen2-0.5b over LCG token data
+    (examples/torch_train_lm.py's ``lcg_dataset``), remat "dots" (the
+    Trainer's default): A trains DENSE_TRAINER_STEPS steps straight (DPT
+    runs and fills the cache), B1 half of them and saves a blocking
+    checkpoint, B2 resumes it; then the example's smoke preset on the
+    card.  Returns the launches of the Trainer's steps."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    cfg = get_config(DENSE_ARCH)
+    L = cfg.num_layers
+    dataset = example.lcg_dataset(64, TRAIN_SEQ, DENSE_LCG_VOCAB)
+    half = DENSE_TRAINER_STEPS // 2
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dense_")
+
+    def make(steps, checkpoint_dir=None):
+        tc = TrainerConfig(
+            total_steps=steps, log_every=1,
+            checkpoint_every=DENSE_TRAINER_STEPS + 1,
+            checkpoint_dir=checkpoint_dir, seed=0, autotune=True,
+            autotune_strategy="grid", autotune_budget_batches=4,
+            autotune_max_prefetch=2,
+            autotune_num_cpu_cores=min(4, os.cpu_count() or 1),
+            dpt_cache_path=os.path.join(workdir, "dpt.json"),
+            step_config=TrainStepConfig(
+                remat_policy="dots",
+                optimizer=AdamWConfig(peak_lr=1e-3, warmup_steps=2,
+                                      total_steps=100)))
+        loader = tdata.DataLoader(dataset, TRAIN_BATCH, seed=0,
+                                  device="cuda")
+        return Trainer(cfg, loader, tc, device="cuda")
+
+    def losses(tr):
+        return [r["loss"] for r in tr.history if "loss" in r]
+
+    zero_launches(fa, rn, ss)
+    try:
+        t0 = time.perf_counter()
+        a = make(DENSE_TRAINER_STEPS)
+        a.run()
+        a_s = time.perf_counter() - t0
+        a_sum = dict(pick=[a.loader.params.num_workers,
+                           a.loader.params.prefetch_factor],
+                     tune_s=a.tune_s, tune_trials=a.tune_trials,
+                     losses=losses(a),
+                     step_s=[r["step_s"] for r in a.history if "loss" in r])
+        del a
+        torch.cuda.empty_cache()
+        ckdir = os.path.join(workdir, "ckpt")
+        b1 = make(half, ckdir)
+        b1.run()
+        b1_trials, b1_losses = b1.tune_trials, losses(b1)
+        b2 = make(DENSE_TRAINER_STEPS, ckdir)
+        held = [b1.state]
+        b1.state = b1.step_fn = None
+        restored = {}
+        restore = b2._maybe_restore
+
+        def restore_and_compare():
+            restore()
+            live, got = held[0], b2.state
+            pairs = [("params", live.params, got.params),
+                     ("mu", live.opt.mu, got.opt.mu),
+                     ("nu", live.opt.nu, got.opt.nu)]
+            unequal = [f"{kind}:{k}" for kind, x, y in pairs for k in x
+                       if not torch.equal(x[k], y[k])]
+            restored.update(n_unequal=len(unequal), unequal=unequal[:5],
+                            step=[live.opt.step, got.opt.step],
+                            restore_s=b2.checkpointer.restore_s)
+            held.clear()
+            torch.cuda.empty_cache()
+
+        b2._maybe_restore = restore_and_compare
+        b2.run()
+        b2_sum = dict(start_step=b2.start_step, tune_trials=b2.tune_trials,
+                      losses=losses(b2))
+        saves = b1.checkpointer.saves + b2.checkpointer.saves
+        del b1, b2
+        gc.collect()
+        torch.cuda.empty_cache()
+        launches = dense_launches(fa, rn)
+
+        # the example's smoke preset on the card, as its users run it
+        t0 = time.perf_counter()
+        ex = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / "torch_train_lm.py"),
+             "--preset", "smoke", "--steps", str(EXAMPLE_STEPS),
+             "--ckpt-dir", os.path.join(workdir, "example")],
+            capture_output=True, text=True, timeout=600)
+        example_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    summary = [ln for ln in ex.stdout.splitlines() if ln.startswith("loss ")]
+    n_steps = DENSE_TRAINER_STEPS + half + (DENSE_TRAINER_STEPS - half)
+    expect = dense_expect(L, "dots", n_steps)
+    loss_diff = [abs(x - y) for x, y in
+                 zip(a_sum["losses"][half:], b2_sum["losses"])]
+    emit("trainer_dense", arch=cfg.name, batch=[TRAIN_BATCH, TRAIN_SEQ],
+         items=64, lcg_vocab=DENSE_LCG_VOCAB, remat_policy="dots", a=a_sum,
+         a_wall_s=a_s, b1=dict(tune_trials=b1_trials, losses=b1_losses),
+         b2=b2_sum, restore=restored, loss_diff_a_b2=loss_diff,
+         max_loss_diff=TRAINER_LOSS_ATOL,
+         saves=[dict(r) for r in saves], launches=launches,
+         expected_launches=expect,
+         example=dict(steps=EXAMPLE_STEPS, rc=ex.returncode, s=example_s,
+                      summary=summary, stderr_tail=ex.stderr[-800:]))
+    check(a_sum["tune_trials"] > 0, "A did not run DPT")
+    check(b1_trials == 0 and b2_sum["tune_trials"] == 0,
+          f"B1 / B2 did not tune from the cache: {b1_trials}, "
+          f"{b2_sum['tune_trials']} trials")
+    check(all(np.isfinite(a_sum["losses"] + b1_losses + b2_sum["losses"])),
+          "non-finite loss")
+    check(a_sum["losses"][-1] < a_sum["losses"][0],
+          f"A's loss did not fall: {a_sum['losses']}")
+    check(b2_sum["start_step"] == half, f"B2 resumed at "
+          f"{b2_sum['start_step']}")
+    check(restored.get("n_unequal") == 0 and restored["step"] == [half] * 2,
+          f"restored state differs from B1's: {restored}")
+    check(len(loss_diff) == DENSE_TRAINER_STEPS - half
+          and max(loss_diff) <= TRAINER_LOSS_ATOL,
+          f"B2's losses {b2_sum['losses']} against A's {a_sum['losses']}")
+    check(launches == expect,
+          f"dense trainer launches {launches}, the path implies {expect}")
+    check(ex.returncode == 0 and summary,
+          f"examples/torch_train_lm.py failed: {ex.stderr[-2000:]}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3829,6 +4385,19 @@ def main() -> int:
         checks["flash_attention"] += check_flash(torch, F, fa, gen, name,
                                                  8, S, T, 20, 20, 64,
                                                  causal=causal)
+    # the backward kernels: the dense training shape, the forward's mask
+    # cases, H = K, the example's smoke preset (d 32) and head dim 128
+    checks["flash_attention_backward"] = []
+    for name, shape, kw in (
+            ("train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64), {}),
+            ("window48", (8, 512, 512, 14, 2, 64), dict(window=48)),
+            ("ragged300", (4, 300, 300, 14, 2, 64), {}),
+            ("q_offset", (8, 64, 512, 14, 2, 64), dict(q_offset=448)),
+            ("gqa1", (4, 512, 512, 14, 14, 64), {}),
+            ("d32", (8, 128, 128, 4, 2, 32), {}),
+            ("d128", (2, 256, 256, 16, 8, 128), {})):
+        checks["flash_attention_backward"] += check_flash_backward(
+            torch, F, fa, gen, name, *shape, **kw)
     for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
                         ("decode", 8)):
         checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, name, rows_, 896)
@@ -3959,6 +4528,12 @@ def main() -> int:
 
     # ---- 17. the data-parallel step over a one-rank NCCL group -------------
     dp_train_launches = dp_train_path(torch, np, modules)
+    gc.collect()                   # the 780M states leave the card
+    torch.cuda.empty_cache()
+
+    # ---- 18-19. the dense LM trained at full width: flash's backward -------
+    dense_launches_ = train_dense_path(torch, np, F, modules)
+    trainer_dense_launches = trainer_dense_path(torch, np, tdata, modules)
     torch.cuda.empty_cache()
 
     # ---- 18. the kernels line ---------------------------------------------
@@ -3974,7 +4549,12 @@ def main() -> int:
                             **{k: v["flash_attention"]
                                for k, v in later_paths.items()},
                             "fleet_serve":
-                                fleet_serve_launches["flash_attention"]},
+                                fleet_serve_launches["flash_attention"],
+                            "train_dense": sum(
+                                v["flash_attention"]
+                                for v in dense_launches_.values()),
+                            "trainer_dense":
+                                trainer_dense_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
@@ -3985,7 +4565,10 @@ def main() -> int:
                     "trainer": trainer_launches["rmsnorm"],
                     "fleet_train": fleet_train_launches["rmsnorm"],
                     "fleet_serve": fleet_serve_launches["rmsnorm"],
-                    "dp_train": dp_train_launches["rmsnorm"]},
+                    "dp_train": dp_train_launches["rmsnorm"],
+                    "train_dense": sum(v["rmsnorm"]
+                                       for v in dense_launches_.values()),
+                    "trainer_dense": trainer_dense_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
@@ -4013,6 +4596,7 @@ def main() -> int:
             route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:77"),
     }
+    backward_rows = checks.pop("flash_attention_backward")
     kernels = []
     for name, rows_ in checks.items():
         row = next(r for r in rows_ if r["case"] == main_case[name]
@@ -4068,6 +4652,32 @@ def main() -> int:
                          "hymba_gate_d3200", "phi3v_d3072", "fleet_d1536",
                          "fleet_d3072", "dp_mb_d1536", "dp_mb_d3072")
         and r["dtype"] == "bfloat16"}
+    # the flash backward replaces no TPU kernel: its launches (one a
+    # backward call, for its three kernels) and times ride on flash's row
+    bwd_by_path = {"train_dense": sum(
+        v["flash_attention_backward"] for v in dense_launches_.values()),
+        "trainer_dense": trainer_dense_launches["flash_attention_backward"]}
+    train_row = next(r for r in backward_rows if r["case"] == "train")
+    by_name["flash_attention"].update(
+        backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        backward_replaces="no TPU counterpart (repro differentiates "
+                          "src/repro/kernels/ref.py:43 mha)",
+        backward_launches=sum(bwd_by_path.values()),
+        backward_launches_by_path=bwd_by_path,
+        backward_max_abs_err=max(r["max_abs_err"] for r in backward_rows),
+        backward_ms=train_row["kernel_ms"],
+        backward_plain_ms=train_row["plain_ms"],
+        backward_bound_ms=train_row["bound_ms"],
+        backward_bound_by=train_row["bound_by"],
+        backward_library_ms=train_row["library_ms"],
+        backward_cases={
+            r["case"]: dict(ms=r["kernel_ms"], preprocess_ms=r["preprocess_ms"],
+                            dkdv_ms=r["dkdv_ms"], dq_ms=r["dq_ms"],
+                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                            bound_by=r["bound_by"],
+                            library_ms=r["library_ms"],
+                            library_backend=r["library_backend"])
+            for r in backward_rows})
     print(json.dumps({"kernels": kernels}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,10 @@
 * A CUDA tensor goes to the hand-written kernel (``flash_attention``,
   ``rmsnorm``, ``rmsnorm_residual``, ``ssd_scan``, and for prefill
   ``ssd_scan_state``, the same kernel writing its final state too), which
-  launches or raises; nothing falls back.
+  launches or raises; nothing falls back.  Attention has a gradient on the
+  card: under autograd ``flash_attention`` runs ``_FlashAttention``, whose
+  backward is the flash backward kernels (bf16; fp32 or unaligned inputs
+  that need a gradient raise).
 * A CPU tensor goes to the plain PyTorch version (``ref.py``), with the
   chunked attention for sequences of 1024 or more, so peak memory stays
   O(block * T).

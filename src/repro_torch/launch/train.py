@@ -15,9 +15,10 @@ rules_for("train"))`` over a ``shard_train_state`` state
 either.  A vlm
 and whisper (encdec) train on the stub frontends of ``repro``'s launcher:
 token items with seeded patch embeddings or frame embeddings drawn in the
-same order from one generator.  Training whisper on the card waits for
-the flash-attention backward (``flash_attention`` raises when a CUDA
-tensor needs a gradient); on the CPU it trains.
+same order from one generator.  On the card every full-sequence
+attention call, forward and backward, runs the hand-written flash kernels
+(``kernels/flash_attention.py``); ``chip_smoke.py`` drives the dense path
+there (``--arch qwen2-0.5b``, uncut).
 """
 from __future__ import annotations
 

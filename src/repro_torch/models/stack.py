@@ -190,7 +190,11 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
     layer in the backward pass; "dots" also keeps the outputs of its
     matmuls (``create_selective_checkpoint_contexts``).  The aux loss is
     an output of the checkpointed layer, so it is summed under every
-    policy.
+    policy.  A kernel launched through ctypes (flash attention's
+    ``_FlashAttention``, rmsnorm) is invisible to the dispatcher: the
+    recompute runs it again under every policy, since "dots" saves only
+    ``aten.mm`` / ``aten.addmm`` outputs and recomputes the ``aten.empty``
+    a kernel writes into, never replaying one the kernel has not written.
 
     Inside the data-parallel step's manual region each layer's parameters
     pass through ``manual_layer_hook`` inside the checkpointed function,

@@ -82,6 +82,7 @@ def _run(script, *args):
     ("torch_serve_batched.py", ["--arch", "mamba2-780m", "--new-tokens", "4",
                                 "--clients", "3"],
      "frontend served 3 concurrent requests"),
+    ("torch_train_lm.py", ["--steps", "20"], "over 20 steps"),
 ])
 def test_torch_example_runs_on_the_cpu(script, args, summary):
     out = _run(script, *args)
