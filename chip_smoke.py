@@ -37,12 +37,18 @@ Phases, each printing one JSON line:
    ``_FlashAttention`` as the models call it) at the dense training shape
    (``train``: 4 x 2048, 14 / 2 heads of 64, causal), ``window48``,
    ``ragged300``, ``q_offset``, ``gqa1`` (H = K), ``d32`` (the example's
-   smoke preset) and ``d128``: dq, dk, dv against autograd through the
-   fp32 plain twin, each within 2x the bf16 plain twins' own distance plus
-   1e-3 of its largest entry, and the kernels' gradients at 4 mantissa
-   bits must fail that; the three launches timed together and each alone,
-   beside the plain backward, SDPA's backward and the bound; an fp32 or
-   unaligned input that needs a gradient must raise.
+   smoke preset), ``d128``, ``group12`` (mistral-large's 24 / 2 heads
+   of 128: a dK / dV cluster of 12, past the portable 8), ``d96``
+   (phi-3-vision's 32 / 32 heads of 96 over 576 patches and 512 text
+   tokens) and ``d16`` (tiles of 16, non-causal, S and T ragged): dq, dk, dv
+   against autograd through the fp32 plain twin, each within 2x the bf16
+   plain twins' own distance plus 1e-3 of its largest entry, and the
+   kernels' gradients at 4 mantissa bits must fail that; a second call on
+   the same inputs must give the same bits; each row names the variant
+   (wgmma at every head dim), the cluster size and each kernel's
+   registers and shared memory; the three launches timed together and
+   each alone, beside the plain backward, SDPA's backward and the bound;
+   an fp32 or unaligned input that needs a gradient must raise.
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
    generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
    each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
@@ -487,6 +493,26 @@ REMAT_BATCH, REMAT_STEPS = 6, 2
 # section 6).  The kernels' gradients rounded to BWD_CONTROL_BITS mantissa
 # bits (bf16 keeps 7) must fail the limit
 BWD_TWIN_RATIO, BWD_ATOL_OF_MAX, BWD_CONTROL_BITS = 2.0, 1e-3, 4
+# its cases, name -> ((B, S, T, H, K, D), masks): the dense training shape,
+# the forward's mask cases, H = K, the example's smoke preset (d 32), head
+# dim 128, mistral-large's group of 12 at head dim 128 (a cluster past
+# the portable 8), phi-3-vision's head dim 96 (three 32-column swizzle
+# panels a row) at its prefill of 576 patches and 512 text tokens, and head
+# dim 16 non-causal with S and T off the tile.
+# tests/test_torch_flash_schedule.py holds the backward's launch plan at
+# these shapes on the CPU
+BWD_CASES = {
+    "train": ((TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64), {}),
+    "window48": ((8, 512, 512, 14, 2, 64), dict(window=48)),
+    "ragged300": ((4, 300, 300, 14, 2, 64), {}),
+    "q_offset": ((8, 64, 512, 14, 2, 64), dict(q_offset=448)),
+    "gqa1": ((4, 512, 512, 14, 14, 64), {}),
+    "d32": ((8, 128, 128, 4, 2, 32), {}),
+    "d128": ((2, 256, 256, 16, 8, 128), {}),
+    "group12": ((2, 512, 512, 24, 2, 128), {}),
+    "d96": ((2, 1088, 1088, 32, 32, 96), {}),
+    "d16": ((2, 48, 80, 6, 2, 16), dict(causal=False)),
+}
 
 # phases 18-19: the dense LM trained at full width and depth (qwen2-0.5b:
 # 24 layers, d_model 896, 14 / 2 heads of 64 with QKV bias, d_ff 4,864,
@@ -757,9 +783,9 @@ def dynamic_smem(_build) -> dict:
     out = {f"flash_mma_kernel<{D}>": fl.flash_attention_smem_bytes(D)
            for D in (64, 96, 128)}
     for D in (32, 64, 128):          # the backward's: d32, train, d128
-        out[f"flash_bwd_dkdv_kernel<{D}>"] = \
+        out[f"flash_bwd_dkdv_wgmma_kernel<{D}>"] = \
             fl.flash_attention_bwd_smem_bytes(2, D)
-        out[f"flash_bwd_dq_kernel<{D}>"] = \
+        out[f"flash_bwd_dq_wgmma_kernel<{D}>"] = \
             fl.flash_attention_bwd_smem_bytes(4, D)
     for stage, kernel in ((1, "ssd_scan_chunk_state_kernel"),
                           (3, "ssd_scan_chunk_scan_kernel")):
@@ -887,18 +913,32 @@ def check_flash_backward(torch, F, fa, gen, name, B, S, T, H, K, D, *,
     them) against autograd through the fp32 plain twin on the same bf16
     inputs, each of dq, dk, dv to 2x the bf16 plain twins' own distance
     from it plus 1e-3 of its largest entry; the kernels' gradients rounded
-    to BWD_CONTROL_BITS mantissa bits must fail that limit.  Times the
-    three launches together and each alone on buffers made once, the
-    plain backward and SDPA's backward."""
+    to BWD_CONTROL_BITS mantissa bits must fail that limit, and a second
+    call on the same inputs must give the same bits.  The row names the
+    variant that served it (wgmma at every head dim), the dK / dV
+    cluster size, each kernel's registers and shared memory
+    (``cudaFuncGetAttributes``) and the blocks of it the card holds at
+    once (the dK / dV pass in its clusters).  Times the three launches together and
+    each alone on buffers made once, the plain backward and SDPA's
+    backward."""
     dt = torch.bfloat16
     q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(dt)
              for _ in range(2))
     k, v = (torch.randn((B, T, K, D), generator=gen, device="cuda").to(dt)
             for _ in range(2))
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    plan = fa.backward_plan(B, S, T, H, K, D, **kw)
+    check(plan.variant == "wgmma",
+          f"flash backward {name}: head dim {D} served by {plan.variant}")
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     got = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves, do)
+    again = torch.autograd.grad(fa.flash_attention(*leaves, **kw), leaves,
+                                do)
     torch.cuda.synchronize()
+    repeat_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(repeat_equal, f"flash backward {name}: two calls on the same "
+          f"inputs gave different bits")
+    del again
     ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
     ref = torch.autograd.grad(fa.flash_attention_plain(*ref_leaves, **kw),
                               ref_leaves, do.float())
@@ -943,12 +983,12 @@ def check_flash_backward(torch, F, fa, gen, name, B, S, T, H, K, D, *,
     scale = D ** -0.5
     lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
     o = fa._forward_kernel(q, k, v, causal, window, q_offset, scale, lse)
-    delta = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+    scratch = fa.backward_scratch(B, H, S, "cuda")
     bufs = tuple(torch.empty_like(x) for x in (q, k, v))
 
     def kernel(which):
         return lambda: fa.backward_kernel(q, k, v, o, lse, do, **kw,
-                                          which=which, delta=delta,
+                                          which=which, scratch=scratch,
                                           grads=bufs)
 
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
@@ -979,8 +1019,13 @@ def check_flash_backward(torch, F, fa, gen, name, B, S, T, H, K, D, *,
                dtype="bfloat16",
                shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                           window=window, q_offset=q_offset),
+               variant=plan.variant, cluster=plan.cluster,
+               blocks=dict(dkdv=math.prod(plan.grid_dkdv),
+                           dq=math.prod(plan.grid_dq)),
+               attributes=fa.backward_attributes(D, H // K),
                max_abs_err=max(g["max_abs_err"] for g in grads.values()),
                grads=grads, control_bits=BWD_CONTROL_BITS, refused=refused,
+               repeat_equal=repeat_equal,
                **timings(torch, fns),
                library_backend=sdpa_backend(torch, forward),
                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
@@ -4088,8 +4133,9 @@ def train_dense_path(torch, np, F, modules) -> dict:
     peak = torch.cuda.max_memory_allocated()
     prof = profile_phase(torch, "dense train step 4x2048",
                          lambda: step(state, batch),
-                         expect=("flash_mma_kernel", "flash_bwd_dkdv_kernel",
-                                 "flash_bwd_dq_kernel",
+                         expect=("flash_mma_kernel",
+                                 "flash_bwd_dkdv_wgmma_kernel",
+                                 "flash_bwd_dq_wgmma_kernel",
                                  "flash_bwd_preprocess_kernel"))
     emit("profile", **prof)
     dots_step = make_train_step(model, TrainStepConfig(remat_policy="dots",
@@ -4385,17 +4431,8 @@ def main() -> int:
         checks["flash_attention"] += check_flash(torch, F, fa, gen, name,
                                                  8, S, T, 20, 20, 64,
                                                  causal=causal)
-    # the backward kernels: the dense training shape, the forward's mask
-    # cases, H = K, the example's smoke preset (d 32) and head dim 128
     checks["flash_attention_backward"] = []
-    for name, shape, kw in (
-            ("train", (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64), {}),
-            ("window48", (8, 512, 512, 14, 2, 64), dict(window=48)),
-            ("ragged300", (4, 300, 300, 14, 2, 64), {}),
-            ("q_offset", (8, 64, 512, 14, 2, 64), dict(q_offset=448)),
-            ("gqa1", (4, 512, 512, 14, 14, 64), {}),
-            ("d32", (8, 128, 128, 4, 2, 32), {}),
-            ("d128", (2, 256, 256, 16, 8, 128), {})):
+    for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
             torch, F, fa, gen, name, *shape, **kw)
     for name, rows_ in (("prefill", 8 * 512), ("prefill300", 4 * 300),
@@ -4671,7 +4708,8 @@ def main() -> int:
         backward_bound_by=train_row["bound_by"],
         backward_library_ms=train_row["library_ms"],
         backward_cases={
-            r["case"]: dict(ms=r["kernel_ms"], preprocess_ms=r["preprocess_ms"],
+            r["case"]: dict(variant=r["variant"], cluster=r["cluster"],
+                            ms=r["kernel_ms"], preprocess_ms=r["preprocess_ms"],
                             dkdv_ms=r["dkdv_ms"], dq_ms=r["dq_ms"],
                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                             bound_by=r["bound_by"],

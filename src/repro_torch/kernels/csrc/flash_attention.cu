@@ -84,40 +84,81 @@
 // 14 / 2 heads of 64, causal) the five matrix products over the visible
 // half of the score matrix are ~7.5e10 FLOP, ~0.076 ms at 989 TFLOP/s,
 // against ~65 MB of q, k, v, o, dO, dq, dk and dv (~0.019 ms at 3.35 TB/s):
-// it is bound by operations, so the products must run on the tensor cores
-// and nothing of size S x T may reach device memory.
+// it is bound by operations.  S and dP are computed in both passes
+// (FlashAttention-2's price for needing no atomics) and dS enters dK and dQ
+// as a bf16 pair, so the tensor cores run nine products where the bound
+// counts five; only wgmma reaches the card's full tensor-core rate, and
+// only if the copies stay off the threads that issue it.
 //
-// Three launches, none with atomics, so the result is deterministic:
-//  * flash_bwd_preprocess_kernel: Di, one warp a row, into an fp32
-//    scratch (B, H, S).
-//  * flash_bwd_dkdv_kernel<D>: one block per (b, kv head, 64-key tile).
-//    K_j and V_j stay in shared memory; the block walks every query head
-//    of the GQA group and every query tile that the causal, window and
-//    q_offset masks let see tile j (the forward's masks on absolute
-//    positions), Q / dO / lse / Di through a two-stage cp.async ring.  Each
-//    warp owns 16 keys: S^T = K Q^T and dP^T = V dO^T on mma.sync
-//    m16n8k16, P^T recomputed from lse, then dV += P^T dO and
-//    dK += dS^T Q with P^T and dS^T reused from registers as A operands
-//    and dO and Q read through ldmatrix.trans.  The group's sum stays in
-//    fp32 registers and dK, dV are written once.
-//  * flash_bwd_dq_kernel<D>: one block per (b, head, 64-query tile),
-//    walking key tiles as the forward does (same ring, same skip and
-//    mask split); dS from S = Q K^T and dP = dO V^T, dQ += dS K, written
-//    once.
+// Three launches, none with atomics: the same bits on every call.  Each
+// pass reads a work list by block, items of (tile, first tile on the other
+// side, tiles) that flash_attention.py · backward_plan builds from the
+// causal, window and q_offset masks, heaviest first, so the longest blocks
+// start first and no long block forms the grid's tail; the kernels keep
+// only the masks of single elements on the tiles that cross the diagonal,
+// a window's edge or T.
+//  * flash_bwd_preprocess_kernel: Di and lse in log2 units (+inf for a row
+//    that sees no key), one warp a row, into an fp32 scratch whose rows are
+//    padded to whole tiles, so a tile's 64 values are one aligned copy.
+//  * flash_bwd_dkdv_wgmma_kernel<D> (D 16, 32, 64, 96, 128): one block per
+//    (query head, b, 64-key tile), so a block walks only its own head's
+//    visible query tiles (at most 32 at the training shape, where one block
+//    per kv head walked 7 heads' worth, up to 224).  S^T = K Q^T and dP^T = V dO^T
+//    run as wgmma m64n64k16 from shared memory; P^T and dS^T are formed in
+//    the fp32 accumulators and reused in place as register A fragments
+//    (hopper_utils.cuh: the accumulator's layout is the A fragment's) for
+//    dV += P^T dO and dK += dS^T Q (hi and lo), m64nDk16 with dO and Q
+//    MN-major.  The GQA sum: the `group` query heads of one kv head form a
+//    thread-block cluster; each member stages its fp32 dK and dV in its own
+//    shared memory and, after a cluster barrier, member r sums rows
+//    [64 r / group, 64 (r + 1) / group) over members 0 .. group - 1 in that
+//    order through distributed shared memory, scales dK and writes bf16
+//    once.  The cluster size is set at launch (cudaLaunchKernelEx), up to
+//    the non-portable 16 (a group of 12 at mistral-large); a group no
+//    cluster holds is refused.
+//  * flash_bwd_dq_wgmma_kernel<D>: one block per (query head, b, 64-query
+//    tile); S = Q K^T and dP = dO V^T from shared memory, dS (hi, lo) in
+//    registers, dQ += dS K with K MN-major, dQ written once.
+//  Both wgmma kernels run 160 threads: warps 0-3 are the consumer
+//  warpgroup, which never issues a copy; one thread of warp 4 issues TMA
+//  boxes (tensor maps encoded on the host at each call from the tensors'
+//  strides; a box a panel of 64 columns and 128-byte swizzle at D 64 and
+//  128, 32 columns and 64-byte at D 32 and 96, 16 and 32-byte at D 16, so
+//  D 96's 192-byte rows are three panels) of the block's fixed tiles
+//  once and of the walked tiles into a ring of two stages, each stage
+//  guarded by a full mbarrier (the copies landed: the bytes counted by the
+//  copy engine) and an empty one (the 128 consumers are done with it); a
+//  dK / dV stage also brings the tile's lse2 and Di rows by bulk copy.
+//  Registers decide occupancy: a dK / dV consumer holds dK, dV, S^T and
+//  dP^T (4 x 32 fp32 at D 64), so two blocks share a multiprocessor at
+//  up to 200 registers a thread (one at D 96 and 128); a dQ consumer holds
+//  dQ, S and dP, so three do (136 registers).  Handing the producer's registers
+//  to the consumers with setmaxnreg instead (a 256-thread block at 128
+//  registers a thread) left the consumer compiled within the 128 and
+//  spilling, and slower (PERF.md section 6).
+//  Shared memory a block (bytes): dK / dV K and V tiles 2 x 128 D, a stage
+//  2 x 128 D + 1,024 (Q, dO, lse2, Di), two stages, which the epilogue
+//  reuses for the fp32 dK and dV (2 x 64 x (D + 4) x 4, the same size), 1 KB
+//  to align tiles to the 128-byte swizzle's 1,024-byte period: 52,288 at
+//  D 64, 101,440 at D 128, 76,864 at D 96, 27,712 at D 32, 15,424 at D 16;
+//  dQ: Q and dO tiles plus two stages of K and V: 50,240 at D 64, 99,392
+//  at D 128, 74,816 at D 96.
 //  P is rounded to bf16 for the dV product, as the forward rounds P (dV's
 //  largest error equals the plain twin's output rounding in every checked
 //  case).  dS goes into the dK and dQ products as a pair of bf16 (hi, and
-//  lo = dS - hi), two mma.sync each: rounded once, dS cost dQ up to 2.6x
+//  lo = dS - hi), two products each: rounded once, dS cost dQ up to 2.6x
 //  the plain twin's error at a window of 48, where a query sums few large
-//  terms (PERF.md section 6).  Every sum is fp32.  S and dP are computed
-//  twice (once per pass): FlashAttention-2's cost for needing no atomics.
-//  So the tensor cores run nine products where the bound counts five.  Not done
-//  here: wgmma, TMA and a fused dQ pass (ROADMAP Queue 2).
+//  terms (PERF.md section 6).  Every sum is fp32.  What the clusters cost:
+//  a cluster needs `group` free block slots in one GPC at once, so the
+//  card holds fewer dK / dV blocks than it would single ones
+//  (chip_smoke.py's resident_blocks).  Not done here: a fused dQ pass (it
+//  needs atomics or ordered semaphores; ROADMAP Queue 2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_utils.cuh"
 #include "mma_utils.cuh"
 
 namespace {
@@ -565,12 +606,11 @@ cudaError_t launch_mma(const Params& p, int B, int D, cudaStream_t stream) {
 
 // ---------------------------------------------------------------------------
 // backward (bf16, D % 16 == 0, every row of q, k, v, o, dO, dq, dk, dv
-// 16-byte aligned): FlashAttention-2's three passes
+// 16-byte aligned): a preprocess, then the dK / dV pass and the dQ pass,
+// each reading its work list (flash_attention.py · backward_plan) by block
 // ---------------------------------------------------------------------------
 constexpr int BWD_BQ = 64;                 // query rows per tile
 constexpr int BWD_BK = 64;                 // keys per tile
-constexpr int BWD_WARPS = 4;               // 16 rows (dq) or keys (dk/dv) each
-constexpr int BWD_THREADS = 32 * BWD_WARPS;
 constexpr int PRE_WARPS = 8;               // rows per preprocess block
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -581,11 +621,16 @@ struct BwdParams {
   const __nv_bfloat16* o;
   const __nv_bfloat16* dout;
   const float* lse;  // (B, H, S), the forward's
-  float* delta;      // (B, H, S) scratch: rowsum(dO o O)
+  // scratch, each (B, H, S_pad), S_pad = S rounded up to a whole tile, so a
+  // tile's rows are one aligned 256-byte run: lse in log2 units (+inf for
+  // a row that sees no key and for the padding, so every P of it is
+  // exp2(-inf) = 0) and Di = rowsum(dO o O) (0 in the padding)
+  float* lse2;
+  float* delta;
   __nv_bfloat16* dq;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  int S, T, H, group;
+  int S, T, H, group, S_pad;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -598,46 +643,26 @@ struct BwdParams {
   int causal, window, q_offset;
 };
 
-// (a, b) as a pair of packed bf16 pairs: hi = bf16(a, b), lo = bf16 of
-// what hi leaves over, so hi + lo carries ~16 of fp32's mantissa bits
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = mma::pack_bf16(a - hf.x, b - hf.y);
+// the forward's masks on absolute positions: key t, query position qp
+__device__ __forceinline__ bool visible(const BwdParams& p, int t, int qp) {
+  bool ok = t < p.T;
+  if (p.causal) ok = ok && t <= qp;
+  if (p.window > 0) ok = ok && qp - t < p.window;
+  return ok;
 }
 
-// the A fragment of 16 x 16 from the C fragments of two adjacent 8-column
-// blocks c0, c1, as hi and lo halves (split_bf16)
-__device__ __forceinline__ void split_a_fragment(const float (&c0)[4],
-                                                 const float (&c1)[4],
-                                                 uint32_t (&hi)[4],
-                                                 uint32_t (&lo)[4]) {
-  split_bf16(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16(c1[2], c1[3], hi[3], lo[3]);
-}
-
-// the lse of a row in log2 units, for exp2f(s * scale_log2 - lse2): a row
-// that sees no key (lse -inf) or lies past S gets +inf, so every P of it
-// is exp2(-inf) = 0
-__device__ __forceinline__ float lse_log2(const BwdParams& p, long long idx,
-                                          bool valid) {
-  if (!valid) return INFINITY;
-  const float x = p.lse[idx];
-  return x == -INFINITY ? INFINITY : x * LOG2E;
-}
-
-// Di = rowsum(dO o O) in fp32, one warp a row, rows in (b, h, i) order
+// Di and lse2 of one row a warp, rows in (b, h, i) order over S_pad
 __global__ void __launch_bounds__(32 * PRE_WARPS)
     flash_bwd_preprocess_kernel(const BwdParams p, int B, int D) {
   const long long row = (long long)blockIdx.x * PRE_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= (long long)B * p.H * p.S) return;  // the whole warp
-  const int i = static_cast<int>(row % p.S);
-  const int bh = static_cast<int>(row / p.S);
+  if (row >= (long long)B * p.H * p.S_pad) return;  // the whole warp
+  const int i = static_cast<int>(row % p.S_pad);
+  const int bh = static_cast<int>(row / p.S_pad);
+  if (i >= p.S) {
+    if (lane == 0) p.lse2[row] = INFINITY, p.delta[row] = 0.f;
+    return;
+  }
   const int h = bh % p.H, b = bh / p.H;
   const __nv_bfloat16* o =
       p.o + b * p.o_sb + (long long)i * p.o_ss + h * p.o_sh;
@@ -649,502 +674,621 @@ __global__ void __launch_bounds__(32 * PRE_WARPS)
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) p.delta[row] = acc;
-}
-
-template <int D>
-constexpr int bwd_dkdv_smem_bytes() {
-  // K and V tiles, MMA_STAGES x (Q tile, dO tile), MMA_STAGES x (lse2, Di)
-  return (2 * BWD_BK * D + MMA_STAGES * 2 * BWD_BQ * D) * 2 +
-         MMA_STAGES * 2 * BWD_BQ * 4;
-}
-
-template <int D>
-constexpr int bwd_dq_smem_bytes() {
-  // Q and dO tiles, MMA_STAGES x (K tile, V tile)
-  return (2 * BWD_BQ * D + MMA_STAGES * 2 * BWD_BK * D) * 2;
-}
-
-// One query tile for one warp's 16 keys (rows warp*16 .. +15 of the K / V
-// tiles, absolute keys w0 ..): S^T = K Q^T and dP^T = V dO^T, P^T =
-// exp2(S^T scale_log2 - lse2), dS^T = P^T o (dP^T - Di); dV += P^T dO and
-// dK += dS^T Q with P^T and dS^T reused from registers as A operands.
-// Lane l holds keys g = l/4 and g + 8 of the warp, queries 2 * (l % 4) +
-// {0, 1} of each 8-query block.
-template <int D, bool MASK>
-__device__ __forceinline__ void dkdv_tile(
-    const BwdParams& p, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-    const __nv_bfloat16* qs, const __nv_bfloat16* dos, const float* ls,
-    const float* ds, float (&dk)[D / 8][4], float (&dv)[D / 8][4], int w0,
-    int q0, float scale_log2, int warp, int lane) {
-  constexpr int NB_S = BWD_BQ / 8;  // 8-query column blocks of S^T
-  constexpr int NB_O = D / 8;       // 8-dim column blocks of dK, dV
-  const int g = lane >> 2, tig = lane & 3;
-  const int r8 = lane & 7, mi = lane >> 3;
-
-  float s[NB_S][4], dp[NB_S][4];
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t kf[4], vf[4];
-    const int a_off =
-        mma::tile_off<D>(warp * 16 + r8 + (mi & 1) * 8, 2 * kk + (mi >> 1));
-    mma::ldmatrix_x4(kf, ks + a_off);
-    mma::ldmatrix_x4(vf, vs + a_off);
-#pragma unroll
-    for (int nb = 0; nb < NB_S; nb += 2) {
-      // queries nb*8 .. nb*8+15, dims kk*16 .. kk*16+15: two B fragments
-      const int b_off =
-          mma::tile_off<D>(nb * 8 + r8 + (mi >> 1) * 8, 2 * kk + (mi & 1));
-      uint32_t b[4];
-      mma::ldmatrix_x4(b, qs + b_off);
-      const uint32_t q0f[2] = {b[0], b[1]}, q1f[2] = {b[2], b[3]};
-      mma::mma_16816(s[nb], kf, q0f);
-      mma::mma_16816(s[nb + 1], kf, q1f);
-      mma::ldmatrix_x4(b, dos + b_off);
-      const uint32_t d0f[2] = {b[0], b[1]}, d1f[2] = {b[2], b[3]};
-      mma::mma_16816(dp[nb], vf, d0f);
-      mma::mma_16816(dp[nb + 1], vf, d1f);
-    }
+  if (lane == 0) {
+    const float x = p.lse[(long long)bh * p.S + i];
+    p.delta[row] = acc;
+    p.lse2[row] = x == -INFINITY ? INFINITY : x * LOG2E;
   }
+}
+
+// ---------------------------------------------------------------------------
+// dK / dV and dQ kernels (every tensor-core head dim: 16, 32, 64, 96, 128)
+// ---------------------------------------------------------------------------
+// Warps 0-3 (one warpgroup) consume: wgmma and the elementwise work.  Warp
+// 4 produces: one thread issues every copy.  A third stage in the ring
+// measured no faster (PERF.md section 6).
+constexpr int WG_THREADS = 160;
+constexpr int WG_STAGES = 2;  // tiles in flight in the ring
+
+template <int D>
+struct WgTile {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 96 || D == 128,
+                "the backward takes head dims 16, 32, 64, 96 and 128");
+  // columns per TMA box: the widest swizzle panel that divides D, so
+  // D 96 is three 32-column panels (64-byte rows) and D 16 one of 32 bytes
+  static constexpr int PANEL = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int ROW_BYTES = 2 * PANEL;     // 128, 64 or 32
+  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = 64 * D * 2;        // one 64-row tile
+  // the descriptors' swizzle: 1 128-byte, 2 64-byte, 3 32-byte
+  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+  // two blocks a multiprocessor at D <= 64, each thread up to 200
+  // registers (2 x 160 x 200 of the 65,536), one block at D 96 and 128 (up
+  // to 255): the consumer holds dK, dV, S^T and dP^T in registers at once
+  static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
+  // the dQ block holds dQ, S and dP (no dV): three blocks a multiprocessor
+  // at D <= 64 (136 registers a thread), measured against two (PERF.md
+  // section 6)
+  static constexpr int DQ_MIN_BLOCKS = D <= 64 ? 3 : 1;
+};
+
+// Shared memory of the dK / dV block: K and V tiles, WG_STAGES x (Q tile,
+// dO tile, the tile's lse2 and Di rows, padded to 1 KB), 8 barriers' worth
+// of words, 1 KB to align the base.  The epilogue stages fp32 dK and dV
+// (2 x 64 rows x (D + 4) floats) over the ring, which has exactly that
+// size.  D 64: 16 + 34 + 1 KB = 52,288 bytes (two blocks a multiprocessor);
+// D 128: 101,440; D 96: 76,864; D 32: 27,712; D 16: 15,424.
+template <int D>
+constexpr int wg_dkdv_smem_bytes() {
+  return 2 * WgTile<D>::BYTES + WG_STAGES * (2 * WgTile<D>::BYTES + 1024) +
+         64 + 1024;
+}
+static_assert(WG_STAGES * (2 * WgTile<64>::BYTES + 1024) >=
+                  2 * 64 * (64 + 4) * 4,
+              "the ring holds the fp32 dK / dV staging");
+
+// Shared memory of the dQ block: Q and dO tiles, WG_STAGES x (K tile, V
+// tile), barriers, alignment; the epilogue stages bf16 dQ (64 x (D + 8))
+// over the ring.  D 64: 50,240 bytes.
+template <int D>
+constexpr int wg_dq_smem_bytes() {
+  return 2 * WgTile<D>::BYTES + WG_STAGES * 2 * WgTile<D>::BYTES + 64 + 1024;
+}
+
+// descriptor of K step kk (16 columns) of a K-major 64-row tile
+template <int D>
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  using W = WgTile<D>;
+  constexpr int STEPS = W::PANEL / 16;  // K steps a panel
+  return hop::smem_desc(
+      tile + (kk / STEPS) * W::PANEL_BYTES + (kk % STEPS) * 32, 16,
+      8 * W::ROW_BYTES, W::LAYOUT);
+}
+
+// descriptor of K step kk (16 rows, every column) of an MN-major tile
+template <int D>
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int kk) {
+  using W = WgTile<D>;
+  return hop::smem_desc(tile + kk * 16 * W::ROW_BYTES, W::PANEL_BYTES,
+                        8 * W::ROW_BYTES, W::LAYOUT);
+}
+
+// 64 rows of one (b, head) of a tensor map into a tile: a box a panel
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         int head, int row0, int b,
+                                         uint32_t bar) {
+  using W = WgTile<D>;
 #pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb) {
+  for (int pn = 0; pn < D / W::PANEL; ++pn)
+    hop::tma_load_4d(dst + pn * W::PANEL_BYTES, map, pn * W::PANEL, head,
+                     row0, b, bar);
+}
+
+// One query tile against the block's 64 keys: S^T = K Q^T and dP^T =
+// V dO^T (K and V the A operands, Q and dO K-major B), P^T = exp2(S^T
+// scale_log2 - lse2) and dS^T = P^T o (dP^T - Di) in registers, then dV +=
+// P^T dO and dK += dS^T Q with P^T and dS^T (hi + lo) as register A
+// fragments and dO, Q MN-major.  Four commit groups, so the tensor cores
+// run dP^T while P^T is formed and dV while dS^T is.  Thread (warp w,
+// lane l) holds keys 16 w + l / 4 (+ 8) and, in each 8-query block n,
+// queries 8 n + 2 (l % 4) + {0, 1}.
+template <int D, bool MASK>
+__device__ __forceinline__ void dkdv_step(
+    const BwdParams& p, uint32_t ks, uint32_t vs, uint32_t qs, uint32_t dos,
+    const float* ls, const float* ds, float (&dk)[D / 2], float (&dv)[D / 2],
+    int k0, int q0, float scale_log2, int warp, int lane) {
+  float st[32], dpt[32];
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_ss(st, kmajor<D>(ks, kk), kmajor<D>(qs, kk), kk);
+  hop::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_ss(dpt, kmajor<D>(vs, kk), kmajor<D>(dos, kk), kk);
+  hop::wgmma_commit();
+  hop::wgmma_wait<1>();  // S^T
+  hop::fence_operand(st);
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int col = 8 * n + 2 * tig;
+    const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int col = nb * 8 + tig * 2 + (i & 1);
-      float pv = exp2f(s[nb][i] * scale_log2 - ls[col]);
+      float pv = exp2f(st[4 * n + i] * scale_log2 - ((i & 1) ? l2.y : l2.x));
       if constexpr (MASK) {
-        const int t = w0 + g + (i >> 1) * 8;
-        const int qp = q0 + col + p.q_offset;
-        bool ok = t < p.T;
-        if (p.causal) ok = ok && t <= qp;
-        if (p.window > 0) ok = ok && qp - t < p.window;
-        pv = ok ? pv : 0.f;
+        const int t = k0 + 16 * warp + g + 8 * (i >> 1);
+        pv = visible(p, t, q0 + col + (i & 1) + p.q_offset) ? pv : 0.f;
       }
-      s[nb][i] = pv;
-      dp[nb][i] = pv * (dp[nb][i] - ds[col]);
+      st[4 * n + i] = pv;
     }
   }
-  // dV += P^T dO, dK += dS^T Q: two adjacent 8-query blocks are one A
-  // fragment (dS^T as hi + lo); dO and Q are read as stored
-  // ([query][dim]) through ldmatrix.trans
+  uint32_t pa[4][4];
 #pragma unroll
-  for (int kk = 0; kk < BWD_BQ / 16; ++kk) {
-    const uint32_t pa[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-    uint32_t da[4], dl[4];
-    split_a_fragment(dp[2 * kk], dp[2 * kk + 1], da, dl);
+  for (int kk = 0; kk < 4; ++kk) hop::accumulator_to_a(st, kk, pa[kk]);
+  hop::fence_operand(dv);
+  hop::wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < NB_O; nb += 2) {
-      const int b_off =
-          mma::tile_off<D>(kk * 16 + r8 + (mi & 1) * 8, nb + (mi >> 1));
-      uint32_t b[4];
-      mma::ldmatrix_x4_trans(b, dos + b_off);
-      const uint32_t d0f[2] = {b[0], b[1]}, d1f[2] = {b[2], b[3]};
-      mma::mma_16816(dv[nb], pa, d0f);
-      mma::mma_16816(dv[nb + 1], pa, d1f);
-      mma::ldmatrix_x4_trans(b, qs + b_off);
-      const uint32_t q0f[2] = {b[0], b[1]}, q1f[2] = {b[2], b[3]};
-      mma::mma_16816(dk[nb], da, q0f);
-      mma::mma_16816(dk[nb], dl, q0f);
-      mma::mma_16816(dk[nb + 1], da, q1f);
-      mma::mma_16816(dk[nb + 1], dl, q1f);
-    }
+  for (int kk = 0; kk < 4; ++kk)
+    hop::wgmma_rs_tb(dv, pa[kk], mnmajor<D>(dos, kk), 1);
+  hop::wgmma_commit();
+  hop::wgmma_wait<1>();  // dP^T (dV may still run)
+  hop::fence_operand(dpt);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float2 di = *reinterpret_cast<const float2*>(ds + 8 * n + 2 * tig);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      dpt[4 * n + i] =
+          st[4 * n + i] * (dpt[4 * n + i] - ((i & 1) ? di.y : di.x));
   }
+  uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::accumulator_to_a_split(dpt, kk, dh[kk], dl[kk]);
+  hop::fence_operand(dk);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hop::wgmma_rs_tb(dk, dh[kk], mnmajor<D>(qs, kk), 1);
+    hop::wgmma_rs_tb(dk, dl[kk], mnmajor<D>(qs, kk), 1);
+  }
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_operand(dv);
+  hop::fence_operand(dk);
 }
 
-// One block per (b, kv head, 64-key tile): K_j and V_j stay in shared
-// memory while the block walks the query tiles of every query head of the
-// group that the masks let see the tile, Q / dO / lse / Di through a ring
-// of MMA_STAGES stages; dK and dV (the GQA sum over the group included)
-// build up in registers and are written once.
+// One block per (query head, b, work item (key tile, first query tile,
+// query tiles)), items heaviest first; a cluster of `group` blocks holds
+// the query heads of one kv head.  The producer brings K and V once and
+// the item's Q / dO / lse2 / Di tiles through a ring of WG_STAGES stages
+// (TMA and bulk copies, full and empty mbarriers); the consumer warpgroup
+// builds its head's dK and dV in fp32 registers.  Then each member stages
+// them in its shared memory and, after a cluster barrier, member r sums
+// rows [64 r / group, 64 (r + 1) / group) over members 0 .. group - 1 in
+// that order through distributed shared memory, scales dK and writes bf16
+// once: no atomics, the same bits on every call.
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    flash_bwd_dkdv_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "tensor-core path needs D % 16 == 0");
-  constexpr int TILE = BWD_BQ * D;  // elements of one Q or dO tile
-  constexpr int NB_O = D / 8;
-  constexpr int CPR = D / 8;
+__global__ void __launch_bounds__(WG_THREADS, WgTile<D>::MIN_BLOCKS)
+    flash_bwd_dkdv_wgmma_kernel(const BwdParams p,
+                                const int* __restrict__ items,
+                                const __grid_constant__ CUtensorMap tm_q,
+                                const __grid_constant__ CUtensorMap tm_k,
+                                const __grid_constant__ CUtensorMap tm_v,
+                                const __grid_constant__ CUtensorMap tm_do) {
+  using W = WgTile<D>;
+  constexpr int STAGE_BYTES = 2 * W::BYTES + 1024;
+  constexpr int RING = 2 * W::BYTES;
+  constexpr int BARS = RING + WG_STAGES * STAGE_BYTES;
+  constexpr int PITCH = D + 4;  // floats a staged row
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* vs = ks + BWD_BK * D;
-  __nv_bfloat16* ring = vs + BWD_BK * D;
-  float* fring = reinterpret_cast<float*>(ring + MMA_STAGES * 2 * TILE);
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t ks = base, vs = base + W::BYTES;
+  const uint32_t kv_full = base + BARS;
+  const uint32_t full0 = kv_full + 8, empty0 = full0 + 8 * WG_STAGES;
 
-  const int K = p.H / p.group;
-  const int b = blockIdx.x / K, kvh = blockIdx.x % K;
-  const int k0 = blockIdx.y * BWD_BK;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tig = lane & 3;
-
-  // the queries that see a key of this tile, in whole tiles
-  const int k_last = min(k0 + BWD_BK, p.T) - 1;
-  const int i_lo = p.causal ? max(0, k0 - p.q_offset) : 0;
-  const int i_hi =
-      p.window > 0 ? min(p.S, k_last + p.window - p.q_offset) : p.S;
-  const int q_first = i_lo / BWD_BQ * BWD_BQ;
-  const int nqt =
-      i_hi > q_first ? (i_hi - q_first + BWD_BQ - 1) / BWD_BQ : 0;
-  const int n_it = p.group * nqt;  // (query head, query tile) pairs
-
-  const __nv_bfloat16* kg =
-      p.k + b * p.k_sb + (long long)k0 * p.k_st + kvh * p.k_sh;
-  const __nv_bfloat16* vg =
-      p.v + b * p.v_sb + (long long)k0 * p.v_st + kvh * p.v_sh;
-  auto load_q = [&](int it, int stage) {
-    const int h = kvh * p.group + it / nqt;
-    const int q0 = q_first + (it % nqt) * BWD_BQ;
-    __nv_bfloat16* qs = ring + stage * 2 * TILE;
-    mma::load_tile<BWD_BQ, D>(
-        qs, p.q + b * p.q_sb + (long long)q0 * p.q_ss + h * p.q_sh, p.q_ss,
-        p.S - q0, D, true, tid, BWD_THREADS);
-    mma::load_tile<BWD_BQ, D>(
-        qs + TILE,
-        p.dout + b * p.do_sb + (long long)q0 * p.do_ss + h * p.do_sh,
-        p.do_ss, p.S - q0, D, true, tid, BWD_THREADS);
-    float* ls = fring + stage * 2 * BWD_BQ;
-    for (int r = tid; r < BWD_BQ; r += BWD_THREADS) {
-      const long long idx = ((long long)b * p.H + h) * p.S + q0 + r;
-      const bool valid = q0 + r < p.S;
-      ls[r] = lse_log2(p, idx, valid);
-      ls[BWD_BQ + r] = valid ? p.delta[idx] : 0.f;
-    }
-  };
-
-  // group 0: K, V and the first stage; every step commits one group
-  // (empty past the last), so wait<1> means "this stage landed"
-  mma::load_tile<BWD_BK, D>(ks, kg, p.k_st, p.T - k0, D, true, tid,
-                            BWD_THREADS);
-  mma::load_tile<BWD_BK, D>(vs, vg, p.v_st, p.T - k0, D, true, tid,
-                            BWD_THREADS);
-  if (n_it > 0) load_q(0, 0);
-  mma::cp_async_commit();
-
-  float dk[NB_O][4], dv[NB_O][4];
-#pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dk[nb][i] = dv[nb][i] = 0.f;
-  const float scale_log2 = p.scale * LOG2E;
-  const int w0 = k0 + warp * 16;  // this warp's first key
-  const int w_last = min(w0 + 15, p.T - 1);
-
-  for (int it = 0; it < n_it; ++it) {
-    if (it + 1 < n_it) load_q(it + 1, (it + 1) % MMA_STAGES);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncthreads();
-    const int q0 = q_first + (it % nqt) * BWD_BQ;
-    const __nv_bfloat16* qs = ring + (it % MMA_STAGES) * 2 * TILE;
-    const float* ls = fring + (it % MMA_STAGES) * 2 * BWD_BQ;
-    if (w0 < p.T) {
-      // a tile whose every (key, query) pair of this warp is masked adds
-      // nothing; only the tiles that cross the diagonal, the window's edge
-      // or T take the mask (rows past S have P = 0 through their lse)
-      const int qa = q0 + p.q_offset;
-      const int qz = min(q0 + BWD_BQ, p.S) - 1 + p.q_offset;
-      const bool skip = (p.causal && qz < w0) ||
-                        (p.window > 0 && qa - w_last >= p.window);
-      const bool full = w0 + 16 <= p.T && (!p.causal || qa >= w0 + 15) &&
-                        (p.window <= 0 || qz - w0 < p.window);
-      if (!skip && full)
-        dkdv_tile<D, false>(p, ks, vs, qs, qs + TILE, ls, ls + BWD_BQ, dk, dv,
-                            w0, q0, scale_log2, warp, lane);
-      else if (!skip)
-        dkdv_tile<D, true>(p, ks, vs, qs, qs + TILE, ls, ls + BWD_BQ, dk, dv,
-                           w0, q0, scale_log2, warp, lane);
-    }
-    __syncthreads();  // this stage is refilled MMA_STAGES tiles on
-  }
-  mma::cp_async_wait<0>();
-  __syncthreads();
-
-  // stage this warp's rows of dK (times scale) and dV in its own rows of
-  // the K and V tiles (read by no other warp), then 16-byte stores; a key
-  // no query sees gets 0
-#pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;
-      const int col = nb * 8 + tig * 2;
-      const int off = mma::tile_off<D>(row, col / 8) + col % 8;
-      *reinterpret_cast<uint32_t*>(ks + off) = mma::pack_bf16(
-          dk[nb][2 * r] * p.scale, dk[nb][2 * r + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(vs + off) =
-          mma::pack_bf16(dv[nb][2 * r], dv[nb][2 * r + 1]);
-    }
-  }
-  __syncthreads();
-  __nv_bfloat16* dkg =
-      p.dk + b * p.dk_sb + (long long)k0 * p.dk_st + kvh * p.dk_sh;
-  __nv_bfloat16* dvg =
-      p.dv + b * p.dv_sb + (long long)k0 * p.dv_st + kvh * p.dv_sh;
-  for (int e = tid; e < BWD_BK * CPR; e += BWD_THREADS) {
-    const int r = e / CPR, ch = e % CPR;
-    if (k0 + r < p.T) {
-      const int off = mma::tile_off<D>(r, ch);
-      *reinterpret_cast<uint4*>(dkg + r * p.dk_st + ch * 8) =
-          *reinterpret_cast<const uint4*>(ks + off);
-      *reinterpret_cast<uint4*>(dvg + r * p.dv_st + ch * 8) =
-          *reinterpret_cast<const uint4*>(vs + off);
-    }
-  }
-}
-
-// One key tile for one warp's 16 query rows: S = Q K^T and dP = dO V^T,
-// P = exp2(S scale_log2 - lse2), dS = P o (dP - Di), dQ += dS K with dS
-// reused from registers as the A operand and K read through
-// ldmatrix.trans.
-template <int D, bool MASK>
-__device__ __forceinline__ void dq_tile(
-    const BwdParams& p, const __nv_bfloat16* qs, const __nv_bfloat16* dos,
-    const __nv_bfloat16* ks, const __nv_bfloat16* vs, float (&acc)[D / 8][4],
-    const float (&lse2)[2], const float (&di)[2], int start, int row0,
-    float scale_log2, int warp, int lane) {
-  constexpr int NB_S = BWD_BK / 8;  // 8-key column blocks of S
-  constexpr int NB_O = D / 8;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r8 = lane & 7, mi = lane >> 3;
-
-  float s[NB_S][4], dp[NB_S][4];
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nb][i] = dp[nb][i] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qf[4], df[4];
-    const int a_off =
-        mma::tile_off<D>(warp * 16 + r8 + (mi & 1) * 8, 2 * kk + (mi >> 1));
-    mma::ldmatrix_x4(qf, qs + a_off);
-    mma::ldmatrix_x4(df, dos + a_off);
-#pragma unroll
-    for (int nb = 0; nb < NB_S; nb += 2) {
-      const int b_off =
-          mma::tile_off<D>(nb * 8 + r8 + (mi >> 1) * 8, 2 * kk + (mi & 1));
-      uint32_t b[4];
-      mma::ldmatrix_x4(b, ks + b_off);
-      const uint32_t k0f[2] = {b[0], b[1]}, k1f[2] = {b[2], b[3]};
-      mma::mma_16816(s[nb], qf, k0f);
-      mma::mma_16816(s[nb + 1], qf, k1f);
-      mma::ldmatrix_x4(b, vs + b_off);
-      const uint32_t v0f[2] = {b[0], b[1]}, v1f[2] = {b[2], b[3]};
-      mma::mma_16816(dp[nb], df, v0f);
-      mma::mma_16816(dp[nb + 1], df, v1f);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = i >> 1;
-      float pv = exp2f(s[nb][i] * scale_log2 - lse2[r]);
-      if constexpr (MASK) {
-        const int t = start + nb * 8 + tig * 2 + (i & 1);
-        const int qp = row0 + g + r * 8 + p.q_offset;
-        bool ok = t < p.T;
-        if (p.causal) ok = ok && t <= qp;
-        if (p.window > 0) ok = ok && qp - t < p.window;
-        pv = ok ? pv : 0.f;
-      }
-      s[nb][i] = pv * (dp[nb][i] - di[r]);
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < BWD_BK / 16; ++kk) {
-    uint32_t af[4], al[4];  // dS as hi + lo
-    split_a_fragment(s[2 * kk], s[2 * kk + 1], af, al);
-#pragma unroll
-    for (int nb = 0; nb < NB_O; nb += 2) {
-      uint32_t b[4];
-      mma::ldmatrix_x4_trans(
-          b, ks + mma::tile_off<D>(kk * 16 + r8 + (mi & 1) * 8, nb + (mi >> 1)));
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma::mma_16816(acc[nb], af, b0);
-      mma::mma_16816(acc[nb], al, b0);
-      mma::mma_16816(acc[nb + 1], af, b1);
-      mma::mma_16816(acc[nb + 1], al, b1);
-    }
-  }
-}
-
-// One block per (b, head, 64-query tile), walking the key tiles the masks
-// let it see as the forward does, K / V through the same two-stage ring;
-// Q and dO stay in shared memory, dQ in registers, written once.
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    flash_bwd_dq_kernel(const BwdParams p) {
-  static_assert(D % 16 == 0, "tensor-core path needs D % 16 == 0");
-  constexpr int TILE = BWD_BK * D;  // elements of one K or V tile
-  constexpr int NB_O = D / 8;
-  constexpr int CPR = D / 8;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* dos = qs + BWD_BQ * D;
-  __nv_bfloat16* kvs = dos + BWD_BQ * D;
-
-  // causal: the heaviest query blocks (most KV tiles) are launched first
-  const int qb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
+  const int h = blockIdx.x, b = blockIdx.y;
   const int kvh = h / p.group;
+  const int* item = items + 3 * blockIdx.z;
+  const int k0 = item[0] * BWD_BK, qt0 = item[1], nq = item[2];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int q_block0 = qb * BWD_BQ;
-  const int row0 = q_block0 + warp * 16;
+  const long long row_base = ((long long)b * p.H + h) * p.S_pad;
 
-  const __nv_bfloat16* kbase = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + b * p.v_sb + kvh * p.v_sh;
-  const int first_pos = q_block0 + p.q_offset;
-  const int last_pos = min(q_block0 + BWD_BQ, p.S) - 1 + p.q_offset;
-  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
-  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
-  const int t_first = kv_lo / BWD_BK * BWD_BK;
-  const int ntiles =
-      kv_hi > t_first ? (kv_hi - t_first + BWD_BK - 1) / BWD_BK : 0;
-
-  auto load_kv = [&](int tile, int stage) {
-    const int t0 = t_first + tile * BWD_BK;
-    __nv_bfloat16* ks = kvs + stage * 2 * TILE;
-    mma::load_tile<BWD_BK, D>(ks, kbase + (long long)t0 * p.k_st, p.k_st,
-                              p.T - t0, D, true, tid, BWD_THREADS);
-    mma::load_tile<BWD_BK, D>(ks + TILE, vbase + (long long)t0 * p.v_st,
-                              p.v_st, p.T - t0, D, true, tid, BWD_THREADS);
-  };
-
-  // group 0: Q, dO and K / V tile 0; every step commits one group
-  mma::load_tile<BWD_BQ, D>(
-      qs, p.q + b * p.q_sb + (long long)q_block0 * p.q_ss + h * p.q_sh,
-      p.q_ss, p.S - q_block0, D, true, tid, BWD_THREADS);
-  mma::load_tile<BWD_BQ, D>(
-      dos, p.dout + b * p.do_sb + (long long)q_block0 * p.do_ss + h * p.do_sh,
-      p.do_ss, p.S - q_block0, D, true, tid, BWD_THREADS);
-  if (ntiles > 0) load_kv(0, 0);
-  mma::cp_async_commit();
-
-  float lse2[2], di[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    const long long idx = ((long long)b * p.H + h) * p.S + row;
-    lse2[r] = lse_log2(p, idx, row < p.S);
-    di[r] = row < p.S ? p.delta[idx] : 0.f;
+  if (tid == 0) {
+    hop::mbar_init(kv_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hop::mbar_init(full0 + 8 * s, 1);
+      hop::mbar_init(empty0 + 8 * s, 128);
+    }
+    hop::fence_mbar_init();
   }
-  float acc[NB_O][4];
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      hop::mbar_arrive_expect_tx(kv_full, 2 * W::BYTES);
+      tma_tile<D>(ks, &tm_k, kvh, k0, b, kv_full);
+      tma_tile<D>(vs, &tm_v, kvh, k0, b, kv_full);
+      for (int it = 0; it < nq; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES)
+          hop::mbar_wait(empty0 + 8 * s, (it / WG_STAGES - 1) & 1);
+        const uint32_t stage = base + RING + s * STAGE_BYTES;
+        const uint32_t bar = full0 + 8 * s;
+        const int q0 = (qt0 + it) * BWD_BQ;
+        hop::mbar_arrive_expect_tx(bar, 2 * W::BYTES + 512);
+        tma_tile<D>(stage, &tm_q, h, q0, b, bar);
+        tma_tile<D>(stage + W::BYTES, &tm_do, h, q0, b, bar);
+        hop::bulk_load(stage + 2 * W::BYTES, p.lse2 + row_base + q0, 256, bar);
+        hop::bulk_load(stage + 2 * W::BYTES + 256, p.delta + row_base + q0,
+                       256, bar);
+      }
+    }
+    __syncwarp();
+    hop::cluster_sync();  // the members' dK and dV are staged
+    hop::cluster_sync();  // and summed: the shared memory may go
+    return;
+  }
+
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb)
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   const float scale_log2 = p.scale * LOG2E;
-  const bool warp_live = row0 < p.S;
-  const int warp_first = row0 + p.q_offset;
-  const int warp_last = min(row0 + 15, p.S - 1) + p.q_offset;
-
-  for (int it = 0; it < ntiles; ++it) {
-    if (it + 1 < ntiles) load_kv(it + 1, (it + 1) % MMA_STAGES);
-    mma::cp_async_commit();
-    mma::cp_async_wait<1>();
-    __syncthreads();
-    const int start = t_first + it * BWD_BK;
-    const __nv_bfloat16* ks = kvs + (it % MMA_STAGES) * 2 * TILE;
-    if (warp_live) {
-      const bool skip =
-          (p.causal && start > warp_last) ||
-          (p.window > 0 && start + BWD_BK - 1 <= warp_first - p.window);
-      const bool full =
-          start + BWD_BK <= p.T &&
-          (!p.causal || start + BWD_BK - 1 <= warp_first) &&
-          (p.window <= 0 || warp_last - start < p.window);
-      if (!skip && full)
-        dq_tile<D, false>(p, qs, dos, ks, ks + TILE, acc, lse2, di, start,
-                          row0, scale_log2, warp, lane);
-      else if (!skip)
-        dq_tile<D, true>(p, qs, dos, ks, ks + TILE, acc, lse2, di, start,
-                         row0, scale_log2, warp, lane);
-    }
-    __syncthreads();
+  hop::mbar_wait(kv_full, 0);
+  for (int it = 0; it < nq; ++it) {
+    const int s = it % WG_STAGES;
+    hop::mbar_wait(full0 + 8 * s, (it / WG_STAGES) & 1);
+    const uint32_t stage = base + RING + s * STAGE_BYTES;
+    const float* ls = reinterpret_cast<const float*>(sbase + RING +
+                                                     s * STAGE_BYTES +
+                                                     2 * W::BYTES);
+    const int q0 = (qt0 + it) * BWD_BQ;
+    const int qa = q0 + p.q_offset;
+    // a tile whose every (key, query) pair is visible takes no mask; rows
+    // past S have P = 0 through their lse2
+    const bool all = k0 + BWD_BK <= p.T && (!p.causal || k0 + 63 <= qa) &&
+                     (p.window <= 0 || qa + 63 - k0 < p.window);
+    if (all)
+      dkdv_step<D, false>(p, ks, vs, stage, stage + W::BYTES, ls, ls + 64, dk,
+                          dv, k0, q0, scale_log2, warp, lane);
+    else
+      dkdv_step<D, true>(p, ks, vs, stage, stage + W::BYTES, ls, ls + 64, dk,
+                         dv, k0, q0, scale_log2, warp, lane);
+    hop::mbar_arrive(empty0 + 8 * s);
   }
-  mma::cp_async_wait<0>();
-  __syncthreads();
 
-  // dQ times scale, staged in this warp's own rows of the Q tile
+  // stage fp32 dK and dV over the ring, once every consumer is done with it
+  hop::bar_sync(1, 128);
+  float* staged = reinterpret_cast<float*>(sbase + RING);
+  const int g = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb) {
+  for (int n = 0; n < D / 8; ++n) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;
-      const int col = nb * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(qs + mma::tile_off<D>(row, col / 8) +
-                                   col % 8) =
-          mma::pack_bf16(acc[nb][2 * r] * p.scale,
-                         acc[nb][2 * r + 1] * p.scale);
+    for (int half = 0; half < 2; ++half) {
+      const int off = (16 * warp + g + 8 * half) * PITCH + 8 * n + 2 * tig;
+      *reinterpret_cast<float2*>(staged + off) =
+          make_float2(dk[4 * n + 2 * half], dk[4 * n + 2 * half + 1]);
+      *reinterpret_cast<float2*>(staged + 64 * PITCH + off) =
+          make_float2(dv[4 * n + 2 * half], dv[4 * n + 2 * half + 1]);
     }
   }
+  hop::cluster_sync();
+  // this member's rows, summed over the members in rank order
+  const int G = p.group;
+  const int rank = static_cast<int>(hop::cluster_rank());
+  const int r0 = rank * BWD_BK / G, r1 = (rank + 1) * BWD_BK / G;
+  constexpr int C4 = D / 4;  // 4-float chunks a row
+  const int n_mine = (r1 - r0) * C4;
+  for (int e = tid; e < 2 * n_mine; e += 128) {
+    const int dv_half = e >= n_mine;
+    const int rr = r0 + (e - dv_half * n_mine) / C4;
+    const int c = (e - dv_half * n_mine) % C4;
+    const uint32_t off =
+        base + RING + ((dv_half * 64 + rr) * PITCH + 4 * c) * 4;
+    float4 acc = hop::ld_cluster_f4(hop::map_rank(off, 0));
+#pragma unroll 4
+    for (int m = 1; m < G; ++m) {
+      const float4 x = hop::ld_cluster_f4(hop::map_rank(off, m));
+      acc.x += x.x, acc.y += x.y, acc.z += x.z, acc.w += x.w;
+    }
+    const int t = k0 + rr;
+    if (t < p.T) {
+      const float f = dv_half ? 1.f : p.scale;
+      __nv_bfloat16* dst =
+          dv_half ? p.dv + b * p.dv_sb + (long long)t * p.dv_st + kvh * p.dv_sh
+                  : p.dk + b * p.dk_sb + (long long)t * p.dk_st + kvh * p.dk_sh;
+      *reinterpret_cast<uint2*>(dst + 4 * c) =
+          make_uint2(hop::pack_bf16(acc.x * f, acc.y * f),
+                     hop::pack_bf16(acc.z * f, acc.w * f));
+    }
+  }
+  hop::cluster_sync();
+}
+
+// One key tile against the block's 64 query rows: S = Q K^T and dP =
+// dO V^T (Q and dO the A operands, K and V K-major B), P and dS = P o
+// (dP - Di) in registers, dQ += dS K with dS (hi + lo) as register A
+// fragments and K MN-major.  Thread (warp w, lane l) holds query rows
+// 16 w + l / 4 (+ 8), keys 8 n + 2 (l % 4) + {0, 1} of block n.
+template <int D, bool MASK>
+__device__ __forceinline__ void dq_step(
+    const BwdParams& p, uint32_t qs, uint32_t dos, uint32_t ks, uint32_t vs,
+    float (&dq)[D / 2], const float (&lse2)[2], const float (&di)[2], int k0,
+    int q0, float scale_log2, int warp, int lane) {
+  float sc[32], dp[32];
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_ss(sc, kmajor<D>(qs, kk), kmajor<D>(ks, kk), kk);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    hop::wgmma_ss(dp, kmajor<D>(dos, kk), kmajor<D>(vs, kk), kk);
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_operand(sc);
+  hop::fence_operand(dp);
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * n + i, half = i >> 1;
+      float pv = exp2f(sc[r] * scale_log2 - lse2[half]);
+      if constexpr (MASK) {
+        const int t = k0 + 8 * n + 2 * tig + (i & 1);
+        const int qp = q0 + 16 * warp + g + 8 * half + p.q_offset;
+        pv = visible(p, t, qp) ? pv : 0.f;
+      }
+      sc[r] = pv * (dp[r] - di[half]);
+    }
+  }
+  uint32_t dh[4][4], dl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hop::accumulator_to_a_split(sc, kk, dh[kk], dl[kk]);
+  hop::fence_operand(dq);
+  hop::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hop::wgmma_rs_tb(dq, dh[kk], mnmajor<D>(ks, kk), 1);
+    hop::wgmma_rs_tb(dq, dl[kk], mnmajor<D>(ks, kk), 1);
+  }
+  hop::wgmma_commit();
+  hop::wgmma_wait<0>();
+  hop::fence_operand(dq);
+}
+
+// One block per (query head, b, work item (query tile, first key tile,
+// key tiles)), items heaviest first.  The producer brings Q and dO once
+// and the item's K / V tiles through the ring; the consumer warpgroup
+// builds dQ in fp32 registers and writes it once, scaled, as bf16.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS, WgTile<D>::DQ_MIN_BLOCKS)
+    flash_bwd_dq_wgmma_kernel(const BwdParams p,
+                              const int* __restrict__ items,
+                              const __grid_constant__ CUtensorMap tm_q,
+                              const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_do) {
+  using W = WgTile<D>;
+  constexpr int STAGE_BYTES = 2 * W::BYTES;
+  constexpr int RING = 2 * W::BYTES;
+  constexpr int BARS = RING + WG_STAGES * STAGE_BYTES;
+  constexpr int PITCH = D + 8;  // bf16 a staged row
+  static_assert(64 * PITCH * 2 <= WG_STAGES * STAGE_BYTES,
+                "the ring holds the bf16 dQ staging");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t qs = base, dos = base + W::BYTES;
+  const uint32_t q_full = base + BARS;
+  const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * WG_STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / p.group;
+  const int* item = items + 3 * blockIdx.z;
+  const int q0 = item[0] * BWD_BQ, kt0 = item[1], nk = item[2];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  if (tid == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < WG_STAGES; ++s) {
+      hop::mbar_init(full0 + 8 * s, 1);
+      hop::mbar_init(empty0 + 8 * s, 128);
+    }
+    hop::fence_mbar_init();
+  }
   __syncthreads();
-  __nv_bfloat16* dqg =
-      p.dq + b * p.dq_sb + (long long)q_block0 * p.dq_ss + h * p.dq_sh;
-  for (int e = tid; e < BWD_BQ * CPR; e += BWD_THREADS) {
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      hop::mbar_arrive_expect_tx(q_full, 2 * W::BYTES);
+      tma_tile<D>(qs, &tm_q, h, q0, b, q_full);
+      tma_tile<D>(dos, &tm_do, h, q0, b, q_full);
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % WG_STAGES;
+        if (it >= WG_STAGES)
+          hop::mbar_wait(empty0 + 8 * s, (it / WG_STAGES - 1) & 1);
+        const uint32_t stage = base + RING + s * STAGE_BYTES;
+        const uint32_t bar = full0 + 8 * s;
+        const int k0 = (kt0 + it) * BWD_BK;
+        hop::mbar_arrive_expect_tx(bar, 2 * W::BYTES);
+        tma_tile<D>(stage, &tm_k, kvh, k0, b, bar);
+        tma_tile<D>(stage + W::BYTES, &tm_v, kvh, k0, b, bar);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, tig = lane & 3;
+  const long long row = ((long long)b * p.H + h) * p.S_pad + q0 + 16 * warp + g;
+  const float lse2[2] = {p.lse2[row], p.lse2[row + 8]};
+  const float di[2] = {p.delta[row], p.delta[row + 8]};
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  const float scale_log2 = p.scale * LOG2E;
+  const int qa = q0 + p.q_offset;
+  hop::mbar_wait(q_full, 0);
+  for (int it = 0; it < nk; ++it) {
+    const int s = it % WG_STAGES;
+    hop::mbar_wait(full0 + 8 * s, (it / WG_STAGES) & 1);
+    const uint32_t stage = base + RING + s * STAGE_BYTES;
+    const int k0 = (kt0 + it) * BWD_BK;
+    const bool all = k0 + BWD_BK <= p.T && (!p.causal || k0 + 63 <= qa) &&
+                     (p.window <= 0 || qa + 63 - k0 < p.window);
+    if (all)
+      dq_step<D, false>(p, qs, dos, stage, stage + W::BYTES, dq, lse2, di, k0,
+                        q0, scale_log2, warp, lane);
+    else
+      dq_step<D, true>(p, qs, dos, stage, stage + W::BYTES, dq, lse2, di, k0,
+                       q0, scale_log2, warp, lane);
+    hop::mbar_arrive(empty0 + 8 * s);
+  }
+
+  // dQ times scale, staged as bf16 over the ring, then 16-byte stores
+  hop::bar_sync(1, 128);
+  __nv_bfloat16* staged = reinterpret_cast<__nv_bfloat16*>(sbase + RING);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int off = (16 * warp + g + 8 * half) * PITCH + 8 * n + 2 * tig;
+      *reinterpret_cast<uint32_t*>(staged + off) =
+          hop::pack_bf16(dq[4 * n + 2 * half] * p.scale,
+                         dq[4 * n + 2 * half + 1] * p.scale);
+    }
+  }
+  hop::bar_sync(1, 128);
+  constexpr int CPR = D / 8;
+  __nv_bfloat16* dqg = p.dq + b * p.dq_sb + (long long)q0 * p.dq_ss + h * p.dq_sh;
+  for (int e = tid; e < BWD_BQ * CPR; e += 128) {
     const int r = e / CPR, ch = e % CPR;
-    if (q_block0 + r < p.S)
+    if (q0 + r < p.S)
       *reinterpret_cast<uint4*>(dqg + r * p.dq_ss + ch * 8) =
-          *reinterpret_cast<const uint4*>(qs + mma::tile_off<D>(r, ch));
+          *reinterpret_cast<const uint4*>(staged + r * PITCH + ch * 8);
   }
 }
 
-// which: bit 0 the preprocess, bit 1 dK / dV, bit 2 dQ (7 is the
-// backward; one pass alone is for timing, over a delta an earlier call
-// wrote)
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+// what the C entry returns besides a CUDA error
+constexpr int ERR_CLUSTER = -2;  // no cluster of `group` blocks fits the card
+constexpr int ERR_MAP = -3;      // a TMA tensor map could not be encoded
+
+struct Work {
+  const int* dkdv_items;  // (n_dkdv, 3) int32 on the card
+  int n_dkdv;
+  const int* dq_items;    // (n_dq, 3)
+  int n_dq;
+};
+
+cudaError_t launch_preprocess(const BwdParams& p, int B, int D,
+                              cudaStream_t stream) {
+  const long long rows = (long long)B * p.H * p.S_pad;
+  flash_bwd_preprocess_kernel<<<(rows + PRE_WARPS - 1) / PRE_WARPS,
+                                32 * PRE_WARPS, 0, stream>>>(p, B, D);
+  return cudaGetLastError();
+}
+
+// whether a cluster of g dK / dV blocks fits on the card, asked once per
+// (head dim, g)
 template <int D>
-cudaError_t launch_bwd_t(const BwdParams& p, int B, int which,
-                         cudaStream_t stream) {
+bool cluster_fits(const cudaLaunchConfig_t& cfg, int g) {
+  static int known[17];  // 0 not asked, 1 fits, -1 does not
+  if (g < 1 || g > 16) return false;
+  if (known[g] == 0) {
+    int n = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveClusters(
+        &n, flash_bwd_dkdv_wgmma_kernel<D>, &cfg);
+    known[g] = err == cudaSuccess && n > 0 ? 1 : -1;
+    cudaGetLastError();  // a refused query leaves no error behind
+  }
+  return known[g] > 0;
+}
+
+template <int D>
+int launch_bwd_wgmma(const BwdParams& p, int B, int which, const Work& w,
+                     cudaStream_t stream) {
+  using W = WgTile<D>;
   cudaError_t err = cudaSuccess;
-  if (which & 1) {
-    const long long rows = (long long)B * p.H * p.S;
-    flash_bwd_preprocess_kernel<<<(rows + PRE_WARPS - 1) / PRE_WARPS,
-                                  32 * PRE_WARPS, 0, stream>>>(p, B, D);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (which & 1 && (err = launch_preprocess(p, B, D, stream)) != cudaSuccess)
+    return err;
+  if (!(which & 6)) return cudaSuccess;
+  // the maps are encoded at each call from the tensors' own strides
+  const int K = p.H / p.group;
+  CUtensorMap mq, mk, mv, mdo;
+  if (!hop::bshd_map(&mq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                     W::PANEL, BWD_BQ) ||
+      !hop::bshd_map(&mk, p.k, B, p.T, K, D, p.k_sb, p.k_st, p.k_sh,
+                     W::PANEL, BWD_BK) ||
+      !hop::bshd_map(&mv, p.v, B, p.T, K, D, p.v_sb, p.v_st, p.v_sh,
+                     W::PANEL, BWD_BK) ||
+      !hop::bshd_map(&mdo, p.dout, B, p.S, p.H, D, p.do_sb, p.do_ss,
+                     p.do_sh, W::PANEL, BWD_BQ))
+    return ERR_MAP;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(WG_THREADS);
+  cfg.stream = stream;
+  if (which & 2 && w.n_dkdv > 0) {
+    constexpr int smem = wg_dkdv_smem_bytes<D>();
+    auto kernel = flash_bwd_dkdv_wgmma_kernel<D>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err == cudaSuccess && p.group > 8)  // past the portable 8
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = p.group;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(p.H, B, w.n_dkdv);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    if (!cluster_fits<D>(cfg, p.group)) return ERR_CLUSTER;
+    err = cudaLaunchKernelEx(&cfg, kernel, p, w.dkdv_items, mq, mk, mv, mdo);
+    if (err != cudaSuccess) return err;
   }
-  if (which & 2) {
-    constexpr int smem = bwd_dkdv_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<D>,
+  if (which & 4 && w.n_dq > 0) {
+    constexpr int smem = wg_dq_smem_bytes<D>();
+    auto kernel = flash_bwd_dq_wgmma_kernel<D>;
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
-    const dim3 grid(B * (p.H / p.group), (p.T + BWD_BK - 1) / BWD_BK);
-    flash_bwd_dkdv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(p);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  if (which & 4) {
-    constexpr int smem = bwd_dq_smem_bytes<D>();
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(B * p.H, (p.S + BWD_BQ - 1) / BWD_BQ);
-    flash_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(p);
-    err = cudaGetLastError();
+    cfg.gridDim = dim3(p.H, B, w.n_dq);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = nullptr;
+    cfg.numAttrs = 0;
+    err = cudaLaunchKernelEx(&cfg, kernel, p, w.dq_items, mq, mk, mv, mdo);
   }
   return err;
 }
 
-cudaError_t launch_bwd(const BwdParams& p, int B, int D, int which,
-                       cudaStream_t stream) {
+int launch_bwd(const BwdParams& p, int B, int D, int which, const Work& w,
+               cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_bwd_t<16>(p, B, which, stream);
-    case 32: return launch_bwd_t<32>(p, B, which, stream);
-    case 64: return launch_bwd_t<64>(p, B, which, stream);
-    case 96: return launch_bwd_t<96>(p, B, which, stream);
-    case 128: return launch_bwd_t<128>(p, B, which, stream);
+    case 16: return launch_bwd_wgmma<16>(p, B, which, w, stream);
+    case 32: return launch_bwd_wgmma<32>(p, B, which, w, stream);
+    case 64: return launch_bwd_wgmma<64>(p, B, which, w, stream);
+    case 96: return launch_bwd_wgmma<96>(p, B, which, w, stream);
+    case 128: return launch_bwd_wgmma<128>(p, B, which, w, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// dynamic shared memory and the kernel of a backward pass (2 dK / dV,
+// 4 dQ) at head dim D
+int bwd_kernel(int pass, int D, const void** fn) {
+  switch (D * 8 + pass) {
+#define BWD_WG(d)                                                        \
+  case d * 8 + 2:                                                        \
+    *fn = reinterpret_cast<const void*>(flash_bwd_dkdv_wgmma_kernel<d>); \
+    return wg_dkdv_smem_bytes<d>();                                      \
+  case d * 8 + 4:                                                        \
+    *fn = reinterpret_cast<const void*>(flash_bwd_dq_wgmma_kernel<d>);   \
+    return wg_dq_smem_bytes<d>();
+    BWD_WG(16) BWD_WG(32) BWD_WG(64) BWD_WG(96) BWD_WG(128)
+#undef BWD_WG
+    default:
+      *fn = nullptr;
+      return -1;
+  }
+}
+
 }  // namespace
+
 
 // Dynamic shared memory of one flash_mma_kernel<D> launch in bytes, -1 for
 // a head dim the tensor-core path does not take.
@@ -1197,29 +1341,86 @@ extern "C" int flash_attention_fwd(
   return static_cast<int>(err);
 }
 
-// Dynamic shared memory of one backward launch in bytes: pass 2 is
-// flash_bwd_dkdv_kernel<D>, pass 4 flash_bwd_dq_kernel<D>; -1 otherwise.
+// Dynamic shared memory of one backward launch in bytes at head dim D: pass
+// 2 the dK / dV kernel, pass 4 the dQ kernel of the variant that serves D;
+// -1 otherwise.
 extern "C" int flash_attention_bwd_smem_bytes(int pass, int D) {
-  switch (D * 8 + pass) {
-#define BWD_SMEM(d)                                   \
-  case d * 8 + 2: return bwd_dkdv_smem_bytes<d>();    \
-  case d * 8 + 4: return bwd_dq_smem_bytes<d>();
-    BWD_SMEM(16) BWD_SMEM(32) BWD_SMEM(64) BWD_SMEM(96) BWD_SMEM(128)
-#undef BWD_SMEM
-    default: return -1;
+  const void* fn;
+  return bwd_kernel(pass, D, &fn);
+}
+
+// What the compiled kernel of a backward pass (1 the preprocess, 2 dK / dV,
+// 4 dQ) at head dim D asks of a multiprocessor, from
+// cudaFuncGetAttributes: out[0] registers a thread (at launch), out[1]
+// static shared memory, out[2] the dynamic shared memory of its launch,
+// out[3] local memory a thread (spills), and out[4] how many of its blocks
+// the card holds at once (cudaOccupancy*: the dK / dV pass in clusters of
+// `group`).
+// Returns the CUDA error (0 on success).
+extern "C" int flash_attention_bwd_attributes(int pass, int D, int group,
+                                              int* out) {
+  const void* fn = reinterpret_cast<const void*>(flash_bwd_preprocess_kernel);
+  int smem = 0, threads = 32 * PRE_WARPS;
+  if (pass != 1) {
+    if ((smem = bwd_kernel(pass, D, &fn)) < 0) return cudaErrorInvalidValue;
+    threads = WG_THREADS;
   }
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = smem;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  int dev = 0, sms = 0, n = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if (pass == 2) {
+    if (group > 8)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    cudaLaunchAttribute cluster[1];
+    cluster[0].id = cudaLaunchAttributeClusterDimension;
+    cluster[0].val.clusterDim.x = group;
+    cluster[0].val.clusterDim.y = 1;
+    cluster[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(group, 1, 1);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = cluster;
+    cfg.numAttrs = 1;
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&n, fn, &cfg);
+    out[4] = n * group;
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                        smem);
+    out[4] = n * sms;
+  }
+  return err;
 }
 
 // The backward of flash_attention_fwd's tensor-core path: q, k, v, o as
 // there, dout (B,S,H,D) the output's gradient, lse the forward's (B,H,S),
-// delta an fp32 (B,H,S) scratch, dq (B,S,H,D), dk and dv (B,T,K,D); all
-// bf16 but lse and delta, every row 16-byte aligned, D % 16 == 0, strides
-// in elements.  which: 7 runs the three passes (1 the preprocess, 2 dK /
-// dV, 4 dQ; one alone is for timing).  Returns the CUDA error of the
-// launches (0 on success).
+// scratch an fp32 (2, B, H, S_pad) buffer (S_pad = S rounded up to 64), dq
+// (B,S,H,D), dk and dv (B,T,K,D); all bf16 but lse and scratch, every row
+// 16-byte aligned, strides in elements.  The work lists come from
+// flash_attention.py · backward_plan as int32 (n, 3) tables on the card:
+// dK / dV items (key tile, first query tile, query tiles), dQ items (query
+// tile, first key tile, key tiles), heaviest first; the dK / dV pass runs
+// in clusters of `cluster` = H / K blocks.  which: 7 runs the three
+// passes (1 the preprocess, 2 dK / dV, 4 dQ; one alone is for timing).
+// Returns the CUDA error of the launches (0 on success), -2 if no cluster
+// of H / K blocks fits the card, -3 if a tensor map cannot be encoded.
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dq, void* dk,
+    const void* dout, const void* lse, void* scratch, void* dq, void* dk,
     void* dv, int B, int S, int T, int H, int K, int D, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
@@ -1227,9 +1428,11 @@ extern "C" int flash_attention_bwd(
     long long do_ss, long long do_sh, long long dq_sb, long long dq_ss,
     long long dq_sh, long long dk_sb, long long dk_st, long long dk_sh,
     long long dv_sb, long long dv_st, long long dv_sh, float scale,
-    int causal, int window, int q_offset, int which, void* stream) {
+    int causal, int window, int q_offset, int which, const void* dkdv_items,
+    int n_dkdv, const void* dq_items, int n_dq, int cluster, void* stream) {
   if (B <= 0 || S <= 0 || T <= 0 || H <= 0 || K <= 0 || H % K != 0 ||
-      D % 16 != 0 || B * H > 65535 || which <= 0 || which > 7)
+      D % 16 != 0 || B > 65535 || which <= 0 || which > 7 ||
+      n_dkdv > 65535 || n_dq > 65535 || cluster != H / K)
     return cudaErrorInvalidValue;
   if (!(mma::aligned16(q, q_sb, q_ss, q_sh) &&
         mma::aligned16(k, k_sb, k_st, k_sh) &&
@@ -1248,7 +1451,9 @@ extern "C" int flash_attention_bwd(
   p.o = static_cast<const bf*>(o);
   p.dout = static_cast<const bf*>(dout);
   p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
+  p.S_pad = (S + BWD_BQ - 1) / BWD_BQ * BWD_BQ;
+  p.lse2 = static_cast<float*>(scratch);
+  p.delta = p.lse2 + (long long)B * H * p.S_pad;
   p.dq = static_cast<bf*>(dq);
   p.dk = static_cast<bf*>(dk);
   p.dv = static_cast<bf*>(dv);
@@ -1263,6 +1468,7 @@ extern "C" int flash_attention_bwd(
   p.dv_sb = dv_sb, p.dv_st = dv_st, p.dv_sh = dv_sh;
   p.scale = scale, p.causal = causal, p.window = window;
   p.q_offset = q_offset;
-  return static_cast<int>(
-      launch_bwd(p, B, D, which, static_cast<cudaStream_t>(stream)));
+  const Work w{static_cast<const int*>(dkdv_items), n_dkdv,
+               static_cast<const int*>(dq_items), n_dq};
+  return launch_bwd(p, B, D, which, w, static_cast<cudaStream_t>(stream));
 }

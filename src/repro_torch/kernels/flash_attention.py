@@ -18,10 +18,25 @@ tensors on the CPU.  When q, k or v needs a gradient it goes through
   logsumexp (``lse``, fp32 (B, H, S)) and saves q, k, v, o and lse; its
   backward launches the three backward kernels.  bf16 with a head dim
   that is a multiple of 16 and 16-byte-aligned rows only: anything else
-  (fp32, head dim 24, unaligned views) raises ``NotImplementedError``;
+  (fp32, head dim 24, unaligned views, a GQA group larger than a cluster)
+  raises ``NotImplementedError``;
 * on CPU tensors the same Function runs the plain twins
   ``flash_attention_plain_lse`` and ``flash_attention_backward_plain``
   (FlashAttention-2's equations from the saved lse, not autograd).
+
+The backward on the card is bound by its matrix products (nine where the
+bound counts five: S and dP in both passes, dS as a bf16 pair).  Every
+tensor-core head dim (16, 32, 64, 96, 128) runs the ``wgmma`` kernels:
+products on Hopper's warpgroup tensor-core instruction, tiles brought by
+TMA into a two-stage ring of mbarrier-guarded stages by a producer warp
+(a 192-byte row of head dim 96 as three swizzle panels of 64 bytes), one
+dK / dV block per query head with the GQA group summed in fixed order
+across a thread-block cluster (no atomics: the same bits on every call);
+the shared memory a block takes is in the source's header (52 KB for
+dK / dV at head dim 64, two blocks a multiprocessor).  ``backward_plan``
+is the launch plan they read: each pass's grid, the cluster size and its
+work list, (tile, first tile on the other side, tiles) per block,
+heaviest first, built here from the masks so the CPU tests hold it.
 
 Without a gradient the forward writes no lse.  ``flash_attention.launches``
 counts forward kernel launches, ``flash_attention.backward_launches``
@@ -32,13 +47,20 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
 HEAD_DIMS = (16, 24, 32, 64, 96, 128)
+# the backward's head dims (all on wgmma), its tile (queries or keys a
+# block and a work item) and the largest cluster Hopper launches
+# (non-portable past 8)
+WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
+BWD_TILE = 64
+MAX_CLUSTER = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -118,6 +140,110 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *,
             dv.to(v.dtype))
 
 
+@dataclass(frozen=True, eq=False)
+class BackwardPlan:
+    """How the backward's passes launch at one shape.
+
+    ``variant``: the kernels that serve the head dim (``"wgmma"``).
+    ``cluster``: blocks in a dK / dV cluster, the GQA group, whose clusters
+    sum it.  Grids as (x, y, z): ``grid_dkdv`` and ``grid_dq`` are
+    (H, B, items);
+    ``grid_preprocess`` (blocks,).  ``dkdv_items``: int32 (n, 3), one row
+    per key tile, (key tile, first query tile, query tiles) that see it;
+    ``dq_items``: one row per query tile, (query tile, first key tile, key
+    tiles) it sees; both heaviest first.  Block z of a pass reads row z.
+    ``s_pad``: S rounded up to a whole tile (the scratch's rows).  Plans
+    are cached and shared: compared by identity, never written."""
+    variant: str
+    cluster: int
+    grid_dkdv: Tuple[int, int, int]
+    grid_dq: Tuple[int, int, int]
+    grid_preprocess: Tuple[int]
+    dkdv_items: torch.Tensor
+    dq_items: torch.Tensor
+    s_pad: int
+
+
+def backward_variant(D: int, group: int) -> str:
+    """The backward kernels that serve head dim D with ``group`` query heads
+    per kv head.  Raises NotImplementedError for a head dim no tensor-core
+    kernel takes and for a group no cluster holds."""
+    if D not in WGMMA_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention backward: head dim {D} has no kernel "
+            f"(tensor-core head dims {list(WGMMA_HEAD_DIMS)})")
+    if group > MAX_CLUSTER:
+        raise NotImplementedError(
+            f"flash_attention backward: a GQA group of {group} query "
+            f"heads needs a thread-block cluster of {group}; Hopper "
+            f"launches at most {MAX_CLUSTER}")
+    return "wgmma"
+
+
+def _items(n_tiles: int, span) -> torch.Tensor:
+    """Rows (tile, first tile, tiles) for tiles 0 .. n_tiles - 1, where
+    ``span(tile)`` is the half-open range [lo, hi) of indices on the other
+    side that see the tile; heaviest first, ties in tile order."""
+    rows = []
+    for j in range(n_tiles):
+        lo, hi = span(j)
+        n = -(-hi // BWD_TILE) - lo // BWD_TILE if hi > lo else 0
+        rows.append((j, lo // BWD_TILE if n else 0, n))
+    rows.sort(key=lambda r: -r[2])
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, 3)
+
+
+@functools.lru_cache(maxsize=256)
+def backward_plan(B: int, S: int, T: int, H: int, K: int, D: int,
+                  causal: bool = True, window: int = 0,
+                  q_offset: int = 0) -> BackwardPlan:
+    """The launch plan of the backward at one shape (see BackwardPlan).
+    Query i sits at position q_offset + i and sees key t when t < T, t <=
+    q_offset + i (causal) and q_offset + i - t < window (window > 0): the
+    forward's masks, so key tile j is seen by queries [lo, hi) and query
+    tile i sees keys [lo, hi), each an interval.  The kernels mask single
+    elements only on the tiles that cross the diagonal, a window's edge or
+    T.  Raises as ``backward_variant`` does."""
+    group = H // K
+    variant = backward_variant(D, group)
+    tile = BWD_TILE
+
+    def queries_of(j):              # the queries that see key tile j
+        k0, k_last = j * tile, min(j * tile + tile, T) - 1
+        lo = max(0, k0 - q_offset) if causal else 0
+        hi = min(S, k_last + window - q_offset) if window > 0 else S
+        return lo, hi
+
+    def keys_of(i):                 # the keys query tile i sees
+        p0 = i * tile + q_offset
+        p_last = min(i * tile + tile, S) - 1 + q_offset
+        lo = max(0, p0 - window + 1) if window > 0 else 0
+        hi = min(T, p_last + 1) if causal else T
+        return lo, hi
+
+    dkdv = _items(-(-T // tile), queries_of)
+    dq = _items(-(-S // tile), keys_of)
+    s_pad = -(-S // tile) * tile
+    return BackwardPlan(
+        variant=variant, cluster=group,
+        grid_dkdv=(H, B, len(dkdv)), grid_dq=(H, B, len(dq)),
+        grid_preprocess=(-(-B * H * s_pad // 8),),
+        dkdv_items=dkdv, dq_items=dq, s_pad=s_pad)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_items(plan: BackwardPlan, device: torch.device):
+    """The plan's work lists on the card, copied once per plan."""
+    return (plan.dkdv_items.to(device), plan.dq_items.to(device))
+
+
+def backward_scratch(B: int, H: int, S: int, device) -> torch.Tensor:
+    """The backward's fp32 scratch: lse in log2 units and Di = rowsum(dO o
+    O), each (B, H, S) with S padded to a whole tile."""
+    s_pad = -(-S // BWD_TILE) * BWD_TILE
+    return torch.empty((2, B, H, s_pad), dtype=torch.float32, device=device)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -128,9 +254,32 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
         [ptr] * 10 + [i32] * 6 + [i64] * 24
-        + [ctypes.c_float, i32, i32, i32, i32, ptr])
+        + [ctypes.c_float, i32, i32, i32, i32, ptr, i32, ptr, i32, i32, ptr])
     lib.flash_attention_bwd.restype = ctypes.c_int
+    lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32,
+                                                   ctypes.POINTER(i32)]
+    lib.flash_attention_bwd_attributes.restype = ctypes.c_int
     return lib
+
+
+def backward_attributes(D: int, group: int = 1) -> dict:
+    """What each backward kernel at head dim D asks of a multiprocessor,
+    from ``cudaFuncGetAttributes`` on the card: registers a thread at
+    launch, static and dynamic shared memory, local memory a thread, and
+    how many of its blocks the card holds at once (the dK / dV pass
+    launched in clusters of ``group``)."""
+    lib = _library()
+    out = {}
+    for name, pass_ in (("preprocess", 1), ("dkdv", 2), ("dq", 4)):
+        vals = (ctypes.c_int * 5)()
+        err = lib.flash_attention_bwd_attributes(pass_, D, group, vals)
+        if err:
+            raise RuntimeError(f"flash_attention backward: attributes of "
+                               f"pass {pass_} at D {D}: CUDA error {err}")
+        out[name] = dict(registers=vals[0], static_smem=vals[1],
+                         dynamic_smem=vals[2], local_bytes=vals[3],
+                         resident_blocks=vals[4])
+    return out
 
 
 def _check(q, k, v):
@@ -165,8 +314,9 @@ def _aligned16(t) -> bool:
 
 def _check_backward(q, k, v):
     """What the backward kernels take: bf16, a head dim that is a
-    multiple of 16, rows 16-byte aligned.  Raises NotImplementedError
-    naming the case otherwise (nothing falls back to the plain twin)."""
+    multiple of 16, rows 16-byte aligned, and a GQA group a cluster
+    holds.  Raises NotImplementedError naming the case
+    otherwise (nothing falls back to the plain twin)."""
     D = q.shape[3]
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(
@@ -181,6 +331,7 @@ def _check_backward(q, k, v):
             raise NotImplementedError(
                 f"flash_attention backward: {name}'s rows are not 16-byte "
                 f"aligned (a strided view)")
+    backward_variant(D, q.shape[2] // k.shape[2])
 
 
 def _forward_kernel(q, k, v, causal, window, q_offset, scale, lse=None):
@@ -212,12 +363,12 @@ def _forward_kernel(q, k, v, causal, window, q_offset, scale, lse=None):
 def backward_kernel(q, k, v, o, lse, do, *, causal: bool = True,
                     window: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None, which: int = 7,
-                    delta=None, grads=None):
+                    scratch=None, grads=None):
     """Launch the backward kernels on CUDA tensors: (dq, dk, dv), new
     contiguous bf16 tensors.  ``which`` (7: all three) and the optional
-    ``delta`` scratch and ``grads`` outputs let a timing harness run one
-    pass alone on buffers made once; the Function uses the defaults.
-    Counts no launch."""
+    ``scratch`` (``backward_scratch``) and ``grads`` outputs let a timing
+    harness run one pass alone on buffers made once; the Function uses the
+    defaults.  Counts no launch."""
     _check(q, k, v)
     _check_backward(q, k, v)
     B, S, H, D = q.shape
@@ -238,24 +389,34 @@ def backward_kernel(q, k, v, o, lse, do, *, causal: bool = True,
                  torch.empty_like(k, memory_format=torch.contiguous_format),
                  torch.empty_like(v, memory_format=torch.contiguous_format))
     dq, dk, dv = grads
-    if delta is None:
-        delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    plan = backward_plan(B, S, T, H, K, D, bool(causal), int(window),
+                         int(q_offset))
+    if scratch is None:
+        scratch = backward_scratch(B, H, S, q.device)
+    dkdv_items, dq_items = _device_items(plan, q.device)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), scratch.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, S, T, H, K, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *o.stride()[:3], *do.stride()[:3], *dq.stride()[:3],
             *dk.stride()[:3], *dv.stride()[:3], scale, int(causal),
-            int(window), int(q_offset), int(which), stream)
+            int(window), int(q_offset), int(which), dkdv_items.data_ptr(),
+            len(plan.dkdv_items), dq_items.data_ptr(), len(plan.dq_items),
+            plan.cluster, stream)
+    if err == -2:
+        raise NotImplementedError(
+            f"flash_attention backward: no thread-block cluster of "
+            f"{plan.cluster} blocks (the GQA group) fits the card at head "
+            f"dim {D}")
     if err:
         raise RuntimeError(f"flash_attention backward: kernel launch "
-                           f"failed with CUDA error {err}")
+                           f"failed with error {err}")
     return dq, dk, dv
 
 
