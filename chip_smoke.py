@@ -245,7 +245,34 @@ Phases, each printing one JSON line:
    bit-equal and whose steps give the straight run's losses; exact
    launches; then ``examples/torch_train_lm.py --preset smoke`` on the
    card, whose assertion that the loss fell must hold.
-20. kernels: one line listing every ported kernel with its launches on the
+20. tp_train: the model axis trains uncut qwen2-0.5b on (data 1, model
+   4), four ranks on the one card in a gloo group (NCCL refuses two ranks
+   on one device), each collective staged through host memory: heads
+   padded to (2, 8), 4 / 1 a rank, the vocabulary split 37,984 rows a
+   rank, one ``dp_manual`` step of 2 x 512 at remat "none" against the
+   one-rank step on the same masters (loss, grad norm, every leaf's
+   first-moment cosine >= 0.999, or within 2x the bf16 noise floor of
+   its kind of leaf, the largest distance over the layers between the
+   one-rank gradients through the kernels and the plain twins), every
+   updated leaf bit-equal across the ranks, exactly 24 / 24
+   flash launches and 49 rmsnorm a rank; a control with layer 0's
+   attention combine all-reduce left out must fail; then
+   ``ring_weight_matmul`` at (4,096, 896) x (896, 4,864) over the ranks
+   against x @ w in fp32 (``ring_matmul``).  Lines: backend, how each
+   rank's collectives moved their tensors (``transport.moved``: every one
+   staged through the host, or the phase fails), collectives by kind,
+   each rank's peak memory; times are not speeds.
+21. ep_serve: the model axis serves uncut granite-moe-3b-a800m on (data 1,
+   model 2) through ``_serve_wrap``: 12 / 4 heads and 20 of the 40
+   experts a rank, the vocabulary of 49,155 padded to 49,156; a prefill
+   of 2 x 512 and 8 teacher-forced decode steps against the one-rank port
+   on the same weights: in fp32 compute every position's logit cosine
+   >= 0.999 and top-1 >= 0.99; in bf16 each position within 0.999 or 2x
+   the bf16 noise floor (the one-rank kernels against the plain twins),
+   top-1 recorded, the ranks' logits equal; the MoE combine without its
+   all-reduce must fail; exactly 32 flash launches and 65 rmsnorm a
+   forward a rank in bf16.
+22. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
    launches by path, errors and times (``backward_*``).
 
@@ -262,6 +289,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -512,6 +540,9 @@ BWD_CASES = {
     "group12": ((2, 512, 512, 24, 2, 128), {}),
     "d96": ((2, 1088, 1088, 32, 32, 96), {}),
     "d16": ((2, 48, 80, 6, 2, 16), dict(causal=False)),
+    # phase 20's per-rank shape: qwen2 at model 4 holds 4 / 1 heads of 64,
+    # a dK / dV cluster of 4
+    "tp_rank": ((2, 512, 512, 4, 1, 64), {}),
 }
 
 # phases 18-19: the dense LM trained at full width and depth (qwen2-0.5b:
@@ -545,6 +576,59 @@ EXAMPLE_STEPS = 100
 # the pick: DRIFT_STEADY timed steps after DRIFT_STEADY_WARMUP each
 DRIFT_STEPS, DRIFT_AT, DRIFT_ITEMS = 600, 40, 4096
 DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
+
+# phases 20-21: the model axis on the one card.  NCCL refuses two ranks on
+# one device, so each phase runs its ranks as processes of their own on the
+# card, joined by a gloo group through a FileStore in a temporary
+# directory: every collective stages its tensor through host memory
+# (transport's backend rule; each rank counts how its collectives moved
+# their tensors and the phase fails unless all went through the host),
+# each rank's compute runs on the card.  Their
+# step and prefill times are not speeds: the ranks share one card and the
+# collectives cross the host.  Phase 20 (tp_train): uncut qwen2-0.5b on
+# (data 1, model TP_MODEL), padding plan (2, 8): 4 / 1 heads of 64 a rank
+# and a vocabulary slice of 37,984 rows; one dp_manual step of TP_BATCH x
+# TP_SEQ at remat "none" against the one-rank step on the same masters
+# (AdamW eps DP_ADAM_EPS, as phase 17): loss to TP_LOSS_REL, grad norm to
+# TP_NORM_REL, every leaf's first moment at a cosine of TP_MIN_COSINE to
+# the one-rank step's, or, where bf16 rounding alone sets two one-rank
+# computations of that kind of leaf further apart, within TP_FLOOR_RATIO
+# x the kind's bf16 noise floor: the largest distance (1 - cosine), over
+# the layers, between the one-rank gradient through the kernels and
+# through the plain twins of that leaf of a layer (``wq``, ``bk``, ...).
+# The key biases need it: their gradient comes only from rotary's
+# modulation of a bias that softmax otherwise ignores, a small sum of
+# large bf16 dK rows, and at model 4 each rank rounds its part of a kv
+# head's dK to bf16 before the sum (first card run, NVIDIA H100 80GB
+# HBM3, 700 W, PERF.md section 6: three key biases at 0.9987-0.9990
+# against floors up to 8.1e-4, every other leaf >= 0.999; a floor taken
+# leaf by leaf left one key bias at 2.1x its own).
+# Phase 21 (ep_serve): uncut granite-moe-3b-a800m on (data 1, model
+# EP_MODEL) through _serve_wrap: 12 / 4 heads and 20 experts a rank, the
+# vocabulary of 49,155 padded to 49,156; a prefill of EP_BATCH x
+# EP_PROMPT and EP_STEPS teacher-forced decode steps against the
+# one-rank port on the same weights.  In fp32 compute (an fp32 K/V cache)
+# every position's logit cosine at least EP_MIN_COSINE and top-1
+# agreement at least EP_MIN_TOP1.  In bf16, the served dtype, a rounding
+# difference compounds over 32 random layers (and can move a top-8
+# choice: MoE routing is not bit-stable on the card, index_add_'s
+# atomics), so each position's distance (1 - cosine) to the one-rank
+# logits is held to EP_MIN_COSINE or, where larger, EP_FLOOR_RATIO x the
+# bf16 noise floor: the largest distance over the positions between the
+# one-rank logits through the kernels and through the plain twins.  bf16
+# top-1 is recorded beside the plain twins' own, not held: over random
+# weights' near-flat logits one run of the same code agreed at every
+# position and the next at 17 of 18 (first card runs, NVIDIA H100 80GB
+# HBM3, 700 W, PERF.md section 6: min cosine 0.99873 and 0.99870, floor
+# 0.0026; fp32 min cosine 0.99999988, top-1 1.0).  A rank
+# that outlives RANK_TIMEOUT_S fails the phase, and every rank is killed
+TP_ARCH, TP_MODEL, TP_BATCH, TP_SEQ = "qwen2-0.5b", 4, 2, 512
+TP_LOSS_REL, TP_NORM_REL, TP_MIN_COSINE = 2e-3, 5e-3, 0.999
+TP_FLOOR_RATIO = 2.0
+RING_SHAPE = (4096, 896, 4864)          # (m, k, f) of ring_weight_matmul
+EP_ARCH, EP_MODEL, EP_BATCH, EP_PROMPT, EP_STEPS = MOE_ARCH, 2, 2, 512, 8
+EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
+RANK_TIMEOUT_S = 300
 
 
 def emit(phase: str, **fields) -> None:
@@ -4305,6 +4389,578 @@ def trainer_dense_path(torch, np, tdata, modules) -> dict:
     return launches
 
 
+def spawn_card_ranks(phase: str, world: int, workdir: str) -> list:
+    """Run ``phase``'s rank function in ``world`` processes of this script
+    (``--rank``), all on the card, and wait for them: at most
+    RANK_TIMEOUT_S in all; a rank that exits non-zero or the timeout kills
+    every rank and fails the phase with each log's tail.  Returns each
+    rank's result."""
+    import pickle
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"log_{phase}_r{rank}"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank", phase,
+             workdir, str(world), str(rank)], stdout=log,
+            stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    why = None
+    try:
+        while why is None:
+            rcs = [p.poll() for p, _ in procs]
+            bad = [i for i, rc in enumerate(rcs) if rc not in (None, 0)]
+            if bad:
+                why = ", ".join(f"rank {i} rc {rcs[i]}" for i in bad)
+            elif all(rc == 0 for rc in rcs):
+                break
+            elif time.monotonic() > deadline:
+                why = f"timed out after {RANK_TIMEOUT_S} s"
+            else:
+                time.sleep(0.1)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    if why is not None:
+        tails = []
+        for _, log in procs:
+            with open(log.name) as f:
+                tails.append(f"{log.name}:\n{f.read()[-3000:]}")
+        check(False, f"{phase}: {why}\n" + "\n".join(tails))
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"res_{phase}_r{rank}.pkl"),
+                  "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def rank_main(args) -> int:
+    """``chip_smoke.py --rank PHASE WORKDIR WORLD RANK``: one rank of a
+    model-axis phase, on the card, in a gloo group joined through a
+    ``FileStore`` in WORKDIR; writes its result to
+    ``WORKDIR/res_<PHASE>_r<RANK>.pkl``."""
+    import pickle
+    phase, workdir, world, rank = args[0], args[1], int(args[2]), \
+        int(args[3])
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ["REPRO_COMPUTE_DTYPE"] = "bfloat16"
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssd_scan as ss
+    modules = dict(ops=ops, fa=fa, rn=rn, ss=ss)
+    store = dist.FileStore(os.path.join(workdir, f"store_{phase}"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        fn = {"tp_train": tp_train_rank, "ep_serve": ep_serve_rank}[phase]
+        res = fn(torch, np, F, modules, workdir)
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        dist.destroy_process_group()
+    path = os.path.join(workdir, f"res_{phase}_r{rank}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(res, f)
+    os.replace(path + ".tmp", path)
+    return 0
+
+
+def tp_config():
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import TrainStepConfig
+    return TrainStepConfig(remat_policy="none", optimizer=AdamWConfig(
+        eps=DP_ADAM_EPS))
+
+
+def tp_batch(torch, np, cfg):
+    rng = np.random.default_rng(20)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (TP_BATCH, TP_SEQ + 1)),
+                          dtype=torch.long, device="cuda")
+    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+
+
+def leaf_digests(state) -> dict:
+    """A SHA-256 of each parameter's bytes, to compare ranks bit for bit."""
+    import hashlib
+    return {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, p in state.params.items()}
+
+
+def staged_only(rank_result) -> bool:
+    """Did every collective of a rank's run move its tensors through host
+    memory (``transport.moved``), as the backend rule has gloo do with
+    CUDA tensors, and did the run issue any?"""
+    moved = rank_result["moved"]
+    return moved.get("staged", 0) > 0 and moved.get("direct", 0) == 0
+
+
+def tp_train_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 20: the dp_manual step on (data 1, model n), then
+    the same step from the same masters with layer 0's attention combine
+    left out (the control), then ``ring_weight_matmul``.  Rank 0 also holds
+    each step's first moments against the one-rank step's (``ref.pt``)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import dp_shard, model_axis, transport
+    from repro_torch.distributed.collective_matmul import ring_weight_matmul
+    from repro_torch.distributed.sharding_rules import (model_group,
+                                                        rules_for, use_rules)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as ll
+    from repro_torch.train.optimizer import init_adamw
+    from repro_torch.train.train_step import (TrainState, init_train_state,
+                                              make_train_step,
+                                              shard_train_state)
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    cfg = get_config(TP_ARCH)
+    tcfg = dataclasses.replace(tp_config(), dp_manual=True)
+    mesh = make_local_mesh(model_axis=n, device="cuda")
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+        device="cuda")
+    batch = tp_batch(torch, np, cfg)
+    ref = torch.load(os.path.join(workdir, "ref.pt")) if rank == 0 else None
+    backend = str(dist.get_backend(model_group(mesh)))
+    out = {"backend": backend,
+           "heads": ll.rank_heads(cfg, n, rank)._asdict()}
+
+    def held(st, m):
+        """Loss, grad norm and (rank 0) each leaf's first-moment cosine to
+        the one-rank step's."""
+        row = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   digests=leaf_digests(st))
+        if ref is not None:
+            row["cosines"] = {k: float(F.cosine_similarity(
+                v.flatten(), ref["mu"][k].to("cuda").flatten(), dim=0,
+                eps=1e-30)) for k, v in st.opt.mu.items()}
+            row["floor"] = ref["floor"]
+        return row
+
+    with use_rules(mesh, rules_for("train")) as ctx:
+        state = shard_train_state(state, ctx)
+        step = make_train_step(state.model, tcfg)
+        out["path"] = step.path
+        start = {k: p.detach().clone() for k, p in state.params.items()}
+        zero_launches(fa, rn, ss)
+        model_axis.collectives.clear()
+        dp_shard.collectives.clear()
+        transport.moved.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, m = step(state, batch)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["launches"] = dense_launches(fa, rn)
+        out["collectives"] = dict(model_axis.collectives)
+        out["dp_collectives"] = dict(dp_shard.collectives)
+        out["moved"] = dict(transport.moved)
+        with ctx.manual_region(dp_shard.manual_axes(mesh)):
+            out["partial_leaves"] = len(ll.model_partial_leaves(
+                cfg, state.params))
+        out["step"] = held(new, m)
+        # the control: the same step from the same masters with the first
+        # combine all-reduce (layer 0's attention) left out
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(start[k])
+        del start
+        state = TrainState(state.model, init_adamw(state.params), None,
+                           state.plan)
+        real = model_axis.from_model
+        calls = [0]
+
+        def skip_first(x, split):
+            calls[0] += 1
+            return x if calls[0] == 1 else real(x, split)
+
+        model_axis.from_model = skip_first
+        try:
+            state, m = step(state, batch)
+        finally:
+            model_axis.from_model = real
+        out["control"] = held(state, m)
+    del state, new
+    torch.cuda.empty_cache()
+    # ring_weight_matmul over the model ranks against x @ w, fp32
+    M, Kd, Fd = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((M, Kd), generator=gen, device="cuda")
+    w = torch.randn((Kd, Fd), generator=gen, device="cuda")
+    m_loc, f_loc = M // n, Fd // n
+    xl = x[rank * m_loc:(rank + 1) * m_loc]
+    wl = w[:, rank * f_loc:(rank + 1) * f_loc].contiguous()
+    model_axis.collectives.clear()
+    got = ring_weight_matmul(xl, wl, mesh)
+    sends = model_axis.collectives["send_recv"]
+    want = xl @ w
+    err = float((got - want).abs().max())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        ring_weight_matmul(xl, wl, mesh)
+    torch.cuda.synchronize()
+    out["ring"] = dict(shape=list(RING_SHAPE), max_abs_err=err,
+                       ref_max=float(want.abs().max()), send_recv=sends,
+                       ms=(time.perf_counter() - t0) / 3 * 1e3)
+    return out
+
+
+def tp_train_path(torch, np, F, modules) -> dict:
+    """Phase 20: the model axis trains uncut qwen2-0.5b over TP_MODEL gloo
+    ranks on the card (see TP_ARCH).  The one-rank step first, here, on the
+    same seeded masters and batch; its first moments go to the ranks
+    through a file, and it is freed before they start.  Returns the
+    launches of the ranks' step, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    cfg = get_config(TP_ARCH)
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="tp_train_")
+    try:
+        tcfg = tp_config()
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+            device="cuda")
+        step = make_train_step(state.model, tcfg)
+        batch = tp_batch(torch, np, cfg)
+        # the bf16 noise floor: the same gradients through the plain twins
+        params = state.params
+        with plain_kernels(ops, fa, rn, ss):
+            state.model.loss(batch, remat_policy="none")[0].backward()
+        plain = {k: p.grad.cpu() for k, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        zero_launches(fa, rn, ss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = dense_launches(fa, rn)
+        floor = {k: 1.0 - float(F.cosine_similarity(
+            v.flatten(), plain[k].to("cuda").flatten(), dim=0, eps=1e-30))
+            for k, v in state.opt.mu.items()}
+        del plain
+        ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   mu={k: v.cpu() for k, v in state.opt.mu.items()},
+                   floor=floor)
+        torch.save(ref, os.path.join(workdir, "ref.pt"))
+        del state, step, m, ref["mu"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_card_ranks("tp_train", TP_MODEL, workdir)
+        phase_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    r0 = res[0]
+
+    def verdict(key):
+        """The checks the ranks' ``key`` step passes: loss, grad norm,
+        every leaf's cosine, every leaf bit-equal across the ranks."""
+        row = r0[key]
+        loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
+        norm_rel = abs(row["grad_norm"] - ref["grad_norm"]) / \
+            ref["grad_norm"]
+        kind = {k: re.sub(r"^layers\.\d+\.", "layers.", k)
+                for k in row["floor"]}
+        floor = {}
+        for k, f in row["floor"].items():
+            floor[kind[k]] = max(floor.get(kind[k], 0.0), f)
+        limit = {k: max(1.0 - TP_MIN_COSINE, TP_FLOOR_RATIO * floor[kind[k]])
+                 for k in row["floor"]}
+        low = {k: c for k, c in row["cosines"].items()
+               if 1.0 - c > limit[k]}
+        raised = {k: dict(cosine=row["cosines"][k], floor=floor[kind[k]])
+                  for k in limit if limit[k] > 1.0 - TP_MIN_COSINE
+                  and row["cosines"][k] < TP_MIN_COSINE}
+        differ = sorted({k for r in res[1:]
+                         for k, dg in r[key]["digests"].items()
+                         if dg != row["digests"][k]})
+        return dict(loss_rel=loss_rel, norm_rel=norm_rel,
+                    min_cosine=min(row["cosines"].values()),
+                    low_cosine=dict(sorted(low.items())[:8]),
+                    n_low_cosine=len(low),
+                    limit_raised_by_floor=dict(sorted(raised.items())[:8]),
+                    n_limit_raised=len(raised), ranks_differ=differ[:8],
+                    n_ranks_differ=len(differ),
+                    ok=loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
+                    and not low and not differ)
+
+    held_step, held_control = verdict("step"), verdict("control")
+    expect = dense_expect(L, "none")
+    emit("tp_train_backend", backend=r0["backend"],
+         moved_per_rank=[r["moved"] for r in res], ranks=TP_MODEL,
+         note="collectives stage each tensor through host memory (gloo); "
+              "the ranks share one card")
+    emit("tp_train_collectives", model_axis=r0["collectives"],
+         dp_shard=r0["dp_collectives"],
+         partial_leaves_summed=r0["partial_leaves"])
+    emit("tp_train", arch=cfg.name, mesh={"data": 1, "model": TP_MODEL},
+         batch=[TP_BATCH, TP_SEQ], heads=r0["heads"],
+         vocab_rows=-(-cfg.vocab_size // TP_MODEL), path=r0["path"],
+         one_rank_loss=ref["loss"], one_rank_grad_norm=ref["grad_norm"],
+         loss=r0["step"]["loss"], grad_norm=r0["step"]["grad_norm"],
+         held=held_step, control=dict(what="layer 0's attention combine "
+                                      "all-reduce left out", **held_control,
+                                      loss=r0["control"]["loss"]),
+         launches_per_rank=[r["launches"] for r in res],
+         expected_launches_per_rank=expect, one_rank_launches=one_launches,
+         peak_gb_per_rank=[r["peak_gb"] for r in res],
+         step_s_per_rank=[r["step_s"] for r in res], one_rank_step_s=one_s,
+         phase_s=phase_s,
+         timing_note="not a speed: 4 ranks share one card and every "
+                     "collective crosses the host",
+         max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
+         min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
+         floor_max=max(ref["floor"].values()))
+    ring = r0["ring"]
+    emit("ring_matmul", ranks=TP_MODEL, per_rank_ms=[r["ring"]["ms"]
+                                                     for r in res],
+         **ring, timing_note="gloo ring steps through the host")
+    check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
+          f"tp_train ran on {r0['backend']}, collectives moved "
+          f"{[r['moved'] for r in res]}")
+    check(r0["path"] == "dp_manual", f"tp_train took the {r0['path']} step")
+    check(held_step["ok"], f"tp_train against the one-rank step: "
+          f"{held_step}")
+    check(not held_control["ok"], f"tp_train's control (a combine "
+          f"all-reduce left out) passed: {held_control}")
+    for r in res:
+        check(r["launches"] == expect, f"tp_train rank launches "
+              f"{r['launches']}, expected {expect}")
+    check(all(r["ring"]["max_abs_err"] <= 1e-4 * r["ring"]["ref_max"]
+              and r["ring"]["send_recv"] == TP_MODEL - 1 for r in res),
+          f"ring_weight_matmul: {[r['ring'] for r in res]}")
+    return {k: sum(r["launches"][k] for r in res) for k in expect}
+
+
+def ep_prompts(torch, np, cfg):
+    rng = np.random.default_rng(21)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (EP_BATCH, EP_PROMPT + EP_STEPS + 1)),
+                          dtype=torch.long, device="cuda")
+    return seq[:, :EP_PROMPT], seq[:, EP_PROMPT:]
+
+
+def ep_logits(torch, model, prompts, forced, ctx_of=None,
+              kv_dtype=None):
+    """``forced_logits`` with prefill and each decode step through
+    ``_serve_wrap`` under ``ctx_of(kind)`` (the prefill and decode rules)
+    when given, over a K/V cache of ``kv_dtype`` (bf16 if None)."""
+    from repro_torch.launch.dryrun import _serve_wrap
+    B, S = prompts.shape
+    n = forced.shape[1]
+    cache = model.init_cache(B, S + n, kv_dtype=kv_dtype or torch.bfloat16)
+
+    def call(kind, fn, batch, cache):
+        if ctx_of is None:
+            return fn(batch, cache)
+        with ctx_of(kind) as ctx:
+            return _serve_wrap(model, ctx, fn)(batch, cache)
+
+    logits, cache = call("prefill", model.prefill, {"tokens": prompts}, cache)
+    outs = [logits[:, -1].float()]
+    pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
+    for j in range(n - 1):
+        logits, cache = call(
+            "decode", lambda b, c: model.decode_step(c, b["tokens"],
+                                                     b["positions"]),
+            {"tokens": forced[:, j:j + 1], "positions": pos}, cache)
+        outs.append(logits[:, -1].float())
+        pos = pos + 1
+    return torch.stack(outs, dim=1)
+
+
+def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 21: granite's prefill and decode through
+    ``_serve_wrap`` on (data 1, model n) in bf16, the same with the MoE
+    combine's all-reduce left out (the control), then in fp32 compute over
+    an fp32 K/V cache."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import model_axis, transport
+    from repro_torch.distributed.sharding_rules import (model_group,
+                                                        rules_for, use_rules)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as ll
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    cfg = get_config(EP_ARCH)
+    mesh = make_local_mesh(model_axis=n, device="cuda")
+    model = seeded_model(torch, cfg)
+    prompts, forced = ep_prompts(torch, np, cfg)
+
+    def ctx_of(kind):
+        return use_rules(mesh, rules_for(kind))
+
+    out = {"backend": str(dist.get_backend(model_group(mesh))),
+           "heads": ll.rank_heads(cfg, n, rank)._asdict()}
+    with torch.no_grad():
+        zero_launches(fa, rn, ss)
+        model_axis.collectives.clear()
+        transport.moved.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = ep_logits(torch, model, prompts, forced, ctx_of)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = dense_launches(fa, rn)
+        out["collectives"] = dict(model_axis.collectives)
+        out["moved"] = dict(transport.moved)
+        real = ll._moe_ep
+
+        def no_combine(p, cfg_, x, split):
+            keep = model_axis.from_model
+            model_axis.from_model = lambda y, s: y
+            try:
+                return real(p, cfg_, x, split)
+            finally:
+                model_axis.from_model = keep
+
+        ll._moe_ep = no_combine
+        try:
+            control = ep_logits(torch, model, prompts, forced, ctx_of)
+        finally:
+            ll._moe_ep = real
+        out["logits"] = logits.cpu().numpy()
+        out["control"] = control.cpu().numpy()
+        del model
+        with fp32_model(torch, cfg) as m32:
+            out["logits32"] = ep_logits(torch, m32, prompts, forced,
+                                        ctx_of, torch.float32).cpu().numpy()
+            del m32
+    return out
+
+
+def ep_serve_path(torch, np, F, modules) -> dict:
+    """Phase 21: the model axis serves uncut granite-moe-3b-a800m over
+    EP_MODEL gloo ranks on the card through ``_serve_wrap`` (see EP_ARCH),
+    against the one-rank port on the same seeded weights, in bf16 (and
+    through the plain twins for the noise floor) and in fp32, computed
+    here first and freed before the ranks start.  Returns the launches of
+    the ranks' bf16 run, summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    cfg = get_config(EP_ARCH)
+    L = cfg.num_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        model = seeded_model(torch, cfg)
+        prompts, forced = ep_prompts(torch, np, cfg)
+        zero_launches(fa, rn, ss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = ep_logits(torch, model, prompts, forced)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        one_launches = dense_launches(fa, rn)
+        with plain_kernels(ops, fa, rn, ss):
+            plain = ep_logits(torch, model, prompts, forced)
+        floor = float((1.0 - F.cosine_similarity(plain, ref, dim=-1)).max())
+        floor_top1 = float((plain.argmax(-1) == ref.argmax(-1)).float()
+                           .mean())
+        del model, plain
+        with fp32_model(torch, cfg) as m32:
+            ref32 = ep_logits(torch, m32, prompts, forced,
+                              kv_dtype=torch.float32)
+            del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="ep_serve_")
+    try:
+        t0 = time.perf_counter()
+        res = spawn_card_ranks("ep_serve", EP_MODEL, workdir)
+        phase_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    def agree(logits, want):
+        got = torch.from_numpy(logits).to("cuda")
+        cos = F.cosine_similarity(got, want, dim=-1)
+        top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        return cos, top1
+
+    limit = max(1.0 - EP_MIN_COSINE, EP_FLOOR_RATIO * floor)
+    cos, top1 = agree(res[0]["logits"], ref)
+    c_cos, c_top1 = agree(res[0]["control"], ref)
+    cos32, top1_32 = agree(res[0]["logits32"], ref32)
+    same = all(np.array_equal(r["logits"], res[0]["logits"]) for r in res)
+    expect = {"flash_attention": L, "flash_attention_backward": 0,
+              "rmsnorm": (2 * L + 1) * (1 + EP_STEPS)}
+    r0 = res[0]
+    emit("ep_serve_backend", backend=r0["backend"], ranks=EP_MODEL,
+         moved_per_rank=[r["moved"] for r in res],
+         note="collectives stage each tensor through host memory (gloo); "
+              "the ranks share one card")
+    emit("ep_serve_collectives", model_axis=r0["collectives"])
+    emit("ep_serve", arch=cfg.name, mesh={"data": 1, "model": EP_MODEL},
+         prompts=[EP_BATCH, EP_PROMPT], decode_steps=EP_STEPS,
+         heads=r0["heads"], experts_per_rank=cfg.num_experts // EP_MODEL,
+         vocab=cfg.vocab_size, vocab_padded=-(-cfg.vocab_size // EP_MODEL)
+         * EP_MODEL, positions=int(cos.numel()),
+         min_cosine=float(cos.min()), mean_cosine=float(cos.mean()),
+         top1=top1, plain_top1=floor_top1, floor=floor,
+         max_distance=limit, ranks_equal=same,
+         fp32=dict(min_cosine=float(cos32.min()),
+                   mean_cosine=float(cos32.mean()), top1=top1_32),
+         control=dict(what="the MoE combine without its all-reduce",
+                      min_cosine=float(c_cos.min()),
+                      mean_cosine=float(c_cos.mean()), top1=c_top1),
+         launches_per_rank=[r["launches"] for r in res],
+         expected_launches_per_rank=expect, one_rank_launches=one_launches,
+         peak_gb_per_rank=[r["peak_gb"] for r in res],
+         seconds_per_rank=[r["seconds"] for r in res], one_rank_s=one_s,
+         phase_s=phase_s,
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host",
+         min_cosine_limit=EP_MIN_COSINE, min_top1=EP_MIN_TOP1,
+         floor_ratio=EP_FLOOR_RATIO)
+    check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
+          f"ep_serve ran on {r0['backend']}, collectives moved "
+          f"{[r['moved'] for r in res]}")
+    check(float(cos32.min()) >= EP_MIN_COSINE and top1_32 >= EP_MIN_TOP1,
+          f"ep_serve fp32 logits: min cosine {float(cos32.min())}, top-1 "
+          f"{top1_32}")
+    check(1.0 - float(cos.min()) <= limit,
+          f"ep_serve bf16 logits: min cosine {float(cos.min())} (largest "
+          f"distance {limit})")
+    check(same, "ep_serve: the model ranks' logits differ")
+    check(1.0 - float(c_cos.min()) > limit,
+          f"ep_serve's control (no combine all-reduce) passed: min cosine "
+          f"{float(c_cos.min())}")
+    for r in res:
+        check(r["launches"] == expect, f"ep_serve rank launches "
+              f"{r['launches']}, expected {expect}")
+    check(one_launches == expect, f"ep_serve one-rank launches "
+          f"{one_launches}, expected {expect}")
+    return {k: sum(r["launches"][k] for r in res) for k in expect}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4431,6 +5087,14 @@ def main() -> int:
         checks["flash_attention"] += check_flash(torch, F, fa, gen, name,
                                                  8, S, T, 20, 20, 64,
                                                  causal=causal)
+    # the model axis's per-rank shapes (phases 20-21): qwen2 at model 4
+    # holds 4 / 1 heads of 64, granite at model 2 12 / 4
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "tp_rank",
+                                             TP_BATCH, TP_SEQ, TP_SEQ, 4, 1,
+                                             64)
+    checks["flash_attention"] += check_flash(torch, F, fa, gen, "ep_rank",
+                                             EP_BATCH, EP_PROMPT, EP_PROMPT,
+                                             12, 4, 64)
     checks["flash_attention_backward"] = []
     for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
@@ -4573,6 +5237,12 @@ def main() -> int:
     trainer_dense_launches = trainer_dense_path(torch, np, tdata, modules)
     torch.cuda.empty_cache()
 
+    # ---- 20-21. the model axis: gloo ranks on the card ----------------------
+    tp_launches = tp_train_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+    ep_launches = ep_serve_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+
     # ---- 18. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
@@ -4591,7 +5261,9 @@ def main() -> int:
                                 v["flash_attention"]
                                 for v in dense_launches_.values()),
                             "trainer_dense":
-                                trainer_dense_launches["flash_attention"]},
+                                trainer_dense_launches["flash_attention"],
+                            "tp_train": tp_launches["flash_attention"],
+                            "ep_serve": ep_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
@@ -4605,7 +5277,9 @@ def main() -> int:
                     "dp_train": dp_train_launches["rmsnorm"],
                     "train_dense": sum(v["rmsnorm"]
                                        for v in dense_launches_.values()),
-                    "trainer_dense": trainer_dense_launches["rmsnorm"]},
+                    "trainer_dense": trainer_dense_launches["rmsnorm"],
+                    "tp_train": tp_launches["rmsnorm"],
+                    "ep_serve": ep_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
@@ -4676,7 +5350,8 @@ def main() -> int:
         for r in checks["flash_attention"]
         if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
                          "phi3v", "whisper_enc", "whisper_cross",
-                         "whisper_cross_decode", "whisper_self")
+                         "whisper_cross_decode", "whisper_self", "tp_rank",
+                         "ep_rank")
         and r["dtype"] == "bfloat16"}
     # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
     # families' widths
@@ -4693,7 +5368,8 @@ def main() -> int:
     # backward call, for its three kernels) and times ride on flash's row
     bwd_by_path = {"train_dense": sum(
         v["flash_attention_backward"] for v in dense_launches_.values()),
-        "trainer_dense": trainer_dense_launches["flash_attention_backward"]}
+        "trainer_dense": trainer_dense_launches["flash_attention_backward"],
+        "tp_train": tp_launches["flash_attention_backward"]}
     train_row = next(r for r in backward_rows if r["case"] == "train")
     by_name["flash_attention"].update(
         backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4725,4 +5401,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

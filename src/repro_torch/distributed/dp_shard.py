@@ -15,7 +15,13 @@ explicit:
 * every other gradient is summed locally over the microbatches and reduced
   once per step over the manual axes it is not sharded on
   (``deferred_psum``);
-* the model axis is not manual; the port runs it at size 1.
+* the model axis is not manual: inside the region the layers split their
+  work over it (``model_axis``) and every leaf a rank used only in part is
+  summed over the model ranks once per step (``model_psum``), next to
+  ``deferred_psum``.
+
+Every collective follows ``transport``'s backend rule: over a gloo group a
+CUDA tensor is staged through host memory.
 
 The gathers are written by hand, not with FSDP2's ``fully_shard``: its
 mixed-precision policy casts every parameter to one dtype and shards every
@@ -39,6 +45,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import transport
 from repro_torch.distributed.sharding_rules import (ShardingCtx,
                                                     _is_axes_leaf,
                                                     current_ctx, mesh_shape)
@@ -62,6 +69,27 @@ def manual_size(mesh) -> int:
     for a in manual_axes(mesh):
         n *= shape[a]
     return n
+
+
+def local_rows(mesh, batch):
+    """This rank's rows of a global batch (a dict of tensors, or one
+    tensor) along the manual axes, pod-major, as the data-parallel step
+    and the serve wrapper take them."""
+    shape = mesh_shape(mesh)
+    index, count = 0, 1
+    for a in manual_axes(mesh):
+        index = index * shape[a] + mesh.get_local_rank(a)
+        count *= shape[a]
+
+    def cut(x):
+        if x.shape[0] % count:
+            raise ValueError(f"a batch of {x.shape[0]} rows over {count} "
+                             f"batch shards")
+        n = x.shape[0] // count
+        return x[index * n:(index + 1) * n]
+
+    return {k: cut(v) for k, v in batch.items()} \
+        if isinstance(batch, Mapping) else cut(batch)
 
 
 def rule_manual_dims(ctx: ShardingCtx, axes, manual) -> Dims:
@@ -151,7 +179,7 @@ def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    dist.all_gather_into_tensor(out, src, group=group)
+    transport.all_gather_into(out, src, group)
     collectives["all_gather"] += 1
     return out.movedim(0, dim)
 
@@ -161,7 +189,7 @@ def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     src = t.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
+    transport.reduce_scatter_into(out, src, group)
     collectives["reduce_scatter"] += 1
     return out.movedim(0, dim)
 
@@ -171,7 +199,7 @@ def all_reduce(t: torch.Tensor, axes, mesh,
     """``t`` reduced in place over the mesh axes ``axes``, one axis after
     the other (a sum of sums, a max of maxes)."""
     for a in axes:
-        dist.all_reduce(t, op=op, group=mesh.get_group(a))
+        transport.all_reduce_(t, mesh.get_group(a), op=op)
         collectives["all_reduce"] += 1
     return t
 
@@ -332,4 +360,15 @@ def deferred_psum(grads: Dict[str, torch.Tensor], plan: ShardPlan, scale):
         rest = tuple(a for a in plan.manual if a not in used)
         all_reduce(g, rest, plan.mesh)
         g.mul_(scale)
+    return grads
+
+
+def model_psum(grads: Dict[str, torch.Tensor], names, mesh):
+    """The once-a-step sum over the ``"model"`` axis, in place, of the
+    leaves ``names``: those the model ranks used only in part (each rank
+    holds the gradient of its slice of the work).  After it every leaf's
+    gradient is whole and equal on every model rank; the leaves a rank
+    used whole on replicated inputs already were, and are left alone."""
+    for name in names:
+        all_reduce(grads[name], ("model",), mesh)
     return grads

@@ -14,11 +14,12 @@ object whose ``shape`` maps axis names to sizes (``mesh_shape``).
 
 The port's tensors are local: ``constrain`` is the identity (a rule never
 moves data here; the data-parallel step in ``dp_shard`` shards and gathers
-explicitly).  The model-axis half of ``repro``'s models (head padding, the
-vocab-sharded cross-entropy, the expert-parallel MoE) is not ported: where a
-model would need it, ``require_no_model_axis`` raises under a mesh whose
-``"model"`` axis is larger than 1.  With a model axis of 1 ``repro`` takes
-the dense paths, and so does the port.
+explicitly).  The model axis splits work, not storage: inside the manual
+region of the batch axes the layers split attention heads, d_ff, virtual
+experts and vocabulary rows over the model ranks and sum with explicit
+collectives (``model_axis``); every parameter stays whole on every model
+rank.  ``model_group`` / ``model_rank`` / ``model_size`` read the axis off
+a mesh.
 """
 from __future__ import annotations
 
@@ -197,15 +198,20 @@ def constrain(x, *logical_axes: Optional[str]):
     return x
 
 
-def require_no_model_axis(what: str) -> None:
-    """Raise ``NotImplementedError`` under a mesh whose ``"model"`` axis is
-    larger than 1: ``what`` is a model-axis path of ``repro`` the port does
-    not have."""
-    ctx = current_ctx()
-    if ctx is not None and ctx.shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"{what} over a model axis of {ctx.shape['model']} is not "
-            f"ported; the port runs a model axis of 1")
+def model_size(mesh) -> int:
+    """Size of the mesh's ``"model"`` axis (1 where it has none)."""
+    return mesh_shape(mesh).get("model", 1)
+
+
+def model_rank(mesh) -> int:
+    """This rank's index along the mesh's ``"model"`` axis."""
+    return mesh.get_local_rank("model") if model_size(mesh) > 1 else 0
+
+
+def model_group(mesh):
+    """The process group of this rank's ``"model"`` axis (a
+    ``DeviceMesh``)."""
+    return mesh["model"].get_group()
 
 
 def _is_axes_leaf(t) -> bool:

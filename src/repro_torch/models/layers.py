@@ -1,7 +1,18 @@
 """Layers of every family: rmsnorm and layernorm, rotary, GQA attention
 (self and cross, with the ring cache's decode and the cross cache's),
 SwiGLU and gelu MLPs, top-k MoE, embedding.  The PyTorch counterpart of
-``repro/models/layers.py`` on one device.
+``repro/models/layers.py``.
+
+Under a model axis (inside the manual region of a ``use_rules`` mesh whose
+``"model"`` axis is larger than 1, ``model_axis.split_for``) four layers
+split their work over the model ranks, as ``repro``'s rules shard the
+activations, and sum with explicit collectives: attention by padded heads
+(``heads_act``), the MLP by d_ff (``mlp_act``), the MoE by virtual experts
+(``experts_virt``, ``repro``'s expert-parallel branch) and the
+unembedding and cross-entropy by vocabulary rows (``vocab_act``).  Every
+parameter stays whole on every rank; a rank computes with views of its
+slice.  ``model_partial_leaves`` names the parameters whose gradient a
+rank then holds only in part.
 
 Conventions:
 * ``p`` is a mapping of parameter name to tensor (a ``ParameterDict``).
@@ -20,12 +31,14 @@ from __future__ import annotations
 
 import math
 import os
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding_rules import require_no_model_axis
+from repro_torch.distributed import model_axis
+from repro_torch.distributed.sharding_rules import current_ctx
 from repro_torch.kernels import ops
 from repro_torch.models.module import spec
 
@@ -143,16 +156,172 @@ def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
     return q, k, v
 
 
+def _heads_shards() -> int:
+    """Number of shards the heads_act rule would apply (1 outside a mesh)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return 1
+    n = 1
+    for a in ctx.mesh_axes_for("heads_act"):
+        n *= ctx.shape[a]
+    return n
+
+
+def _pad_plan(num_heads: int, num_kv: int, shards: int):
+    """Smallest (K2, G2) with K2 >= K, G2 >= G and K2*G2 % shards == 0.
+
+    Sharding attention by heads requires head count divisible by the model
+    axis; five assigned archs (yi 56H, qwen2 14H, whisper 20H, granite 24H,
+    hymba 25H) are not.  Padding GQA groups (and kv heads when needed) costs
+    (K2*G2/H - 1) extra attention flops — always far below the 16x waste of
+    replicating attention over the model axis, and it keeps the parameter
+    layout unchanged (activations are padded, not weights)."""
+    if shards <= 1 or num_heads % shards == 0:
+        return None
+    g = num_heads // num_kv
+    best = None
+    for k2 in range(num_kv, num_kv + shards + 1):
+        for g2 in range(g, g + shards + 1):
+            if (k2 * g2) % shards == 0:
+                if best is None or k2 * g2 < best[0] * best[1]:
+                    best = (k2, g2)
+    return best
+
+
+class RankHeads(NamedTuple):
+    """A model rank's slice of the padded heads: the plan (K2, G2), the
+    rank's padded head count, the slots among them that hold real heads
+    and those heads' indices, and the kv heads [k0, k1) its groups use
+    (those past K are padding)."""
+    plan: Tuple[int, int]
+    count: int
+    slots: Tuple[int, ...]
+    heads: Tuple[int, ...]
+    k0: int
+    k1: int
+
+
+def rank_heads(cfg: ModelConfig, shards: int, rank: int) -> RankHeads:
+    """Rank ``rank`` of ``shards`` owns padded heads [rank * H2 / shards,
+    (rank + 1) * H2 / shards) of the plan (K2, G2) (``_pad_plan``, or (K,
+    G) when the heads divide), padded head j being slot j % G2 of kv group
+    j // G2, real when the group is below K and the slot below G.  Raises
+    ``NotImplementedError`` when the slice is neither whole GQA groups nor
+    inside one group."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    G = H // K
+    plan = _pad_plan(H, K, shards) or (K, G)
+    K2, G2 = plan
+    count = K2 * G2 // shards
+    if count % G2 and G2 % count:
+        raise NotImplementedError(
+            f"{cfg.name}: {H} / {K} heads padded to plan {plan} give "
+            f"{count} heads a rank over {shards} model ranks, which straddle "
+            f"GQA groups of {G2}; the model axis needs whole groups or a "
+            f"slice of one")
+    j0 = rank * count
+    slots, heads = [], []
+    for s in range(count):
+        kk, g = divmod(j0 + s, G2)
+        if kk < K and g < G:
+            slots.append(s)
+            heads.append(kk * G + g)
+    return RankHeads(plan, count, tuple(slots), tuple(heads), j0 // G2,
+                     (j0 + count - 1) // G2 + 1)
+
+
+def _runs(heads):
+    """Consecutive head indices as [start, stop) runs."""
+    runs = []
+    for h in heads:
+        if runs and runs[-1][1] == h:
+            runs[-1][1] = h + 1
+        else:
+            runs.append([h, h + 1])
+    return runs
+
+
+def _take_heads(w, runs, hd: int, dim: int):
+    """The columns (``dim`` -1) or rows (``dim`` 0) of the heads in
+    ``runs``: a view for one run."""
+    parts = [w.narrow(dim, a * hd, (b - a) * hd) for a, b in runs]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat(parts, dim) if parts else w.narrow(dim, 0, 0)
+
+
+def _project_heads(p, cfg: ModelConfig, x, name: str, runs):
+    """``x @ w{name}`` (+ its bias) for the heads in ``runs``, viewed as
+    (B, S, heads, hd)."""
+    hd = cfg.head_dim
+    y = x @ cast(_take_heads(p["w" + name], runs, hd, -1))
+    if "b" + name in p:
+        y = y + cast(_take_heads(p["b" + name], runs, hd, -1))
+    return y.view(x.shape[0], x.shape[1], y.shape[-1] // hd, hd)
+
+
+def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
+                     window, num_sink, rope, full_kv):
+    """``attention`` on this model rank's slice of the padded heads
+    (``rank_heads``): q projected for its real heads only and zero in the
+    pad slots, K/V for the kv heads its groups use (zero for a pad kv
+    head), qk-norm and rotary per head, flash over (B, S, count, hd), the
+    real heads' outputs times their rows of ``wo``, summed over the model
+    ranks.  A pad head's output is dropped before ``wo``, so its dO is 0
+    and it adds no gradient.  Returns (y, k, v): K/V of every kv head if
+    ``full_kv`` (prefill's cache), else of this rank's."""
+    B, S, _ = x.shape
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    rh = rank_heads(cfg, split.size, split.rank)
+    xin = cast(model_axis.to_model(x, split))
+    runs = _runs(rh.heads)
+    kr0, kr1 = rh.k0, max(rh.k0, min(rh.k1, K))       # the real kv heads
+    kv_runs = [[0, K]] if full_kv else ([[kr0, kr1]] if kr1 > kr0 else [])
+    q = _project_heads(p, cfg, xin, "q", runs)
+    k = _project_heads(p, cfg, xin, "k", kv_runs)
+    v = _project_heads(p, cfg, xin, "v", kv_runs)
+    if "q_norm" in p:
+        if rh.heads:
+            q = ops.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
+        if k.shape[2]:
+            k = ops.rmsnorm(k, p["k_norm"], eps=cfg.norm_eps)
+    if rope:
+        q = rotary(q, positions, cfg.rope_theta)
+        k = rotary(k, positions, cfg.rope_theta)
+    padded = len(rh.heads) < rh.count
+    if padded:
+        slots = torch.tensor(rh.slots, dtype=torch.long, device=x.device)
+        q = q.new_zeros(B, S, rh.count, hd).index_copy(2, slots, q)
+    kl, vl = (t[:, :, kr0:kr1] for t in (k, v)) if full_kv else (k, v)
+    pad_kv = (rh.k1 - rh.k0) - (kr1 - kr0)
+    if pad_kv:
+        kl, vl = (F.pad(t, (0, 0, 0, pad_kv)) for t in (kl, vl))
+    out = ops.attention(q, kl, vl, causal=causal, window=window,
+                        num_sink=num_sink)
+    if padded:
+        out = out[:, :, slots]
+    y = out.reshape(B, S, len(rh.heads) * hd) \
+        @ cast(_take_heads(p["wo"], runs, hd, 0))
+    return model_axis.from_model(y, split), k, v
+
+
 def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
               window: int = 0, num_sink: int = 0, kv_x=None,
-              rope: bool = True):
+              rope: bool = True, full_kv: bool = True):
     """Full-sequence attention (train, prefill, the encoder, and with
     ``kv_x`` (B,T,D) cross-attention over it).  x: (B,S,D).
 
     Returns (y, k, v): the output and the K and V attended over (after
     rotary if ``rope``), which prefill writes into the decode cache, so
-    the layer stack runs once."""
-    require_no_model_axis("attention-head padding across shards")
+    the layer stack runs once.  Under a model split of the heads
+    (self-attention) each rank attends over its slice of the padded heads
+    (``_attention_split``); its k and v are then every kv head's only if
+    ``full_kv``."""
+    split = model_axis.split_for("heads_act") if kv_x is None else None
+    if split is not None:
+        return _attention_split(p, cfg, x, split, positions=positions,
+                                causal=causal, window=window,
+                                num_sink=num_sink, rope=rope, full_kv=full_kv)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if rope:
@@ -235,9 +404,33 @@ def mlp_specs(cfg: ModelConfig):
     }
 
 
+def _mlp_split(cfg: ModelConfig):
+    """The model split of d_ff, or None (none, or d_ff does not divide:
+    the rule's divisibility guard replicates)."""
+    split = model_axis.split_for("mlp_act")
+    return split if split is not None and cfg.d_ff % split.size == 0 \
+        else None
+
+
 def mlp(p, cfg: ModelConfig, x):
     """The gelu MLP is ``jax.nn.gelu``'s default, the tanh approximation
-    (``F.gelu``'s default is the exact erf form)."""
+    (``F.gelu``'s default is the exact erf form).  Under a model split of
+    d_ff each rank takes its slice of the ``wi`` / ``wg`` columns (and
+    ``bi``) and ``wo`` rows; the outputs are summed over the ranks and the
+    output bias ``bo`` added once, after the sum."""
+    split = _mlp_split(cfg)
+    if split is not None:
+        f = cfg.d_ff // split.size
+        lo = split.rank * f
+        x = cast(model_axis.to_model(x, split))
+        if "bi" in p:
+            h = F.gelu(x @ cast(p["wi"][:, lo:lo + f])
+                       + cast(p["bi"][lo:lo + f]), approximate="tanh")
+        else:
+            h = F.silu(x @ cast(p["wg"][:, lo:lo + f])) \
+                * (x @ cast(p["wi"][:, lo:lo + f]))
+        y = model_axis.from_model(h @ cast(p["wo"][lo:lo + f]), split)
+        return y + cast(p["bo"]) if "bo" in p else y
     x = cast(x)
     if "bi" in p:
         h = F.gelu(x @ cast(p["wi"]) + cast(p["bi"]), approximate="tanh")
@@ -391,12 +584,82 @@ def _moe_reference(p, cfg: ModelConfig, x):
     return y.index_add(0, tok, ye_flat).reshape(B, S, D), aux
 
 
+def _ep_split():
+    """The expert-parallel split, taken under ``repro``'s conditions: a
+    context, batch axes manual, one EP axis larger than 1
+    (``split_for("experts_virt")``), and ``REPRO_MOE_EP`` not ``"0"``."""
+    return model_axis.split_for("experts_virt") if model_axis.ep_enabled() \
+        else None
+
+
+def _moe_ep(p, cfg: ModelConfig, x, split):
+    """``repro``'s expert-parallel branch.  Routing and the slot tables
+    are computed on every rank from the replicated tokens; each rank runs
+    its ``Vloc`` virtual experts on the tokens routed to them and the
+    gate-weighted outputs are summed over the ranks (the combine).
+
+    * parts > 1: V = E * parts f-slices; every part of an expert receives
+      the same capacity slots; rank r holds rows [r Vloc, (r+1) Vloc) of
+      the virtual stack;
+    * parts = 1: V rounds E up to the ranks; virtual slot v runs expert
+      v % E, an expert's assignments alternating over its replicas
+      (``v = replica * E + expert``) with a capacity per virtual slot.
+
+    The gates and the dispatched tokens enter the split through
+    ``to_model``, so the router's gradient is whole on every rank."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    parts = _moe_parts(cfg)
+    n, r = split.size, split.rank
+    T = B * S
+    xf = x.reshape(T, D)
+    top_g, top_e, aux = _route(p, cfg, xf)
+    top_g = model_axis.to_model(top_g, split)
+    se, sg, st, pos_in_e = _sorted_assignments(top_g, top_e, T, E)
+    if parts > 1:
+        V = E * parts
+        if V % n:
+            raise NotImplementedError(
+                f"{cfg.name}: {V} virtual experts over {n} model ranks")
+        C = max(min(math.ceil(T * K / E * cfg.capacity_factor), T), 1)
+        tables = _slot_tables(se, sg, st, pos_in_e, num_slots=E, cap=C,
+                              slot_of=se, cap_pos=pos_in_e)
+        tok, gate, used = (t.reshape(E, 1, C).expand(E, parts, C).reshape(-1)
+                           for t in tables)
+    else:
+        V = math.ceil(E / n) * n
+        C = max(math.ceil(T * K / V * cfg.capacity_factor), 1)
+        n_virt = (V - se - 1) // E + 1          # replicas of this expert
+        v_of = (pos_in_e % n_virt) * E + se
+        tok, gate, used = _slot_tables(se, sg, st, pos_in_e, num_slots=V,
+                                       cap=C, slot_of=v_of,
+                                       cap_pos=pos_in_e // n_virt)
+    Vloc = V // n
+    lo = r * Vloc
+    if parts > 1 or lo + Vloc <= E:
+        wi, wg, wo = (p[k][lo:lo + Vloc] for k in ("wi", "wg", "wo"))
+    else:
+        idx = (lo + torch.arange(Vloc, device=x.device)) % E
+        wi, wg, wo = (p[k][idx] for k in ("wi", "wg", "wo"))
+    sl = slice(lo * C, (lo + Vloc) * C)
+    tok, gate, used = tok[sl], gate[sl], used[sl]
+    xe = cast(model_axis.to_model(xf, split))[tok].reshape(Vloc, C, D)
+    xe = xe * used.reshape(Vloc, C, 1).to(xe.dtype)
+    h = F.silu(torch.bmm(xe, cast(wg))) * torch.bmm(xe, cast(wi))
+    ye = torch.bmm(h, cast(wo))
+    ye_flat = ye.reshape(Vloc * C, D) * (gate * used)[:, None].to(ye.dtype)
+    y = torch.zeros((T, D), dtype=ye_flat.dtype, device=x.device)
+    y = model_axis.from_model(y.index_add(0, tok, ye_flat), split)
+    return y.reshape(B, S, D), aux
+
+
 def moe(p, cfg: ModelConfig, x):
-    """Top-k MoE on one device: ``_moe_reference``.  ``repro``'s
-    expert-parallel branch (a ``shard_map`` over the model axis with one
-    combine psum) is not ported: it raises under a model axis larger than
-    1, where ``repro`` takes it.  Returns (y, aux_loss)."""
-    require_no_model_axis("the expert-parallel MoE")
+    """Top-k MoE: ``_moe_reference`` on one device, ``repro``'s
+    expert-parallel branch (``_moe_ep``) under a model split of the
+    virtual experts.  Returns (y, aux_loss)."""
+    split = _ep_split()
+    if split is not None:
+        return _moe_ep(p, cfg, x, split)
     return _moe_reference(p, cfg, x)
 
 
@@ -412,11 +675,52 @@ def embed_specs(cfg: ModelConfig):
     return p
 
 
+def _vocab_rows(cfg: ModelConfig, split):
+    """(offset, Vloc, real rows) of this rank's slice of the vocabulary
+    padded to Vp = ceil(V / n) * n rows."""
+    V = cfg.vocab_size
+    Vloc = -(-V // split.size)
+    off = split.rank * Vloc
+    return off, Vloc, max(0, min(V, off + Vloc) - off)
+
+
+def _vocab_weight(p, cfg: ModelConfig, split):
+    """This rank's real rows of the unembedding as a (D, rows) view (the
+    tied table's rows, transposed), in the compute dtype."""
+    off, _, rows = _vocab_rows(cfg, split)
+    w = p["tokens"][off:off + rows].t() if cfg.tie_embeddings \
+        else p["unembed"][:, off:off + rows]
+    return cast(w)
+
+
 def embed(p, cfg: ModelConfig, tokens):
-    return cast(p["tokens"])[tokens]
+    """The lookup, whole on every rank.  Under a model split of the
+    vocabulary a tied table's lookup gradient keeps this rank's rows only
+    (``own_rows_grad``): the unembedding's part is per rank, and the
+    once-a-step sum then adds each row once."""
+    w = cast(p["tokens"])
+    split = model_axis.split_for("vocab_act") if cfg.tie_embeddings else None
+    if split is not None:
+        off, _, rows = _vocab_rows(cfg, split)
+        w = model_axis.own_rows_grad(w, off, off + rows)
+    return w[tokens]
 
 
 def unembed(p, cfg: ModelConfig, x):
+    """Logits in the compute dtype.  Under a model split of the vocabulary
+    each rank computes its rows' and they are all-gathered (the padded
+    rows cut)."""
+    split = model_axis.split_for("vocab_act")
+    if split is not None:
+        _, Vloc, rows = _vocab_rows(cfg, split)
+        logits = cast(model_axis.to_model(x, split)) \
+            @ _vocab_weight(p, cfg, split)
+        if cfg.logit_softcap > 0:
+            logits = cfg.logit_softcap * torch.tanh(
+                logits / cfg.logit_softcap)
+        logits = F.pad(logits, (0, Vloc - rows))
+        return model_axis.gather_from_model(
+            logits, split)[..., :cfg.vocab_size]
     w = cast(p["tokens"]).t() if cfg.tie_embeddings else cast(p["unembed"])
     logits = cast(x) @ w
     if cfg.logit_softcap > 0:
@@ -433,10 +737,59 @@ def xent_sum(logits, targets, mask):
     return ((lse - gold) * mask).sum(), torch.clamp(mask.sum(), min=1.0)
 
 
+def _xent_split(p, cfg: ModelConfig, x, targets, mask, split):
+    """``repro``'s vocab-sharded cross-entropy: each rank's fp32 logits
+    for its Vloc rows of the padded table (softcapped if set, the padded
+    rows at -1e30), then three (B, S) reductions over the ranks: the max
+    (no gradient), the sum of exponentials and the gold logit, gathered
+    on the rank whose rows hold the target."""
+    off, Vloc, rows = _vocab_rows(cfg, split)
+    if rows < Vloc and bool((targets >= cfg.vocab_size).any()):
+        raise ValueError(f"a target past the vocabulary of "
+                         f"{cfg.vocab_size}")
+    logits = (cast(model_axis.to_model(x, split))
+              @ _vocab_weight(p, cfg, split)).float()
+    if cfg.logit_softcap > 0:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    if rows < Vloc:
+        logits = F.pad(logits, (0, Vloc - rows), value=-1e30)
+    m = model_axis.pmax(logits.detach().amax(-1), split)
+    se = model_axis.psum(torch.exp(logits - m[..., None]).sum(-1), split)
+    lse = m + torch.log(se)
+    t_loc = (targets - off).clamp(0, Vloc - 1).long()
+    in_range = (targets >= off) & (targets < off + Vloc)
+    gold_loc = torch.gather(logits, -1, t_loc[..., None])[..., 0]
+    gold = model_axis.psum(torch.where(in_range, gold_loc, 0.0), split)
+    return ((lse - gold) * mask).sum(), torch.clamp(mask.sum(), min=1.0)
+
+
 def unembed_xent(p, cfg: ModelConfig, x, targets, mask):
-    """Unembed and cross-entropy, the dense path of JAX's ``unembed_xent``
-    (the vocab-sharded one is not ported: it raises under a model axis
-    larger than 1): fp32 logsumexp over the compute-dtype logits.
-    Returns (ce_sum, denom)."""
-    require_no_model_axis("the vocab-sharded cross-entropy")
+    """Unembed and cross-entropy: fp32 logsumexp over the compute-dtype
+    logits, or under a model split of the vocabulary ``repro``'s
+    vocab-sharded form (``_xent_split``).  Returns (ce_sum, denom)."""
+    split = model_axis.split_for("vocab_act")
+    if split is not None:
+        return _xent_split(p, cfg, x, targets, mask, split)
     return xent_sum(unembed(p, cfg, x), targets, mask)
+
+
+def model_partial_leaves(cfg: ModelConfig, names):
+    """The parameters among ``names`` (port names, ``layers.3.attn.wq``)
+    whose gradient a model rank holds only in part under the current
+    splits: what the data-parallel step sums over the model ranks once a
+    step.  The norm scales, the router and a table used only by the
+    lookup are used whole on replicated inputs and are not among them."""
+    attn = model_axis.split_for("heads_act") is not None
+    mlp_ = _mlp_split(cfg) is not None
+    ep = _ep_split() is not None
+    vocab = model_axis.split_for("vocab_act") is not None
+    out = []
+    for name in names:
+        group, leaf = name.split(".")[-2:]
+        if (group == "attn" and attn
+                or group == "mlp" and mlp_ and leaf != "bo"
+                or group == "moe" and ep and leaf != "router"
+                or group == "embed" and vocab and (
+                    leaf == "unembed" or cfg.tie_embeddings)):
+            out.append(name)
+    return out

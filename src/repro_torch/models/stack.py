@@ -34,6 +34,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import map_specs, stack_specs
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+# the families whose layers split their work over a model axis
+MODEL_AXIS_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
@@ -43,6 +45,19 @@ def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet here; "
             f"the port covers {', '.join(families)}")
+
+
+def check_model_axis(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` under a mesh whose ``"model"`` axis
+    is larger than 1 unless cfg's family splits its layers over it
+    (``MODEL_AXIS_FAMILIES``)."""
+    ctx = current_ctx()
+    n = ctx.shape.get("model", 1) if ctx is not None else 1
+    if n > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) under a model axis of {n} "
+            f"is not ported yet; the model axis covers "
+            f"{', '.join(MODEL_AXIS_FAMILIES)}")
 
 
 def block_specs(cfg: ModelConfig, cross: bool = False):
@@ -142,7 +157,10 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     ``ssm_state`` if ``ssm_state`` (prefill), and for an encdec decoder
     layer given the encoder's output ``enc_out`` the ``cross_k`` and
     ``cross_v`` it attends over (unrounded; the cache rounds them to its
-    dtype).  ``is_global``: the layer's flag (``global_flags``)."""
+    dtype).  ``is_global``: the layer's flag (``global_flags``).  Under a
+    model split of the heads the ``k`` / ``v`` leaves are every kv head's
+    only when ``ssm_state`` (prefill) asks for the cache leaves."""
+    check_model_axis(cfg)
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
         y, leaves = _ssm_branch(p, cfg, h, ssm_state)
@@ -150,7 +168,8 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     window, num_sink = _attn_window(cfg, is_global)
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=window,
-                                num_sink=num_sink, rope=_use_rope(cfg))
+                                num_sink=num_sink, rope=_use_rope(cfg),
+                                full_kv=ssm_state)
     leaves = {"k": k, "v": v}
     if cfg.family == "hybrid":
         ssm_y, ssm_leaves = _ssm_branch(p, cfg, h, ssm_state)
@@ -242,7 +261,9 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
     """One decode layer; writes this step's K/V and the SSM's new conv
     tail and state into ``cache_layer`` (views of the stacked cache); an
     encdec layer then attends over the cached ``cross_k`` / ``cross_v``.
-    ``is_global``: the layer's flag (``global_flags``)."""
+    ``is_global``: the layer's flag (``global_flags``).  Attention's
+    decode stays replicated over the model ranks."""
+    check_model_axis(cfg)
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
         return x + _ssm_decode(p, cfg, h, cache_layer)

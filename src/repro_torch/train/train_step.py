@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import dp_shard, grad_compress
 from repro_torch.distributed.sharding_rules import ShardingCtx, current_ctx
+from repro_torch.models import layers as ll
 from repro_torch.models.lm import build_model, param_specs
 from repro_torch.models.module import init_params, map_specs
 from repro_torch.utils.device import resolve_device
@@ -143,10 +144,17 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
     * every gradient is summed locally over the microbatches and reduced
       once per step over the manual axes that do not shard it, scaled by
       1/(R n_mb) (R ranks over the manual axes, n_mb microbatches);
+    * under a model axis the layers split their work over the model ranks
+      (``layers.py``); the leaves a rank used only in part
+      (``layers.model_partial_leaves``) are summed over the model ranks
+      once per step beside that reduction (``dp_shard.model_psum``), so
+      every gradient is then whole and equal on every model rank;
     * loss and metrics are the mean over microbatches, summed over the
-      ranks and divided by R;
+      ranks of the manual axes and divided by R (the model ranks hold
+      equal copies);
     * the global gradient norm is exact: each leaf's local sum of squares
-      divided by how many ranks hold it, summed over the ranks;
+      divided by how many ranks of the manual axes hold it, summed over
+      those ranks;
     * AdamW updates the shards and their moments in place; the error
       feedback passes through untouched (``repro``'s manual step does not
       compress)."""
@@ -184,6 +192,8 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
                      for k, p in params.items()}
             for p in params.values():
                 p.grad = None
+            dp_shard.model_psum(grads, ll.model_partial_leaves(mc, grads),
+                                ctx.mesh)
             dp_shard.deferred_psum(grads, plan, 1.0 / (R * n_mb))
             loss = dp_shard.all_reduce(torch.stack(losses).mean(), manual,
                                        ctx.mesh) / R

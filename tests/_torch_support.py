@@ -338,11 +338,13 @@ class RankFailure(AssertionError):
     """A spawned rank exited non-zero or outlived its timeout."""
 
 
-def spawn_ranks(workdir, world: int, jobs):
-    """Start ``world`` processes, each one rank of a gloo group that joins
-    through a ``FileStore`` in ``workdir`` (no TCP port: the tests run
-    under several xdist workers), running ``tests/_torch_dp_ranks.py``'s
-    ``jobs`` in turn.  Returns the processes; ``join_ranks`` waits for
+def spawn_ranks(workdir, world, jobs, *, module: str = "_torch_dp_ranks"):
+    """Start the ranks of a gloo group that joins through a ``FileStore``
+    in ``workdir`` (no TCP port: the tests run under several xdist
+    workers), each a process running ``tests/<module>.py``'s ``jobs`` in
+    turn.  ``world`` is a rank count, or a mesh shape's tag such as
+    ``"2x2"`` for a module that builds its mesh from it (one rank per
+    device of the mesh).  Returns the processes; ``join_ranks`` waits for
     them."""
     import subprocess
     import sys
@@ -352,14 +354,22 @@ def spawn_ranks(workdir, world: int, jobs):
                    [here, os.path.join(here, "..", "src"),
                     os.environ.get("PYTHONPATH", "")]))
     procs = []
-    for rank in range(world):
+    for rank in range(world_size(world)):
         log = open(os.path.join(workdir, f"log_{jobs[0]}_w{world}_r{rank}"),
                    "w")
         procs.append((subprocess.Popen(
-            [sys.executable, "-c", "import _torch_dp_ranks as r; r.main()",
+            [sys.executable, "-c", f"import {module} as r; r.main()",
              str(workdir), str(world), str(rank), ",".join(jobs)],
             stdout=log, stderr=subprocess.STDOUT, env=env, cwd=here), log))
     return procs
+
+
+def world_size(world) -> int:
+    """The rank count of ``world``: an int, or a mesh tag ``"2x2x2"``."""
+    n = 1
+    for d in str(world).split("x"):
+        n *= int(d)
+    return n
 
 
 def join_ranks(procs, timeout: float = RANK_TIMEOUT_S) -> None:
@@ -399,7 +409,7 @@ def rank_results(workdir, job: str, world: int):
     """Each rank's result of ``job`` at ``world``, in rank order."""
     import pickle
     out = []
-    for rank in range(world):
+    for rank in range(world_size(world)):
         with open(os.path.join(workdir, f"res_{job}_w{world}_r{rank}.pkl"),
                   "rb") as f:
             out.append(pickle.load(f))

@@ -1,0 +1,306 @@
+"""One rank of the port's model-axis CPU tests
+(``tests/test_torch_model_axis.py``).
+
+Run by ``_torch_support.spawn_ranks(..., module="_torch_tp_ranks")`` as
+
+    python -c "import _torch_tp_ranks as r; r.main()" WORKDIR MESH RANK JOBS
+
+with ``tests`` and ``src`` on the path.  MESH is a tag of ``MESHES``
+(``"1x2"``: data 1, model 2).  The rank joins a gloo group of the mesh's
+size through a ``FileStore`` in WORKDIR, runs each job named in the
+comma-separated JOBS in turn and writes each job's result to
+``WORKDIR/res_<job>_w<MESH>_r<RANK>.pkl``; the inputs come from
+``WORKDIR/inputs.pkl``.  This module imports torch and the port only.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import os
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+torch.set_num_threads(1)
+
+# (mesh shape, axis names) of each mesh the tests run
+MESHES = {"1x1": ((1, 1), ("data", "model")),
+          "1x2": ((1, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+
+
+def make_mesh(tag: str):
+    shape, names = MESHES[tag]
+    if names == ("data", "model"):
+        from repro_torch.launch.mesh import make_local_mesh
+        return make_local_mesh(model_axis=shape[1], device="cpu")
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def port_config(arch: str, overrides):
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(arch)), **overrides)
+
+
+def _tensors(tree, grad=True):
+    return {k: torch.tensor(v, requires_grad=grad) for k, v in tree.items()}
+
+
+def _sum_partial(grads, names, mesh):
+    """The once-a-step sum over the model ranks of the leaves ``names``."""
+    from repro_torch.distributed import dp_shard
+    dp_shard.model_psum(grads, names, mesh)
+    return grads
+
+
+def job_pieces(inp, tag, rank, workdir):
+    """Attention, the vocab-split cross-entropy, the expert-parallel MoE
+    and ``ring_weight_matmul`` at this mesh's model axis: outputs and
+    gradients, the partial ones summed over the model ranks."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.distributed.collective_matmul import ring_weight_matmul
+    from repro_torch.distributed.sharding_rules import (model_rank,
+                                                        model_size,
+                                                        rules_for, use_rules)
+    from repro_torch.models import layers as ll
+    mesh = make_mesh(tag)
+    n = model_size(mesh)
+    out = {}
+    with use_rules(mesh, rules_for("train")) as ctx, \
+            ctx.manual_region(("data",)):
+        for name, c in inp["attn"].items():
+            if n not in c["worlds"]:
+                continue
+            cfg = port_config(c["arch"], c["overrides"])
+            p = _tensors(c["params"])
+            x = torch.tensor(c["x"], requires_grad=True)
+            B, S, _ = x.shape
+            pos = torch.arange(S)[None].expand(B, S)
+            y, _, _ = ll.attention(p, cfg, x, positions=pos)
+            y.backward(torch.from_numpy(c["dy"]))
+            grads = {k: v.grad for k, v in p.items()}
+            _sum_partial(grads, list(grads), mesh)
+            out["attn", name] = dict(
+                y=y.detach().numpy(), dx=x.grad.numpy(),
+                grads={k: v.numpy() for k, v in grads.items()},
+                heads=ll.rank_heads(cfg, n, model_rank(mesh)))
+        for name, c in inp["xent"].items():
+            cfg = port_config("qwen2-0.5b", c["overrides"])
+            p = _tensors({"tokens": c["table"]})
+            x = torch.tensor(c["x"], requires_grad=True)
+            ce, denom = ll.unembed_xent(p, cfg, x,
+                                        torch.from_numpy(c["targets"]),
+                                        torch.from_numpy(c["mask"]))
+            ce.backward()
+            grads = {"tokens": p["tokens"].grad}
+            _sum_partial(grads, ["tokens"], mesh)
+            out["xent", name] = dict(ce=float(ce), denom=float(denom),
+                                     dx=x.grad.numpy(),
+                                     dtable=grads["tokens"].numpy())
+        for name, c in inp["moe"].items():
+            if n not in c["worlds"]:
+                continue
+            cfg = port_config("granite-moe-3b-a800m", c["overrides"])
+            p = _tensors(c["params"])
+            x = torch.tensor(c["x"], requires_grad=True)
+            model_axis.collectives.clear()
+            y, aux = ll.moe(p, cfg, x)
+            counts = dict(model_axis.collectives)
+            ((y * torch.from_numpy(c["dy"])).sum() + c["aux_weight"] * aux
+             ).backward()
+            grads = {k: v.grad for k, v in p.items()}
+            _sum_partial(grads, ["wi", "wg", "wo"], mesh)
+            out["moe", name] = dict(
+                y=y.detach().numpy(), aux=float(aux), dx=x.grad.numpy(),
+                grads={k: v.numpy() for k, v in grads.items()},
+                forward_collectives=counts)
+    if n in inp["ring"]["worlds"]:
+        x, w = inp["ring"]["x"], inp["ring"]["w"]
+        r = model_rank(mesh)
+        m, f = x.shape[0] // n, w.shape[1] // n
+        model_axis.collectives.clear()
+        got = ring_weight_matmul(torch.from_numpy(x[r * m:(r + 1) * m]),
+                                 torch.from_numpy(w[:, r * f:(r + 1) * f]),
+                                 mesh)
+        out["ring"] = dict(rows=got.numpy(),
+                           send_recv=model_axis.collectives["send_recv"])
+    return out
+
+
+def _port_state(arch, overrides, tree, tcfg):
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import init_train_state
+    from _torch_dp_ranks import unflatten
+    cfg = port_config(arch, overrides)
+    model = from_jax_params(cfg, unflatten(tree), device="cpu",
+                            trainable=True)
+    return init_train_state(model, None, tcfg, device="cpu")
+
+
+def _differ_over_model(grads, mesh):
+    """The leaves whose gradient is not equal on every model rank."""
+    group = mesh.get_group("model")
+    n = dist.get_world_size(group)
+    out = []
+    for k, g in grads.items():
+        got = [torch.empty_like(g) for _ in range(n)]
+        dist.all_gather(got, g.contiguous(), group=group)
+        if any(not torch.equal(got[0], t) for t in got[1:]):
+            out.append(k)
+    return out
+
+
+@contextlib.contextmanager
+def _env(run):
+    """``REPRO_MOE_EP=0`` for a run tagged ``"ep_off"``."""
+    if "ep_off" not in run[2:]:
+        yield
+        return
+    os.environ["REPRO_MOE_EP"] = "0"
+    try:
+        yield
+    finally:
+        del os.environ["REPRO_MOE_EP"]
+
+
+def job_step(inp, tag, rank, workdir):
+    """The data-parallel step of each run of this mesh: every leaf at its
+    global shape after one step, AdamW's first moment, loss, grad norm,
+    the collectives, the partial leaves, and the leaves the step summed
+    over the model ranks beside those whose gradient differed across them
+    before that sum.  The first run's state is then saved
+    (``ck_<tag>``)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import dp_shard, model_axis, transport
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import (make_train_step,
+                                              shard_train_state)
+    mesh = make_mesh(tag)
+    out, first = {}, None
+    real_sum = dp_shard.model_psum
+    for run in inp["step_runs"][tag]:
+        name, mb = run[:2]
+        c = inp["step_archs"][name]
+        tcfg = dataclasses.replace(inp["step_config"], microbatches=mb)
+        state = _port_state(c["arch"], c["overrides"], c["tree"], tcfg)
+        batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+        seen = {}
+
+        def spy(grads, names, mesh_):
+            seen["summed"] = list(names)
+            seen["differ"] = _differ_over_model(grads, mesh_)
+            return real_sum(grads, names, mesh_)
+
+        with use_rules(mesh, rules_for("train")) as ctx, _env(run):
+            state = shard_train_state(state, ctx)
+            step = make_train_step(state.model, tcfg)
+            local = dp_shard.local_rows(mesh, batch)
+            with ctx.manual_region(dp_shard.manual_axes(mesh)):
+                partial = ll.model_partial_leaves(state.model.cfg,
+                                                  state.params)
+            dp_shard.collectives.clear()
+            model_axis.collectives.clear()
+            transport.moved.clear()
+            dp_shard.model_psum = spy
+            try:
+                state, m = step(state, local)
+            finally:
+                dp_shard.model_psum = real_sum
+            counts = dict(collectives=dict(dp_shard.collectives),
+                          model_collectives=dict(model_axis.collectives),
+                          moved=dict(transport.moved))
+            plan = state.plan
+            out[run] = dict(
+                path=step.path, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]),
+                params={k: plan.full(k, p.detach()).numpy()
+                        for k, p in state.params.items()},
+                mu={k: plan.full(k, v).numpy()
+                    for k, v in state.opt.mu.items()},
+                plan=dict(plan.dims), partial=partial, **counts, **seen)
+        if first is None:
+            first = state
+    Checkpointer(os.path.join(workdir, f"ck_{tag}")).save(
+        1, first, aux={"mesh": tag}, block=True)
+    return out
+
+
+def job_restore(inp, tag, rank, workdir):
+    """Restore the other mesh's checkpoint into a sharded template of the
+    first run's arch on this mesh: every leaf gathered back."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models.convert import to_jax_named
+    from repro_torch.train.train_step import shard_train_state
+    mesh = make_mesh(tag)
+    name, mb = inp["step_runs"][tag][0][:2]
+    c = inp["step_archs"][name]
+    tcfg = dataclasses.replace(inp["step_config"], microbatches=mb)
+    state = _port_state(c["arch"], c["overrides"], c["tree"], tcfg)
+    src = inp["restore_from"][tag]
+    with use_rules(mesh, rules_for("train")) as ctx:
+        state = shard_train_state(state, ctx)
+        state, aux = Checkpointer(os.path.join(workdir, f"ck_{src}")).restore(
+            state, shardings=state.plan)
+        named = to_jax_named(state)
+    return dict(named=named, aux=aux)
+
+
+def job_serve(inp, tag, rank, workdir):
+    """Prefill and one decode step of reduced granite through
+    ``_serve_wrap`` on the global batch: the logits of this rank's
+    rows."""
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch.dryrun import _serve_wrap
+    from repro_torch.models.convert import from_jax_params
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    c = inp["serve"]
+    cfg = port_config(c["arch"], {})
+    model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu")
+    tokens = torch.from_numpy(c["tokens"])
+    B, S = tokens.shape
+    B //= dp_shard.manual_size(mesh)        # this rank's rows
+    with use_rules(mesh, rules_for("prefill")) as ctx:
+        prefill = _serve_wrap(model, ctx, model.prefill)
+        logits, cache = prefill({"tokens": tokens},
+                                model.init_cache(B, S + 4))
+    with use_rules(mesh, rules_for("decode")) as ctx:
+        decode = _serve_wrap(model, ctx,
+                             lambda b, cache: model.decode_step(
+                                 cache, b["tokens"], b["positions"]))
+        dec, _ = decode({"tokens": tokens[:, :1],
+                         "positions": torch.full((len(tokens),), S)}, cache)
+    return dict(prefill=logits.float().numpy(), decode=dec.float().numpy())
+
+
+JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
+        "serve": job_serve}
+
+
+def main() -> None:
+    workdir, tag, rank, jobs = sys.argv[1], sys.argv[2], int(sys.argv[3]), \
+        sys.argv[4].split(",")
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    world = int(np.prod(MESHES[tag][0]))
+    store = dist.FileStore(os.path.join(workdir, f"store_{tag}_{jobs[0]}"),
+                           world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        for job in jobs:
+            res = JOBS[job](inp, tag, rank, workdir)
+            path = os.path.join(workdir, f"res_{job}_w{tag}_r{rank}.pkl")
+            with open(path + ".tmp", "wb") as f:
+                pickle.dump(res, f)
+            os.replace(path + ".tmp", path)
+    finally:
+        dist.destroy_process_group()

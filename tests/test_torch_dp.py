@@ -270,34 +270,36 @@ def test_torch_dp_step_takes_plain_path_when_not_divisible():
 
 
 def test_torch_model_axis_raises():
-    """The model-axis half is not ported: under a model axis of 2 the
-    vocab-sharded cross-entropy, attention's head padding and the
-    expert-parallel MoE raise; under a model axis of 1 the dense paths
-    run."""
+    """Under a model axis of 2 a family the model axis does not cover (the
+    ssm family) raises, naming itself; the dense and moe families run, and
+    outside the manual region of the batch axes no layer splits its work
+    (``model_axis.split_for`` is None), so their loss is the loss at a
+    model axis of 1."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import model_axis
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.models.lm import build_model, param_specs
     from repro_torch.models.module import init_params
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
-    for arch, what in (("mamba2-780m", "vocab-sharded"),
-                       ("qwen2-0.5b", "head padding"),
-                       ("granite-moe-3b-a800m", "head padding")):
+    for arch in ("mamba2-780m", "qwen2-0.5b", "granite-moe-3b-a800m"):
         cfg = reduced(get_config(arch))
         model = build_model(cfg, init_params(
             param_specs(cfg), torch.Generator().manual_seed(0)), device="cpu")
-        with use_rules(AbstractMesh((1, 2), ("data", "model")),
-                       rules_for("train")):
-            with pytest.raises(NotImplementedError, match=what):
-                model.loss(batch)
         with use_rules(AbstractMesh((2, 1), ("data", "model")),
                        rules_for("train")):
-            assert torch.isfinite(model.loss(batch)[0])
-    from repro_torch.models import layers as ll
-    with use_rules(AbstractMesh((1, 2), ("data", "model")),
-                   rules_for("train")):
-        with pytest.raises(NotImplementedError, match="expert-parallel"):
-            ll.moe({}, cfg, None)
+            one = model.loss(batch)[0]
+            assert torch.isfinite(one)
+        with use_rules(AbstractMesh((1, 2), ("data", "model")),
+                       rules_for("train")):
+            if cfg.family == "ssm":
+                with pytest.raises(NotImplementedError, match="'ssm'"):
+                    model.loss(batch)
+            else:
+                assert float(model.loss(batch)[0]) == float(one)
+            for logical in ("heads_act", "mlp_act", "experts_virt",
+                            "vocab_act"):
+                assert model_axis.split_for(logical) is None
 
 
 # ---- (b) the gather -----------------------------------------------------------
