@@ -40,7 +40,8 @@ Phases, each printing one JSON line:
    smoke preset), ``d128``, ``group12`` (mistral-large's 24 / 2 heads
    of 128: a dK / dV cluster of 12, past the portable 8), ``d96``
    (phi-3-vision's 32 / 32 heads of 96 over 576 patches and 512 text
-   tokens) and ``d16`` (tiles of 16, non-causal, S and T ragged): dq, dk, dv
+   tokens), ``d16`` (tiles of 16, non-causal, S and T ragged) and the
+   model axis's per-rank shapes (``tp_rank``, ``tp_big_rank``): dq, dk, dv
    against autograd through the fp32 plain twin, each within 2x the bf16
    plain twins' own distance plus 1e-3 of its largest entry, and the
    kernels' gradients at 4 mantissa bits must fail that; a second call on
@@ -247,31 +248,50 @@ Phases, each printing one JSON line:
    card, whose assertion that the loss fell must hold.
 20. tp_train: the model axis trains uncut qwen2-0.5b on (data 1, model
    4), four ranks on the one card in a gloo group (NCCL refuses two ranks
-   on one device), each collective staged through host memory: heads
-   padded to (2, 8), 4 / 1 a rank, the vocabulary split 37,984 rows a
-   rank, one ``dp_manual`` step of 2 x 512 at remat "none" against the
+   on one device), each collective staged through host memory.  Each rank
+   holds only its shards of the storage plan, built leaf by leaf (held
+   bytes equal to the sum of its shards' sizes, no model-mapped leaf at
+   its whole shape): heads padded to (2, 8), 4 / 1 a rank, its attention
+   leaves gathered over the model ranks once a layer (exactly 7 x 24
+   gathers a rank), the d_ff and vocabulary shards (37,984 rows) used as
+   they are; one ``dp_manual`` step of 2 x 512 at remat "none" against the
    one-rank step on the same masters (loss, grad norm, every leaf's
-   first-moment cosine >= 0.999, or within 2x the bf16 noise floor of
-   its kind of leaf, the largest distance over the layers between the
-   one-rank gradients through the kernels and the plain twins), every
-   updated leaf bit-equal across the ranks, exactly 24 / 24
-   flash launches and 49 rmsnorm a rank; a control with layer 0's
-   attention combine all-reduce left out must fail; then
-   ``ring_weight_matmul`` at (4,096, 896) x (896, 4,864) over the ranks
-   against x @ w in fp32 (``ring_matmul``).  Lines: backend, how each
-   rank's collectives moved their tensors (``transport.moved``: every one
-   staged through the host, or the phase fails), collectives by kind,
-   each rank's peak memory; times are not speeds.
-21. ep_serve: the model axis serves uncut granite-moe-3b-a800m on (data 1,
-   model 2) through ``_serve_wrap``: 12 / 4 heads and 20 of the 40
-   experts a rank, the vocabulary of 49,155 padded to 49,156; a prefill
-   of 2 x 512 and 8 teacher-forced decode steps against the one-rank port
-   on the same weights: in fp32 compute every position's logit cosine
+   first-moment cosine >= 0.999, summed over the ranks' shards, or
+   within 2x the bf16 noise floor of its kind of leaf, the largest
+   distance over the layers between the one-rank gradients through the
+   kernels and the plain twins), every leaf the ranks hold whole
+   bit-equal across them, exactly 24 / 24 flash launches and 49 rmsnorm
+   a rank; a control with layer 0's attention combine all-reduce left out
+   must fail.  The ranks' checkpoint is restored in this process at world
+   1: every shard's checksum equal to its rank's, and a world-1 save of it
+   writes the ranks' manifest.  Then ``ring_weight_matmul`` at (4,096,
+   896) x (896, 4,864) over the ranks against x @ w in fp32
+   (``ring_matmul``).  Lines: backend, how each rank's collectives moved
+   their tensors (``transport.moved``: every one staged through the host,
+   or the phase fails), collectives by kind, what each rank holds, each
+   rank's peak memory beside the whole layout's; times are not speeds.
+20b. tp_train_big: uncut qwen3-1.7b (1.72 B parameters) on (data 1,
+   model 4), aligned everywhere: 4 / 2 heads of 128, 1,536 d_ff columns
+   and 37,984 vocabulary rows a rank, no gather over the model ranks;
+   the one-rank step first in this process (27.5 GB of fp32 state), then
+   the ranks' step held as in phase 20, each rank's peak below 27.5 GB,
+   exactly 28 / 28 flash launches and 113 rmsnorm (qk-norm's two a layer)
+   a rank; the vocabulary-parallel lookup without its all-reduce must
+   fail.
+21. ep_serve: the model axis serves uncut granite-moe-3b-a800m on (data 2,
+   model 2) through ``_serve_wrap`` under ``SERVE_RULES_BIG``, four ranks
+   holding their bf16 shards of its storage plan (the embed dim over
+   "data", gathered a layer at a time; 12 / 4 heads a rank; the 40
+   experts, whose axis maps to no mesh axis, and the vocabulary of
+   49,155, under the guard, whole over "model", 20 experts computed a
+   rank); a prefill of 4 x 512 (2 rows a
+   rank) and 8 teacher-forced decode steps against the one-rank port on
+   the same weights: in fp32 compute every position's logit cosine
    >= 0.999 and top-1 >= 0.99; in bf16 each position within 0.999 or 2x
    the bf16 noise floor (the one-rank kernels against the plain twins),
-   top-1 recorded, the ranks' logits equal; the MoE combine without its
-   all-reduce must fail; exactly 32 flash launches and 65 rmsnorm a
-   forward a rank in bf16.
+   top-1 recorded, the model ranks' logits equal; the MoE combine without
+   its all-reduce must fail at the prefill; exactly 32 flash launches and
+   65 rmsnorm a forward a rank in bf16.
 22. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
    launches by path, errors and times (``backward_*``).
@@ -543,6 +563,8 @@ BWD_CASES = {
     # phase 20's per-rank shape: qwen2 at model 4 holds 4 / 1 heads of 64,
     # a dK / dV cluster of 4
     "tp_rank": ((2, 512, 512, 4, 1, 64), {}),
+    # phase 20b's: qwen3 at model 4 holds 4 / 2 heads of 128, a cluster of 2
+    "tp_big_rank": ((2, 512, 512, 4, 2, 128), {}),
 }
 
 # phases 18-19: the dense LM trained at full width and depth (qwen2-0.5b:
@@ -603,11 +625,36 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # HBM3, 700 W, PERF.md section 6: three key biases at 0.9987-0.9990
 # against floors up to 8.1e-4, every other leaf >= 0.999; a floor taken
 # leaf by leaf left one key bias at 2.1x its own).
-# Phase 21 (ep_serve): uncut granite-moe-3b-a800m on (data 1, model
-# EP_MODEL) through _serve_wrap: 12 / 4 heads and 20 experts a rank, the
-# vocabulary of 49,155 padded to 49,156; a prefill of EP_BATCH x
-# EP_PROMPT and EP_STEPS teacher-forced decode steps against the
-# one-rank port on the same weights.  In fp32 compute (an fp32 K/V cache)
+# Every rank holds only its shards of the storage plan (each leaf's dims
+# the rules map to "data" and "model", with the guard), built leaf by leaf
+# from seed 0; its held bytes must equal the sum of its shards' sizes.  At
+# qwen2's model 4 the attention leaves are unaligned (224 columns are 3.5
+# heads, 32 half a kv head) and gathered over "model" once a layer, the
+# d_ff and vocabulary shards aligned; each first moment is held by
+# cosines summed over the ranks' shards, and the leaves every rank holds
+# whole bit for bit.  The ranks' checkpoint is restored here at world 1:
+# every shard's checksum equal to its rank's, the manifest a world-1
+# save's.  Phase 20b (tp_train_big): uncut qwen3-1.7b (28 layers, d_model
+# 2,048, 16 / 8 heads of 128 with qk-norm, d_ff 6,144, tied vocabulary of
+# 151,936) on (data 1, model BIG_MODEL), every leaf aligned: 4 / 2 heads,
+# 1,536 d_ff columns and 37,984 vocabulary rows a rank, no gather over
+# "model"; one dp_manual step of BIG_BATCH x BIG_SEQ at remat "none"
+# against the one-rank step held as phase 20's, each rank's peak below
+# the whole layout's fp32 state alone (1.72 B x 16 bytes, 27.5 GB); the
+# vocabulary-parallel lookup without its all-reduce must fail.
+# Phase 21 (ep_serve): uncut granite-moe-3b-a800m on (data EP_DATA, model
+# EP_MODEL) through _serve_wrap under SERVE_RULES_BIG, its bf16 weights
+# stored as the plan's shards: the embed dim over "data", gathered a layer
+# at a time; heads over "model" (12 / 4 a rank); the 40 experts (no
+# virtual layout: their axis maps to no mesh axis) and the vocabulary of
+# 49,155 (under the guard) whole over "model", 20 experts computed a
+# rank; a prefill of EP_BATCH x EP_PROMPT (EP_BATCH / EP_DATA rows a
+# rank) and EP_STEPS teacher-forced decode steps against the one-rank port
+# on the same weights serving each data rank's rows as a batch of their
+# own (at capacity 1.25 an expert's capacity counts the tokens one data
+# rank routes: the one-rank port over all four rows drops other
+# assignments, min cosine 0.953 on the card).  In fp32 compute (an fp32
+# K/V cache)
 # every position's logit cosine at least EP_MIN_COSINE and top-1
 # agreement at least EP_MIN_TOP1.  In bf16, the served dtype, a rounding
 # difference compounds over 32 random layers (and can move a top-8
@@ -620,15 +667,21 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # weights' near-flat logits one run of the same code agreed at every
 # position and the next at 17 of 18 (first card runs, NVIDIA H100 80GB
 # HBM3, 700 W, PERF.md section 6: min cosine 0.99873 and 0.99870, floor
-# 0.0026; fp32 min cosine 0.99999988, top-1 1.0).  A rank
-# that outlives RANK_TIMEOUT_S fails the phase, and every rank is killed
+# 0.0026; fp32 min cosine 0.99999988, top-1 1.0).  The control, the MoE
+# combine without its all-reduce, runs the prefill alone: each decode step
+# gathers every layer's data-sharded leaves through the host as a prefill
+# does.  A rank that outlives RANK_TIMEOUT_S fails the phase, and every
+# rank is killed
 TP_ARCH, TP_MODEL, TP_BATCH, TP_SEQ = "qwen2-0.5b", 4, 2, 512
 TP_LOSS_REL, TP_NORM_REL, TP_MIN_COSINE = 2e-3, 5e-3, 0.999
 TP_FLOOR_RATIO = 2.0
+TP_WHOLE_PEAK_GB = 14.4     # a rank's peak with every leaf whole (PERF.md)
 RING_SHAPE = (4096, 896, 4864)          # (m, k, f) of ring_weight_matmul
-EP_ARCH, EP_MODEL, EP_BATCH, EP_PROMPT, EP_STEPS = MOE_ARCH, 2, 2, 512, 8
+BIG_ARCH, BIG_MODEL, BIG_BATCH, BIG_SEQ = "qwen3-1.7b", 4, 2, 512
+EP_ARCH, EP_DATA, EP_MODEL = MOE_ARCH, 2, 2
+EP_BATCH, EP_PROMPT, EP_STEPS = 4, 512, 8
 EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
-RANK_TIMEOUT_S = 300
+RANK_TIMEOUT_S = 420
 
 
 def emit(phase: str, **fields) -> None:
@@ -4057,14 +4110,17 @@ def zero_launches(fa, rn, ss) -> None:
     rn.rmsnorm.launches = ss.ssd_scan.launches = 0
 
 
-def dense_expect(L: int, policy: str, steps: int = 1) -> dict:
+def dense_expect(L: int, policy: str, steps: int = 1,
+                 qk_norm: bool = False) -> dict:
     """Launches of ``steps`` steps of a dense LM of L layers: one flash
-    forward a layer and one backward, 2L + 1 norms; a remat policy other
-    than "none" runs each layer's forward again in the backward."""
+    forward a layer and one backward, 2L + 1 norms (4L + 1 with qk-norm's
+    two a layer); a remat policy other than "none" runs each layer's
+    forward again in the backward."""
     again = 0 if policy == "none" else 1
+    per_layer = 4 if qk_norm else 2
     return {"flash_attention": (1 + again) * L * steps,
             "flash_attention_backward": L * steps,
-            "rmsnorm": (2 * L + 1 + again * 2 * L) * steps}
+            "rmsnorm": ((1 + again) * per_layer * L + 1) * steps}
 
 
 def train_dense_path(torch, np, F, modules) -> dict:
@@ -4461,7 +4517,8 @@ def rank_main(args) -> int:
     store = dist.FileStore(os.path.join(workdir, f"store_{phase}"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
-        fn = {"tp_train": tp_train_rank, "ep_serve": ep_serve_rank}[phase]
+        fn = {"tp_train": tp_train_rank, "tp_train_big": tp_train_big_rank,
+              "ep_serve": ep_serve_rank}[phase]
         res = fn(torch, np, F, modules, workdir)
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
@@ -4480,19 +4537,22 @@ def tp_config():
         eps=DP_ADAM_EPS))
 
 
-def tp_batch(torch, np, cfg):
+def tp_batch(torch, np, cfg, batch=TP_BATCH, seq=TP_SEQ):
     rng = np.random.default_rng(20)
-    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                       (TP_BATCH, TP_SEQ + 1)),
-                          dtype=torch.long, device="cuda")
-    return {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+    seq_ = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, seq + 1)),
+                           dtype=torch.long, device="cuda")
+    return {"tokens": seq_[:, :-1], "targets": seq_[:, 1:]}
 
 
-def leaf_digests(state) -> dict:
-    """A SHA-256 of each parameter's bytes, to compare ranks bit for bit."""
+def replicated_digests(state) -> dict:
+    """A SHA-256 of the bytes of each parameter the storage plan does not
+    split over ``"model"`` (every model rank holds it whole), to compare
+    the ranks bit for bit."""
     import hashlib
+    split = {k for k, dims in state.plan.dims.items()
+             if any("model" in axes for axes in dims.values())}
     return {k: hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest()
-            for k, p in state.params.items()}
+            for k, p in state.params.items() if k not in split}
 
 
 def staged_only(rank_result) -> bool:
@@ -4503,61 +4563,118 @@ def staged_only(rank_result) -> bool:
     return moved.get("staged", 0) > 0 and moved.get("direct", 0) == 0
 
 
-def tp_train_rank(torch, np, F, modules, workdir) -> dict:
-    """One rank of phase 20: the dp_manual step on (data 1, model n), then
-    the same step from the same masters with layer 0's attention combine
-    left out (the control), then ``ring_weight_matmul``.  Rank 0 also holds
-    each step's first moments against the one-rank step's (``ref.pt``)."""
+def checksum(torch, t) -> int:
+    """A position-weighted sum of a tensor's 32-bit words, exact in
+    wrapping int64: equal bits give equal sums, and a changed word changes
+    the sum.  On the tensor's device, so a rank and the parent can compare
+    shards of gigabytes without hashing them on the host."""
+    w = t.detach().contiguous().view(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device, dtype=torch.int64) \
+        % 65521 + 1
+    return int((w * pos).sum())
+
+
+def storage_report(torch, cfg, state) -> dict:
+    """What a rank holds of a train state on the storage plan: its bytes
+    (parameters and both moments, each fp32) against the sum of its
+    shards' sizes from the plan's arithmetic, and the model-mapped leaves
+    it holds at their whole shape (none)."""
+    from repro_torch.train.train_step import param_shapes
+    plan, shapes = state.plan, param_shapes(cfg)
+    trees = [state.params, state.opt.mu, state.opt.nu] + (
+        [state.err] if state.err is not None else [])
+    held = sum(t.numel() * t.element_size() for tree in trees
+               for t in tree.values())
+    want = 4 * len(trees) * sum(math.prod(plan.local_shape(k, s))
+                                for k, s in shapes.items())
+    whole = [k for k, dims in plan.dims.items()
+             if any("model" in axes for axes in dims.values())
+             and tuple(state.params[k].shape) == tuple(shapes[k])]
+    n_split = sum(any("model" in axes for axes in dims.values())
+                  for dims in plan.dims.values())
+    return dict(held_bytes=held, shard_bytes=want,
+                whole_bytes=4 * len(trees) * sum(
+                    math.prod(s) for s in shapes.values()),
+                model_split_leaves=n_split, whole_shaped=whole[:8],
+                ok=held == want and not whole)
+
+
+def collective_cosines(torch, F, state, ref_mu, group) -> dict:
+    """Each first moment's cosine to the one-rank step's (``ref_mu``, whole
+    leaves on the host, memory-mapped), without gathering a leaf: each
+    rank sums a . b, a . a and b . b over its shard against the same slice
+    of the reference, divided by how many ranks hold each element, and one
+    all-reduce over ``group`` adds them up."""
+    import torch.distributed as dist
+    plan, keys = state.plan, list(state.opt.mu)
+    sums = torch.empty((len(keys), 3), dtype=torch.float64)
+    for i, k in enumerate(keys):
+        a = state.opt.mu[k].double().flatten()
+        b = plan.local(k, ref_mu[k]).to("cuda").double().flatten()
+        sums[i] = torch.stack([a @ b, a @ a, b @ b]).cpu() \
+            / plan.replication(k)
+    dist.all_reduce(sums, group=group)
+    return {k: float(sums[i, 0] / torch.sqrt(sums[i, 1] * sums[i, 2])
+                     .clamp_min(1e-300))
+            for i, k in enumerate(keys)}
+
+
+def tp_held(torch, F, st, m, ref_mu, floor, group) -> dict:
+    """Loss, grad norm, every first moment's cosine to the one-rank step's
+    and the digests of the leaves every rank holds whole."""
+    return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                digests=replicated_digests(st),
+                cosines=collective_cosines(torch, F, st, ref_mu, group),
+                floor=floor)
+
+
+def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
+                 save_dir=None) -> dict:
+    """One rank of a model-axis training phase: the state built on the
+    storage plan of (data 1, model n) leaf by leaf from seed 0, what it
+    holds, one dp_manual step, the gathers over ``"model"`` it issued,
+    each first moment held against the one-rank step's (``ref.pt``), then
+    (``save_dir``) each shard's checksum and a checkpoint of the state,
+    then the same step from the same masters under ``control`` (a context
+    that breaks one all-reduce)."""
     import dataclasses
 
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import dp_shard, model_axis, transport
-    from repro_torch.distributed.collective_matmul import ring_weight_matmul
     from repro_torch.distributed.sharding_rules import (model_group,
                                                         rules_for, use_rules)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import layers as ll
     from repro_torch.train.optimizer import init_adamw
     from repro_torch.train.train_step import (TrainState, init_train_state,
-                                              make_train_step,
-                                              shard_train_state)
+                                              make_train_step)
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
     rank, n = dist.get_rank(), dist.get_world_size()
-    cfg = get_config(TP_ARCH)
+    cfg = get_config(arch)
     tcfg = dataclasses.replace(tp_config(), dp_manual=True)
     mesh = make_local_mesh(model_axis=n, device="cuda")
-    state = init_train_state(
-        cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
-        device="cuda")
-    batch = tp_batch(torch, np, cfg)
-    ref = torch.load(os.path.join(workdir, "ref.pt")) if rank == 0 else None
-    backend = str(dist.get_backend(model_group(mesh)))
-    out = {"backend": backend,
-           "heads": ll.rank_heads(cfg, n, rank)._asdict()}
-
-    def held(st, m):
-        """Loss, grad norm and (rank 0) each leaf's first-moment cosine to
-        the one-rank step's."""
-        row = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   digests=leaf_digests(st))
-        if ref is not None:
-            row["cosines"] = {k: float(F.cosine_similarity(
-                v.flatten(), ref["mu"][k].to("cuda").flatten(), dim=0,
-                eps=1e-30)) for k, v in st.opt.mu.items()}
-            row["floor"] = ref["floor"]
-        return row
-
+    group = model_group(mesh)
+    ref = torch.load(os.path.join(workdir, "ref.pt"), mmap=True)
+    out = {"backend": str(dist.get_backend(group)),
+           "heads": ll.rank_heads(cfg, n, rank)._asdict(),
+           "rules": ll.leaf_rules(cfg, n)}
     with use_rules(mesh, rules_for("train")) as ctx:
-        state = shard_train_state(state, ctx)
+        torch.cuda.reset_peak_memory_stats()
+        state = init_train_state(
+            cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+            device="cuda", ctx=ctx)
+        out["init_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["storage"] = storage_report(torch, cfg, state)
+        out["plan"] = {k: dict(d) for k, d in state.plan.dims.items()}
         step = make_train_step(state.model, tcfg)
         out["path"] = step.path
         start = {k: p.detach().clone() for k, p in state.params.items()}
         zero_launches(fa, rn, ss)
-        model_axis.collectives.clear()
-        dp_shard.collectives.clear()
-        transport.moved.clear()
+        for counter in (model_axis.collectives, dp_shard.collectives,
+                        dp_shard.model_gathers, transport.moved):
+            counter.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         new, m = step(state, batch)
@@ -4566,34 +4683,103 @@ def tp_train_rank(torch, np, F, modules, workdir) -> dict:
         out["launches"] = dense_launches(fa, rn)
         out["collectives"] = dict(model_axis.collectives)
         out["dp_collectives"] = dict(dp_shard.collectives)
+        out["model_gathers"] = dict(dp_shard.model_gathers)
         out["moved"] = dict(transport.moved)
         with ctx.manual_region(dp_shard.manual_axes(mesh)):
             out["partial_leaves"] = len(ll.model_partial_leaves(
                 cfg, state.params))
-        out["step"] = held(new, m)
-        # the control: the same step from the same masters with the first
-        # combine all-reduce (layer 0's attention) left out
+        out["step"] = tp_held(torch, F, new, m, ref["mu"], ref["floor"],
+                              group)
+        if save_dir is not None:
+            from repro_torch.checkpoint import Checkpointer
+            out["sums"] = {name: {k: checksum(torch, t)
+                                  for k, t in tree.items()}
+                           for name, tree in (("params", new.params),
+                                              ("mu", new.opt.mu),
+                                              ("nu", new.opt.nu))}
+            t0 = time.perf_counter()
+            Checkpointer(save_dir).save(1, new, aux={"ranks": n},
+                                        block=True)
+            out["save_s"] = time.perf_counter() - t0
         with torch.no_grad():
             for k, p in state.params.items():
                 p.copy_(start[k])
         del start
         state = TrainState(state.model, init_adamw(state.params), None,
                            state.plan)
-        real = model_axis.from_model
-        calls = [0]
-
-        def skip_first(x, split):
-            calls[0] += 1
-            return x if calls[0] == 1 else real(x, split)
-
-        model_axis.from_model = skip_first
-        try:
+        with control():
             state, m = step(state, batch)
-        finally:
-            model_axis.from_model = real
-        out["control"] = held(state, m)
-    del state, new
+        out["control"] = tp_held(torch, F, state, m, ref["mu"], ref["floor"],
+                                 group)
+    del state, new, ref
     torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def first_combine_skipped():
+    """Layer 0's attention combine all-reduce left out: the first call of
+    ``_attention_split`` runs with ``from_model`` the identity."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.models import layers as ll
+    real_split, real_from = ll._attention_split, model_axis.from_model
+    calls = [0]
+
+    def split(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > 1:
+            return real_split(*args, **kwargs)
+        model_axis.from_model = lambda y, s: y
+        try:
+            return real_split(*args, **kwargs)
+        finally:
+            model_axis.from_model = real_from
+
+    ll._attention_split = split
+    try:
+        yield
+    finally:
+        ll._attention_split = real_split
+
+
+@contextlib.contextmanager
+def lookup_unsummed():
+    """The vocabulary-parallel lookup without its all-reduce: each rank's
+    embeddings hold its own rows' tokens and zeros for the rest."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.models import layers as ll
+    real_embed, real_from = ll.embed, model_axis.from_model
+
+    def embed(*args, **kwargs):
+        model_axis.from_model = lambda y, s: y
+        try:
+            return real_embed(*args, **kwargs)
+        finally:
+            model_axis.from_model = real_from
+
+    ll.embed = embed
+    try:
+        yield
+    finally:
+        ll.embed = real_embed
+
+
+def tp_train_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 20: ``tp_step_rank`` for uncut qwen2-0.5b, its
+    state saved, with layer 0's attention combine left out as the
+    control; then ``ring_weight_matmul``."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import model_axis
+    from repro_torch.distributed.collective_matmul import ring_weight_matmul
+    from repro_torch.launch.mesh import make_local_mesh
+    rank, n = dist.get_rank(), dist.get_world_size()
+    out = tp_step_rank(torch, np, F, modules, workdir, TP_ARCH,
+                       tp_batch(torch, np, get_config(TP_ARCH)),
+                       first_combine_skipped,
+                       save_dir=os.path.join(workdir, "ck"))
+    mesh = make_local_mesh(model_axis=n, device="cuda")
     # ring_weight_matmul over the model ranks against x @ w, fp32
     M, Kd, Fd = RING_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(21)
@@ -4618,139 +4804,281 @@ def tp_train_rank(torch, np, F, modules, workdir) -> dict:
     return out
 
 
+def tp_train_big_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 20b: ``tp_step_rank`` for uncut qwen3-1.7b, with
+    the vocabulary-parallel lookup's all-reduce left out as the
+    control."""
+    from repro_torch.configs import get_config
+    return tp_step_rank(torch, np, F, modules, workdir, BIG_ARCH,
+                        tp_batch(torch, np, get_config(BIG_ARCH), BIG_BATCH,
+                                 BIG_SEQ), lookup_unsummed)
+
+
+def one_rank_reference(torch, np, F, modules, arch, batch, workdir):
+    """The one-rank step of a model-axis phase, in the parent, on the
+    seed-0 masters and ``batch``: loss, grad norm, launches and seconds,
+    and to ``WORKDIR/ref.pt`` every leaf's first moment and the bf16 noise
+    floor of its leaf (1 - cosine between the one-rank gradient through
+    the kernels and through the plain twins).  Frees the state."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    cfg = get_config(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tcfg = tp_config()
+    state = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
+        device="cuda")
+    step = make_train_step(state.model, tcfg)
+    params = state.params
+    with plain_kernels(ops, fa, rn, ss):
+        state.model.loss(batch, remat_policy="none")[0].backward()
+    plain = {k: p.grad.cpu() for k, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    zero_launches(fa, rn, ss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    launches = dense_launches(fa, rn)
+    floor = {k: 1.0 - float(F.cosine_similarity(
+        v.flatten(), plain[k].to("cuda").flatten(), dim=0, eps=1e-30))
+        for k, v in state.opt.mu.items()}
+    del plain
+    ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               launches=launches, step_s=one_s, floor=floor,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               state_gb=16 * sum(p.numel() for p in params.values()) / 1e9)
+    torch.save(dict(mu={k: v.cpu() for k, v in state.opt.mu.items()},
+                    floor=floor), os.path.join(workdir, "ref.pt"))
+    del state, step, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def tp_verdict(res, ref, key) -> dict:
+    """The checks the ranks' ``key`` step passes: loss, grad norm, every
+    leaf's first-moment cosine (or within TP_FLOOR_RATIO x the floor of
+    its kind of leaf), every leaf held whole bit-equal across the ranks."""
+    row = res[0][key]
+    loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_rel = abs(row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+    kind = {k: re.sub(r"^layers\.\d+\.", "layers.", k) for k in row["floor"]}
+    floor = {}
+    for k, f in row["floor"].items():
+        floor[kind[k]] = max(floor.get(kind[k], 0.0), f)
+    limit = {k: max(1.0 - TP_MIN_COSINE, TP_FLOOR_RATIO * floor[kind[k]])
+             for k in row["floor"]}
+    low = {k: c for k, c in row["cosines"].items() if 1.0 - c > limit[k]}
+    raised = {k: dict(cosine=row["cosines"][k], floor=floor[kind[k]])
+              for k in limit if limit[k] > 1.0 - TP_MIN_COSINE
+              and row["cosines"][k] < TP_MIN_COSINE}
+    differ = sorted({k for r in res[1:] for k, dg in r[key]["digests"].items()
+                     if dg != row["digests"][k]})
+    return dict(loss_rel=loss_rel, norm_rel=norm_rel,
+                min_cosine=min(row["cosines"].values()),
+                low_cosine=dict(sorted(low.items())[:8]),
+                n_low_cosine=len(low),
+                limit_raised_by_floor=dict(sorted(raised.items())[:8]),
+                n_limit_raised=len(raised), ranks_differ=differ[:8],
+                n_ranks_differ=len(differ),
+                n_compared_whole=len(row["digests"]),
+                ok=loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
+                and not low and not differ)
+
+
+def restore_across_sizes(torch, res, workdir, cfg) -> dict:
+    """The ranks' checkpoint restored here at world 1: every leaf of the
+    parameters and both moments cut as each rank's shard (the plan the
+    ranks report) has that rank's checksum, and a world-1 save of the
+    restored state writes the ranks' manifest."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train.train_step import init_train_state
+    n = len(res)
+    plan = res[0]["plan"]
+    t0 = time.perf_counter()
+    template = init_train_state(
+        cfg, torch.Generator(device="cuda").manual_seed(1), tp_config(),
+        device="cuda")
+    state, aux = Checkpointer(os.path.join(workdir, "ck")).restore(template)
+    restore_s = time.perf_counter() - t0
+    trees = {"params": state.params, "mu": state.opt.mu, "nu": state.opt.nu}
+    differ, compared = [], 0
+    for name, tree in trees.items():
+        for k, t in tree.items():
+            for r in range(n):
+                sl = t
+                for d, axes in plan.get(k, {}).items():
+                    if "model" in axes:
+                        size = t.shape[d] // n
+                        sl = sl.narrow(d, r * size, size)
+                compared += 1
+                if checksum(torch, sl) != res[r]["sums"][name][k]:
+                    differ.append(f"{name}/{k}@{r}")
+    t0 = time.perf_counter()
+    Checkpointer(os.path.join(workdir, "ck1")).save(1, state, block=True)
+    save1_s = time.perf_counter() - t0
+    same_manifest = all(
+        open(os.path.join(workdir, d, "step_00000001", "manifest.json"))
+        .read() == open(os.path.join(workdir, "ck", "step_00000001",
+                                     "manifest.json")).read()
+        for d in ("ck1",))
+    del state, template, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(shards_compared=compared, shards_differ=differ[:8],
+                n_shards_differ=len(differ), manifest_equal=same_manifest,
+                aux=aux, restore_s=restore_s, world1_save_s=save1_s,
+                ok=not differ and same_manifest and aux["ranks"] == n)
+
+
+def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
+            control_what, phase_s, **extra) -> None:
+    r0 = res[0]
+    emit(f"{phase}_backend", backend=r0["backend"],
+         moved_per_rank=[r["moved"] for r in res], ranks=len(res),
+         note="collectives stage each tensor through host memory (gloo); "
+              "the ranks share one card")
+    emit(f"{phase}_collectives", model_axis=r0["collectives"],
+         dp_shard=r0["dp_collectives"],
+         model_gathers_per_rank=[r["model_gathers"] for r in res],
+         partial_leaves_summed=r0["partial_leaves"])
+    emit(f"{phase}_storage", rules=r0["rules"],
+         per_rank=[r["storage"] for r in res],
+         init_peak_gb_per_rank=[r["init_peak_gb"] for r in res])
+    emit(phase, arch=cfg.name, mesh={"data": 1, "model": len(res)},
+         heads=r0["heads"], vocab_rows=-(-cfg.vocab_size // len(res)),
+         path=r0["path"], one_rank_loss=ref["loss"],
+         one_rank_grad_norm=ref["grad_norm"], loss=r0["step"]["loss"],
+         grad_norm=r0["step"]["grad_norm"], held=held_step,
+         control=dict(what=control_what, **held_control,
+                      loss=r0["control"]["loss"]),
+         launches_per_rank=[r["launches"] for r in res],
+         expected_launches_per_rank=expect,
+         one_rank_launches=ref["launches"],
+         peak_gb_per_rank=[r["peak_gb"] for r in res],
+         one_rank_peak_gb=ref["peak_gb"], whole_state_gb=ref["state_gb"],
+         step_s_per_rank=[r["step_s"] for r in res],
+         one_rank_step_s=ref["step_s"], phase_s=phase_s,
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host",
+         max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
+         min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
+         floor_max=max(ref["floor"].values()), **extra)
+
+
+def tp_checks(phase, res, held_step, held_control, expect, gathers) -> None:
+    r0 = res[0]
+    check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
+          f"{phase} ran on {r0['backend']}, collectives moved "
+          f"{[r['moved'] for r in res]}")
+    check(r0["path"] == "dp_manual", f"{phase} took the {r0['path']} step")
+    check(held_step["ok"], f"{phase} against the one-rank step: "
+          f"{held_step}")
+    check(not held_control["ok"], f"{phase}'s control passed: "
+          f"{held_control}")
+    for r in res:
+        check(r["storage"]["ok"], f"{phase} storage: {r['storage']}")
+        check(r["launches"] == expect, f"{phase} rank launches "
+              f"{r['launches']}, expected {expect}")
+        check(r["model_gathers"] == gathers, f"{phase} gathers over "
+              f"model {r['model_gathers']}, the rules imply {gathers}")
+
+
 def tp_train_path(torch, np, F, modules) -> dict:
     """Phase 20: the model axis trains uncut qwen2-0.5b over TP_MODEL gloo
-    ranks on the card (see TP_ARCH).  The one-rank step first, here, on the
-    same seeded masters and batch; its first moments go to the ranks
-    through a file, and it is freed before they start.  Returns the
+    ranks on the card (see TP_ARCH), each rank holding its shards of the
+    storage plan.  The one-rank step first, here, on the same seeded
+    masters and batch; its first moments go to the ranks through a file,
+    and it is freed before they start.  The ranks' checkpoint is then
+    restored here at world 1.  Returns the launches of the ranks' step,
+    summed over the ranks."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ll
+    cfg = get_config(TP_ARCH)
+    L = cfg.num_layers
+    workdir = tempfile.mkdtemp(prefix="tp_train_")
+    try:
+        ref = one_rank_reference(torch, np, F, modules, TP_ARCH,
+                                 tp_batch(torch, np, cfg), workdir)
+        t0 = time.perf_counter()
+        res = spawn_card_ranks("tp_train", TP_MODEL, workdir)
+        phase_s = time.perf_counter() - t0
+        restored = restore_across_sizes(torch, res, workdir, cfg)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    held_step = tp_verdict(res, ref, "step")
+    held_control = tp_verdict(res, ref, "control")
+    expect = dense_expect(L, "none")
+    gathers = {k: L for k, r in ll.leaf_rules(cfg, TP_MODEL).items()
+               if r == "unaligned"}
+    tp_emit("tp_train", cfg, res, ref, held_step, held_control, expect,
+            "layer 0's attention combine all-reduce left out", phase_s,
+            batch=[TP_BATCH, TP_SEQ], restore=restored,
+            save_s_per_rank=[r["save_s"] for r in res],
+            whole_layout_peak_gb_per_rank=TP_WHOLE_PEAK_GB)
+    ring = res[0]["ring"]
+    emit("ring_matmul", ranks=TP_MODEL, per_rank_ms=[r["ring"]["ms"]
+                                                     for r in res],
+         **ring, timing_note="gloo ring steps through the host")
+    tp_checks("tp_train", res, held_step, held_control, expect, gathers)
+    check(restored["ok"], f"tp_train's checkpoint restored at world 1: "
+          f"{restored}")
+    check(all(r["ring"]["max_abs_err"] <= 1e-4 * r["ring"]["ref_max"]
+              and r["ring"]["send_recv"] == TP_MODEL - 1 for r in res),
+          f"ring_weight_matmul: {[r['ring'] for r in res]}")
+    return {k: sum(r["launches"][k] for r in res) for k in expect}
+
+
+def tp_train_big_path(torch, np, F, modules) -> dict:
+    """Phase 20b: uncut qwen3-1.7b trained over BIG_MODEL gloo ranks on
+    the card (see BIG_ARCH), every leaf aligned with its rank's work: the
+    one-rank step first, here, then the ranks' step on the storage plan;
+    each rank's peak below the whole layout's state alone.  Returns the
     launches of the ranks' step, summed over the ranks."""
     import shutil
     import tempfile
 
     from repro_torch.configs import get_config
-    from repro_torch.train.train_step import init_train_state, make_train_step
-    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
-    cfg = get_config(TP_ARCH)
+    from repro_torch.models import layers as ll
+    cfg = get_config(BIG_ARCH)
     L = cfg.num_layers
-    gc.collect()
-    torch.cuda.empty_cache()
-    workdir = tempfile.mkdtemp(prefix="tp_train_")
+    workdir = tempfile.mkdtemp(prefix="tp_train_big_")
     try:
-        tcfg = tp_config()
-        state = init_train_state(
-            cfg, torch.Generator(device="cuda").manual_seed(0), tcfg,
-            device="cuda")
-        step = make_train_step(state.model, tcfg)
-        batch = tp_batch(torch, np, cfg)
-        # the bf16 noise floor: the same gradients through the plain twins
-        params = state.params
-        with plain_kernels(ops, fa, rn, ss):
-            state.model.loss(batch, remat_policy="none")[0].backward()
-        plain = {k: p.grad.cpu() for k, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        zero_launches(fa, rn, ss)
-        torch.cuda.synchronize()
+        ref = one_rank_reference(
+            torch, np, F, modules, BIG_ARCH,
+            tp_batch(torch, np, cfg, BIG_BATCH, BIG_SEQ), workdir)
         t0 = time.perf_counter()
-        state, m = step(state, batch)
-        torch.cuda.synchronize()
-        one_s = time.perf_counter() - t0
-        one_launches = dense_launches(fa, rn)
-        floor = {k: 1.0 - float(F.cosine_similarity(
-            v.flatten(), plain[k].to("cuda").flatten(), dim=0, eps=1e-30))
-            for k, v in state.opt.mu.items()}
-        del plain
-        ref = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                   mu={k: v.cpu() for k, v in state.opt.mu.items()},
-                   floor=floor)
-        torch.save(ref, os.path.join(workdir, "ref.pt"))
-        del state, step, m, ref["mu"]
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        res = spawn_card_ranks("tp_train", TP_MODEL, workdir)
+        res = spawn_card_ranks("tp_train_big", BIG_MODEL, workdir)
         phase_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    r0 = res[0]
-
-    def verdict(key):
-        """The checks the ranks' ``key`` step passes: loss, grad norm,
-        every leaf's cosine, every leaf bit-equal across the ranks."""
-        row = r0[key]
-        loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
-        norm_rel = abs(row["grad_norm"] - ref["grad_norm"]) / \
-            ref["grad_norm"]
-        kind = {k: re.sub(r"^layers\.\d+\.", "layers.", k)
-                for k in row["floor"]}
-        floor = {}
-        for k, f in row["floor"].items():
-            floor[kind[k]] = max(floor.get(kind[k], 0.0), f)
-        limit = {k: max(1.0 - TP_MIN_COSINE, TP_FLOOR_RATIO * floor[kind[k]])
-                 for k in row["floor"]}
-        low = {k: c for k, c in row["cosines"].items()
-               if 1.0 - c > limit[k]}
-        raised = {k: dict(cosine=row["cosines"][k], floor=floor[kind[k]])
-                  for k in limit if limit[k] > 1.0 - TP_MIN_COSINE
-                  and row["cosines"][k] < TP_MIN_COSINE}
-        differ = sorted({k for r in res[1:]
-                         for k, dg in r[key]["digests"].items()
-                         if dg != row["digests"][k]})
-        return dict(loss_rel=loss_rel, norm_rel=norm_rel,
-                    min_cosine=min(row["cosines"].values()),
-                    low_cosine=dict(sorted(low.items())[:8]),
-                    n_low_cosine=len(low),
-                    limit_raised_by_floor=dict(sorted(raised.items())[:8]),
-                    n_limit_raised=len(raised), ranks_differ=differ[:8],
-                    n_ranks_differ=len(differ),
-                    ok=loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
-                    and not low and not differ)
-
-    held_step, held_control = verdict("step"), verdict("control")
-    expect = dense_expect(L, "none")
-    emit("tp_train_backend", backend=r0["backend"],
-         moved_per_rank=[r["moved"] for r in res], ranks=TP_MODEL,
-         note="collectives stage each tensor through host memory (gloo); "
-              "the ranks share one card")
-    emit("tp_train_collectives", model_axis=r0["collectives"],
-         dp_shard=r0["dp_collectives"],
-         partial_leaves_summed=r0["partial_leaves"])
-    emit("tp_train", arch=cfg.name, mesh={"data": 1, "model": TP_MODEL},
-         batch=[TP_BATCH, TP_SEQ], heads=r0["heads"],
-         vocab_rows=-(-cfg.vocab_size // TP_MODEL), path=r0["path"],
-         one_rank_loss=ref["loss"], one_rank_grad_norm=ref["grad_norm"],
-         loss=r0["step"]["loss"], grad_norm=r0["step"]["grad_norm"],
-         held=held_step, control=dict(what="layer 0's attention combine "
-                                      "all-reduce left out", **held_control,
-                                      loss=r0["control"]["loss"]),
-         launches_per_rank=[r["launches"] for r in res],
-         expected_launches_per_rank=expect, one_rank_launches=one_launches,
-         peak_gb_per_rank=[r["peak_gb"] for r in res],
-         step_s_per_rank=[r["step_s"] for r in res], one_rank_step_s=one_s,
-         phase_s=phase_s,
-         timing_note="not a speed: 4 ranks share one card and every "
-                     "collective crosses the host",
-         max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
-         min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
-         floor_max=max(ref["floor"].values()))
-    ring = r0["ring"]
-    emit("ring_matmul", ranks=TP_MODEL, per_rank_ms=[r["ring"]["ms"]
-                                                     for r in res],
-         **ring, timing_note="gloo ring steps through the host")
-    check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
-          f"tp_train ran on {r0['backend']}, collectives moved "
-          f"{[r['moved'] for r in res]}")
-    check(r0["path"] == "dp_manual", f"tp_train took the {r0['path']} step")
-    check(held_step["ok"], f"tp_train against the one-rank step: "
-          f"{held_step}")
-    check(not held_control["ok"], f"tp_train's control (a combine "
-          f"all-reduce left out) passed: {held_control}")
+    held_step = tp_verdict(res, ref, "step")
+    held_control = tp_verdict(res, ref, "control")
+    expect = dense_expect(L, "none", qk_norm=True)
+    rules = ll.leaf_rules(cfg, BIG_MODEL)
+    tp_emit("tp_train_big", cfg, res, ref, held_step, held_control, expect,
+            "the vocabulary-parallel lookup without its all-reduce",
+            phase_s, batch=[BIG_BATCH, BIG_SEQ],
+            peak_limit_gb=ref["state_gb"])
+    tp_checks("tp_train_big", res, held_step, held_control, expect, {})
+    check(set(rules.values()) == {"aligned"},
+          f"tp_train_big: qwen3 at model {BIG_MODEL} is not aligned "
+          f"everywhere: {rules}")
+    check(ref["launches"] == expect, f"tp_train_big one-rank launches "
+          f"{ref['launches']}, expected {expect}")
     for r in res:
-        check(r["launches"] == expect, f"tp_train rank launches "
-              f"{r['launches']}, expected {expect}")
-    check(all(r["ring"]["max_abs_err"] <= 1e-4 * r["ring"]["ref_max"]
-              and r["ring"]["send_recv"] == TP_MODEL - 1 for r in res),
-          f"ring_weight_matmul: {[r['ring'] for r in res]}")
+        check(r["peak_gb"] < ref["state_gb"],
+              f"tp_train_big rank peak {r['peak_gb']} GB, the whole "
+              f"layout's state alone is {ref['state_gb']} GB")
     return {k: sum(r["launches"][k] for r in res) for k in expect}
 
 
@@ -4763,14 +5091,17 @@ def ep_prompts(torch, np, cfg):
 
 
 def ep_logits(torch, model, prompts, forced, ctx_of=None,
-              kv_dtype=None):
+              kv_dtype=None, rows: int = 0):
     """``forced_logits`` with prefill and each decode step through
     ``_serve_wrap`` under ``ctx_of(kind)`` (the prefill and decode rules)
-    when given, over a K/V cache of ``kv_dtype`` (bf16 if None)."""
+    when given, over a K/V cache of ``kv_dtype`` (bf16 if None) for
+    ``rows`` rows (all the prompts' if 0: the wrapper cuts a rank's rows of
+    the global batch, its cache holds those)."""
     from repro_torch.launch.dryrun import _serve_wrap
     B, S = prompts.shape
     n = forced.shape[1]
-    cache = model.init_cache(B, S + n, kv_dtype=kv_dtype or torch.bfloat16)
+    cache = model.init_cache(rows or B, S + n,
+                             kv_dtype=kv_dtype or torch.bfloat16)
 
     def call(kind, fn, batch, cache):
         if ctx_of is None:
@@ -4791,42 +5122,69 @@ def ep_logits(torch, model, prompts, forced, ctx_of=None,
     return torch.stack(outs, dim=1)
 
 
+def sharded_serving_model(torch, cfg, plan):
+    """``seeded_model`` on the storage plan: each leaf drawn whole from
+    seed 0 in turn, cut to this rank's shard and cast to the compute dtype
+    at load."""
+    from repro_torch.models import build_model
+    from repro_torch.models.lm import init_sharded_params
+    params = init_sharded_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), plan)
+    return build_model(cfg, params, device="cuda", plan=plan)
+
+
 def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
     """One rank of phase 21: granite's prefill and decode through
-    ``_serve_wrap`` on (data 1, model n) in bf16, the same with the MoE
-    combine's all-reduce left out (the control), then in fp32 compute over
-    an fp32 K/V cache."""
+    ``_serve_wrap`` under SERVE_RULES_BIG on (data EP_DATA, model
+    EP_MODEL), its bf16 weights stored as the plan's shards, in bf16, the
+    prefill with the MoE combine's all-reduce left out (the control), then
+    in fp32 compute over an fp32 K/V cache."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
-    from repro_torch.distributed import model_axis, transport
+    from repro_torch.distributed import dp_shard, model_axis, transport
     from repro_torch.distributed.sharding_rules import (model_group,
                                                         rules_for, use_rules)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan, param_shapes
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
-    rank, n = dist.get_rank(), dist.get_world_size()
+    rank = dist.get_rank()
     cfg = get_config(EP_ARCH)
-    mesh = make_local_mesh(model_axis=n, device="cuda")
-    model = seeded_model(torch, cfg)
-    prompts, forced = ep_prompts(torch, np, cfg)
+    mesh = make_local_mesh(model_axis=EP_MODEL, device="cuda")
+    rows = EP_BATCH // EP_DATA
 
     def ctx_of(kind):
-        return use_rules(mesh, rules_for(kind))
+        return use_rules(mesh, rules_for(kind, big_params=True))
 
+    with ctx_of("prefill") as ctx:
+        plan = param_plan(cfg, ctx)
+    model = sharded_serving_model(torch, cfg, plan)
+    prompts, forced = ep_prompts(torch, np, cfg)
     out = {"backend": str(dist.get_backend(model_group(mesh))),
-           "heads": ll.rank_heads(cfg, n, rank)._asdict()}
+           "heads": ll.rank_heads(cfg, EP_MODEL, rank % EP_MODEL)._asdict(),
+           "data_rank": rank // EP_MODEL,
+           "held_bytes": sum(p.numel() * p.element_size()
+                             for p in model.parameters()),
+           "whole_bytes": sum(math.prod(s) * 2 for s in
+                              param_shapes(cfg).values()),
+           "split": {k: {str(d): list(a) for d, a in dims.items()}
+                     for k, dims in plan.dims.items()
+                     if k.startswith(("layers.0.", "embed"))}}
     with torch.no_grad():
         zero_launches(fa, rn, ss)
-        model_axis.collectives.clear()
-        transport.moved.clear()
+        for counter in (model_axis.collectives, dp_shard.collectives,
+                        dp_shard.model_gathers, transport.moved):
+            counter.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = ep_logits(torch, model, prompts, forced, ctx_of)
+        logits = ep_logits(torch, model, prompts, forced, ctx_of, rows=rows)
         torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t0
         out["launches"] = dense_launches(fa, rn)
         out["collectives"] = dict(model_axis.collectives)
+        out["dp_collectives"] = dict(dp_shard.collectives)
+        out["model_gathers"] = dict(dp_shard.model_gathers)
         out["moved"] = dict(transport.moved)
         real = ll._moe_ep
 
@@ -4840,26 +5198,39 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
 
         ll._moe_ep = no_combine
         try:
-            control = ep_logits(torch, model, prompts, forced, ctx_of)
+            # the prefill alone: every data-gathered layer of a decode step
+            # costs as much host staging as a prefill's
+            control = ep_logits(torch, model, prompts, forced[:, :1], ctx_of,
+                                rows=rows)
         finally:
             ll._moe_ep = real
         out["logits"] = logits.cpu().numpy()
         out["control"] = control.cpu().numpy()
         del model
-        with fp32_model(torch, cfg) as m32:
-            out["logits32"] = ep_logits(torch, m32, prompts, forced,
-                                        ctx_of, torch.float32).cpu().numpy()
+        torch.cuda.empty_cache()
+        saved = ll.COMPUTE_DTYPE
+        ll.COMPUTE_DTYPE = torch.float32
+        try:
+            m32 = sharded_serving_model(torch, cfg, plan)
+            out["logits32"] = ep_logits(torch, m32, prompts, forced, ctx_of,
+                                        torch.float32,
+                                        rows=rows).cpu().numpy()
             del m32
+        finally:
+            ll.COMPUTE_DTYPE = saved
+            torch.cuda.empty_cache()
     return out
 
 
 def ep_serve_path(torch, np, F, modules) -> dict:
     """Phase 21: the model axis serves uncut granite-moe-3b-a800m over
-    EP_MODEL gloo ranks on the card through ``_serve_wrap`` (see EP_ARCH),
-    against the one-rank port on the same seeded weights, in bf16 (and
-    through the plain twins for the noise floor) and in fp32, computed
-    here first and freed before the ranks start.  Returns the launches of
-    the ranks' bf16 run, summed over the ranks."""
+    EP_DATA x EP_MODEL gloo ranks on the card through ``_serve_wrap`` under
+    SERVE_RULES_BIG (see EP_ARCH), against the one-rank port on the same
+    seeded weights, in bf16 (and through the plain twins for the noise
+    floor) and in fp32, each data rank's rows served here as a batch of
+    their own (an expert's capacity counts one data rank's tokens), first,
+    and freed before the ranks start.  Returns the launches of the ranks'
+    bf16 run, summed over the ranks."""
     import shutil
     import tempfile
 
@@ -4869,66 +5240,90 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     L = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
+    rows = EP_BATCH // EP_DATA
+
+    def per_shard(model, **kw):
+        """The one-rank logits of each data rank's rows served as a batch
+        of their own: an expert's capacity counts the tokens one data
+        rank routes, as under ``repro``'s data-sharded serving."""
+        return torch.cat([ep_logits(torch, model, prompts[i:i + rows],
+                                    forced[i:i + rows], **kw)
+                          for i in range(0, EP_BATCH, rows)])
+
     with torch.no_grad():
         model = seeded_model(torch, cfg)
         prompts, forced = ep_prompts(torch, np, cfg)
         zero_launches(fa, rn, ss)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ref = ep_logits(torch, model, prompts, forced)
+        ref = per_shard(model)
         torch.cuda.synchronize()
         one_s = time.perf_counter() - t0
         one_launches = dense_launches(fa, rn)
         with plain_kernels(ops, fa, rn, ss):
-            plain = ep_logits(torch, model, prompts, forced)
+            plain = per_shard(model)
         floor = float((1.0 - F.cosine_similarity(plain, ref, dim=-1)).max())
         floor_top1 = float((plain.argmax(-1) == ref.argmax(-1)).float()
                            .mean())
         del model, plain
         with fp32_model(torch, cfg) as m32:
-            ref32 = ep_logits(torch, m32, prompts, forced,
-                              kv_dtype=torch.float32)
+            ref32 = per_shard(m32, kv_dtype=torch.float32)
             del m32
     gc.collect()
     torch.cuda.empty_cache()
     workdir = tempfile.mkdtemp(prefix="ep_serve_")
     try:
         t0 = time.perf_counter()
-        res = spawn_card_ranks("ep_serve", EP_MODEL, workdir)
+        res = spawn_card_ranks("ep_serve", EP_DATA * EP_MODEL, workdir)
         phase_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    def agree(logits, want):
-        got = torch.from_numpy(logits).to("cuda")
+    def agree(key, want):
+        """Every rank's logits against its rows of ``want``."""
+        got = torch.cat([torch.from_numpy(r[key]).to("cuda")
+                         for r in res[::EP_MODEL]])
         cos = F.cosine_similarity(got, want, dim=-1)
         top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
         return cos, top1
 
     limit = max(1.0 - EP_MIN_COSINE, EP_FLOOR_RATIO * floor)
-    cos, top1 = agree(res[0]["logits"], ref)
-    c_cos, c_top1 = agree(res[0]["control"], ref)
-    cos32, top1_32 = agree(res[0]["logits32"], ref32)
-    same = all(np.array_equal(r["logits"], res[0]["logits"]) for r in res)
+    cos, top1 = agree("logits", ref)
+    c_cos, c_top1 = agree("control", ref[:, :1])
+    cos32, top1_32 = agree("logits32", ref32)
+    same = all(np.array_equal(r["logits"],
+                              res[r["data_rank"] * EP_MODEL]["logits"])
+               for r in res)
+    order = [r["data_rank"] for r in res] == [i // EP_MODEL
+                                             for i in range(len(res))]
     expect = {"flash_attention": L, "flash_attention_backward": 0,
               "rmsnorm": (2 * L + 1) * (1 + EP_STEPS)}
     r0 = res[0]
-    emit("ep_serve_backend", backend=r0["backend"], ranks=EP_MODEL,
+    emit("ep_serve_backend", backend=r0["backend"], ranks=len(res),
          moved_per_rank=[r["moved"] for r in res],
          note="collectives stage each tensor through host memory (gloo); "
               "the ranks share one card")
-    emit("ep_serve_collectives", model_axis=r0["collectives"])
-    emit("ep_serve", arch=cfg.name, mesh={"data": 1, "model": EP_MODEL},
-         prompts=[EP_BATCH, EP_PROMPT], decode_steps=EP_STEPS,
-         heads=r0["heads"], experts_per_rank=cfg.num_experts // EP_MODEL,
-         vocab=cfg.vocab_size, vocab_padded=-(-cfg.vocab_size // EP_MODEL)
-         * EP_MODEL, positions=int(cos.numel()),
+    emit("ep_serve_collectives", model_axis=r0["collectives"],
+         dp_shard=r0["dp_collectives"], model_gathers=r0["model_gathers"])
+    emit("ep_serve", arch=cfg.name,
+         mesh={"data": EP_DATA, "model": EP_MODEL}, rules="SERVE_RULES_BIG",
+         prompts=[EP_BATCH, EP_PROMPT], rows_per_rank=rows,
+         decode_steps=EP_STEPS, heads=r0["heads"],
+         layer0_and_embed_storage=r0["split"],
+         held_bytes_per_rank=[r["held_bytes"] for r in res],
+         whole_bf16_bytes=r0["whole_bytes"],
+         experts="40 experts, no virtual layout: stored whole over the "
+                 "model ranks (their embed dim over data), 20 computed a "
+                 "rank", vocab=cfg.vocab_size,
+         vocab_padded=-(-cfg.vocab_size // EP_MODEL) * EP_MODEL,
+         positions=int(cos.numel()),
          min_cosine=float(cos.min()), mean_cosine=float(cos.mean()),
          top1=top1, plain_top1=floor_top1, floor=floor,
          max_distance=limit, ranks_equal=same,
          fp32=dict(min_cosine=float(cos32.min()),
                    mean_cosine=float(cos32.mean()), top1=top1_32),
-         control=dict(what="the MoE combine without its all-reduce",
+         control=dict(what="the MoE combine without its all-reduce, "
+                           "at the prefill", positions=int(c_cos.numel()),
                       min_cosine=float(c_cos.min()),
                       mean_cosine=float(c_cos.mean()), top1=c_top1),
          launches_per_rank=[r["launches"] for r in res],
@@ -4943,6 +5338,10 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
           f"ep_serve ran on {r0['backend']}, collectives moved "
           f"{[r['moved'] for r in res]}")
+    check(order, f"ep_serve ranks' data rows {[r['data_rank'] for r in res]}")
+    check(all(r["held_bytes"] < r["whole_bytes"] / EP_DATA for r in res),
+          f"ep_serve ranks hold {[r['held_bytes'] for r in res]} bytes of "
+          f"{r0['whole_bytes']}")
     check(float(cos32.min()) >= EP_MIN_COSINE and top1_32 >= EP_MIN_TOP1,
           f"ep_serve fp32 logits: min cosine {float(cos32.min())}, top-1 "
           f"{top1_32}")
@@ -4956,8 +5355,9 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     for r in res:
         check(r["launches"] == expect, f"ep_serve rank launches "
               f"{r['launches']}, expected {expect}")
-    check(one_launches == expect, f"ep_serve one-rank launches "
-          f"{one_launches}, expected {expect}")
+    check(one_launches == {k: EP_DATA * v for k, v in expect.items()},
+          f"ep_serve one-rank launches {one_launches} over {EP_DATA} "
+          f"batches, expected {expect} a batch")
     return {k: sum(r["launches"][k] for r in res) for k in expect}
 
 
@@ -5093,8 +5493,12 @@ def main() -> int:
                                              TP_BATCH, TP_SEQ, TP_SEQ, 4, 1,
                                              64)
     checks["flash_attention"] += check_flash(torch, F, fa, gen, "ep_rank",
-                                             EP_BATCH, EP_PROMPT, EP_PROMPT,
-                                             12, 4, 64)
+                                             EP_BATCH // EP_DATA, EP_PROMPT,
+                                             EP_PROMPT, 12, 4, 64)
+    # phase 20b's: qwen3 at model 4 holds 4 / 2 heads of 128
+    checks["flash_attention"] += check_flash(torch, F, fa, gen,
+                                             "tp_big_rank", BIG_BATCH,
+                                             BIG_SEQ, BIG_SEQ, 4, 2, 128)
     checks["flash_attention_backward"] = []
     for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
@@ -5240,6 +5644,8 @@ def main() -> int:
     # ---- 20-21. the model axis: gloo ranks on the card ----------------------
     tp_launches = tp_train_path(torch, np, F, modules)
     torch.cuda.empty_cache()
+    tp_big_launches = tp_train_big_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
     ep_launches = ep_serve_path(torch, np, F, modules)
     torch.cuda.empty_cache()
 
@@ -5263,6 +5669,8 @@ def main() -> int:
                             "trainer_dense":
                                 trainer_dense_launches["flash_attention"],
                             "tp_train": tp_launches["flash_attention"],
+                            "tp_train_big":
+                                tp_big_launches["flash_attention"],
                             "ep_serve": ep_launches["flash_attention"]},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
@@ -5279,6 +5687,7 @@ def main() -> int:
                                        for v in dense_launches_.values()),
                     "trainer_dense": trainer_dense_launches["rmsnorm"],
                     "tp_train": tp_launches["rmsnorm"],
+                    "tp_train_big": tp_big_launches["rmsnorm"],
                     "ep_serve": ep_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
@@ -5351,7 +5760,7 @@ def main() -> int:
         if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
                          "phi3v", "whisper_enc", "whisper_cross",
                          "whisper_cross_decode", "whisper_self", "tp_rank",
-                         "ep_rank")
+                         "ep_rank", "tp_big_rank")
         and r["dtype"] == "bfloat16"}
     # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
     # families' widths
@@ -5369,7 +5778,8 @@ def main() -> int:
     bwd_by_path = {"train_dense": sum(
         v["flash_attention_backward"] for v in dense_launches_.values()),
         "trainer_dense": trainer_dense_launches["flash_attention_backward"],
-        "tp_train": tp_launches["flash_attention_backward"]}
+        "tp_train": tp_launches["flash_attention_backward"],
+        "tp_train_big": tp_big_launches["flash_attention_backward"]}
     train_row = next(r for r in backward_rows if r["case"] == "train")
     by_name["flash_attention"].update(
         backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",

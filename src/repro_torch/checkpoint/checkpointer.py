@@ -17,13 +17,14 @@ as ``repro.utils.tree.flatten_with_names`` names a dict (keys sorted, joined
 by ``/``).  The process index in the file name is the ``torch.distributed``
 rank when a group is up, else 0.
 
-Sharded states (``train_step.shard_train_state``): a save gathers each
-leaf to its global shape on every rank, and rank 0 alone writes the files,
-names and bytes a world-1 save writes, while the other ranks wait at a
-barrier; ``restore(template, shardings=plan)`` reads the global leaves and
-keeps this rank's slice of each planned leaf, as ``jax.device_put(arr,
-sharding)`` does in ``repro``.  So a checkpoint written at one world size
-restores at another.
+Sharded states (the storage plan of ``train_step.param_plan``, over the
+batch axes and ``"model"``): a save gathers each leaf, one layer's tensor
+at a time, to its global shape; rank 0 alone keeps the host copy and
+writes the files, names and bytes a world-1 save writes, while the other
+ranks wait at a barrier; ``restore(template, shardings=plan)`` reads the
+global leaves and keeps this rank's slice of each planned leaf, as
+``jax.device_put(arr, sharding)`` does in ``repro``.  So a checkpoint
+written at one (data, model) size restores at any other.
 
 Async: ``save`` copies the leaves to host memory synchronously (the
 device-to-host part, each stacked leaf straight into one array allocated
@@ -133,7 +134,8 @@ class Checkpointer:
         t0 = time.perf_counter()
         sharded = isinstance(state, TrainState) and state.plan is not None
         if isinstance(state, TrainState):
-            host = to_jax_named(state)
+            host = to_jax_named(state,
+                                keep=not sharded or dist.get_rank() == 0)
         else:
             host = {name: _to_host(leaf) for name, leaf in _flatten(state)}
         if sharded and dist.get_rank() != 0:

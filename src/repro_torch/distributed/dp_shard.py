@@ -15,9 +15,17 @@ explicit:
 * every other gradient is summed locally over the microbatches and reduced
   once per step over the manual axes it is not sharded on
   (``deferred_psum``);
-* the model axis is not manual: inside the region the layers split their
-  work over it (``model_axis``) and every leaf a rank used only in part is
-  summed over the model ranks once per step (``model_psum``), next to
+* the model axis is not manual, but it stores: a leaf whose dim the rules
+  map to ``"model"`` (``sharding_rules.storage_dims``, with the guard) is
+  held as this rank's shard of it too (``ShardPlan.for_storage``), and so
+  are its AdamW moments, gradient and error feedback.  Inside the region
+  the layers split their work over the model ranks (``model_axis``) and
+  take their part of each leaf (``model_storage``): a shard that is
+  exactly the rank's part is used as it is; any other is all-gathered
+  over ``"model"`` at use (``gather_model``, bf16 for 2 or more dims),
+  whose backward reduce-scatters the gradient over the model ranks, which
+  is also its sum.  Only a leaf stored whole and used in part is summed
+  over the model ranks once per step (``model_psum``), next to
   ``deferred_psum``.
 
 Every collective follows ``transport``'s backend rule: over a gloo group a
@@ -35,7 +43,9 @@ it does not, as ``repro`` does).  A dim sharded over several axes is laid out
 major to minor in the axes' order (``("pod", "data")``: pod-major).
 
 Every collective issued here adds one to ``collectives`` under its kind:
-``all_gather``, ``reduce_scatter`` or ``all_reduce``.
+``all_gather``, ``reduce_scatter`` or ``all_reduce``; a gather over
+``"model"`` also adds one to ``model_gathers`` under the leaf's kind
+(``attn.wq``, ...).
 """
 from __future__ import annotations
 
@@ -48,14 +58,17 @@ import torch.distributed as dist
 from repro_torch.distributed import transport
 from repro_torch.distributed.sharding_rules import (ShardingCtx,
                                                     _is_axes_leaf,
-                                                    current_ctx, mesh_shape)
+                                                    current_ctx, mesh_shape,
+                                                    model_dims)
 
 MANUAL_CANDIDATES = ("pod", "data")     # batch-parallel mesh axes
 
 Dims = Dict[int, Tuple[str, ...]]
 
-# collectives issued by this module, by kind (read and zeroed by callers)
+# collectives issued by this module, by kind, and the gathers over "model"
+# by leaf kind (read and zeroed by callers)
 collectives: collections.Counter = collections.Counter()
+model_gathers: collections.Counter = collections.Counter()
 
 
 def manual_axes(mesh) -> Tuple[str, ...]:
@@ -227,6 +240,40 @@ class GatherLeaf(torch.autograd.Function):
         return g.to(ctx.in_dtype), None, None, None
 
 
+class GatherModel(torch.autograd.Function):
+    """All-gather dim ``dim`` of a leaf stored split over the model ranks
+    (``split``: a ``model_axis.Split``).  Forward: cast to ``dtype`` (if
+    given), then the all-gather.  Backward: a reduce-scatter in the
+    gathered dtype when each rank used its own part of the leaf
+    (``summed``: the ranks' partial gradients summed), else this rank's
+    slice of the gradient (the leaf used whole on replicated inputs, whose
+    gradient is equal on every rank); then the cast back."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, split, dtype, summed: bool):
+        ctx.dim, ctx.split, ctx.summed = dim, split, summed
+        ctx.in_dtype = x.dtype
+        t = x if dtype is None else x.to(dtype)
+        return _all_gather(t, dim, split.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.split.size
+        if ctx.summed:
+            g = _reduce_scatter(g, ctx.dim, ctx.split.group)
+        else:
+            g = g.narrow(ctx.dim, ctx.split.rank * n, n)
+        return g.to(ctx.in_dtype), None, None, None, None
+
+
+def gather_model(x, dim: int, split, *, kind: str, dtype=None,
+                 summed: bool = True):
+    """``GatherModel``: ``x``'s dim ``dim`` gathered over the model ranks,
+    counted in ``model_gathers`` under ``kind``."""
+    model_gathers[kind] += 1
+    return GatherModel.apply(x, dim % x.ndim, split, dtype, summed)
+
+
 def gather_leaf(x, dims: Dims, mesh, *, dtype=None):
     """``GatherLeaf``: ``x`` with its planned dims gathered (``x`` cast to
     ``dtype`` and nothing gathered when ``dims`` is empty)."""
@@ -278,25 +325,38 @@ def layer_hook(axes_tree, *, compute_dtype=torch.bfloat16):
 
 
 class ShardPlan:
-    """The per-leaf plan ``{name: {dim: manual mesh axes}}`` of a flat
-    parameter dict on one mesh, and this rank's place in it.  Leaves absent
-    from ``dims`` are replicated over the manual axes."""
+    """The per-leaf plan ``{name: {dim: mesh axes}}`` of a flat parameter
+    dict on one mesh, and this rank's place in it.  Leaves absent from
+    ``dims`` are replicated.  ``axes``: the axes a plan may shard, the
+    manual ones and, for a storage plan (``for_storage``) on a mesh whose
+    ``"model"`` axis is larger than 1, ``"model"``."""
 
-    def __init__(self, ctx: ShardingCtx, dims: Dict[str, Dims], manual):
+    def __init__(self, ctx: ShardingCtx, dims: Dict[str, Dims], manual,
+                 *, model: bool = False):
         self.mesh = ctx.mesh
         self.shape = ctx.shape
         self.dims = dims
         self.manual = tuple(manual)
+        self.axes = self.manual + (("model",) if model else ())
 
     @classmethod
-    def for_axes(cls, ctx: ShardingCtx, axes: Mapping[str, tuple], manual):
-        """The plan of a {name: logical axes} dict (``named_axes``)."""
+    def for_storage(cls, ctx: ShardingCtx, axes: Mapping[str, tuple],
+                    shapes: Mapping[str, Tuple[int, ...]], manual):
+        """The storage plan of a {name: logical axes} dict whose leaves
+        have the global ``shapes``: each leaf's manual dims
+        (``rule_manual_dims``) and, where the mesh's ``"model"`` axis is
+        larger than 1, the dims the rules map to it that divide
+        (``sharding_rules.model_dims``): ``repro``'s ``param_shardings``
+        placement, given that the manual dims divide."""
+        model = ctx.shape.get("model", 1) > 1
         dims = {}
         for name, ax in axes.items():
-            d = rule_manual_dims(ctx, ax, manual)
+            d = dict(rule_manual_dims(ctx, ax, manual))
+            for i, m in model_dims(ctx, ax, shapes[name]).items():
+                d[i] = d.get(i, ()) + m
             if d:
                 dims[name] = d
-        return cls(ctx, dims, manual)
+        return cls(ctx, dims, manual, model=model)
 
     def _place(self, axes) -> Tuple[int, int]:
         """(this rank's shard index, shard count) along ``axes``, major to
@@ -308,18 +368,30 @@ class ShardPlan:
             count *= n
         return index, count
 
-    def local(self, name: str, full):
+    def local(self, name: str, full, lead: int = 0):
         """This rank's slice of ``full`` (a tensor or numpy array of leaf
-        ``name``'s global shape); ``full`` itself if the leaf is
-        replicated."""
+        ``name``'s global shape, behind ``lead`` leading dims: 1 for a
+        stack of layers); ``full`` itself if the leaf is replicated."""
         out = full
         for dim, axes in self.dims.get(name, {}).items():
             index, count = self._place(axes)
-            size = out.shape[dim] // count
+            size = out.shape[lead + dim] // count
             sl = [slice(None)] * out.ndim
-            sl[dim] = slice(index * size, (index + 1) * size)
+            sl[lead + dim] = slice(index * size, (index + 1) * size)
             out = out[tuple(sl)]
         return out
+
+    def shards(self, name: str, dim: int) -> int:
+        """How many shards dim ``dim`` of leaf ``name`` is cut into."""
+        n = 1
+        for a in self.dims.get(name, {}).get(dim, ()):
+            n *= self.shape[a]
+        return n
+
+    def local_shape(self, name: str, shape) -> Tuple[int, ...]:
+        """The shape of this rank's shard of leaf ``name`` of global
+        ``shape``."""
+        return tuple(s // self.shards(name, i) for i, s in enumerate(shape))
 
     def full(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         """Leaf ``name`` at its global shape, gathered from every rank's
@@ -333,10 +405,10 @@ class ShardPlan:
 
     def replication(self, name: str) -> int:
         """How many ranks hold each element of leaf ``name``: the sizes of
-        the manual axes that do not shard it."""
+        the plan's axes (``axes``) that do not shard it."""
         used = {a for axes in self.dims.get(name, {}).values() for a in axes}
         rep = 1
-        for a in self.manual:
+        for a in self.axes:
             if a not in used:
                 rep *= self.shape[a]
         return rep
@@ -365,10 +437,12 @@ def deferred_psum(grads: Dict[str, torch.Tensor], plan: ShardPlan, scale):
 
 def model_psum(grads: Dict[str, torch.Tensor], names, mesh):
     """The once-a-step sum over the ``"model"`` axis, in place, of the
-    leaves ``names``: those the model ranks used only in part (each rank
-    holds the gradient of its slice of the work).  After it every leaf's
-    gradient is whole and equal on every model rank; the leaves a rank
-    used whole on replicated inputs already were, and are left alone."""
+    leaves ``names``: those stored whole that the model ranks used only in
+    part (each rank holds the gradient of its slice of the work).  After
+    it their gradients are whole and equal on every model rank; a leaf
+    used whole on replicated inputs already was, and a leaf stored split
+    holds its shard's complete gradient (its own part, or the
+    reduce-scatter of ``gather_model``)."""
     for name in names:
         all_reduce(grads[name], ("model",), mesh)
     return grads

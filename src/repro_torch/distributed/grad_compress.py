@@ -9,7 +9,7 @@ update on the true gradient; ``compressed_psum`` runs it through a
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,19 +65,27 @@ def compressed_psum(g: torch.Tensor, err: torch.Tensor, group=None
 
 
 def compress_tree(grads: Tree, err: Tree, *,
-                  group: Callable[[str], str] = lambda name: name
+                  group: Callable[[str], str] = lambda name: name,
+                  amax_reduce: Optional[Callable] = None
                   ) -> Tuple[Tree, Tree]:
     """``compress_decompress`` on every leaf, with one scale for all the
     leaves whose names ``group`` maps to the same key (by default each leaf
-    alone).  Returns (grads, errors)."""
+    alone).  ``amax_reduce(keys, amax)``: the largest magnitude of those
+    leaves over every rank that holds a shard of them, given this rank's
+    (a max over the ranks, so that shards of one leaf share ``repro``'s
+    scale of the whole leaf); by default this rank's.  Returns (grads,
+    errors)."""
     groups: Dict[str, list] = {}
     for k in grads:
         groups.setdefault(group(k), []).append(k)
     out_g, out_e = {}, {}
     for keys in groups.values():
         corrected = {k: grads[k].float() + err[k] for k in keys}
-        amax = torch.stack([torch.max(torch.abs(c))
+        amax = torch.stack([torch.max(torch.abs(c)) if c.numel()
+                            else c.new_zeros(())
                             for c in corrected.values()]).max()
+        if amax_reduce is not None:
+            amax = amax_reduce(keys, amax)
         scale = (amax + 1e-12) / 127.0
         for k, c in corrected.items():
             out_g[k] = dequantize_int8(_round(c, scale), scale)

@@ -14,12 +14,14 @@ object whose ``shape`` maps axis names to sizes (``mesh_shape``).
 
 The port's tensors are local: ``constrain`` is the identity (a rule never
 moves data here; the data-parallel step in ``dp_shard`` shards and gathers
-explicitly).  The model axis splits work, not storage: inside the manual
-region of the batch axes the layers split attention heads, d_ff, virtual
-experts and vocabulary rows over the model ranks and sum with explicit
-collectives (``model_axis``); every parameter stays whole on every model
-rank.  ``model_group`` / ``model_rank`` / ``model_size`` read the axis off
-a mesh.
+explicitly).  A leaf is stored as ``repro``'s ``param_shardings`` places
+it: ``storage_dims`` gives the dims that the rules map to the batch axes
+and to ``"model"``, with the guard, and each rank holds its shard of them
+(``dp_shard.ShardPlan``).  Inside the manual region of the batch axes the
+layers split attention heads, d_ff, virtual experts and vocabulary rows
+over the model ranks (``model_axis``) and compute with their part of each
+leaf (``model_storage``).  ``model_group`` / ``model_rank`` /
+``model_size`` read the axis off a mesh.
 """
 from __future__ import annotations
 
@@ -231,6 +233,29 @@ def param_shardings(specs_logical_axes, abstract, mesh,
         return {k: walk(axes[k], ab[k]) for k in axes}
 
     return walk(specs_logical_axes, abstract)
+
+
+def storage_dims(ctx: ShardingCtx, logical_axes: Sequence[Optional[str]],
+                 shape: Sequence[int]) -> Dict[int, Tuple[str, ...]]:
+    """{dim: mesh axes} of a leaf's storage: ``partition_spec`` of its
+    logical axes and global ``shape`` under ``ctx``'s rules, with the
+    divisibility guard, over every mesh axis (the batch axes and
+    ``"model"``) whatever region ``ctx`` is in.  A dim the guard drops is
+    absent: every rank holds it whole."""
+    spec = ShardingCtx(ctx.mesh, ctx.rules).partition_spec(logical_axes,
+                                                           tuple(shape))
+    return {i: (e,) if isinstance(e, str) else tuple(e)
+            for i, e in enumerate(spec) if e is not None}
+
+
+def model_dims(ctx: ShardingCtx, logical_axes: Sequence[Optional[str]],
+               shape: Sequence[int]) -> Dict[int, Tuple[str, ...]]:
+    """The dims of ``storage_dims`` that ``"model"`` shards, where the mesh
+    has a ``"model"`` axis larger than 1."""
+    if ctx.shape.get("model", 1) <= 1:
+        return {}
+    return {i: ("model",) for i, axes in storage_dims(
+        ctx, logical_axes, shape).items() if "model" in axes}
 
 
 def rules_for(kind: str, *, seq_parallel: bool = False,

@@ -2,7 +2,9 @@
 
 A collective over a gloo group on a CUDA tensor copies the tensor to host
 memory, runs there and copies the result back; under NCCL, or on CPU
-tensors, tensors pass as they are.  The group's backend decides
+tensors, tensors pass as they are.  The host copies are pinned, from
+PyTorch's caching host allocator, which hands a freed buffer to the next
+collective of its size instead of page-locking new memory.  The group's backend decides
 (``stages_through_host``), never a caught failure.  Every collective of
 ``dp_shard`` and ``model_axis`` goes through here.
 
@@ -35,10 +37,21 @@ def staged(t: torch.Tensor, group) -> bool:
     return s
 
 
+def _pinned(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A pinned host copy of the CUDA tensor ``t``."""
+    h = _pinned(t.shape, t.dtype)
+    h.copy_(t)
+    return h
+
+
 def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     """``t`` reduced over ``group`` in place."""
     if staged(t, group):
-        h = t.cpu()
+        h = _to_host(t)
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
     else:
@@ -49,8 +62,8 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
 def all_gather_into(out: torch.Tensor, src: torch.Tensor, group):
     """``dist.all_gather_into_tensor``."""
     if staged(src, group):
-        h = torch.empty(out.shape, dtype=out.dtype)
-        dist.all_gather_into_tensor(h, src.cpu(), group=group)
+        h = _pinned(out.shape, out.dtype)
+        dist.all_gather_into_tensor(h, _to_host(src), group=group)
         out.copy_(h)
     else:
         dist.all_gather_into_tensor(out, src, group=group)
@@ -60,8 +73,8 @@ def all_gather_into(out: torch.Tensor, src: torch.Tensor, group):
 def reduce_scatter_into(out: torch.Tensor, src: torch.Tensor, group):
     """``dist.reduce_scatter_tensor``, a sum."""
     if staged(src, group):
-        h = torch.empty(out.shape, dtype=out.dtype)
-        dist.reduce_scatter_tensor(h, src.cpu(), op=dist.ReduceOp.SUM,
+        h = _pinned(out.shape, out.dtype)
+        dist.reduce_scatter_tensor(h, _to_host(src), op=dist.ReduceOp.SUM,
                                    group=group)
         out.copy_(h)
     else:
@@ -76,8 +89,8 @@ def send_recv(t: torch.Tensor, dst: int, src: int, group):
     until both are done and returns the received tensor on ``t``'s
     device."""
     host = staged(t, group)
-    send = t.cpu() if host else t.contiguous()
-    recv = torch.empty_like(send)
+    send = _to_host(t) if host else t.contiguous()
+    recv = _pinned(send.shape, send.dtype) if host else torch.empty_like(send)
     reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
                                    dist.P2POp(dist.irecv, recv, src, group)])
 

@@ -2,16 +2,20 @@
 
 ``repro`` wraps prefill and decode in a ``shard_map`` over the batch axes
 so that its manual paths (the expert-parallel MoE, the vocab-sharded
-logits, attention split by heads) are taken while serving.  Here the
-wrapper cuts this rank's rows of the batch and enters the same manual
-region around a call on them.  The rest of ``repro``'s ``dryrun.py``
-(cell lowering, HLO reports) has no counterpart yet.
+logits, attention split by heads, the per-layer bf16 gathers of the
+leaves ``SERVE_RULES_BIG`` shards over ``"data"``) are taken while
+serving.  Here the wrapper cuts this rank's rows of the batch and enters
+the same manual region around a call on them; inside it the model's
+prefill and decode gather each layer's batch-sharded leaves
+(``DecoderLM._serve_params``) and the layers take their part of the
+model-sharded ones (``layers.work``).  The rest of ``repro``'s
+``dryrun.py`` (cell lowering, HLO reports) has no counterpart yet.
 """
 from __future__ import annotations
 
 from repro_torch.distributed import dp_shard
-from repro_torch.models.lm import param_specs
 from repro_torch.models.module import map_specs
+from repro_torch.models.lm import param_specs
 
 
 def _serve_wrap(model, ctx, fn):
@@ -23,10 +27,12 @@ def _serve_wrap(model, ctx, fn):
     and this rank's cache, which holds those rows; it returns ``fn``'s
     result for them.
 
-    ``repro`` gathers the leaves its rules shard over the batch axes
-    (``SERVE_RULES_BIG``'s FSDP) inside the region; the port's serving
-    model holds every parameter whole, so a rule set that shards one is
-    refused."""
+    ``model`` holds its leaves as ``ctx``'s rules store them: on the
+    storage plan of its mesh (``build_model(..., plan=)``, as
+    ``train_step.param_plan`` makes it), or whole where the rules shard no
+    leaf over the batch axes (each layer then takes its part of a whole
+    leaf).  A model whose storage is neither raises ``ValueError``."""
+    from repro_torch.train.train_step import param_plan
     cfg, mesh = model.cfg, ctx.mesh
     manual = dp_shard.manual_axes(mesh)
     specs = param_specs(cfg)
@@ -34,14 +40,21 @@ def _serve_wrap(model, ctx, fn):
     if not manual or not dp_shard.validate_manual_divisibility(
             ctx, axes, specs, manual):
         return None
-    sharded = [name for name, ax in dp_shard.named_axes(
-        specs, cfg.num_layers, cfg.encoder_layers).items()
-        if dp_shard.rule_manual_dims(ctx, ax, manual)]
-    if sharded:
-        raise NotImplementedError(
-            f"the rules shard {len(sharded)} leaves of {cfg.name} over "
-            f"{manual} (e.g. {sharded[0]}); the port serves whole "
-            f"parameters")
+    plan = param_plan(cfg, ctx)
+    held = getattr(model, "plan", None)
+    if held is None:
+        batch_sharded = [name for name, dims in plan.dims.items()
+                         if any(a in manual for ax in dims.values()
+                                for a in ax)]
+        if batch_sharded:
+            raise ValueError(
+                f"the rules shard {len(batch_sharded)} leaves of {cfg.name} "
+                f"over {manual} (e.g. {batch_sharded[0]}) and the model holds "
+                f"them whole; build it on the storage plan (build_model(..., "
+                f"plan=param_plan(cfg, ctx)))")
+    elif held.dims != plan.dims:
+        raise ValueError(f"{cfg.name} is stored on another plan than the "
+                         f"rules give this mesh")
 
     def wrapped(batch, cache):
         rows = dp_shard.local_rows(mesh, batch)

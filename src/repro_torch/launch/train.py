@@ -10,8 +10,9 @@ of an initialised ``torch.distributed`` group, else 0 and 1.  The launcher
 runs the plain step on each process; the step that synchronises gradients
 across processes is ``make_train_step(model, TrainStepConfig(dp_manual=
 True))`` under ``use_rules(launch.mesh.make_local_mesh(),
-rules_for("train"))`` over a ``shard_train_state`` state
-(``train/train_step.py``), as in ``repro``, whose launcher runs no mesh
+rules_for("train"))`` over a state on the storage plan
+(``init_train_state(..., ctx=)`` or ``shard_train_state``,
+``train/train_step.py``), as in ``repro``, whose launcher runs no mesh
 either.  A vlm
 and whisper (encdec) train on the stub frontends of ``repro``'s launcher:
 token items with seeded patch embeddings or frame embeddings drawn in the

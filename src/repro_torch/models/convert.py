@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.lm import build_model
+from repro_torch.models.lm import build_model, shard_params
 from repro_torch.train.optimizer import AdamWState
 from repro_torch.train.train_step import TrainState
 
@@ -51,9 +51,13 @@ def _to_torch(tree):
 
 
 def from_jax_params(cfg: ModelConfig, tree, *, device,
-                    trainable: bool = False):
-    return build_model(cfg, _to_torch(tree), device=device,
-                       trainable=trainable)
+                    trainable: bool = False, plan=None):
+    """The port's model of ``cfg`` holding ``repro``'s parameter tree
+    ``tree``; with ``plan`` (a storage plan, ``train_step.param_plan``)
+    as this rank's shards of it, cut leaf by leaf."""
+    params = _to_torch(tree) if plan is None else shard_params(tree, plan)
+    return build_model(cfg, params, device=device, trainable=trainable,
+                       plan=plan)
 
 
 def _stacked_counts(num_layers: int, encoder_layers: int) -> Dict[str, int]:
@@ -125,30 +129,38 @@ def jax_layout(names, num_layers: int, encoder_layers: int = 0
     return [("/".join(k), leaves[k], k in stacked) for k in sorted(leaves)]
 
 
-def _host_leaf(leaf, names: List[str], stacked: bool) -> np.ndarray:
+def _host_leaf(leaf, names: List[str], stacked: bool, keep: bool = True):
     """One JAX leaf on the host, copied layer by layer (``leaf(name)`` is
     each layer's tensor) into one array allocated up front (the host holds
     one copy, and training may go on updating the tensors in place once
-    this returns)."""
+    this returns).  Without ``keep`` each layer's tensor is made and
+    dropped (a rank taking part in another rank's gathers) and None is
+    returned."""
     host = None
     with torch.no_grad():
         for i, n in enumerate(names):
             t = leaf(n)
+            if not keep:
+                continue
             if host is None:
                 shape = ((len(names),) if stacked else ()) + tuple(t.shape)
                 host = torch.empty(shape, dtype=t.dtype)
             (host[i] if stacked else host).copy_(t)
-    return host.numpy()
+    return host.numpy() if keep else None
 
 
-def to_jax_named(state: TrainState) -> Dict[str, np.ndarray]:
+def to_jax_named(state: TrainState, *, keep: bool = True
+                 ) -> Dict[str, np.ndarray]:
     """A port ``TrainState`` as ``{name: host array}`` in the names and
     the order ``repro.utils.tree.flatten_with_names`` gives a JAX
     ``TrainState`` of the same model: params under ``0/``, the AdamW step
     (0-d int32) and moments under ``1/``, the error feedback under ``2/``
     (absent without compression).  A sharded state (``state.plan``) has
-    each planned leaf gathered to its global shape first: every rank of
-    the group must call this, in the same order."""
+    each planned leaf gathered to its global shape first, one layer's
+    tensor at a time, over the batch axes and ``"model"``: every rank of
+    the group must call this, in the same order; a rank called without
+    ``keep`` takes part in the gathers, keeps no host copy and gets an
+    empty dict (the checkpointer's ranks past 0)."""
     params, cfg = state.params, state.model.cfg
     layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
     out: Dict[str, np.ndarray] = {}
@@ -159,10 +171,13 @@ def to_jax_named(state: TrainState) -> Dict[str, np.ndarray]:
                 return tree[n]
             return state.plan.full(n, tree[n])
         for path, names, stacked in layout:
-            out[prefix + path] = _host_leaf(leaf, names, stacked)
+            host = _host_leaf(leaf, names, stacked, keep)
+            if keep:
+                out[prefix + path] = host
 
     put("0/", params)
-    out["1/.step"] = np.asarray(state.opt.step, np.int32)
+    if keep:
+        out["1/.step"] = np.asarray(state.opt.step, np.int32)
     put("1/.mu/", state.opt.mu)
     put("1/.nu/", state.opt.nu)
     if state.err is not None:
@@ -178,8 +193,8 @@ def load_jax_named(template: TrainState, arrays: Mapping,
     return a ``TrainState`` over them: the device never holds a second
     state.  The error feedback is read only when ``template`` has one.
     ``plan`` (a ``dp_shard.ShardPlan``): each planned leaf's full array is
-    cut to this rank's slice first, and the state returned carries the
-    plan."""
+    cut to this rank's slice first (over the batch axes and ``"model"``,
+    whatever mesh wrote it), and the state returned carries the plan."""
     params, cfg = template.params, template.model.cfg
     layout = jax_layout(params, cfg.num_layers, cfg.encoder_layers)
 

@@ -8,11 +8,15 @@ Under a model axis (inside the manual region of a ``use_rules`` mesh whose
 split their work over the model ranks, as ``repro``'s rules shard the
 activations, and sum with explicit collectives: attention by padded heads
 (``heads_act``), the MLP by d_ff (``mlp_act``), the MoE by virtual experts
-(``experts_virt``, ``repro``'s expert-parallel branch) and the
-unembedding and cross-entropy by vocabulary rows (``vocab_act``).  Every
-parameter stays whole on every rank; a rank computes with views of its
-slice.  ``model_partial_leaves`` names the parameters whose gradient a
-rank then holds only in part.
+(``experts_virt``, ``repro``'s expert-parallel branch), the embedding
+lookup, unembedding and cross-entropy by vocabulary rows (``vocab_act``).
+A leaf the rules map to ``"model"`` arrives as this rank's shard where the
+guard keeps the dim (``dp_shard.ShardPlan.for_storage``), else whole; a
+layer takes its part of each leaf through ``model_storage.take``
+(``work`` and ``whole`` here, ``work_runs`` the ranges), which uses an
+aligned shard as it is and gathers any other.  ``model_partial_leaves``
+names the leaves stored whole whose gradient a rank then holds only in
+part; ``leaf_rules`` gives each leaf's rule from the config alone.
 
 Conventions:
 * ``p`` is a mapping of parameter name to tensor (a ``ParameterDict``).
@@ -37,8 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import model_axis
-from repro_torch.distributed.sharding_rules import current_ctx
+from repro_torch.distributed import model_axis, model_storage
+from repro_torch.distributed.sharding_rules import (TRAIN_RULES,
+                                                    ShardingCtx, current_ctx,
+                                                    model_dims)
 from repro_torch.kernels import ops
 from repro_torch.models.module import spec
 
@@ -131,9 +137,9 @@ def attention_specs(cfg: ModelConfig, cross: bool = False):
 
 def _project_q(p, cfg: ModelConfig, x):
     B, S, _ = x.shape
-    q = cast(x) @ cast(p["wq"])
+    q = cast(x) @ cast(whole(p, cfg, "attn.wq"))
     if "bq" in p:
-        q = q + cast(p["bq"])
+        q = q + cast(whole(p, cfg, "attn.bq"))
     return q.view(B, S, cfg.num_heads, cfg.head_dim)
 
 
@@ -143,11 +149,11 @@ def _project_qkv(p, cfg: ModelConfig, x, kv_x=None):
     kv_x = cast(x if kv_x is None else kv_x)
     B, T, _ = kv_x.shape
     q = _project_q(p, cfg, x)
-    k = kv_x @ cast(p["wk"])
-    v = kv_x @ cast(p["wv"])
+    k = kv_x @ cast(whole(p, cfg, "attn.wk"))
+    v = kv_x @ cast(whole(p, cfg, "attn.wv"))
     if "bk" in p:
-        k = k + cast(p["bk"])
-        v = v + cast(p["bv"])
+        k = k + cast(whole(p, cfg, "attn.bk"))
+        v = v + cast(whole(p, cfg, "attn.bv"))
     k = k.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     v = v.view(B, T, cfg.num_kv_heads, cfg.head_dim)
     if "q_norm" in p:
@@ -241,23 +247,127 @@ def _runs(heads):
     return runs
 
 
-def _take_heads(w, runs, hd: int, dim: int):
-    """The columns (``dim`` -1) or rows (``dim`` 0) of the heads in
-    ``runs``: a view for one run."""
-    parts = [w.narrow(dim, a * hd, (b - a) * hd) for a, b in runs]
-    if len(parts) == 1:
-        return parts[0]
-    return torch.cat(parts, dim) if parts else w.narrow(dim, 0, 0)
+# each model-mapped leaf kind: (which work range, its model dim)
+_MODEL_LEAVES = {
+    "attn.wq": ("q", -1), "attn.bq": ("q", 0), "attn.wo": ("q", 0),
+    "attn.wk": ("kv", -1), "attn.wv": ("kv", -1), "attn.bk": ("kv", 0),
+    "attn.bv": ("kv", 0),
+    "mlp.wi": ("mlp", -1), "mlp.wg": ("mlp", -1), "mlp.bi": ("mlp", 0),
+    "mlp.wo": ("mlp", 0),
+    "moe.wi": ("experts", 0), "moe.wg": ("experts", 0),
+    "moe.wo": ("experts", 0),
+    "embed.tokens": ("vocab", 0), "embed.unembed": ("vocab", -1),
+}
 
 
-def _project_heads(p, cfg: ModelConfig, x, name: str, runs):
-    """``x @ w{name}`` (+ its bias) for the heads in ``runs``, viewed as
-    (B, S, heads, hd)."""
-    hd = cfg.head_dim
-    y = x @ cast(_take_heads(p["w" + name], runs, hd, -1))
-    if "b" + name in p:
-        y = y + cast(_take_heads(p["b" + name], runs, hd, -1))
-    return y.view(x.shape[0], x.shape[1], y.shape[-1] // hd, hd)
+def _model_size(cfg: ModelConfig, what: str) -> int:
+    """Elements of a leaf's model dim: the flattened heads, kv heads,
+    d_ff, the stored expert rows (virtual when parts > 1), the
+    vocabulary."""
+    return {"q": cfg.num_heads * cfg.head_dim,
+            "kv": cfg.num_kv_heads * cfg.head_dim, "mlp": cfg.d_ff,
+            "experts": cfg.num_experts * _moe_parts(cfg),
+            "vocab": cfg.vocab_size}[what]
+
+
+def work_runs(cfg: ModelConfig, kind: str, n: int, rank: int):
+    """The [lo, hi) ranges of leaf kind ``kind``'s model dim (``attn.wq``,
+    ``mlp.wo``, ``moe.wi``, ``embed.tokens``, ...) that model rank
+    ``rank`` of ``n`` computes with under a split of the work: the real
+    heads of its ``rank_heads`` slice (``q``), the real kv heads its
+    groups use (``kv``), its d_ff slice, its ``Vloc`` virtual experts (as
+    rows of the stored experts, wrapping when replicas round E up) and its
+    rows of the vocabulary padded to a multiple of ``n``."""
+    what = _MODEL_LEAVES[kind][0]
+    if what in ("q", "kv"):
+        hd, K = cfg.head_dim, cfg.num_kv_heads
+        rh = rank_heads(cfg, n, rank)
+        if what == "q":
+            return [(a * hd, b * hd) for a, b in _runs(rh.heads)]
+        return model_storage.runs_of_range(rh.k0 * hd,
+                                           max(rh.k0, min(rh.k1, K)) * hd)
+    if what == "mlp":
+        f = cfg.d_ff // n
+        return [(rank * f, (rank + 1) * f)]
+    if what == "experts":
+        E, parts = cfg.num_experts, _moe_parts(cfg)
+        if parts > 1:
+            vloc = E * parts // n
+            return [(rank * vloc, (rank + 1) * vloc)]
+        vloc = math.ceil(E / n)
+        out = []
+        for v in range(rank * vloc, (rank + 1) * vloc):
+            e = v % E
+            if out and out[-1][1] == e:
+                out[-1] = (out[-1][0], e + 1)
+            else:
+                out.append((e, e + 1))
+        return out
+    off, _, rows = _vocab_rows(cfg, n, rank)
+    return model_storage.runs_of_range(off, off + rows)
+
+
+def work(p, cfg: ModelConfig, kind: str, split):
+    """This rank's part of leaf ``kind`` of group ``p`` under the work
+    split ``split`` (``model_storage.take``: an aligned shard as it is,
+    any other leaf gathered or narrowed)."""
+    what, dim = _MODEL_LEAVES[kind]
+    return model_storage.take(
+        p[kind.split(".")[1]], dim, _model_size(cfg, what), kind=kind,
+        runs_of=lambda r: work_runs(cfg, kind, split.size, r), split=split,
+        dtype=COMPUTE_DTYPE)
+
+
+def whole(p, cfg: ModelConfig, kind: str):
+    """Leaf ``kind`` of group ``p`` whole: as it is, or gathered over the
+    model ranks where it is stored split (its gradient then this rank's
+    slice: the leaf is used whole on replicated inputs)."""
+    what, dim = _MODEL_LEAVES[kind]
+    return model_storage.take(p[kind.split(".")[1]], dim,
+                              _model_size(cfg, what), kind=kind,
+                              dtype=COMPUTE_DTYPE)
+
+
+def _leaf_spec(cfg: ModelConfig, kind: str):
+    group, leaf = kind.split(".")
+    specs = {"attn": attention_specs, "mlp": mlp_specs, "moe": moe_specs,
+             "embed": embed_specs}[group](cfg)
+    return specs.get(leaf)
+
+
+def _stored_split(ctx: ShardingCtx, cfg: ModelConfig, kind: str) -> bool:
+    """Does ``ctx``'s rule set store leaf ``kind`` split over ``"model"``
+    (the guard keeping its dim)?"""
+    s = _leaf_spec(cfg, kind) if kind in _MODEL_LEAVES else None
+    return s is not None and bool(model_dims(ctx, s.axes, s.shape))
+
+
+class _ModelMesh:
+    """A mesh-shaped stand-in: (data 1, model n)."""
+
+    def __init__(self, n: int):
+        self.shape = {"data": 1, "model": n}
+
+
+def leaf_rules(cfg: ModelConfig, n: int, rules=TRAIN_RULES):
+    """{leaf kind: ``model_storage`` rule} of every model-mapped leaf of
+    ``cfg``'s layers and embedding at a model axis of ``n`` under
+    ``rules``, for the training step's split (the expert-parallel MoE):
+    ``"aligned"``, ``"unaligned"`` or ``"whole"``.  A pure function of the
+    config: ``model_storage.take`` reaches the same rule from the shapes it
+    is handed."""
+    ctx = ShardingCtx(_ModelMesh(n), rules)
+    ffn = "moe" if cfg.family == "moe" else "mlp"
+    out = {}
+    for kind, (what, _) in _MODEL_LEAVES.items():
+        group = kind.split(".")[0]
+        if _leaf_spec(cfg, kind) is None or group in ("mlp", "moe") \
+                and group != ffn:
+            continue
+        out[kind] = model_storage.rule(
+            _model_size(cfg, what), n, _stored_split(ctx, cfg, kind),
+            lambda r, k=kind: work_runs(cfg, k, n, r))
+    return out
 
 
 def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
@@ -268,18 +378,32 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     head), qk-norm and rotary per head, flash over (B, S, count, hd), the
     real heads' outputs times their rows of ``wo``, summed over the model
     ranks.  A pad head's output is dropped before ``wo``, so its dO is 0
-    and it adds no gradient.  Returns (y, k, v): K/V of every kv head if
-    ``full_kv`` (prefill's cache), else of this rank's."""
+    and it adds no gradient.  Each weight is this rank's part
+    (``work``), the K/V weights whole if ``full_kv``.  Returns (y, k, v):
+    K/V of every kv head if ``full_kv`` (prefill's cache), else of this
+    rank's."""
     B, S, _ = x.shape
     K, hd = cfg.num_kv_heads, cfg.head_dim
     rh = rank_heads(cfg, split.size, split.rank)
     xin = cast(model_axis.to_model(x, split))
-    runs = _runs(rh.heads)
     kr0, kr1 = rh.k0, max(rh.k0, min(rh.k1, K))       # the real kv heads
-    kv_runs = [[0, K]] if full_kv else ([[kr0, kr1]] if kr1 > kr0 else [])
-    q = _project_heads(p, cfg, xin, "q", runs)
-    k = _project_heads(p, cfg, xin, "k", kv_runs)
-    v = _project_heads(p, cfg, xin, "v", kv_runs)
+
+    def part(leaf):
+        return work(p, cfg, "attn." + leaf, split)
+
+    def kv_part(leaf):
+        return whole(p, cfg, "attn." + leaf) if full_kv else part(leaf)
+
+    def project(w, b):
+        y = xin @ cast(w)
+        if b is not None:
+            y = y + cast(b)
+        return y.view(B, S, y.shape[-1] // hd, hd)
+
+    bias = "bq" in p
+    q = project(part("wq"), part("bq") if bias else None)
+    k = project(kv_part("wk"), kv_part("bk") if bias else None)
+    v = project(kv_part("wv"), kv_part("bv") if bias else None)
     if "q_norm" in p:
         if rh.heads:
             q = ops.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
@@ -300,8 +424,7 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
                         num_sink=num_sink)
     if padded:
         out = out[:, :, slots]
-    y = out.reshape(B, S, len(rh.heads) * hd) \
-        @ cast(_take_heads(p["wo"], runs, hd, 0))
+    y = out.reshape(B, S, len(rh.heads) * hd) @ cast(part("wo"))
     return model_axis.from_model(y, split), k, v
 
 
@@ -329,7 +452,8 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
         k = rotary(k, positions, cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window,
                         num_sink=num_sink)
-    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) @ cast(p["wo"])
+    y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) \
+        @ cast(whole(p, cfg, "attn.wo"))
     return y, k, v
 
 
@@ -355,7 +479,7 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
         k, v = (t.to(q.dtype) for t in cross_kv)    # no copy when equal
         out = ops.attention(q, k, v, causal=False)
         return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
-            @ cast(p["wo"])
+            @ cast(whole(p, cfg, "attn.wo"))
     q, k_new, v_new = _project_qkv(p, cfg, x)
     if rope:
         q = rotary(q, positions[:, None], cfg.rope_theta)
@@ -382,7 +506,8 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
     out = ops.attention(q, k_cache, v_cache, causal=True, q_pos=pos_b,
                         kv_pos=kv_pos, kv_valid=kv_valid, window=window,
                         num_sink=num_sink)
-    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) @ cast(p["wo"])
+    return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
+        @ cast(whole(p, cfg, "attn.wo"))
 
 
 # --------------------------------------------------------------------------
@@ -416,27 +541,27 @@ def mlp(p, cfg: ModelConfig, x):
     """The gelu MLP is ``jax.nn.gelu``'s default, the tanh approximation
     (``F.gelu``'s default is the exact erf form).  Under a model split of
     d_ff each rank takes its slice of the ``wi`` / ``wg`` columns (and
-    ``bi``) and ``wo`` rows; the outputs are summed over the ranks and the
-    output bias ``bo`` added once, after the sum."""
+    ``bi``) and ``wo`` rows (``work``); the outputs are summed over the
+    ranks and the output bias ``bo`` added once, after the sum."""
     split = _mlp_split(cfg)
     if split is not None:
-        f = cfg.d_ff // split.size
-        lo = split.rank * f
         x = cast(model_axis.to_model(x, split))
-        if "bi" in p:
-            h = F.gelu(x @ cast(p["wi"][:, lo:lo + f])
-                       + cast(p["bi"][lo:lo + f]), approximate="tanh")
-        else:
-            h = F.silu(x @ cast(p["wg"][:, lo:lo + f])) \
-                * (x @ cast(p["wi"][:, lo:lo + f]))
-        y = model_axis.from_model(h @ cast(p["wo"][lo:lo + f]), split)
-        return y + cast(p["bo"]) if "bo" in p else y
-    x = cast(x)
+
+        def w(leaf):
+            return cast(work(p, cfg, "mlp." + leaf, split))
+    else:
+        x = cast(x)
+
+        def w(leaf):
+            return cast(whole(p, cfg, "mlp." + leaf))
     if "bi" in p:
-        h = F.gelu(x @ cast(p["wi"]) + cast(p["bi"]), approximate="tanh")
-        return h @ cast(p["wo"]) + cast(p["bo"])
-    h = F.silu(x @ cast(p["wg"])) * (x @ cast(p["wi"]))
-    return h @ cast(p["wo"])
+        h = F.gelu(x @ w("wi") + w("bi"), approximate="tanh")
+    else:
+        h = F.silu(x @ w("wg")) * (x @ w("wi"))
+    y = h @ w("wo")
+    if split is not None:
+        y = model_axis.from_model(y, split)
+    return y + cast(p["bo"]) if "bo" in p else y
 
 
 # --------------------------------------------------------------------------
@@ -489,17 +614,19 @@ def moe_specs(cfg: ModelConfig):
 
 
 def _dense_expert_weights(p, cfg: ModelConfig):
-    """Un-virtualise (V, d, f/parts) -> (E, d, f) (and wo to (E, f, d))."""
+    """Un-virtualise (V, d, f/parts) -> (E, d, f) (and wo to (E, f, d)),
+    each leaf whole (``whole``)."""
     parts = _moe_parts(cfg)
+    wi, wg, wo = (whole(p, cfg, "moe." + k) for k in ("wi", "wg", "wo"))
     if parts == 1:
-        return p["wi"], p["wg"], p["wo"]
+        return wi, wg, wo
     E, f = cfg.num_experts, cfg.expert_d_ff
     d, fl = cfg.d_model, f // parts
 
     def join(w):
         return w.reshape(E, parts, d, fl).transpose(1, 2).reshape(E, d, f)
 
-    return join(p["wi"]), join(p["wg"]), p["wo"].reshape(E, parts * fl, d)
+    return join(wi), join(wg), wo.reshape(E, parts * fl, d)
 
 
 def _route(p, cfg: ModelConfig, xf):
@@ -636,11 +763,7 @@ def _moe_ep(p, cfg: ModelConfig, x, split):
                                        cap_pos=pos_in_e // n_virt)
     Vloc = V // n
     lo = r * Vloc
-    if parts > 1 or lo + Vloc <= E:
-        wi, wg, wo = (p[k][lo:lo + Vloc] for k in ("wi", "wg", "wo"))
-    else:
-        idx = (lo + torch.arange(Vloc, device=x.device)) % E
-        wi, wg, wo = (p[k][idx] for k in ("wi", "wg", "wo"))
+    wi, wg, wo = (work(p, cfg, "moe." + k, split) for k in ("wi", "wg", "wo"))
     sl = slice(lo * C, (lo + Vloc) * C)
     tok, gate, used = tok[sl], gate[sl], used[sl]
     xe = cast(model_axis.to_model(xf, split))[tok].reshape(Vloc, C, D)
@@ -675,33 +798,48 @@ def embed_specs(cfg: ModelConfig):
     return p
 
 
-def _vocab_rows(cfg: ModelConfig, split):
-    """(offset, Vloc, real rows) of this rank's slice of the vocabulary
-    padded to Vp = ceil(V / n) * n rows."""
+def _vocab_rows(cfg: ModelConfig, n: int, rank: int):
+    """(offset, Vloc, real rows) of model rank ``rank``'s slice of the
+    vocabulary padded to Vp = ceil(V / n) * n rows."""
     V = cfg.vocab_size
-    Vloc = -(-V // split.size)
-    off = split.rank * Vloc
+    Vloc = -(-V // n)
+    off = rank * Vloc
     return off, Vloc, max(0, min(V, off + Vloc) - off)
 
 
 def _vocab_weight(p, cfg: ModelConfig, split):
     """This rank's real rows of the unembedding as a (D, rows) view (the
-    tied table's rows, transposed), in the compute dtype."""
-    off, _, rows = _vocab_rows(cfg, split)
-    w = p["tokens"][off:off + rows].t() if cfg.tie_embeddings \
-        else p["unembed"][:, off:off + rows]
+    tied table's rows, transposed; ``work``), in the compute dtype."""
+    w = work(p, cfg, "embed.tokens", split).t() if cfg.tie_embeddings \
+        else work(p, cfg, "embed.unembed", split)
     return cast(w)
 
 
 def embed(p, cfg: ModelConfig, tokens):
-    """The lookup, whole on every rank.  Under a model split of the
-    vocabulary a tied table's lookup gradient keeps this rank's rows only
-    (``own_rows_grad``): the unembedding's part is per rank, and the
-    once-a-step sum then adds each row once."""
-    w = cast(p["tokens"])
-    split = model_axis.split_for("vocab_act") if cfg.tie_embeddings else None
-    if split is not None:
-        off, _, rows = _vocab_rows(cfg, split)
+    """The lookup.  A table stored split over the vocabulary (under a
+    model split of it) is looked up vocabulary-parallel, as Megatron's
+    ``VocabParallelEmbedding``: each rank looks up the tokens its rows hold
+    and writes zero for the rest, and ``from_model`` sums over the ranks,
+    the same bits as the whole lookup; each rank's rows then take their
+    whole gradient.  A table stored whole is looked up whole on every
+    rank; under a model split of the vocabulary a tied one's lookup
+    gradient keeps this rank's rows only (``own_rows_grad``): the
+    unembedding's part is per rank, and the once-a-step sum then adds each
+    row once."""
+    t = p["tokens"]
+    split = model_axis.split_for("vocab_act")
+    if split is not None and t.shape[0] != cfg.vocab_size:
+        off, _, rows = _vocab_rows(cfg, split.size, split.rank)
+        w = cast(work(p, cfg, "embed.tokens", split))
+        local = tokens - off
+        inside = (local >= 0) & (local < rows)
+        y = w[local.clamp(0, rows - 1)]
+        y = torch.where(inside[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                           device=y.device))
+        return model_axis.from_model(y, split)
+    w = cast(t)
+    if split is not None and cfg.tie_embeddings:
+        off, _, rows = _vocab_rows(cfg, split.size, split.rank)
         w = model_axis.own_rows_grad(w, off, off + rows)
     return w[tokens]
 
@@ -712,7 +850,7 @@ def unembed(p, cfg: ModelConfig, x):
     rows cut)."""
     split = model_axis.split_for("vocab_act")
     if split is not None:
-        _, Vloc, rows = _vocab_rows(cfg, split)
+        _, Vloc, rows = _vocab_rows(cfg, split.size, split.rank)
         logits = cast(model_axis.to_model(x, split)) \
             @ _vocab_weight(p, cfg, split)
         if cfg.logit_softcap > 0:
@@ -721,7 +859,8 @@ def unembed(p, cfg: ModelConfig, x):
         logits = F.pad(logits, (0, Vloc - rows))
         return model_axis.gather_from_model(
             logits, split)[..., :cfg.vocab_size]
-    w = cast(p["tokens"]).t() if cfg.tie_embeddings else cast(p["unembed"])
+    w = cast(whole(p, cfg, "embed.tokens")).t() if cfg.tie_embeddings \
+        else cast(whole(p, cfg, "embed.unembed"))
     logits = cast(x) @ w
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -743,7 +882,7 @@ def _xent_split(p, cfg: ModelConfig, x, targets, mask, split):
     rows at -1e30), then three (B, S) reductions over the ranks: the max
     (no gradient), the sum of exponentials and the gold logit, gathered
     on the rank whose rows hold the target."""
-    off, Vloc, rows = _vocab_rows(cfg, split)
+    off, Vloc, rows = _vocab_rows(cfg, split.size, split.rank)
     if rows < Vloc and bool((targets >= cfg.vocab_size).any()):
         raise ValueError(f"a target past the vocabulary of "
                          f"{cfg.vocab_size}")
@@ -775,14 +914,17 @@ def unembed_xent(p, cfg: ModelConfig, x, targets, mask):
 
 def model_partial_leaves(cfg: ModelConfig, names):
     """The parameters among ``names`` (port names, ``layers.3.attn.wq``)
-    whose gradient a model rank holds only in part under the current
-    splits: what the data-parallel step sums over the model ranks once a
-    step.  The norm scales, the router and a table used only by the
-    lookup are used whole on replicated inputs and are not among them."""
+    stored whole whose gradient a model rank holds only in part under the
+    current splits: what the data-parallel step sums over the model ranks
+    once a step (qk-norm's scales on a rank's heads; a leaf whose model
+    dim the guard dropped).  A leaf stored split holds its shard's whole
+    gradient (``model_storage``); the norm scales, the router and a table
+    used only by the lookup are used whole on replicated inputs."""
     attn = model_axis.split_for("heads_act") is not None
     mlp_ = _mlp_split(cfg) is not None
     ep = _ep_split() is not None
     vocab = model_axis.split_for("vocab_act") is not None
+    ctx = current_ctx()
     out = []
     for name in names:
         group, leaf = name.split(".")[-2:]
@@ -790,6 +932,7 @@ def model_partial_leaves(cfg: ModelConfig, names):
                 or group == "mlp" and mlp_ and leaf != "bo"
                 or group == "moe" and ep and leaf != "router"
                 or group == "embed" and vocab and (
-                    leaf == "unembed" or cfg.tie_embeddings)):
+                    leaf == "unembed" or cfg.tie_embeddings)) \
+                and not _stored_split(ctx, cfg, f"{group}.{leaf}"):
             out.append(name)
     return out

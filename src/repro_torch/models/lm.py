@@ -30,6 +30,16 @@ Two ways to hold the parameters:
   except the leaves JAX uses in fp32, with no gradients;
 * training (``trainable=True``): fp32 masters with ``requires_grad``, cast
   at each use as JAX casts them, so the gradients land on the masters.
+
+Either may be held whole or as this rank's shards of a storage plan
+(``plan``, ``dp_shard.ShardPlan.for_storage``: the dims the rules map to
+the batch axes and to ``"model"``); ``init_sharded_params`` draws the
+shards leaf by leaf from the generator sequence of the whole init, so a
+rank never holds the whole tree.  A model on a plan is used inside the
+manual region of its mesh: the data-parallel step, or ``_serve_wrap``,
+under which prefill and decode gather each layer's batch-sharded leaves
+(``_serve_params``) and the layers take their part of the model-sharded
+ones (``layers.work``).
 """
 from __future__ import annotations
 
@@ -40,10 +50,12 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import dp_shard
+from repro_torch.distributed.sharding_rules import current_ctx
 from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stack as stk
-from repro_torch.models.module import ParamSpec, spec
+from repro_torch.models.module import ParamSpec, init_params, map_specs, spec
 
 # leaves JAX uses uncast (fp32) at every use: the norm scales, the
 # layernorm's bias and the SSM's dt_bias, A_log and gate_norm
@@ -59,13 +71,15 @@ def cross_entropy(logits, targets, mask):
 
 
 def _param(name: str, s: ParamSpec, t, device, index=None,
-           trainable: bool = False) -> nn.Parameter:
-    """One leaf, checked against its spec and moved to ``device``: an fp32
-    master that takes gradients if ``trainable``, else cast once to the
-    compute dtype, unless JAX keeps the leaf in fp32."""
+           trainable: bool = False, shape=None) -> nn.Parameter:
+    """One leaf, checked against its spec (or ``shape``, a shard's) and
+    moved to ``device``: an fp32 master that takes gradients if
+    ``trainable``, else cast once to the compute dtype, unless JAX keeps
+    the leaf in fp32."""
     if index is not None:
         t = t[index]
-    shape = s.shape[1:] if index is not None else s.shape
+    if shape is None:
+        shape = s.shape[1:] if index is not None else s.shape
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"parameter {name}: shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
@@ -81,25 +95,72 @@ def _check_tree(specs, values) -> None:
                          f"{sorted(specs)}, got {sorted(values)}")
 
 
+def _shape(plan, name: str, s: ParamSpec, stacked: bool):
+    """The shape a leaf named ``name`` (a port name) is held at: its
+    shard's under ``plan``, else its spec's (a layer's, if ``stacked``)."""
+    shape = s.shape[1:] if stacked else s.shape
+    return plan.local_shape(name, shape) if plan is not None else shape
+
+
 def _param_dict(specs: Dict[str, ParamSpec], values, device, index=None,
-                trainable: bool = False):
+                trainable: bool = False, *, prefix: str, plan=None):
     """A ParameterDict of one layer's (or one top-level group's) leaves
-    (``_param`` each)."""
+    (``_param`` each), named ``prefix.<leaf>`` in ``plan``."""
     _check_tree(specs, values)
     return nn.ParameterDict({
-        name: _param(name, s, values[name], device, index, trainable)
+        name: _param(name, s, values[name], device, index, trainable,
+                     _shape(plan, f"{prefix}.{name}", s, index is not None))
         for name, s in specs.items()})
 
 
 def _layer_list(specs, values, num_layers: int, device,
-                trainable: bool) -> nn.ModuleList:
+                trainable: bool, *, prefix: str = "layers",
+                plan=None) -> nn.ModuleList:
     """One ``ModuleDict`` of parameter groups per layer, each cut from the
     stacked (L, ...) leaves of ``values``."""
     return nn.ModuleList(
         nn.ModuleDict({group: _param_dict(s, values[group], device, index=i,
-                                          trainable=trainable)
+                                          trainable=trainable,
+                                          prefix=f"{prefix}.{i}.{group}",
+                                          plan=plan)
                        for group, s in specs.items()})
         for i in range(num_layers))
+
+
+def _shard_leaf(plan, path, full):
+    """A copy of this rank's shard under ``plan`` of the leaf at ``path``
+    of a spec-layout tree (a stacked leaf cut layer by layer alike)."""
+    if path[0] in ("layers", "encoder"):
+        return plan.local(".".join((path[0], "0") + path[1:]), full,
+                          lead=1).clone()
+    return plan.local(".".join(path), full).clone()
+
+
+def init_sharded_params(cfg: ModelConfig, generator: torch.Generator, plan):
+    """This rank's shards of ``cfg``'s parameters under ``plan``, in the
+    spec tree's layout (a stacked leaf as the stack of its layers' shards):
+    each leaf drawn whole from ``generator`` in ``init_params``' order,
+    cut and copied, and freed before the next, so the values are those of
+    the whole init and a rank never holds more than one whole leaf."""
+    return init_params(param_specs(cfg), generator,
+                       shard=lambda path, full: _shard_leaf(plan, path, full))
+
+
+def shard_params(tree, plan):
+    """This rank's fp32 shards under ``plan`` of a whole spec-layout tree
+    of tensors or arrays, converted and cut leaf by leaf."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return _shard_leaf(plan, path, torch.as_tensor(node,
+                                                       dtype=torch.float32))
+    return walk(tree, ())
+
+
+def top_axes(specs):
+    """The logical axes of the groups outside the layer stacks."""
+    return {k: v for k, v in map_specs(lambda s: s.axes, specs).items()
+            if k not in ("layers", "encoder")}
 
 
 def _store_leaves(cache, i: int, leaves, S: int, ring: bool) -> None:
@@ -140,31 +201,39 @@ def _next_token_loss(model, batch, remat_policy: str, params):
 class DecoderLM(nn.Module):
     """Decoder-only LM, dense, MoE or SSM.  ``params`` is a tree with the JAX
     package's layout and fp32 leaves (``init_params`` or
-    ``convert.from_jax_params``)."""
+    ``convert.from_jax_params``), or with ``plan`` each leaf this rank's
+    shard under it (``init_sharded_params``)."""
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *, device,
-                 trainable: bool = False):
+                 trainable: bool = False, plan=None):
         super().__init__()
         self.cfg = cfg
         self.device = torch.device(device)
         self.trainable = trainable
+        self.plan = plan
         specs = self.param_specs(cfg)
         _check_tree(specs, params)
         self.embed = _param_dict(specs["embed"], params["embed"], self.device,
-                                 trainable=trainable)
+                                 trainable=trainable, prefix="embed",
+                                 plan=plan)
         self.final_norm = _param_dict(specs["final_norm"],
                                       params["final_norm"], self.device,
-                                      trainable=trainable)
+                                      trainable=trainable,
+                                      prefix="final_norm", plan=plan)
         self.layers = _layer_list(specs["layers"], params["layers"],
-                                  cfg.num_layers, self.device, trainable)
+                                  cfg.num_layers, self.device, trainable,
+                                  plan=plan)
         if "meta_tokens" in specs:
-            self.meta_tokens = _param("meta_tokens", specs["meta_tokens"],
-                                      params["meta_tokens"], self.device,
-                                      trainable=trainable)
+            self.meta_tokens = _param(
+                "meta_tokens", specs["meta_tokens"], params["meta_tokens"],
+                self.device, trainable=trainable,
+                shape=_shape(plan, "meta_tokens", specs["meta_tokens"],
+                             False))
         if "patch_proj" in specs:
             self.patch_proj = _param_dict(specs["patch_proj"],
                                           params["patch_proj"], self.device,
-                                          trainable=trainable)
+                                          trainable=trainable,
+                                          prefix="patch_proj", plan=plan)
 
     @staticmethod
     def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -191,6 +260,22 @@ class DecoderLM(nn.Module):
             if hasattr(self, name):
                 top[name] = getattr(self, name)
         return top
+
+    def _serve_params(self):
+        """(the top-level groups, the layer hook) for prefill and decode:
+        inside a manual region, the groups with their batch-sharded leaves
+        gathered and a hook that gathers a layer's
+        (``stack.manual_layer_hook``), in the compute dtype, as ``repro``'s
+        ``_serve_wrap`` gathers them; else the model's own groups and no
+        hook."""
+        ctx = current_ctx()
+        if ctx is None or not ctx.manual:
+            return self.top_params(), None
+        top = dp_shard.gather_params(self.top_params(),
+                                     top_axes(self.param_specs(self.cfg)),
+                                     compute_dtype=ll.COMPUTE_DTYPE)
+        return top, stk.manual_layer_hook(self.cfg,
+                                          compute_dtype=ll.COMPUTE_DTYPE)
 
     @property
     def prefix_len(self) -> int:
@@ -264,16 +349,18 @@ class DecoderLM(nn.Module):
         prompt's last T positions, rolled so position p sits in slot
         p % T, as ``repro``'s prefill does."""
         cfg = self.cfg
-        x, positions, _ = self._compose_input(batch)
+        top, hook = self._serve_params()
+        x, positions, _ = self._compose_input(batch, top)
         S = x.shape[1]
         ring = stk.use_ring_cache(cfg)
         for i, (p, is_global) in enumerate(zip(self.layers,
                                                stk.global_flags(cfg))):
-            x, _, leaves = stk.block(p, cfg, x, positions=positions,
+            x, _, leaves = stk.block(p if hook is None else hook(p), cfg, x,
+                                     positions=positions,
                                      is_global=is_global, ssm_state=True)
             _store_leaves(cache, i, leaves, S, ring)
-        h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
-        return ll.unembed(self.embed, cfg, h[:, None]), cache
+        h = ll.norm(top["final_norm"], x[:, -1], cfg)   # rows are independent
+        return ll.unembed(top["embed"], cfg, h[:, None]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
@@ -283,15 +370,17 @@ class DecoderLM(nn.Module):
         tail and state into ``cache`` in place.  Returns (logits,
         cache)."""
         cfg = self.cfg
-        x = ll.embed(self.embed, cfg, tokens)
+        top, hook = self._serve_params()
+        x = ll.embed(top["embed"], cfg, tokens)
         positions = positions + self.prefix_len
         for i, (p, is_global) in enumerate(zip(self.layers,
                                                stk.global_flags(cfg))):
             layer_cache = {name: t[i] for name, t in cache.items()}
-            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions,
+            x = stk.decode_block(p if hook is None else hook(p), cfg, x,
+                                 layer_cache, positions=positions,
                                  is_global=is_global)
-        x = ll.norm(self.final_norm, x, cfg)
-        return ll.unembed(self.embed, cfg, x), cache
+        x = ll.norm(top["final_norm"], x, cfg)
+        return ll.unembed(top["embed"], cfg, x), cache
 
 
 def _arange_positions(B: int, S: int, device):
@@ -326,10 +415,15 @@ class EncDecLM(nn.Module):
     reads them back rounded to the cache's dtype, as ``repro``'s does."""
 
     prefix_len = 0
+    plan = None
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *, device,
-                 trainable: bool = False):
+                 trainable: bool = False, plan=None):
         super().__init__()
+        if plan is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the encdec family is built whole; a storage "
+                f"plan covers the decoder families")
         self.cfg = cfg
         self.device = torch.device(device)
         self.trainable = trainable
@@ -338,9 +432,11 @@ class EncDecLM(nn.Module):
         for name in ("embed", "enc_norm", "final_norm"):
             setattr(self, name, _param_dict(specs[name], params[name],
                                             self.device,
-                                            trainable=trainable))
+                                            trainable=trainable,
+                                            prefix=name))
         self.encoder = _layer_list(specs["encoder"], params["encoder"],
-                                   cfg.encoder_layers, self.device, trainable)
+                                   cfg.encoder_layers, self.device, trainable,
+                                   prefix="encoder")
         self.layers = _layer_list(specs["layers"], params["layers"],
                                   cfg.num_layers, self.device, trainable)
 
@@ -448,7 +544,9 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def build_model(cfg: ModelConfig, params: Dict[str, Any], *, device,
-                trainable: bool = False):
+                trainable: bool = False, plan=None):
     """The model for ``cfg``: ``EncDecLM`` for the encdec family, else
-    ``DecoderLM``."""
-    return model_class(cfg)(cfg, params, device=device, trainable=trainable)
+    ``DecoderLM``; with ``plan``, ``params``' leaves are this rank's shards
+    under it (``init_sharded_params``)."""
+    return model_class(cfg)(cfg, params, device=device, trainable=trainable,
+                            plan=plan)

@@ -60,8 +60,12 @@ def stack_specs(tree, num_layers: int):
     return map_specs(lambda s: stacked(s, num_layers), tree)
 
 
-def init_params(specs, generator: torch.Generator):
-    """fp32 parameters for a spec tree, drawn on the generator's device."""
+def init_params(specs, generator: torch.Generator, shard=None):
+    """fp32 parameters for a spec tree, drawn on the generator's device.
+    ``shard(path, full)``: each leaf, given its path of keys and drawn
+    whole, replaced by the tensor it returns (a rank's copy of its shard)
+    before the next leaf is drawn, so only one whole leaf is held at a
+    time; the numbers are those of the whole tree's."""
     device = generator.device
 
     def leaf(s: ParamSpec) -> torch.Tensor:
@@ -72,4 +76,10 @@ def init_params(specs, generator: torch.Generator):
         t = torch.empty(s.shape, device=device)
         return t.normal_(0.0, s.std, generator=generator)
 
-    return map_specs(leaf, specs)
+    def walk(tree, path):
+        if isinstance(tree, ParamSpec):
+            t = leaf(tree)
+            return t if shard is None else shard(path, t)
+        return {k: walk(v, path + (k,)) for k, v in tree.items()}
+
+    return walk(specs, ())

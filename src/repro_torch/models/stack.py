@@ -82,16 +82,23 @@ def block_specs(cfg: ModelConfig, cross: bool = False):
     return p
 
 
-def manual_layer_hook(cfg: ModelConfig, *, cross: bool = False):
-    """Per-layer FSDP gather hook (bf16) for ``run_stack``: a layer's
-    parameters -> the same tree as plain dicts with their manual-sharded
-    dims gathered (``dp_shard.layer_hook``).  None outside a manual region
-    (no mesh, or a mesh outside the data-parallel step)."""
+def manual_layer_hook(cfg: ModelConfig, *, cross: bool = False,
+                      compute_dtype=torch.bfloat16):
+    """Per-layer FSDP gather hook for ``run_stack`` and the serving loops:
+    a layer's parameters -> the same tree as plain dicts with their
+    manual-sharded dims gathered (``dp_shard.layer_hook``; 2-dim and larger
+    leaves in ``compute_dtype``).  A leaf also stored split over
+    ``"model"`` keeps that dim as this rank's shard: the layer takes its
+    part of it (``layers.work``), which is the shard itself where aligned
+    and a gather over ``"model"`` inside the layer where not.  None outside
+    a manual region (no mesh, or a mesh outside the data-parallel step or
+    the serve wrapper)."""
     ctx = current_ctx()
     if ctx is None or not ctx.manual:
         return None
     return dp_shard.layer_hook(map_specs(lambda s: s.axes,
-                                         block_specs(cfg, cross=cross)))
+                                         block_specs(cfg, cross=cross)),
+                               compute_dtype=compute_dtype)
 
 
 def global_flags(cfg: ModelConfig, num_layers: int = 0) -> Tuple[bool, ...]:
@@ -217,8 +224,10 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
 
     Inside the data-parallel step's manual region each layer's parameters
     pass through ``manual_layer_hook`` inside the checkpointed function,
-    so a rematerialised layer gathers its FSDP leaves again in the
-    backward, as the hook inside ``repro``'s checkpointed scan body does."""
+    and the layer gathers its unaligned model-sharded leaves there too
+    (``model_storage``), so a rematerialised layer gathers both again in
+    the backward, as the hook inside ``repro``'s checkpointed scan body
+    does."""
     if remat_policy not in ("none", "full", "nothing", "dots"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     hook = manual_layer_hook(cfg, cross=len(layers) > 0

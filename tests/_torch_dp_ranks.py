@@ -160,7 +160,9 @@ def job_gather(inp, world, rank, workdir):
                              grad_dtype=str(shard.grad.dtype))
         axes = {"w": ("embed", "mlp"), "s": ("embed",)}
         leaves = {k: torch.from_numpy(v) for k, v in inp["leaves"].items()}
-        plan = dp_shard.ShardPlan.for_axes(ctx, axes, ("data",))
+        plan = dp_shard.ShardPlan.for_storage(
+            ctx, axes, {k: tuple(v.shape) for k, v in leaves.items()},
+            ("data",))
         local = dp_shard.shard_tree(leaves, plan)
         with ctx.manual_region(("data",)):
             got = dp_shard.gather_params(local, axes)

@@ -1,5 +1,5 @@
 """One rank of the port's model-axis CPU tests
-(``tests/test_torch_model_axis.py``).
+(``tests/test_torch_model_axis.py``, ``tests/test_torch_model_storage.py``).
 
 Run by ``_torch_support.spawn_ranks(..., module="_torch_tp_ranks")`` as
 
@@ -282,8 +282,169 @@ def job_serve(inp, tag, rank, workdir):
     return dict(prefill=logits.float().numpy(), decode=dec.float().numpy())
 
 
+def _held_bytes(state) -> int:
+    """The bytes of every tensor a train state holds: parameters, AdamW
+    moments, error feedback."""
+    trees = [state.params, state.opt.mu, state.opt.nu] + (
+        [state.err] if state.err is not None else [])
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree.values())
+
+
+def job_storage_step(inp, tag, rank, workdir):
+    """The ``dp_manual`` step of each storage run of this mesh on a state
+    built on the storage plan from ``repro``'s parameters: the shapes and
+    bytes it holds, every leaf gathered after the step, the first moments,
+    loss, grad norm, the gathers over ``"model"`` by leaf kind, the leaves
+    summed over the model ranks.  The first run's state is saved
+    (``cks_<tag>``)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import dp_shard, model_axis, transport
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, param_plan)
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out, first = {}, None
+    for run in inp["storage_runs"][tag]:
+        name, remat, compress, mb = run
+        c = inp["storage_archs"][name]
+        tcfg = dataclasses.replace(inp["step_config"], remat_policy=remat,
+                                   compress_grads=compress, microbatches=mb)
+        cfg = port_config(c["arch"], c["overrides"])
+        batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+        with use_rules(mesh, rules_for("train")) as ctx:
+            plan = param_plan(cfg, ctx)
+            model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                    trainable=True, plan=plan)
+            state = init_train_state(model, None, tcfg, device="cpu")
+            held = _held_bytes(state)
+            shapes = {k: tuple(p.shape) for k, p in state.params.items()}
+            step = make_train_step(state.model, tcfg)
+            local = dp_shard.local_rows(mesh, batch)
+            with ctx.manual_region(dp_shard.manual_axes(mesh)):
+                partial = ll.model_partial_leaves(cfg, state.params)
+            for counter in (dp_shard.collectives, dp_shard.model_gathers,
+                            model_axis.collectives, transport.moved):
+                counter.clear()
+            state, m = step(state, local)
+            out[run] = dict(
+                path=step.path, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]), held=held, shapes=shapes,
+                err_shapes=None if state.err is None else
+                {k: tuple(v.shape) for k, v in state.err.items()},
+                params={k: plan.full(k, p.detach()).numpy()
+                        for k, p in state.params.items()},
+                mu={k: plan.full(k, v).numpy()
+                    for k, v in state.opt.mu.items()},
+                plan=dict(plan.dims), partial=partial,
+                model_gathers=dict(dp_shard.model_gathers),
+                collectives=dict(dp_shard.collectives),
+                moved=dict(transport.moved),
+                model_collectives=dict(model_axis.collectives))
+        if first is None:
+            first = state
+    Checkpointer(os.path.join(workdir, f"cks_{tag}")).save(
+        1, first, aux={"mesh": tag}, block=True)
+    return out
+
+
+def job_storage_restore(inp, tag, rank, workdir):
+    """Restore the (1, 4) storage checkpoint into a template of its run
+    built on this mesh's storage plan: every leaf gathered back."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models.convert import from_jax_params, to_jax_named
+    from repro_torch.train.train_step import init_train_state, param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    name, remat, compress, mb = inp["storage_runs"]["1x4"][0]
+    c = inp["storage_archs"][name]
+    tcfg = dataclasses.replace(inp["step_config"], remat_policy=remat,
+                               compress_grads=compress, microbatches=mb)
+    cfg = port_config(c["arch"], c["overrides"])
+    with use_rules(mesh, rules_for("train")) as ctx:
+        plan = param_plan(cfg, ctx)
+        state = init_train_state(from_jax_params(
+            cfg, unflatten(c["tree"]), device="cpu", trainable=True,
+            plan=plan), None, tcfg, device="cpu")
+        state, aux = Checkpointer(os.path.join(workdir, "cks_1x4")).restore(
+            state, shardings=state.plan)
+        named = to_jax_named(state)
+    return dict(named=named, aux=aux)
+
+
+def job_lookup(inp, tag, rank, workdir):
+    """The vocabulary-parallel lookup of a table stored split over the
+    model ranks: its output, the table's gradient gathered from the
+    shards, and the lookup of the same table stored whole."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan
+    mesh = make_mesh(tag)
+    c = inp["lookup"]
+    cfg = port_config("qwen2-0.5b", {})
+    tokens = torch.from_numpy(c["tokens"])
+    with use_rules(mesh, rules_for("train")) as ctx, \
+            ctx.manual_region(("data",)):
+        plan = param_plan(cfg, ctx)
+        shard = torch.tensor(plan.local("embed.tokens", c["table"]),
+                             requires_grad=True)
+        model_axis.collectives.clear()
+        y = ll.embed({"tokens": shard}, cfg, tokens)
+        counts = dict(model_axis.collectives)
+        y.float().backward(torch.from_numpy(c["cot"]))
+        whole = ll.embed({"tokens": torch.from_numpy(c["table"])}, cfg,
+                         tokens)
+        return dict(y=y.detach().float().numpy(),
+                    whole=whole.float().numpy(),
+                    shard_rows=shard.shape[0], collectives=counts,
+                    dtable=plan.full("embed.tokens", shard.grad).numpy())
+
+
+def job_serve_big(inp, tag, rank, workdir):
+    """Prefill and one decode step of reduced granite through
+    ``_serve_wrap`` under ``SERVE_RULES_BIG``, the serving model built on
+    that storage plan: the logits of this rank's rows, the shapes it
+    holds."""
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch.dryrun import _serve_wrap
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    c = inp["serve"]
+    cfg = port_config(c["arch"], {})
+    tokens = torch.from_numpy(c["tokens"])
+    B, S = tokens.shape
+    B //= dp_shard.manual_size(mesh)        # this rank's rows
+    with use_rules(mesh, rules_for("prefill", big_params=True)) as ctx:
+        plan = param_plan(cfg, ctx)
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                plan=plan)
+        prefill = _serve_wrap(model, ctx, model.prefill)
+        logits, cache = prefill({"tokens": tokens},
+                                model.init_cache(B, S + 4))
+    with use_rules(mesh, rules_for("decode", big_params=True)) as ctx:
+        decode = _serve_wrap(model, ctx,
+                             lambda b, cache: model.decode_step(
+                                 cache, b["tokens"], b["positions"]))
+        dec, _ = decode({"tokens": tokens[:, :1],
+                         "positions": torch.full((len(tokens),), S)}, cache)
+    return dict(prefill=logits.float().numpy(), decode=dec.float().numpy(),
+                shapes={k: tuple(p.shape)
+                        for k, p in model.named_parameters()},
+                plan=dict(plan.dims))
+
+
 JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
-        "serve": job_serve}
+        "serve": job_serve, "storage_step": job_storage_step,
+        "storage_restore": job_storage_restore, "lookup": job_lookup,
+        "serve_big": job_serve_big}
 
 
 def main() -> None:

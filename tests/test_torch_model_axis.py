@@ -476,10 +476,11 @@ def _model_groups(tag):
 
 def _check_step(ranks, tag, arch, run):
     """Run ``run`` of ``arch``'s step on mesh ``tag`` against ``repro``'s
-    single-device step and the port's world-1 step; every leaf bit-equal
-    across the model ranks; the model-axis sum covers exactly the leaves
-    used in part, which are exactly those whose gradient differed across
-    the model ranks before it; every collective counted and moved as the
+    single-device step and the port's world-1 step; every leaf, gathered
+    from its shards, bit-equal across the model ranks; the model-axis sum
+    covers exactly the leaves stored whole and used in part, which are
+    exactly the leaves stored whole whose gradient differed across the
+    model ranks before it; every collective counted and moved as the
     backend rule says (gloo on CPU tensors: directly)."""
     workdir, refs, _ = ranks
     ref = refs["step"][arch]
@@ -509,20 +510,28 @@ def _check_step(ranks, tag, arch, run):
             assert other["loss"] == res[group[0]][run]["loss"]
     ep = "ep_off" not in run[2:]
     partial = set(got["partial"])
+    # the leaves stored split over the model ranks hold their shard's
+    # complete gradient; only those stored whole and used in part are summed
+    split = {k for k, dims in got["plan"].items()
+             if any("model" in axes for axes in dims.values())}
     for k in got["params"]:
         group, leaf = k.split(".")[-2:]
         used_in_part = group in ("attn", "mlp") or (
             ep and group == "moe" and leaf != "router") or k == "embed.tokens"
-        assert (k in partial) == used_in_part, k
+        assert (k in partial) == (used_in_part and k not in split), k
     for r in res:
         assert set(r[run]["summed"]) == partial
-        assert set(r[run]["differ"]) == partial
+        assert set(r[run]["differ"]) - split == partial
     assert one["partial"] == one["summed"] == one["differ"] == []
-    # the data-parallel reductions as at model 1, plus one model-axis sum
-    # per partial leaf
+    # the data-parallel reductions as at model 1, one model-axis sum per
+    # partial leaf and the grad norm's sum over the model ranks
     manual = 2 if tag == "2x2x2" else 1
+    batch_planned = [k for k, dims in got["plan"].items()
+                     if any(a != "model" for axes in dims.values()
+                            for a in axes)]
     assert got["collectives"]["all_reduce"] == \
-        manual * (len(got["params"]) + 5) - len(got["plan"]) + len(partial)
+        manual * (len(got["params"]) + 5) - len(batch_planned) \
+        + len(partial) + 1
     assert got["moved"] == {"direct": sum(got["collectives"].values())
                             + sum(got["model_collectives"].values())}
 
