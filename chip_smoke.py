@@ -261,24 +261,45 @@ Phases, each printing one JSON line:
    distance over the layers between the one-rank gradients through the
    kernels and the plain twins), every leaf the ranks hold whole
    bit-equal across them, exactly 24 / 24 flash launches and 49 rmsnorm
-   a rank; a control with layer 0's attention combine all-reduce left out
-   must fail.  The ranks' checkpoint is restored in this process at world
-   1: every shard's checksum equal to its rank's, and a world-1 save of it
-   writes the ranks' manifest.  Then ``ring_weight_matmul`` at (4,096,
-   896) x (896, 4,864) over the ranks against x @ w in fp32
-   (``ring_matmul``).  Lines: backend, how each rank's collectives moved
-   their tensors (``transport.moved``: every one staged through the host,
-   or the phase fails), collectives by kind, what each rank holds, each
-   rank's peak memory beside the whole layout's; times are not speeds.
+   a rank; a control with layer 0's attention combine left out must fail.
+   The step is sequence-parallel, as TRAIN_RULES' ``seq_res`` says
+   (``stack.sp_split``): each layer receives its rank's block of the
+   residual stream, (2, 128, 896), and the collectives a step are those
+   the plan implies (``sp_plan``: 98 all-gathers and 98 reduce-scatters
+   of activations over "model", the cross-entropy's two sums and one max,
+   the leaf gathers, one all-reduce a partial leaf, none over the data
+   axis of one, whose group of one issues nothing); a second control,
+   every ``scatter_seq`` slicing without its sum, must fail too.  The
+   ranks' checkpoint is restored in this process at world 1: every
+   shard's checksum equal to its rank's, and a world-1 save of it writes
+   the ranks' manifest.  After their step the ranks serve uncut qwen2
+   under SERVE_RULES (``tp_kv_serve``): a K/V cache of 1,024 slots, 256 a
+   rank (``kv_seq``), prompts of 4 x 252 (decode crosses into the next
+   rank's block) and 2 x 24 (ranks 1-3 see no key), 8 greedy steps
+   teacher-forced with the one-rank engine's tokens, which this process
+   computes first: fp32 cosine >= 0.9999 at every position and equal
+   greedy tokens, bf16 within 1.5x the one-rank bf16 distance to fp32 +
+   1e-4, each rank's fp32 block within 1e-4 of the largest entry of the
+   one-rank cache's slots, its bytes a quarter of the whole; the partial
+   softmaxes combined without their lse weights must fail.  Then
+   ``ring_weight_matmul`` at (4,096, 896) x (896, 4,864) over the ranks
+   against x @ w in fp32 (``ring_matmul``).  Lines: backend, how each
+   rank's collectives moved their tensors (``transport.moved``: every one
+   staged through the host, or the phase fails), collectives by kind,
+   what each rank holds, each rank's peak memory beside the whole
+   layout's; times are not speeds.
 20b. tp_train_big: uncut qwen3-1.7b (1.72 B parameters) on (data 1,
    model 4), aligned everywhere: 4 / 2 heads of 128, 1,536 d_ff columns
    and 37,984 vocabulary rows a rank, no gather over the model ranks;
    the one-rank step first in this process (27.5 GB of fp32 state), then
    the ranks' step held as in phase 20, each rank's peak below 27.5 GB,
    exactly 28 / 28 flash launches and 113 rmsnorm (qk-norm's two a layer)
-   a rank; the vocabulary-parallel lookup without its all-reduce must
-   fail.
-21. ep_serve: the model axis serves uncut granite-moe-3b-a800m on (data 2,
+   a rank, sequence-parallel as phase 20 with the same collective and
+   residual checks; the vocabulary-parallel lookup without its sum and
+   the reduce-scatters without theirs must each fail.
+21. ep_serve: the model axis serves granite-moe-3b-a800m at its
+   published widths, all 40 experts, and 8 of its 32 layers (the depth
+   the card's time allows beside phase 20's kv_seq check) on (data 2,
    model 2) through ``_serve_wrap`` under ``SERVE_RULES_BIG``, four ranks
    holding their bf16 shards of its storage plan (the embed dim over
    "data", gathered a layer at a time; 12 / 4 heads a rank; the 40
@@ -290,8 +311,10 @@ Phases, each printing one JSON line:
    >= 0.999 and top-1 >= 0.99; in bf16 each position within 0.999 or 2x
    the bf16 noise floor (the one-rank kernels against the plain twins),
    top-1 recorded, the model ranks' logits equal; the MoE combine without
-   its all-reduce must fail at the prefill; exactly 32 flash launches and
-   65 rmsnorm a forward a rank in bf16.
+   its all-reduce must fail at the prefill; exactly 8 flash launches and
+   17 rmsnorm a forward a rank in bf16 (one and two a layer, one for the
+   final norm).  Decode runs on a ``kv_seq``
+   cache: the 520 slots the prompt and steps write, 260 a rank.
 22. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
    launches by path, errors and times (``backward_*``).
@@ -642,7 +665,11 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # against the one-rank step held as phase 20's, each rank's peak below
 # the whole layout's fp32 state alone (1.72 B x 16 bytes, 27.5 GB); the
 # vocabulary-parallel lookup without its all-reduce must fail.
-# Phase 21 (ep_serve): uncut granite-moe-3b-a800m on (data EP_DATA, model
+# Phase 21 (ep_serve): granite-moe-3b-a800m at its published widths and
+# EP_LAYERS of its 32 layers (each rank stages every layer's data-sharded
+# experts through the host at every call: 201 s for the phase uncut, PR
+# 25, too long beside the kv_seq check; the depth is the cut the budget
+# allows, no width or expert count is) on (data EP_DATA, model
 # EP_MODEL) through _serve_wrap under SERVE_RULES_BIG, its bf16 weights
 # stored as the plan's shards: the embed dim over "data", gathered a layer
 # at a time; heads over "model" (12 / 4 a rank); the 40 experts (no
@@ -678,9 +705,19 @@ TP_FLOOR_RATIO = 2.0
 TP_WHOLE_PEAK_GB = 14.4     # a rank's peak with every leaf whole (PERF.md)
 RING_SHAPE = (4096, 896, 4864)          # (m, k, f) of ring_weight_matmul
 BIG_ARCH, BIG_MODEL, BIG_BATCH, BIG_SEQ = "qwen3-1.7b", 4, 2, 512
-EP_ARCH, EP_DATA, EP_MODEL = MOE_ARCH, 2, 2
+EP_ARCH, EP_DATA, EP_MODEL, EP_LAYERS = MOE_ARCH, 2, 2, 8
 EP_BATCH, EP_PROMPT, EP_STEPS = 4, 512, 8
 EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
+# phase 20's kv_seq serve check, inside its ranks after their step: uncut
+# qwen2-0.5b under SERVE_RULES on (data 1, model TP_MODEL), its K/V cache of
+# KV_MAX_LEN slots cut into blocks of KV_MAX_LEN / TP_MODEL a rank.  Each
+# (rows, prompt length) of KV_PROMPTS is prefilled and decoded
+# KV_STEPS - 1 greedy steps: 252 ends four slots before the first block
+# boundary, so decode writes into the next rank's block; 24 leaves ranks
+# 1-3 without a key throughout
+KV_MAX_LEN, KV_STEPS = 1024, 9
+KV_PROMPTS = ((4, 252), (2, 24))
+KV_MIN_COSINE, KV_CACHE_OF_MAX = 0.9999, 1e-4
 RANK_TIMEOUT_S = 420
 
 
@@ -3993,12 +4030,16 @@ def dp_train_path(torch, np, modules) -> dict:
             # the collectives of one step, against the JAX design: a gather
             # and a reduce-scatter per FSDP leaf per microbatch, one
             # all-reduce per remaining leaf per step, and one each for the
-            # loss, its three metrics and the norm's sum of squares
+            # loss, its three metrics and the norm's sum of squares, each
+            # over a group of the world's ranks: at world 1 none is issued
+            # (transport skips a group of one, as repro's psum over an
+            # axis of size 1 is the identity)
             plan = dp.plan
             n_fsdp, n_leaves = len(plan.dims), len(dp.params)
             design = {"all_gather": DP_MICROBATCHES * n_fsdp,
                       "reduce_scatter": DP_MICROBATCHES * n_fsdp,
-                      "all_reduce": (n_leaves - n_fsdp) + 5}
+                      "all_reduce": (n_leaves - n_fsdp) + 5} \
+                if torch.distributed.get_world_size() > 1 else {}
             check(step_collectives == design,
                   f"dp step collectives {step_collectives}, the design "
                   f"implies {design}")
@@ -4449,9 +4490,11 @@ def spawn_card_ranks(phase: str, world: int, workdir: str) -> list:
     """Run ``phase``'s rank function in ``world`` processes of this script
     (``--rank``), all on the card, and wait for them: at most
     RANK_TIMEOUT_S in all; a rank that exits non-zero or the timeout kills
-    every rank and fails the phase with each log's tail.  Returns each
-    rank's result."""
+    every rank and fails the phase with each log's tail.  Prints the
+    host's state as they start (``host_state``).  Returns each rank's
+    result."""
     import pickle
+    emit(f"{phase}_host", **host_state())
     procs = []
     for rank in range(world):
         log = open(os.path.join(workdir, f"log_{phase}_r{rank}"), "w")
@@ -4555,6 +4598,77 @@ def replicated_digests(state) -> dict:
             for k, p in state.params.items() if k not in split}
 
 
+@contextlib.contextmanager
+def host_clock():
+    """Where a rank's wall time goes on the host over the block: the
+    seconds and calls of each gloo collective by kind (``all_reduce``,
+    ``all_gather``, ``reduce_scatter``: the transfer and the wait for the
+    slowest rank), of ``to_host`` (a staged tensor's copy into pinned host
+    memory, which first waits for the card's queued work; its buffer
+    included) and of ``pin`` (the pinned buffers alone), as
+    ``{kind: [calls, seconds]}``, with ``wall_s`` and ``cpu_s`` (the
+    process's CPU time, every thread) and the host's 1-minute load
+    average after the block.  The collectives run unchanged."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import transport
+    clock, real = {}, []
+
+    def timed(owner, attr, kind):
+        fn = getattr(owner, attr)
+        real.append((owner, attr, fn))
+
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                c = clock.setdefault(kind, [0, 0.0])
+                c[0] += 1
+                c[1] += time.perf_counter() - t0
+
+        setattr(owner, attr, wrapper)
+
+    for attr, kind in (("all_reduce", "all_reduce"),
+                       ("all_gather_into_tensor", "all_gather"),
+                       ("reduce_scatter_tensor", "reduce_scatter")):
+        timed(dist, attr, kind)
+    timed(transport, "_to_host", "to_host")
+    timed(transport, "_pinned", "pin")
+    c0, w0 = time.process_time(), time.perf_counter()
+    try:
+        yield clock
+    finally:
+        for owner, attr, fn in real:
+            setattr(owner, attr, fn)
+        clock["wall_s"] = time.perf_counter() - w0
+        clock["cpu_s"] = time.process_time() - c0
+        clock["loadavg_1m"] = os.getloadavg()[0]
+
+
+def host_state() -> dict:
+    """The host as a phase starts: its 1-minute load average, the
+    processes running on it, the cores this process may use, and this
+    process's threads and live children (what earlier phases left
+    behind)."""
+    with open("/proc/stat") as f:
+        running = next(int(line.split()[1]) for line in f
+                       if line.startswith("procs_running"))
+    with open("/proc/self/status") as f:
+        threads = next(int(line.split()[1]) for line in f
+                       if line.startswith("Threads:"))
+    children = 0
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/children") as f:
+                children += len(f.read().split())
+        except OSError:
+            pass
+    return dict(loadavg_1m=os.getloadavg()[0], procs_running=running,
+                cores=len(os.sched_getaffinity(0)), threads=threads,
+                children=children)
+
+
 def staged_only(rank_result) -> bool:
     """Did every collective of a rank's run move its tensors through host
     memory (``transport.moved``), as the backend rule has gloo do with
@@ -4632,11 +4746,15 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
                  save_dir=None) -> dict:
     """One rank of a model-axis training phase: the state built on the
     storage plan of (data 1, model n) leaf by leaf from seed 0, what it
-    holds, one dp_manual step, the gathers over ``"model"`` it issued,
-    each first moment held against the one-rank step's (``ref.pt``), then
-    (``save_dir``) each shard's checksum and a checkpoint of the state,
-    then the same step from the same masters under ``control`` (a context
-    that breaks one all-reduce)."""
+    holds, one dp_manual step (the residual stream's tokens split over the
+    model ranks, as TRAIN_RULES' ``seq_res`` says), the shape of the
+    residual each layer received, the collectives by kind and the gathers
+    over ``"model"`` it issued, its peak memory, each first moment held
+    against the one-rank step's (``ref.pt``), then (``save_dir``) each
+    shard's checksum and a checkpoint of the state, then the same step
+    from the same masters under ``control`` (a context that leaves out one
+    sum over the model ranks) and under ``scatter_unsummed`` (no
+    reduce-scatter sums)."""
     import dataclasses
 
     import torch.distributed as dist
@@ -4647,6 +4765,8 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
                                                         rules_for, use_rules)
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import layers as ll
+    from repro_torch.models import stack as stk
+    from repro_torch.models.lm import param_specs
     from repro_torch.train.optimizer import init_adamw
     from repro_torch.train.train_step import (TrainState, init_train_state,
                                               make_train_step)
@@ -4675,19 +4795,39 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
         for counter in (model_axis.collectives, dp_shard.collectives,
                         dp_shard.model_gathers, transport.moved):
             counter.clear()
+        residual, real_block = set(), stk.block
+
+        def block(p, cfg_, x, **kw):
+            residual.add(tuple(x.shape))
+            return real_block(p, cfg_, x, **kw)
+
+        stk.block = block
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        new, m = step(state, batch)
-        torch.cuda.synchronize()
+        try:
+            with host_clock() as clock:
+                new, m = step(state, batch)
+                torch.cuda.synchronize()
+        finally:
+            stk.block = real_block
         out["step_s"] = time.perf_counter() - t0
+        out["step_clock"] = clock
+        out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["residual"] = sorted(residual)
         out["launches"] = dense_launches(fa, rn)
         out["collectives"] = dict(model_axis.collectives)
         out["dp_collectives"] = dict(dp_shard.collectives)
         out["model_gathers"] = dict(dp_shard.model_gathers)
         out["moved"] = dict(transport.moved)
         with ctx.manual_region(dp_shard.manual_axes(mesh)):
+            seq = stk.sp_split(cfg, batch["tokens"].shape[1])
+            out["sp"] = None if seq is None else seq.size
             out["partial_leaves"] = len(ll.model_partial_leaves(
-                cfg, state.params))
+                cfg, param_specs(cfg), state.params, seq))
+            out["embed_split"] = "embed.tokens" in {
+                k for k, dims in state.plan.dims.items()
+                if any("model" in axes for axes in dims.values())}
         out["step"] = tp_held(torch, F, new, m, ref["mu"], ref["floor"],
                               group)
         if save_dir is not None:
@@ -4701,73 +4841,93 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
             Checkpointer(save_dir).save(1, new, aux={"ranks": n},
                                         block=True)
             out["save_s"] = time.perf_counter() - t0
-        with torch.no_grad():
-            for k, p in state.params.items():
-                p.copy_(start[k])
+        del new
+        for key, ctl in (("control", control),
+                         ("control_scatter", scatter_unsummed)):
+            with torch.no_grad():
+                for k, p in state.params.items():
+                    p.copy_(start[k])
+            state = TrainState(state.model, init_adamw(state.params), None,
+                               state.plan)
+            with ctl(), host_clock() as clock:
+                state, m = step(state, batch)
+                torch.cuda.synchronize()
+            out[key] = tp_held(torch, F, state, m, ref["mu"], ref["floor"],
+                               group)
+            out[key + "_clock"] = clock
         del start
-        state = TrainState(state.model, init_adamw(state.params), None,
-                           state.plan)
-        with control():
-            state, m = step(state, batch)
-        out["control"] = tp_held(torch, F, state, m, ref["mu"], ref["floor"],
-                                 group)
-    del state, new, ref
+    del state, ref
     torch.cuda.empty_cache()
     return out
 
 
 @contextlib.contextmanager
-def first_combine_skipped():
-    """Layer 0's attention combine all-reduce left out: the first call of
-    ``_attention_split`` runs with ``from_model`` the identity."""
+def unsummed(module, name: str, first_only: bool = False):
+    """``module.name`` run without the sum over the model ranks it ends
+    in: ``from_model`` the identity, and ``scatter_seq`` (under sequence
+    parallelism) slicing this rank's block of its own partial output; at
+    its first call only if ``first_only``."""
     from repro_torch.distributed import model_axis
-    from repro_torch.models import layers as ll
-    real_split, real_from = ll._attention_split, model_axis.from_model
+    real, real_from, real_scatter = (getattr(module, name),
+                                     model_axis.from_model,
+                                     model_axis.scatter_seq)
     calls = [0]
 
-    def split(*args, **kwargs):
+    def fn(*args, **kwargs):
         calls[0] += 1
-        if calls[0] > 1:
-            return real_split(*args, **kwargs)
+        if first_only and calls[0] > 1:
+            return real(*args, **kwargs)
         model_axis.from_model = lambda y, s: y
+        model_axis.scatter_seq = lambda y, s, summed=True: real_scatter(
+            y, s, summed=False)
         try:
-            return real_split(*args, **kwargs)
+            return real(*args, **kwargs)
         finally:
             model_axis.from_model = real_from
+            model_axis.scatter_seq = real_scatter
 
-    ll._attention_split = split
+    setattr(module, name, fn)
     try:
         yield
     finally:
-        ll._attention_split = real_split
+        setattr(module, name, real)
+
+
+def first_combine_skipped():
+    """Layer 0's attention combine left out: the first call of
+    ``_attention_split`` without its sum over the model ranks (under
+    sequence parallelism, its reduce-scatter a slice)."""
+    from repro_torch.models import layers as ll
+    return unsummed(ll, "_attention_split", first_only=True)
+
+
+def lookup_unsummed():
+    """The vocabulary-parallel lookup without its sum: each rank's
+    embeddings hold its own rows' tokens and zeros for the rest (under
+    sequence parallelism, its block of them)."""
+    from repro_torch.models import layers as ll
+    return unsummed(ll, "embed")
 
 
 @contextlib.contextmanager
-def lookup_unsummed():
-    """The vocabulary-parallel lookup without its all-reduce: each rank's
-    embeddings hold its own rows' tokens and zeros for the rest."""
+def scatter_unsummed():
+    """Every ``scatter_seq`` slicing this rank's block of its own partial
+    output: no reduce-scatter sums the model ranks' parts."""
     from repro_torch.distributed import model_axis
-    from repro_torch.models import layers as ll
-    real_embed, real_from = ll.embed, model_axis.from_model
-
-    def embed(*args, **kwargs):
-        model_axis.from_model = lambda y, s: y
-        try:
-            return real_embed(*args, **kwargs)
-        finally:
-            model_axis.from_model = real_from
-
-    ll.embed = embed
+    real = model_axis.scatter_seq
+    model_axis.scatter_seq = lambda y, s, summed=True: real(y, s,
+                                                            summed=False)
     try:
         yield
     finally:
-        ll.embed = real_embed
+        model_axis.scatter_seq = real
 
 
 def tp_train_rank(torch, np, F, modules, workdir) -> dict:
     """One rank of phase 20: ``tp_step_rank`` for uncut qwen2-0.5b, its
     state saved, with layer 0's attention combine left out as the
-    control; then ``ring_weight_matmul``."""
+    control; then the kv_seq serve check (``kv_serve_rank``) and
+    ``ring_weight_matmul``."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -4779,6 +4939,9 @@ def tp_train_rank(torch, np, F, modules, workdir) -> dict:
                        tp_batch(torch, np, get_config(TP_ARCH)),
                        first_combine_skipped,
                        save_dir=os.path.join(workdir, "ck"))
+    t0 = time.perf_counter()
+    out["kv"] = kv_serve_rank(torch, np, F, dict(modules, workdir=workdir))
+    out["kv"]["phase_s"] = time.perf_counter() - t0
     mesh = make_local_mesh(model_axis=n, device="cuda")
     # ring_weight_matmul over the model ranks against x @ w, fp32
     M, Kd, Fd = RING_SHAPE
@@ -4937,6 +5100,28 @@ def restore_across_sizes(torch, res, workdir, cfg) -> dict:
                 ok=not differ and same_manifest and aux["ranks"] == n)
 
 
+def sp_plan(cfg, r) -> dict:
+    """The collectives by kind one rank's sequence-parallel step of
+    ``cfg`` at remat "none" and one microbatch implies: over "model", per
+    layer two regions (attention, the MLP), each an all-gather of the
+    sequence in and a reduce-scatter out forward and their transposes
+    backward; the lookup's reduce-scatter into the block (a table stored
+    split) and its transpose; the cross-entropy's gather and transpose,
+    and its two sums and one max; no other activation all-reduce.  In
+    ``dp_shard``: one gather a layer of each unaligned leaf and its
+    reduce-scatter, and an all-reduce of each partial leaf and of the grad
+    norm (the data axis of 1 issues none)."""
+    L = cfg.num_layers
+    gathers = sum(r["model_gathers"].values())
+    model = {"all_gather": 4 * L + 2,
+             "reduce_scatter": 4 * L + 1 + int(r["embed_split"]),
+             "all_reduce": 2, "all_reduce_max": 1}
+    dp = {"all_gather": gathers, "reduce_scatter": gathers,
+          "all_reduce": r["partial_leaves"] + 1}
+    return dict(model_axis=model, dp_shard={k: v for k, v in dp.items()
+                                            if v})
+
+
 def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
             control_what, phase_s, **extra) -> None:
     r0 = res[0]
@@ -4945,9 +5130,11 @@ def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
          note="collectives stage each tensor through host memory (gloo); "
               "the ranks share one card")
     emit(f"{phase}_collectives", model_axis=r0["collectives"],
-         dp_shard=r0["dp_collectives"],
+         dp_shard=r0["dp_collectives"], plan=sp_plan(cfg, r0),
          model_gathers_per_rank=[r["model_gathers"] for r in res],
-         partial_leaves_summed=r0["partial_leaves"])
+         partial_leaves_summed=r0["partial_leaves"],
+         sequence_split=r0["sp"],
+         residual_per_rank=[r["residual"] for r in res])
     emit(f"{phase}_storage", rules=r0["rules"],
          per_rank=[r["storage"] for r in res],
          init_peak_gb_per_rank=[r["init_peak_gb"] for r in res])
@@ -4958,12 +5145,21 @@ def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
          grad_norm=r0["step"]["grad_norm"], held=held_step,
          control=dict(what=control_what, **held_control,
                       loss=r0["control"]["loss"]),
+         control_scatter=dict(
+             what="every scatter_seq slicing without its sum",
+             **tp_verdict(res, ref, "control_scatter"),
+             loss=r0["control_scatter"]["loss"]),
          launches_per_rank=[r["launches"] for r in res],
          expected_launches_per_rank=expect,
          one_rank_launches=ref["launches"],
          peak_gb_per_rank=[r["peak_gb"] for r in res],
+         step_peak_gb_per_rank=[r["step_peak_gb"] for r in res],
          one_rank_peak_gb=ref["peak_gb"], whole_state_gb=ref["state_gb"],
          step_s_per_rank=[r["step_s"] for r in res],
+         step_clock_per_rank=[r["step_clock"] for r in res],
+         control_clock_per_rank=[r["control_clock"] for r in res],
+         control_scatter_clock_per_rank=[r["control_scatter_clock"]
+                                         for r in res],
          one_rank_step_s=ref["step_s"], phase_s=phase_s,
          timing_note="not a speed: the ranks share one card and every "
                      "collective crosses the host",
@@ -4972,8 +5168,10 @@ def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
          floor_max=max(ref["floor"].values()), **extra)
 
 
-def tp_checks(phase, res, held_step, held_control, expect, gathers) -> None:
+def tp_checks(phase, cfg, res, ref, held_step, held_control, expect,
+              gathers) -> None:
     r0 = res[0]
+    n = len(res)
     check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
           f"{phase} ran on {r0['backend']}, collectives moved "
           f"{[r['moved'] for r in res]}")
@@ -4982,7 +5180,19 @@ def tp_checks(phase, res, held_step, held_control, expect, gathers) -> None:
           f"{held_step}")
     check(not held_control["ok"], f"{phase}'s control passed: "
           f"{held_control}")
+    scatter = tp_verdict(res, ref, "control_scatter")
+    check(not scatter["ok"], f"{phase}'s control without the "
+          f"reduce-scatters' sums passed: {scatter}")
+    check(r0["sp"] == n, f"{phase}: sequence split {r0['sp']}, the rules "
+          f"and {TP_SEQ} tokens imply {n}")
     for r in res:
+        want = [(TP_BATCH, TP_SEQ // n, cfg.d_model)]
+        check(r["residual"] == want, f"{phase}: a layer received "
+              f"{r['residual']}, not this rank's block {want}")
+        plan = sp_plan(cfg, r)
+        got = dict(model_axis=r["collectives"], dp_shard=r["dp_collectives"])
+        check(got == plan, f"{phase} collectives {got}, the plan implies "
+              f"{plan}")
         check(r["storage"]["ok"], f"{phase} storage: {r['storage']}")
         check(r["launches"] == expect, f"{phase} rank launches "
               f"{r['launches']}, expected {expect}")
@@ -5010,6 +5220,9 @@ def tp_train_path(torch, np, F, modules) -> dict:
         ref = one_rank_reference(torch, np, F, modules, TP_ARCH,
                                  tp_batch(torch, np, cfg), workdir)
         t0 = time.perf_counter()
+        kv_ref = kv_reference(torch, np, F, modules, workdir)
+        kv_ref["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         res = spawn_card_ranks("tp_train", TP_MODEL, workdir)
         phase_s = time.perf_counter() - t0
         restored = restore_across_sizes(torch, res, workdir, cfg)
@@ -5029,13 +5242,105 @@ def tp_train_path(torch, np, F, modules) -> dict:
     emit("ring_matmul", ranks=TP_MODEL, per_rank_ms=[r["ring"]["ms"]
                                                      for r in res],
          **ring, timing_note="gloo ring steps through the host")
-    tp_checks("tp_train", res, held_step, held_control, expect, gathers)
+    tp_checks("tp_train", cfg, res, ref, held_step, held_control, expect,
+              gathers)
+    kv_verdict(res, kv_ref, cfg)
     check(restored["ok"], f"tp_train's checkpoint restored at world 1: "
           f"{restored}")
     check(all(r["ring"]["max_abs_err"] <= 1e-4 * r["ring"]["ref_max"]
               and r["ring"]["send_recv"] == TP_MODEL - 1 for r in res),
           f"ring_weight_matmul: {[r['ring'] for r in res]}")
-    return {k: sum(r["launches"][k] for r in res) for k in expect}
+    launches = {k: sum(r["launches"][k] for r in res) for k in expect}
+    launches["kv_serve"] = {k: sum(r["kv"]["bf16"]["launches"][k]
+                                   for r in res) for k in expect}
+    return launches
+
+
+def kv_verdict(res, ref, cfg) -> None:
+    """Phase 20's kv_seq check against the one-rank reference
+    (``kv_reference``): the fp32 logits' cosine at every position to
+    KV_MIN_COSINE and their greedy tokens equal; the bf16 logits' distance
+    (1 - mean cosine) to the fp32 reference within BF16_RATIO times the
+    one-rank bf16 run's plus BF16_SLACK; every model rank's logits equal;
+    each rank holding a block of KV_MAX_LEN / n slots, its fp32 blocks
+    within KV_CACHE_OF_MAX of the largest entry of the one-rank cache's
+    slots and its bytes 1 / n of the whole; the control (no lse weights)
+    below KV_MIN_COSINE; the launches of one prefill and KV_STEPS - 1
+    decode steps a prompt set."""
+    import torch
+    import torch.nn.functional as F
+    n, L = len(res), cfg.num_layers
+    kv = [r["kv"] for r in res]
+
+    def cos(a, b):
+        return F.cosine_similarity(a.float(), b.float(), dim=-1)
+
+    rows32 = kv[0]["fp32"]["rows"]
+    c32 = torch.cat([cos(r["logits"], w).flatten()
+                     for r, w in zip(rows32, ref["logits32"])])
+    tokens_equal = all(torch.equal(r["logits"].argmax(-1), t.cpu())
+                       for r, t in zip(rows32, ref["tokens"]))
+    d16 = 1.0 - float(torch.cat([
+        cos(r["logits"], w).flatten()
+        for r, w in zip(kv[0]["bf16"]["rows"], ref["logits32"])]).mean())
+    d16_one = 1.0 - float(torch.cat([
+        cos(a, w).flatten()
+        for a, w in zip(ref["logits16"], ref["logits32"])]).mean())
+    bound16 = BF16_RATIO * d16_one + BF16_SLACK
+    ctl = cos(kv[0]["control"]["rows"][0]["logits"], ref["logits32"][0])
+    same = all(a["digest"] == b["digest"] for k in ("fp32", "control", "bf16")
+               for r in kv[1:] for a, b in zip(r[k]["rows"], kv[0][k]["rows"]))
+    cache_err = max(row["cache_err"] / row["cache_max"]
+                    for r in kv for row in r["fp32"]["rows"])
+    whole = [2 * L * rows * KV_MAX_LEN * cfg.num_kv_heads * cfg.head_dim * 4
+             for rows, _ in KV_PROMPTS]
+    blocks_ok = all(row["kv_shards"] == n and row["block"] == KV_MAX_LEN // n
+                    and row["cache_bytes"] * n == w
+                    for r in kv for row, w in zip(r["fp32"]["rows"], whole))
+    expect = {"flash_attention": L * len(KV_PROMPTS),
+              "flash_attention_backward": 0,
+              "rmsnorm": (2 * L + 1) * KV_STEPS * len(KV_PROMPTS)}
+    emit("tp_kv_serve", arch=cfg.name, rules="SERVE_RULES",
+         mesh={"data": 1, "model": n},
+         prompts=[list(p) for p in KV_PROMPTS], steps=KV_STEPS,
+         slots=KV_MAX_LEN, block=KV_MAX_LEN // n,
+         fp32=dict(min_cosine=float(c32.min()), mean_cosine=float(c32.mean()),
+                   greedy_tokens_equal=tokens_equal),
+         bf16=dict(distance=d16, one_rank_distance=d16_one, bound=bound16),
+         control=dict(what="partial softmaxes averaged without their lse "
+                           "weights", min_cosine=float(ctl.min())),
+         ranks_equal=same, cache_err_of_max=cache_err,
+         cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
+                               for r in kv],
+         whole_cache_bytes=whole[0],
+         launches_per_rank=[r["bf16"]["launches"] for r in kv],
+         expected_launches_per_rank=expect,
+         seconds_per_rank={k: [r[k]["seconds"] for r in kv]
+                           for k in ("fp32", "control", "bf16")},
+         build_s_per_rank={k: [r[k]["build_s"] for r in kv]
+                           for k in ("fp32", "control", "bf16")},
+         clock_per_rank={k: [r[k]["clock"] for r in kv]
+                         for k in ("fp32", "control", "bf16")},
+         check_s_per_rank=[r["phase_s"] for r in kv],
+         reference_s=ref["seconds"],
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host",
+         min_cosine_limit=KV_MIN_COSINE, cache_limit=KV_CACHE_OF_MAX)
+    check(float(c32.min()) >= KV_MIN_COSINE and tokens_equal,
+          f"tp_kv_serve fp32: min cosine {float(c32.min())}, greedy tokens "
+          f"equal {tokens_equal}")
+    check(d16 <= bound16, f"tp_kv_serve bf16 distance {d16} > {bound16}")
+    check(float(ctl.min()) < KV_MIN_COSINE,
+          f"tp_kv_serve's control (no lse weights) passed: min cosine "
+          f"{float(ctl.min())}")
+    check(same, "tp_kv_serve: the model ranks' logits differ")
+    check(cache_err <= KV_CACHE_OF_MAX, f"tp_kv_serve: a rank's fp32 K/V "
+          f"block {cache_err} of the largest entry from the one-rank cache")
+    check(blocks_ok, "tp_kv_serve: a rank's cache is not its block of "
+          f"{KV_MAX_LEN // n} slots, 1 / {n} of the whole's bytes")
+    for r in kv:
+        check(r["bf16"]["launches"] == expect, f"tp_kv_serve launches "
+              f"{r['bf16']['launches']}, expected {expect}")
 
 
 def tp_train_big_path(torch, np, F, modules) -> dict:
@@ -5069,7 +5374,8 @@ def tp_train_big_path(torch, np, F, modules) -> dict:
             "the vocabulary-parallel lookup without its all-reduce",
             phase_s, batch=[BIG_BATCH, BIG_SEQ],
             peak_limit_gb=ref["state_gb"])
-    tp_checks("tp_train_big", res, held_step, held_control, expect, {})
+    tp_checks("tp_train_big", cfg, res, ref, held_step, held_control,
+              expect, {})
     check(set(rules.values()) == {"aligned"},
           f"tp_train_big: qwen3 at model {BIG_MODEL} is not aligned "
           f"everywhere: {rules}")
@@ -5082,6 +5388,15 @@ def tp_train_big_path(torch, np, F, modules) -> dict:
     return {k: sum(r["launches"][k] for r in res) for k in expect}
 
 
+def ep_config():
+    """granite-moe-3b-a800m at its published widths, all 40 experts, and
+    EP_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP_ARCH), num_layers=EP_LAYERS)
+
+
 def ep_prompts(torch, np, cfg):
     rng = np.random.default_rng(21)
     seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
@@ -5091,17 +5406,23 @@ def ep_prompts(torch, np, cfg):
 
 
 def ep_logits(torch, model, prompts, forced, ctx_of=None,
-              kv_dtype=None, rows: int = 0):
+              kv_dtype=None, rows: int = 0, max_len: int = 0,
+              with_cache: bool = False):
     """``forced_logits`` with prefill and each decode step through
     ``_serve_wrap`` under ``ctx_of(kind)`` (the prefill and decode rules)
     when given, over a K/V cache of ``kv_dtype`` (bf16 if None) for
     ``rows`` rows (all the prompts' if 0: the wrapper cuts a rank's rows of
-    the global batch, its cache holds those)."""
+    the global batch, its cache holds those) and ``max_len`` positions (S
+    + n if 0), made under the prefill rules: where they map ``kv_seq`` to
+    the model axis and it divides the slots, this rank's block of them.
+    Returns the logits, and with ``with_cache`` the cache too."""
+    import contextlib as _contextlib
     from repro_torch.launch.dryrun import _serve_wrap
     B, S = prompts.shape
     n = forced.shape[1]
-    cache = model.init_cache(rows or B, S + n,
-                             kv_dtype=kv_dtype or torch.bfloat16)
+    with (ctx_of("prefill") if ctx_of else _contextlib.nullcontext()):
+        cache = model.init_cache(rows or B, max_len or S + n,
+                                 kv_dtype=kv_dtype or torch.bfloat16)
 
     def call(kind, fn, batch, cache):
         if ctx_of is None:
@@ -5119,7 +5440,176 @@ def ep_logits(torch, model, prompts, forced, ctx_of=None,
             {"tokens": forced[:, j:j + 1], "positions": pos}, cache)
         outs.append(logits[:, -1].float())
         pos = pos + 1
-    return torch.stack(outs, dim=1)
+    return (torch.stack(outs, dim=1), cache) if with_cache \
+        else torch.stack(outs, dim=1)
+
+
+def greedy_logits(torch, model, prompts, steps: int, max_len: int, kv_dtype):
+    """The one-rank engine's loop: prefill and ``steps - 1`` greedy decode
+    steps over a cache of ``max_len`` slots of ``kv_dtype``.  Returns the
+    logits (B, steps, V) fp32, the greedy tokens (B, steps) and the
+    cache."""
+    B, S = prompts.shape
+    cache = model.init_cache(B, max_len, kv_dtype=kv_dtype)
+    logits, cache = model.prefill({"tokens": prompts}, cache)
+    outs = [logits[:, -1].float()]
+    pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
+    for _ in range(steps - 1):
+        logits, cache = model.decode_step(cache, outs[-1].argmax(-1)[:, None],
+                                          pos)
+        outs.append(logits[:, -1].float())
+        pos = pos + 1
+    logits = torch.stack(outs, dim=1)
+    return logits, logits.argmax(-1), cache
+
+
+def kv_prompts(torch, np, cfg) -> list:
+    rng = np.random.default_rng(22)
+    return [torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                            dtype=torch.long, device="cuda")
+            for shape in KV_PROMPTS]
+
+
+def kv_reference(torch, np, F, modules, workdir) -> dict:
+    """Phase 20's kv_seq check's reference, in the parent before the
+    ranks: uncut qwen2-0.5b on one rank from seed 0, each of KV_PROMPTS
+    served greedily over a whole cache of KV_MAX_LEN slots in fp32 (fp32
+    K/V) and teacher-forced with those tokens in bf16.  The prompts, the
+    tokens and the fp32 caches go to ``WORKDIR/kv_ref.pt`` for the ranks;
+    the logits are returned.  Frees the models."""
+    from repro_torch.configs import get_config
+    cfg = get_config(TP_ARCH)
+    prompts = kv_prompts(torch, np, cfg)
+    out = {"logits32": [], "logits16": [], "tokens": [], "cache": []}
+    with torch.no_grad():
+        with fp32_model(torch, cfg) as m32:
+            for p in prompts:
+                logits, tokens, cache = greedy_logits(
+                    torch, m32, p, KV_STEPS, KV_MAX_LEN, torch.float32)
+                out["logits32"].append(logits.cpu())
+                out["tokens"].append(tokens)
+                out["cache"].append({k: cache[k].cpu() for k in ("k", "v")})
+                del cache
+            del m32
+        model = seeded_model(torch, cfg)
+        out["logits16"] = [ep_logits(torch, model, p, t,
+                                     max_len=KV_MAX_LEN).cpu()
+                           for p, t in zip(prompts, out["tokens"])]
+        del model
+    torch.save(dict(prompts=[p.cpu() for p in prompts],
+                    tokens=[t.cpu() for t in out["tokens"]],
+                    cache=out.pop("cache")),
+               os.path.join(workdir, "kv_ref.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def unweighted_combine(out, lse, gather):
+    """The control of the kv_seq check: the ranks' normalised partial
+    outputs averaged over the ranks that saw a key, without the weights
+    exp(lse - max) (``ops.combine_partial``'s place)."""
+    import torch
+    packed = gather(torch.cat([out, lse[..., None]], dim=-1))
+    seen = torch.isfinite(packed[..., -1:]).to(out.dtype)
+    return (seen * packed[..., :-1]).sum(0) / seen.sum(0).clamp_min(1.0)
+
+
+def kv_serve_rank(torch, np, F, modules) -> dict:
+    """Phase 20's kv_seq check in one of its ranks, after the step: uncut
+    qwen2-0.5b under SERVE_RULES on (data 1, model n), its weights this
+    rank's shards of the storage plan drawn from seed 0, each of
+    KV_PROMPTS prefilled and decoded through ``_serve_wrap`` over a cache
+    of KV_MAX_LEN slots (this rank's block of them), teacher-forced with
+    the one-rank greedy tokens (``kv_ref.pt``): in fp32 compute over fp32
+    K/V, each fp32 block held against its slots of the one-rank cache;
+    then the long prompts in fp32 with the partial softmaxes combined
+    without their weights (the control); then bf16 with its launches.
+    Rank 0 returns the logits, every rank their digest."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    cfg = get_config(TP_ARCH)
+    mesh = make_local_mesh(model_axis=n, device="cuda")
+    workdir = modules["workdir"]
+    ref = torch.load(os.path.join(workdir, "kv_ref.pt"), mmap=True)
+
+    def ctx_of(kind):
+        return use_rules(mesh, rules_for(kind))
+
+    with ctx_of("prefill") as ctx:
+        plan = param_plan(cfg, ctx)
+    out = {}
+
+    def served(model, i, dtype, held):
+        """Prompt set ``i`` served: its logits' digest (and logits on rank
+        0), the cache's blocks and bytes, and (``held``) its fp32 block
+        against its slots of the one-rank cache."""
+        logits, cache = ep_logits(
+            torch, model, ref["prompts"][i].to("cuda"),
+            ref["tokens"][i].to("cuda"), ctx_of,
+            kv_dtype=dtype, max_len=KV_MAX_LEN, with_cache=True)
+        row = dict(digest=hashlib.sha256(
+            logits.cpu().numpy().tobytes()).hexdigest(),
+            kv_shards=cache.kv_shards,
+            cache_bytes=sum(cache[k].numel() * cache[k].element_size()
+                            for k in ("k", "v")),
+            block=cache["k"].shape[2])
+        if rank == 0:
+            row["logits"] = logits.cpu()
+        if dtype == torch.float32 and held:
+            lo = rank * cache["k"].shape[2]
+            err, scale = 0.0, 0.0
+            for name in ("k", "v"):
+                want = ref["cache"][i][name]
+                mine = want[:, :, lo:lo + cache[name].shape[2]]
+                err = max(err, float((cache[name] - mine.to("cuda"))
+                                     .abs().max()))
+                scale = max(scale, float(want.abs().max()))
+            row.update(cache_err=err, cache_max=scale)
+        return row
+
+    def run(key, dtype, sets, combine=None):
+        saved, real = ll.COMPUTE_DTYPE, ops.combine_partial
+        ll.COMPUTE_DTYPE = dtype
+        if combine is not None:
+            ops.combine_partial = combine
+        model = None
+        try:
+            t0 = time.perf_counter()
+            model = sharded_serving_model(torch, cfg, plan)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            zero_launches(fa, rn, ss)
+            t0 = time.perf_counter()
+            with host_clock() as clock:
+                rows = [served(model, i, dtype, combine is None)
+                        for i in sets]
+                torch.cuda.synchronize()
+            out[key] = dict(rows=rows, seconds=time.perf_counter() - t0,
+                            build_s=build_s, clock=clock,
+                            launches=dense_launches(fa, rn))
+        finally:
+            ll.COMPUTE_DTYPE, ops.combine_partial = saved, real
+            del model
+            torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        sets = range(len(KV_PROMPTS))
+        run("fp32", torch.float32, sets)
+        run("control", torch.float32, [0], unweighted_combine)
+        run("bf16", torch.bfloat16, sets)
+    del ref
+    return out
 
 
 def sharded_serving_model(torch, cfg, plan):
@@ -5141,7 +5631,6 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
     in fp32 compute over an fp32 K/V cache."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import dp_shard, model_axis, transport
     from repro_torch.distributed.sharding_rules import (model_group,
                                                         rules_for, use_rules)
@@ -5150,7 +5639,7 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
     from repro_torch.train.train_step import param_plan, param_shapes
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
     rank = dist.get_rank()
-    cfg = get_config(EP_ARCH)
+    cfg = ep_config()
     mesh = make_local_mesh(model_axis=EP_MODEL, device="cuda")
     rows = EP_BATCH // EP_DATA
 
@@ -5178,9 +5667,16 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
             counter.clear()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = ep_logits(torch, model, prompts, forced, ctx_of, rows=rows)
+        # a cache of the 520 slots the prompt and the steps write, which
+        # the model axis of 2 divides: a block of 260 a rank
+        logits, cache = ep_logits(torch, model, prompts, forced, ctx_of,
+                                  rows=rows, max_len=EP_PROMPT + EP_STEPS,
+                                  with_cache=True)
         torch.cuda.synchronize()
         out["seconds"] = time.perf_counter() - t0
+        out["kv_shards"], out["kv_block"] = cache.kv_shards, \
+            cache["k"].shape[2]
+        del cache
         out["launches"] = dense_launches(fa, rn)
         out["collectives"] = dict(model_axis.collectives)
         out["dp_collectives"] = dict(dp_shard.collectives)
@@ -5188,11 +5684,11 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
         out["moved"] = dict(transport.moved)
         real = ll._moe_ep
 
-        def no_combine(p, cfg_, x, split):
+        def no_combine(*args, **kwargs):
             keep = model_axis.from_model
             model_axis.from_model = lambda y, s: y
             try:
-                return real(p, cfg_, x, split)
+                return real(*args, **kwargs)
             finally:
                 model_axis.from_model = keep
 
@@ -5201,7 +5697,7 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
             # the prefill alone: every data-gathered layer of a decode step
             # costs as much host staging as a prefill's
             control = ep_logits(torch, model, prompts, forced[:, :1], ctx_of,
-                                rows=rows)
+                                rows=rows, max_len=EP_PROMPT + EP_STEPS)
         finally:
             ll._moe_ep = real
         out["logits"] = logits.cpu().numpy()
@@ -5213,8 +5709,9 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
         try:
             m32 = sharded_serving_model(torch, cfg, plan)
             out["logits32"] = ep_logits(torch, m32, prompts, forced, ctx_of,
-                                        torch.float32,
-                                        rows=rows).cpu().numpy()
+                                        torch.float32, rows=rows,
+                                        max_len=EP_PROMPT + EP_STEPS
+                                        ).cpu().numpy()
             del m32
         finally:
             ll.COMPUTE_DTYPE = saved
@@ -5223,7 +5720,8 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
 
 
 def ep_serve_path(torch, np, F, modules) -> dict:
-    """Phase 21: the model axis serves uncut granite-moe-3b-a800m over
+    """Phase 21: the model axis serves granite-moe-3b-a800m (EP_LAYERS
+    deep, published widths) over
     EP_DATA x EP_MODEL gloo ranks on the card through ``_serve_wrap`` under
     SERVE_RULES_BIG (see EP_ARCH), against the one-rank port on the same
     seeded weights, in bf16 (and through the plain twins for the noise
@@ -5234,9 +5732,8 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     import shutil
     import tempfile
 
-    from repro_torch.configs import get_config
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
-    cfg = get_config(EP_ARCH)
+    cfg = ep_config()
     L = cfg.num_layers
     gc.collect()
     torch.cuda.empty_cache()
@@ -5310,6 +5807,7 @@ def ep_serve_path(torch, np, F, modules) -> dict:
          prompts=[EP_BATCH, EP_PROMPT], rows_per_rank=rows,
          decode_steps=EP_STEPS, heads=r0["heads"],
          layer0_and_embed_storage=r0["split"],
+         kv_blocks=r0["kv_shards"], kv_block_slots=r0["kv_block"],
          held_bytes_per_rank=[r["held_bytes"] for r in res],
          whole_bf16_bytes=r0["whole_bytes"],
          experts="40 experts, no virtual layout: stored whole over the "
@@ -5339,6 +5837,12 @@ def ep_serve_path(torch, np, F, modules) -> dict:
           f"ep_serve ran on {r0['backend']}, collectives moved "
           f"{[r['moved'] for r in res]}")
     check(order, f"ep_serve ranks' data rows {[r['data_rank'] for r in res]}")
+    slots = EP_PROMPT + EP_STEPS
+    check(all(r["kv_shards"] == EP_MODEL and r["kv_block"] * EP_MODEL == slots
+              for r in res),
+          f"ep_serve K/V caches "
+          f"{[(r['kv_shards'], r['kv_block']) for r in res]}, not blocks of "
+          f"{slots} slots over {EP_MODEL} model ranks")
     check(all(r["held_bytes"] < r["whole_bytes"] / EP_DATA for r in res),
           f"ep_serve ranks hold {[r['held_bytes'] for r in res]} bytes of "
           f"{r0['whole_bytes']}")
@@ -5533,6 +6037,11 @@ def main() -> int:
         checks["rmsnorm"] += check_rmsnorm(
             torch, F, rn, gen, name,
             TRAIN_BATCH // DP_MICROBATCHES * TRAIN_SEQ, d)
+    # the model axis's sequence blocks (phases 20-20b): ln1 / ln2 / the
+    # final norm on a rank's 2 x 512 / 4 tokens of qwen2 and qwen3
+    for name, d in (("tp_seq_d896", 896), ("tp_big_seq_d2048", 2048)):
+        checks["rmsnorm"] += check_rmsnorm(
+            torch, F, rn, gen, name, TP_BATCH * TP_SEQ // TP_MODEL, d)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
 
@@ -5669,6 +6178,8 @@ def main() -> int:
                             "trainer_dense":
                                 trainer_dense_launches["flash_attention"],
                             "tp_train": tp_launches["flash_attention"],
+                            "tp_kv_serve":
+                                tp_launches["kv_serve"]["flash_attention"],
                             "tp_train_big":
                                 tp_big_launches["flash_attention"],
                             "ep_serve": ep_launches["flash_attention"]},
@@ -5687,6 +6198,7 @@ def main() -> int:
                                        for v in dense_launches_.values()),
                     "trainer_dense": trainer_dense_launches["rmsnorm"],
                     "tp_train": tp_launches["rmsnorm"],
+                    "tp_kv_serve": tp_launches["kv_serve"]["rmsnorm"],
                     "tp_train_big": tp_big_launches["rmsnorm"],
                     "ep_serve": ep_launches["rmsnorm"]},
         "rmsnorm_residual": {},      # no model calls it
@@ -5771,7 +6283,8 @@ def main() -> int:
         for r in checks["rmsnorm"]
         if r["case"] in ("mixtral_d6144", "mixtral_decode", "hymba_d1600",
                          "hymba_gate_d3200", "phi3v_d3072", "fleet_d1536",
-                         "fleet_d3072", "dp_mb_d1536", "dp_mb_d3072")
+                         "fleet_d3072", "dp_mb_d1536", "dp_mb_d3072",
+                         "tp_seq_d896", "tp_big_seq_d2048")
         and r["dtype"] == "bfloat16"}
     # the flash backward replaces no TPU kernel: its launches (one a
     # backward call, for its three kernels) and times ride on flash's row

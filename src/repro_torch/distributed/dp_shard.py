@@ -45,7 +45,8 @@ major to minor in the axes' order (``("pod", "data")``: pod-major).
 Every collective issued here adds one to ``collectives`` under its kind:
 ``all_gather``, ``reduce_scatter`` or ``all_reduce``; a gather over
 ``"model"`` also adds one to ``model_gathers`` under the leaf's kind
-(``attn.wq``, ...).
+(``attn.wq``, ...).  A collective over an axis of one rank is not issued
+(``transport``) and counts nowhere.
 """
 from __future__ import annotations
 
@@ -188,32 +189,24 @@ def named_axes(specs, num_layers: int, encoder_layers: int = 0
 
 
 def _all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
     src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    transport.all_gather_into(out, src, group)
-    collectives["all_gather"] += 1
+    out = transport.all_gather(src, group, tally=collectives)
     return out.movedim(0, dim)
 
 
 def _reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    n = dist.get_world_size(group)
     src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    transport.reduce_scatter_into(out, src, group)
-    collectives["reduce_scatter"] += 1
+    out = transport.reduce_scatter(src, group, tally=collectives)
     return out.movedim(0, dim)
 
 
 def all_reduce(t: torch.Tensor, axes, mesh,
                op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``t`` reduced in place over the mesh axes ``axes``, one axis after
-    the other (a sum of sums, a max of maxes)."""
+    the other (a sum of sums, a max of maxes); an axis of one rank issues
+    nothing."""
     for a in axes:
-        transport.all_reduce_(t, mesh.get_group(a), op=op)
-        collectives["all_reduce"] += 1
+        transport.all_reduce_(t, mesh.get_group(a), op=op, tally=collectives)
     return t
 
 

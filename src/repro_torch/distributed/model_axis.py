@@ -16,6 +16,13 @@ operators:
 ``gather_from_model`` all-gathers a split last dim; ``ppermute`` passes a
 tensor one step along the ring (``collective_matmul``).
 
+Under sequence parallelism (``repro``'s ``seq_res`` rule) the residual
+stream between the regions holds this rank's block of the tokens, and the
+pair becomes ``gather_seq`` (all-gather the sequence in, reduce-scatter
+its gradient) and ``scatter_seq`` (reduce-scatter the partial outputs
+into the block, all-gather the gradient).  ``enter`` / ``leave`` pick the
+pair for a region from its work split and the stream's sequence split.
+
 ``split_for(logical)`` says whether a logical activation axis splits the
 work here: under a ``use_rules`` context whose rules map it to exactly one
 mesh axis that is not manual and larger than 1, inside the manual region
@@ -27,7 +34,9 @@ Every collective moves its tensors under ``transport``'s backend rule
 (over a gloo group a CUDA tensor is staged through host memory).
 
 Every collective issued here adds one to ``collectives`` under its kind:
-``all_reduce``, ``all_reduce_max``, ``all_gather`` or ``send_recv``.
+``all_reduce``, ``all_reduce_max``, ``all_gather``, ``reduce_scatter`` or
+``send_recv``; one over a group of one rank is not issued (``transport``)
+and counts nowhere.
 """
 from __future__ import annotations
 
@@ -40,8 +49,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding_rules import current_ctx
-from repro_torch.distributed.transport import (all_gather_into, all_reduce_,
-                                               send_recv)
+from repro_torch.distributed.transport import (all_gather, all_reduce_,
+                                               reduce_scatter, send_recv)
 
 # collectives issued by this module, by kind (read and zeroed by callers)
 collectives: collections.Counter = collections.Counter()
@@ -99,8 +108,7 @@ class _ToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        all_reduce_(g, ctx.group)
-        collectives["all_reduce"] += 1
+        all_reduce_(g, ctx.group, tally=collectives)
         return g, None
 
 
@@ -108,8 +116,7 @@ class _FromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone(memory_format=torch.contiguous_format)
-        all_reduce_(out, group)
-        collectives["all_reduce"] += 1
+        all_reduce_(out, group, tally=collectives)
         return out
 
     @staticmethod
@@ -135,33 +142,139 @@ psum = from_model
 def pmax(x: torch.Tensor, split: Split) -> torch.Tensor:
     """The elementwise max over the model ranks, without a gradient."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
-    all_reduce_(out, split.group, op=dist.ReduceOp.MAX)
-    collectives["all_reduce_max"] += 1
+    all_reduce_(out, split.group, op=dist.ReduceOp.MAX, tally=collectives)
     return out
+
+
+def _gather_dim(x: torch.Tensor, dim: int, split: Split) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order,
+    contiguous (the kernels take contiguous rows)."""
+    src = x.movedim(dim, 0).contiguous()
+    return all_gather(src, split.group,
+                      tally=collectives).movedim(0, dim).contiguous()
+
+
+def _scatter_dim(x: torch.Tensor, dim: int, split: Split) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum over the ranks of ``x``,
+    contiguous."""
+    src = x.movedim(dim, 0).contiguous()
+    return reduce_scatter(src, split.group,
+                          tally=collectives).movedim(0, dim).contiguous()
+
+
+def _own_block(x: torch.Tensor, dim: int, split: Split) -> torch.Tensor:
+    n = x.shape[dim] // split.size
+    return x.narrow(dim, split.rank * n, n).contiguous()
 
 
 class _GatherFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, split):
         ctx.split = split
-        src = x.movedim(-1, 0).contiguous()
-        out = torch.empty((split.size * src.shape[0],) + tuple(src.shape[1:]),
-                          dtype=src.dtype, device=src.device)
-        all_gather_into(out, src, split.group)
-        collectives["all_gather"] += 1
-        return out.movedim(0, -1)
+        return _gather_dim(x, -1, split)
 
     @staticmethod
     def backward(ctx, g):
-        n = g.shape[-1] // ctx.split.size
-        r = ctx.split.rank
-        return g[..., r * n:(r + 1) * n], None
+        return _own_block(g, -1, ctx.split), None
 
 
 def gather_from_model(x: torch.Tensor, split: Split) -> torch.Tensor:
     """Every rank's ``x`` concatenated along the last dim, in rank order;
     the gradient is this rank's slice of the (replicated) cotangent."""
     return _GatherFromModel.apply(x, split)
+
+
+def stack_ranks(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """Every rank's ``x`` stacked along a new leading dim, in rank order
+    (an all-gather; no gradient)."""
+    return _gather_dim(x.detach()[None], 0, split)
+
+
+# ---- the sequence over the model axis ---------------------------------------
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, summed):
+        ctx.split, ctx.summed = split, summed
+        return _gather_dim(x, 1, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.summed:
+            return _scatter_dim(g, 1, ctx.split), None, None
+        return _own_block(g, 1, ctx.split), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split, summed):
+        ctx.split = split
+        if summed:
+            return _scatter_dim(x, 1, split)
+        return _own_block(x, 1, split)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, 1, ctx.split), None, None
+
+
+def gather_seq(x: torch.Tensor, split: Split, summed: bool = True):
+    """The sequence (dim 1) of ``x``, each rank holding a block of it in
+    rank order, all-gathered whole.  The gradient: its reduce-scatter
+    (``summed``: the ranks used the whole sequence each for a part of the
+    work, so their gradients are partial), else this rank's block of it
+    (every rank computed the same whole)."""
+    return _GatherSeq.apply(x, split, summed)
+
+
+def scatter_seq(x: torch.Tensor, split: Split, summed: bool = True):
+    """This rank's block of the sequence (dim 1) of ``x``: of the sum over
+    the ranks' partial ``x`` (``summed``: a reduce-scatter), else of ``x``
+    itself (whole and equal on every rank).  The gradient is all-gathered
+    back along the sequence."""
+    return _ScatterSeq.apply(x, split, summed)
+
+
+def enter(x: torch.Tensor, split: Optional[Split],
+          seq: Optional[Split] = None) -> torch.Tensor:
+    """The input of a layer's region whose work is split over ``split``
+    (None: computed whole on every rank), from the residual stream ``x``:
+    whole, or with ``seq`` (the stream's split of the sequence,
+    ``stack.sp_split``) this rank's block of the tokens, gathered whole
+    here.  The region's gradients are summed over the ranks once: by
+    ``to_model``, or by the gather's reduce-scatter."""
+    if seq is not None:
+        return gather_seq(x, seq, summed=split is not None)
+    return x if split is None else to_model(x, split)
+
+
+def leave(y: torch.Tensor, split: Optional[Split],
+          seq: Optional[Split] = None) -> torch.Tensor:
+    """A region's output back on the residual stream: the ranks' partial
+    ``y`` summed (``from_model``), or with ``seq`` reduce-scattered into
+    this rank's block of the tokens; a whole ``y`` as it is, or its
+    block."""
+    if seq is not None:
+        return scatter_seq(y, seq, summed=split is not None)
+    return y if split is None else from_model(y, split)
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rank):
+        ctx.rank = rank
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g if ctx.rank == 0 else torch.zeros_like(g)), None
+
+
+def once(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """The identity; the gradient passes on model rank 0 only.  A term
+    every rank computes alike, inside a region whose gradients are summed
+    over the ranks, then counts once."""
+    return _Once.apply(x, split.rank)
 
 
 class _OwnRowsGrad(torch.autograd.Function):
@@ -191,7 +304,6 @@ def ppermute(t: torch.Tensor, split: Split, shift: int = 1):
     Returns ``wait()``, which blocks until both are done and returns the
     received tensor (on ``t``'s device)."""
     n, r, group = split.size, split.rank, split.group
-    wait = send_recv(t, dist.get_global_rank(group, (r + shift) % n),
-                     dist.get_global_rank(group, (r - shift) % n), group)
-    collectives["send_recv"] += 1
-    return wait
+    return send_recv(t, dist.get_global_rank(group, (r + shift) % n),
+                     dist.get_global_rank(group, (r - shift) % n), group,
+                     tally=collectives)

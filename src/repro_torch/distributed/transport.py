@@ -1,15 +1,23 @@
-"""How a collective moves its tensors: the backend rule.
+"""How a collective moves its tensors: the backend rule, and a group of
+one.
 
 A collective over a gloo group on a CUDA tensor copies the tensor to host
 memory, runs there and copies the result back; under NCCL, or on CPU
 tensors, tensors pass as they are.  The host copies are pinned, from
 PyTorch's caching host allocator, which hands a freed buffer to the next
-collective of its size instead of page-locking new memory.  The group's backend decides
-(``stages_through_host``), never a caught failure.  Every collective of
-``dp_shard`` and ``model_axis`` goes through here.
+collective of its size instead of page-locking new memory.  The group's
+backend decides (``stages_through_host``), never a caught failure.
+Every collective of ``dp_shard`` and ``model_axis`` goes through here.
 
-Every collective adds one to ``moved`` under ``"staged"`` (through host
-memory) or ``"direct"``, so a run can show which way its tensors went.
+A collective over a group of one rank is not issued: an all-reduce
+returns its tensor as it is, an all-gather a copy, a reduce-scatter its
+input (``repro``'s ``psum`` over an axis of size 1 is the identity too).
+
+Every collective issued adds one to ``moved`` under ``"staged"`` (through
+host memory) or ``"direct"``, so a run can show which way its tensors
+went, and, given ``tally``, one to ``tally[kind]`` under the collective's
+own kind: the caller's count by kind (``dp_shard.collectives``,
+``model_axis.collectives``).  One not issued adds to neither.
 """
 from __future__ import annotations
 
@@ -29,11 +37,18 @@ def stages_through_host(backend: str, device_type: str) -> bool:
     return str(backend) == "gloo" and device_type == "cuda"
 
 
-def staged(t: torch.Tensor, group) -> bool:
+def single(group) -> bool:
+    """Is ``group`` one rank (every collective over it the identity)?"""
+    return dist.get_world_size(group) == 1
+
+
+def staged(t: torch.Tensor, group, tally=None, kind: str = "") -> bool:
     """Does a collective of ``group`` on ``t`` run on a host copy?  Counts
-    the collective in ``moved``."""
+    the collective in ``moved`` and, given ``tally``, in ``tally[kind]``."""
     s = stages_through_host(dist.get_backend(group), t.device.type)
     moved["staged" if s else "direct"] += 1
+    if tally is not None:
+        tally[kind] += 1
     return s
 
 
@@ -48,9 +63,15 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
-    """``t`` reduced over ``group`` in place."""
-    if staged(t, group):
+def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM, *,
+                tally=None):
+    """``t`` reduced over ``group`` in place (``t`` itself over one
+    rank); tallied as ``"all_reduce_max"`` under ``MAX``, else
+    ``"all_reduce"``."""
+    if single(group):
+        return t
+    kind = "all_reduce_max" if op == dist.ReduceOp.MAX else "all_reduce"
+    if staged(t, group, tally, kind):
         h = _to_host(t)
         dist.all_reduce(h, op=op, group=group)
         t.copy_(h)
@@ -59,36 +80,50 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM):
     return t
 
 
-def all_gather_into(out: torch.Tensor, src: torch.Tensor, group):
-    """``dist.all_gather_into_tensor``."""
-    if staged(src, group):
-        h = _pinned(out.shape, out.dtype)
+def all_gather(src: torch.Tensor, group, *, tally=None) -> torch.Tensor:
+    """Every rank's contiguous ``src`` concatenated along dim 0 in rank
+    order (``dist.all_gather_into_tensor``); a copy of ``src`` over one
+    rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return src.clone()
+    out_shape = (n * src.shape[0],) + tuple(src.shape[1:])
+    if staged(src, group, tally, "all_gather"):
+        h = _pinned(out_shape, src.dtype)
         dist.all_gather_into_tensor(h, _to_host(src), group=group)
-        out.copy_(h)
-    else:
-        dist.all_gather_into_tensor(out, src, group=group)
+        return h.to(src.device)
+    out = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    dist.all_gather_into_tensor(out, src, group=group)
     return out
 
 
-def reduce_scatter_into(out: torch.Tensor, src: torch.Tensor, group):
-    """``dist.reduce_scatter_tensor``, a sum."""
-    if staged(src, group):
-        h = _pinned(out.shape, out.dtype)
+def reduce_scatter(src: torch.Tensor, group, *,
+                   tally=None) -> torch.Tensor:
+    """This rank's block along dim 0 of the sum over ``group`` of the
+    contiguous ``src`` (``dist.reduce_scatter_tensor``); ``src`` itself
+    over one rank."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return src
+    out_shape = (src.shape[0] // n,) + tuple(src.shape[1:])
+    if staged(src, group, tally, "reduce_scatter"):
+        h = _pinned(out_shape, src.dtype)
         dist.reduce_scatter_tensor(h, _to_host(src), op=dist.ReduceOp.SUM,
                                    group=group)
-        out.copy_(h)
-    else:
-        dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM,
-                                   group=group)
+        return h.to(src.device)
+    out = torch.empty(out_shape, dtype=src.dtype, device=src.device)
+    dist.reduce_scatter_tensor(out, src, op=dist.ReduceOp.SUM, group=group)
     return out
 
 
-def send_recv(t: torch.Tensor, dst: int, src: int, group):
+def send_recv(t: torch.Tensor, dst: int, src: int, group, *, tally=None):
     """Start sending ``t`` to global rank ``dst`` while receiving a tensor
     like it from global rank ``src``.  Returns ``wait()``, which blocks
     until both are done and returns the received tensor on ``t``'s
-    device."""
-    host = staged(t, group)
+    device (over one rank, ``t`` itself)."""
+    if single(group):
+        return lambda: t
+    host = staged(t, group, tally, "send_recv")
     send = _to_host(t) if host else t.contiguous()
     recv = _pinned(send.shape, send.dtype) if host else torch.empty_like(send)
     reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),

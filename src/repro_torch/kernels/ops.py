@@ -12,7 +12,9 @@
   O(block * T).
 * Ragged attention (explicit positions, a valid-length bound, a softcap or
   sinks) has no kernel on either backend and goes to ``ref.mha`` on every
-  device, as in the JAX package.  That covers all of decode.
+  device, as in the JAX package.  That covers all of decode, including
+  its partial form over a block of a K/V cache cut over the model ranks
+  (``attention_partial`` and ``combine_partial``, ``ref.mha_partial``).
 * The one-token SSD recurrence of decode (``ssd_step``) is plain PyTorch
   on every device, as the JAX package computes it outside any Pallas
   kernel: a few elementwise ops and two small contractions per layer,
@@ -52,6 +54,18 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     return _ref.mha(q, k, v, causal=causal, window=window, q_pos=q_pos,
                     kv_pos=kv_pos, kv_valid=kv_valid, softcap=softcap,
                     scale=scale, num_sink=num_sink)
+
+
+def attention_partial(q, k, v, **kw):
+    """``attention`` over one block of the keys, unfinished: (out fp32,
+    lse fp32), ``ref.mha_partial`` on every device (decode only)."""
+    return _ref.mha_partial(q, k, v, **kw)
+
+
+def combine_partial(out, lse, gather):
+    """The blocks' ``attention_partial`` results merged
+    (``ref.combine_partial``; ``gather`` stacks the ranks')."""
+    return _ref.combine_partial(out, lse, gather)
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):

@@ -67,6 +67,61 @@ def mha(q, k, v, *, causal: bool = True, window: int = 0,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def mha_partial(q, k, v, *, causal: bool = True, window: int = 0,
+                q_pos=None, kv_pos=None, kv_valid=None, softcap: float = 0.0,
+                scale: Optional[float] = None, num_sink: int = 0):
+    """``mha`` over one block of the keys, left for ``combine_partial`` to
+    finish: (out (B,S,H,D) fp32, lse (B,S,H) fp32), out the softmax over
+    the block's visible keys applied to its V and lse the log of the sum
+    of their exponentials.  A row that sees no key of the block gives out
+    0 and lse -inf."""
+    B, S, H, D = q.shape
+    _, T, K, _ = k.shape
+    if H % K:
+        raise ValueError(f"num heads {H} not a multiple of kv heads {K}")
+    G = H // K
+    dev = q.device
+    if q_pos is None:
+        q_pos = torch.arange(S, device=dev)[None, :].expand(B, S)
+    if kv_pos is None:
+        kv_pos = torch.arange(T, device=dev)[None, :].expand(B, T)
+    scale = scale if scale is not None else D ** -0.5
+
+    qg = q.reshape(B, S, K, G, D).float()
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(q_pos, kv_pos, causal=causal, window=window,
+                          kv_valid=kv_valid, num_sink=num_sink)
+    logits = logits.masked_fill(~mask[:, None, None], NEG_INF)
+    any_valid = mask.any(-1)[:, None, None, :]                 # (B,1,1,S)
+    lse = torch.logsumexp(logits, dim=-1).masked_fill(~any_valid,
+                                                      float("-inf"))
+    probs = torch.softmax(logits, dim=-1).masked_fill(~any_valid[..., None],
+                                                      0.0)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+    return out.reshape(B, S, H, D), lse.permute(0, 3, 1, 2).reshape(B, S, H)
+
+
+def combine_partial(out, lse, gather):
+    """``mha``'s result (fp32) from the blocks' ``mha_partial`` results,
+    one block a rank: ``gather`` stacks every rank's (out, lse) along a
+    new leading dim in rank order; with m the max of the lse over the
+    ranks, the sum of exp(lse - m) * out over the sum of exp(lse - m).  A
+    block that sees no key has weight exp(-inf) = 0 and adds exactly 0; a
+    row no block sees is 0, as in ``mha``.  Every rank computes the same
+    sums in the same order, so every rank gets the same bits."""
+    packed = gather(torch.cat([out, lse[..., None]], dim=-1))
+    outs, lses = packed[..., :-1], packed[..., -1:]
+    m = lses.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lses - m)
+    num, den = (w * outs).sum(0), w.sum(0)
+    # den is 0 (no block saw a key: num is 0 too) or at least 1 (the block
+    # holding the max adds exp(0))
+    return num / den.clamp_min(1.0)
+
+
 def mha_chunked(q, k, v, *, causal: bool = True, window: int = 0,
                 num_sink: int = 0, scale: Optional[float] = None,
                 block_q: int = 512):

@@ -24,8 +24,10 @@ def _serve_wrap(model, ctx, fn):
     or None where ``repro`` returns None: no batch axes, or a planned dim
     that does not divide.  The wrapped function takes the global batch,
     of which it passes ``fn`` this rank's rows (``dp_shard.local_rows``),
-    and this rank's cache, which holds those rows; it returns ``fn``'s
-    result for them.
+    and this rank's cache as it is: it holds those rows, and where the
+    rules cut its K/V slots over the model ranks (``kv_seq``, made by
+    ``init_cache`` under them) this rank's block of the slots; it returns
+    ``fn``'s result for them.
 
     ``model`` holds its leaves as ``ctx``'s rules store them: on the
     storage plan of its mesh (``build_model(..., plan=)``, as

@@ -371,21 +371,22 @@ def leaf_rules(cfg: ModelConfig, n: int, rules=TRAIN_RULES):
 
 
 def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
-                     window, num_sink, rope, full_kv):
+                     window, num_sink, rope, full_kv, seq=None):
     """``attention`` on this model rank's slice of the padded heads
     (``rank_heads``): q projected for its real heads only and zero in the
     pad slots, K/V for the kv heads its groups use (zero for a pad kv
     head), qk-norm and rotary per head, flash over (B, S, count, hd), the
     real heads' outputs times their rows of ``wo``, summed over the model
-    ranks.  A pad head's output is dropped before ``wo``, so its dO is 0
-    and it adds no gradient.  Each weight is this rank's part
-    (``work``), the K/V weights whole if ``full_kv``.  Returns (y, k, v):
-    K/V of every kv head if ``full_kv`` (prefill's cache), else of this
-    rank's."""
-    B, S, _ = x.shape
+    ranks (``model_axis.enter`` / ``leave``: with ``seq`` x and y are this
+    rank's block of the tokens).  A pad head's output is dropped before
+    ``wo``, so its dO is 0 and it adds no gradient.  Each weight is this
+    rank's part (``work``), the K/V weights whole if ``full_kv``.  Returns
+    (y, k, v): K/V of every kv head if ``full_kv`` (prefill's cache), else
+    of this rank's."""
+    xin = cast(model_axis.enter(x, split, seq))
+    B, S, _ = xin.shape
     K, hd = cfg.num_kv_heads, cfg.head_dim
     rh = rank_heads(cfg, split.size, split.rank)
-    xin = cast(model_axis.to_model(x, split))
     kr0, kr1 = rh.k0, max(rh.k0, min(rh.k1, K))       # the real kv heads
 
     def part(leaf):
@@ -425,12 +426,12 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     if padded:
         out = out[:, :, slots]
     y = out.reshape(B, S, len(rh.heads) * hd) @ cast(part("wo"))
-    return model_axis.from_model(y, split), k, v
+    return model_axis.leave(y, split, seq), k, v
 
 
 def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
               window: int = 0, num_sink: int = 0, kv_x=None,
-              rope: bool = True, full_kv: bool = True):
+              rope: bool = True, full_kv: bool = True, seq=None):
     """Full-sequence attention (train, prefill, the encoder, and with
     ``kv_x`` (B,T,D) cross-attention over it).  x: (B,S,D).
 
@@ -439,12 +440,16 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
     the layer stack runs once.  Under a model split of the heads
     (self-attention) each rank attends over its slice of the padded heads
     (``_attention_split``); its k and v are then every kv head's only if
-    ``full_kv``."""
+    ``full_kv``.  With ``seq`` (``stack.sp_split``) x and y are this
+    rank's block of the tokens, the sequence gathered in between;
+    ``positions`` are the whole sequence's."""
     split = model_axis.split_for("heads_act") if kv_x is None else None
     if split is not None:
         return _attention_split(p, cfg, x, split, positions=positions,
                                 causal=causal, window=window,
-                                num_sink=num_sink, rope=rope, full_kv=full_kv)
+                                num_sink=num_sink, rope=rope, full_kv=full_kv,
+                                seq=seq)
+    x = model_axis.enter(x, None, seq)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     if rope:
@@ -454,12 +459,12 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
                         num_sink=num_sink)
     y = out.reshape(B, S, cfg.num_heads * cfg.head_dim) \
         @ cast(whole(p, cfg, "attn.wo"))
-    return y, k, v
+    return model_axis.leave(y, None, seq), k, v
 
 
 def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
                      window: int = 0, num_sink: int = 0, ring: bool = False,
-                     rope: bool = True, cross_kv=None):
+                     rope: bool = True, cross_kv=None, kv=None):
     """Single-step decode.  x: (B,1,D); positions: (B,) absolute positions;
     kv_cache: {"k","v"} of shape (B,T,K,hd).
 
@@ -472,7 +477,16 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
     context and windowing is a mask; with ``ring`` the cache is a ring of
     T slots (every layer windowed, T = min(max_len, window)): position p
     is written to slot p % T and each slot is masked by the absolute
-    position it holds, as ``repro``'s ``attention_decode`` does."""
+    position it holds, as ``repro``'s ``attention_decode`` does.
+
+    With ``kv`` (a split of the n model ranks, ``stack.kv_split``) the
+    cache holds rank r's block of T/n slots, [r T/n, (r + 1) T/n) of the
+    whole: the rank that owns the new slot writes it, each rank attends
+    with every query head over its slots (``ops.attention_partial``), and
+    the ranks' partial softmaxes are combined (``ops.combine_partial``
+    over one all-gather of each rank's output and lse: the max of the lse,
+    then the weighted sums), as ``repro``'s decode over a cache its rules
+    shard on ``kv_seq``."""
     B = x.shape[0]
     if cross_kv is not None:
         q = _project_q(p, cfg, x)
@@ -486,13 +500,22 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
         k_new = rotary(k_new, positions[:, None], cfg.rope_theta)
 
     k_cache, v_cache = kv_cache["k"], kv_cache["v"]
-    T = k_cache.shape[1]
+    n, lo = (1, 0) if kv is None else (kv.size, kv.rank * k_cache.shape[1])
+    T = k_cache.shape[1] * n
     slot = positions % T if ring else positions
     bidx = torch.arange(B, device=x.device)
-    k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+    if kv is None:
+        k_cache[bidx, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[bidx, slot] = v_new[:, 0].to(v_cache.dtype)
+    else:
+        # rows whose slot another rank holds write their old value back
+        own = ((slot >= lo) & (slot < lo + k_cache.shape[1]))[:, None, None]
+        local = (slot - lo).clamp(0, k_cache.shape[1] - 1)
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            cache[bidx, local] = torch.where(own, new[:, 0].to(cache.dtype),
+                                             cache[bidx, local])
 
-    j = torch.arange(T, device=x.device)[None, :]
+    j = lo + torch.arange(k_cache.shape[1], device=x.device)[None, :]
     pos_b = positions[:, None]
     if ring:
         # the absolute position each slot holds; a slot not written yet
@@ -501,11 +524,16 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
         kv_pos = torch.where(kv_pos > pos_b, -(10 ** 9), kv_pos)
         kv_valid = None
     else:
-        kv_pos = j.expand(B, T)
+        kv_pos = j.expand(B, j.shape[1])
         kv_valid = positions + 1
-    out = ops.attention(q, k_cache, v_cache, causal=True, q_pos=pos_b,
-                        kv_pos=kv_pos, kv_valid=kv_valid, window=window,
-                        num_sink=num_sink)
+    mask = dict(causal=True, q_pos=pos_b, kv_pos=kv_pos, kv_valid=kv_valid,
+                window=window, num_sink=num_sink)
+    if kv is None:
+        out = ops.attention(q, k_cache, v_cache, **mask)
+    else:
+        part, lse = ops.attention_partial(q, k_cache, v_cache, **mask)
+        out = ops.combine_partial(
+            part, lse, lambda t: model_axis.stack_ranks(t, kv)).to(q.dtype)
     return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
         @ cast(whole(p, cfg, "attn.wo"))
 
@@ -537,30 +565,26 @@ def _mlp_split(cfg: ModelConfig):
         else None
 
 
-def mlp(p, cfg: ModelConfig, x):
+def mlp(p, cfg: ModelConfig, x, *, seq=None):
     """The gelu MLP is ``jax.nn.gelu``'s default, the tanh approximation
     (``F.gelu``'s default is the exact erf form).  Under a model split of
     d_ff each rank takes its slice of the ``wi`` / ``wg`` columns (and
     ``bi``) and ``wo`` rows (``work``); the outputs are summed over the
-    ranks and the output bias ``bo`` added once, after the sum."""
+    ranks (into this rank's block of the tokens with ``seq``) and the
+    output bias ``bo`` added once, after the sum."""
     split = _mlp_split(cfg)
+    x = cast(model_axis.enter(x, split, seq))
     if split is not None:
-        x = cast(model_axis.to_model(x, split))
-
         def w(leaf):
             return cast(work(p, cfg, "mlp." + leaf, split))
     else:
-        x = cast(x)
-
         def w(leaf):
             return cast(whole(p, cfg, "mlp." + leaf))
     if "bi" in p:
         h = F.gelu(x @ w("wi") + w("bi"), approximate="tanh")
     else:
         h = F.silu(x @ w("wg")) * (x @ w("wi"))
-    y = h @ w("wo")
-    if split is not None:
-        y = model_axis.from_model(y, split)
+    y = model_axis.leave(h @ w("wo"), split, seq)
     return y + cast(p["bo"]) if "bo" in p else y
 
 
@@ -719,7 +743,7 @@ def _ep_split():
         else None
 
 
-def _moe_ep(p, cfg: ModelConfig, x, split):
+def _moe_ep(p, cfg: ModelConfig, x, split, seq=None):
     """``repro``'s expert-parallel branch.  Routing and the slot tables
     are computed on every rank from the replicated tokens; each rank runs
     its ``Vloc`` virtual experts on the tokens routed to them and the
@@ -733,7 +757,15 @@ def _moe_ep(p, cfg: ModelConfig, x, split):
       (``v = replica * E + expert``) with a capacity per virtual slot.
 
     The gates and the dispatched tokens enter the split through
-    ``to_model``, so the router's gradient is whole on every rank."""
+    ``to_model``, so the router's gradient is whole on every rank.  With
+    ``seq`` x is this rank's block of the tokens, gathered whole first;
+    the gather's reduce-scatter then sums every partial gradient of the
+    tokens, so the gates and tokens enter as they are, the router's
+    gradient is partial (``model_partial_leaves``) and the aux loss, which
+    every rank computes alike, counts on one rank (``model_axis.once``);
+    the combine reduce-scatters into the block."""
+    if seq is not None:
+        x = model_axis.gather_seq(x, seq)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     parts = _moe_parts(cfg)
@@ -741,7 +773,11 @@ def _moe_ep(p, cfg: ModelConfig, x, split):
     T = B * S
     xf = x.reshape(T, D)
     top_g, top_e, aux = _route(p, cfg, xf)
-    top_g = model_axis.to_model(top_g, split)
+    if seq is None:
+        top_g = model_axis.to_model(top_g, split)
+        xd = model_axis.to_model(xf, split)
+    else:
+        aux, xd = model_axis.once(aux, split), xf
     se, sg, st, pos_in_e = _sorted_assignments(top_g, top_e, T, E)
     if parts > 1:
         V = E * parts
@@ -766,24 +802,26 @@ def _moe_ep(p, cfg: ModelConfig, x, split):
     wi, wg, wo = (work(p, cfg, "moe." + k, split) for k in ("wi", "wg", "wo"))
     sl = slice(lo * C, (lo + Vloc) * C)
     tok, gate, used = tok[sl], gate[sl], used[sl]
-    xe = cast(model_axis.to_model(xf, split))[tok].reshape(Vloc, C, D)
+    xe = cast(xd)[tok].reshape(Vloc, C, D)
     xe = xe * used.reshape(Vloc, C, 1).to(xe.dtype)
     h = F.silu(torch.bmm(xe, cast(wg))) * torch.bmm(xe, cast(wi))
     ye = torch.bmm(h, cast(wo))
     ye_flat = ye.reshape(Vloc * C, D) * (gate * used)[:, None].to(ye.dtype)
     y = torch.zeros((T, D), dtype=ye_flat.dtype, device=x.device)
-    y = model_axis.from_model(y.index_add(0, tok, ye_flat), split)
-    return y.reshape(B, S, D), aux
+    y = y.index_add(0, tok, ye_flat).reshape(B, S, D)
+    return model_axis.leave(y, split, seq), aux
 
 
-def moe(p, cfg: ModelConfig, x):
+def moe(p, cfg: ModelConfig, x, *, seq=None):
     """Top-k MoE: ``_moe_reference`` on one device, ``repro``'s
     expert-parallel branch (``_moe_ep``) under a model split of the
-    virtual experts.  Returns (y, aux_loss)."""
+    virtual experts; with ``seq`` x and y are this rank's block of the
+    tokens.  Returns (y, aux_loss)."""
     split = _ep_split()
     if split is not None:
-        return _moe_ep(p, cfg, x, split)
-    return _moe_reference(p, cfg, x)
+        return _moe_ep(p, cfg, x, split, seq)
+    y, aux = _moe_reference(p, cfg, model_axis.enter(x, None, seq))
+    return model_axis.leave(y, None, seq), aux
 
 
 # --------------------------------------------------------------------------
@@ -815,7 +853,7 @@ def _vocab_weight(p, cfg: ModelConfig, split):
     return cast(w)
 
 
-def embed(p, cfg: ModelConfig, tokens):
+def embed(p, cfg: ModelConfig, tokens, *, seq=None):
     """The lookup.  A table stored split over the vocabulary (under a
     model split of it) is looked up vocabulary-parallel, as Megatron's
     ``VocabParallelEmbedding``: each rank looks up the tokens its rows hold
@@ -825,7 +863,8 @@ def embed(p, cfg: ModelConfig, tokens):
     rank; under a model split of the vocabulary a tied one's lookup
     gradient keeps this rank's rows only (``own_rows_grad``): the
     unembedding's part is per rank, and the once-a-step sum then adds each
-    row once."""
+    row once.  With ``seq`` the result is this rank's block of the tokens
+    (the vocabulary-parallel sum reduce-scattered into it)."""
     t = p["tokens"]
     split = model_axis.split_for("vocab_act")
     if split is not None and t.shape[0] != cfg.vocab_size:
@@ -836,12 +875,12 @@ def embed(p, cfg: ModelConfig, tokens):
         y = w[local.clamp(0, rows - 1)]
         y = torch.where(inside[..., None], y, torch.zeros((), dtype=y.dtype,
                                                            device=y.device))
-        return model_axis.from_model(y, split)
+        return model_axis.leave(y, split, seq)
     w = cast(t)
     if split is not None and cfg.tie_embeddings:
         off, _, rows = _vocab_rows(cfg, split.size, split.rank)
         w = model_axis.own_rows_grad(w, off, off + rows)
-    return w[tokens]
+    return model_axis.leave(w[tokens], None, seq)
 
 
 def unembed(p, cfg: ModelConfig, x):
@@ -876,7 +915,7 @@ def xent_sum(logits, targets, mask):
     return ((lse - gold) * mask).sum(), torch.clamp(mask.sum(), min=1.0)
 
 
-def _xent_split(p, cfg: ModelConfig, x, targets, mask, split):
+def _xent_split(p, cfg: ModelConfig, x, targets, mask, split, seq=None):
     """``repro``'s vocab-sharded cross-entropy: each rank's fp32 logits
     for its Vloc rows of the padded table (softcapped if set, the padded
     rows at -1e30), then three (B, S) reductions over the ranks: the max
@@ -886,7 +925,7 @@ def _xent_split(p, cfg: ModelConfig, x, targets, mask, split):
     if rows < Vloc and bool((targets >= cfg.vocab_size).any()):
         raise ValueError(f"a target past the vocabulary of "
                          f"{cfg.vocab_size}")
-    logits = (cast(model_axis.to_model(x, split))
+    logits = (cast(model_axis.enter(x, split, seq))
               @ _vocab_weight(p, cfg, split)).float()
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
@@ -902,24 +941,54 @@ def _xent_split(p, cfg: ModelConfig, x, targets, mask, split):
     return ((lse - gold) * mask).sum(), torch.clamp(mask.sum(), min=1.0)
 
 
-def unembed_xent(p, cfg: ModelConfig, x, targets, mask):
+def unembed_xent(p, cfg: ModelConfig, x, targets, mask, *, seq=None):
     """Unembed and cross-entropy: fp32 logsumexp over the compute-dtype
     logits, or under a model split of the vocabulary ``repro``'s
-    vocab-sharded form (``_xent_split``).  Returns (ce_sum, denom)."""
+    vocab-sharded form (``_xent_split``).  With ``seq`` x is this rank's
+    block of the tokens, gathered whole first; ``targets`` and ``mask``
+    are whole.  Returns (ce_sum, denom)."""
     split = model_axis.split_for("vocab_act")
     if split is not None:
-        return _xent_split(p, cfg, x, targets, mask, split)
-    return xent_sum(unembed(p, cfg, x), targets, mask)
+        return _xent_split(p, cfg, x, targets, mask, split, seq)
+    return xent_sum(unembed(p, cfg, model_axis.enter(x, None, seq)),
+                    targets, mask)
 
 
-def model_partial_leaves(cfg: ModelConfig, names):
+def _on_residual(specs, name: str) -> bool:
+    """Is parameter ``name`` (a port name) applied along the residual
+    stream token by token: a vector over d_model alone (logical axes
+    ``("embed",)``: a norm's scale, a bias added to the stream), where
+    ``specs`` is the model's spec tree in ``repro``'s layout
+    (``lm.param_specs``)?"""
+    parts = name.split(".")
+    node = specs
+    for i, k in enumerate(parts):
+        if i == 1 and parts[0] in ("layers", "encoder"):
+            continue                                  # the layer index
+        node = node[k]
+    return tuple(node.axes[1:] if parts[0] in ("layers", "encoder")
+                 else node.axes) == ("embed",)
+
+
+def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
     """The parameters among ``names`` (port names, ``layers.3.attn.wq``)
     stored whole whose gradient a model rank holds only in part under the
     current splits: what the data-parallel step sums over the model ranks
     once a step (qk-norm's scales on a rank's heads; a leaf whose model
     dim the guard dropped).  A leaf stored split holds its shard's whole
     gradient (``model_storage``); the norm scales, the router and a table
-    used only by the lookup are used whole on replicated inputs."""
+    used only by the lookup are used whole on replicated inputs.
+    ``specs`` is the model's spec tree (``lm.param_specs``).
+
+    Under sequence parallelism (``seq``, ``stack.sp_split``) a rank
+    applies every leaf that acts on the residual stream token by token
+    (``_on_residual``, read from ``specs``: the norms' scales, the final
+    norm's included) to its block of the tokens only: those are used in
+    part too.  So is the expert-parallel MoE's router, which its spec
+    cannot tell: it is applied to the whole gathered sequence, but under
+    ``seq`` its gates enter the expert split without ``to_model``
+    (``_moe_ep``), so each rank's gradient of them holds only its own
+    experts' share."""
     attn = model_axis.split_for("heads_act") is not None
     mlp_ = _mlp_split(cfg) is not None
     ep = _ep_split() is not None
@@ -930,9 +999,11 @@ def model_partial_leaves(cfg: ModelConfig, names):
         group, leaf = name.split(".")[-2:]
         if (group == "attn" and attn
                 or group == "mlp" and mlp_ and leaf != "bo"
-                or group == "moe" and ep and leaf != "router"
+                or group == "moe" and ep and (leaf != "router"
+                                              or seq is not None)
                 or group == "embed" and vocab and (
-                    leaf == "unembed" or cfg.tie_embeddings)) \
+                    leaf == "unembed" or cfg.tie_embeddings)
+                or seq is not None and _on_residual(specs, name)) \
                 and not _stored_split(ctx, cfg, f"{group}.{leaf}"):
             out.append(name)
     return out

@@ -163,37 +163,46 @@ def top_axes(specs):
             if k not in ("layers", "encoder")}
 
 
-def _store_leaves(cache, i: int, leaves, S: int, ring: bool) -> None:
+def _store_leaves(cache, i: int, leaves, S: int, ring: bool,
+                  kv=None) -> None:
     """Write layer i's cache leaves from a prefill of S positions into
     ``cache`` in place: K/V up to the cache's length (a ring of T slots
     keeps the last T positions, rolled so position p sits in slot p % T),
-    every other leaf whole, each cast to its cache dtype."""
+    every other leaf whole, each cast to its cache dtype.  With ``kv`` (a
+    split of the model ranks, ``stack.kv_split``) the cache holds this
+    rank's block of the T slots, and only that block is written."""
     for name, t in leaves.items():
         if name not in ("k", "v"):
             cache[name][i] = t
             continue
-        T = cache[name].shape[2]
+        block = cache[name].shape[2]
+        n, lo = (1, 0) if kv is None else (kv.size, kv.rank * block)
+        T = block * n
         if ring and S >= T:
-            cache[name][i] = torch.roll(t[:, S - T:], (S - T) % T, dims=1)
+            t = torch.roll(t[:, S - T:], (S - T) % T, dims=1)
+            cache[name][i] = t[:, lo:lo + block]
         else:
-            write = min(S, T)
-            cache[name][i, :, :write] = t[:, :write]
+            write = max(0, min(S, T, lo + block) - lo)
+            cache[name][i, :, :write] = t[:, lo:lo + write]
 
 
 def _next_token_loss(model, batch, remat_policy: str, params):
     """The loss of either model class: mean cross-entropy of
     ``model.final_hidden``'s unembedding against ``batch["targets"]``
     where ``loss_mask`` (default all ones) is 1, plus the aux loss.
-    ``params``: the top-level groups to use (``top_params`` by default)."""
+    ``params``: the top-level groups to use (``top_params`` by default).
+    Under sequence parallelism (``stack.sp_split``) the hidden states are
+    this rank's block of the tokens, gathered by the unembedding."""
     params = params or model.top_params()
+    seq = stk.sp_split(model.cfg, batch["tokens"].shape[1])
     x, aux = model.final_hidden(batch, remat_policy=remat_policy,
-                                params=params)
+                                params=params, seq=seq)
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(batch["targets"].shape, dtype=torch.float32,
                           device=x.device)
     ce_sum, denom = ll.unembed_xent(params["embed"], model.cfg, x,
-                                    batch["targets"], mask)
+                                    batch["targets"], mask, seq=seq)
     loss = ce_sum / denom + aux
     return loss, {"loss": loss, "aux_loss": aux, "tokens": mask.sum()}
 
@@ -284,15 +293,17 @@ class DecoderLM(nn.Module):
         ``repro``'s ``_prefix_len``)."""
         return self.cfg.num_meta_tokens + self.cfg.num_patches
 
-    def _compose_input(self, batch, params=None):
+    def _compose_input(self, batch, params=None, seq=None):
         """The embedded tokens with the patch embeddings (vlm, when the
         batch has ``patch_embeds`` (B, P, patch_embed_dim)) and then the
         meta tokens (hybrid) in front, from ``params`` (``top_params`` by
         default).  Returns (x, positions 0 .. S_internal - 1, prefix): the
-        prefix the text starts after."""
+        prefix the text starts after.  With ``seq`` (``stack.sp_split``,
+        never with a prefix) x is this rank's block of the tokens, the
+        positions the whole sequence's."""
         cfg = self.cfg
         top = params or self.top_params()
-        x = ll.embed(top["embed"], cfg, batch["tokens"])
+        x = ll.embed(top["embed"], cfg, batch["tokens"], seq=seq)
         B = x.shape[0]
         prefix = 0
         if cfg.num_patches and "patch_embeds" in batch:
@@ -305,20 +316,24 @@ class DecoderLM(nn.Module):
                 B, cfg.num_meta_tokens, cfg.d_model)
             x = torch.cat([meta, x], dim=1)
             prefix += cfg.num_meta_tokens
-        return x, _arange_positions(B, x.shape[1], x.device), prefix
+        S = batch["tokens"].shape[1] if seq is not None else x.shape[1]
+        return x, _arange_positions(B, S, x.device), prefix
 
     def final_hidden(self, batch, *, remat_policy: str = "none",
-                     params=None):
+                     params=None, seq=None):
         """One full-sequence forward of ``batch`` through the stack and
         the final norm, with no cache; ``params``: the top-level groups
         to use (``top_params`` by default).  Returns (the text positions'
         hidden states (B,S,d_model), the prefix cut; the layers' summed
-        aux loss)."""
+        aux loss).  With ``seq`` (``stack.sp_split``) the residual stream
+        and the hidden states returned are this rank's block of the
+        tokens, (B,S/n,d_model): the final norm runs on the block."""
         cfg = self.cfg
         top = params or self.top_params()
-        x, positions, prefix = self._compose_input(batch, top)
+        x, positions, prefix = self._compose_input(batch, top, seq)
         x, aux = stk.run_stack(self.layers, cfg, x, positions=positions,
-                               causal=True, remat_policy=remat_policy)
+                               causal=True, remat_policy=remat_policy,
+                               seq=seq)
         return ll.norm(top["final_norm"], x, cfg)[:, prefix:], aux
 
     def loss(self, batch, *, remat_policy: str = "dots", params=None):
@@ -335,7 +350,8 @@ class DecoderLM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
         """The decode cache for ``max_len`` text positions: K/V as long as
-        ``max_len + prefix_len``."""
+        ``max_len + prefix_len``, this rank's block of them under rules
+        that cut it over the model ranks (``stack.init_cache``)."""
         return stk.init_cache(self.cfg, batch, max_len + self.prefix_len,
                               device=self.device, kv_dtype=kv_dtype)
 
@@ -347,18 +363,21 @@ class DecoderLM(nn.Module):
         pass over the layers and written into ``cache`` in place; the
         cache is also returned.  A ring cache of T slots keeps the
         prompt's last T positions, rolled so position p sits in slot
-        p % T, as ``repro``'s prefill does."""
+        p % T, as ``repro``'s prefill does; a cache cut over the model
+        ranks (``stack.kv_split``) takes this rank's block of those
+        slots."""
         cfg = self.cfg
         top, hook = self._serve_params()
         x, positions, _ = self._compose_input(batch, top)
         S = x.shape[1]
         ring = stk.use_ring_cache(cfg)
+        kv = stk.kv_split(cache)
         for i, (p, is_global) in enumerate(zip(self.layers,
                                                stk.global_flags(cfg))):
             x, _, leaves = stk.block(p if hook is None else hook(p), cfg, x,
                                      positions=positions,
                                      is_global=is_global, ssm_state=True)
-            _store_leaves(cache, i, leaves, S, ring)
+            _store_leaves(cache, i, leaves, S, ring, kv)
         h = ll.norm(top["final_norm"], x[:, -1], cfg)   # rows are independent
         return ll.unembed(top["embed"], cfg, h[:, None]), cache
 
@@ -373,12 +392,13 @@ class DecoderLM(nn.Module):
         top, hook = self._serve_params()
         x = ll.embed(top["embed"], cfg, tokens)
         positions = positions + self.prefix_len
+        kv = stk.kv_split(cache)
         for i, (p, is_global) in enumerate(zip(self.layers,
                                                stk.global_flags(cfg))):
             layer_cache = {name: t[i] for name, t in cache.items()}
             x = stk.decode_block(p if hook is None else hook(p), cfg, x,
                                  layer_cache, positions=positions,
-                                 is_global=is_global)
+                                 is_global=is_global, kv=kv)
         x = ll.norm(top["final_norm"], x, cfg)
         return ll.unembed(top["embed"], cfg, x), cache
 
@@ -471,13 +491,17 @@ class EncDecLM(nn.Module):
         return x + _sinusoidal(positions, self.cfg.d_model).to(x.dtype)
 
     def final_hidden(self, batch, *, remat_policy: str = "none",
-                     params=None):
+                     params=None, seq=None):
         """One full-sequence forward of ``batch`` ({"frames", "tokens"}):
         the encoder (never rematerialised), the decoder under
         ``remat_policy`` attending over its output, the final norm, with
         no cache; ``params``: the top-level groups to use (``top_params``
-        by default).  Returns (hidden states (B,S,d_model), aux loss 0)."""
+        by default).  Returns (hidden states (B,S,d_model), aux loss 0).
+        A sequence split (``seq``) comes only with a model axis, which
+        this family does not cover (``stack.check_model_axis`` raises)."""
         cfg = self.cfg
+        if seq is not None:
+            stk.check_model_axis(cfg)
         top = params or self.top_params()
         enc = self.encode(batch["frames"], top)
         pos = _arange_positions(*batch["tokens"].shape, enc.device)

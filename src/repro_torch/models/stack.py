@@ -17,18 +17,28 @@ decoder layer (whisper) also attends, not causally, over the encoder's
 output: its cross K/V are projected once at prefill, returned as the
 layer's ``cross_k`` / ``cross_v`` leaves and read by every decode step;
 encdec uses no rotary embedding anywhere.
+
+Under a model axis two rule sets shard a sequence dim over ``"model"``.
+Training's ``seq_res`` (``sp_split``, ``repro``'s manual sequence
+parallelism): between the regions of a layer each rank holds its block of
+the tokens of the residual stream, (B, S/n, D); the norms and adds run on
+the block, and attention and the MLP or MoE gather the sequence in and
+reduce-scatter their outputs back (``model_axis.enter`` / ``leave``).
+Serving's ``kv_seq`` (``kv_shards``): each rank's K/V cache holds a
+contiguous block of T/n slots, and decode combines the ranks' partial
+softmaxes (``layers.attention_decode``).
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import dp_shard
-from repro_torch.distributed.sharding_rules import current_ctx
+from repro_torch.distributed import dp_shard, model_axis
+from repro_torch.distributed.sharding_rules import current_ctx, model_dims
 from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import map_specs, stack_specs
@@ -138,12 +148,12 @@ def stack_param_specs(cfg: ModelConfig, num_layers: int = 0,
                        num_layers or cfg.num_layers)
 
 
-def _ffn(p, cfg: ModelConfig, h):
+def _ffn(p, cfg: ModelConfig, h, seq=None):
     """The layer's feed-forward half: (y, aux), aux the MoE router's
-    load-balancing loss, 0 for a dense MLP."""
+    load-balancing loss, 0 for a dense MLP; ``seq`` as ``block``'s."""
     if cfg.family == "moe":
-        return ll.moe(p["moe"], cfg, h)
-    return ll.mlp(p["mlp"], cfg, h), torch.zeros((), device=h.device)
+        return ll.moe(p["moe"], cfg, h, seq=seq)
+    return ll.mlp(p["mlp"], cfg, h, seq=seq), torch.zeros((), device=h.device)
 
 
 def _ssm_branch(p, cfg: ModelConfig, h, ssm_state: bool):
@@ -155,8 +165,25 @@ def _ssm_branch(p, cfg: ModelConfig, h, ssm_state: bool):
     return y, {"ssm_conv": c["conv"], "ssm_state": c["state"]}
 
 
+def sp_split(cfg: ModelConfig, seq_len: int) -> Optional[model_axis.Split]:
+    """The split of the residual stream's tokens over the model ranks
+    (``repro``'s manual sequence parallelism, ``run_stack``), or None: on
+    for a family with attention and no SSM, meta tokens or patches, when
+    ``seq_res`` splits the work here (``model_axis.split_for``: a mesh axis
+    larger than 1, inside the manual region of the batch axes) and its size
+    divides ``seq_len``.  A pure function of the rules, the mesh and the
+    config, so every rank reaches the same answer."""
+    if not cfg.uses_attention or cfg.ssm_state_dim or cfg.num_meta_tokens \
+            or cfg.num_patches:
+        return None
+    split = model_axis.split_for("seq_res")
+    return split if split is not None and seq_len % split.size == 0 \
+        else None
+
+
 def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
-          causal: bool = True, ssm_state: bool = False, enc_out=None):
+          causal: bool = True, ssm_state: bool = False, enc_out=None,
+          seq: Optional[model_axis.Split] = None):
     """One full-sequence layer.  Returns (x, aux, leaves): the layer's
     load-balancing loss (0-d fp32, 0 but for MoE) and its decode cache
     leaves under the cache's names: the post-rotary ``k`` and ``v`` for
@@ -166,7 +193,10 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     ``cross_v`` it attends over (unrounded; the cache rounds them to its
     dtype).  ``is_global``: the layer's flag (``global_flags``).  Under a
     model split of the heads the ``k`` / ``v`` leaves are every kv head's
-    only when ``ssm_state`` (prefill) asks for the cache leaves."""
+    only when ``ssm_state`` (prefill) asks for the cache leaves.  With
+    ``seq`` (``sp_split``) x is this rank's block of the tokens and so is
+    the result: the norms and adds run on it, attention and the feed-forward
+    half gather the sequence and scatter their outputs back."""
     check_model_axis(cfg)
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
@@ -176,7 +206,7 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     attn_y, k, v = ll.attention(p["attn"], cfg, h, positions=positions,
                                 causal=causal, window=window,
                                 num_sink=num_sink, rope=_use_rope(cfg),
-                                full_kv=ssm_state)
+                                full_kv=ssm_state, seq=seq)
     leaves = {"k": k, "v": v}
     if cfg.family == "hybrid":
         ssm_y, ssm_leaves = _ssm_branch(p, cfg, h, ssm_state)
@@ -189,7 +219,7 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
             p["cross"], cfg, ll.norm(p["ln_cross"], x, cfg),
             positions=positions, causal=False, kv_x=enc_out, rope=False)
         x = x + cross_y
-    y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
+    y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg), seq)
     return x + y, aux, leaves
 
 
@@ -204,11 +234,14 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
-              remat_policy: str = "none", enc_out=None):
+              remat_policy: str = "none", enc_out=None,
+              seq: Optional[model_axis.Split] = None):
     """Every layer over x, for training and the encoder (``causal``
     false), an encdec decoder's layers attending over ``enc_out``.
     Returns (x, aux), aux the sum of the layers' load-balancing losses (0
-    but for MoE).
+    but for MoE).  With ``seq`` (``sp_split``) x is this rank's block of
+    the tokens, and so is the result (``block``); ``positions`` stay the
+    whole sequence's.
 
     ``remat_policy`` maps JAX's ``jax.checkpoint`` of the scan body onto
     ``torch.utils.checkpoint`` per layer: "none" keeps every activation;
@@ -227,7 +260,8 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
     and the layer gathers its unaligned model-sharded leaves there too
     (``model_storage``), so a rematerialised layer gathers both again in
     the backward, as the hook inside ``repro``'s checkpointed scan body
-    does."""
+    does.  So do the sequence gathers under ``seq``, which sit inside the
+    layer."""
     if remat_policy not in ("none", "full", "nothing", "dots"):
         raise ValueError(f"unknown remat_policy {remat_policy!r}")
     hook = manual_layer_hook(cfg, cross=len(layers) > 0
@@ -237,7 +271,7 @@ def run_stack(layers, cfg: ModelConfig, x, *, positions, causal: bool = True,
         if hook is not None:
             p = hook(p)
         return block(p, cfg, xc, positions=positions, is_global=is_global,
-                     causal=causal, enc_out=enc_out)[:2]
+                     causal=causal, enc_out=enc_out, seq=seq)[:2]
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, is_global in zip(layers, global_flags(cfg, len(layers))):
@@ -266,12 +300,15 @@ def _ssm_decode(p, cfg: ModelConfig, h, cache_layer):
 
 
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
-                 is_global: bool):
+                 is_global: bool, kv: Optional[model_axis.Split] = None):
     """One decode layer; writes this step's K/V and the SSM's new conv
     tail and state into ``cache_layer`` (views of the stacked cache); an
     encdec layer then attends over the cached ``cross_k`` / ``cross_v``.
-    ``is_global``: the layer's flag (``global_flags``).  Attention's
-    decode stays replicated over the model ranks."""
+    ``is_global``: the layer's flag (``global_flags``).  Every model rank
+    computes every query head of attention's decode; with ``kv``
+    (``kv_split``) its K/V cache holds a block of the slots, attended over
+    and combined across the ranks (``layers.attention_decode``), else the
+    whole cache."""
     check_model_axis(cfg)
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
@@ -280,7 +317,7 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
     attn_y = ll.attention_decode(p["attn"], cfg, h, cache_layer,
                                  positions=positions, window=window,
                                  num_sink=num_sink, ring=use_ring_cache(cfg),
-                                 rope=_use_rope(cfg))
+                                 rope=_use_rope(cfg), kv=kv)
     if cfg.family == "hybrid":
         x = x + _mix(p, cfg, attn_y, _ssm_decode(p, cfg, h, cache_layer))
     else:
@@ -299,22 +336,85 @@ def use_ring_cache(cfg: ModelConfig) -> bool:
             and cfg.num_meta_tokens == 0)
 
 
+def kv_slots(cfg: ModelConfig, max_len: int) -> int:
+    """The K/V cache's slots for ``max_len`` positions: a ring of
+    ``min(max_len, window)`` (``use_ring_cache``), else ``max_len``."""
+    return min(max_len, cfg.sliding_window) if use_ring_cache(cfg) \
+        else max_len
+
+
+def kv_shards(cfg: ModelConfig, slots: int) -> int:
+    """How many blocks a K/V cache of ``slots`` slots is cut into over the
+    model ranks: the size of the mesh axis the current rules map
+    ``kv_seq`` to (``SERVE_RULES``: ``"model"``) where it divides
+    ``slots`` (``repro``'s divisibility guard) and the family has
+    attention, else 1.  Decided from the rules and the mesh, inside or
+    outside the manual region."""
+    ctx = current_ctx()
+    if ctx is None or not cfg.uses_attention:
+        return 1
+    dims = model_dims(ctx, ("kv_seq",), (slots,))
+    return ctx.shape["model"] if dims else 1
+
+
+def kv_split(cache) -> Optional[model_axis.Split]:
+    """The split of ``cache``'s K/V slots over the model ranks (``Cache``'s
+    ``kv_shards``), or None for a whole cache.  Raises where a cache cut
+    into blocks is used outside a ``kv_seq`` split of its size, and where
+    a cache that may have lost its block count is used inside one: a
+    plain dict of the leaves, or a ``Cache`` held whole whose slots the
+    split divides (``init_cache`` would have cut it)."""
+    n = getattr(cache, "kv_shards", 1)
+    split = model_axis.split_for("kv_seq")
+    if n == 1:
+        if split is None or "k" not in cache:
+            return None
+        if not isinstance(cache, Cache):
+            raise ValueError(f"a plain dict of cache leaves used inside a "
+                             f"kv_seq split of {split.size}: only a Cache "
+                             f"(init_cache) says whether its K/V leaves "
+                             f"are blocks")
+        slots = cache["k"].shape[2]
+        if slots % split.size == 0:
+            raise ValueError(f"a whole K/V cache of {slots} slots used "
+                             f"inside a kv_seq split of {split.size}, which "
+                             f"divides them: init_cache cuts such a cache "
+                             f"into blocks (was its kv_shards lost?)")
+        return None
+    if split is None or split.size != n:
+        raise ValueError(f"a K/V cache cut into {n} blocks over the model "
+                         f"ranks used outside a kv_seq split of {n}")
+    return split
+
+
+class Cache(dict):
+    """The stacked decode cache, by leaf name; ``kv_shards``: how many
+    blocks of slots its K/V leaves hold one of (``kv_shards``), rank r's
+    block being slots [r T/n, (r + 1) T/n) of the whole ring or context,
+    as a block sharding lays them out.  A plain dict of the leaves is a
+    whole cache, and ``kv_split`` refuses one inside a ``kv_seq``
+    split."""
+
+    kv_shards = 1
+
+
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
                  kv_dtype=torch.bfloat16) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """Shapes and dtypes of the stacked decode cache (leading dim = layers):
     K/V (``kv_dtype``, bf16 by default whatever the compute dtype, as in
     JAX) for a family with attention, ``min(max_len, window)`` slots long
-    for a ring cache; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one
-    with an SSM (the hybrid family has both), whose size does not depend
-    on ``max_len``; for encdec the cross K/V ``cross_k`` / ``cross_v``
+    for a ring cache, a rank's block of them where ``kv_shards`` cuts
+    them; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one with an SSM
+    (the hybrid family has both), whose size does not depend on
+    ``max_len``; for encdec the cross K/V ``cross_k`` / ``cross_v``
     (``kv_dtype``) over the ``max_source_positions`` encoder outputs."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}
     if cfg.uses_attention:
-        T = min(max_len, cfg.sliding_window) if use_ring_cache(cfg) \
-            else max_len
-        kvshape = (L, batch, T, cfg.num_kv_heads, cfg.head_dim)
+        T = kv_slots(cfg, max_len)
+        kvshape = (L, batch, T // kv_shards(cfg, T), cfg.num_kv_heads,
+                   cfg.head_dim)
         out["k"] = (kvshape, kv_dtype)
         out["v"] = (kvshape, kv_dtype)
     if cfg.ssm_state_dim:
@@ -330,7 +430,13 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
-               kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+               kv_dtype=torch.bfloat16) -> Cache:
+    """A zero ``Cache`` of ``cache_shapes``; under rules that map
+    ``kv_seq`` to a model axis of n that divides its slots, this rank's
+    block of them (``kv_shards`` n)."""
     shapes = cache_shapes(cfg, batch, max_len, kv_dtype=kv_dtype)
-    return {k: torch.zeros(s, dtype=d, device=device)
-            for k, (s, d) in shapes.items()}
+    cache = Cache({k: torch.zeros(s, dtype=d, device=device)
+                   for k, (s, d) in shapes.items()})
+    if cfg.uses_attention:
+        cache.kv_shards = kv_shards(cfg, kv_slots(cfg, max_len))
+    return cache

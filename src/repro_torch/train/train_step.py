@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import dp_shard, grad_compress
 from repro_torch.distributed.sharding_rules import ShardingCtx, current_ctx
 from repro_torch.models import layers as ll
+from repro_torch.models import stack as stk
 from repro_torch.models.lm import (build_model, init_sharded_params,
                                    param_specs, top_axes)
 from repro_torch.models.module import init_params, map_specs
@@ -198,6 +199,10 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
       over the model ranks once per step beside that reduction
       (``dp_shard.model_psum``), so every gradient is then complete for
       the shard (or whole leaf) the rank holds;
+    * where the rules map ``seq_res`` to the model axis and it divides
+      the sequence (``stack.sp_split``), the residual stream between the
+      layers' regions is each rank's block of the tokens: the norms' scales
+      are then also used in part and join that sum;
     * with ``compress_grads`` the reduced gradient passes through the int8
       error-feedback channel as the plain step's does
       (``grad_compress.compress_tree``, one scale per stacked leaf): the
@@ -213,7 +218,8 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
     mc = model.cfg
     R = dp_shard.manual_size(ctx.mesh)
     plan = param_plan(mc, ctx)
-    top = top_axes(param_specs(mc))
+    specs = param_specs(mc)
+    top = top_axes(specs)
 
     def group_max(names, amax):
         """The compression scale's max over the ranks sharding ``names``."""
@@ -250,8 +256,9 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
                      for k, p in params.items()}
             for p in params.values():
                 p.grad = None
-            dp_shard.model_psum(grads, ll.model_partial_leaves(mc, grads),
-                                ctx.mesh)
+            seq = stk.sp_split(mc, batch["tokens"].shape[1])
+            dp_shard.model_psum(grads, ll.model_partial_leaves(
+                mc, specs, grads, seq), ctx.mesh)
             dp_shard.deferred_psum(grads, plan, 1.0 / (R * n_mb))
             err = state.err
             if cfg.compress_grads:

@@ -170,16 +170,19 @@ def _env(run):
 
 
 def job_step(inp, tag, rank, workdir):
-    """The data-parallel step of each run of this mesh: every leaf at its
+    """The data-parallel step of each run of this mesh (on
+    ``batch_unsplit`` for a run tagged ``"unsplit"``): every leaf at its
     global shape after one step, AdamW's first moment, loss, grad norm,
-    the collectives, the partial leaves, and the leaves the step summed
-    over the model ranks beside those whose gradient differed across them
-    before that sum.  The first run's state is then saved
-    (``ck_<tag>``)."""
+    the sequence split, the collectives, the partial leaves, and the
+    leaves the step summed over the model ranks beside those whose
+    gradient differed across them before that sum.  The first run's state
+    is then saved (``ck_<tag>``)."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.distributed import dp_shard, model_axis, transport
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.models import layers as ll
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models import stack as stk
     from repro_torch.train.train_step import (make_train_step,
                                               shard_train_state)
     mesh = make_mesh(tag)
@@ -190,7 +193,8 @@ def job_step(inp, tag, rank, workdir):
         c = inp["step_archs"][name]
         tcfg = dataclasses.replace(inp["step_config"], microbatches=mb)
         state = _port_state(c["arch"], c["overrides"], c["tree"], tcfg)
-        batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+        key = "batch_unsplit" if "unsplit" in run[2:] else "batch"
+        batch = {k: torch.from_numpy(v) for k, v in c[key].items()}
         seen = {}
 
         def spy(grads, names, mesh_):
@@ -203,8 +207,11 @@ def job_step(inp, tag, rank, workdir):
             step = make_train_step(state.model, tcfg)
             local = dp_shard.local_rows(mesh, batch)
             with ctx.manual_region(dp_shard.manual_axes(mesh)):
-                partial = ll.model_partial_leaves(state.model.cfg,
-                                                  state.params)
+                split = stk.sp_split(state.model.cfg,
+                                     batch["tokens"].shape[1])
+                partial = ll.model_partial_leaves(
+                    state.model.cfg, param_specs(state.model.cfg),
+                    state.params, split)
             dp_shard.collectives.clear()
             model_axis.collectives.clear()
             transport.moved.clear()
@@ -224,7 +231,8 @@ def job_step(inp, tag, rank, workdir):
                         for k, p in state.params.items()},
                 mu={k: plan.full(k, v).numpy()
                     for k, v in state.opt.mu.items()},
-                plan=dict(plan.dims), partial=partial, **counts, **seen)
+                plan=dict(plan.dims), partial=partial,
+                sp=None if split is None else split.size, **counts, **seen)
         if first is None:
             first = state
     Checkpointer(os.path.join(workdir, f"ck_{tag}")).save(
@@ -302,6 +310,8 @@ def job_storage_step(inp, tag, rank, workdir):
     from repro_torch.distributed import dp_shard, model_axis, transport
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.models import layers as ll
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models import stack as stk
     from repro_torch.models.convert import from_jax_params
     from repro_torch.train.train_step import (init_train_state,
                                               make_train_step, param_plan)
@@ -325,7 +335,9 @@ def job_storage_step(inp, tag, rank, workdir):
             step = make_train_step(state.model, tcfg)
             local = dp_shard.local_rows(mesh, batch)
             with ctx.manual_region(dp_shard.manual_axes(mesh)):
-                partial = ll.model_partial_leaves(cfg, state.params)
+                partial = ll.model_partial_leaves(
+                    cfg, param_specs(cfg), state.params,
+                    stk.sp_split(cfg, batch["tokens"].shape[1]))
             for counter in (dp_shard.collectives, dp_shard.model_gathers,
                             model_axis.collectives, transport.moved):
                 counter.clear()
@@ -441,10 +453,176 @@ def job_serve_big(inp, tag, rank, workdir):
                 plan=dict(plan.dims))
 
 
+@contextlib.contextmanager
+def _seq_variant(variant, seen):
+    """A run's variant of the sequence-parallel step: ``"sp"`` and
+    ``"nodiv"`` (an S no model axis here divides) record the residual
+    stream's shape at each layer; ``"control"`` reduce-scatters nothing
+    (``scatter_seq`` slices each rank's block of its own partial output);
+    ``"issued"`` issues every collective over a group of one rank as well
+    (``transport`` skips them)."""
+    from repro_torch.distributed import model_axis, transport
+    from repro_torch.models import stack as stk
+    real_block, real_scatter = stk.block, model_axis.scatter_seq
+    real_single = transport.single
+
+    def block(p, cfg, x, **kw):
+        seen.setdefault("residual", set()).add(tuple(x.shape))
+        return real_block(p, cfg, x, **kw)
+
+    if variant in ("sp", "nodiv"):
+        stk.block = block
+    elif variant == "control":
+        model_axis.scatter_seq = lambda x, split, summed=True: real_scatter(
+            x, split, summed=False)
+    elif variant == "issued":
+        transport.single = lambda group: False
+    try:
+        yield
+    finally:
+        stk.block, model_axis.scatter_seq = real_block, real_scatter
+        transport.single = real_single
+
+
+def job_seq_step(inp, tag, rank, workdir):
+    """The sequence-parallel ``dp_manual`` step of each run of this mesh
+    on a state built on the storage plan: every leaf gathered after the
+    step, the first moments, loss, grad norm, the collectives by kind, the
+    residual stream's shapes, the partial leaves, and the leaves summed
+    over the model ranks beside those whose gradient differed across them
+    before that sum."""
+    from repro_torch.distributed import dp_shard, model_axis, transport
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.models.lm import param_specs
+    from repro_torch.models import stack as stk
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, param_plan)
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out = {}
+    real_sum = dp_shard.model_psum
+    for run in inp["seq_runs"][tag]:
+        name, remat, compress, mb, variant = run
+        c = inp["seq_archs"][name]
+        tcfg = dataclasses.replace(inp["step_config"], remat_policy=remat,
+                                   compress_grads=compress, microbatches=mb)
+        cfg = port_config(c["arch"], c["overrides"])
+        key = "batch_nodiv" if variant == "nodiv" else "batch"
+        batch = {k: torch.from_numpy(v) for k, v in c[key].items()}
+        seen = {}
+
+        def spy(grads, names, mesh_):
+            seen["summed"] = list(names)
+            seen["differ"] = _differ_over_model(grads, mesh_)
+            return real_sum(grads, names, mesh_)
+
+        with use_rules(mesh, rules_for("train")) as ctx:
+            plan = param_plan(cfg, ctx)
+            model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                    trainable=True, plan=plan)
+            state = init_train_state(model, None, tcfg, device="cpu")
+            step = make_train_step(state.model, tcfg)
+            local = dp_shard.local_rows(mesh, batch)
+            with ctx.manual_region(dp_shard.manual_axes(mesh)):
+                split = stk.sp_split(cfg, local["tokens"].shape[1])
+                partial = ll.model_partial_leaves(cfg, param_specs(cfg),
+                                                  state.params, split)
+            for counter in (dp_shard.collectives, model_axis.collectives,
+                            transport.moved):
+                counter.clear()
+            dp_shard.model_psum = spy
+            try:
+                with _seq_variant(variant, seen):
+                    state, m = step(state, local)
+            finally:
+                dp_shard.model_psum = real_sum
+            out[run] = dict(
+                path=step.path, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]),
+                params={k: plan.full(k, p.detach()).numpy()
+                        for k, p in state.params.items()},
+                mu={k: plan.full(k, v).numpy()
+                    for k, v in state.opt.mu.items()},
+                plan=dict(plan.dims), partial=partial,
+                sp=None if split is None else split.size,
+                collectives=dict(dp_shard.collectives),
+                model_collectives=dict(model_axis.collectives),
+                moved=dict(transport.moved),
+                residual=sorted(seen.pop("residual", ())), **seen)
+    return out
+
+
+def _greedy(model, ctx_of, prompts, steps, max_len, rows):
+    """Prefill and ``steps - 1`` greedy decode steps through ``_serve_wrap``
+    (the prefill and decode rules of ``ctx_of(kind)``) over an fp32 K/V
+    cache made under the prefill rules: this rank's rows' logits of each
+    step (the prefill's last position first) and the cache."""
+    from repro_torch.launch.dryrun import _serve_wrap
+    B, S = prompts.shape
+    with ctx_of("prefill") as ctx:
+        cache = model.init_cache(rows, max_len, kv_dtype=torch.float32)
+        logits, cache = _serve_wrap(model, ctx, model.prefill)(
+            {"tokens": prompts}, cache)
+    outs = [logits[:, -1].float()]
+    for i in range(steps - 1):
+        # every rank feeds the global batch: each rank's rows' tokens
+        local = outs[-1].argmax(-1)
+        gathered = [torch.empty_like(local)
+                    for _ in range(dist.get_world_size())]
+        dist.all_gather(gathered, local)
+        with ctx_of("decode") as ctx:
+            logits, cache = _serve_wrap(
+                model, ctx, lambda b, c: model.decode_step(
+                    c, b["tokens"], b["positions"]))(
+                {"tokens": _global_tokens(gathered, B, rows)[:, None],
+                 "positions": torch.full((B,), S + i)}, cache)
+        outs.append(logits[:, -1].float())
+    return torch.stack(outs, 1), cache
+
+
+def _global_tokens(gathered, B, rows):
+    """The global batch's tokens from every rank's rows (rank = batch
+    shard x model + model rank: the model ranks of a shard agree)."""
+    per_shard = B // rows
+    n = len(gathered) // per_shard
+    return torch.cat([gathered[i * n] for i in range(per_shard)])
+
+
+def job_kv_serve(inp, tag, rank, workdir):
+    """Prefill and greedy decode through ``_serve_wrap`` of each serve
+    run of this mesh under the serving rules, whose ``kv_seq`` cuts the
+    K/V cache over the model ranks: this rank's rows' logits at every
+    step, its K/V blocks, the blocks' count and bytes."""
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models.convert import from_jax_params
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out = {}
+    for run in inp["kv_runs"][tag]:
+        name, max_len = run
+        c = inp["kv_archs"][name]
+        cfg = port_config(c["arch"], {})
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu")
+        prompts = torch.from_numpy(c["prompts"])
+        rows = prompts.shape[0] // dp_shard.manual_size(mesh)
+        logits, cache = _greedy(
+            model, lambda kind: use_rules(mesh, rules_for(kind)), prompts,
+            c["steps"], max_len, rows)
+        out[run] = dict(logits=logits.numpy(), kv_shards=cache.kv_shards,
+                        k=cache["k"].numpy(), v=cache["v"].numpy(),
+                        bytes=sum(cache[k].numel() * cache[k].element_size()
+                                  for k in ("k", "v")))
+    return out
+
+
 JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
         "serve": job_serve, "storage_step": job_storage_step,
         "storage_restore": job_storage_restore, "lookup": job_lookup,
-        "serve_big": job_serve_big}
+        "serve_big": job_serve_big, "seq_step": job_seq_step,
+        "kv_serve": job_kv_serve}
 
 
 def main() -> None:

@@ -28,6 +28,10 @@ from jax.sharding import AbstractMesh
 from _torch_support import join_ranks, rank_results, spawn_ranks
 
 B, S = 8, 16
+# a length no model axis here divides: the residual stream stays whole on
+# every model rank (stack.sp_split gives None), the path without sequence
+# parallelism
+S_UNSPLIT = 15
 PIECE_WORLDS = (2, 4)
 ATTN = {"h4": ("qwen2-0.5b", {}),                      # 4 / 2 heads of 16
         "h14": ("qwen2-0.5b", {"num_heads": 14})}      # (2, 8) at 4
@@ -43,11 +47,15 @@ STEP_MESHES = {"1x2": 1, "1x4": 1, "2x2": 2, "2x2x2": 4}
 # meshes that also run granite's step with REPRO_MOE_EP=0 (the MoE whole
 # on every rank, attention, MLP and vocabulary split)
 EP_OFF_MESHES = ("1x2", "2x2")
+UNSPLIT_ARCHS = ("qwen2", "granite")
 STEP_RUNS = {**{t: [(a, 1) for a in STEP_ARCHS]
                 + [("granite", 1, "ep_off")] * (t in EP_OFF_MESHES)
+                + [(a, 1, "unsplit") for a in UNSPLIT_ARCHS]
                 for t in STEP_MESHES},
              "1x1": [(a, r) for a in STEP_ARCHS
-                     for r in sorted(set(STEP_MESHES.values()))]}
+                     for r in sorted(set(STEP_MESHES.values()))]
+             + [(a, r, "unsplit") for a in UNSPLIT_ARCHS
+                for r in sorted(set(STEP_MESHES.values()))]}
 SERVE_MESHES = ("1x2", "2x2x2")
 RESTORE_FROM = {"1x1": "2x2", "2x2": "1x1"}
 # pieces against repro in fp32: sums over the ranks in another order
@@ -144,6 +152,10 @@ def _step_inputs():
             batch={"tokens": r.integers(0, cfg.vocab_size, (B, S)),
                    "targets": r.integers(0, cfg.vocab_size, (B, S)),
                    "loss_mask": np.ones((B, S), np.float32)})
+        out[name]["batch_unsplit"] = {
+            "tokens": r.integers(0, cfg.vocab_size, (B, S_UNSPLIT)),
+            "targets": r.integers(0, cfg.vocab_size, (B, S_UNSPLIT)),
+            "loss_mask": np.ones((B, S_UNSPLIT), np.float32)}
     return out
 
 
@@ -192,8 +204,9 @@ def _jax_moe(c):
                 grads={k: np.asarray(v) for k, v in grads[0].items()})
 
 
-def _jax_step(c):
-    """``tests/test_dp_manual.py``'s single-device step, microbatches 1."""
+def _jax_step(c, batch="batch"):
+    """``tests/test_dp_manual.py``'s single-device step, microbatches 1,
+    on ``c[batch]``."""
     from repro.models import build_model
     from repro.train.optimizer import init_adamw
     from repro.train.train_step import (TrainState, TrainStepConfig,
@@ -205,7 +218,7 @@ def _jax_step(c):
     step = jax.jit(make_train_step(
         model, TrainStepConfig(remat_policy="dots", microbatches=1)))
     batch = {k: jnp.asarray(v.astype(np.int32) if v.dtype == np.int64
-                            else v) for k, v in c["batch"].items()}
+                            else v) for k, v in c[batch].items()}
     state, metrics = step(TrainState(params, init_adamw(params), None),
                           batch)
     named = lambda t: named_from_tree(  # noqa: E731
@@ -292,6 +305,8 @@ def ranks(tmp_path_factory):
             xent={k: _jax_xent(c) for k, c in inputs["xent"].items()},
             moe={k: _jax_moe(c) for k, c in inputs["moe"].items()},
             step={k: _jax_step(c) for k, c in steps.items()},
+            step_unsplit={k: _jax_step(steps[k], "batch_unsplit")
+                          for k in UNSPLIT_ARCHS},
             serve=_jax_serve(inputs["serve"]))
         log = ring_proc.communicate(timeout=120)[0]
         assert ring_proc.returncode == 0, log.decode()[-2000:]
@@ -481,18 +496,30 @@ def _check_step(ranks, tag, arch, run):
     covers exactly the leaves stored whole and used in part, which are
     exactly the leaves stored whole whose gradient differed across the
     model ranks before it; every collective counted and moved as the
-    backend rule says (gloo on CPU tensors: directly)."""
+    backend rule says (gloo on CPU tensors: directly).  A run tagged
+    ``"unsplit"`` takes the batch of S_UNSPLIT tokens, which no model
+    axis here divides, so the residual stream stays whole."""
     workdir, refs, _ = ranks
-    ref = refs["step"][arch]
+    unsplit = "unsplit" in run[2:]
+    ref = refs["step_unsplit" if unsplit else "step"][arch]
     res = rank_results(workdir, "step", tag)
     got = res[0][run]
+    n = int(tag.split("x")[-1])
+    # sequence parallelism where the length divides the model axis
+    # (stack.sp_split): the residual stream's tokens are split over the
+    # model ranks, so the norms' scales and the expert-parallel router are
+    # used in part too
+    sp = (S_UNSPLIT if unsplit else S) % n == 0
     assert got["path"] == "dp_manual"
+    assert got["sp"] == (n if sp else None)
     worst = max(float(np.max(np.abs(got["params"][k] - v)))
                 for k, v in ref["params"].items())
     assert worst < 5e-3, worst
     assert abs(ref["loss"] - got["loss"]) < 0.02 * ref["loss"]
     assert abs(ref["grad_norm"] - got["grad_norm"]) < 5e-3
-    one = rank_results(workdir, "step", "1x1")[0][arch, STEP_MESHES[tag]]
+    one = rank_results(workdir, "step", "1x1")[0][
+        (arch, STEP_MESHES[tag]) + ("unsplit",) * unsplit]
+    assert one["sp"] is None
     assert abs(got["loss"] - one["loss"]) <= \
         TIGHT_LOSS_REL * abs(one["loss"])
     assert abs(got["grad_norm"] - one["grad_norm"]) <= \
@@ -517,21 +544,24 @@ def _check_step(ranks, tag, arch, run):
     for k in got["params"]:
         group, leaf = k.split(".")[-2:]
         used_in_part = group in ("attn", "mlp") or (
-            ep and group == "moe" and leaf != "router") or k == "embed.tokens"
+            ep and group == "moe" and (leaf != "router" or sp)) \
+            or k == "embed.tokens" or (
+                sp and group in ("ln1", "ln2", "final_norm"))
         assert (k in partial) == (used_in_part and k not in split), k
     for r in res:
         assert set(r[run]["summed"]) == partial
         assert set(r[run]["differ"]) - split == partial
     assert one["partial"] == one["summed"] == one["differ"] == []
-    # the data-parallel reductions as at model 1, one model-axis sum per
-    # partial leaf and the grad norm's sum over the model ranks
-    manual = 2 if tag == "2x2x2" else 1
+    # the data-parallel reductions as at model 1 over the manual axes
+    # larger than one rank (none over a data axis of 1), one model-axis sum
+    # per partial leaf and the grad norm's sum over the model ranks
+    manual = {"1x2": 0, "1x4": 0, "2x2": 1, "2x2x2": 2}[tag]
     batch_planned = [k for k, dims in got["plan"].items()
                      if any(a != "model" for axes in dims.values()
                             for a in axes)]
     assert got["collectives"]["all_reduce"] == \
-        manual * (len(got["params"]) + 5) - len(batch_planned) \
-        + len(partial) + 1
+        manual * (len(got["params"]) + 5) \
+        - (len(batch_planned) if manual else 0) + len(partial) + 1
     assert got["moved"] == {"direct": sum(got["collectives"].values())
                             + sum(got["model_collectives"].values())}
 
@@ -555,6 +585,18 @@ def test_torch_model_axis_step_moe_ep_off(ranks, tag):
     held as above; the expert leaves are not summed over the model
     ranks."""
     _check_step(ranks, tag, "granite", ("granite", 1, "ep_off"))
+
+
+@pytest.mark.parametrize("arch", UNSPLIT_ARCHS)
+@pytest.mark.parametrize("tag", list(STEP_MESHES))
+def test_torch_model_axis_step_unsplit(ranks, tag, arch):
+    """The step at a length no model axis here divides (15 tokens), where
+    the residual stream stays whole on every model rank and only
+    attention, the MLP or MoE and the vocabulary split: held as above
+    against ``repro``'s single-device step and the port's world-1 step on
+    the same 15 tokens; the norms' scales and the router are not summed
+    over the model ranks."""
+    _check_step(ranks, tag, arch, (arch, 1, "unsplit"))
 
 
 # ---- serving and the checkpoint ---------------------------------------------
