@@ -33,6 +33,12 @@ Phases, each printing one JSON line:
    timed against the y-only scan; and each bf16 stage kernel of the
    SSD scan (chunk state, state passing with the final state, chunk scan)
    against its plain stage function, timed alone (``ssd_stage`` lines).
+   Phase 22's per-rank shapes: flash at hymba's 15 / 15 heads of 64 over
+   2 x 640 (``tp_hybrid_rank``), the SSD scan at 25 heads (n 16) and 24
+   heads (n 128), and the split-row rmsnorm pair (``row_sumsq``,
+   ``rmsnorm_total``) at a rank's 1,024 x 1,600 of 3,200 and 1,024 x
+   1,536 of 3,072, the two ranks' sums added in place of the all-reduce,
+   against the plain twins and the whole row's plain rmsnorm.
    The flash-attention backward (``flash_attention_backward`` rows, through
    ``_FlashAttention`` as the models call it) at the dense training shape
    (``train``: 4 x 2048, 14 / 2 heads of 64, causal), ``window48``,
@@ -315,9 +321,36 @@ Phases, each printing one JSON line:
    17 rmsnorm a forward a rank in bf16 (one and two a layer, one for the
    final norm).  Decode runs on a ``kv_seq``
    cache: the 520 slots the prompt and steps write, 260 a rank.
-22. kernels: one line listing every ported kernel with its launches on the
+22. tp_hybrid / tp_ssm: the families with an SSM under the model axis,
+   two gloo ranks on (data 1, model 2) spawned once for both models:
+   hymba-1.5b and mamba2-780m at their published widths and 4 layers each
+   (hymba's layer 0 global, the others windowed with the 128 meta tokens
+   as sinks).  Hymba's 25 / 5 heads pad to (5, 6), 15 a rank over 3 kv
+   heads that its slots straddle (the kv heads expanded to one a slot,
+   flash with groups of one); each model's SSD heads split whole (25 and
+   24 a rank), the gate norm over each rank's part of the row with its
+   sum of squares summed over the ranks (the split-row pair
+   ``row_sumsq`` / ``rmsnorm_total``).  Each steps once on 2 x 512 under
+   TRAIN_RULES on its storage plan against the one-rank step on the same
+   masters (phase 20's limits; the residual whole, no ``seq_res``; the
+   collectives by kind and the gathers the plan implies; bytes held equal
+   to the shards'; exact launches), with two controls that must fail (the
+   gate norm's sums left out; the partial SSM leaves left unsummed), then
+   serves under SERVE_RULES: prefill and 8 greedy decode steps
+   teacher-forced with the one-rank fp32 tokens, the SSM cache of the
+   rank's heads, hymba's K/V cache in two blocks of 1,152 slots (prompts
+   of 2 x 2,056, whose decode windows start past rank 0's block, which
+   holds the sinks and keys outside the window, and 2 x 24, which leave
+   rank 1's block empty): fp32 cosine >= 0.9999 and equal tokens, bf16
+   within 1.5x the one-rank distance + 1e-4, each rank's fp32 SSM state
+   within 1e-5 of its head slice's largest entry, K/V blocks within 1e-4;
+   a control (hymba: no lse weights; mamba2: the norm's sums left out)
+   must fail.
+23. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
-   launches by path, errors and times (``backward_*``).
+   launches by path, errors and times (``backward_*``); the split-row
+   pair's two kernels each have their row, with ``F.rms_norm`` over the
+   whole row beside them (``whole_row_library_ms``).
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script then exits non-zero without that line.  It exits
@@ -718,6 +751,36 @@ EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
 KV_MAX_LEN, KV_STEPS = 1024, 9
 KV_PROMPTS = ((4, 252), (2, 24))
 KV_MIN_COSINE, KV_CACHE_OF_MAX = 0.9999, 1e-4
+# phase 22: the families with an SSM under the model axis, two gloo ranks on
+# (data 1, model SSM_TP_MODEL) for both models: hymba-1.5b (25 / 5 heads
+# padded to (5, 6), 15 a rank over 3 kv heads each, straddling groups; 25
+# of its 50 SSD heads a rank) and mamba2-780m (24 of 48 SSD heads), each at
+# its published widths and SSM_TP_LAYERS layers (hymba's layer 0 global,
+# the rest windowed with the 128 meta tokens as sinks).  Each steps once on
+# TP_BATCH x TP_SEQ, held as phase 20 is, then serves under SERVE_RULES:
+# (rows, prompt length) of SSM_SERVE's prompt sets, prefilled and decoded
+# KV_STEPS - 1 greedy steps over a cache of the max_len text positions.
+# Hymba's cache holds 128 + 2,176 = 2,304 slots, a block of 1,152 a rank:
+# every decode query of the 2,056-token prompts sits past position 2,184,
+# so its window of 1,024 starts past rank 0's block, which holds the sinks
+# and keys outside the window; the 24-token prompts leave rank 1's block
+# empty.  Each rank's fp32 SSM state is held within SSM_STATE_OF_MAX of
+# the largest entry of its head slice of the one-rank state
+SSM_TP_MODEL, SSM_TP_LAYERS = 2, 4
+SSM_SERVE = {"tp_hybrid": (2176, ((2, 2056), (2, 24))),
+             "tp_ssm": (520, ((2, 512), (2, 24)))}
+SSM_STATE_OF_MAX = 1e-5
+# layer 0's state is held to SSM_STATE_OF_MAX: its input is the same bits
+# on both sides.  A deeper layer's input carries the layers above it, each
+# summed over the ranks in another order, and its state is held to
+# KV_CACHE_OF_MAX, as the K/V blocks are (mamba2's layers 1-3 after its
+# prefill: 1.47e-5, first card run of this phase)
+# after the decode steps each side has read its conv tail back from bf16
+# (the cache's dtype whatever the compute dtype, as in repro), where an
+# input one rounding apart lands a bf16 ulp (2^-8) apart: the decoded state
+# and the K/V the steps wrote are held to 2^-7 of the largest entry, the
+# prefill's (no bf16 on its path) to SSM_STATE_OF_MAX and KV_CACHE_OF_MAX
+SSM_DECODED_OF_MAX = 2 ** -7
 RANK_TIMEOUT_S = 420
 
 
@@ -1234,6 +1297,67 @@ def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
         emit("kernel_check", **row)
         out_rows.append(row)
     return out_rows
+
+
+def check_rmsnorm_split(torch, F, rn, ref, gen, name, rows_, d_full, n):
+    """The split-row rmsnorm pair at one model rank's part, (rows_,
+    d_full / n) of rows of ``d_full`` split over ``n`` ranks, in bf16 and
+    fp32: the ranks' ``row_sumsq`` added here in place of the all-reduce,
+    then each part's ``rmsnorm_total``; the joined parts held against the
+    plain twins (``ref.row_sumsq`` / ``ref.rmsnorm_total``) and against
+    the whole row's plain rmsnorm.  Each kernel is timed alone at the
+    rank's part beside its plain twin and its bound; no PyTorch call
+    computes either (``library_ms`` None), and ``F.rms_norm`` over the
+    whole row is timed beside them for scale.  Returns (row_sumsq rows,
+    rmsnorm_total rows)."""
+    out = ([], [])
+    d = d_full // n
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows_, d_full), generator=gen,
+                        device="cuda").to(dt)
+        scale = torch.randn((d_full,), generator=gen, device="cuda")
+        parts = [x[:, i * d:(i + 1) * d] for i in range(n)]
+        scales = [scale[i * d:(i + 1) * d] for i in range(n)]
+        sums = [rn.row_sumsq(p) for p in parts]
+        total = sum(sums)
+        got = torch.cat([rn.rmsnorm_total(p, w, total, d_full, 1e-6)
+                         for p, w in zip(parts, scales)], dim=-1)
+        torch.cuda.synchronize()
+        plain_total = sum(ref.row_sumsq(p) for p in parts)
+        sum_err = max_err(sums[0], ref.row_sumsq(parts[0]), 1e-5)
+        err = max_err(got, torch.cat(
+            [ref.rmsnorm_total(p, w, plain_total, d_full, 1e-6)
+             for p, w in zip(parts, scales)], dim=-1), TOL_NORM[dtype])
+        whole_err = max_err(got, rn.rmsnorm_plain(x, scale, 1e-6),
+                            TOL_NORM[dtype])
+        p0, w0 = parts[0], scales[0]
+        part_bytes = rows_ * d * x.element_size()
+        whole = timings(torch, {"library": lambda: F.rms_norm(
+            x, (d_full,), scale.to(dt), 1e-6)})
+        for i, (kernel, fns, flops, nbytes) in enumerate((
+                ("row_sumsq", {
+                    "kernel": lambda: rn.row_sumsq(p0),
+                    "plain": lambda: ref.row_sumsq(p0)},
+                 2.0 * rows_ * d, part_bytes + 4 * rows_),
+                ("rmsnorm_total", {
+                    "kernel": lambda: rn.rmsnorm_total(p0, w0, total,
+                                                       d_full, 1e-6),
+                    "plain": lambda: ref.rmsnorm_total(p0, w0, total,
+                                                       d_full, 1e-6)},
+                 3.0 * rows_ * d, 2 * part_bytes + 4 * d + 4 * rows_))):
+            bound_ms, bound_by = bound(flops, nbytes, "float32")
+            row = dict(kernel=kernel, case=name, dtype=dtype,
+                       shape=dict(rows=rows_, d=d, d_full=d_full, ranks=n),
+                       max_abs_err=sum_err if i == 0 else err,
+                       whole_row_err=whole_err, tol=TOL_NORM[dtype],
+                       **timings(torch, fns), library_ms=None,
+                       whole_row_library_ms=whole["library_ms"],
+                       bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                       bytes=nbytes)
+            emit("kernel_check", **row)
+            out[i].append(row)
+    return out
 
 
 def check_rmsnorm_residual(torch, rn, gen, name, rows_, d):
@@ -4149,6 +4273,15 @@ def dense_launches(fa, rn) -> dict:
 def zero_launches(fa, rn, ss) -> None:
     fa.flash_attention.launches = fa.flash_attention.backward_launches = 0
     rn.rmsnorm.launches = ss.ssd_scan.launches = 0
+    rn.row_sumsq.launches = rn.rmsnorm_total.launches = 0
+
+
+def ssm_launches(fa, rn, ss) -> dict:
+    """``dense_launches`` with the SSD scan's and the split-row rmsnorm
+    pair's."""
+    return dict(dense_launches(fa, rn), ssd_scan=ss.ssd_scan.launches,
+                row_sumsq=rn.row_sumsq.launches,
+                rmsnorm_total=rn.rmsnorm_total.launches)
 
 
 def dense_expect(L: int, policy: str, steps: int = 1,
@@ -4561,7 +4694,7 @@ def rank_main(args) -> int:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         fn = {"tp_train": tp_train_rank, "tp_train_big": tp_train_big_rank,
-              "ep_serve": ep_serve_rank}[phase]
+              "ep_serve": ep_serve_rank, "tp_ssm": tp_ssm_rank}[phase]
         res = fn(torch, np, F, modules, workdir)
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
@@ -4742,24 +4875,24 @@ def tp_held(torch, F, st, m, ref_mu, floor, group) -> dict:
                 floor=floor)
 
 
-def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
-                 save_dir=None) -> dict:
-    """One rank of a model-axis training phase: the state built on the
-    storage plan of (data 1, model n) leaf by leaf from seed 0, what it
-    holds, one dp_manual step (the residual stream's tokens split over the
-    model ranks, as TRAIN_RULES' ``seq_res`` says), the shape of the
-    residual each layer received, the collectives by kind and the gathers
-    over ``"model"`` it issued, its peak memory, each first moment held
-    against the one-rank step's (``ref.pt``), then (``save_dir``) each
-    shard's checksum and a checkpoint of the state, then the same step
-    from the same masters under ``control`` (a context that leaves out one
-    sum over the model ranks) and under ``scatter_unsummed`` (no
-    reduce-scatter sums)."""
+def tp_step_rank(torch, np, F, modules, workdir, cfg, batch, controls,
+                 save_dir=None, ref_name="ref.pt", ssm=False) -> dict:
+    """One rank of a model-axis training phase for ``cfg``: the state
+    built on the storage plan of (data 1, model n) leaf by leaf from seed
+    0, what it holds, one dp_manual step (the residual stream's tokens
+    split over the model ranks where TRAIN_RULES' ``seq_res`` says so),
+    the shape of the residual each layer received, the collectives by kind
+    and the gathers over ``"model"`` it issued, its peak memory, its
+    launches (with ``ssm`` the SSD scan's and the split norm pair's too),
+    each first moment held against the one-rank step's (``ref_name``),
+    then (``save_dir``) each shard's checksum and a checkpoint of the
+    state, then the same step from the same masters under each of
+    ``controls`` ({key: a context that leaves out one sum over the model
+    ranks})."""
     import dataclasses
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import dp_shard, model_axis, transport
     from repro_torch.distributed.sharding_rules import (model_group,
                                                         rules_for, use_rules)
@@ -4772,14 +4905,16 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
                                               make_train_step)
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
     rank, n = dist.get_rank(), dist.get_world_size()
-    cfg = get_config(arch)
     tcfg = dataclasses.replace(tp_config(), dp_manual=True)
     mesh = make_local_mesh(model_axis=n, device="cuda")
     group = model_group(mesh)
-    ref = torch.load(os.path.join(workdir, "ref.pt"), mmap=True)
+    ref = torch.load(os.path.join(workdir, ref_name), mmap=True)
     out = {"backend": str(dist.get_backend(group)),
-           "heads": ll.rank_heads(cfg, n, rank)._asdict(),
+           "heads": ll.rank_heads(cfg, n, rank)._asdict()
+           if cfg.uses_attention else None,
            "rules": ll.leaf_rules(cfg, n)}
+    if cfg.ssm_state_dim:
+        out["ssm_heads"] = ll.ssm_heads(cfg, n, rank)
     with use_rules(mesh, rules_for("train")) as ctx:
         torch.cuda.reset_peak_memory_stats()
         state = init_train_state(
@@ -4815,7 +4950,8 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
         out["step_clock"] = clock
         out["step_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         out["residual"] = sorted(residual)
-        out["launches"] = dense_launches(fa, rn)
+        out["launches"] = ssm_launches(fa, rn, ss) if ssm \
+            else dense_launches(fa, rn)
         out["collectives"] = dict(model_axis.collectives)
         out["dp_collectives"] = dict(dp_shard.collectives)
         out["model_gathers"] = dict(dp_shard.model_gathers)
@@ -4842,8 +4978,7 @@ def tp_step_rank(torch, np, F, modules, workdir, arch, batch, control,
                                         block=True)
             out["save_s"] = time.perf_counter() - t0
         del new
-        for key, ctl in (("control", control),
-                         ("control_scatter", scatter_unsummed)):
+        for key, ctl in controls.items():
             with torch.no_grad():
                 for k, p in state.params.items():
                     p.copy_(start[k])
@@ -4935,9 +5070,10 @@ def tp_train_rank(torch, np, F, modules, workdir) -> dict:
     from repro_torch.distributed.collective_matmul import ring_weight_matmul
     from repro_torch.launch.mesh import make_local_mesh
     rank, n = dist.get_rank(), dist.get_world_size()
-    out = tp_step_rank(torch, np, F, modules, workdir, TP_ARCH,
+    out = tp_step_rank(torch, np, F, modules, workdir, get_config(TP_ARCH),
                        tp_batch(torch, np, get_config(TP_ARCH)),
-                       first_combine_skipped,
+                       {"control": first_combine_skipped,
+                        "control_scatter": scatter_unsummed},
                        save_dir=os.path.join(workdir, "ck"))
     t0 = time.perf_counter()
     out["kv"] = kv_serve_rank(torch, np, F, dict(modules, workdir=workdir))
@@ -4972,21 +5108,23 @@ def tp_train_big_rank(torch, np, F, modules, workdir) -> dict:
     the vocabulary-parallel lookup's all-reduce left out as the
     control."""
     from repro_torch.configs import get_config
-    return tp_step_rank(torch, np, F, modules, workdir, BIG_ARCH,
+    return tp_step_rank(torch, np, F, modules, workdir, get_config(BIG_ARCH),
                         tp_batch(torch, np, get_config(BIG_ARCH), BIG_BATCH,
-                                 BIG_SEQ), lookup_unsummed)
+                                 BIG_SEQ), {"control": lookup_unsummed,
+                                            "control_scatter":
+                                                scatter_unsummed})
 
 
-def one_rank_reference(torch, np, F, modules, arch, batch, workdir):
-    """The one-rank step of a model-axis phase, in the parent, on the
-    seed-0 masters and ``batch``: loss, grad norm, launches and seconds,
-    and to ``WORKDIR/ref.pt`` every leaf's first moment and the bf16 noise
+def one_rank_reference(torch, np, F, modules, cfg, batch, workdir,
+                       name="ref.pt", ssm=False):
+    """The one-rank step of a model-axis phase for ``cfg``, in the parent,
+    on the seed-0 masters and ``batch``: loss, grad norm, launches (with
+    ``ssm`` the SSD scan's and the split norm pair's too) and seconds, and
+    to ``WORKDIR/<name>`` every leaf's first moment and the bf16 noise
     floor of its leaf (1 - cosine between the one-rank gradient through
     the kernels and through the plain twins).  Frees the state."""
-    from repro_torch.configs import get_config
     from repro_torch.train.train_step import init_train_state, make_train_step
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
-    cfg = get_config(arch)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -5007,7 +5145,7 @@ def one_rank_reference(torch, np, F, modules, arch, batch, workdir):
     state, m = step(state, batch)
     torch.cuda.synchronize()
     one_s = time.perf_counter() - t0
-    launches = dense_launches(fa, rn)
+    launches = ssm_launches(fa, rn, ss) if ssm else dense_launches(fa, rn)
     floor = {k: 1.0 - float(F.cosine_similarity(
         v.flatten(), plain[k].to("cuda").flatten(), dim=0, eps=1e-30))
         for k, v in state.opt.mu.items()}
@@ -5017,7 +5155,7 @@ def one_rank_reference(torch, np, F, modules, arch, batch, workdir):
                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                state_gb=16 * sum(p.numel() for p in params.values()) / 1e9)
     torch.save(dict(mu={k: v.cpu() for k, v in state.opt.mu.items()},
-                    floor=floor), os.path.join(workdir, "ref.pt"))
+                    floor=floor), os.path.join(workdir, name))
     del state, step, m, params
     gc.collect()
     torch.cuda.empty_cache()
@@ -5217,7 +5355,7 @@ def tp_train_path(torch, np, F, modules) -> dict:
     L = cfg.num_layers
     workdir = tempfile.mkdtemp(prefix="tp_train_")
     try:
-        ref = one_rank_reference(torch, np, F, modules, TP_ARCH,
+        ref = one_rank_reference(torch, np, F, modules, cfg,
                                  tp_batch(torch, np, cfg), workdir)
         t0 = time.perf_counter()
         kv_ref = kv_reference(torch, np, F, modules, workdir)
@@ -5359,7 +5497,7 @@ def tp_train_big_path(torch, np, F, modules) -> dict:
     workdir = tempfile.mkdtemp(prefix="tp_train_big_")
     try:
         ref = one_rank_reference(
-            torch, np, F, modules, BIG_ARCH,
+            torch, np, F, modules, cfg,
             tp_batch(torch, np, cfg, BIG_BATCH, BIG_SEQ), workdir)
         t0 = time.perf_counter()
         res = spawn_card_ranks("tp_train_big", BIG_MODEL, workdir)
@@ -5566,7 +5704,7 @@ def kv_serve_rank(torch, np, F, modules) -> dict:
             block=cache["k"].shape[2])
         if rank == 0:
             row["logits"] = logits.cpu()
-        if dtype == torch.float32 and held:
+        if dtype == torch.float32:
             lo = rank * cache["k"].shape[2]
             err, scale = 0.0, 0.0
             for name in ("k", "v"):
@@ -5865,6 +6003,558 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     return {k: sum(r["launches"][k] for r in res) for k in expect}
 
 
+def ssm_tp_configs() -> dict:
+    """{phase: config} of phase 22: hymba-1.5b and mamba2-780m at their
+    published widths, SSM_TP_LAYERS layers each (hymba's layer 0
+    global)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return {"tp_hybrid": dataclasses.replace(
+                get_config(HYBRID_ARCH), num_layers=SSM_TP_LAYERS,
+                global_attn_layers=(0,)),
+            "tp_ssm": dataclasses.replace(get_config(SSM_ARCH),
+                                          num_layers=SSM_TP_LAYERS)}
+
+
+def ssm_expect(cfg, split: bool = True, steps: int = 1) -> dict:
+    """Launches of ``steps`` forward passes of ``cfg`` (with a backward:
+    the step at remat "none", or a serving pass of ``steps`` prefill and
+    decode calls, whose flash and SSD scan launch at the prefill only; the
+    caller counts those): one flash a global layer, the whole-row rmsnorm
+    for ln1, the final norm and (hybrid) ln2 and the two mixing norms, the
+    gate norm too unless ``split``, where it is the split pair's one
+    launch each a layer."""
+    L = cfg.num_layers
+    per_layer = 4 if cfg.uses_attention else 1
+    return {"flash_attention": len(cfg.global_attn_layers),
+            "flash_attention_backward": len(cfg.global_attn_layers),
+            "rmsnorm": ((per_layer + (not split)) * L + 1) * steps,
+            "ssd_scan": L, "row_sumsq": L * steps * split,
+            "rmsnorm_total": L * steps * split}
+
+
+@contextlib.contextmanager
+def norm_unsummed():
+    """The gate norm's sums over the model ranks left out
+    (``model_axis.sum_ranks`` the identity): each rank normalises its part
+    of each row by its own part's sum of squares over the whole row's
+    width, and so in the backward."""
+    from repro_torch.distributed import model_axis
+    real = model_axis.sum_ranks
+    model_axis.sum_ranks = lambda x, split: x.detach().clone()
+    try:
+        yield
+    finally:
+        model_axis.sum_ranks = real
+
+
+@contextlib.contextmanager
+def ssm_partial_unsummed():
+    """The SSM leaves a rank uses in part (``in_B``, ``in_C``, and those
+    the guard left whole) left out of the once-a-step sum over the model
+    ranks."""
+    from repro_torch.distributed import dp_shard
+    real = dp_shard.model_psum
+
+    def model_psum(grads, names, mesh):
+        return real(grads, [k for k in names if ".ssm." not in k], mesh)
+
+    dp_shard.model_psum = model_psum
+    try:
+        yield
+    finally:
+        dp_shard.model_psum = real
+
+
+@contextlib.contextmanager
+def plain_ssd(ops, ss):
+    """The SSD scan routed to its plain twin for the block: phase 22's fp32
+    serve checks hold each rank's state to SSM_STATE_OF_MAX of the
+    one-rank state, and the fp32 kernel is itself held to 1e-3 of the
+    twin (TOL_SSD), so both sides scan with the twin there; the kernel's
+    own fp32 path is run beside it and recorded (``fp32_kernels``)."""
+    saved = ops._ssd
+    ops._ssd = types.SimpleNamespace(ssd_scan=ss.ssd_scan_plain,
+                                     ssd_scan_state=ss.ssd_scan_state_plain)
+    try:
+        yield
+    finally:
+        ops._ssd = saved
+
+
+def ssm_kv_prompts(torch, np, cfg, key) -> list:
+    rng = np.random.default_rng(23)
+    return [torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                            dtype=torch.long, device="cuda")
+            for shape in SSM_SERVE[key][1]]
+
+
+def ssm_kv_reference(torch, np, F, modules, workdir, key, cfg) -> dict:
+    """Phase 22's serve reference for ``key``, in the parent before the
+    ranks: ``cfg`` on one rank from seed 0, each of its SSM_SERVE prompt
+    sets served greedily in fp32 (an fp32 K/V cache, the SSD scan through
+    its plain twin, ``plain_ssd``) and teacher-forced with those tokens in
+    bf16.  The prompts, the tokens and the fp32 caches after the prefill
+    and after the decode steps go to
+    ``WORKDIR/kv_<key>.pt`` for the ranks; the logits are returned."""
+    max_len = SSM_SERVE[key][0]
+    prompts = ssm_kv_prompts(torch, np, cfg, key)
+    out = {"logits32": [], "logits16": [], "tokens": [], "cache": [],
+           "prefill_cache": []}
+    with torch.no_grad():
+        with fp32_model(torch, cfg) as m32, \
+                plain_ssd(modules["ops"], modules["ss"]):
+            for p in prompts:
+                logits, tokens, cache = greedy_logits(
+                    torch, m32, p, KV_STEPS, max_len, torch.float32)
+                out["logits32"].append(logits.cpu())
+                out["tokens"].append(tokens)
+                out["cache"].append({k: cache[k].cpu() for k in cache
+                                     if k in ("k", "v", "ssm_state")})
+                _, cache = ep_logits(torch, m32, p, tokens[:, :1],
+                                     kv_dtype=torch.float32, max_len=max_len,
+                                     with_cache=True)
+                out["prefill_cache"].append(
+                    {k: cache[k].cpu() for k in cache
+                     if k in ("k", "v", "ssm_state")})
+                del cache
+            del m32
+        model = seeded_model(torch, cfg)
+        out["logits16"] = [ep_logits(torch, model, p, t,
+                                     max_len=max_len).cpu()
+                           for p, t in zip(prompts, out["tokens"])]
+        del model
+    torch.save(dict(prompts=[p.cpu() for p in prompts],
+                    tokens=[t.cpu() for t in out["tokens"]],
+                    cache=out.pop("cache"),
+                    prefill_cache=out.pop("prefill_cache")),
+               os.path.join(workdir, f"kv_{key}.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_serve_rank(torch, np, F, modules, workdir, key, cfg) -> dict:
+    """Phase 22's serve check in one of its ranks, after the step:
+    ``cfg`` under SERVE_RULES on (data 1, model n), its weights this
+    rank's shards of the storage plan drawn from seed 0, each prompt set
+    prefilled and decoded through ``_serve_wrap`` over a cache of the
+    max_len positions (the SSM leaves of this rank's heads, the K/V this
+    rank's block of the slots), teacher-forced with the one-rank greedy
+    tokens (``kv_<key>.pt``): in fp32 over fp32 K/V with the plain SSD
+    scan (``plain_ssd``), each fp32 SSM state and K/V block, after the
+    prefill (a prefill alone) and after the decode steps, against its
+    part of the one-rank cache; the same through the fp32 SSD kernel
+    (``fp32_kernels``, recorded); then the first set in fp32 under the
+    control (hymba: the partial softmaxes combined without their weights;
+    mamba2: the gate norm's sums left out); then bf16 with its launches.
+    Rank 0 returns the logits, every rank their digest."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_local_mesh(model_axis=n, device="cuda")
+    max_len = SSM_SERVE[key][0]
+    ref = torch.load(os.path.join(workdir, f"kv_{key}.pt"), mmap=True)
+    h0, h1 = ll.ssm_heads(cfg, n, rank)
+
+    def ctx_of(kind):
+        return use_rules(mesh, rules_for(kind))
+
+    with ctx_of("prefill") as ctx:
+        plan = param_plan(cfg, ctx)
+    out = {}
+
+    def part_errs(cache, want, prefix):
+        """This rank's SSM state and K/V block against its part of the
+        one-rank cache ``want``: the largest error and entry of each, and
+        of the state's each layer."""
+        w = want["ssm_state"][:, :, h0:h1].to("cuda")
+        layer_err = (cache["ssm_state"] - w).abs().flatten(1).amax(1)
+        layer_max = w.abs().flatten(1).amax(1)
+        row = {prefix + "state_err": float(layer_err.max()),
+               prefix + "state_max": float(layer_max.max()),
+               prefix + "state_of_max_by_layer":
+                   (layer_err / layer_max).tolist()}
+        if "k" in cache:
+            lo = rank * cache["k"].shape[2]
+            err, scale = 0.0, 0.0
+            for name in ("k", "v"):
+                w = want[name]
+                mine = w[:, :, lo:lo + cache[name].shape[2]]
+                err = max(err, float((cache[name] - mine.to("cuda"))
+                                     .abs().max()))
+                scale = max(scale, float(w.abs().max()))
+            row.update({prefix + "cache_err": err, prefix + "cache_max": scale})
+        return row
+
+    def served(model, i, dtype):
+        prompts, tokens = ref["prompts"][i].to("cuda"), \
+            ref["tokens"][i].to("cuda")
+        logits, cache = ep_logits(
+            torch, model, prompts, tokens, ctx_of, kv_dtype=dtype,
+            max_len=max_len, with_cache=True)
+        row = dict(digest=hashlib.sha256(
+            logits.cpu().numpy().tobytes()).hexdigest(),
+            kv_shards=cache.kv_shards, ssm_shards=cache.ssm_shards,
+            heads=list(cache["ssm_state"].shape[2:3]),
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for t in cache.values()),
+            block=cache["k"].shape[2] if "k" in cache else None)
+        if rank == 0:
+            row["logits"] = logits.cpu()
+        if dtype == torch.float32:
+            row.update(part_errs(cache, ref["cache"][i], ""))
+            _, cache = ep_logits(
+                torch, model, prompts, tokens[:, :1], ctx_of, kv_dtype=dtype,
+                max_len=max_len, with_cache=True)
+            row.update(part_errs(cache, ref["prefill_cache"][i], "prefill_"))
+        return row
+
+    def run(name, dtype, sets, control=None, plain=True):
+        saved, real = ll.COMPUTE_DTYPE, ops.combine_partial
+        ll.COMPUTE_DTYPE = dtype
+        model = None
+        try:
+            t0 = time.perf_counter()
+            model = sharded_serving_model(torch, cfg, plan)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            zero_launches(fa, rn, ss)
+            t0 = time.perf_counter()
+            with control() if control else contextlib.nullcontext(), \
+                    plain_ssd(ops, ss) if plain \
+                    else contextlib.nullcontext(), host_clock() as clock:
+                rows = [served(model, i, dtype) for i in sets]
+                torch.cuda.synchronize()
+            out[name] = dict(rows=rows, seconds=time.perf_counter() - t0,
+                             build_s=build_s, clock=clock,
+                             launches=ssm_launches(fa, rn, ss))
+        finally:
+            ll.COMPUTE_DTYPE, ops.combine_partial = saved, real
+            del model
+            torch.cuda.empty_cache()
+
+    @contextlib.contextmanager
+    def unweighted():
+        real = ops.combine_partial
+        ops.combine_partial = unweighted_combine
+        try:
+            yield
+        finally:
+            ops.combine_partial = real
+
+    with torch.no_grad():
+        sets = range(len(SSM_SERVE[key][1]))
+        run("fp32", torch.float32, sets)
+        run("fp32_kernels", torch.float32, sets, plain=False)
+        run("control", torch.float32, [0],
+            unweighted if cfg.uses_attention else norm_unsummed)
+        run("bf16", torch.bfloat16, sets, plain=False)
+    del ref
+    return out
+
+
+def tp_ssm_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 22: for hymba, then mamba2 (``ssm_tp_configs``),
+    ``tp_step_rank`` with the gate norm's sums left out and the partial
+    SSM leaves left unsummed as the controls, then the serve check
+    (``ssm_serve_rank``)."""
+    out = {}
+    for key, cfg in ssm_tp_configs().items():
+        t0 = time.perf_counter()
+        out[key] = tp_step_rank(
+            torch, np, F, modules, workdir, cfg, tp_batch(torch, np, cfg),
+            {"control": norm_unsummed,
+             "control_partial": ssm_partial_unsummed},
+            ref_name=f"ref_{key}.pt", ssm=True)
+        out[key]["step_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[key]["kv"] = ssm_serve_rank(torch, np, F, modules, workdir, key,
+                                        cfg)
+        out[key]["kv_phase_s"] = time.perf_counter() - t0
+        out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def ssm_collective_plan(cfg, r) -> dict:
+    """The collectives by kind one rank's step of ``cfg`` at remat "none"
+    and one microbatch implies over "model": per layer each split region
+    (attention, the MLP, the SSM) an all-reduce of its input's gradient
+    backward and of its output forward, the SSM's gate norm one forward
+    and one backward more; the vocabulary-parallel lookup's sum (a table
+    stored split); the cross-entropy's gradient sum, its two sums and one
+    max.  In ``dp_shard``: one gather a layer of each unaligned leaf and
+    its reduce-scatter, and an all-reduce of each partial leaf and of the
+    grad norm (the data axis of 1 issues none)."""
+    per_layer = 4 + 4 * cfg.uses_attention
+    gathers = sum(r["model_gathers"].values())
+    model = {"all_reduce": per_layer * cfg.num_layers + 3
+             + int(r["embed_split"]), "all_reduce_max": 1}
+    dp = {"all_gather": gathers, "reduce_scatter": gathers,
+          "all_reduce": r["partial_leaves"] + 1}
+    return dict(model_axis=model,
+                dp_shard={k: v for k, v in dp.items() if v})
+
+
+def ssm_kv_verdict(key, cfg, res, ref) -> dict:
+    """Phase 22's serve check for ``key`` against the one-rank reference
+    (``ssm_kv_reference``): fp32 cosine at every position and greedy
+    tokens, the bf16 distance against the one-rank bf16 run's, every
+    model rank's logits equal, each rank's SSM state (and K/V block)
+    against its part of the one-rank cache, the caches' cuts, the
+    control below KV_MIN_COSINE, the bf16 run's launches.  Emits the
+    line; returns the check results."""
+    import torch
+    import torch.nn.functional as F
+    n, L = len(res), cfg.num_layers
+    kv = [r["kv"] for r in res]
+    max_len, sets = SSM_SERVE[key]
+
+    def cos(a, b):
+        return F.cosine_similarity(a.float(), b.float(), dim=-1)
+
+    rows32 = kv[0]["fp32"]["rows"]
+    c32 = torch.cat([cos(r["logits"], w).flatten()
+                     for r, w in zip(rows32, ref["logits32"])])
+    tokens_equal = all(torch.equal(r["logits"].argmax(-1), t.cpu())
+                       for r, t in zip(rows32, ref["tokens"]))
+    d16 = 1.0 - float(torch.cat([
+        cos(r["logits"], w).flatten()
+        for r, w in zip(kv[0]["bf16"]["rows"], ref["logits32"])]).mean())
+    d16_one = 1.0 - float(torch.cat([
+        cos(a, w).flatten()
+        for a, w in zip(ref["logits16"], ref["logits32"])]).mean())
+    bound16 = BF16_RATIO * d16_one + BF16_SLACK
+    ctl = cos(kv[0]["control"]["rows"][0]["logits"], ref["logits32"][0])
+    runs = ("fp32", "fp32_kernels", "control", "bf16")
+    same = all(a["digest"] == b["digest"] for k in runs
+               for r in kv[1:] for a, b in zip(r[k]["rows"], kv[0][k]["rows"]))
+    def worst(run, what, prefix=""):
+        return max((row[prefix + what + "_err"] / row[prefix + what + "_max"]
+                    for r in kv for row in r[run]["rows"]
+                    if prefix + what + "_err" in row), default=0.0)
+
+    state_err, cache_err = (worst("fp32", w, "prefill_")
+                            for w in ("state", "cache"))
+    by_layer = [max(row["prefill_state_of_max_by_layer"][i]
+                    for r in kv for row in r["fp32"]["rows"])
+                for i in range(L)]
+    decoded_state, decoded_cache = (worst("fp32", w)
+                                    for w in ("state", "cache"))
+    k32 = torch.cat([cos(r["logits"], w).flatten() for r, w in
+                     zip(kv[0]["fp32_kernels"]["rows"], ref["logits32"])])
+    kernels32 = dict(
+        min_cosine=float(k32.min()),
+        prefill_state_err_of_max=worst("fp32_kernels", "state", "prefill_"),
+        prefill_cache_err_of_max=worst("fp32_kernels", "cache", "prefill_"),
+        state_err_of_max=worst("fp32_kernels", "state"),
+        cache_err_of_max=worst("fp32_kernels", "cache"),
+        note="the fp32 SSD kernel, held to 1e-3 of its plain twin "
+             "(TOL_SSD), against the plain-scan reference: recorded")
+    slots = max_len + cfg.num_meta_tokens
+    cuts_ok = all(row["ssm_shards"] == n and (
+        not cfg.uses_attention
+        or row["kv_shards"] == n and row["block"] * n == slots)
+        for r in kv for row in r["fp32"]["rows"])
+    per_set = ssm_expect(cfg, steps=KV_STEPS)
+    expect = {k: v * len(sets) for k, v in per_set.items()}
+    expect["flash_attention_backward"] = 0
+    emit(f"{key}_kv_serve", arch=cfg.name, rules="SERVE_RULES",
+         mesh={"data": 1, "model": n}, layers=L,
+         prompts=[list(p) for p in sets], steps=KV_STEPS, max_len=max_len,
+         slots=slots, block=slots // n if cfg.uses_attention else None,
+         ssm_heads_per_rank=[r["kv"]["fp32"]["rows"][0]["heads"]
+                             for r in res],
+         fp32=dict(min_cosine=float(c32.min()), mean_cosine=float(c32.mean()),
+                   greedy_tokens_equal=tokens_equal, ssd="plain twin"),
+         fp32_kernels=kernels32,
+         bf16=dict(distance=d16, one_rank_distance=d16_one, bound=bound16),
+         control=dict(what="the partial softmaxes combined without their "
+                           "lse weights" if cfg.uses_attention
+                      else "the gate norm's sums over the ranks left out",
+                      min_cosine=float(ctl.min())),
+         ranks_equal=same, prefill_state_err_of_max=state_err,
+         prefill_state_of_max_by_layer=by_layer,
+         decoded_state_of_max_by_layer=[
+             max(row["state_of_max_by_layer"][i]
+                 for r in kv for row in r["fp32"]["rows"])
+             for i in range(L)],
+         prefill_cache_err_of_max=cache_err if cfg.uses_attention else None,
+         decoded_state_err_of_max=decoded_state,
+         decoded_cache_err_of_max=decoded_cache if cfg.uses_attention
+         else None, decoded_limit=SSM_DECODED_OF_MAX,
+         cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
+                               for r in kv],
+         launches_per_rank=[r["bf16"]["launches"] for r in kv],
+         expected_launches_per_rank=expect,
+         seconds_per_rank={k: [r[k]["seconds"] for r in kv] for k in runs},
+         build_s_per_rank={k: [r[k]["build_s"] for r in kv] for k in runs},
+         clock_per_rank={k: [r[k]["clock"] for r in kv] for k in runs},
+         reference_s=ref["seconds"],
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host",
+         min_cosine_limit=KV_MIN_COSINE,
+         state_limit=dict(layer0=SSM_STATE_OF_MAX, every=KV_CACHE_OF_MAX),
+         cache_limit=KV_CACHE_OF_MAX)
+    check(float(c32.min()) >= KV_MIN_COSINE and tokens_equal,
+          f"{key}_kv_serve fp32: min cosine {float(c32.min())}, greedy "
+          f"tokens equal {tokens_equal}")
+    check(d16 <= bound16, f"{key}_kv_serve bf16 distance {d16} > {bound16}")
+    check(float(ctl.min()) < KV_MIN_COSINE,
+          f"{key}_kv_serve's control passed: min cosine {float(ctl.min())}")
+    check(same, f"{key}_kv_serve: the model ranks' logits differ")
+    check(by_layer[0] <= SSM_STATE_OF_MAX and state_err <= KV_CACHE_OF_MAX,
+          f"{key}_kv_serve: a rank's fp32 SSM state after the prefill, by "
+          f"layer, {by_layer} of the largest entry of its head slice")
+    check(cache_err <= KV_CACHE_OF_MAX, f"{key}_kv_serve: a rank's fp32 "
+          f"K/V block after the prefill {cache_err} of the largest entry")
+    check(max(decoded_state, decoded_cache) <= SSM_DECODED_OF_MAX,
+          f"{key}_kv_serve: a rank's fp32 SSM state / K/V block after the "
+          f"decode steps {decoded_state} / {decoded_cache} of the largest "
+          f"entry")
+    check(cuts_ok, f"{key}_kv_serve: a rank's cache is not its heads' SSM "
+          f"leaves and its block of {slots} slots")
+    for r in kv:
+        check(r["bf16"]["launches"] == expect, f"{key}_kv_serve launches "
+              f"{r['bf16']['launches']}, expected {expect}")
+    return expect
+
+
+def tp_ssm_path(torch, np, F, modules) -> dict:
+    """Phase 22: the families with an SSM under the model axis, over
+    SSM_TP_MODEL gloo ranks on the card, one spawn for both models
+    (``ssm_tp_configs``).  For each, the one-rank step and the one-rank
+    serve reference first, here, on the same seeded masters, batch and
+    prompts, freed before the ranks start; then the ranks' step on the
+    storage plan, held as phase 20's (loss, grad norm, every first
+    moment's cosine or 2x the floor of its kind, whole leaves bit-equal
+    across the ranks, bytes held equal to the shards', the collectives
+    and gathers the plan implies, exact launches), two controls that must
+    fail, and the serve check (``ssm_kv_verdict``).  Returns the launches
+    of the ranks' step and bf16 serving, summed over the ranks, by
+    phase."""
+    import shutil
+    import tempfile
+
+    from repro_torch.models import layers as ll
+    cfgs = ssm_tp_configs()
+    n = SSM_TP_MODEL
+    workdir = tempfile.mkdtemp(prefix="tp_ssm_")
+    refs, kv_refs = {}, {}
+    try:
+        for key, cfg in cfgs.items():
+            refs[key] = one_rank_reference(
+                torch, np, F, modules, cfg, tp_batch(torch, np, cfg),
+                workdir, name=f"ref_{key}.pt", ssm=True)
+            t0 = time.perf_counter()
+            kv_refs[key] = ssm_kv_reference(torch, np, F, modules, workdir,
+                                            key, cfg)
+            kv_refs[key]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = spawn_card_ranks("tp_ssm", n, workdir)
+        phase_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    emit("tp_ssm_backend", backend=res[0]["tp_hybrid"]["backend"], ranks=n,
+         moved_per_rank={k: [r[k]["moved"] for r in res] for k in cfgs},
+         phase_s=phase_s,
+         note="collectives stage each tensor through host memory (gloo); "
+              "the ranks share one card")
+    launches = {}
+    for key, cfg in cfgs.items():
+        sub = [r[key] for r in res]
+        r0, ref = sub[0], refs[key]
+        held = {k: tp_verdict(sub, ref, k)
+                for k in ("step", "control", "control_partial")}
+        expect = ssm_expect(cfg)
+        one_expect = ssm_expect(cfg, split=False)
+        gathers = {k: cfg.num_layers
+                   for k, rule in ll.leaf_rules(cfg, n).items()
+                   if rule == "unaligned"}
+        S = TP_SEQ + cfg.num_meta_tokens
+        emit(f"{key}_collectives", model_axis=r0["collectives"],
+             dp_shard=r0["dp_collectives"], plan=ssm_collective_plan(cfg, r0),
+             model_gathers_per_rank=[r["model_gathers"] for r in sub],
+             partial_leaves_summed=r0["partial_leaves"],
+             sequence_split=r0["sp"],
+             residual_per_rank=[r["residual"] for r in sub])
+        emit(f"{key}_storage", rules=r0["rules"],
+             per_rank=[r["storage"] for r in sub],
+             init_peak_gb_per_rank=[r["init_peak_gb"] for r in sub])
+        emit(key, arch=cfg.name, layers=cfg.num_layers,
+             mesh={"data": 1, "model": n}, heads=r0["heads"],
+             ssm_heads_per_rank=[r["ssm_heads"] for r in sub],
+             path=r0["path"], one_rank_loss=ref["loss"],
+             one_rank_grad_norm=ref["grad_norm"], loss=r0["step"]["loss"],
+             grad_norm=r0["step"]["grad_norm"], held=held["step"],
+             control=dict(what="the gate norm's sums over the ranks left "
+                               "out", **held["control"],
+                          loss=r0["control"]["loss"]),
+             control_partial=dict(what="the partial SSM leaves left out of "
+                                       "the sum over the ranks",
+                                  **held["control_partial"],
+                                  loss=r0["control_partial"]["loss"]),
+             launches_per_rank=[r["launches"] for r in sub],
+             expected_launches_per_rank=expect,
+             one_rank_launches=ref["launches"],
+             peak_gb_per_rank=[r["peak_gb"] for r in sub],
+             step_peak_gb_per_rank=[r["step_peak_gb"] for r in sub],
+             one_rank_peak_gb=ref["peak_gb"], whole_state_gb=ref["state_gb"],
+             step_s_per_rank=[r["step_s"] for r in sub],
+             step_clock_per_rank=[r["step_clock"] for r in sub],
+             control_clock_per_rank=[r["control_clock"] for r in sub],
+             control_partial_clock_per_rank=[r["control_partial_clock"]
+                                             for r in sub],
+             step_phase_s_per_rank=[r["step_phase_s"] for r in sub],
+             kv_phase_s_per_rank=[r["kv_phase_s"] for r in sub],
+             one_rank_step_s=ref["step_s"], batch=[TP_BATCH, TP_SEQ],
+             timing_note="not a speed: the ranks share one card and every "
+                         "collective crosses the host",
+             max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
+             min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
+             floor_max=max(ref["floor"].values()))
+        check(r0["backend"] == "gloo" and all(staged_only(r) for r in sub),
+              f"{key} ran on {r0['backend']}, collectives moved "
+              f"{[r['moved'] for r in sub]}")
+        check(r0["path"] == "dp_manual", f"{key} took the {r0['path']} step")
+        check(held["step"]["ok"], f"{key} against the one-rank step: "
+              f"{held['step']}")
+        for k in ("control", "control_partial"):
+            check(not held[k]["ok"], f"{key}'s {k} passed: {held[k]}")
+        check(r0["sp"] is None, f"{key}: sequence split {r0['sp']}")
+        check(ref["launches"] == one_expect, f"{key} one-rank launches "
+              f"{ref['launches']}, expected {one_expect}")
+        for r in sub:
+            want = [(TP_BATCH, S, cfg.d_model)]
+            check(r["residual"] == want, f"{key}: a layer received "
+                  f"{r['residual']}, not the whole residual {want}")
+            got = dict(model_axis=r["collectives"],
+                       dp_shard=r["dp_collectives"])
+            plan = ssm_collective_plan(cfg, r)
+            check(got == plan, f"{key} collectives {got}, the plan implies "
+                  f"{plan}")
+            check(r["storage"]["ok"], f"{key} storage: {r['storage']}")
+            check(r["launches"] == expect, f"{key} rank launches "
+                  f"{r['launches']}, expected {expect}")
+            check(r["model_gathers"] == gathers, f"{key} gathers over model "
+                  f"{r['model_gathers']}, the rules imply {gathers}")
+        serve = ssm_kv_verdict(key, cfg, sub, kv_refs[key])
+        launches[key] = {k: sum(r["launches"][k] for r in sub)
+                         for k in expect}
+        launches[key + "_serve"] = {k: sum(r["kv"]["bf16"]["launches"][k]
+                                           for r in sub) for k in serve}
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6003,6 +6693,12 @@ def main() -> int:
     checks["flash_attention"] += check_flash(torch, F, fa, gen,
                                              "tp_big_rank", BIG_BATCH,
                                              BIG_SEQ, BIG_SEQ, 4, 2, 128)
+    # phase 22's: hymba's global layer at model 2, 15 padded heads a rank
+    # over its 3 kv heads expanded to one a slot (groups of one), over the
+    # 128 meta tokens and 512 text tokens
+    checks["flash_attention"] += check_flash(
+        torch, F, fa, gen, "tp_hybrid_rank", TP_BATCH, TP_SEQ + 128,
+        TP_SEQ + 128, 15, 15, 64)
     checks["flash_attention_backward"] = []
     for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
@@ -6044,6 +6740,16 @@ def main() -> int:
             torch, F, rn, gen, name, TP_BATCH * TP_SEQ // TP_MODEL, d)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
+    # phase 22's gate norm over a row split across 2 model ranks: hymba's
+    # 1,600 of 3,200 and mamba2's 1,536 of 3,072, at 1,024 rows (a rank's
+    # 2 x 512 tokens)
+    checks["row_sumsq"], checks["rmsnorm_total"] = [], []
+    for name, d_full in (("tp_hybrid", 3200), ("tp_ssm", 3072)):
+        sums, totals = check_rmsnorm_split(torch, F, rn, ref, gen, name,
+                                           TP_BATCH * TP_SEQ, d_full,
+                                           SSM_TP_MODEL)
+        checks["row_sumsq"] += sums
+        checks["rmsnorm_total"] += totals
 
     def plain_ctx():
         return plain_kernels(ops, fa, rn, ss)
@@ -6079,6 +6785,15 @@ def main() -> int:
                         ("hymba_prefill", (8, 640, 50, 64, 1, 16, 256))):
         checks["ssd_scan"] += check_ssd_state(torch, ops, plain_ctx, gen,
                                               name, *shape)
+    # phase 22's per-rank scans at model 2: hymba's 25 of 50 heads (n 16)
+    # over its 2 x (128 + 512) positions, padded to 768, and mamba2's 24 of
+    # 48 (n 128) over 2 x 512, each as strided views of one conv output
+    for name, shape in (("tp_hybrid_rank", (TP_BATCH, TP_SEQ + 128, 25, 64,
+                                            1, 16, 256)),
+                        ("tp_ssm_rank", (TP_BATCH, TP_SEQ, 24, 64, 1, 128,
+                                         256))):
+        checks["ssd_scan"] += check_ssd(torch, ops, ss, plain_ctx, gen, name,
+                                        *shape, strided=True)
     stage_rows = []
     for name, shape, kw in (
             ("slice", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256),
@@ -6158,7 +6873,11 @@ def main() -> int:
     ep_launches = ep_serve_path(torch, np, F, modules)
     torch.cuda.empty_cache()
 
-    # ---- 18. the kernels line ---------------------------------------------
+    # ---- 22. the families with an SSM under the model axis -----------------
+    ssm_tp_launches = tp_ssm_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
                     "serve_vlm": serve_vlm_launches,
@@ -6182,7 +6901,9 @@ def main() -> int:
                                 tp_launches["kv_serve"]["flash_attention"],
                             "tp_train_big":
                                 tp_big_launches["flash_attention"],
-                            "ep_serve": ep_launches["flash_attention"]},
+                            "ep_serve": ep_launches["flash_attention"],
+                            **{k: v["flash_attention"]
+                               for k, v in ssm_tp_launches.items()}},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
@@ -6200,7 +6921,8 @@ def main() -> int:
                     "tp_train": tp_launches["rmsnorm"],
                     "tp_kv_serve": tp_launches["kv_serve"]["rmsnorm"],
                     "tp_train_big": tp_big_launches["rmsnorm"],
-                    "ep_serve": ep_launches["rmsnorm"]},
+                    "ep_serve": ep_launches["rmsnorm"],
+                    **{k: v["rmsnorm"] for k, v in ssm_tp_launches.items()}},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
@@ -6209,10 +6931,15 @@ def main() -> int:
                      "train_stream": stream_launches["ssd_scan"],
                      "trainer": trainer_launches["ssd_scan"],
                      "fleet_train": fleet_train_launches["ssd_scan"],
-                     "dp_train": dp_train_launches["ssd_scan"]},
+                     "dp_train": dp_train_launches["ssd_scan"],
+                     **{k: v["ssd_scan"] for k, v in ssm_tp_launches.items()}},
+        "row_sumsq": {k: v["row_sumsq"] for k, v in ssm_tp_launches.items()},
+        "rmsnorm_total": {k: v["rmsnorm_total"]
+                          for k, v in ssm_tp_launches.items()},
     }
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
-                 "rmsnorm_residual": "slice", "ssd_scan": "slice"}
+                 "rmsnorm_residual": "slice", "ssd_scan": "slice",
+                 "row_sumsq": "tp_hybrid", "rmsnorm_total": "tp_hybrid"}
     meta = {
         "flash_attention": dict(
             route="cuda",
@@ -6227,6 +6954,14 @@ def main() -> int:
         "ssd_scan": dict(
             route="cuda", source="src/repro_torch/kernels/csrc/ssd_scan.cu",
             replaces="src/repro/kernels/ssd_scan.py:77"),
+        # the split-row pair: the gate norm's rmsnorm over a row split
+        # across the model ranks (repro's src/repro/models/ssm.py:97)
+        "row_sumsq": dict(
+            route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+            replaces="src/repro/kernels/rmsnorm.py:44"),
+        "rmsnorm_total": dict(
+            route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+            replaces="src/repro/kernels/rmsnorm.py:44"),
     }
     backward_rows = checks.pop("flash_attention_backward")
     kernels = []
@@ -6259,7 +6994,8 @@ def main() -> int:
                         y_only_ms=r.get("y_only_ms"), bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=None)
         for r in checks["ssd_scan"]
-        if r["case"] in ("hymba_prefill", "fleet6", "dp_mb")
+        if r["case"] in ("hymba_prefill", "fleet6", "dp_mb",
+                         "tp_hybrid_rank", "tp_ssm_rank")
         and r["dtype"] == "bfloat16"}
     # flash at phi-3-vision's head dim, at the MoE and prefix paths'
     # prefills and at whisper's shapes
@@ -6272,7 +7008,7 @@ def main() -> int:
         if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
                          "phi3v", "whisper_enc", "whisper_cross",
                          "whisper_cross_decode", "whisper_self", "tp_rank",
-                         "ep_rank", "tp_big_rank")
+                         "ep_rank", "tp_big_rank", "tp_hybrid_rank")
         and r["dtype"] == "bfloat16"}
     # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
     # families' widths
@@ -6292,7 +7028,9 @@ def main() -> int:
         v["flash_attention_backward"] for v in dense_launches_.values()),
         "trainer_dense": trainer_dense_launches["flash_attention_backward"],
         "tp_train": tp_launches["flash_attention_backward"],
-        "tp_train_big": tp_big_launches["flash_attention_backward"]}
+        "tp_train_big": tp_big_launches["flash_attention_backward"],
+        **{k: v["flash_attention_backward"]
+           for k, v in ssm_tp_launches.items()}}
     train_row = next(r for r in backward_rows if r["case"] == "train")
     by_name["flash_attention"].update(
         backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -6315,6 +7053,20 @@ def main() -> int:
                             library_ms=r["library_ms"],
                             library_backend=r["library_backend"])
             for r in backward_rows})
+    # the split pair at mamba2's width, and F.rms_norm over the whole row
+    # beside each for scale (no single PyTorch call normalises a row split
+    # across ranks)
+    for name in ("row_sumsq", "rmsnorm_total"):
+        main_row = next(r for r in checks[name] if r["case"] == "tp_hybrid"
+                        and r["dtype"] == "bfloat16")
+        by_name[name]["whole_row_library_ms"] = main_row[
+            "whole_row_library_ms"]
+        by_name[name]["cases"] = {
+            r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+                            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                            library_ms=None,
+                            whole_row_library_ms=r["whole_row_library_ms"])
+            for r in checks[name] if r["dtype"] == "bfloat16"}
     print(json.dumps({"kernels": kernels}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@ operators:
 * ``from_model`` (also ``psum``): an all-reduce forward, the identity
   backward (the ranks' partial outputs summed into a replicated one).
 
-``pmax`` takes no gradient (``repro`` stop-gradients the max it reduces);
+``pmax`` takes no gradient (``repro`` stop-gradients the max it reduces),
+nor does ``sum_ranks`` (a split row's statistic, ``ops.rmsnorm_split``);
 ``gather_from_model`` all-gathers a split last dim; ``ppermute`` passes a
 tensor one step along the ring (``collective_matmul``).
 
@@ -143,6 +144,15 @@ def pmax(x: torch.Tensor, split: Split) -> torch.Tensor:
     """The elementwise max over the model ranks, without a gradient."""
     out = x.detach().clone(memory_format=torch.contiguous_format)
     all_reduce_(out, split.group, op=dist.ReduceOp.MAX, tally=collectives)
+    return out
+
+
+def sum_ranks(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """The sum over the model ranks of ``x``, without a gradient: a
+    statistic of a row split across the ranks (the gate norm's sum of
+    squares), whose own backward sums what it needs again."""
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    all_reduce_(out, split.group, tally=collectives)
     return out
 
 

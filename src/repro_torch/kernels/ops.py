@@ -1,7 +1,8 @@
 """Kernel entry points the models call, routed by the tensor's device.
 
 * A CUDA tensor goes to the hand-written kernel (``flash_attention``,
-  ``rmsnorm``, ``rmsnorm_residual``, ``ssd_scan``, and for prefill
+  ``rmsnorm``, ``rmsnorm_residual``, the split-row pair ``row_sumsq`` /
+  ``rmsnorm_total`` of ``rmsnorm_split``, ``ssd_scan``, and for prefill
   ``ssd_scan_state``, the same kernel writing its final state too), which
   launches or raises; nothing falls back.  Attention has a gradient on the
   card: under autograd ``flash_attention`` runs ``_FlashAttention``, whose
@@ -70,6 +71,13 @@ def combine_partial(out, lse, gather):
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
     return _rn.rmsnorm(x, scale, eps=eps)
+
+
+def rmsnorm_split(x, scale, *, d_full: int, reduce, eps: float = 1e-6):
+    """rmsnorm of rows split across the model ranks: x (..., d) holds this
+    rank's columns of rows of ``d_full``, ``scale`` its columns of the
+    scale; ``reduce`` sums a (rows,) fp32 tensor over the ranks."""
+    return _rn.rmsnorm_split(x, scale, d_full=d_full, reduce=reduce, eps=eps)
 
 
 def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-6):

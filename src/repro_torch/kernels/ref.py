@@ -164,6 +164,20 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
+def row_sumsq(x):
+    """Each row's sum of squares in fp32: x (..., d) -> (...,)."""
+    xf = x.float()
+    return (xf * xf).sum(-1)
+
+
+def rmsnorm_total(x, scale, total, d_full: int, eps: float = 1e-6):
+    """A part of each row normed by the whole row's sum of squares
+    ``total`` (x's leading shape, fp32) over ``d_full`` elements:
+    x * rsqrt(total / d_full + eps) * scale, in fp32, cast back."""
+    r = torch.rsqrt(total.float() / d_full + eps)[..., None]
+    return (x.float() * r * scale.float()).to(x.dtype)
+
+
 # --------------------------------------------------------------------------
 # mamba2 SSD (state-space duality) scan
 # --------------------------------------------------------------------------

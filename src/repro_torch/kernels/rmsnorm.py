@@ -31,6 +31,24 @@ returned as (rmsnorm(h) * scale, h), both in x's type.  It is the same
 Triton program with a second load and a second store, bound by bytes in
 the same way; its twin is ``rmsnorm_residual_plain`` and its count
 ``rmsnorm_residual.launches``.  No model calls it, and it has no backward.
+
+``rmsnorm_split`` is the gate norm of the SSM mixer under a model axis,
+whose row of d_inner is split across the model ranks by whole SSD heads
+(``models/ssm.py``), so the kernel above would take a mean over this
+rank's columns only.  It is a Triton pair with one all-reduce between:
+``row_sumsq`` writes each row's fp32 sum of squares over the rank's
+columns, the caller's ``reduce`` sums those (rows,) floats over the model
+ranks (``model_axis.sum_ranks``, counted and staged as every collective),
+and ``rmsnorm_total`` writes x * rsqrt(total / d_full + eps) * scale.
+Each is one program per row over ``BLOCK_D = next_pow2(d)`` lanes, a row
+reduction or an elementwise pass bound by bytes, the same case as the
+kernel above, which is why Triton serves here too.  Moving the rank's
+part of y to one rank instead would stage a (B, S, d_inner / n)
+activation through the host a layer, where the sum moves 4 bytes a row.
+The backward (``_RMSNormSplit``) is in closed form in plain PyTorch, fp32,
+with one more sum over the ranks, of each row's sum of dy * scale * x.
+The plain twins are ``ref.row_sumsq`` / ``ref.rmsnorm_total``; the counts
+``row_sumsq.launches`` and ``rmsnorm_total.launches``.
 """
 from __future__ import annotations
 
@@ -91,7 +109,32 @@ def _kernel():
         tl.store(y_ptr + row * y_row_stride + cols,
                  y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return rmsnorm_kernel, rmsnorm_residual_kernel, triton.next_power_of_2
+    @triton.jit
+    def row_sumsq_kernel(x_ptr, out_ptr, x_row_stride, d,
+                         BLOCK_D: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_D)
+        x = tl.load(x_ptr + row * x_row_stride + cols, mask=cols < d,
+                    other=0.0).to(tl.float32)
+        tl.store(out_ptr + row, tl.sum(x * x, axis=0))
+
+    @triton.jit
+    def rmsnorm_total_kernel(x_ptr, w_ptr, t_ptr, y_ptr, x_row_stride,
+                             y_row_stride, d, d_full, eps,
+                             BLOCK_D: tl.constexpr):
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_D)
+        mask = cols < d
+        x = tl.load(x_ptr + row * x_row_stride + cols, mask=mask,
+                    other=0.0).to(tl.float32)
+        var = tl.load(t_ptr + row) / d_full
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        y = x * (1.0 / tl.sqrt(var + eps)) * w
+        tl.store(y_ptr + row * y_row_stride + cols,
+                 y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    return (rmsnorm_kernel, rmsnorm_residual_kernel, triton.next_power_of_2,
+            row_sumsq_kernel, rmsnorm_total_kernel)
 
 
 def _grid(d: int):
@@ -215,3 +258,101 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
 
 
 rmsnorm_residual.launches = 0
+
+
+def row_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """x: (..., d).  Each row's sum of squares in fp32, x's leading
+    shape: the kernel for a CUDA tensor, the plain twin on the CPU."""
+    if x.device.type == "cpu":
+        return ref.row_sumsq(x)
+    if x.device.type != "cuda" or x.dtype not in _SUPPORTED:
+        raise ValueError(f"row_sumsq: no kernel for {x.dtype} on {x.device}")
+    x2 = _rows("row_sumsq", x)
+    rows, d = x2.shape
+    out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    if rows:
+        _kernel()[3][(rows,)](x2, out, x2.stride(0), d, **_grid(d))
+        with _count_lock:
+            row_sumsq.launches += 1
+    return out.view(x.shape[:-1])
+
+
+row_sumsq.launches = 0
+
+
+def rmsnorm_total(x: torch.Tensor, scale: torch.Tensor, total: torch.Tensor,
+                  d_full: int, eps: float = 1e-6) -> torch.Tensor:
+    """x: (..., d), this rank's columns of rows of ``d_full``; scale: its
+    (d,) columns; total: each whole row's sum of squares, fp32, x's
+    leading shape.  Returns x * rsqrt(total / d_full + eps) * scale in
+    x's type."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_total(x, scale, total, d_full, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rmsnorm_total: no kernel for device {x.device}")
+    _check_scale("rmsnorm_total", x, scale)
+    x2 = _rows("rmsnorm_total", x)
+    rows, d = x2.shape
+    t = total.reshape(-1)
+    if t.shape != (rows,) or t.dtype != torch.float32 \
+            or t.device != x.device or not t.is_contiguous():
+        raise ValueError(f"rmsnorm_total: total must be a contiguous fp32 "
+                         f"({rows},) tensor on {x.device}, got "
+                         f"{tuple(total.shape)} {total.dtype}")
+    out = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    if rows:
+        _kernel()[4][(rows,)](x2, scale, t, out, x2.stride(0),
+                              out.stride(0), d, float(d_full), float(eps),
+                              **_grid(d))
+        with _count_lock:
+            rmsnorm_total.launches += 1
+    return out.view(x.shape)
+
+
+rmsnorm_total.launches = 0
+
+
+def rmsnorm_split_backward(x, scale, total, dy, reduce, d_full: int,
+                           eps: float):
+    """Closed-form gradients of ``sum(rmsnorm_split(x) * dy)`` for x and
+    this rank's columns of the scale, in fp32: with r = rsqrt(total /
+    d_full + eps) and u = dy * scale, dx = r u - x r^3 s / d_full, s the
+    sum over the whole row (``reduce`` of the rank's sums) of u x, and
+    dscale = sum over rows of dy x r."""
+    xf, dyf = x.float(), dy.float()
+    r = torch.rsqrt(total.float() / d_full + eps)[..., None]
+    u = dyf * scale.float()
+    s = reduce((u * xf).sum(-1))[..., None]
+    dx = r * u - xf * (r * r * r) * s / d_full
+    dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNormSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, reduce, d_full, eps):
+        total = reduce(row_sumsq(x))
+        ctx.save_for_backward(x, scale, total)
+        ctx.reduce, ctx.d_full, ctx.eps = reduce, d_full, eps
+        return rmsnorm_total(x, scale, total, d_full, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale, total = ctx.saved_tensors
+        dx, dscale = rmsnorm_split_backward(x, scale, total, dy, ctx.reduce,
+                                            ctx.d_full, ctx.eps)
+        return dx, dscale, None, None, None
+
+
+def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, *, d_full: int,
+                  reduce, eps: float = 1e-6) -> torch.Tensor:
+    """rmsnorm of rows of ``d_full`` split across ranks: x (..., d) and
+    scale (d,) this rank's columns; ``reduce`` sums a fp32 tensor of x's
+    leading shape over the ranks (returning the sum).  ``row_sumsq``, the
+    sum, then ``rmsnorm_total``; with a gradient through
+    ``_RMSNormSplit``, whose backward sums once more."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"rmsnorm_split: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNormSplit.apply(x, scale, reduce, d_full, eps)
+    return rmsnorm_total(x, scale, reduce(row_sumsq(x)), d_full, eps)

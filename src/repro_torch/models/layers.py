@@ -4,12 +4,14 @@ SwiGLU and gelu MLPs, top-k MoE, embedding.  The PyTorch counterpart of
 ``repro/models/layers.py``.
 
 Under a model axis (inside the manual region of a ``use_rules`` mesh whose
-``"model"`` axis is larger than 1, ``model_axis.split_for``) four layers
+``"model"`` axis is larger than 1, ``model_axis.split_for``) five layers
 split their work over the model ranks, as ``repro``'s rules shard the
 activations, and sum with explicit collectives: attention by padded heads
 (``heads_act``), the MLP by d_ff (``mlp_act``), the MoE by virtual experts
 (``experts_virt``, ``repro``'s expert-parallel branch), the embedding
-lookup, unembedding and cross-entropy by vocabulary rows (``vocab_act``).
+lookup, unembedding and cross-entropy by vocabulary rows (``vocab_act``),
+and the SSM mixer (``models/ssm.py``) by whole SSD heads
+(``ssm_inner_act``, ``ssm_heads`` here).
 A leaf the rules map to ``"model"`` arrives as this rank's shard where the
 guard keeps the dim (``dp_shard.ShardPlan.for_storage``), else whole; a
 layer takes its part of each leaf through ``model_storage.take``
@@ -197,43 +199,64 @@ def _pad_plan(num_heads: int, num_kv: int, shards: int):
 class RankHeads(NamedTuple):
     """A model rank's slice of the padded heads: the plan (K2, G2), the
     rank's padded head count, the slots among them that hold real heads
-    and those heads' indices, and the kv heads [k0, k1) its groups use
-    (those past K are padding)."""
+    and those heads' indices, the kv heads [k0, k1) its groups use (those
+    past K are padding), and for each of its ``count`` slots the index
+    within [k0, k1) of the kv head it reads."""
     plan: Tuple[int, int]
     count: int
     slots: Tuple[int, ...]
     heads: Tuple[int, ...]
     k0: int
     k1: int
+    kv: Tuple[int, ...]
+
+    @property
+    def uniform(self) -> bool:
+        """Does every kv head of the slice serve the same number of its
+        slots (whole GQA groups, or a slice of one group)?"""
+        G2 = self.plan[1]
+        return self.count % G2 == 0 or G2 % self.count == 0
 
 
 def rank_heads(cfg: ModelConfig, shards: int, rank: int) -> RankHeads:
     """Rank ``rank`` of ``shards`` owns padded heads [rank * H2 / shards,
     (rank + 1) * H2 / shards) of the plan (K2, G2) (``_pad_plan``, or (K,
     G) when the heads divide), padded head j being slot j % G2 of kv group
-    j // G2, real when the group is below K and the slot below G.  Raises
-    ``NotImplementedError`` when the slice is neither whole GQA groups nor
-    inside one group."""
+    j // G2, real when the group is below K and the slot below G.  A
+    slice may straddle GQA groups (hymba's 25 / 5 heads: plan (5, 6) at
+    model 2 gives rank 0 groups 0 and 1 whole and half of group 2), and
+    it may hold padding only (15 / 3 heads at model 4: plan (4, 5), rank 3
+    holds group 3, past K)."""
     H, K = cfg.num_heads, cfg.num_kv_heads
     G = H // K
     plan = _pad_plan(H, K, shards) or (K, G)
     K2, G2 = plan
     count = K2 * G2 // shards
-    if count % G2 and G2 % count:
-        raise NotImplementedError(
-            f"{cfg.name}: {H} / {K} heads padded to plan {plan} give "
-            f"{count} heads a rank over {shards} model ranks, which straddle "
-            f"GQA groups of {G2}; the model axis needs whole groups or a "
-            f"slice of one")
     j0 = rank * count
-    slots, heads = [], []
+    k0 = j0 // G2
+    slots, heads, kv = [], [], []
     for s in range(count):
         kk, g = divmod(j0 + s, G2)
+        kv.append(kk - k0)
         if kk < K and g < G:
             slots.append(s)
             heads.append(kk * G + g)
-    return RankHeads(plan, count, tuple(slots), tuple(heads), j0 // G2,
-                     (j0 + count - 1) // G2 + 1)
+    return RankHeads(plan, count, tuple(slots), tuple(heads), k0,
+                     (j0 + count - 1) // G2 + 1, tuple(kv))
+
+
+def ssm_heads(cfg: ModelConfig, shards: int, rank: int) -> Tuple[int, int]:
+    """The SSD heads [h0, h1) model rank ``rank`` of ``shards`` computes:
+    whole heads, the first ``nh % shards`` ranks one more than the rest
+    where they do not divide (hymba's 50 at model 4: 13 / 13 / 12 / 12).
+    Raises ``NotImplementedError`` where a rank would hold none."""
+    nh = cfg.ssm_num_heads
+    if nh < shards:
+        raise NotImplementedError(f"{cfg.name}: {nh} SSD heads over "
+                                  f"{shards} model ranks")
+    base, extra = divmod(nh, shards)
+    h0 = rank * base + min(rank, extra)
+    return h0, h0 + base + (rank < extra)
 
 
 def _runs(heads):
@@ -257,13 +280,24 @@ _MODEL_LEAVES = {
     "moe.wi": ("experts", 0), "moe.wg": ("experts", 0),
     "moe.wo": ("experts", 0),
     "embed.tokens": ("vocab", 0), "embed.unembed": ("vocab", -1),
+    "ssm.in_x": ("inner", -1), "ssm.in_z": ("inner", -1),
+    "ssm.gate_norm": ("inner", 0), "ssm.out": ("inner", 0),
+    "ssm.in_dt": ("ssm_heads", -1), "ssm.dt_bias": ("ssm_heads", 0),
+    "ssm.A_log": ("ssm_heads", 0), "ssm.D": ("ssm_heads", 0),
+    "ssm.conv_w": ("conv", -1), "ssm.conv_b": ("conv", 0),
 }
 
 
 def _model_size(cfg: ModelConfig, what: str) -> int:
     """Elements of a leaf's model dim: the flattened heads, kv heads,
     d_ff, the stored expert rows (virtual when parts > 1), the
-    vocabulary."""
+    vocabulary, the SSM's inner width, its heads, its conv channels."""
+    if what == "inner":
+        return cfg.d_inner
+    if what == "ssm_heads":
+        return cfg.ssm_num_heads
+    if what == "conv":
+        return cfg.d_inner + 2 * cfg.ssm_num_groups * cfg.ssm_state_dim
     return {"q": cfg.num_heads * cfg.head_dim,
             "kv": cfg.num_kv_heads * cfg.head_dim, "mlp": cfg.d_ff,
             "experts": cfg.num_experts * _moe_parts(cfg),
@@ -276,9 +310,20 @@ def work_runs(cfg: ModelConfig, kind: str, n: int, rank: int):
     ``rank`` of ``n`` computes with under a split of the work: the real
     heads of its ``rank_heads`` slice (``q``), the real kv heads its
     groups use (``kv``), its d_ff slice, its ``Vloc`` virtual experts (as
-    rows of the stored experts, wrapping when replicas round E up) and its
-    rows of the vocabulary padded to a multiple of ``n``."""
+    rows of the stored experts, wrapping when replicas round E up), its
+    rows of the vocabulary padded to a multiple of ``n``, and the SSM's
+    by its ``ssm_heads``: their inner columns (``inner``), the heads
+    themselves (``ssm_heads``), and of the conv's channels their ``x``
+    channels and every B / C channel (``conv``)."""
     what = _MODEL_LEAVES[kind][0]
+    if what in ("inner", "ssm_heads", "conv"):
+        h0, h1 = ssm_heads(cfg, n, rank)
+        if what == "ssm_heads":
+            return [(h0, h1)]
+        hd, din = cfg.ssm_head_dim, cfg.d_inner
+        runs = [(h0 * hd, h1 * hd)]
+        return runs + [(din, _model_size(cfg, "conv"))] if what == "conv" \
+            else runs
     if what in ("q", "kv"):
         hd, K = cfg.head_dim, cfg.num_kv_heads
         rh = rank_heads(cfg, n, rank)
@@ -329,7 +374,18 @@ def whole(p, cfg: ModelConfig, kind: str):
 
 
 def _leaf_spec(cfg: ModelConfig, kind: str):
+    """Leaf ``kind``'s spec, or None where ``cfg``'s layers have no such
+    leaf."""
     group, leaf = kind.split(".")
+    if group == "ssm":
+        if not cfg.ssm_state_dim:
+            return None
+        from repro_torch.models.ssm import ssm_specs
+        return ssm_specs(cfg).get(leaf)
+    if group == "attn" and not cfg.uses_attention \
+            or group == "mlp" and cfg.family in ("ssm", "moe") \
+            or group == "moe" and cfg.family != "moe":
+        return None
     specs = {"attn": attention_specs, "mlp": mlp_specs, "moe": moe_specs,
              "embed": embed_specs}[group](cfg)
     return specs.get(leaf)
@@ -357,12 +413,9 @@ def leaf_rules(cfg: ModelConfig, n: int, rules=TRAIN_RULES):
     config: ``model_storage.take`` reaches the same rule from the shapes it
     is handed."""
     ctx = ShardingCtx(_ModelMesh(n), rules)
-    ffn = "moe" if cfg.family == "moe" else "mlp"
     out = {}
     for kind, (what, _) in _MODEL_LEAVES.items():
-        group = kind.split(".")[0]
-        if _leaf_spec(cfg, kind) is None or group in ("mlp", "moe") \
-                and group != ffn:
+        if _leaf_spec(cfg, kind) is None:
             continue
         out[kind] = model_storage.rule(
             _model_size(cfg, what), n, _stored_split(ctx, cfg, kind),
@@ -382,7 +435,21 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     ``wo``, so its dO is 0 and it adds no gradient.  Each weight is this
     rank's part (``work``), the K/V weights whole if ``full_kv``.  Returns
     (y, k, v): K/V of every kv head if ``full_kv`` (prefill's cache), else
-    of this rank's."""
+    of this rank's.
+
+    A slice that straddles GQA groups (not ``uniform``: its kv heads serve
+    6, 6 and 3 of its slots) expands its kv heads to one per slot by an
+    index on the head dim (``rank_heads``' ``kv``) and runs one flash call
+    with groups of one, the MHA path; the index's backward sums each
+    slot's dK / dV into its kv head.  One flash call per run of whole
+    groups would keep K/V unexpanded but launch up to three kernels a
+    layer, forward and backward, each over a few heads; the expanded K/V
+    cost G2 times the bytes of the rank's K/V, less than its q.  A rank
+    with no real head (padding only) attends over nothing: its y is the
+    product of its zero-width q with the zero rows of ``wo`` it holds plus
+    zero-width sums of its K and V, 0 but a function of every leaf it
+    took, so every rank issues the same collectives forward and backward
+    (a gathered leaf's reduce-scatter included)."""
     xin = cast(model_axis.enter(x, split, seq))
     B, S, _ = xin.shape
     K, hd = cfg.num_kv_heads, cfg.head_dim
@@ -413,6 +480,11 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     if rope:
         q = rotary(q, positions, cfg.rope_theta)
         k = rotary(k, positions, cfg.rope_theta)
+    if not rh.heads:
+        y = q.flatten(2) @ cast(part("wo"))
+        for t in (k, v):          # zero-width: K/V's gathers see a gradient
+            y = y + t.flatten(2)[..., :0].sum(-1, keepdim=True)
+        return model_axis.leave(y, split, seq), k, v
     padded = len(rh.heads) < rh.count
     if padded:
         slots = torch.tensor(rh.slots, dtype=torch.long, device=x.device)
@@ -421,6 +493,9 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     pad_kv = (rh.k1 - rh.k0) - (kr1 - kr0)
     if pad_kv:
         kl, vl = (F.pad(t, (0, 0, 0, pad_kv)) for t in (kl, vl))
+    if not rh.uniform:
+        per_slot = torch.tensor(rh.kv, dtype=torch.long, device=x.device)
+        kl, vl = (t.index_select(2, per_slot) for t in (kl, vl))
     out = ops.attention(q, kl, vl, causal=causal, window=window,
                         num_sink=num_sink)
     if padded:
@@ -978,7 +1053,11 @@ def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
     dim the guard dropped).  A leaf stored split holds its shard's whole
     gradient (``model_storage``); the norm scales, the router and a table
     used only by the lookup are used whole on replicated inputs.
-    ``specs`` is the model's spec tree (``lm.param_specs``).
+    ``specs`` is the model's spec tree (``lm.param_specs``).  Under a
+    split of the SSD heads (``ssm_inner_act``) every SSM leaf feeds only
+    the rank's heads: ``in_B``, ``in_C`` and the B / C channels of the
+    conv, which every rank uses whole, and whichever of the others the
+    guard left whole.
 
     Under sequence parallelism (``seq``, ``stack.sp_split``) a rank
     applies every leaf that acts on the residual stream token by token
@@ -993,11 +1072,12 @@ def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
     mlp_ = _mlp_split(cfg) is not None
     ep = _ep_split() is not None
     vocab = model_axis.split_for("vocab_act") is not None
+    ssm_ = model_axis.split_for("ssm_inner_act") is not None
     ctx = current_ctx()
     out = []
     for name in names:
-        group, leaf = name.split(".")[-2:]
-        if (group == "attn" and attn
+        group, leaf = ([""] + name.split("."))[-2:]      # meta_tokens: ""
+        if (group == "attn" and attn or group == "ssm" and ssm_
                 or group == "mlp" and mlp_ and leaf != "bo"
                 or group == "moe" and ep and (leaf != "router"
                                               or seq is not None)

@@ -26,7 +26,12 @@ the block, and attention and the MLP or MoE gather the sequence in and
 reduce-scatter their outputs back (``model_axis.enter`` / ``leave``).
 Serving's ``kv_seq`` (``kv_shards``): each rank's K/V cache holds a
 contiguous block of T/n slots, and decode combines the ranks' partial
-softmaxes (``layers.attention_decode``).
+softmaxes (``layers.attention_decode``).  The families with an SSM split
+its heads over the model ranks (``ssm_inner_act``, ``models/ssm.py``), so
+their SSM cache holds a rank's conv channels and heads (``ssm_shards``);
+a hybrid layer's attention and SSM are two split regions side by side,
+each summed over the ranks before ``_mix`` normalises it.  Neither family
+splits the residual stream's tokens (``sp_split``).
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from repro_torch.models.module import map_specs, stack_specs
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 # the families whose layers split their work over a model axis
-MODEL_AXIS_FAMILIES = ("dense", "moe")
+MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
@@ -357,6 +362,22 @@ def kv_shards(cfg: ModelConfig, slots: int) -> int:
     return ctx.shape["model"] if dims else 1
 
 
+def ssm_shards(cfg: ModelConfig) -> Tuple[int, int]:
+    """(n, rank): the model ranks an SSM decode cache's heads are split
+    over and this rank's place among them (``ssm_mod.ssm_cache_shapes``),
+    where the current rules map ``ssm_inner_act`` to ``"model"`` and it
+    is larger than 1, as the mixer splits its heads inside the manual
+    region (``model_axis.split_for``); else (1, 0).  Decided from the rules
+    and the mesh, inside or outside the manual region."""
+    ctx = current_ctx()
+    if ctx is None or not cfg.ssm_state_dim \
+            or ctx.mesh_axes_for("ssm_inner_act",
+                                 include_manual=True) != ("model",) \
+            or ctx.shape["model"] <= 1:
+        return 1, 0
+    return ctx.shape["model"], ctx.mesh.get_local_rank("model")
+
+
 def kv_split(cache) -> Optional[model_axis.Split]:
     """The split of ``cache``'s K/V slots over the model ranks (``Cache``'s
     ``kv_shards``), or None for a whole cache.  Raises where a cache cut
@@ -391,11 +412,13 @@ class Cache(dict):
     """The stacked decode cache, by leaf name; ``kv_shards``: how many
     blocks of slots its K/V leaves hold one of (``kv_shards``), rank r's
     block being slots [r T/n, (r + 1) T/n) of the whole ring or context,
-    as a block sharding lays them out.  A plain dict of the leaves is a
-    whole cache, and ``kv_split`` refuses one inside a ``kv_seq``
-    split."""
+    as a block sharding lays them out; ``ssm_shards``: how many model
+    ranks its SSM leaves' heads are split over (``ssm_shards``).  A plain
+    dict of the leaves is a whole cache, and ``kv_split`` refuses one
+    inside a ``kv_seq`` split."""
 
     kv_shards = 1
+    ssm_shards = 1
 
 
 def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
@@ -406,8 +429,10 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     for a ring cache, a rank's block of them where ``kv_shards`` cuts
     them; ``ssm_conv`` (bf16) and ``ssm_state`` (fp32) for one with an SSM
     (the hybrid family has both), whose size does not depend on
-    ``max_len``; for encdec the cross K/V ``cross_k`` / ``cross_v``
-    (``kv_dtype``) over the ``max_source_positions`` encoder outputs."""
+    ``max_len``, and this rank's channels and heads of them where
+    ``ssm_shards`` splits the heads; for encdec the cross K/V ``cross_k``
+    / ``cross_v`` (``kv_dtype``) over the ``max_source_positions``
+    encoder outputs."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}
@@ -418,7 +443,7 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
         out["k"] = (kvshape, kv_dtype)
         out["v"] = (kvshape, kv_dtype)
     if cfg.ssm_state_dim:
-        shapes = ssm_mod.ssm_cache_shapes(cfg, batch)
+        shapes = ssm_mod.ssm_cache_shapes(cfg, batch, *ssm_shards(cfg))
         out["ssm_conv"] = ((L,) + shapes["conv"][0], shapes["conv"][1])
         out["ssm_state"] = ((L,) + shapes["state"][0], shapes["state"][1])
     if cfg.encoder_layers:
@@ -433,10 +458,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                kv_dtype=torch.bfloat16) -> Cache:
     """A zero ``Cache`` of ``cache_shapes``; under rules that map
     ``kv_seq`` to a model axis of n that divides its slots, this rank's
-    block of them (``kv_shards`` n)."""
+    block of them (``kv_shards`` n); under rules that split the SSD heads
+    over n model ranks, this rank's SSM leaves (``ssm_shards`` n)."""
     shapes = cache_shapes(cfg, batch, max_len, kv_dtype=kv_dtype)
     cache = Cache({k: torch.zeros(s, dtype=d, device=device)
                    for k, (s, d) in shapes.items()})
     if cfg.uses_attention:
         cache.kv_shards = kv_shards(cfg, kv_slots(cfg, max_len))
+    cache.ssm_shards = ssm_shards(cfg)[0]
     return cache

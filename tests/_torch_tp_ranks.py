@@ -1,5 +1,6 @@
 """One rank of the port's model-axis CPU tests
-(``tests/test_torch_model_axis.py``, ``tests/test_torch_model_storage.py``).
+(``tests/test_torch_model_axis.py``, ``tests/test_torch_model_storage.py``,
+``tests/test_torch_seq_axis.py``, ``tests/test_torch_ssm_axis.py``).
 
 Run by ``_torch_support.spawn_ranks(..., module="_torch_tp_ranks")`` as
 
@@ -618,11 +619,217 @@ def job_kv_serve(inp, tag, rank, workdir):
     return out
 
 
+def job_ssm_pieces(inp, tag, rank, workdir):
+    """The families with an SSM at this mesh's model axis
+    (``tests/test_torch_ssm_axis.py``): attention over head slices that
+    straddle GQA groups or hold padding only, and the SSM mixer split by
+    heads (forward, every gradient summed over the model ranks, the
+    collectives of each pass), then its prefill and decode steps with
+    this rank's cache."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.distributed.sharding_rules import (model_rank,
+                                                        model_size,
+                                                        rules_for, use_rules)
+    from repro_torch.models import layers as ll
+    from repro_torch.models import ssm as ssm_mod
+    mesh = make_mesh(tag)
+    n, r = model_size(mesh), model_rank(mesh)
+    out = {}
+    with use_rules(mesh, rules_for("train")) as ctx, \
+            ctx.manual_region(("data",)):
+        for name, c in inp["ssm_attn"].items():
+            cfg = port_config(c["arch"], c["overrides"])
+            p = _tensors(c["params"])
+            x = torch.tensor(c["x"], requires_grad=True)
+            B, S, _ = x.shape
+            pos = torch.arange(S)[None].expand(B, S)
+            y, _, _ = ll.attention(p, cfg, x, positions=pos,
+                                   window=c["window"],
+                                   num_sink=c["num_sink"])
+            y.backward(torch.from_numpy(c["dy"]))
+            grads = {k: v.grad for k, v in p.items()}
+            _sum_partial(grads, list(grads), mesh)
+            out["attn", name] = dict(
+                y=y.detach().numpy(), dx=x.grad.numpy(),
+                grads={k: v.numpy() for k, v in grads.items()},
+                heads=ll.rank_heads(cfg, n, r))
+        for name, c in inp["ssm_mixer"].items():
+            cfg = port_config(c["arch"], c["overrides"])
+            p = _tensors(c["params"])
+            x = torch.tensor(c["x"], requires_grad=True)
+            model_axis.collectives.clear()
+            y = ssm_mod.ssm(p, cfg, x)
+            forward = dict(model_axis.collectives)
+            y.backward(torch.from_numpy(c["dy"]))
+            backward = dict(model_axis.collectives)
+            grads = {k: v.grad for k, v in p.items()}
+            _sum_partial(grads, list(grads), mesh)
+            with torch.no_grad():
+                p = _tensors(c["params"], grad=False)
+                y0, cache = ssm_mod.ssm(p, cfg, torch.from_numpy(c["x"]),
+                                       return_state=True)
+                steps = []
+                for i in range(c["x_dec"].shape[1]):
+                    yi, cache = ssm_mod.ssm_decode(
+                        p, cfg, torch.from_numpy(c["x_dec"][:, i:i + 1]),
+                        cache)
+                    steps.append(yi.numpy())
+            out["ssm", name] = dict(
+                y=y.detach().numpy(), dx=x.grad.numpy(),
+                grads={k: v.numpy() for k, v in grads.items()},
+                forward=forward, backward=backward,
+                heads=ll.ssm_heads(cfg, n, r), prefill=y0.numpy(),
+                decode=np.concatenate(steps, 1),
+                conv=cache["conv"].float().numpy(),
+                state=cache["state"].numpy())
+    return out
+
+
+def job_ssm_step(inp, tag, rank, workdir):
+    """The ``dp_manual`` step of each SSM-family run of this mesh on a
+    state built on the storage plan from ``repro``'s parameters (an arch
+    marked ``compress`` with int8 error-feedback compression): every
+    leaf gathered after the step, the first moments, loss, grad norm, the
+    bytes held against the shards', the shapes of the shards and of the
+    error feedback, the partial leaves, and the leaves
+    summed over the model ranks beside those whose gradient differed
+    across them before that sum.  The first run's state is saved
+    (``ckssm_<tag>``)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.models import stack as stk
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, param_plan,
+                                              param_shapes)
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out, first = {}, None
+    real_sum = dp_shard.model_psum
+    for name in inp["ssm_step_runs"][tag]:
+        c = inp["ssm_archs"][name]
+        tcfg = dataclasses.replace(inp["step_config"],
+                                   compress_grads=c.get("compress", False))
+        cfg = port_config(c["arch"], c["overrides"])
+        batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+        seen = {}
+
+        def spy(grads, names, mesh_):
+            seen["summed"] = list(names)
+            seen["differ"] = _differ_over_model(grads, mesh_)
+            return real_sum(grads, names, mesh_)
+
+        with use_rules(mesh, rules_for("train")) as ctx:
+            plan = param_plan(cfg, ctx)
+            model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                    trainable=True, plan=plan)
+            state = init_train_state(model, None, tcfg, device="cpu")
+            held = _held_bytes(state)
+            shards = 4 * (3 + tcfg.compress_grads) * sum(
+                int(np.prod(plan.local_shape(k, v)))
+                for k, v in param_shapes(cfg).items())
+            step = make_train_step(state.model, tcfg)
+            local = dp_shard.local_rows(mesh, batch)
+            with ctx.manual_region(dp_shard.manual_axes(mesh)):
+                partial = ll.model_partial_leaves(cfg, param_specs(cfg),
+                                                  state.params)
+                sp = stk.sp_split(cfg, local["tokens"].shape[1])
+            dp_shard.model_psum = spy
+            try:
+                state, m = step(state, local)
+            finally:
+                dp_shard.model_psum = real_sum
+            out[name] = dict(
+                path=step.path, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]), held=held, shards=shards,
+                params={k: plan.full(k, p.detach()).numpy()
+                        for k, p in state.params.items()},
+                mu={k: plan.full(k, v).numpy()
+                    for k, v in state.opt.mu.items()},
+                err_shapes=None if state.err is None else
+                {k: tuple(v.shape) for k, v in state.err.items()},
+                shapes={k: tuple(p.shape) for k, p in state.params.items()},
+                plan=dict(plan.dims), partial=partial, sp=sp, **seen)
+        if first is None:
+            first = state
+    Checkpointer(os.path.join(workdir, f"ckssm_{tag}")).save(
+        1, first, aux={"mesh": tag}, block=True)
+    return out
+
+
+def job_ssm_restore(inp, tag, rank, workdir):
+    """Restore the other mesh's SSM-family checkpoint into a template of
+    its run built on this mesh's storage plan: every leaf gathered
+    back."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models.convert import from_jax_params, to_jax_named
+    from repro_torch.train.train_step import init_train_state, param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    c = inp["ssm_archs"][inp["ssm_step_runs"][tag][0]]
+    cfg = port_config(c["arch"], c["overrides"])
+    src = inp["ssm_restore_from"][tag]
+    with use_rules(mesh, rules_for("train")) as ctx:
+        plan = param_plan(cfg, ctx)
+        state = init_train_state(from_jax_params(
+            cfg, unflatten(c["tree"]), device="cpu", trainable=True,
+            plan=plan), None, inp["step_config"], device="cpu")
+        state, aux = Checkpointer(
+            os.path.join(workdir, f"ckssm_{src}")).restore(
+                state, shardings=state.plan)
+        named = to_jax_named(state)
+    return dict(named=named, aux=aux)
+
+
+def job_ssm_serve(inp, tag, rank, workdir):
+    """Prefill and greedy decode through ``_serve_wrap`` of each SSM-family
+    serve run of this mesh under the serving rules, the model on their
+    storage plan: this rank's rows' logits at every step, its cache's
+    K/V blocks and SSM leaves, their cuts."""
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import (model_rank,
+                                                        rules_for, use_rules)
+    from repro_torch.models import layers as ll
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out = {}
+    for run in inp["ssm_serve_runs"][tag]:
+        c = inp["ssm_serve"][run]
+        cfg = port_config(c["arch"], c["overrides"])
+        with use_rules(mesh, rules_for("prefill")) as ctx:
+            plan = param_plan(cfg, ctx)
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                plan=plan)
+        prompts = torch.from_numpy(c["prompts"])
+        rows = prompts.shape[0] // dp_shard.manual_size(mesh)
+        logits, cache = _greedy(
+            model, lambda kind: use_rules(mesh, rules_for(kind)), prompts,
+            c["steps"], c["max_len"], rows)
+        res = dict(logits=logits.numpy(), kv_shards=cache.kv_shards,
+                   ssm_shards=cache.ssm_shards,
+                   heads=ll.ssm_heads(cfg, cache.ssm_shards,
+                                      model_rank(mesh)),
+                   ssm_state=cache["ssm_state"].numpy(),
+                   ssm_conv=cache["ssm_conv"].float().numpy())
+        if "k" in cache:
+            res.update(k=cache["k"].numpy(), v=cache["v"].numpy())
+        out[run] = res
+    return out
+
+
 JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
         "serve": job_serve, "storage_step": job_storage_step,
         "storage_restore": job_storage_restore, "lookup": job_lookup,
         "serve_big": job_serve_big, "seq_step": job_seq_step,
-        "kv_serve": job_kv_serve}
+        "kv_serve": job_kv_serve, "ssm_pieces": job_ssm_pieces,
+        "ssm_step": job_ssm_step, "ssm_restore": job_ssm_restore,
+        "ssm_serve": job_ssm_serve}
 
 
 def main() -> None:

@@ -271,7 +271,7 @@ def test_torch_dp_step_takes_plain_path_when_not_divisible():
 
 def test_torch_model_axis_raises():
     """Under a model axis of 2 a family the model axis does not cover (the
-    ssm family) raises, naming itself; the dense and moe families run, and
+    vlm) raises, naming itself; the dense, moe and ssm families run, and
     outside the manual region of the batch axes no layer splits its work
     (``model_axis.split_for`` is None), so their loss is the loss at a
     model axis of 1."""
@@ -282,7 +282,8 @@ def test_torch_model_axis_raises():
     from repro_torch.models.module import init_params
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.long),
              "targets": torch.zeros((2, 8), dtype=torch.long)}
-    for arch in ("mamba2-780m", "qwen2-0.5b", "granite-moe-3b-a800m"):
+    for arch in ("phi-3-vision-4.2b", "mamba2-780m", "qwen2-0.5b",
+                 "granite-moe-3b-a800m"):
         cfg = reduced(get_config(arch))
         model = build_model(cfg, init_params(
             param_specs(cfg), torch.Generator().manual_seed(0)), device="cpu")
@@ -292,13 +293,13 @@ def test_torch_model_axis_raises():
             assert torch.isfinite(one)
         with use_rules(AbstractMesh((1, 2), ("data", "model")),
                        rules_for("train")):
-            if cfg.family == "ssm":
-                with pytest.raises(NotImplementedError, match="'ssm'"):
+            if cfg.family == "vlm":
+                with pytest.raises(NotImplementedError, match="'vlm'"):
                     model.loss(batch)
             else:
                 assert float(model.loss(batch)[0]) == float(one)
             for logical in ("heads_act", "mlp_act", "experts_virt",
-                            "vocab_act"):
+                            "vocab_act", "ssm_inner_act"):
                 assert model_axis.split_for(logical) is None
 
 
