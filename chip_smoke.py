@@ -133,12 +133,13 @@ Phases, each printing one JSON line:
    coarse flash (the path has no rmsnorm), plus the encoder's output held
    apart from the logits; ``handoff_encdec`` as for hymba, where a slot
    handed its neighbour's cross K/V must fail the bf16 decode bound.
-7. train: full-width mamba2-780m, bf16 compute with fp32 masters and
+7. train: mamba2-780m at its published widths and 24 of its 48 layers
+   (cut to fit the time limit), bf16 compute with fp32 masters and
    AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
    tokens made from the seed, through ``init_train_state`` ->
    ``make_train_step`` -> ``DecoderLM.loss``.  A warm-up step, then four
    timed steps with the launch counters zeroed before and read after
-   (exactly 48 ssd_scan and 97 rmsnorm launches per forward); finite,
+   (exactly 24 ssd_scan and 49 rmsnorm launches per forward); finite,
    falling losses starting near ln(vocab); step time, tokens/s and peak
    memory; one step under the profiler, which must show the SSD stage
    kernels; one step with remat "full", whose
@@ -163,8 +164,8 @@ Phases, each printing one JSON line:
 11. train_stream: a DPT-tuned loader over a token dataset (64 x 2048
    tokens) streams int32 batches through the CUDA edge into four steps of
    the phase 7 train state: the first batch equals the host batch byte for
-   byte, losses are finite and fall, launches are exactly 48 ssd_scan and
-   97 rmsnorm a step; one streamed step under the profiler.
+   byte, losses are finite and fall, launches are exactly 24 ssd_scan and
+   49 rmsnorm a step; one streamed step under the profiler.
 12. hot_swap: the OnlineTuner's act step on the live CUDA edge: a stream
    of 16 ImageNet-crop batches starts at (2 workers, prefetch 2) and
    ``apply_params`` swaps in (4, 3) after batch 5; every delivered tensor
@@ -179,19 +180,20 @@ Phases, each printing one JSON line:
    the mean step per phase and each search's seconds; then the degraded
    storage's steady step without the tuner at the start and at the pick,
    which must be the faster.
-14. trainer: ``Trainer`` on full-width mamba2-780m (phase 7's state is
+14. trainer: ``Trainer`` on full-width mamba2-780m at 12 of its 48 layers
+   (cut to fit the time limit; phase 7's state is
    released first) over phase 11's token data, DPT cache and checkpoints
    in a temporary directory removed at the end.  Run A trains 4 steps
    straight (DPT runs and fills the cache); B1 trains 2 steps and saves a
-   blocking checkpoint (9.36 GB in ``repro``'s on-disk layout); B2 resumes
+   blocking checkpoint (3.0 GB in ``repro``'s on-disk layout); B2 resumes
    it and trains to step 4, saving asynchronously at step 3 during step
    4's compute.  B1 and B2 tune from the cache (no trial, A's pick); B2
    starts at step 2 with every restored leaf bit-equal to B1's live state;
-   B2's losses within 2e-3 of A's; launches exactly 48 ssd_scan and 97
+   B2's losses within 2e-3 of A's; launches exactly 12 ssd_scan and 25
    rmsnorm a step.  Free disk for three checkpoints is checked first.
 15. fleet_train: the fleet control plane (the scenario of
-   ``benchmarks/bench_fleet.py``) with a full-width mamba2-780m ``Trainer``
-   on the card as host 0, attached with ``connect_fleet``, beside two
+   ``benchmarks/bench_fleet.py``) with phase 7's mamba2-780m (24 layers)
+   in a ``Trainer`` on the card as host 0, attached with ``connect_fleet``, beside two
    host-side loaders attached with ``connect_host``, over a
    ``FaultyTransport`` (seeded drops and duplicates) to a
    ``CoordinatorServer`` with a standby ``CoordinatorReplica``, a
@@ -207,7 +209,7 @@ Phases, each printing one JSON line:
    Every index of the epoch across the death is delivered exactly once
    (and not without the makeup); every card batch equals the host batch
    its samplers name, byte for byte, in the order they name it; losses
-   finite and falling; exactly 48 ssd_scan and 97 rmsnorm launches a step.
+   finite and falling; exactly 24 ssd_scan and 49 rmsnorm launches a step.
    The line has the events with their rounds, each step's wall and device
    time and local batch, the peak memory and the transport's counts.
 16. fleet_serve: full-width qwen2-0.5b's ``BatchingFrontend`` attached
@@ -220,14 +222,14 @@ Phases, each printing one JSON line:
    to their host batches, launches exactly those of the prefills and
    decode steps served.
 17. dp_train: the data-parallel step (``distributed/dp_shard.py``,
-   ``make_train_step`` with ``dp_manual``) on full-width mamba2-780m over a
+   ``make_train_step`` with ``dp_manual``) on phase 7's mamba2-780m over a
    one-rank NCCL group (a ``FileStore`` in a temporary directory), under
    ``use_rules(make_local_mesh(), rules_for("train"))``: phase 7's masters
    and batch, 2 microbatches of 2 x 2048, remat "none".  One dp step
    against the plain step over the whole batch from identical masters
    (loss, gradient norm, every leaf's update cosine), and a control
-   without the deferred scale's 1/n_mb that must fail it; exactly 96
-   ssd_scan and 194 rmsnorm launches a step, no flash; ``compressed_psum``
+   without the deferred scale's 1/n_mb that must fail it; exactly 48
+   ssd_scan and 98 rmsnorm launches a step, no flash; ``compressed_psum``
    over the step's gradients on NCCL equal to ``compress_decompress`` at
    world 1; a sharded checkpoint (published widths, 4 layers) restored
    through ``restore(shardings=)`` bit-equal.  The line has three timed
@@ -245,20 +247,23 @@ Phases, each printing one JSON line:
    check, exactly 24 flash forward and 24 backward launches a step at
    "none" (48 / 24 at "dots"), then timed steps (step s, tokens/s, peak
    memory) and a profiled one (idle share, device time by group).
-19. trainer_dense: the ``Trainer`` on the same model, remat "dots", over
+19. trainer_dense: the ``Trainer`` on the same model at 12 of its 24
+   layers (cut to fit the time limit), remat "dots", over
    LCG token data (``examples/torch_train_lm.py``'s ``lcg_dataset``, ids
    under 4,096): a startup DPT grid tune, 4 steps with the loss falling,
    2 steps and a blocking checkpoint, a resume whose restored state is
    bit-equal and whose steps give the straight run's losses; exact
    launches; then ``examples/torch_train_lm.py --preset smoke`` on the
    card, whose assertion that the loss fell must hold.
-20. tp_train: the model axis trains uncut qwen2-0.5b on (data 1, model
-   4), four ranks on the one card in a gloo group (NCCL refuses two ranks
-   on one device), each collective staged through host memory.  Each rank
+20. tp_train: the model axis trains qwen2-0.5b at its published widths
+   and 6 of its 24 layers (cut to make room for phase 23) on
+   (data 1, model 4), four ranks on the one card in a gloo group (NCCL
+   refuses two ranks on one device), each collective staged through host
+   memory.  Each rank
    holds only its shards of the storage plan, built leaf by leaf (held
    bytes equal to the sum of its shards' sizes, no model-mapped leaf at
    its whole shape): heads padded to (2, 8), 4 / 1 a rank, its attention
-   leaves gathered over the model ranks once a layer (exactly 7 x 24
+   leaves gathered over the model ranks once a layer (exactly 7 x 12
    gathers a rank), the d_ff and vocabulary shards (37,984 rows) used as
    they are; one ``dp_manual`` step of 2 x 512 at remat "none" against the
    one-rank step on the same masters (loss, grad norm, every leaf's
@@ -266,19 +271,19 @@ Phases, each printing one JSON line:
    within 2x the bf16 noise floor of its kind of leaf, the largest
    distance over the layers between the one-rank gradients through the
    kernels and the plain twins), every leaf the ranks hold whole
-   bit-equal across them, exactly 24 / 24 flash launches and 49 rmsnorm
+   bit-equal across them, exactly 12 / 12 flash launches and 25 rmsnorm
    a rank; a control with layer 0's attention combine left out must fail.
    The step is sequence-parallel, as TRAIN_RULES' ``seq_res`` says
    (``stack.sp_split``): each layer receives its rank's block of the
    residual stream, (2, 128, 896), and the collectives a step are those
-   the plan implies (``sp_plan``: 98 all-gathers and 98 reduce-scatters
+   the plan implies (``sp_plan``: 50 all-gathers and 50 reduce-scatters
    of activations over "model", the cross-entropy's two sums and one max,
    the leaf gathers, one all-reduce a partial leaf, none over the data
    axis of one, whose group of one issues nothing); a second control,
    every ``scatter_seq`` slicing without its sum, must fail too.  The
    ranks' checkpoint is restored in this process at world 1: every
    shard's checksum equal to its rank's, and a world-1 save of it writes
-   the ranks' manifest.  After their step the ranks serve uncut qwen2
+   the ranks' manifest.  After their step the ranks serve the same qwen2
    under SERVE_RULES (``tp_kv_serve``): a K/V cache of 1,024 slots, 256 a
    rank (``kv_seq``), prompts of 4 x 252 (decode crosses into the next
    rank's block) and 2 x 24 (ranks 1-3 see no key), 8 greedy steps
@@ -294,13 +299,14 @@ Phases, each printing one JSON line:
    staged through the host, or the phase fails), collectives by kind,
    what each rank holds, each rank's peak memory beside the whole
    layout's; times are not speeds.
-20b. tp_train_big: uncut qwen3-1.7b (1.72 B parameters) on (data 1,
-   model 4), aligned everywhere: 4 / 2 heads of 128, 1,536 d_ff columns
-   and 37,984 vocabulary rows a rank, no gather over the model ranks;
-   the one-rank step first in this process (27.5 GB of fp32 state), then
-   the ranks' step held as in phase 20, each rank's peak below 27.5 GB,
-   exactly 28 / 28 flash launches and 113 rmsnorm (qk-norm's two a layer)
-   a rank, sequence-parallel as phase 20 with the same collective and
+20b. tp_train_big: qwen3-1.7b at its published widths and 8 of its 28
+   layers (cut to fit the time limit; 0.71 B parameters) on (data 1, model 4),
+   aligned everywhere: 4 / 2 heads of 128, 1,536 d_ff columns and 37,984
+   vocabulary rows a rank, no gather over the model ranks; the one-rank
+   step first in this process (16.3 GB of fp32 state), then the ranks'
+   step held as in phase 20, each rank's peak below the whole layout's
+   state, exactly 14 / 14 flash launches and 57 rmsnorm (qk-norm's two a
+   layer) a rank, sequence-parallel as phase 20 with the same collective and
    residual checks; the vocabulary-parallel lookup without its sum and
    the reduce-scatters without theirs must each fail.
 21. ep_serve: the model axis serves granite-moe-3b-a800m at its
@@ -323,9 +329,9 @@ Phases, each printing one JSON line:
    cache: the 520 slots the prompt and steps write, 260 a rank.
 22. tp_hybrid / tp_ssm: the families with an SSM under the model axis,
    two gloo ranks on (data 1, model 2) spawned once for both models:
-   hymba-1.5b and mamba2-780m at their published widths and 4 layers each
-   (hymba's layer 0 global, the others windowed with the 128 meta tokens
-   as sinks).  Hymba's 25 / 5 heads pad to (5, 6), 15 a rank over 3 kv
+   hymba-1.5b and mamba2-780m at their published widths and 2 layers each
+   (hymba's layer 0 global, layer 1 windowed with the 128
+   meta tokens as sinks).  Hymba's 25 / 5 heads pad to (5, 6), 15 a rank over 3 kv
    heads that its slots straddle (the kv heads expanded to one a slot,
    flash with groups of one); each model's SSD heads split whole (25 and
    24 a rank), the gate norm over each rank's part of the row with its
@@ -346,7 +352,33 @@ Phases, each printing one JSON line:
    within 1e-5 of its head slice's largest entry, K/V blocks within 1e-4;
    a control (hymba: no lse weights; mamba2: the norm's sums left out)
    must fail.
-23. kernels: one line listing every ported kernel with its launches on the
+23. tp_vlm / tp_encdec: the vlm and encdec families under the model axis,
+   two gloo ranks on (data 1, model 2) spawned once for both:
+   phi-3-vision-4.2b at its published widths and 4 layers (16 / 16 heads
+   of 96 a rank, every leaf aligned; its 576 patches projected whole on
+   every rank and prepended to the text after the vocabulary-parallel
+   lookup; the residual whole) and whisper-large-v3 at its published
+   widths with 2 encoder and 2 decoder layers (10 / 10 heads of 64 a
+   rank in the encoder, the decoder's self- and cross-attention; both
+   stacks sequence-parallel under TRAIN_RULES: 750 of the 1,500 frames
+   and 112 of the 224 tokens a rank, the encoder's output gathered whole
+   once for the cross-attention).  Each steps once on its storage plan
+   (the vlm 2 x (576 + 512), whisper 2 x 224 behind its frames) against
+   the one-rank step on the same masters (phase 20's limits; the
+   residual each layer received, the collectives by kind as
+   ``ve_collective_plan`` predicts, no gather over "model", bytes held
+   equal to the shards', exact launches), with a control that must fail
+   (the vlm: the lookup without its sum; whisper: cross-attention's
+   per-rank outputs unsummed), then serves under SERVE_RULES: prefill
+   with seeded patches or frames and 8 greedy steps teacher-forced with
+   the one-rank fp32 tokens over a cache cut on ``kv_seq`` (the vlm's
+   1,096 slots in blocks of 548; whisper's 232 in blocks of 116 and its
+   cross K/V in blocks of 750 encoder positions): fp32 cosine >= 0.9999
+   and equal tokens, bf16 within 1.5x the one-rank distance + 1e-4, each
+   fp32 block within 1e-4 of the one-rank cache's largest entry after
+   the prefill and after the steps; an equal-weight combine (whisper: of
+   the cross cache alone) must fail.
+24. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
    launches by path, errors and times (``backward_*``); the split-row
    pair's two kernels each have their row, with ``F.rms_norm`` over the
@@ -448,6 +480,10 @@ PEAK_BYTES = 3.35e12
 # serves bf16
 TOL = {"bfloat16": (2 ** -8, 2e-3), "float32": (2e-5, None)}   # attention
 FLASH_KEY_TILE = 64     # MMA_BK of csrc/flash_attention.cu
+# the partial form's lse (fp32 from either dtype's inputs, summed in
+# another order than ref.mha_partial's): absolute and relative; 18 keys
+# counted at score 0 past T = 750 move it by ~1e-2 (checked)
+TOL_LSE = 1e-4
 TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm, rmsnorm_residual
 # ssd_scan: (rtol, atol as a fraction of max |y|).  fp32: fp32 inside
 # both, but the chunk's cumsum of dt*A reaches about -180 at chunk 256 and
@@ -506,12 +542,16 @@ RING_REDUCED = {
 # phases 7-8: full-width training workload
 TRAIN_ARCH = "mamba2-780m"
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# the training phases 7-8, 11, 15 and 17 run it at its published widths
+# and TRAIN_LAYERS of its 48 layers (cut to fit the time limit on a slow
+# host, PERF.md section 4); the serving phase keeps all 48
+TRAIN_LAYERS = 24
 TRAIN_STEPS = 4                          # timed, after one warm-up step
 # phase 8 tolerances: the kernel path's loss and gradients against the
 # plain twins' on the same parameters and batch.  In bf16 compute the
 # activations are rounded at the same places on both paths; what differs
 # is summation order inside the SSD scan and the norms, which flips the
-# odd bf16 rounding and compounds over 48 layers.  The in_B / in_C
+# odd bf16 rounding and compounds over the layers.  The in_B / in_C
 # gradients sum all 48 heads' contributions, which largely cancel, so
 # single leaves there carry that noise at full size: bf16 is held on the
 # loss and the mean leaf cosine, and every leaf is held in fp32 compute,
@@ -533,20 +573,34 @@ HOT_SWAP_AFTER = 5              # phase 12: batches before apply_params
 # what differs is the order of atomic adds on the card).
 TRAINER_STEPS = 4
 TRAINER_LOSS_ATOL = 2e-3
+# its mamba2-780m at published widths and TRAINER_LAYERS of its 48 layers:
+# three runs write three checkpoints of the masters and both moments and
+# restore one, 9.4 GB each at full depth, and the phase took 95 s on a
+# slow host (PERF.md section 4); the restart's exactness and the DPT
+# cache do not depend on depth
+TRAINER_LAYERS = 12
 
 # phase 15: the fleet control plane with the card as host 0 (the scenario
 # of benchmarks/bench_fleet.py).  Global batch 12 over three hosts, 4 rows
-# of 2,048 tokens each, 20 batches to the first epoch; every host's
+# of 2,048 tokens each, FLEET_BPE batches to the first epoch; every host's
 # storage pays FLEET_LATENCY_S an item.  host1's storage is 25x slower
-# from round 2 (a batch then takes ~2.5 s against a ~1.4 s card step: a
-# straggler) until the fleet's straggler re-consensus, when it recovers;
-# host2 falls silent from round 5, or the round after that consensus;
-# the leader crashes a round after the reshard.  The coordinator, its
-# lease and the heartbeats run on a clock the phase moves on by one each
-# round (one card step), and every host reads its goodput over the last
-# two rounds.  The token rows draw from the first 4,096 ids, so the loss
-# has somewhere to fall.
-FLEET_GB, FLEET_BPE = 12, 20
+# from round 2 (a batch then takes ~2.5 s against a card step of ~0.7 s
+# at TRAIN_LAYERS: a straggler) until the fleet's straggler re-consensus,
+# when it recovers; host2 falls silent from round 5, or the round after
+# that consensus; the leader crashes a round after the reshard.  The
+# coordinator, its lease and the heartbeats run on a clock the phase
+# moves on by one each round (one card step), and every host reads its
+# goodput over the last two rounds.  The token rows draw from the first
+# 4,096 ids, so the loss has somewhere to fall.
+# The reshard latches the new global batch at the first epoch that no
+# survivor's producer can have reached: its position plus what its
+# pipeline holds (4 batches at the cell (2, 1)), and a producer runs
+# about that far ahead of the rounds, so the latch is epoch 1 while the
+# reshard comes by round FLEET_BPE - 8.  With a card step of ~1.4 s (48
+# layers) the reshard came at round 12, or 13 on a slower host, which
+# latched at epoch 2 with 20 batches; at ~0.7 s it came at round 9
+# (PERF.md section 6).  26 batches leave room for either.
+FLEET_GB, FLEET_BPE = 12, 26
 FLEET_LATENCY_S = 0.05
 FLEET_DEGRADE, FLEET_DEGRADE_AT = 25.0, 2
 FLEET_DEATH_AT = 5
@@ -621,6 +675,16 @@ BWD_CASES = {
     "tp_rank": ((2, 512, 512, 4, 1, 64), {}),
     # phase 20b's: qwen3 at model 4 holds 4 / 2 heads of 128, a cluster of 2
     "tp_big_rank": ((2, 512, 512, 4, 2, 128), {}),
+    # phase 23's: phi-3-vision at model 2 holds 16 / 16 heads of 96 over
+    # 576 patches and 512 text tokens; whisper 10 / 10 of 64: its
+    # encoder's non-causal 1,500 x 1,500, the cross-attention's 224
+    # queries over the 1,500 frames, the decoder's causal 224 x 224
+    "tp_vlm_rank": ((2, 1088, 1088, 16, 16, 96), {}),
+    "tp_whisper_enc_rank": ((2, 1500, 1500, 10, 10, 64),
+                            dict(causal=False)),
+    "tp_whisper_cross_rank": ((2, 224, 1500, 10, 10, 64),
+                              dict(causal=False)),
+    "tp_whisper_self_rank": ((2, 224, 224, 10, 10, 64), {}),
 }
 
 # phases 18-19: the dense LM trained at full width and depth (qwen2-0.5b:
@@ -646,6 +710,11 @@ DOTS_LOSS_REL, DOTS_MIN_COSINE = 1e-6, 0.99999
 DENSE_CONTROL_BITS = 2
 DENSE_STEPS = 2
 DENSE_TRAINER_STEPS = 4
+# phase 19's Trainer runs qwen2-0.5b at its published widths and
+# DENSE_TRAINER_LAYERS of its 24 layers (cut to fit the time limit on a
+# slow host): the restart's exactness and the DPT cache do not depend on
+# depth; phase 18 keeps all 24
+DENSE_TRAINER_LAYERS = 12
 DENSE_LCG_VOCAB = 4096
 EXAMPLE_STEPS = 100
 
@@ -663,7 +732,9 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # their tensors and the phase fails unless all went through the host),
 # each rank's compute runs on the card.  Their
 # step and prefill times are not speeds: the ranks share one card and the
-# collectives cross the host.  Phase 20 (tp_train): uncut qwen2-0.5b on
+# collectives cross the host.  Phase 20 (tp_train): qwen2-0.5b at its
+# published widths and TP_LAYERS of its 24 layers (the depth the card's
+# time allows beside phase 23 on a slow host, PERF.md section 4) on
 # (data 1, model TP_MODEL), padding plan (2, 8): 4 / 1 heads of 64 a rank
 # and a vocabulary slice of 37,984 rows; one dp_manual step of TP_BATCH x
 # TP_SEQ at remat "none" against the one-rank step on the same masters
@@ -690,19 +761,24 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # cosines summed over the ranks' shards, and the leaves every rank holds
 # whole bit for bit.  The ranks' checkpoint is restored here at world 1:
 # every shard's checksum equal to its rank's, the manifest a world-1
-# save's.  Phase 20b (tp_train_big): uncut qwen3-1.7b (28 layers, d_model
-# 2,048, 16 / 8 heads of 128 with qk-norm, d_ff 6,144, tied vocabulary of
-# 151,936) on (data 1, model BIG_MODEL), every leaf aligned: 4 / 2 heads,
+# save's.  Phase 20b (tp_train_big): qwen3-1.7b at its published widths
+# (d_model 2,048, 16 / 8 heads of 128 with qk-norm, d_ff 6,144, tied
+# vocabulary of 151,936) and BIG_LAYERS of its 28 layers (the depth the
+# card's time allows beside phase 23) on (data 1, model BIG_MODEL), every
+# leaf aligned: 4 / 2 heads,
 # 1,536 d_ff columns and 37,984 vocabulary rows a rank, no gather over
 # "model"; one dp_manual step of BIG_BATCH x BIG_SEQ at remat "none"
 # against the one-rank step held as phase 20's, each rank's peak below
-# the whole layout's fp32 state alone (1.72 B x 16 bytes, 27.5 GB); the
+# the whole layout's fp32 state alone (uncut 1.72 B x 16 bytes, 27.5 GB;
+# at 8 layers 0.71 B, 11.4 GB); the
 # vocabulary-parallel lookup without its all-reduce must fail.
 # Phase 21 (ep_serve): granite-moe-3b-a800m at its published widths and
 # EP_LAYERS of its 32 layers (each rank stages every layer's data-sharded
 # experts through the host at every call: 201 s for the phase uncut, PR
 # 25, too long beside the kv_seq check; the depth is the cut the budget
-# allows, no width or expert count is) on (data EP_DATA, model
+# allows, no width or expert count is; at 4 layers its bf16 check read
+# 0.9806 against a limit of 0.9883 on an NVIDIA H100 80GB HBM3 at 700 W,
+# so it stays at 8) on (data EP_DATA, model
 # EP_MODEL) through _serve_wrap under SERVE_RULES_BIG, its bf16 weights
 # stored as the plan's shards: the embed dim over "data", gathered a layer
 # at a time; heads over "model" (12 / 4 a rank); the 40 experts (no
@@ -733,15 +809,21 @@ DRIFT_STEADY_WARMUP, DRIFT_STEADY = 8, 48
 # does.  A rank that outlives RANK_TIMEOUT_S fails the phase, and every
 # rank is killed
 TP_ARCH, TP_MODEL, TP_BATCH, TP_SEQ = "qwen2-0.5b", 4, 2, 512
+TP_LAYERS = 6
 TP_LOSS_REL, TP_NORM_REL, TP_MIN_COSINE = 2e-3, 5e-3, 0.999
 TP_FLOOR_RATIO = 2.0
-TP_WHOLE_PEAK_GB = 14.4     # a rank's peak with every leaf whole (PERF.md)
+# the model-axis steps' second control: every reduce-scatter of the
+# sequence-parallel residual a slice without its sum
+SCATTER_CONTROL = "every scatter_seq slicing without its sum"
+# a rank's peak with every leaf whole, at 24 layers (PERF.md)
+TP_WHOLE_PEAK_GB = 14.4
 RING_SHAPE = (4096, 896, 4864)          # (m, k, f) of ring_weight_matmul
 BIG_ARCH, BIG_MODEL, BIG_BATCH, BIG_SEQ = "qwen3-1.7b", 4, 2, 512
+BIG_LAYERS = 8
 EP_ARCH, EP_DATA, EP_MODEL, EP_LAYERS = MOE_ARCH, 2, 2, 8
 EP_BATCH, EP_PROMPT, EP_STEPS = 4, 512, 8
 EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
-# phase 20's kv_seq serve check, inside its ranks after their step: uncut
+# phase 20's kv_seq serve check, inside its ranks after their step: its
 # qwen2-0.5b under SERVE_RULES on (data 1, model TP_MODEL), its K/V cache of
 # KV_MAX_LEN slots cut into blocks of KV_MAX_LEN / TP_MODEL a rank.  Each
 # (rows, prompt length) of KV_PROMPTS is prefilled and decoded
@@ -766,7 +848,7 @@ KV_MIN_COSINE, KV_CACHE_OF_MAX = 0.9999, 1e-4
 # and keys outside the window; the 24-token prompts leave rank 1's block
 # empty.  Each rank's fp32 SSM state is held within SSM_STATE_OF_MAX of
 # the largest entry of its head slice of the one-rank state
-SSM_TP_MODEL, SSM_TP_LAYERS = 2, 4
+SSM_TP_MODEL, SSM_TP_LAYERS = 2, 2
 SSM_SERVE = {"tp_hybrid": (2176, ((2, 2056), (2, 24))),
              "tp_ssm": (520, ((2, 512), (2, 24)))}
 SSM_STATE_OF_MAX = 1e-5
@@ -781,11 +863,51 @@ SSM_STATE_OF_MAX = 1e-5
 # and the K/V the steps wrote are held to 2^-7 of the largest entry, the
 # prefill's (no bf16 on its path) to SSM_STATE_OF_MAX and KV_CACHE_OF_MAX
 SSM_DECODED_OF_MAX = 2 ** -7
+# phase 23: the vlm and encdec families under the model axis, two gloo
+# ranks on (data 1, model VE_TP_MODEL) spawned once for both models:
+# phi-3-vision-4.2b at its published widths and VE_VLM_LAYERS layers (32 /
+# 32 heads of 96, 16 a rank, every leaf aligned; its 576 patches
+# projected whole on every rank and prepended to the text, the residual
+# whole: no seq_res behind a prefix) and whisper-large-v3 at its published
+# widths with VE_ENC_LAYERS encoder and VE_DEC_LAYERS decoder layers (20 /
+# 20 heads of 64, 10 a rank, self- and cross-attention split alike; both
+# stacks sequence-parallel, 750 of the 1,500 frames and VE_SEQ / 2 tokens
+# a rank).  Each steps once, held as phase 20 is (the vlm on TP_BATCH x
+# (576 patches + TP_SEQ text), whisper on TP_BATCH x VE_SEQ behind its
+# frames), then serves under SERVE_RULES: (rows, prompt length) of
+# VE_SERVE with seeded patches or frames, prefilled and decoded
+# KV_STEPS - 1 steps teacher-forced with the one-rank fp32 greedy tokens
+# over a cache of max_len text positions cut on kv_seq: the vlm's 576 +
+# 520 = 1,096 slots in blocks of 548, whisper's 232 self slots in blocks
+# of 116 and its cross K/V in blocks of 750 encoder positions.  Every
+# fp32 K/V block, after the prefill and after the steps, is held within
+# KV_CACHE_OF_MAX of the largest entry of the one-rank cache
+VE_TP_MODEL, VE_VLM_LAYERS, VE_ENC_LAYERS, VE_DEC_LAYERS = 2, 4, 2, 2
+VE_SEQ = 224
+# whisper's key biases' first moments, rounding noise (tp_verdict), held
+# below this share of their layer's value bias's
+KEY_BIAS_OF_BV = 0.1
+VE_SERVE = {"tp_vlm": (520, (2, 512)), "tp_encdec": (232, (2, 224))}
+# whisper's fp32 serve: its cross-attention decode combines the ranks'
+# partial softmaxes over 750 encoder positions each, and the control that
+# combines them with equal weights read a min cosine of 0.99975 (distance
+# 2.5e-4) against the sound run's 0.9999994 (6e-7) on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6): KV_MIN_COSINE's 1e-4 barely tells
+# them apart, so whisper's fp32 logits and its control are held to a
+# distance of 1e-5, between the two
+VE_CROSS_MIN_COSINE = 1.0 - 1e-5
 RANK_TIMEOUT_S = 420
 
 
+_T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``at_s``: seconds since the script started (a rank's
+    lines: since the rank started), so each phase's wall time is the
+    difference of two lines'."""
+    print(json.dumps({"phase": phase, **fields,
+                      "at_s": time.perf_counter() - _T0}), flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1110,6 +1232,68 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
                    atol_needed_of_max=atol_needed(out, ref, rtol) / ref_max,
                    **control, **timings(torch, fns),
                    library_backend=sdpa_backend(torch, library),
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        emit("kernel_check", **row)
+        rows.append(row)
+    return rows
+
+
+def check_flash_partial(torch, fa, ref, gen, name, B, S, T, H, K, D):
+    """``flash_attention_partial``, the forward kernel writing o and lse
+    over one block of the keys (non-causal: a rank's block of whisper's
+    cross K/V cache at a decode step), against ``ref.mha_partial`` on the
+    same inputs, in bf16 and fp32: out to TOL, lse to TOL_LSE.  The lse
+    check must fail a kernel whose last tile counted its zero-filled keys
+    (the control).  The yardstick is one call of PyTorch's
+    memory-efficient attention asked for its logsumexp (the same function;
+    a layout (B, H, S, D) and an lse padded to 32 rows)."""
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+        out, lse = fa.flash_attention_partial(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        want, want_lse = ref.mha_partial(q.float(), k.float(), v.float(),
+                                         causal=False)
+        rtol, atol_of_max = TOL[dtype]
+        ref_max = float(want.abs().max())
+        atol = rtol if atol_of_max is None else atol_of_max * ref_max
+        err = max_err(out, want, rtol, atol)
+        lse_err = max_err(lse, want_lse, TOL_LSE)
+        tail = -T % FLASH_KEY_TILE
+        zk = k.new_zeros((B, tail, K, D))
+        _, faulty = ref.mha_partial(q.float(), torch.cat([k, zk], 1).float(),
+                                    torch.cat([v, zk], 1).float(),
+                                    causal=False)
+        faulty_err = float((faulty - want_lse).abs().max())
+        check(faulty_err > TOL_LSE * (1.0 + float(want_lse.abs().max())),
+              f"{name}: an lse counting {tail} zero-filled keys passes "
+              f"({faulty_err})")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        eff = torch.ops.aten._scaled_dot_product_efficient_attention
+
+        def library():
+            return eff(qt, kt, vt, None, True)
+
+        flops = 4.0 * B * H * D * S * T
+        elem = q.element_size()
+        nbytes = elem * (2 * B * S * H * D + 2 * B * T * K * D) + 4 * B * S * H
+        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        fns = {"kernel": lambda: fa.flash_attention_partial(q, k, v,
+                                                            causal=False),
+               "plain": lambda: ref.mha_partial(q, k, v, causal=False),
+               "library": library}
+        row = dict(kernel="flash_attention", case=name, dtype=dtype,
+                   partial=True,
+                   shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=False,
+                              window=0, q_offset=0),
+                   max_abs_err=err, lse_max_abs_err=lse_err, rtol=rtol,
+                   atol=atol, lse_tol=TOL_LSE,
+                   atol_needed_of_max=atol_needed(out, want, rtol) / ref_max,
+                   tail_counted_lse_err=faulty_err, **timings(torch, fns),
+                   library_backend="efficient_attention (with lse)",
                    bound_ms=bound_ms, bound_by=bound_by, flops=flops,
                    bytes=nbytes)
         emit("kernel_check", **row)
@@ -1605,11 +1789,22 @@ def check_ssd_stages(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
 # --------------------------------------------------------------------------
 # phases 5, 6 and 8: plain twins on the card
 # --------------------------------------------------------------------------
+def partial_plain(fa):
+    """``flash_attention_partial``'s plain twin on any device: (out fp32,
+    lse (B,S,H)) from ``flash_attention_plain_lse``."""
+    def plain(q, k, v, **kw):
+        out, lse = fa.flash_attention_plain_lse(q, k, v, **kw)
+        return out.float(), lse.float().transpose(1, 2)
+    return plain
+
+
 @contextlib.contextmanager
 def plain_kernels(ops, fa, rn, ss):
     """Route the model's kernel calls to the plain twins for the block."""
     saved = ops._fa, ops._rn, ops._ssd
-    ops._fa = types.SimpleNamespace(flash_attention=fa.flash_attention_plain)
+    ops._fa = types.SimpleNamespace(
+        flash_attention=fa.flash_attention_plain,
+        flash_attention_partial=partial_plain(fa))
     ops._rn = types.SimpleNamespace(
         rmsnorm=lambda x, scale, *, eps: rn.rmsnorm_plain(x, scale, eps),
         rmsnorm_residual=lambda x, r, scale, *, eps:
@@ -1640,11 +1835,16 @@ def coarse_kernel(torch, ops, fa, rn, kernel: str, bits: int):
     def coarse(out):
         return coarsen(torch, out, bits)
 
+    def coarse_partial(*a, **kw):
+        out, lse = fa.flash_attention_partial(*a, **kw)
+        return coarse(out), lse
+
     saved = ops._fa, ops._rn
     if kernel == "flash_attention":
         ops._fa = types.SimpleNamespace(
             flash_attention=lambda *a, **kw: coarse(fa.flash_attention(*a,
-                                                                       **kw)))
+                                                                       **kw)),
+            flash_attention_partial=coarse_partial)
     else:
         ops._rn = types.SimpleNamespace(
             rmsnorm=lambda x, scale, *, eps: coarse(rn.rmsnorm(x, scale,
@@ -1688,6 +1888,16 @@ def full_sequence_logits(torch, model, tokens, first: int, extra=None):
         h, _ = model.final_hidden({"tokens": tokens, **(extra or {})})
         return ll.unembed(model.embed, model.cfg,
                           h[:, first:].contiguous()).float()
+
+
+def train_arch_config():
+    """mamba2-780m at its published widths and TRAIN_LAYERS layers: the
+    model of the training phases 7-8, 11, 15 and 17."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               num_layers=TRAIN_LAYERS)
 
 
 def seeded_model(torch, cfg):
@@ -2641,17 +2851,16 @@ def hybrid_window_path(torch, np, F, modules) -> dict:
 
 
 def train_path(torch, np, F, modules):
-    """Phases 7-8 at full width.  Returns the launches of the timed steps,
+    """Phases 7-8 at full width, TRAIN_LAYERS deep.  Returns the launches of the timed steps,
     the train state and the step function (phase 11 trains on), and the
     profiled step's idle share."""
-    from repro_torch.configs import get_config
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.train_step import (TrainStepConfig,
                                               init_train_state,
                                               make_train_step)
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_arch_config()
     L = cfg.num_layers
     opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=100)
     tcfg = TrainStepConfig(remat_policy="none", optimizer=opt)
@@ -3160,12 +3369,13 @@ def drift_retune_path(torch, np, tdata) -> dict:
 
 
 def trainer_path(torch, np, tdata, modules) -> dict:
-    """Phase 14: the Trainer at full width, full depth: startup DPT tune,
-    the DPT cache, the OnlineTuner and checkpoint/restart in ``repro``'s
-    on-disk layout.  Three runs: A straight (4 steps), B1 (2 steps, a
+    """Phase 14: the Trainer at full width, TRAINER_LAYERS deep: startup
+    DPT tune, the DPT cache, the OnlineTuner and checkpoint/restart in
+    ``repro``'s on-disk layout.  Three runs: A straight (4 steps), B1 (2 steps, a
     blocking checkpoint at step 2), B2 (resumes B1's checkpoint; an async
     checkpoint at step 3 written during step 4's compute, a blocking one at
     step 4).  Returns the launches of the eight steps."""
+    import dataclasses
     import shutil
     import tempfile
 
@@ -3175,7 +3385,8 @@ def trainer_path(torch, np, tdata, modules) -> dict:
     from repro_torch.train.trainer import Trainer, TrainerConfig
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAINER_LAYERS)
     raw = tdata.token_dataset(64, TRAIN_SEQ, cfg.vocab_size, seed=0)
     dataset = edge_dataset(tdata, 1e-3, 1e9, raw)
     tokens = TRAIN_BATCH * TRAIN_SEQ
@@ -3365,7 +3576,7 @@ def merge_check(seq, regular, makeup):
 
 def fleet_train_path(torch, np, tdata, modules) -> dict:
     """Phase 15: the fleet control plane with a full-width mamba2-780m
-    ``Trainer`` on the card as host 0, attached with ``connect_fleet``, and
+    (TRAIN_LAYERS deep) ``Trainer`` on the card as host 0, attached with ``connect_fleet``, and
     two host-side loaders attached with ``connect_host``, over a
     ``FaultyTransport`` (seeded drops and duplicates) to a
     ``CoordinatorServer`` with a standby ``CoordinatorReplica``, a
@@ -3379,7 +3590,6 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
     command rejected.  Returns the launches of the card's steps."""
     import copy
 
-    from repro_torch.configs import get_config
     from repro_torch.core.cluster import FleetEvent, FleetSchedule
     from repro_torch.core.evaluators import LoaderEvaluator
     from repro_torch.train import trainer as trainer_mod
@@ -3392,7 +3602,7 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
     from repro_torch.tuning.fleet import CoordinatorReplica, CoordinatorServer
     from repro_torch.tuning.transport import to_wire
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_arch_config()
     L = cfg.num_layers
     n = FLEET_GB * FLEET_BPE
     t_phase = time.perf_counter()
@@ -3948,13 +4158,15 @@ def dp_train_path(torch, np, modules) -> dict:
     """Phase 17: the data-parallel step on the card, over a one-rank NCCL
     group joined through a ``FileStore`` in a temporary directory (no
     network), under ``use_rules(make_local_mesh(), rules_for("train"))``:
-    full-width mamba2-780m from phase 7's seeded masters and batch,
+    full-width mamba2-780m (TRAIN_LAYERS deep) from phase 7's seeded
+    masters and batch,
     ``dp_manual`` with DP_MICROBATCHES microbatches, remat "none", bf16
     compute.  Checks, each fatal: (1) one dp step against the plain step
     over the whole batch from identical masters (loss, gradient norm,
     every leaf's update cosine) and (2) a control without the deferred
-    scale's 1/n_mb, which must fail check 1; (3) launches exactly 48
-    ssd_scan and 97 rmsnorm a microbatch, no flash; (4) ``compressed_psum``
+    scale's 1/n_mb, which must fail check 1; (3) launches exactly
+    TRAIN_LAYERS ssd_scan and 2 TRAIN_LAYERS + 1 rmsnorm a microbatch, no
+    flash; (4) ``compressed_psum``
     over the step's gradients on NCCL equal to ``compress_decompress``,
     mean and error feedback, over two steps of error feedback; (5) a
     sharded checkpoint restored through ``restore(shardings=)`` bit-equal.
@@ -3971,7 +4183,6 @@ def dp_train_path(torch, np, modules) -> dict:
     import torch.distributed as dist
 
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.configs import get_config
     from repro_torch.distributed import dp_shard, grad_compress
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.launch.mesh import make_local_mesh
@@ -3982,10 +4193,10 @@ def dp_train_path(torch, np, modules) -> dict:
                                               shard_train_state)
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
 
-    # an earlier phase's reference cycle can hold a 9.4 GB state
+    # an earlier phase's reference cycle can hold a 5.1 GB state
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = train_arch_config()
     L = cfg.num_layers
     opt = AdamWConfig(peak_lr=1e-3, warmup_steps=2, total_steps=100,
                       eps=DP_ADAM_EPS)
@@ -4480,12 +4691,14 @@ def train_dense_path(torch, np, F, modules) -> dict:
 
 
 def trainer_dense_path(torch, np, tdata, modules) -> dict:
-    """Phase 19: the Trainer on full-width qwen2-0.5b over LCG token data
+    """Phase 19: the Trainer on full-width qwen2-0.5b (DENSE_TRAINER_LAYERS
+    deep) over LCG token data
     (examples/torch_train_lm.py's ``lcg_dataset``), remat "dots" (the
     Trainer's default): A trains DENSE_TRAINER_STEPS steps straight (DPT
     runs and fills the cache), B1 half of them and saves a blocking
     checkpoint, B2 resumes it; then the example's smoke preset on the
     card.  Returns the launches of the Trainer's steps."""
+    import dataclasses
     import importlib.util
     import shutil
     import tempfile
@@ -4500,7 +4713,8 @@ def trainer_dense_path(torch, np, tdata, modules) -> dict:
         "torch_train_lm", ROOT / "examples" / "torch_train_lm.py")
     example = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(example)
-    cfg = get_config(DENSE_ARCH)
+    cfg = dataclasses.replace(get_config(DENSE_ARCH),
+                              num_layers=DENSE_TRAINER_LAYERS)
     L = cfg.num_layers
     dataset = example.lcg_dataset(64, TRAIN_SEQ, DENSE_LCG_VOCAB)
     half = DENSE_TRAINER_STEPS // 2
@@ -4694,7 +4908,8 @@ def rank_main(args) -> int:
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         fn = {"tp_train": tp_train_rank, "tp_train_big": tp_train_big_rank,
-              "ep_serve": ep_serve_rank, "tp_ssm": tp_ssm_rank}[phase]
+              "ep_serve": ep_serve_rank, "tp_ssm": tp_ssm_rank,
+              "tp_vlm_encdec": tp_vlm_encdec_rank}[phase]
         res = fn(torch, np, F, modules, workdir)
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
@@ -4704,6 +4919,24 @@ def rank_main(args) -> int:
         pickle.dump(res, f)
     os.replace(path + ".tmp", path)
     return 0
+
+
+def tp_arch_config():
+    """qwen2-0.5b at its published widths and TP_LAYERS layers: phase
+    20's model, trained and served."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TP_ARCH), num_layers=TP_LAYERS)
+
+
+def big_arch_config():
+    """qwen3-1.7b at its published widths and BIG_LAYERS layers: phase
+    20b's model."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(BIG_ARCH), num_layers=BIG_LAYERS)
 
 
 def tp_config():
@@ -4846,12 +5079,13 @@ def storage_report(torch, cfg, state) -> dict:
                 ok=held == want and not whole)
 
 
-def collective_cosines(torch, F, state, ref_mu, group) -> dict:
+def collective_cosines(torch, F, state, ref_mu, group):
     """Each first moment's cosine to the one-rank step's (``ref_mu``, whole
     leaves on the host, memory-mapped), without gathering a leaf: each
     rank sums a . b, a . a and b . b over its shard against the same slice
     of the reference, divided by how many ranks hold each element, and one
-    all-reduce over ``group`` adds them up."""
+    all-reduce over ``group`` adds them up.  Returns the cosines and each
+    leaf's (norm, the reference's norm)."""
     import torch.distributed as dist
     plan, keys = state.plan, list(state.opt.mu)
     sums = torch.empty((len(keys), 3), dtype=torch.float64)
@@ -4861,18 +5095,22 @@ def collective_cosines(torch, F, state, ref_mu, group) -> dict:
         sums[i] = torch.stack([a @ b, a @ a, b @ b]).cpu() \
             / plan.replication(k)
     dist.all_reduce(sums, group=group)
-    return {k: float(sums[i, 0] / torch.sqrt(sums[i, 1] * sums[i, 2])
-                     .clamp_min(1e-300))
-            for i, k in enumerate(keys)}
+    cosines = {k: float(sums[i, 0] / torch.sqrt(sums[i, 1] * sums[i, 2])
+                        .clamp_min(1e-300))
+               for i, k in enumerate(keys)}
+    norms = {k: (float(sums[i, 1].sqrt()), float(sums[i, 2].sqrt()))
+             for i, k in enumerate(keys)}
+    return cosines, norms
 
 
 def tp_held(torch, F, st, m, ref_mu, floor, group) -> dict:
     """Loss, grad norm, every first moment's cosine to the one-rank step's
-    and the digests of the leaves every rank holds whole."""
+    and its norm beside the reference's, and the digests of the leaves
+    every rank holds whole."""
+    cosines, norms = collective_cosines(torch, F, st, ref_mu, group)
     return dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                digests=replicated_digests(st),
-                cosines=collective_cosines(torch, F, st, ref_mu, group),
-                floor=floor)
+                digests=replicated_digests(st), cosines=cosines,
+                norms=norms, floor=floor)
 
 
 def tp_step_rank(torch, np, F, modules, workdir, cfg, batch, controls,
@@ -4958,9 +5196,12 @@ def tp_step_rank(torch, np, F, modules, workdir, cfg, batch, controls,
         out["moved"] = dict(transport.moved)
         with ctx.manual_region(dp_shard.manual_axes(mesh)):
             seq = stk.sp_split(cfg, batch["tokens"].shape[1])
+            enc_seq = stk.sp_split(cfg, batch["frames"].shape[1]) \
+                if "frames" in batch else None
             out["sp"] = None if seq is None else seq.size
+            out["enc_sp"] = None if enc_seq is None else enc_seq.size
             out["partial_leaves"] = len(ll.model_partial_leaves(
-                cfg, param_specs(cfg), state.params, seq))
+                cfg, param_specs(cfg), state.params, seq, enc_seq))
             out["embed_split"] = "embed.tokens" in {
                 k for k, dims in state.plan.dims.items()
                 if any("model" in axes for axes in dims.values())}
@@ -4997,11 +5238,12 @@ def tp_step_rank(torch, np, F, modules, workdir, cfg, batch, controls,
 
 
 @contextlib.contextmanager
-def unsummed(module, name: str, first_only: bool = False):
+def unsummed(module, name: str, first_only: bool = False, when=None):
     """``module.name`` run without the sum over the model ranks it ends
     in: ``from_model`` the identity, and ``scatter_seq`` (under sequence
     parallelism) slicing this rank's block of its own partial output; at
-    its first call only if ``first_only``."""
+    its first call only if ``first_only``, at the calls whose keywords
+    pass ``when`` if given."""
     from repro_torch.distributed import model_axis
     real, real_from, real_scatter = (getattr(module, name),
                                      model_axis.from_model,
@@ -5010,7 +5252,8 @@ def unsummed(module, name: str, first_only: bool = False):
 
     def fn(*args, **kwargs):
         calls[0] += 1
-        if first_only and calls[0] > 1:
+        if first_only and calls[0] > 1 \
+                or when is not None and not when(kwargs):
             return real(*args, **kwargs)
         model_axis.from_model = lambda y, s: y
         model_axis.scatter_seq = lambda y, s, summed=True: real_scatter(
@@ -5059,19 +5302,19 @@ def scatter_unsummed():
 
 
 def tp_train_rank(torch, np, F, modules, workdir) -> dict:
-    """One rank of phase 20: ``tp_step_rank`` for uncut qwen2-0.5b, its
+    """One rank of phase 20: ``tp_step_rank`` for qwen2-0.5b at TP_LAYERS
+    layers (``tp_arch_config``), its
     state saved, with layer 0's attention combine left out as the
     control; then the kv_seq serve check (``kv_serve_rank``) and
     ``ring_weight_matmul``."""
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import model_axis
     from repro_torch.distributed.collective_matmul import ring_weight_matmul
     from repro_torch.launch.mesh import make_local_mesh
     rank, n = dist.get_rank(), dist.get_world_size()
-    out = tp_step_rank(torch, np, F, modules, workdir, get_config(TP_ARCH),
-                       tp_batch(torch, np, get_config(TP_ARCH)),
+    out = tp_step_rank(torch, np, F, modules, workdir, tp_arch_config(),
+                       tp_batch(torch, np, tp_arch_config()),
                        {"control": first_combine_skipped,
                         "control_scatter": scatter_unsummed},
                        save_dir=os.path.join(workdir, "ck"))
@@ -5104,12 +5347,12 @@ def tp_train_rank(torch, np, F, modules, workdir) -> dict:
 
 
 def tp_train_big_rank(torch, np, F, modules, workdir) -> dict:
-    """One rank of phase 20b: ``tp_step_rank`` for uncut qwen3-1.7b, with
+    """One rank of phase 20b: ``tp_step_rank`` for qwen3-1.7b at
+    BIG_LAYERS layers (``big_arch_config``), with
     the vocabulary-parallel lookup's all-reduce left out as the
     control."""
-    from repro_torch.configs import get_config
-    return tp_step_rank(torch, np, F, modules, workdir, get_config(BIG_ARCH),
-                        tp_batch(torch, np, get_config(BIG_ARCH), BIG_BATCH,
+    return tp_step_rank(torch, np, F, modules, workdir, big_arch_config(),
+                        tp_batch(torch, np, big_arch_config(), BIG_BATCH,
                                  BIG_SEQ), {"control": lookup_unsummed,
                                             "control_scatter":
                                                 scatter_unsummed})
@@ -5162,35 +5405,55 @@ def one_rank_reference(torch, np, F, modules, cfg, batch, workdir,
     return ref
 
 
-def tp_verdict(res, ref, key) -> dict:
+def tp_verdict(res, ref, key, exact_zero=None) -> dict:
     """The checks the ranks' ``key`` step passes: loss, grad norm, every
     leaf's first-moment cosine (or within TP_FLOOR_RATIO x the floor of
-    its kind of leaf), every leaf held whole bit-equal across the ranks."""
+    its kind of leaf), every leaf held whole bit-equal across the ranks.
+    A leaf whose gradient is 0 in exact arithmetic (``exact_zero(name)``:
+    whisper's key biases, which softmax ignores and no rotary modulates)
+    is rounding noise on both sides: its cosine is not read, its first
+    moment's norm is held below KEY_BIAS_OF_BV of its layer's value
+    bias's in the one-rank step."""
     row = res[0][key]
+    zero = [k for k in row["cosines"] if exact_zero and exact_zero(k)]
+    zero_ratio = {k: row["norms"][k][0] / row["norms"][k[:-2] + "bv"][1]
+                  for k in zero}
+    one_ratio = {k: row["norms"][k][1] / row["norms"][k[:-2] + "bv"][1]
+                 for k in zero}
     loss_rel = abs(row["loss"] - ref["loss"]) / abs(ref["loss"])
     norm_rel = abs(row["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-    kind = {k: re.sub(r"^layers\.\d+\.", "layers.", k) for k in row["floor"]}
+    kind = {k: re.sub(r"^(layers|encoder)\.\d+\.", r"\1.", k)
+            for k in row["floor"]}
     floor = {}
     for k, f in row["floor"].items():
         floor[kind[k]] = max(floor.get(kind[k], 0.0), f)
     limit = {k: max(1.0 - TP_MIN_COSINE, TP_FLOOR_RATIO * floor[kind[k]])
              for k in row["floor"]}
-    low = {k: c for k, c in row["cosines"].items() if 1.0 - c > limit[k]}
+    low = {k: c for k, c in row["cosines"].items()
+           if 1.0 - c > limit[k] and k not in zero_ratio}
     raised = {k: dict(cosine=row["cosines"][k], floor=floor[kind[k]])
               for k in limit if limit[k] > 1.0 - TP_MIN_COSINE
+              and k not in zero_ratio
               and row["cosines"][k] < TP_MIN_COSINE}
     differ = sorted({k for r in res[1:] for k, dg in r[key]["digests"].items()
                      if dg != row["digests"][k]})
     return dict(loss_rel=loss_rel, norm_rel=norm_rel,
-                min_cosine=min(row["cosines"].values()),
+                min_cosine=min(c for k, c in row["cosines"].items()
+                               if k not in zero_ratio),
                 low_cosine=dict(sorted(low.items())[:8]),
                 n_low_cosine=len(low),
                 limit_raised_by_floor=dict(sorted(raised.items())[:8]),
                 n_limit_raised=len(raised), ranks_differ=differ[:8],
                 n_ranks_differ=len(differ),
                 n_compared_whole=len(row["digests"]),
+                exact_zero=dict(n=len(zero), max_of_bv=max(
+                    zero_ratio.values(), default=None),
+                    one_rank_max_of_bv=max(one_ratio.values(),
+                                           default=None))
+                if zero else None,
                 ok=loss_rel <= TP_LOSS_REL and norm_rel <= TP_NORM_REL
-                and not low and not differ)
+                and not low and not differ
+                and all(v <= KEY_BIAS_OF_BV for v in zero_ratio.values()))
 
 
 def restore_across_sizes(torch, res, workdir, cfg) -> dict:
@@ -5260,86 +5523,188 @@ def sp_plan(cfg, r) -> dict:
                                             if v})
 
 
-def tp_emit(phase, cfg, res, ref, held_step, held_control, expect,
-            control_what, phase_s, **extra) -> None:
-    r0 = res[0]
-    emit(f"{phase}_backend", backend=r0["backend"],
-         moved_per_rank=[r["moved"] for r in res], ranks=len(res),
+def tp_backend(phase, res, phase_s, keys=None) -> None:
+    """The line saying how a model-axis phase's ranks talked: the backend
+    of their model group and what every collective moved (by model,
+    ``keys``, where one spawn trains several)."""
+    r0 = res[0][keys[0]] if keys else res[0]
+    moved = {k: [r[k]["moved"] for r in res] for k in keys} if keys \
+        else [r["moved"] for r in res]
+    emit(f"{phase}_backend", backend=r0["backend"], moved_per_rank=moved,
+         ranks=len(res), phase_s=phase_s,
          note="collectives stage each tensor through host memory (gloo); "
               "the ranks share one card")
-    emit(f"{phase}_collectives", model_axis=r0["collectives"],
-         dp_shard=r0["dp_collectives"], plan=sp_plan(cfg, r0),
-         model_gathers_per_rank=[r["model_gathers"] for r in res],
+
+
+def tp_family(key, cfg, sub, ref, *, controls, expect, plan, residual, sp,
+              gathers, exact_zero=None, one_expect=None, **extra) -> dict:
+    """One model-axis step of ``cfg``, the ranks' results ``sub`` against
+    the one-rank step ``ref``: emits ``key``'s collectives, storage and
+    step lines (``extra``: the phase's own fields) and holds them.  The
+    ranks ran gloo, every collective staged through the host, on the
+    dp_manual path; the step passes ``tp_verdict`` (``exact_zero``: the
+    leaves whose gradient is 0 in exact arithmetic) and every control of
+    ``controls`` ({name: what it leaves out}) fails it; the sequence
+    splits (decoder, encoder) are ``sp``; each rank's layers received
+    ``residual``; its collectives by kind are ``plan(cfg, its result)``,
+    its bytes held its shards', its launches ``expect`` (and the one-rank
+    step's ``one_expect`` where given), its gathers over "model"
+    ``gathers``.  Returns the launches summed over the ranks."""
+    r0 = sub[0]
+    held = {k: tp_verdict(sub, ref, k, exact_zero)
+            for k in ("step", *controls)}
+    emit(f"{key}_collectives", model_axis=r0["collectives"],
+         dp_shard=r0["dp_collectives"], plan=plan(cfg, r0),
+         model_gathers_per_rank=[r["model_gathers"] for r in sub],
          partial_leaves_summed=r0["partial_leaves"],
-         sequence_split=r0["sp"],
-         residual_per_rank=[r["residual"] for r in res])
-    emit(f"{phase}_storage", rules=r0["rules"],
-         per_rank=[r["storage"] for r in res],
-         init_peak_gb_per_rank=[r["init_peak_gb"] for r in res])
-    emit(phase, arch=cfg.name, mesh={"data": 1, "model": len(res)},
-         heads=r0["heads"], vocab_rows=-(-cfg.vocab_size // len(res)),
+         sequence_split=r0["sp"], encoder_sequence_split=r0["enc_sp"],
+         residual_per_rank=[r["residual"] for r in sub])
+    emit(f"{key}_storage", rules=r0["rules"],
+         per_rank=[r["storage"] for r in sub],
+         init_peak_gb_per_rank=[r["init_peak_gb"] for r in sub])
+    emit(key, arch=cfg.name, layers=cfg.num_layers,
+         mesh={"data": 1, "model": len(sub)}, heads=r0["heads"],
          path=r0["path"], one_rank_loss=ref["loss"],
          one_rank_grad_norm=ref["grad_norm"], loss=r0["step"]["loss"],
-         grad_norm=r0["step"]["grad_norm"], held=held_step,
-         control=dict(what=control_what, **held_control,
-                      loss=r0["control"]["loss"]),
-         control_scatter=dict(
-             what="every scatter_seq slicing without its sum",
-             **tp_verdict(res, ref, "control_scatter"),
-             loss=r0["control_scatter"]["loss"]),
-         launches_per_rank=[r["launches"] for r in res],
+         grad_norm=r0["step"]["grad_norm"], held=held["step"],
+         **{c: dict(what=what, **held[c], loss=r0[c]["loss"])
+            for c, what in controls.items()},
+         launches_per_rank=[r["launches"] for r in sub],
          expected_launches_per_rank=expect,
          one_rank_launches=ref["launches"],
-         peak_gb_per_rank=[r["peak_gb"] for r in res],
-         step_peak_gb_per_rank=[r["step_peak_gb"] for r in res],
+         peak_gb_per_rank=[r["peak_gb"] for r in sub],
+         step_peak_gb_per_rank=[r["step_peak_gb"] for r in sub],
          one_rank_peak_gb=ref["peak_gb"], whole_state_gb=ref["state_gb"],
-         step_s_per_rank=[r["step_s"] for r in res],
-         step_clock_per_rank=[r["step_clock"] for r in res],
-         control_clock_per_rank=[r["control_clock"] for r in res],
-         control_scatter_clock_per_rank=[r["control_scatter_clock"]
-                                         for r in res],
-         one_rank_step_s=ref["step_s"], phase_s=phase_s,
+         step_s_per_rank=[r["step_s"] for r in sub],
+         step_clock_per_rank=[r["step_clock"] for r in sub],
+         **{f"{c}_clock_per_rank": [r[f"{c}_clock"] for r in sub]
+            for c in controls},
+         one_rank_step_s=ref["step_s"],
          timing_note="not a speed: the ranks share one card and every "
                      "collective crosses the host",
          max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
          min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
          floor_max=max(ref["floor"].values()), **extra)
-
-
-def tp_checks(phase, cfg, res, ref, held_step, held_control, expect,
-              gathers) -> None:
-    r0 = res[0]
-    n = len(res)
-    check(r0["backend"] == "gloo" and all(staged_only(r) for r in res),
-          f"{phase} ran on {r0['backend']}, collectives moved "
-          f"{[r['moved'] for r in res]}")
-    check(r0["path"] == "dp_manual", f"{phase} took the {r0['path']} step")
-    check(held_step["ok"], f"{phase} against the one-rank step: "
-          f"{held_step}")
-    check(not held_control["ok"], f"{phase}'s control passed: "
-          f"{held_control}")
-    scatter = tp_verdict(res, ref, "control_scatter")
-    check(not scatter["ok"], f"{phase}'s control without the "
-          f"reduce-scatters' sums passed: {scatter}")
-    check(r0["sp"] == n, f"{phase}: sequence split {r0['sp']}, the rules "
-          f"and {TP_SEQ} tokens imply {n}")
-    for r in res:
-        want = [(TP_BATCH, TP_SEQ // n, cfg.d_model)]
-        check(r["residual"] == want, f"{phase}: a layer received "
-              f"{r['residual']}, not this rank's block {want}")
-        plan = sp_plan(cfg, r)
+    check(r0["backend"] == "gloo" and all(staged_only(r) for r in sub),
+          f"{key} ran on {r0['backend']}, collectives moved "
+          f"{[r['moved'] for r in sub]}")
+    check(r0["path"] == "dp_manual", f"{key} took the {r0['path']} step")
+    check(held["step"]["ok"], f"{key} against the one-rank step: "
+          f"{held['step']}")
+    for c in controls:
+        check(not held[c]["ok"], f"{key}'s {c} passed: {held[c]}")
+    check((r0["sp"], r0["enc_sp"]) == sp, f"{key}: sequence splits "
+          f"{(r0['sp'], r0['enc_sp'])}, the rules imply {sp}")
+    if one_expect is not None:
+        check(ref["launches"] == one_expect, f"{key} one-rank launches "
+              f"{ref['launches']}, expected {one_expect}")
+    for r in sub:
+        check(r["residual"] == residual, f"{key}: a layer received "
+              f"{r['residual']}, not {residual}")
         got = dict(model_axis=r["collectives"], dp_shard=r["dp_collectives"])
-        check(got == plan, f"{phase} collectives {got}, the plan implies "
-              f"{plan}")
-        check(r["storage"]["ok"], f"{phase} storage: {r['storage']}")
-        check(r["launches"] == expect, f"{phase} rank launches "
+        want = plan(cfg, r)
+        check(got == want, f"{key} collectives {got}, the plan implies "
+              f"{want}")
+        check(r["storage"]["ok"], f"{key} storage: {r['storage']}")
+        check(r["launches"] == expect, f"{key} rank launches "
               f"{r['launches']}, expected {expect}")
-        check(r["model_gathers"] == gathers, f"{phase} gathers over "
-              f"model {r['model_gathers']}, the rules imply {gathers}")
+        check(r["model_gathers"] == gathers, f"{key} gathers over model "
+              f"{r['model_gathers']}, the rules imply {gathers}")
+    return {k: sum(r["launches"][k] for r in sub) for k in expect}
+
+
+def tp_families(torch, np, F, modules, phase, cfgs, n, batch_of,
+                kv_reference, ssm=False):
+    """A model-axis phase that trains and serves several models in one
+    spawn: for each of ``cfgs`` the one-rank step (on ``batch_of(cfg)``)
+    and the one-rank serve reference (``kv_reference``) first, here, on
+    the same seeded masters, freed before the ranks start; then ``n``
+    ranks of ``phase``.  Emits the backend line; returns the ranks'
+    results, the step references and the serve references."""
+    import shutil
+    import tempfile
+    workdir = tempfile.mkdtemp(prefix=f"{phase}_")
+    refs, kv_refs = {}, {}
+    try:
+        for key, cfg in cfgs.items():
+            refs[key] = one_rank_reference(
+                torch, np, F, modules, cfg, batch_of(cfg), workdir,
+                name=f"ref_{key}.pt", ssm=ssm)
+            t0 = time.perf_counter()
+            kv_refs[key] = kv_reference(torch, np, F, modules, workdir, key,
+                                        cfg)
+            kv_refs[key]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = spawn_card_ranks(phase, n, workdir)
+        phase_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    tp_backend(phase, res, phase_s, list(cfgs))
+    return res, refs, kv_refs
+
+
+def serve_verdict(key, kv, ref, *, runs, expect, control_what,
+                  limit=KV_MIN_COSINE, checks=(), **fields) -> None:
+    """The serve check a model-axis phase holds its ranks' serving to
+    (``kv``: each rank's runs, a row a prompt set) against the one-rank
+    reference ``ref``: rank 0's fp32 logits at cosine ``limit`` or more
+    at every position and their greedy tokens equal; the bf16 logits'
+    distance (1 - mean cosine) to the fp32 reference within BF16_RATIO
+    times the one-rank bf16 run's plus BF16_SLACK; the control below
+    ``limit``; every rank's logits equal in each of ``runs``; each rank's
+    bf16 launches ``expect``; and ``checks``, the phase's own (condition,
+    message) pairs.  Emits ``key``_kv_serve with ``fields``."""
+    import torch
+    import torch.nn.functional as F
+
+    def cosines(run, want):
+        return torch.cat([F.cosine_similarity(
+            r["logits"].float(), w.float(), dim=-1).flatten()
+            for r, w in zip(kv[0][run]["rows"], want)])
+
+    c32 = cosines("fp32", ref["logits32"])
+    tokens_equal = all(torch.equal(r["logits"].argmax(-1), t.cpu())
+                       for r, t in zip(kv[0]["fp32"]["rows"], ref["tokens"]))
+    d16 = 1.0 - float(cosines("bf16", ref["logits32"]).mean())
+    d16_one = 1.0 - float(torch.cat([
+        F.cosine_similarity(a.float(), w.float(), dim=-1).flatten()
+        for a, w in zip(ref["logits16"], ref["logits32"])]).mean())
+    bound16 = BF16_RATIO * d16_one + BF16_SLACK
+    ctl = float(cosines("control", ref["logits32"]).min())
+    same = all(a["digest"] == b["digest"] for k in runs for r in kv[1:]
+               for a, b in zip(r[k]["rows"], kv[0][k]["rows"]))
+    emit(f"{key}_kv_serve", rules="SERVE_RULES",
+         mesh={"data": 1, "model": len(kv)}, steps=KV_STEPS, **fields,
+         fp32=dict(min_cosine=float(c32.min()), mean_cosine=float(c32.mean()),
+                   greedy_tokens_equal=tokens_equal),
+         bf16=dict(distance=d16, one_rank_distance=d16_one, bound=bound16),
+         control=dict(what=control_what, min_cosine=ctl), ranks_equal=same,
+         launches_per_rank=[r["bf16"]["launches"] for r in kv],
+         expected_launches_per_rank=expect,
+         seconds_per_rank={k: [r[k]["seconds"] for r in kv] for k in runs},
+         build_s_per_rank={k: [r[k]["build_s"] for r in kv] for k in runs},
+         clock_per_rank={k: [r[k]["clock"] for r in kv] for k in runs},
+         reference_s=ref["seconds"],
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host",
+         min_cosine_limit=limit)
+    check(float(c32.min()) >= limit and tokens_equal,
+          f"{key}_kv_serve fp32: min cosine {float(c32.min())}, greedy "
+          f"tokens equal {tokens_equal}")
+    check(d16 <= bound16, f"{key}_kv_serve bf16 distance {d16} > {bound16}")
+    check(ctl < limit, f"{key}_kv_serve's control ({control_what}) passed: "
+          f"min cosine {ctl}")
+    check(same, f"{key}_kv_serve: the model ranks' logits differ")
+    for cond, msg in checks:
+        check(cond, f"{key}_kv_serve: {msg}")
+    for r in kv:
+        check(r["bf16"]["launches"] == expect, f"{key}_kv_serve launches "
+              f"{r['bf16']['launches']}, expected {expect}")
 
 
 def tp_train_path(torch, np, F, modules) -> dict:
-    """Phase 20: the model axis trains uncut qwen2-0.5b over TP_MODEL gloo
+    """Phase 20: the model axis trains qwen2-0.5b (``tp_arch_config``) over
+    TP_MODEL gloo
     ranks on the card (see TP_ARCH), each rank holding its shards of the
     storage plan.  The one-rank step first, here, on the same seeded
     masters and batch; its first moments go to the ranks through a file,
@@ -5349,9 +5714,8 @@ def tp_train_path(torch, np, F, modules) -> dict:
     import shutil
     import tempfile
 
-    from repro_torch.configs import get_config
     from repro_torch.models import layers as ll
-    cfg = get_config(TP_ARCH)
+    cfg = tp_arch_config()
     L = cfg.num_layers
     workdir = tempfile.mkdtemp(prefix="tp_train_")
     try:
@@ -5366,29 +5730,30 @@ def tp_train_path(torch, np, F, modules) -> dict:
         restored = restore_across_sizes(torch, res, workdir, cfg)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    held_step = tp_verdict(res, ref, "step")
-    held_control = tp_verdict(res, ref, "control")
-    expect = dense_expect(L, "none")
-    gathers = {k: L for k, r in ll.leaf_rules(cfg, TP_MODEL).items()
-               if r == "unaligned"}
-    tp_emit("tp_train", cfg, res, ref, held_step, held_control, expect,
-            "layer 0's attention combine all-reduce left out", phase_s,
-            batch=[TP_BATCH, TP_SEQ], restore=restored,
-            save_s_per_rank=[r["save_s"] for r in res],
-            whole_layout_peak_gb_per_rank=TP_WHOLE_PEAK_GB)
+    tp_backend("tp_train", res, phase_s)
     ring = res[0]["ring"]
     emit("ring_matmul", ranks=TP_MODEL, per_rank_ms=[r["ring"]["ms"]
                                                      for r in res],
          **ring, timing_note="gloo ring steps through the host")
-    tp_checks("tp_train", cfg, res, ref, held_step, held_control, expect,
-              gathers)
+    expect = dense_expect(L, "none")
+    launches = tp_family(
+        "tp_train", cfg, res, ref,
+        controls={"control": "layer 0's attention combine all-reduce left "
+                             "out", "control_scatter": SCATTER_CONTROL},
+        expect=expect, plan=sp_plan,
+        residual=[(TP_BATCH, TP_SEQ // TP_MODEL, cfg.d_model)],
+        sp=(TP_MODEL, None),
+        gathers={k: L for k, r in ll.leaf_rules(cfg, TP_MODEL).items()
+                 if r == "unaligned"},
+        vocab_rows=-(-cfg.vocab_size // TP_MODEL), batch=[TP_BATCH, TP_SEQ],
+        restore=restored, save_s_per_rank=[r["save_s"] for r in res],
+        whole_layout_peak_gb_per_rank=TP_WHOLE_PEAK_GB)
     kv_verdict(res, kv_ref, cfg)
     check(restored["ok"], f"tp_train's checkpoint restored at world 1: "
           f"{restored}")
     check(all(r["ring"]["max_abs_err"] <= 1e-4 * r["ring"]["ref_max"]
               and r["ring"]["send_recv"] == TP_MODEL - 1 for r in res),
           f"ring_weight_matmul: {[r['ring'] for r in res]}")
-    launches = {k: sum(r["launches"][k] for r in res) for k in expect}
     launches["kv_serve"] = {k: sum(r["kv"]["bf16"]["launches"][k]
                                    for r in res) for k in expect}
     return launches
@@ -5396,38 +5761,13 @@ def tp_train_path(torch, np, F, modules) -> dict:
 
 def kv_verdict(res, ref, cfg) -> None:
     """Phase 20's kv_seq check against the one-rank reference
-    (``kv_reference``): the fp32 logits' cosine at every position to
-    KV_MIN_COSINE and their greedy tokens equal; the bf16 logits' distance
-    (1 - mean cosine) to the fp32 reference within BF16_RATIO times the
-    one-rank bf16 run's plus BF16_SLACK; every model rank's logits equal;
-    each rank holding a block of KV_MAX_LEN / n slots, its fp32 blocks
-    within KV_CACHE_OF_MAX of the largest entry of the one-rank cache's
-    slots and its bytes 1 / n of the whole; the control (no lse weights)
-    below KV_MIN_COSINE; the launches of one prefill and KV_STEPS - 1
-    decode steps a prompt set."""
-    import torch
-    import torch.nn.functional as F
+    (``kv_reference``), ``serve_verdict`` with: each rank holding a block
+    of KV_MAX_LEN / n slots, its fp32 blocks within KV_CACHE_OF_MAX of the
+    largest entry of the one-rank cache's slots and its bytes 1 / n of the
+    whole; the launches of one prefill and KV_STEPS - 1 decode steps a
+    prompt set."""
     n, L = len(res), cfg.num_layers
     kv = [r["kv"] for r in res]
-
-    def cos(a, b):
-        return F.cosine_similarity(a.float(), b.float(), dim=-1)
-
-    rows32 = kv[0]["fp32"]["rows"]
-    c32 = torch.cat([cos(r["logits"], w).flatten()
-                     for r, w in zip(rows32, ref["logits32"])])
-    tokens_equal = all(torch.equal(r["logits"].argmax(-1), t.cpu())
-                       for r, t in zip(rows32, ref["tokens"]))
-    d16 = 1.0 - float(torch.cat([
-        cos(r["logits"], w).flatten()
-        for r, w in zip(kv[0]["bf16"]["rows"], ref["logits32"])]).mean())
-    d16_one = 1.0 - float(torch.cat([
-        cos(a, w).flatten()
-        for a, w in zip(ref["logits16"], ref["logits32"])]).mean())
-    bound16 = BF16_RATIO * d16_one + BF16_SLACK
-    ctl = cos(kv[0]["control"]["rows"][0]["logits"], ref["logits32"][0])
-    same = all(a["digest"] == b["digest"] for k in ("fp32", "control", "bf16")
-               for r in kv[1:] for a, b in zip(r[k]["rows"], kv[0][k]["rows"]))
     cache_err = max(row["cache_err"] / row["cache_max"]
                     for r in kv for row in r["fp32"]["rows"])
     whole = [2 * L * rows * KV_MAX_LEN * cfg.num_kv_heads * cfg.head_dim * 4
@@ -5435,64 +5775,37 @@ def kv_verdict(res, ref, cfg) -> None:
     blocks_ok = all(row["kv_shards"] == n and row["block"] == KV_MAX_LEN // n
                     and row["cache_bytes"] * n == w
                     for r in kv for row, w in zip(r["fp32"]["rows"], whole))
-    expect = {"flash_attention": L * len(KV_PROMPTS),
-              "flash_attention_backward": 0,
-              "rmsnorm": (2 * L + 1) * KV_STEPS * len(KV_PROMPTS)}
-    emit("tp_kv_serve", arch=cfg.name, rules="SERVE_RULES",
-         mesh={"data": 1, "model": n},
-         prompts=[list(p) for p in KV_PROMPTS], steps=KV_STEPS,
-         slots=KV_MAX_LEN, block=KV_MAX_LEN // n,
-         fp32=dict(min_cosine=float(c32.min()), mean_cosine=float(c32.mean()),
-                   greedy_tokens_equal=tokens_equal),
-         bf16=dict(distance=d16, one_rank_distance=d16_one, bound=bound16),
-         control=dict(what="partial softmaxes averaged without their lse "
-                           "weights", min_cosine=float(ctl.min())),
-         ranks_equal=same, cache_err_of_max=cache_err,
-         cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
-                               for r in kv],
-         whole_cache_bytes=whole[0],
-         launches_per_rank=[r["bf16"]["launches"] for r in kv],
-         expected_launches_per_rank=expect,
-         seconds_per_rank={k: [r[k]["seconds"] for r in kv]
-                           for k in ("fp32", "control", "bf16")},
-         build_s_per_rank={k: [r[k]["build_s"] for r in kv]
-                           for k in ("fp32", "control", "bf16")},
-         clock_per_rank={k: [r[k]["clock"] for r in kv]
-                         for k in ("fp32", "control", "bf16")},
-         check_s_per_rank=[r["phase_s"] for r in kv],
-         reference_s=ref["seconds"],
-         timing_note="not a speed: the ranks share one card and every "
-                     "collective crosses the host",
-         min_cosine_limit=KV_MIN_COSINE, cache_limit=KV_CACHE_OF_MAX)
-    check(float(c32.min()) >= KV_MIN_COSINE and tokens_equal,
-          f"tp_kv_serve fp32: min cosine {float(c32.min())}, greedy tokens "
-          f"equal {tokens_equal}")
-    check(d16 <= bound16, f"tp_kv_serve bf16 distance {d16} > {bound16}")
-    check(float(ctl.min()) < KV_MIN_COSINE,
-          f"tp_kv_serve's control (no lse weights) passed: min cosine "
-          f"{float(ctl.min())}")
-    check(same, "tp_kv_serve: the model ranks' logits differ")
-    check(cache_err <= KV_CACHE_OF_MAX, f"tp_kv_serve: a rank's fp32 K/V "
-          f"block {cache_err} of the largest entry from the one-rank cache")
-    check(blocks_ok, "tp_kv_serve: a rank's cache is not its block of "
-          f"{KV_MAX_LEN // n} slots, 1 / {n} of the whole's bytes")
-    for r in kv:
-        check(r["bf16"]["launches"] == expect, f"tp_kv_serve launches "
-              f"{r['bf16']['launches']}, expected {expect}")
+    serve_verdict(
+        "tp", kv, ref, runs=("fp32", "control", "bf16"),
+        expect={"flash_attention": L * len(KV_PROMPTS),
+                "flash_attention_backward": 0,
+                "rmsnorm": (2 * L + 1) * KV_STEPS * len(KV_PROMPTS)},
+        control_what="partial softmaxes averaged without their lse weights",
+        checks=[(cache_err <= KV_CACHE_OF_MAX, f"a rank's fp32 K/V block "
+                 f"{cache_err} of the largest entry from the one-rank "
+                 f"cache"),
+                (blocks_ok, f"a rank's cache is not its block of "
+                 f"{KV_MAX_LEN // n} slots, 1 / {n} of the whole's bytes")],
+        arch=cfg.name, prompts=[list(p) for p in KV_PROMPTS],
+        slots=KV_MAX_LEN, block=KV_MAX_LEN // n, cache_err_of_max=cache_err,
+        cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
+                              for r in kv],
+        whole_cache_bytes=whole[0],
+        check_s_per_rank=[r["phase_s"] for r in kv],
+        cache_limit=KV_CACHE_OF_MAX)
 
 
 def tp_train_big_path(torch, np, F, modules) -> dict:
-    """Phase 20b: uncut qwen3-1.7b trained over BIG_MODEL gloo ranks on
-    the card (see BIG_ARCH), every leaf aligned with its rank's work: the
+    """Phase 20b: qwen3-1.7b (``big_arch_config``) trained over BIG_MODEL
+    gloo ranks on the card (see BIG_ARCH), every leaf aligned with its rank's work: the
     one-rank step first, here, then the ranks' step on the storage plan;
     each rank's peak below the whole layout's state alone.  Returns the
     launches of the ranks' step, summed over the ranks."""
     import shutil
     import tempfile
 
-    from repro_torch.configs import get_config
     from repro_torch.models import layers as ll
-    cfg = get_config(BIG_ARCH)
+    cfg = big_arch_config()
     L = cfg.num_layers
     workdir = tempfile.mkdtemp(prefix="tp_train_big_")
     try:
@@ -5504,26 +5817,26 @@ def tp_train_big_path(torch, np, F, modules) -> dict:
         phase_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    held_step = tp_verdict(res, ref, "step")
-    held_control = tp_verdict(res, ref, "control")
-    expect = dense_expect(L, "none", qk_norm=True)
+    tp_backend("tp_train_big", res, phase_s)
     rules = ll.leaf_rules(cfg, BIG_MODEL)
-    tp_emit("tp_train_big", cfg, res, ref, held_step, held_control, expect,
-            "the vocabulary-parallel lookup without its all-reduce",
-            phase_s, batch=[BIG_BATCH, BIG_SEQ],
-            peak_limit_gb=ref["state_gb"])
-    tp_checks("tp_train_big", cfg, res, ref, held_step, held_control,
-              expect, {})
     check(set(rules.values()) == {"aligned"},
           f"tp_train_big: qwen3 at model {BIG_MODEL} is not aligned "
           f"everywhere: {rules}")
-    check(ref["launches"] == expect, f"tp_train_big one-rank launches "
-          f"{ref['launches']}, expected {expect}")
+    expect = dense_expect(L, "none", qk_norm=True)
+    launches = tp_family(
+        "tp_train_big", cfg, res, ref,
+        controls={"control": "the vocabulary-parallel lookup without its "
+                             "all-reduce", "control_scatter": SCATTER_CONTROL},
+        expect=expect, plan=sp_plan,
+        residual=[(BIG_BATCH, BIG_SEQ // BIG_MODEL, cfg.d_model)],
+        sp=(BIG_MODEL, None), gathers={}, one_expect=expect,
+        vocab_rows=-(-cfg.vocab_size // BIG_MODEL),
+        batch=[BIG_BATCH, BIG_SEQ], peak_limit_gb=ref["state_gb"])
     for r in res:
         check(r["peak_gb"] < ref["state_gb"],
               f"tp_train_big rank peak {r['peak_gb']} GB, the whole "
               f"layout's state alone is {ref['state_gb']} GB")
-    return {k: sum(r["launches"][k] for r in res) for k in expect}
+    return launches
 
 
 def ep_config():
@@ -5545,15 +5858,17 @@ def ep_prompts(torch, np, cfg):
 
 def ep_logits(torch, model, prompts, forced, ctx_of=None,
               kv_dtype=None, rows: int = 0, max_len: int = 0,
-              with_cache: bool = False):
+              with_cache: bool = False, extra=None):
     """``forced_logits`` with prefill and each decode step through
     ``_serve_wrap`` under ``ctx_of(kind)`` (the prefill and decode rules)
     when given, over a K/V cache of ``kv_dtype`` (bf16 if None) for
     ``rows`` rows (all the prompts' if 0: the wrapper cuts a rank's rows of
     the global batch, its cache holds those) and ``max_len`` positions (S
     + n if 0), made under the prefill rules: where they map ``kv_seq`` to
-    the model axis and it divides the slots, this rank's block of them.
-    Returns the logits, and with ``with_cache`` the cache too."""
+    the model axis and it divides the slots, this rank's block of them;
+    ``extra``: more fields of the prefill batch (a vlm's patches,
+    whisper's frames), cut with the rows.  Returns the logits, and with
+    ``with_cache`` the cache too."""
     import contextlib as _contextlib
     from repro_torch.launch.dryrun import _serve_wrap
     B, S = prompts.shape
@@ -5568,7 +5883,8 @@ def ep_logits(torch, model, prompts, forced, ctx_of=None,
         with ctx_of(kind) as ctx:
             return _serve_wrap(model, ctx, fn)(batch, cache)
 
-    logits, cache = call("prefill", model.prefill, {"tokens": prompts}, cache)
+    logits, cache = call("prefill", model.prefill,
+                         {"tokens": prompts, **(extra or {})}, cache)
     outs = [logits[:, -1].float()]
     pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
     for j in range(n - 1):
@@ -5582,14 +5898,16 @@ def ep_logits(torch, model, prompts, forced, ctx_of=None,
         else torch.stack(outs, dim=1)
 
 
-def greedy_logits(torch, model, prompts, steps: int, max_len: int, kv_dtype):
-    """The one-rank engine's loop: prefill and ``steps - 1`` greedy decode
-    steps over a cache of ``max_len`` slots of ``kv_dtype``.  Returns the
-    logits (B, steps, V) fp32, the greedy tokens (B, steps) and the
-    cache."""
+def greedy_logits(torch, model, prompts, steps: int, max_len: int, kv_dtype,
+                  extra=None):
+    """The one-rank engine's loop: prefill (``extra``: more fields of its
+    batch) and ``steps - 1`` greedy decode steps over a cache of
+    ``max_len`` slots of ``kv_dtype``.  Returns the logits (B, steps, V)
+    fp32, the greedy tokens (B, steps) and the cache."""
     B, S = prompts.shape
     cache = model.init_cache(B, max_len, kv_dtype=kv_dtype)
-    logits, cache = model.prefill({"tokens": prompts}, cache)
+    logits, cache = model.prefill({"tokens": prompts, **(extra or {})},
+                                  cache)
     outs = [logits[:, -1].float()]
     pos = torch.full((B,), S, dtype=torch.long, device=prompts.device)
     for _ in range(steps - 1):
@@ -5610,13 +5928,13 @@ def kv_prompts(torch, np, cfg) -> list:
 
 def kv_reference(torch, np, F, modules, workdir) -> dict:
     """Phase 20's kv_seq check's reference, in the parent before the
-    ranks: uncut qwen2-0.5b on one rank from seed 0, each of KV_PROMPTS
+    ranks: phase 20's qwen2-0.5b (``tp_arch_config``) on one rank from
+    seed 0, each of KV_PROMPTS
     served greedily over a whole cache of KV_MAX_LEN slots in fp32 (fp32
     K/V) and teacher-forced with those tokens in bf16.  The prompts, the
     tokens and the fp32 caches go to ``WORKDIR/kv_ref.pt`` for the ranks;
     the logits are returned.  Frees the models."""
-    from repro_torch.configs import get_config
-    cfg = get_config(TP_ARCH)
+    cfg = tp_arch_config()
     prompts = kv_prompts(torch, np, cfg)
     out = {"logits32": [], "logits16": [], "tokens": [], "cache": []}
     with torch.no_grad():
@@ -5653,9 +5971,38 @@ def unweighted_combine(out, lse, gather):
     return (seen * packed[..., :-1]).sum(0) / seen.sum(0).clamp_min(1.0)
 
 
+@contextlib.contextmanager
+def unweighted(cross: bool = False):
+    """Every partial softmax combined without its lse weights
+    (``unweighted_combine``) for the block; with ``cross`` only those of
+    cross-attention's decode over the cross K/V cache (the self K/V
+    blocks keep the weighted combine)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as ll
+    real, real_decode = ops.combine_partial, ll.attention_decode
+
+    def decode(*args, **kwargs):
+        if kwargs.get("cross_kv") is None:
+            return real_decode(*args, **kwargs)
+        ops.combine_partial = unweighted_combine
+        try:
+            return real_decode(*args, **kwargs)
+        finally:
+            ops.combine_partial = real
+
+    if cross:
+        ll.attention_decode = decode
+    else:
+        ops.combine_partial = unweighted_combine
+    try:
+        yield
+    finally:
+        ops.combine_partial, ll.attention_decode = real, real_decode
+
+
 def kv_serve_rank(torch, np, F, modules) -> dict:
-    """Phase 20's kv_seq check in one of its ranks, after the step: uncut
-    qwen2-0.5b under SERVE_RULES on (data 1, model n), its weights this
+    """Phase 20's kv_seq check in one of its ranks, after the step: its
+    qwen2-0.5b (``tp_arch_config``) under SERVE_RULES on (data 1, model n), its weights this
     rank's shards of the storage plan drawn from seed 0, each of
     KV_PROMPTS prefilled and decoded through ``_serve_wrap`` over a cache
     of KV_MAX_LEN slots (this rank's block of them), teacher-forced with
@@ -5668,7 +6015,6 @@ def kv_serve_rank(torch, np, F, modules) -> dict:
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
@@ -5676,7 +6022,7 @@ def kv_serve_rank(torch, np, F, modules) -> dict:
     from repro_torch.train.train_step import param_plan
     fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
     rank, n = dist.get_rank(), dist.get_world_size()
-    cfg = get_config(TP_ARCH)
+    cfg = tp_arch_config()
     mesh = make_local_mesh(model_axis=n, device="cuda")
     workdir = modules["workdir"]
     ref = torch.load(os.path.join(workdir, "kv_ref.pt"), mmap=True)
@@ -6243,15 +6589,6 @@ def ssm_serve_rank(torch, np, F, modules, workdir, key, cfg) -> dict:
             del model
             torch.cuda.empty_cache()
 
-    @contextlib.contextmanager
-    def unweighted():
-        real = ops.combine_partial
-        ops.combine_partial = unweighted_combine
-        try:
-            yield
-        finally:
-            ops.combine_partial = real
-
     with torch.no_grad():
         sets = range(len(SSM_SERVE[key][1]))
         run("fp32", torch.float32, sets)
@@ -6307,37 +6644,16 @@ def ssm_collective_plan(cfg, r) -> dict:
 
 def ssm_kv_verdict(key, cfg, res, ref) -> dict:
     """Phase 22's serve check for ``key`` against the one-rank reference
-    (``ssm_kv_reference``): fp32 cosine at every position and greedy
-    tokens, the bf16 distance against the one-rank bf16 run's, every
-    model rank's logits equal, each rank's SSM state (and K/V block)
-    against its part of the one-rank cache, the caches' cuts, the
-    control below KV_MIN_COSINE, the bf16 run's launches.  Emits the
-    line; returns the check results."""
+    (``ssm_kv_reference``), ``serve_verdict`` with: each rank's SSM state
+    (and K/V block) against its part of the one-rank cache, the caches'
+    cuts, the fp32 SSD kernel's run recorded.  Returns the launches
+    expected a rank."""
     import torch
     import torch.nn.functional as F
     n, L = len(res), cfg.num_layers
     kv = [r["kv"] for r in res]
     max_len, sets = SSM_SERVE[key]
 
-    def cos(a, b):
-        return F.cosine_similarity(a.float(), b.float(), dim=-1)
-
-    rows32 = kv[0]["fp32"]["rows"]
-    c32 = torch.cat([cos(r["logits"], w).flatten()
-                     for r, w in zip(rows32, ref["logits32"])])
-    tokens_equal = all(torch.equal(r["logits"].argmax(-1), t.cpu())
-                       for r, t in zip(rows32, ref["tokens"]))
-    d16 = 1.0 - float(torch.cat([
-        cos(r["logits"], w).flatten()
-        for r, w in zip(kv[0]["bf16"]["rows"], ref["logits32"])]).mean())
-    d16_one = 1.0 - float(torch.cat([
-        cos(a, w).flatten()
-        for a, w in zip(ref["logits16"], ref["logits32"])]).mean())
-    bound16 = BF16_RATIO * d16_one + BF16_SLACK
-    ctl = cos(kv[0]["control"]["rows"][0]["logits"], ref["logits32"][0])
-    runs = ("fp32", "fp32_kernels", "control", "bf16")
-    same = all(a["digest"] == b["digest"] for k in runs
-               for r in kv[1:] for a, b in zip(r[k]["rows"], kv[0][k]["rows"]))
     def worst(run, what, prefix=""):
         return max((row[prefix + what + "_err"] / row[prefix + what + "_max"]
                     for r in kv for row in r[run]["rows"]
@@ -6350,8 +6666,9 @@ def ssm_kv_verdict(key, cfg, res, ref) -> dict:
                 for i in range(L)]
     decoded_state, decoded_cache = (worst("fp32", w)
                                     for w in ("state", "cache"))
-    k32 = torch.cat([cos(r["logits"], w).flatten() for r, w in
-                     zip(kv[0]["fp32_kernels"]["rows"], ref["logits32"])])
+    k32 = torch.cat([F.cosine_similarity(
+        r["logits"].float(), w.float(), dim=-1).flatten()
+        for r, w in zip(kv[0]["fp32_kernels"]["rows"], ref["logits32"])])
     kernels32 = dict(
         min_cosine=float(k32.min()),
         prefill_state_err_of_max=worst("fp32_kernels", "state", "prefill_"),
@@ -6368,188 +6685,453 @@ def ssm_kv_verdict(key, cfg, res, ref) -> dict:
     per_set = ssm_expect(cfg, steps=KV_STEPS)
     expect = {k: v * len(sets) for k, v in per_set.items()}
     expect["flash_attention_backward"] = 0
-    emit(f"{key}_kv_serve", arch=cfg.name, rules="SERVE_RULES",
-         mesh={"data": 1, "model": n}, layers=L,
-         prompts=[list(p) for p in sets], steps=KV_STEPS, max_len=max_len,
-         slots=slots, block=slots // n if cfg.uses_attention else None,
-         ssm_heads_per_rank=[r["kv"]["fp32"]["rows"][0]["heads"]
-                             for r in res],
-         fp32=dict(min_cosine=float(c32.min()), mean_cosine=float(c32.mean()),
-                   greedy_tokens_equal=tokens_equal, ssd="plain twin"),
-         fp32_kernels=kernels32,
-         bf16=dict(distance=d16, one_rank_distance=d16_one, bound=bound16),
-         control=dict(what="the partial softmaxes combined without their "
-                           "lse weights" if cfg.uses_attention
-                      else "the gate norm's sums over the ranks left out",
-                      min_cosine=float(ctl.min())),
-         ranks_equal=same, prefill_state_err_of_max=state_err,
-         prefill_state_of_max_by_layer=by_layer,
-         decoded_state_of_max_by_layer=[
-             max(row["state_of_max_by_layer"][i]
-                 for r in kv for row in r["fp32"]["rows"])
-             for i in range(L)],
-         prefill_cache_err_of_max=cache_err if cfg.uses_attention else None,
-         decoded_state_err_of_max=decoded_state,
-         decoded_cache_err_of_max=decoded_cache if cfg.uses_attention
-         else None, decoded_limit=SSM_DECODED_OF_MAX,
-         cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
-                               for r in kv],
-         launches_per_rank=[r["bf16"]["launches"] for r in kv],
-         expected_launches_per_rank=expect,
-         seconds_per_rank={k: [r[k]["seconds"] for r in kv] for k in runs},
-         build_s_per_rank={k: [r[k]["build_s"] for r in kv] for k in runs},
-         clock_per_rank={k: [r[k]["clock"] for r in kv] for k in runs},
-         reference_s=ref["seconds"],
-         timing_note="not a speed: the ranks share one card and every "
-                     "collective crosses the host",
-         min_cosine_limit=KV_MIN_COSINE,
-         state_limit=dict(layer0=SSM_STATE_OF_MAX, every=KV_CACHE_OF_MAX),
-         cache_limit=KV_CACHE_OF_MAX)
-    check(float(c32.min()) >= KV_MIN_COSINE and tokens_equal,
-          f"{key}_kv_serve fp32: min cosine {float(c32.min())}, greedy "
-          f"tokens equal {tokens_equal}")
-    check(d16 <= bound16, f"{key}_kv_serve bf16 distance {d16} > {bound16}")
-    check(float(ctl.min()) < KV_MIN_COSINE,
-          f"{key}_kv_serve's control passed: min cosine {float(ctl.min())}")
-    check(same, f"{key}_kv_serve: the model ranks' logits differ")
-    check(by_layer[0] <= SSM_STATE_OF_MAX and state_err <= KV_CACHE_OF_MAX,
-          f"{key}_kv_serve: a rank's fp32 SSM state after the prefill, by "
-          f"layer, {by_layer} of the largest entry of its head slice")
-    check(cache_err <= KV_CACHE_OF_MAX, f"{key}_kv_serve: a rank's fp32 "
-          f"K/V block after the prefill {cache_err} of the largest entry")
-    check(max(decoded_state, decoded_cache) <= SSM_DECODED_OF_MAX,
-          f"{key}_kv_serve: a rank's fp32 SSM state / K/V block after the "
-          f"decode steps {decoded_state} / {decoded_cache} of the largest "
-          f"entry")
-    check(cuts_ok, f"{key}_kv_serve: a rank's cache is not its heads' SSM "
-          f"leaves and its block of {slots} slots")
-    for r in kv:
-        check(r["bf16"]["launches"] == expect, f"{key}_kv_serve launches "
-              f"{r['bf16']['launches']}, expected {expect}")
+    serve_verdict(
+        key, kv, ref, runs=("fp32", "fp32_kernels", "control", "bf16"),
+        expect=expect,
+        control_what="the partial softmaxes combined without their lse "
+                     "weights" if cfg.uses_attention
+        else "the gate norm's sums over the ranks left out",
+        checks=[
+            (by_layer[0] <= SSM_STATE_OF_MAX and state_err <= KV_CACHE_OF_MAX,
+             f"a rank's fp32 SSM state after the prefill, by layer, "
+             f"{by_layer} of the largest entry of its head slice"),
+            (cache_err <= KV_CACHE_OF_MAX, f"a rank's fp32 K/V block after "
+             f"the prefill {cache_err} of the largest entry"),
+            (max(decoded_state, decoded_cache) <= SSM_DECODED_OF_MAX,
+             f"a rank's fp32 SSM state / K/V block after the decode steps "
+             f"{decoded_state} / {decoded_cache} of the largest entry"),
+            (cuts_ok, f"a rank's cache is not its heads' SSM leaves and its "
+             f"block of {slots} slots")],
+        arch=cfg.name, layers=L, prompts=[list(p) for p in sets],
+        max_len=max_len, slots=slots,
+        block=slots // n if cfg.uses_attention else None,
+        ssm_heads_per_rank=[r["kv"]["fp32"]["rows"][0]["heads"]
+                            for r in res],
+        fp32_ssd="plain twin", fp32_kernels=kernels32,
+        prefill_state_err_of_max=state_err,
+        prefill_state_of_max_by_layer=by_layer,
+        decoded_state_of_max_by_layer=[
+            max(row["state_of_max_by_layer"][i]
+                for r in kv for row in r["fp32"]["rows"])
+            for i in range(L)],
+        prefill_cache_err_of_max=cache_err if cfg.uses_attention else None,
+        decoded_state_err_of_max=decoded_state,
+        decoded_cache_err_of_max=decoded_cache if cfg.uses_attention
+        else None, decoded_limit=SSM_DECODED_OF_MAX,
+        cache_bytes_per_rank=[r["fp32"]["rows"][0]["cache_bytes"]
+                              for r in kv],
+        state_limit=dict(layer0=SSM_STATE_OF_MAX, every=KV_CACHE_OF_MAX),
+        cache_limit=KV_CACHE_OF_MAX)
     return expect
 
 
 def tp_ssm_path(torch, np, F, modules) -> dict:
     """Phase 22: the families with an SSM under the model axis, over
     SSM_TP_MODEL gloo ranks on the card, one spawn for both models
-    (``ssm_tp_configs``).  For each, the one-rank step and the one-rank
-    serve reference first, here, on the same seeded masters, batch and
-    prompts, freed before the ranks start; then the ranks' step on the
-    storage plan, held as phase 20's (loss, grad norm, every first
-    moment's cosine or 2x the floor of its kind, whole leaves bit-equal
-    across the ranks, bytes held equal to the shards', the collectives
-    and gathers the plan implies, exact launches), two controls that must
-    fail, and the serve check (``ssm_kv_verdict``).  Returns the launches
-    of the ranks' step and bf16 serving, summed over the ranks, by
-    phase."""
-    import shutil
-    import tempfile
-
+    (``ssm_tp_configs``, ``tp_families``).  For each, the ranks' step on
+    the storage plan held as phase 20's (``tp_family``: loss, grad norm,
+    every first moment's cosine or 2x the floor of its kind, whole leaves
+    bit-equal across the ranks, bytes held equal to the shards', the
+    collectives and gathers the plan implies, exact launches), two
+    controls that must fail, and the serve check (``ssm_kv_verdict``).
+    Returns the launches of the ranks' step and bf16 serving, summed over
+    the ranks, by phase."""
     from repro_torch.models import layers as ll
     cfgs = ssm_tp_configs()
     n = SSM_TP_MODEL
-    workdir = tempfile.mkdtemp(prefix="tp_ssm_")
-    refs, kv_refs = {}, {}
-    try:
-        for key, cfg in cfgs.items():
-            refs[key] = one_rank_reference(
-                torch, np, F, modules, cfg, tp_batch(torch, np, cfg),
-                workdir, name=f"ref_{key}.pt", ssm=True)
-            t0 = time.perf_counter()
-            kv_refs[key] = ssm_kv_reference(torch, np, F, modules, workdir,
-                                            key, cfg)
-            kv_refs[key]["seconds"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        res = spawn_card_ranks("tp_ssm", n, workdir)
-        phase_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    emit("tp_ssm_backend", backend=res[0]["tp_hybrid"]["backend"], ranks=n,
-         moved_per_rank={k: [r[k]["moved"] for r in res] for k in cfgs},
-         phase_s=phase_s,
-         note="collectives stage each tensor through host memory (gloo); "
-              "the ranks share one card")
+    res, refs, kv_refs = tp_families(
+        torch, np, F, modules, "tp_ssm", cfgs, n,
+        lambda cfg: tp_batch(torch, np, cfg), ssm_kv_reference, ssm=True)
     launches = {}
     for key, cfg in cfgs.items():
         sub = [r[key] for r in res]
-        r0, ref = sub[0], refs[key]
-        held = {k: tp_verdict(sub, ref, k)
-                for k in ("step", "control", "control_partial")}
-        expect = ssm_expect(cfg)
-        one_expect = ssm_expect(cfg, split=False)
-        gathers = {k: cfg.num_layers
-                   for k, rule in ll.leaf_rules(cfg, n).items()
-                   if rule == "unaligned"}
-        S = TP_SEQ + cfg.num_meta_tokens
-        emit(f"{key}_collectives", model_axis=r0["collectives"],
-             dp_shard=r0["dp_collectives"], plan=ssm_collective_plan(cfg, r0),
-             model_gathers_per_rank=[r["model_gathers"] for r in sub],
-             partial_leaves_summed=r0["partial_leaves"],
-             sequence_split=r0["sp"],
-             residual_per_rank=[r["residual"] for r in sub])
-        emit(f"{key}_storage", rules=r0["rules"],
-             per_rank=[r["storage"] for r in sub],
-             init_peak_gb_per_rank=[r["init_peak_gb"] for r in sub])
-        emit(key, arch=cfg.name, layers=cfg.num_layers,
-             mesh={"data": 1, "model": n}, heads=r0["heads"],
-             ssm_heads_per_rank=[r["ssm_heads"] for r in sub],
-             path=r0["path"], one_rank_loss=ref["loss"],
-             one_rank_grad_norm=ref["grad_norm"], loss=r0["step"]["loss"],
-             grad_norm=r0["step"]["grad_norm"], held=held["step"],
-             control=dict(what="the gate norm's sums over the ranks left "
-                               "out", **held["control"],
-                          loss=r0["control"]["loss"]),
-             control_partial=dict(what="the partial SSM leaves left out of "
-                                       "the sum over the ranks",
-                                  **held["control_partial"],
-                                  loss=r0["control_partial"]["loss"]),
-             launches_per_rank=[r["launches"] for r in sub],
-             expected_launches_per_rank=expect,
-             one_rank_launches=ref["launches"],
-             peak_gb_per_rank=[r["peak_gb"] for r in sub],
-             step_peak_gb_per_rank=[r["step_peak_gb"] for r in sub],
-             one_rank_peak_gb=ref["peak_gb"], whole_state_gb=ref["state_gb"],
-             step_s_per_rank=[r["step_s"] for r in sub],
-             step_clock_per_rank=[r["step_clock"] for r in sub],
-             control_clock_per_rank=[r["control_clock"] for r in sub],
-             control_partial_clock_per_rank=[r["control_partial_clock"]
-                                             for r in sub],
-             step_phase_s_per_rank=[r["step_phase_s"] for r in sub],
-             kv_phase_s_per_rank=[r["kv_phase_s"] for r in sub],
-             one_rank_step_s=ref["step_s"], batch=[TP_BATCH, TP_SEQ],
-             timing_note="not a speed: the ranks share one card and every "
-                         "collective crosses the host",
-             max_loss_rel=TP_LOSS_REL, max_norm_rel=TP_NORM_REL,
-             min_cosine=TP_MIN_COSINE, floor_ratio=TP_FLOOR_RATIO,
-             floor_max=max(ref["floor"].values()))
-        check(r0["backend"] == "gloo" and all(staged_only(r) for r in sub),
-              f"{key} ran on {r0['backend']}, collectives moved "
-              f"{[r['moved'] for r in sub]}")
-        check(r0["path"] == "dp_manual", f"{key} took the {r0['path']} step")
-        check(held["step"]["ok"], f"{key} against the one-rank step: "
-              f"{held['step']}")
-        for k in ("control", "control_partial"):
-            check(not held[k]["ok"], f"{key}'s {k} passed: {held[k]}")
-        check(r0["sp"] is None, f"{key}: sequence split {r0['sp']}")
-        check(ref["launches"] == one_expect, f"{key} one-rank launches "
-              f"{ref['launches']}, expected {one_expect}")
-        for r in sub:
-            want = [(TP_BATCH, S, cfg.d_model)]
-            check(r["residual"] == want, f"{key}: a layer received "
-                  f"{r['residual']}, not the whole residual {want}")
-            got = dict(model_axis=r["collectives"],
-                       dp_shard=r["dp_collectives"])
-            plan = ssm_collective_plan(cfg, r)
-            check(got == plan, f"{key} collectives {got}, the plan implies "
-                  f"{plan}")
-            check(r["storage"]["ok"], f"{key} storage: {r['storage']}")
-            check(r["launches"] == expect, f"{key} rank launches "
-                  f"{r['launches']}, expected {expect}")
-            check(r["model_gathers"] == gathers, f"{key} gathers over model "
-                  f"{r['model_gathers']}, the rules imply {gathers}")
+        launches[key] = tp_family(
+            key, cfg, sub, refs[key],
+            controls={"control": "the gate norm's sums over the ranks left "
+                                 "out",
+                      "control_partial": "the partial SSM leaves left out "
+                                         "of the sum over the ranks"},
+            expect=ssm_expect(cfg), plan=ssm_collective_plan,
+            residual=[(TP_BATCH, TP_SEQ + cfg.num_meta_tokens, cfg.d_model)],
+            sp=(None, None),
+            gathers={k: cfg.num_layers
+                     for k, rule in ll.leaf_rules(cfg, n).items()
+                     if rule == "unaligned"},
+            one_expect=ssm_expect(cfg, split=False),
+            ssm_heads_per_rank=[r["ssm_heads"] for r in sub],
+            step_phase_s_per_rank=[r["step_phase_s"] for r in sub],
+            kv_phase_s_per_rank=[r["kv_phase_s"] for r in sub],
+            batch=[TP_BATCH, TP_SEQ])
         serve = ssm_kv_verdict(key, cfg, sub, kv_refs[key])
-        launches[key] = {k: sum(r["launches"][k] for r in sub)
-                         for k in expect}
+        launches[key + "_serve"] = {k: sum(r["kv"]["bf16"]["launches"][k]
+                                           for r in sub) for k in serve}
+    return launches
+
+
+def ve_tp_configs() -> dict:
+    """{phase: config} of phase 23: phi-3-vision-4.2b at its published
+    widths and VE_VLM_LAYERS layers, whisper-large-v3 at its published
+    widths with VE_ENC_LAYERS encoder and VE_DEC_LAYERS decoder layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return {"tp_vlm": dataclasses.replace(get_config(VLM_ARCH),
+                                          num_layers=VE_VLM_LAYERS),
+            "tp_encdec": dataclasses.replace(
+                get_config(ENCDEC_ARCH), encoder_layers=VE_ENC_LAYERS,
+                num_layers=VE_DEC_LAYERS)}
+
+
+def ve_extra(torch, np, cfg, rows: int, seed: int) -> dict:
+    """The stub frontend's input for ``rows`` rows, seeded, fp32 on the
+    card: a vlm's ``patch_embeds`` (rows, 576, 1,024) or whisper's
+    ``frames`` (rows, 1,500, 1,280)."""
+    rng = np.random.default_rng(seed)
+    if cfg.num_patches:
+        key, shape = "patch_embeds", (rows, cfg.num_patches,
+                                      cfg.patch_embed_dim)
+    else:
+        key, shape = "frames", (rows, cfg.max_source_positions, cfg.d_model)
+    return {key: torch.as_tensor(rng.standard_normal(shape, np.float32),
+                                 device="cuda")}
+
+
+def ve_batch(torch, np, cfg) -> dict:
+    """Phase 23's step batch: TP_BATCH rows of TP_SEQ text behind the
+    patches (vlm) or of VE_SEQ tokens with the frames (whisper)."""
+    seq = VE_SEQ if cfg.encoder_layers else TP_SEQ
+    return dict(tp_batch(torch, np, cfg, TP_BATCH, seq),
+                **ve_extra(torch, np, cfg, TP_BATCH, 24))
+
+
+def ve_attention_calls(cfg) -> int:
+    """Attention calls a forward of ``cfg`` makes: one a vlm layer;
+    whisper's encoder layers one each, its decoder layers two (self and
+    cross)."""
+    return cfg.encoder_layers + 2 * cfg.num_layers if cfg.encoder_layers \
+        else cfg.num_layers
+
+
+def ve_expect(cfg, steps: int = 0) -> dict:
+    """A rank's launches of one step of ``cfg`` at remat "none" (one
+    flash forward and backward an attention call; the vlm's rmsnorm:
+    ln1 and ln2 a layer and the final norm; whisper's layernorms are
+    plain PyTorch), or with ``steps`` of a bf16 serve of one prompt set:
+    flash at the prefill, and for whisper at each of the steps - 1 decode
+    steps once a decoder layer, its cross-attention over this rank's block
+    of the cross K/V cache (``flash_attention_partial``; decode over the
+    self K/V blocks is ragged and takes the plain partial softmax); the
+    norms at the prefill and at each step."""
+    norms = 0 if cfg.encoder_layers else 2 * cfg.num_layers + 1
+    flash = ve_attention_calls(cfg)
+    if steps and cfg.encoder_layers:
+        flash += cfg.num_layers * (steps - 1)
+    return {"flash_attention": flash,
+            "flash_attention_backward": 0 if steps else flash,
+            "rmsnorm": norms * max(steps, 1)}
+
+
+def ve_collective_plan(cfg, r) -> dict:
+    """The collectives by kind one rank's step of ``cfg`` at remat "none"
+    and one microbatch implies over "model".  The vlm, its residual whole:
+    per layer two split regions (attention, the MLP), each an all-reduce
+    of its input's gradient backward and of its output forward; the
+    vocabulary-parallel lookup's sum (a table stored split); the
+    cross-entropy's gradient sum, its two sums and one max.  Whisper, both
+    stacks sequence-parallel: per region (an encoder layer's attention and
+    MLP, a decoder layer's self-attention, cross-attention and MLP) an
+    all-gather of the sequence in and a reduce-scatter out forward and
+    their transposes backward; the encoder's output gathered whole once
+    for the cross-attention, and the transpose; the lookup's
+    reduce-scatter into the block (a table stored split) and its
+    transpose; the cross-entropy's gather and transpose, its two sums and
+    one max.  In ``dp_shard``: one gather a use of each unaligned leaf and
+    its reduce-scatter, and an all-reduce of each partial leaf (whisper's
+    layernorms' scales and biases and its MLPs' output biases on a token
+    block) and of the grad norm (the data axis of 1 issues none)."""
+    gathers = sum(r["model_gathers"].values())
+    embed = int(r["embed_split"])
+    if cfg.encoder_layers:
+        regions = 2 * cfg.encoder_layers + 3 * cfg.num_layers
+        model = {"all_gather": 2 * regions + 3,
+                 "reduce_scatter": 2 * regions + 2 + embed,
+                 "all_reduce": 2, "all_reduce_max": 1}
+    else:
+        model = {"all_reduce": 4 * cfg.num_layers + 3 + embed,
+                 "all_reduce_max": 1}
+    dp = {"all_gather": gathers, "reduce_scatter": gathers,
+          "all_reduce": r["partial_leaves"] + 1}
+    return dict(model_axis=model,
+                dp_shard={k: v for k, v in dp.items() if v})
+
+
+def ve_exact_zero(cfg):
+    """Whisper's key biases (self- and cross-attention, both stacks):
+    their gradient is 0 in exact arithmetic (``tp_verdict``)."""
+    if not cfg.encoder_layers:
+        return None
+    return lambda k: k.endswith((".attn.bk", ".cross.bk"))
+
+
+def cross_unsummed():
+    """Cross-attention's per-rank outputs left unsummed: every call of
+    ``_attention_split`` with ``kv_x`` without its sum over the model
+    ranks (under sequence parallelism, its reduce-scatter a slice)."""
+    from repro_torch.models import layers as ll
+    return unsummed(ll, "_attention_split",
+                    when=lambda kw: kw.get("kv_x") is not None)
+
+
+def ve_kv_reference(torch, np, F, modules, workdir, key, cfg) -> dict:
+    """Phase 23's serve reference for ``key``, in the parent before the
+    ranks: ``cfg`` on one rank from seed 0, its VE_SERVE prompt set with
+    seeded patches or frames served greedily in fp32 (an fp32 K/V cache)
+    and teacher-forced with those tokens in bf16.  The prompts, the
+    extra inputs, the tokens and the fp32 caches after the prefill and
+    after the decode steps go to ``WORKDIR/kv_<key>.pt`` for the ranks;
+    the logits are returned."""
+    max_len, shape = VE_SERVE[key]
+    rng = np.random.default_rng(25)
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, shape),
+                              dtype=torch.long, device="cuda")
+    extra = ve_extra(torch, np, cfg, shape[0], 26)
+    leaves = ("k", "v", "cross_k", "cross_v")
+    with torch.no_grad():
+        with fp32_model(torch, cfg) as m32:
+            logits32, tokens, cache = greedy_logits(
+                torch, m32, prompts, KV_STEPS, max_len, torch.float32, extra)
+            decoded = {k: cache[k].cpu() for k in leaves if k in cache}
+            _, cache = ep_logits(torch, m32, prompts, tokens[:, :1],
+                                 kv_dtype=torch.float32, max_len=max_len,
+                                 with_cache=True, extra=extra)
+            prefilled = {k: cache[k].cpu() for k in leaves if k in cache}
+            del cache, m32
+        model = seeded_model(torch, cfg)
+        logits16 = ep_logits(torch, model, prompts, tokens, max_len=max_len,
+                             extra=extra).cpu()
+        del model
+    torch.save(dict(prompts=prompts.cpu(), tokens=tokens.cpu(),
+                    extra={k: v.cpu() for k, v in extra.items()},
+                    cache=decoded, prefill_cache=prefilled),
+               os.path.join(workdir, f"kv_{key}.pt"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(logits32=[logits32.cpu()], logits16=[logits16],
+                tokens=[tokens.cpu()])
+
+
+def ve_serve_rank(torch, np, F, modules, workdir, key, cfg) -> dict:
+    """Phase 23's serve check in one of its ranks, after the step:
+    ``cfg`` under SERVE_RULES on (data 1, model n), its weights this
+    rank's shards of the storage plan drawn from seed 0, the prompt set
+    (``kv_<key>.pt``) prefilled with its patches or frames and decoded
+    through ``_serve_wrap``, teacher-forced with the one-rank greedy
+    tokens, over a cache whose K/V (and whisper's cross K/V) hold this
+    rank's block: in fp32 over fp32 K/V, each block after the prefill (a
+    prefill alone) and after the decode steps against its part of the
+    one-rank cache; then in fp32 under the control (the cross cache's
+    partial softmaxes, for the vlm its self K/V's, combined with equal
+    weights); then bf16 with its launches.  Rank 0 returns the logits,
+    every rank their digest."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    rank, n = dist.get_rank(), dist.get_world_size()
+    mesh = make_local_mesh(model_axis=n, device="cuda")
+    max_len = VE_SERVE[key][0]
+    ref = torch.load(os.path.join(workdir, f"kv_{key}.pt"), mmap=True)
+    prompts, tokens = ref["prompts"].to("cuda"), ref["tokens"].to("cuda")
+    extra = {k: v.to("cuda") for k, v in ref["extra"].items()}
+
+    def ctx_of(kind):
+        return use_rules(mesh, rules_for(kind))
+
+    with ctx_of("prefill") as ctx:
+        plan = param_plan(cfg, ctx)
+    out = {}
+
+    def block_errs(cache, want, prefix):
+        """This rank's K/V blocks (self, and whisper's cross) against its
+        slots of the one-rank cache: the largest error and entry."""
+        row = {}
+        for kind, names in (("self", ("k", "v")),
+                            ("cross", ("cross_k", "cross_v"))):
+            if names[0] not in cache:
+                continue
+            err, scale = 0.0, 0.0
+            for name in names:
+                blk = cache[name].shape[2]
+                mine = want[name][:, :, rank * blk:(rank + 1) * blk]
+                err = max(err, float((cache[name] - mine.to("cuda"))
+                                     .abs().max()))
+                scale = max(scale, float(want[name].abs().max()))
+            row[f"{prefix}{kind}_err_of_max"] = err / scale
+        return row
+
+    def served(model, dtype):
+        logits, cache = ep_logits(
+            torch, model, prompts, tokens, ctx_of, kv_dtype=dtype,
+            max_len=max_len, with_cache=True, extra=extra)
+        row = dict(digest=hashlib.sha256(
+            logits.cpu().numpy().tobytes()).hexdigest(),
+            kv_shards=cache.kv_shards, cross_shards=cache.cross_shards,
+            block=cache["k"].shape[2],
+            cross_block=cache["cross_k"].shape[2] if "cross_k" in cache
+            else None,
+            cache_bytes=sum(t.numel() * t.element_size()
+                            for t in cache.values()))
+        if rank == 0:
+            row["logits"] = logits.cpu()
+        if dtype == torch.float32:
+            row.update(block_errs(cache, ref["cache"], ""))
+            _, cache = ep_logits(
+                torch, model, prompts, tokens[:, :1], ctx_of,
+                kv_dtype=dtype, max_len=max_len, with_cache=True,
+                extra=extra)
+            row.update(block_errs(cache, ref["prefill_cache"], "prefill_"))
+        return row
+
+    def run(name, dtype, control=None):
+        saved = ll.COMPUTE_DTYPE
+        ll.COMPUTE_DTYPE = dtype
+        model = None
+        try:
+            t0 = time.perf_counter()
+            model = sharded_serving_model(torch, cfg, plan)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            zero_launches(fa, rn, ss)
+            t0 = time.perf_counter()
+            with control() if control else contextlib.nullcontext(), \
+                    host_clock() as clock:
+                row = served(model, dtype)
+                torch.cuda.synchronize()
+            out[name] = dict(rows=[row], seconds=time.perf_counter() - t0,
+                             build_s=build_s, clock=clock,
+                             launches=dense_launches(fa, rn))
+        finally:
+            ll.COMPUTE_DTYPE = saved
+            del model
+            torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        run("fp32", torch.float32)
+        run("control", torch.float32,
+            lambda: unweighted(cross=bool(cfg.encoder_layers)))
+        run("bf16", torch.bfloat16)
+    del ref
+    return out
+
+
+def tp_vlm_encdec_rank(torch, np, F, modules, workdir) -> dict:
+    """One rank of phase 23: for phi-3-vision, then whisper
+    (``ve_tp_configs``), ``tp_step_rank`` with its control (the vlm: the
+    vocabulary-parallel lookup without its sum, before the patches are
+    prepended; whisper: cross-attention's per-rank outputs left
+    unsummed), then the serve check (``ve_serve_rank``)."""
+    out = {}
+    for key, cfg in ve_tp_configs().items():
+        t0 = time.perf_counter()
+        out[key] = tp_step_rank(
+            torch, np, F, modules, workdir, cfg, ve_batch(torch, np, cfg),
+            {"control": cross_unsummed if cfg.encoder_layers
+             else lookup_unsummed}, ref_name=f"ref_{key}.pt")
+        out[key]["step_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out[key]["kv"] = ve_serve_rank(torch, np, F, modules, workdir, key,
+                                       cfg)
+        out[key]["kv_phase_s"] = time.perf_counter() - t0
+        out[key]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def ve_kv_verdict(key, cfg, res, ref) -> dict:
+    """Phase 23's serve check for ``key`` against the one-rank reference
+    (``ve_kv_reference``), ``serve_verdict`` with: each rank's K/V blocks
+    (and whisper's cross blocks) against its part of the one-rank cache,
+    the caches' cuts; whisper's fp32 logits and its control to
+    VE_CROSS_MIN_COSINE.  Returns the launches expected a rank."""
+    n = len(res)
+    kv = [r["kv"] for r in res]
+    max_len, shape = VE_SERVE[key]
+    rows = [r["fp32"]["rows"][0] for r in kv]
+    errs = {k: max(row[k] for row in rows)
+            for k in rows[0] if k.endswith("_err_of_max")}
+    slots = max_len + cfg.num_patches
+    cuts_ok = all(row["kv_shards"] == n and row["block"] * n == slots
+                  and (not cfg.encoder_layers or row["cross_shards"] == n
+                       and row["cross_block"] * n
+                       == cfg.max_source_positions) for row in rows)
+    expect = ve_expect(cfg, steps=KV_STEPS)
+    serve_verdict(
+        key, kv, ref, runs=("fp32", "control", "bf16"), expect=expect,
+        control_what="the cross K/V blocks' partial softmaxes combined "
+                     "without their lse weights" if cfg.encoder_layers
+        else "the K/V blocks' partial softmaxes combined without their lse "
+             "weights",
+        limit=VE_CROSS_MIN_COSINE if cfg.encoder_layers else KV_MIN_COSINE,
+        checks=[(max(errs.values()) <= KV_CACHE_OF_MAX, f"a rank's fp32 K/V "
+                 f"blocks against the one-rank cache {errs}"),
+                (cuts_ok, f"a rank's cache is not its block of {slots} "
+                 f"slots (and of the encoder positions)")],
+        arch=cfg.name, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, prompts=list(shape),
+        max_len=max_len, slots=slots, block=slots // n,
+        cross_block=cfg.max_source_positions // n if cfg.encoder_layers
+        else None, block_err_of_max=errs,
+        cache_bytes_per_rank=[row["cache_bytes"] for row in rows],
+        cache_limit=KV_CACHE_OF_MAX)
+    return expect
+
+
+def tp_vlm_encdec_path(torch, np, F, modules) -> dict:
+    """Phase 23: the vlm and encdec families under the model axis, over
+    VE_TP_MODEL gloo ranks on the card, one spawn for both models
+    (``ve_tp_configs``, ``tp_families``).  For each, the ranks' step on
+    the storage plan held as phase 20's (``tp_family``, the collectives
+    of ``ve_collective_plan``, no gather over "model"), a control that
+    must fail, and the serve check (``ve_kv_verdict``).  Returns the
+    launches of the ranks' step and bf16 serving, summed over the ranks,
+    by phase."""
+    from repro_torch.models import layers as ll
+    cfgs = ve_tp_configs()
+    n = VE_TP_MODEL
+    res, refs, kv_refs = tp_families(
+        torch, np, F, modules, "tp_vlm_encdec", cfgs, n,
+        lambda cfg: ve_batch(torch, np, cfg), ve_kv_reference)
+    launches = {}
+    for key, cfg in cfgs.items():
+        sub = [r[key] for r in res]
+        rules = ll.leaf_rules(cfg, n)
+        check("unaligned" not in rules.values(), f"{key}: leaves "
+              f"unaligned at model {n}: {rules}")
+        if cfg.encoder_layers:
+            residual = sorted({(TP_BATCH, cfg.max_source_positions // n,
+                                cfg.d_model), (TP_BATCH, VE_SEQ // n,
+                                               cfg.d_model)})
+            sp, control = (n, n), "cross-attention's per-rank outputs " \
+                                  "left unsummed"
+        else:
+            residual = [(TP_BATCH, cfg.num_patches + TP_SEQ, cfg.d_model)]
+            sp, control = (None, None), "the vocabulary-parallel lookup " \
+                                        "without its sum"
+        expect = ve_expect(cfg)
+        launches[key] = tp_family(
+            key, cfg, sub, refs[key], controls={"control": control},
+            expect=expect, plan=ve_collective_plan, residual=residual, sp=sp,
+            gathers={}, exact_zero=ve_exact_zero(cfg), one_expect=expect,
+            encoder_layers=cfg.encoder_layers,
+            vocab_rows=-(-cfg.vocab_size // n),
+            step_phase_s_per_rank=[r["step_phase_s"] for r in sub],
+            kv_phase_s_per_rank=[r["kv_phase_s"] for r in sub],
+            batch=[TP_BATCH, VE_SEQ if cfg.encoder_layers else TP_SEQ])
+        serve = ve_kv_verdict(key, cfg, sub, kv_refs[key])
         launches[key + "_serve"] = {k: sum(r["kv"]["bf16"]["launches"][k]
                                            for r in sub) for k in serve}
     return launches
@@ -6699,6 +7281,17 @@ def main() -> int:
     checks["flash_attention"] += check_flash(
         torch, F, fa, gen, "tp_hybrid_rank", TP_BATCH, TP_SEQ + 128,
         TP_SEQ + 128, 15, 15, 64)
+    # phase 23's, as BWD_CASES' tp_vlm_rank and tp_whisper_*_rank
+    for name, (shape, kw) in BWD_CASES.items():
+        if name.startswith(("tp_vlm", "tp_whisper")):
+            checks["flash_attention"] += check_flash(torch, F, fa, gen, name,
+                                                     *shape, **kw)
+    # phase 23's decode over whisper's cross K/V cache cut on kv_seq: a
+    # rank's query row of 10 heads over its block of 750 encoder positions,
+    # out and lse for the combine
+    checks["flash_attention"] += check_flash_partial(
+        torch, fa, ref, gen, "tp_whisper_cross_decode_rank", TP_BATCH, 1,
+        1500 // VE_TP_MODEL, 10, 10, 64)
     checks["flash_attention_backward"] = []
     for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
@@ -6738,6 +7331,10 @@ def main() -> int:
     for name, d in (("tp_seq_d896", 896), ("tp_big_seq_d2048", 2048)):
         checks["rmsnorm"] += check_rmsnorm(
             torch, F, rn, gen, name, TP_BATCH * TP_SEQ // TP_MODEL, d)
+    # phase 23's: phi-3-vision's ln1 / ln2 / final norm on a rank's whole
+    # residual of 2 x (576 + 512) tokens
+    checks["rmsnorm"] += check_rmsnorm(torch, F, rn, gen, "tp_vlm_d3072",
+                                       TP_BATCH * (576 + TP_SEQ), 3072)
     checks["rmsnorm_residual"] += check_rmsnorm_residual(
         torch, rn, gen, "slice", TRAIN_BATCH * TRAIN_SEQ, 1536)
     # phase 22's gate norm over a row split across 2 model ranks: hymba's
@@ -6845,7 +7442,7 @@ def main() -> int:
     drift_retune_path(torch, np, tdata)
     trainer_launches = trainer_path(torch, np, tdata, modules)
     # phase 14's Trainer B and its patched restore hold each other: only
-    # the collector frees its 9.36 GB state before the next 780M state
+    # the collector frees its state before the next mamba2 state
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6877,7 +7474,11 @@ def main() -> int:
     ssm_tp_launches = tp_ssm_path(torch, np, F, modules)
     torch.cuda.empty_cache()
 
-    # ---- 23. the kernels line ---------------------------------------------
+    # ---- 23. the vlm and encdec families under the model axis -------------
+    ve_tp_launches = tp_vlm_encdec_path(torch, np, F, modules)
+    torch.cuda.empty_cache()
+
+    # ---- 24. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
                     "serve_vlm": serve_vlm_launches,
@@ -6903,7 +7504,9 @@ def main() -> int:
                                 tp_big_launches["flash_attention"],
                             "ep_serve": ep_launches["flash_attention"],
                             **{k: v["flash_attention"]
-                               for k, v in ssm_tp_launches.items()}},
+                               for k, v in ssm_tp_launches.items()},
+                            **{k: v["flash_attention"]
+                               for k, v in ve_tp_launches.items()}},
         "rmsnorm": {"serve": serve_launches["rmsnorm"],
                     "serve_ssm": serve_ssm_launches["rmsnorm"],
                     "serve_moe": serve_moe_launches["rmsnorm"],
@@ -6922,7 +7525,8 @@ def main() -> int:
                     "tp_kv_serve": tp_launches["kv_serve"]["rmsnorm"],
                     "tp_train_big": tp_big_launches["rmsnorm"],
                     "ep_serve": ep_launches["rmsnorm"],
-                    **{k: v["rmsnorm"] for k, v in ssm_tp_launches.items()}},
+                    **{k: v["rmsnorm"] for k, v in ssm_tp_launches.items()},
+                    **{k: v["rmsnorm"] for k, v in ve_tp_launches.items()}},
         "rmsnorm_residual": {},      # no model calls it
         "ssd_scan": {"serve_ssm": serve_ssm_launches["ssd_scan"],
                      "serve_hybrid": serve_hybrid_launches["ssd_scan"],
@@ -7008,7 +7612,10 @@ def main() -> int:
         if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
                          "phi3v", "whisper_enc", "whisper_cross",
                          "whisper_cross_decode", "whisper_self", "tp_rank",
-                         "ep_rank", "tp_big_rank", "tp_hybrid_rank")
+                         "ep_rank", "tp_big_rank", "tp_hybrid_rank",
+                         "tp_vlm_rank", "tp_whisper_enc_rank",
+                         "tp_whisper_cross_rank", "tp_whisper_self_rank",
+                         "tp_whisper_cross_decode_rank")
         and r["dtype"] == "bfloat16"}
     # rmsnorm at mixtral's d_model, on the ring path, and at the prefix
     # families' widths
@@ -7020,7 +7627,7 @@ def main() -> int:
         if r["case"] in ("mixtral_d6144", "mixtral_decode", "hymba_d1600",
                          "hymba_gate_d3200", "phi3v_d3072", "fleet_d1536",
                          "fleet_d3072", "dp_mb_d1536", "dp_mb_d3072",
-                         "tp_seq_d896", "tp_big_seq_d2048")
+                         "tp_seq_d896", "tp_big_seq_d2048", "tp_vlm_d3072")
         and r["dtype"] == "bfloat16"}
     # the flash backward replaces no TPU kernel: its launches (one a
     # backward call, for its three kernels) and times ride on flash's row
@@ -7030,7 +7637,9 @@ def main() -> int:
         "tp_train": tp_launches["flash_attention_backward"],
         "tp_train_big": tp_big_launches["flash_attention_backward"],
         **{k: v["flash_attention_backward"]
-           for k, v in ssm_tp_launches.items()}}
+           for k, v in ssm_tp_launches.items()},
+        **{k: v["flash_attention_backward"]
+           for k, v in ve_tp_launches.items()}}
     train_row = next(r for r in backward_rows if r["case"] == "train")
     by_name["flash_attention"].update(
         backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -71,7 +71,10 @@
 //  * Under a gradient the tensor-core kernel also writes each row's
 //    logsumexp of the scaled scores, lse = m ln 2 + ln l in natural-log
 //    units (m is kept in log2 units, scale_log2), fp32 (B, H, S), -inf for
-//    a row that sees no key; serving passes no lse and writes none.
+//    a row that sees no key.  Decode over one block of a cross K/V cache
+//    cut over the model ranks asks both kernels for it (lse = m + ln l in
+//    the fp32 kernel, whose m is in natural units), so the ranks' partial
+//    softmaxes can be combined; other serving passes no lse.
 //
 // Backward (flash_attention_bwd), bf16 on the tensor-core tiles only.
 // It replaces nothing on the TPU: the JAX package has no custom_vjp and
@@ -181,7 +184,7 @@ struct Params {
   float scale;
   int causal, window, q_offset;
   float* lse;  // (B, H, S) natural-log logsumexp of the scaled scores, or
-               // null (serving); written by flash_mma_kernel only
+               // null (serving)
 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -294,6 +297,11 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(const Params p) {
     T* orow = o + b * p.o_sb + (long long)qi * p.o_ss + h * p.o_sh;
 #pragma unroll
     for (int i = 0; i < PER; ++i) store_f(orow + i * GROUP + sub, acc[i] / denom);
+    // lse = ln sum_t exp(scale s_t) = m + ln l; -inf for a row that sees
+    // no key
+    if (p.lse != nullptr && sub == 0)
+      p.lse[((long long)b * p.H + h) * p.S + qi] =
+          l == 0.f ? -INFINITY : m + logf(l);
   }
 }
 
@@ -1307,9 +1315,8 @@ extern "C" int flash_attention_smem_bytes(int D) {
 // D and the other strides given in elements.  dtype: 0 = float32,
 // 1 = bfloat16.  lse: null, or a contiguous fp32 (B,H,S) that receives
 // each row's natural-log logsumexp of the scaled visible scores (-inf for
-// a row that sees no key); only the tensor-core path writes it, so an lse
-// with any other input is refused.  Returns the CUDA error of the launch
-// (0 on success).
+// a row that sees no key).  Returns the CUDA error of the launch (0 on
+// success).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int T, int H, int K, int D, long long q_sb, long long q_ss,
@@ -1332,8 +1339,6 @@ extern "C" int flash_attention_fwd(
                        mma::aligned16(o, o_sb, o_ss, o_sh);
   if (dtype == 1 && tiles16)
     err = launch_mma(p, B, D, st);
-  else if (lse != nullptr)  // only the tensor-core kernel writes lse
-    err = cudaErrorInvalidValue;
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(p, D, grid, st);
   else if (dtype == 0)

@@ -38,9 +38,14 @@ is the launch plan they read: each pass's grid, the cluster size and its
 work list, (tile, first tile on the other side, tiles) per block,
 heaviest first, built here from the masks so the CPU tests hold it.
 
-Without a gradient the forward writes no lse.  ``flash_attention.launches``
-counts forward kernel launches, ``flash_attention.backward_launches``
-backward calls on the card (one a call, for its three launches).
+Without a gradient the forward writes no lse, except in
+``flash_attention_partial``: decode over one block of a K/V cache cut
+over the model ranks (whisper's cross K/V on ``kv_seq``), where the
+forward kernel, fp32 or bf16, writes o and lse for ``ops.combine_partial``
+to merge the ranks' blocks; its plain twin is ``flash_attention_plain_lse``.
+``flash_attention.launches`` counts forward kernel launches (the partial
+form's too), ``flash_attention.backward_launches`` backward calls on the
+card (one a call, for its three launches).
 """
 from __future__ import annotations
 
@@ -469,6 +474,34 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                      q_offset=q_offset, scale=scale)
     _check(q, k, v)
     return _forward_kernel(q, k, v, causal, window, q_offset, scale)
+
+
+def flash_attention_partial(q, k, v, *, causal: bool = True,
+                            window: int = 0, q_offset: int = 0,
+                            scale: Optional[float] = None):
+    """``flash_attention`` over one block of the keys, left for
+    ``ops.combine_partial`` to finish, as ``ref.mha_partial`` gives it:
+    (out (B,S,H,D) fp32, lse (B,S,H) fp32), out this block's softmax
+    applied to its V (rounded to q's type by the kernel) and lse the
+    logsumexp of each row's scaled visible scores, -inf for a row that
+    sees none.  On CUDA tensors the forward kernel writes both; on CPU
+    tensors the plain twin ``flash_attention_plain_lse``.  No gradient:
+    decode only."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError("flash_attention_partial has no backward "
+                                  "(decode only)")
+    if q.device.type == "cpu":
+        out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
+                                             window=window,
+                                             q_offset=q_offset, scale=scale)
+    else:
+        _check(q, k, v)
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = _forward_kernel(q, k, v, causal, window, q_offset, scale, lse)
+    return out.float(), lse.float().transpose(1, 2)
 
 
 flash_attention.launches = 0

@@ -13,9 +13,14 @@
   O(block * T).
 * Ragged attention (explicit positions, a valid-length bound, a softcap or
   sinks) has no kernel on either backend and goes to ``ref.mha`` on every
-  device, as in the JAX package.  That covers all of decode, including
-  its partial form over a block of a K/V cache cut over the model ranks
-  (``attention_partial`` and ``combine_partial``, ``ref.mha_partial``).
+  device, as in the JAX package.  That covers decode over the self K/V
+  cache, including its partial form over a block of a cache cut over the
+  model ranks (``attention_partial``, ``ref.mha_partial``).  Decode over
+  the cross K/V cache is not ragged: whole, it takes ``flash_attention``;
+  cut over the ranks, ``attention_partial`` sends a CUDA tensor to
+  ``flash_attention_partial`` (the forward kernel writing its lse too).
+  The ranks' blocks are merged by ``combine_partial`` (plain PyTorch on
+  every device: a few elementwise ops on a (ranks, B, 1, H, D) stack).
 * The one-token SSD recurrence of decode (``ssd_step``) is plain PyTorch
   on every device, as the JAX package computes it outside any Pallas
   kernel: a few elementwise ops and two small contractions per layer,
@@ -57,10 +62,23 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
                     scale=scale, num_sink=num_sink)
 
 
-def attention_partial(q, k, v, **kw):
+def attention_partial(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_pos=None, kv_pos=None, kv_valid=None,
+                      softcap: float = 0.0, scale: Optional[float] = None,
+                      num_sink: int = 0):
     """``attention`` over one block of the keys, unfinished: (out fp32,
-    lse fp32), ``ref.mha_partial`` on every device (decode only)."""
-    return _ref.mha_partial(q, k, v, **kw)
+    lse fp32), decode only.  A block that is not ragged (the cross K/V
+    cache's) on a CUDA tensor goes to the forward kernel
+    (``flash_attention_partial``); a ragged one, or a CPU tensor, to
+    ``ref.mha_partial``."""
+    ragged = q_pos is not None or kv_pos is not None or kv_valid is not None \
+        or softcap > 0.0 or num_sink > 0
+    if not ragged and q.device.type != "cpu":
+        return _fa.flash_attention_partial(q, k, v, causal=causal,
+                                           window=window, scale=scale)
+    return _ref.mha_partial(q, k, v, causal=causal, window=window,
+                            q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
+                            softcap=softcap, scale=scale, num_sink=num_sink)
 
 
 def combine_partial(out, lse, gather):

@@ -7,7 +7,7 @@ leaves ``SERVE_RULES_BIG`` shards over ``"data"``) are taken while
 serving.  Here the wrapper cuts this rank's rows of the batch and enters
 the same manual region around a call on them; inside it the model's
 prefill and decode gather each layer's batch-sharded leaves
-(``DecoderLM._serve_params``) and the layers take their part of the
+(``lm._serve_params``) and the layers take their part of the
 model-sharded ones (``layers.work``).  The rest of ``repro``'s
 ``dryrun.py`` (cell lowering, HLO reports) has no counterpart yet.
 """

@@ -7,10 +7,11 @@ Under a model axis (inside the manual region of a ``use_rules`` mesh whose
 ``"model"`` axis is larger than 1, ``model_axis.split_for``) five layers
 split their work over the model ranks, as ``repro``'s rules shard the
 activations, and sum with explicit collectives: attention by padded heads
-(``heads_act``), the MLP by d_ff (``mlp_act``), the MoE by virtual experts
-(``experts_virt``, ``repro``'s expert-parallel branch), the embedding
-lookup, unembedding and cross-entropy by vocabulary rows (``vocab_act``),
-and the SSM mixer (``models/ssm.py``) by whole SSD heads
+(``heads_act``; cross-attention too, over an encoder output entered once
+through ``cross_source``), the MLP by d_ff (``mlp_act``), the MoE by
+virtual experts (``experts_virt``, ``repro``'s expert-parallel branch),
+the embedding lookup, unembedding and cross-entropy by vocabulary rows
+(``vocab_act``), and the SSM mixer (``models/ssm.py``) by whole SSD heads
 (``ssm_inner_act``, ``ssm_heads`` here).
 A leaf the rules map to ``"model"`` arrives as this rank's shard where the
 guard keeps the dim (``dp_shard.ShardPlan.for_storage``), else whole; a
@@ -424,7 +425,7 @@ def leaf_rules(cfg: ModelConfig, n: int, rules=TRAIN_RULES):
 
 
 def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
-                     window, num_sink, rope, full_kv, seq=None):
+                     window, num_sink, rope, full_kv, seq=None, kv_x=None):
     """``attention`` on this model rank's slice of the padded heads
     (``rank_heads``): q projected for its real heads only and zero in the
     pad slots, K/V for the kv heads its groups use (zero for a pad kv
@@ -435,7 +436,10 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     ``wo``, so its dO is 0 and it adds no gradient.  Each weight is this
     rank's part (``work``), the K/V weights whole if ``full_kv``.  Returns
     (y, k, v): K/V of every kv head if ``full_kv`` (prefill's cache), else
-    of this rank's.
+    of this rank's.  Cross-attention (``kv_x``, whole on every rank and
+    entered into the split by the caller, ``cross_source``) projects K/V
+    from ``kv_x`` the same way: the rank's kv heads, or with ``full_kv``
+    every kv head.
 
     A slice that straddles GQA groups (not ``uniform``: its kv heads serve
     6, 6 and 3 of its slots) expands its kv heads to one per slot by an
@@ -451,6 +455,7 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     took, so every rank issues the same collectives forward and backward
     (a gathered leaf's reduce-scatter included)."""
     xin = cast(model_axis.enter(x, split, seq))
+    kv_in = xin if kv_x is None else cast(kv_x)
     B, S, _ = xin.shape
     K, hd = cfg.num_kv_heads, cfg.head_dim
     rh = rank_heads(cfg, split.size, split.rank)
@@ -462,16 +467,16 @@ def _attention_split(p, cfg: ModelConfig, x, split, *, positions, causal,
     def kv_part(leaf):
         return whole(p, cfg, "attn." + leaf) if full_kv else part(leaf)
 
-    def project(w, b):
-        y = xin @ cast(w)
+    def project(src, w, b):
+        y = src @ cast(w)
         if b is not None:
             y = y + cast(b)
-        return y.view(B, S, y.shape[-1] // hd, hd)
+        return y.view(B, src.shape[1], y.shape[-1] // hd, hd)
 
     bias = "bq" in p
-    q = project(part("wq"), part("bq") if bias else None)
-    k = project(kv_part("wk"), kv_part("bk") if bias else None)
-    v = project(kv_part("wv"), kv_part("bv") if bias else None)
+    q = project(xin, part("wq"), part("bq") if bias else None)
+    k = project(kv_in, kv_part("wk"), kv_part("bk") if bias else None)
+    v = project(kv_in, kv_part("wv"), kv_part("bv") if bias else None)
     if "q_norm" in p:
         if rh.heads:
             q = ops.rmsnorm(q, p["q_norm"], eps=cfg.norm_eps)
@@ -512,18 +517,19 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
 
     Returns (y, k, v): the output and the K and V attended over (after
     rotary if ``rope``), which prefill writes into the decode cache, so
-    the layer stack runs once.  Under a model split of the heads
-    (self-attention) each rank attends over its slice of the padded heads
+    the layer stack runs once.  Under a model split of the heads (self- and
+    cross-attention) each rank attends over its slice of the padded heads
     (``_attention_split``); its k and v are then every kv head's only if
-    ``full_kv``.  With ``seq`` (``stack.sp_split``) x and y are this
-    rank's block of the tokens, the sequence gathered in between;
-    ``positions`` are the whole sequence's."""
-    split = model_axis.split_for("heads_act") if kv_x is None else None
+    ``full_kv``, and ``kv_x`` must come through ``cross_source``.  With
+    ``seq`` (``stack.sp_split``) x and y are this rank's block of the
+    tokens, the sequence gathered in between; ``positions`` are the whole
+    sequence's."""
+    split = model_axis.split_for("heads_act")
     if split is not None:
         return _attention_split(p, cfg, x, split, positions=positions,
                                 causal=causal, window=window,
                                 num_sink=num_sink, rope=rope, full_kv=full_kv,
-                                seq=seq)
+                                seq=seq, kv_x=kv_x)
     x = model_axis.enter(x, None, seq)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, kv_x)
@@ -537,6 +543,16 @@ def attention(p, cfg: ModelConfig, x, *, positions, causal: bool = True,
     return model_axis.leave(y, None, seq), k, v
 
 
+def cross_source(enc, seq=None):
+    """The encoder's output as cross-attention reads it in every decoder
+    layer: whole on every rank, its gradient summed over the model ranks
+    once for all the layers (``model_axis.enter`` for the heads split:
+    each rank's K/V use only its kv heads' part of it).  With ``seq``
+    (the encoder's ``stack.sp_split``) ``enc`` is this rank's block of
+    the positions, gathered whole here."""
+    return model_axis.enter(enc, model_axis.split_for("heads_act"), seq)
+
+
 def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
                      window: int = 0, num_sink: int = 0, ring: bool = False,
                      rope: bool = True, cross_kv=None, kv=None):
@@ -545,7 +561,11 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
 
     With ``cross_kv`` (the cached cross K and V, (B,T_src,K,hd) each) it
     is cross-attention: Q alone is projected and attends, not causally,
-    over them; ``kv_cache`` is not read or written.
+    over them; ``kv_cache`` is not read or written.  With ``kv`` too the
+    cross K/V are rank r's block of T_src/n encoder positions, attended
+    over (the block is not ragged: on the card the flash forward kernel,
+    writing its lse too) and combined across the ranks as the self K/V
+    blocks below.
 
     The new K/V are written into ``kv_cache`` in place (the engine owns
     the cache, as JAX's donated buffer).  Without ``ring`` T is the full
@@ -566,7 +586,13 @@ def attention_decode(p, cfg: ModelConfig, x, kv_cache, *, positions,
     if cross_kv is not None:
         q = _project_q(p, cfg, x)
         k, v = (t.to(q.dtype) for t in cross_kv)    # no copy when equal
-        out = ops.attention(q, k, v, causal=False)
+        if kv is None:
+            out = ops.attention(q, k, v, causal=False)
+        else:
+            part, lse = ops.attention_partial(q, k, v, causal=False)
+            out = ops.combine_partial(
+                part, lse, lambda t: model_axis.stack_ranks(t, kv)
+            ).to(q.dtype)
         return out.reshape(B, 1, cfg.num_heads * cfg.head_dim) \
             @ cast(whole(p, cfg, "attn.wo"))
     q, k_new, v_new = _project_qkv(p, cfg, x)
@@ -1045,7 +1071,8 @@ def _on_residual(specs, name: str) -> bool:
                  else node.axes) == ("embed",)
 
 
-def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
+def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None,
+                         enc_seq=None):
     """The parameters among ``names`` (port names, ``layers.3.attn.wq``)
     stored whole whose gradient a model rank holds only in part under the
     current splits: what the data-parallel step sums over the model ranks
@@ -1053,21 +1080,23 @@ def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
     dim the guard dropped).  A leaf stored split holds its shard's whole
     gradient (``model_storage``); the norm scales, the router and a table
     used only by the lookup are used whole on replicated inputs.
-    ``specs`` is the model's spec tree (``lm.param_specs``).  Under a
-    split of the SSD heads (``ssm_inner_act``) every SSM leaf feeds only
-    the rank's heads: ``in_B``, ``in_C`` and the B / C channels of the
-    conv, which every rank uses whole, and whichever of the others the
-    guard left whole.
+    ``specs`` is the model's spec tree (``lm.param_specs``).  An encdec
+    decoder layer's cross-attention (``cross``) splits by heads as
+    self-attention does.  Under a split of the SSD heads
+    (``ssm_inner_act``) every SSM leaf feeds only the rank's heads:
+    ``in_B``, ``in_C`` and the B / C channels of the conv, which every
+    rank uses whole, and whichever of the others the guard left whole.
 
     Under sequence parallelism (``seq``, ``stack.sp_split``) a rank
     applies every leaf that acts on the residual stream token by token
-    (``_on_residual``, read from ``specs``: the norms' scales, the final
-    norm's included) to its block of the tokens only: those are used in
-    part too.  So is the expert-parallel MoE's router, which its spec
-    cannot tell: it is applied to the whole gathered sequence, but under
-    ``seq`` its gates enter the expert split without ``to_model``
-    (``_moe_ep``), so each rank's gradient of them holds only its own
-    experts' share."""
+    (``_on_residual``, read from ``specs``: the norms' scales and
+    biases, the final norm's included) to its block of the tokens only:
+    those are used in part too; the encoder's stack and ``enc_norm`` go
+    by the encoder's own split (``enc_seq``).  So is the expert-parallel
+    MoE's router, which its spec cannot tell: it is applied to the whole
+    gathered sequence, but under ``seq`` its gates enter the expert split
+    without ``to_model`` (``_moe_ep``), so each rank's gradient of them
+    holds only its own experts' share."""
     attn = model_axis.split_for("heads_act") is not None
     mlp_ = _mlp_split(cfg) is not None
     ep = _ep_split() is not None
@@ -1077,13 +1106,17 @@ def model_partial_leaves(cfg: ModelConfig, specs, names, seq=None):
     out = []
     for name in names:
         group, leaf = ([""] + name.split("."))[-2:]      # meta_tokens: ""
+        if group == "cross":
+            group = "attn"
+        res_seq = enc_seq if name.startswith(("encoder.", "enc_norm.")) \
+            else seq
         if (group == "attn" and attn or group == "ssm" and ssm_
                 or group == "mlp" and mlp_ and leaf != "bo"
                 or group == "moe" and ep and (leaf != "router"
                                               or seq is not None)
                 or group == "embed" and vocab and (
                     leaf == "unembed" or cfg.tie_embeddings)
-                or seq is not None and _on_residual(specs, name)) \
+                or res_seq is not None and _on_residual(specs, name)) \
                 and not _stored_split(ctx, cfg, f"{group}.{leaf}"):
             out.append(name)
     return out

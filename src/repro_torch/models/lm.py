@@ -50,7 +50,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed import dp_shard
+from repro_torch.distributed import dp_shard, model_axis
 from repro_torch.distributed.sharding_rules import current_ctx
 from repro_torch.models import layers as ll
 from repro_torch.models import ssm as ssm_mod
@@ -164,14 +164,21 @@ def top_axes(specs):
 
 
 def _store_leaves(cache, i: int, leaves, S: int, ring: bool,
-                  kv=None) -> None:
+                  kv=None, cross=None) -> None:
     """Write layer i's cache leaves from a prefill of S positions into
     ``cache`` in place: K/V up to the cache's length (a ring of T slots
     keeps the last T positions, rolled so position p sits in slot p % T),
     every other leaf whole, each cast to its cache dtype.  With ``kv`` (a
     split of the model ranks, ``stack.kv_split``) the cache holds this
-    rank's block of the T slots, and only that block is written."""
+    rank's block of the T slots, and only that block is written; with
+    ``cross`` (``stack.kv_split(cache, cross=True)``) the cross K/V hold
+    this rank's block of the encoder positions, cut from every
+    position's."""
     for name, t in leaves.items():
+        if name in ("cross_k", "cross_v") and cross is not None:
+            block = cache[name].shape[2]
+            cache[name][i] = t[:, cross.rank * block:(cross.rank + 1) * block]
+            continue
         if name not in ("k", "v"):
             cache[name][i] = t
             continue
@@ -184,6 +191,25 @@ def _store_leaves(cache, i: int, leaves, S: int, ring: bool,
         else:
             write = max(0, min(S, T, lo + block) - lo)
             cache[name][i, :, :write] = t[:, lo:lo + write]
+
+
+def _serve_params(model):
+    """(the top-level groups, the decoder's layer hook) for prefill and
+    decode: inside a manual region, the groups with their batch-sharded
+    leaves gathered and a hook that gathers a layer's
+    (``stack.manual_layer_hook``; an encdec decoder layer's with its
+    cross-attention), in the compute dtype, as ``repro``'s ``_serve_wrap``
+    gathers them; else the model's own groups and no hook.  An encoder's
+    stack takes its own hook inside ``stack.run_stack``."""
+    ctx = current_ctx()
+    if ctx is None or not ctx.manual:
+        return model.top_params(), None
+    cfg = model.cfg
+    top = dp_shard.gather_params(model.top_params(),
+                                 top_axes(model.param_specs(cfg)),
+                                 compute_dtype=ll.COMPUTE_DTYPE)
+    return top, stk.manual_layer_hook(cfg, cross=bool(cfg.encoder_layers),
+                                      compute_dtype=ll.COMPUTE_DTYPE)
 
 
 def _next_token_loss(model, batch, remat_policy: str, params):
@@ -270,22 +296,6 @@ class DecoderLM(nn.Module):
                 top[name] = getattr(self, name)
         return top
 
-    def _serve_params(self):
-        """(the top-level groups, the layer hook) for prefill and decode:
-        inside a manual region, the groups with their batch-sharded leaves
-        gathered and a hook that gathers a layer's
-        (``stack.manual_layer_hook``), in the compute dtype, as ``repro``'s
-        ``_serve_wrap`` gathers them; else the model's own groups and no
-        hook."""
-        ctx = current_ctx()
-        if ctx is None or not ctx.manual:
-            return self.top_params(), None
-        top = dp_shard.gather_params(self.top_params(),
-                                     top_axes(self.param_specs(self.cfg)),
-                                     compute_dtype=ll.COMPUTE_DTYPE)
-        return top, stk.manual_layer_hook(self.cfg,
-                                          compute_dtype=ll.COMPUTE_DTYPE)
-
     @property
     def prefix_len(self) -> int:
         """Internal positions before the text: the meta tokens and the
@@ -367,7 +377,7 @@ class DecoderLM(nn.Module):
         ranks (``stack.kv_split``) takes this rank's block of those
         slots."""
         cfg = self.cfg
-        top, hook = self._serve_params()
+        top, hook = _serve_params(self)
         x, positions, _ = self._compose_input(batch, top)
         S = x.shape[1]
         ring = stk.use_ring_cache(cfg)
@@ -389,7 +399,7 @@ class DecoderLM(nn.Module):
         tail and state into ``cache`` in place.  Returns (logits,
         cache)."""
         cfg = self.cfg
-        top, hook = self._serve_params()
+        top, hook = _serve_params(self)
         x = ll.embed(top["embed"], cfg, tokens)
         positions = positions + self.prefix_len
         kv = stk.kv_split(cache)
@@ -426,39 +436,47 @@ class EncDecLM(nn.Module):
     d_model).  ``params`` has the JAX package's layout (``embed``, the
     stacked ``encoder`` of ``encoder_layers``, ``enc_norm``, the stacked
     decoder ``layers`` with cross-attention, ``final_norm``) and fp32
-    leaves.  Positions are sinusoids added to the input (no rotary).
+    leaves, or with ``plan`` each leaf this rank's shard under it, as
+    ``DecoderLM``'s.  Positions are sinusoids added to the input (no
+    rotary).
 
     Prefill runs the encoder once and each decoder layer once: the cross
     K/V a layer attends over are the ones it writes into the cache, so
     they are projected once where ``repro`` projects them twice (inside
     the layer and again to fill the cache; the values are equal).  Decode
-    reads them back rounded to the cache's dtype, as ``repro``'s does."""
+    reads them back rounded to the cache's dtype, as ``repro``'s does.
+
+    Under a model axis both stacks split attention (cross-attention too)
+    by heads and the MLP by d_ff; in training each stack takes ``seq_res``
+    on its own length (``stack.sp_split``: the encoder over the frames,
+    the decoder over the tokens), and the encoder's output is gathered
+    whole once for every decoder layer's cross-attention
+    (``layers.cross_source``).  Under the serving rules the cross K/V
+    cache holds a block of the encoder positions a rank
+    (``Cache.cross_shards``)."""
 
     prefix_len = 0
-    plan = None
 
     def __init__(self, cfg: ModelConfig, params: Dict[str, Any], *, device,
                  trainable: bool = False, plan=None):
         super().__init__()
-        if plan is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the encdec family is built whole; a storage "
-                f"plan covers the decoder families")
         self.cfg = cfg
         self.device = torch.device(device)
         self.trainable = trainable
+        self.plan = plan
         specs = self.param_specs(cfg)
         _check_tree(specs, params)
         for name in ("embed", "enc_norm", "final_norm"):
             setattr(self, name, _param_dict(specs[name], params[name],
                                             self.device,
                                             trainable=trainable,
-                                            prefix=name))
+                                            prefix=name, plan=plan))
         self.encoder = _layer_list(specs["encoder"], params["encoder"],
                                    cfg.encoder_layers, self.device, trainable,
-                                   prefix="encoder")
+                                   prefix="encoder", plan=plan)
         self.layers = _layer_list(specs["layers"], params["layers"],
-                                  cfg.num_layers, self.device, trainable)
+                                  cfg.num_layers, self.device, trainable,
+                                  plan=plan)
 
     @staticmethod
     def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
@@ -473,21 +491,31 @@ class EncDecLM(nn.Module):
         return {"embed": self.embed, "enc_norm": self.enc_norm,
                 "final_norm": self.final_norm}
 
-    def encode(self, frames, params=None):
+    def encode(self, frames, params=None, seq=None):
         """frames (B, T_src, d_model) -> the encoder's output (B, T_src,
         d_model) in the compute dtype: sinusoids added, the non-causal
         stack (never rematerialised), ``enc_norm`` (from ``params``,
-        ``top_params`` by default)."""
+        ``top_params`` by default).  With ``seq`` (``stack.sp_split`` of
+        T_src) the stack and ``enc_norm`` run on this rank's block of the
+        positions, and the block is returned."""
         top = params or self.top_params()
         pos = _arange_positions(*frames.shape[:2], frames.device)
         x = ll.cast(frames) + ll.cast(_sinusoidal(pos, self.cfg.d_model))
+        if seq is not None:
+            x = model_axis.scatter_seq(x, seq, summed=False)
         x, _ = stk.run_stack(self.encoder, self.cfg, x, positions=pos,
-                             causal=False)
+                             causal=False, seq=seq)
         return ll.norm(top["enc_norm"], x, self.cfg)
 
-    def _embed_dec(self, tokens, positions, params=None):
+    def _embed_dec(self, tokens, positions, params=None, seq=None):
+        """The decoder's input: the lookup plus the sinusoids of
+        ``positions`` (B, S); with ``seq`` this rank's block of the
+        tokens."""
         top = params or self.top_params()
-        x = ll.embed(top["embed"], self.cfg, tokens)
+        x = ll.embed(top["embed"], self.cfg, tokens, seq=seq)
+        if seq is not None:
+            n = positions.shape[1] // seq.size
+            positions = positions[:, seq.rank * n:(seq.rank + 1) * n]
         return x + _sinusoidal(positions, self.cfg.d_model).to(x.dtype)
 
     def final_hidden(self, batch, *, remat_policy: str = "none",
@@ -497,18 +525,21 @@ class EncDecLM(nn.Module):
         ``remat_policy`` attending over its output, the final norm, with
         no cache; ``params``: the top-level groups to use (``top_params``
         by default).  Returns (hidden states (B,S,d_model), aux loss 0).
-        A sequence split (``seq``) comes only with a model axis, which
-        this family does not cover (``stack.check_model_axis`` raises)."""
+        With ``seq`` (``stack.sp_split`` of the tokens) the decoder's
+        residual stream and the hidden states returned are this rank's
+        block of the tokens; the encoder takes its own split of the frames
+        (``stack.sp_split`` of T_src), and its output is gathered whole
+        for the cross-attention (``layers.cross_source``)."""
         cfg = self.cfg
-        if seq is not None:
-            stk.check_model_axis(cfg)
         top = params or self.top_params()
-        enc = self.encode(batch["frames"], top)
+        frames = batch["frames"]
+        enc_seq = stk.sp_split(cfg, frames.shape[1])
+        enc = ll.cross_source(self.encode(frames, top, enc_seq), enc_seq)
         pos = _arange_positions(*batch["tokens"].shape, enc.device)
-        x = self._embed_dec(batch["tokens"], pos, top)
+        x = self._embed_dec(batch["tokens"], pos, top, seq)
         x, aux = stk.run_stack(self.layers, cfg, x, positions=pos,
                                causal=True, remat_policy=remat_policy,
-                               enc_out=enc)
+                               enc_out=enc, seq=seq)
         return ll.norm(top["final_norm"], x, cfg), aux
 
     def loss(self, batch, *, remat_policy: str = "dots", params=None):
@@ -522,7 +553,9 @@ class EncDecLM(nn.Module):
     def init_cache(self, batch: int, max_len: int,
                    kv_dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
         """Self K/V for ``max_len`` positions and the cross K/V over
-        ``max_source_positions``, each in ``kv_dtype``."""
+        ``max_source_positions``, each in ``kv_dtype``; under rules that
+        cut them over the model ranks, this rank's blocks
+        (``stack.init_cache``)."""
         return stk.init_cache(self.cfg, batch, max_len, device=self.device,
                               kv_dtype=kv_dtype)
 
@@ -531,30 +564,40 @@ class EncDecLM(nn.Module):
         """Encode ``batch["frames"]``, run the prompt ``batch["tokens"]``
         through the decoder, write each layer's self K/V (up to the
         cache's length) and cross K/V into ``cache`` in place, and return
-        the last position's logits (B,1,V) and the cache."""
+        the last position's logits (B,1,V) and the cache.  A cache cut
+        over the model ranks (``stack.kv_split``) takes this rank's block
+        of the self K/V slots and of every kv head's cross K/V
+        positions."""
         cfg = self.cfg
-        enc = self.encode(batch["frames"])
+        top, hook = _serve_params(self)
+        enc = ll.cross_source(self.encode(batch["frames"], top))
         pos = _arange_positions(*batch["tokens"].shape, enc.device)
-        x = self._embed_dec(batch["tokens"], pos)
+        x = self._embed_dec(batch["tokens"], pos, top)
+        kv, cross = stk.kv_split(cache), stk.kv_split(cache, cross=True)
         for i, p in enumerate(self.layers):
-            x, _, leaves = stk.block(p, cfg, x, positions=pos,
-                                     is_global=False, enc_out=enc)
-            _store_leaves(cache, i, leaves, x.shape[1], ring=False)
-        h = ll.norm(self.final_norm, x[:, -1], cfg)      # rows are independent
-        return ll.unembed(self.embed, cfg, h[:, None]), cache
+            x, _, leaves = stk.block(p if hook is None else hook(p), cfg, x,
+                                     positions=pos, is_global=False,
+                                     ssm_state=True, enc_out=enc)
+            _store_leaves(cache, i, leaves, x.shape[1], ring=False, kv=kv,
+                          cross=cross)
+        h = ll.norm(top["final_norm"], x[:, -1], cfg)    # rows are independent
+        return ll.unembed(top["embed"], cfg, h[:, None]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
         """tokens (B,1), positions (B,): one step, this step's self K/V
         written into ``cache`` in place.  Returns (logits, cache)."""
         cfg = self.cfg
-        x = self._embed_dec(tokens, positions[:, None])
+        top, hook = _serve_params(self)
+        x = self._embed_dec(tokens, positions[:, None], top)
+        kv, cross = stk.kv_split(cache), stk.kv_split(cache, cross=True)
         for i, p in enumerate(self.layers):
             layer_cache = {name: t[i] for name, t in cache.items()}
-            x = stk.decode_block(p, cfg, x, layer_cache, positions=positions,
-                                 is_global=False)
-        x = ll.norm(self.final_norm, x, cfg)
-        return ll.unembed(self.embed, cfg, x), cache
+            x = stk.decode_block(p if hook is None else hook(p), cfg, x,
+                                 layer_cache, positions=positions,
+                                 is_global=False, kv=kv, cross=cross)
+        x = ll.norm(top["final_norm"], x, cfg)
+        return ll.unembed(top["embed"], cfg, x), cache
 
 
 def model_class(cfg: ModelConfig):

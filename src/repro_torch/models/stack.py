@@ -31,7 +31,12 @@ its heads over the model ranks (``ssm_inner_act``, ``models/ssm.py``), so
 their SSM cache holds a rank's conv channels and heads (``ssm_shards``);
 a hybrid layer's attention and SSM are two split regions side by side,
 each summed over the ranks before ``_mix`` normalises it.  Neither family
-splits the residual stream's tokens (``sp_split``).
+splits the residual stream's tokens (``sp_split``), nor does the vlm,
+whose patches sit in front of the text.  An encdec model's encoder and
+decoder each take ``seq_res`` on their own length, its cross-attention
+splits by heads as self-attention does, and ``kv_seq`` cuts its cross
+K/V cache into blocks of the encoder positions too (``Cache``'s
+``cross_shards``).
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.module import map_specs, stack_specs
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
-# the families whose layers split their work over a model axis
-MODEL_AXIS_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+# the families whose layers split their work over a model axis: all
+MODEL_AXIS_FAMILIES = PORTED_FAMILIES
 
 
 def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
@@ -65,7 +70,8 @@ def check_family(cfg: ModelConfig, families=PORTED_FAMILIES) -> None:
 def check_model_axis(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` under a mesh whose ``"model"`` axis
     is larger than 1 unless cfg's family splits its layers over it
-    (``MODEL_AXIS_FAMILIES``)."""
+    (``MODEL_AXIS_FAMILIES``: every ported family, the vlm and encdec
+    included)."""
     ctx = current_ctx()
     n = ctx.shape.get("model", 1) if ctx is not None else 1
     if n > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
@@ -196,9 +202,10 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     ``ssm_state`` if ``ssm_state`` (prefill), and for an encdec decoder
     layer given the encoder's output ``enc_out`` the ``cross_k`` and
     ``cross_v`` it attends over (unrounded; the cache rounds them to its
-    dtype).  ``is_global``: the layer's flag (``global_flags``).  Under a
-    model split of the heads the ``k`` / ``v`` leaves are every kv head's
-    only when ``ssm_state`` (prefill) asks for the cache leaves.  With
+    dtype; ``enc_out`` from ``layers.cross_source``).  ``is_global``: the
+    layer's flag (``global_flags``).  Under a model split of the heads the
+    ``k`` / ``v`` and cross leaves are every kv head's only when
+    ``ssm_state`` (prefill) asks for the cache leaves.  With
     ``seq`` (``sp_split``) x is this rank's block of the tokens and so is
     the result: the norms and adds run on it, attention and the feed-forward
     half gather the sequence and scatter their outputs back."""
@@ -222,7 +229,8 @@ def block(p, cfg: ModelConfig, x, *, positions, is_global: bool,
     if enc_out is not None and "cross" in p:
         cross_y, leaves["cross_k"], leaves["cross_v"] = ll.attention(
             p["cross"], cfg, ll.norm(p["ln_cross"], x, cfg),
-            positions=positions, causal=False, kv_x=enc_out, rope=False)
+            positions=positions, causal=False, kv_x=enc_out, rope=False,
+            full_kv=ssm_state, seq=seq)
         x = x + cross_y
     y, aux = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg), seq)
     return x + y, aux, leaves
@@ -305,7 +313,8 @@ def _ssm_decode(p, cfg: ModelConfig, h, cache_layer):
 
 
 def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
-                 is_global: bool, kv: Optional[model_axis.Split] = None):
+                 is_global: bool, kv: Optional[model_axis.Split] = None,
+                 cross: Optional[model_axis.Split] = None):
     """One decode layer; writes this step's K/V and the SSM's new conv
     tail and state into ``cache_layer`` (views of the stacked cache); an
     encdec layer then attends over the cached ``cross_k`` / ``cross_v``.
@@ -313,7 +322,8 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
     computes every query head of attention's decode; with ``kv``
     (``kv_split``) its K/V cache holds a block of the slots, attended over
     and combined across the ranks (``layers.attention_decode``), else the
-    whole cache."""
+    whole cache; with ``cross`` (``kv_split(cache, cross=True)``) its
+    cross K/V hold a block of the encoder positions, alike."""
     check_model_axis(cfg)
     h = ll.norm(p["ln1"], x, cfg)
     if cfg.family == "ssm":
@@ -331,7 +341,8 @@ def decode_block(p, cfg: ModelConfig, x, cache_layer, *, positions,
         x = x + ll.attention_decode(
             p["cross"], cfg, ll.norm(p["ln_cross"], x, cfg), None,
             positions=positions,
-            cross_kv=(cache_layer["cross_k"], cache_layer["cross_v"]))
+            cross_kv=(cache_layer["cross_k"], cache_layer["cross_v"]),
+            kv=cross)
     y, _ = _ffn(p, cfg, ll.norm(p["ln2"], x, cfg))
     return x + y
 
@@ -378,24 +389,26 @@ def ssm_shards(cfg: ModelConfig) -> Tuple[int, int]:
     return ctx.shape["model"], ctx.mesh.get_local_rank("model")
 
 
-def kv_split(cache) -> Optional[model_axis.Split]:
+def kv_split(cache, cross: bool = False) -> Optional[model_axis.Split]:
     """The split of ``cache``'s K/V slots over the model ranks (``Cache``'s
-    ``kv_shards``), or None for a whole cache.  Raises where a cache cut
-    into blocks is used outside a ``kv_seq`` split of its size, and where
-    a cache that may have lost its block count is used inside one: a
-    plain dict of the leaves, or a ``Cache`` held whole whose slots the
+    ``kv_shards``), or with ``cross`` of its cross K/V's encoder positions
+    (``cross_shards``), or None for a whole cache.  Raises where a cache
+    cut into blocks is used outside a ``kv_seq`` split of its size, and
+    where a cache that may have lost its block count is used inside one:
+    a plain dict of the leaves, or a ``Cache`` held whole whose slots the
     split divides (``init_cache`` would have cut it)."""
-    n = getattr(cache, "kv_shards", 1)
+    leaf = "cross_k" if cross else "k"
+    n = getattr(cache, "cross_shards" if cross else "kv_shards", 1)
     split = model_axis.split_for("kv_seq")
     if n == 1:
-        if split is None or "k" not in cache:
+        if split is None or leaf not in cache:
             return None
         if not isinstance(cache, Cache):
             raise ValueError(f"a plain dict of cache leaves used inside a "
                              f"kv_seq split of {split.size}: only a Cache "
                              f"(init_cache) says whether its K/V leaves "
                              f"are blocks")
-        slots = cache["k"].shape[2]
+        slots = cache[leaf].shape[2]
         if slots % split.size == 0:
             raise ValueError(f"a whole K/V cache of {slots} slots used "
                              f"inside a kv_seq split of {split.size}, which "
@@ -412,12 +425,14 @@ class Cache(dict):
     """The stacked decode cache, by leaf name; ``kv_shards``: how many
     blocks of slots its K/V leaves hold one of (``kv_shards``), rank r's
     block being slots [r T/n, (r + 1) T/n) of the whole ring or context,
-    as a block sharding lays them out; ``ssm_shards``: how many model
-    ranks its SSM leaves' heads are split over (``ssm_shards``).  A plain
-    dict of the leaves is a whole cache, and ``kv_split`` refuses one
-    inside a ``kv_seq`` split."""
+    as a block sharding lays them out; ``cross_shards``: how many blocks
+    of the encoder positions its cross K/V hold one of, alike;
+    ``ssm_shards``: how many model ranks its SSM leaves' heads are split
+    over (``ssm_shards``).  A plain dict of the leaves is a whole cache,
+    and ``kv_split`` refuses one inside a ``kv_seq`` split."""
 
     kv_shards = 1
+    cross_shards = 1
     ssm_shards = 1
 
 
@@ -432,7 +447,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
     ``max_len``, and this rank's channels and heads of them where
     ``ssm_shards`` splits the heads; for encdec the cross K/V ``cross_k``
     / ``cross_v`` (``kv_dtype``) over the ``max_source_positions``
-    encoder outputs."""
+    encoder outputs, a rank's block of them where ``kv_shards`` cuts
+    them."""
     check_family(cfg)
     L = cfg.num_layers
     out = {}
@@ -447,7 +463,8 @@ def cache_shapes(cfg: ModelConfig, batch: int, max_len: int,
         out["ssm_conv"] = ((L,) + shapes["conv"][0], shapes["conv"][1])
         out["ssm_state"] = ((L,) + shapes["state"][0], shapes["state"][1])
     if cfg.encoder_layers:
-        enc_kv = (L, batch, cfg.max_source_positions, cfg.num_kv_heads,
+        T = cfg.max_source_positions
+        enc_kv = (L, batch, T // kv_shards(cfg, T), cfg.num_kv_heads,
                   cfg.head_dim)
         out["cross_k"] = (enc_kv, kv_dtype)
         out["cross_v"] = (enc_kv, kv_dtype)
@@ -458,12 +475,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device,
                kv_dtype=torch.bfloat16) -> Cache:
     """A zero ``Cache`` of ``cache_shapes``; under rules that map
     ``kv_seq`` to a model axis of n that divides its slots, this rank's
-    block of them (``kv_shards`` n); under rules that split the SSD heads
-    over n model ranks, this rank's SSM leaves (``ssm_shards`` n)."""
+    block of them (``kv_shards`` n), and of the encoder positions where n
+    divides those (``cross_shards`` n); under rules that split the SSD
+    heads over n model ranks, this rank's SSM leaves (``ssm_shards``
+    n)."""
     shapes = cache_shapes(cfg, batch, max_len, kv_dtype=kv_dtype)
     cache = Cache({k: torch.zeros(s, dtype=d, device=device)
                    for k, (s, d) in shapes.items()})
     if cfg.uses_attention:
         cache.kv_shards = kv_shards(cfg, kv_slots(cfg, max_len))
+    if cfg.encoder_layers:
+        cache.cross_shards = kv_shards(cfg, cfg.max_source_positions)
     cache.ssm_shards = ssm_shards(cfg)[0]
     return cache

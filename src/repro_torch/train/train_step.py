@@ -202,7 +202,8 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
     * where the rules map ``seq_res`` to the model axis and it divides
       the sequence (``stack.sp_split``), the residual stream between the
       layers' regions is each rank's block of the tokens: the norms' scales
-      are then also used in part and join that sum;
+      (and a layernorm's biases) are then also used in part and join that
+      sum; an encdec model's encoder decides on its frames' length alike;
     * with ``compress_grads`` the reduced gradient passes through the int8
       error-feedback channel as the plain step's does
       (``grad_compress.compress_tree``, one scale per stacked leaf): the
@@ -257,8 +258,10 @@ def _make_manual_dp_step(model, cfg: TrainStepConfig, ctx: ShardingCtx,
             for p in params.values():
                 p.grad = None
             seq = stk.sp_split(mc, batch["tokens"].shape[1])
+            enc_seq = stk.sp_split(mc, batch["frames"].shape[1]) \
+                if "frames" in batch else None
             dp_shard.model_psum(grads, ll.model_partial_leaves(
-                mc, specs, grads, seq), ctx.mesh)
+                mc, specs, grads, seq, enc_seq), ctx.mesh)
             dp_shard.deferred_psum(grads, plan, 1.0 / (R * n_mb))
             err = state.err
             if cfg.compress_grads:

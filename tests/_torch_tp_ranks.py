@@ -1,6 +1,7 @@
 """One rank of the port's model-axis CPU tests
 (``tests/test_torch_model_axis.py``, ``tests/test_torch_model_storage.py``,
-``tests/test_torch_seq_axis.py``, ``tests/test_torch_ssm_axis.py``).
+``tests/test_torch_seq_axis.py``, ``tests/test_torch_ssm_axis.py``,
+``tests/test_torch_vlm_axis.py``, ``tests/test_torch_encdec_axis.py``).
 
 Run by ``_torch_support.spawn_ranks(..., module="_torch_tp_ranks")`` as
 
@@ -555,17 +556,19 @@ def job_seq_step(inp, tag, rank, workdir):
     return out
 
 
-def _greedy(model, ctx_of, prompts, steps, max_len, rows):
+def _greedy(model, ctx_of, prompts, steps, max_len, rows, extra=None):
     """Prefill and ``steps - 1`` greedy decode steps through ``_serve_wrap``
     (the prefill and decode rules of ``ctx_of(kind)``) over an fp32 K/V
     cache made under the prefill rules: this rank's rows' logits of each
-    step (the prefill's last position first) and the cache."""
+    step (the prefill's last position first) and the cache.  ``extra``:
+    more fields of the global prefill batch (a vlm's patches, whisper's
+    frames), cut with its rows."""
     from repro_torch.launch.dryrun import _serve_wrap
     B, S = prompts.shape
     with ctx_of("prefill") as ctx:
         cache = model.init_cache(rows, max_len, kv_dtype=torch.float32)
         logits, cache = _serve_wrap(model, ctx, model.prefill)(
-            {"tokens": prompts}, cache)
+            {"tokens": prompts, **(extra or {})}, cache)
     outs = [logits[:, -1].float()]
     for i in range(steps - 1):
         # every rank feeds the global batch: each rank's rows' tokens
@@ -823,13 +826,319 @@ def job_ssm_serve(inp, tag, rank, workdir):
     return out
 
 
+def _batch_of(c, key="batch"):
+    return {k: torch.from_numpy(v) for k, v in c[key].items()}
+
+
+@contextlib.contextmanager
+def _unsummed(name, when=lambda kw: True):
+    """``layers.<name>`` run without the sum over the model ranks it ends
+    in (``from_model`` the identity; under ``seq_res`` its reduce-scatter
+    a slice of its own partial output) at each call whose keywords pass
+    ``when``: the controls of the vlm / encdec step."""
+    from repro_torch.distributed import model_axis
+    from repro_torch.models import layers as ll
+    real, real_from, real_scatter = (getattr(ll, name),
+                                     model_axis.from_model,
+                                     model_axis.scatter_seq)
+
+    def fn(*args, **kw):
+        if not when(kw):
+            return real(*args, **kw)
+        model_axis.from_model = lambda y, s: y
+        model_axis.scatter_seq = lambda y, s, summed=True: real_scatter(
+            y, s, summed=False)
+        try:
+            return real(*args, **kw)
+        finally:
+            model_axis.from_model = real_from
+            model_axis.scatter_seq = real_scatter
+
+    setattr(ll, name, fn)
+    try:
+        yield
+    finally:
+        setattr(ll, name, real)
+
+
+def _ve_control(cfg):
+    """The control of a family's step: cross-attention's per-rank outputs
+    left unsummed (encdec), the vocabulary-parallel lookup without its
+    sum (vlm)."""
+    if cfg.encoder_layers:
+        return _unsummed("_attention_split",
+                         lambda kw: kw.get("kv_x") is not None)
+    return _unsummed("embed")
+
+
+def job_ve_pieces(inp, tag, rank, workdir):
+    """The encdec pieces at this mesh's model axis
+    (``tests/test_torch_encdec_axis.py``): cross-attention split by heads
+    (forward, x's and the encoder output's gradients, every weight's
+    summed over the model ranks), with the decoder's tokens whole and
+    under ``seq_res``; the encoder stack on the storage plan under
+    ``seq_res`` (its output gathered whole, the gradients of every leaf
+    gathered from the shards, the partial ones summed)."""
+    from repro_torch.distributed import dp_shard, model_axis
+    from repro_torch.distributed.sharding_rules import (model_rank,
+                                                        model_size,
+                                                        rules_for, use_rules)
+    from repro_torch.models import layers as ll
+    from repro_torch.models import stack as stk
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.train.train_step import param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    n, r = model_size(mesh), model_rank(mesh)
+    out = {}
+    with use_rules(mesh, rules_for("train")) as ctx, \
+            ctx.manual_region(("data",)):
+        for name, c in inp["ve_cross"].items():
+            if n not in c["worlds"]:
+                continue
+            cfg = port_config(c["arch"], c["overrides"])
+            p = _tensors(c["params"])
+            x = torch.tensor(c["x"], requires_grad=True)
+            enc = torch.tensor(c["enc"], requires_grad=True)
+            B, S, _ = x.shape
+            seq = stk.sp_split(cfg, S) if c["seq"] else None
+            xin = x if seq is None else model_axis.scatter_seq(
+                x, seq, summed=False)
+            model_axis.collectives.clear()
+            y, _, _ = ll.attention(p, cfg, xin, positions=None,
+                                   causal=False, kv_x=ll.cross_source(enc),
+                                   rope=False, full_kv=False, seq=seq)
+            forward = dict(model_axis.collectives)
+            if seq is not None:
+                y = model_axis.gather_seq(y, seq, summed=False)
+            y.backward(torch.from_numpy(c["dy"]))
+            grads = {k: v.grad for k, v in p.items()}
+            _sum_partial(grads, list(grads), mesh)
+            out["cross", name] = dict(
+                y=y.detach().numpy(), dx=x.grad.numpy(),
+                denc=enc.grad.numpy(), forward=forward,
+                grads={k: v.numpy() for k, v in grads.items()},
+                heads=ll.rank_heads(cfg, n, r),
+                sp=None if seq is None else seq.size)
+    # the encoder under rules that store no leaf over "data": no bf16
+    # gathers, so the split alone is held to the fp32 bounds
+    with use_rules(mesh, dict(rules_for("train"), embed=None)) as ctx, \
+            ctx.manual_region(("data",)):
+        c = inp["ve_encoder"]
+        cfg = port_config(c["arch"], c["overrides"])
+        plan = param_plan(cfg, ctx)
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                trainable=True, plan=plan)
+        frames = torch.from_numpy(c["frames"])
+        seq = stk.sp_split(cfg, frames.shape[1])
+        residual, real_block = set(), stk.block
+
+        def block(p_, cfg_, x_, **kw):
+            residual.add(tuple(x_.shape))
+            return real_block(p_, cfg_, x_, **kw)
+
+        stk.block = block
+        try:
+            enc = ll.cross_source(model.encode(frames, seq=seq), seq)
+        finally:
+            stk.block = real_block
+        # every rank reads the whole output: a 1/n share of the cotangent
+        # each, as the heads of the decoder's cross-attention split it
+        (enc * torch.from_numpy(c["dy"]) / n).sum().backward()
+        names = [k for k, _ in model.named_parameters()
+                 if k.startswith(("encoder.", "enc_norm."))]
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in model.named_parameters() if k in names}
+        partial = ll.model_partial_leaves(cfg, param_specs(cfg), names,
+                                          enc_seq=seq)
+        dp_shard.model_psum(grads, partial, mesh)
+        out["encoder"] = dict(
+            y=enc.detach().numpy(), sp=None if seq is None else seq.size,
+            residual=sorted(residual), partial=partial,
+            grads={k: plan.full(k, g).numpy() for k, g in grads.items()})
+    return out
+
+
+def job_ve_step(inp, tag, rank, workdir):
+    """The ``dp_manual`` step of each vlm / encdec run of this mesh on a
+    state built on the storage plan from ``repro``'s parameters: every
+    leaf gathered after the step, the first moments, loss, grad norm, the
+    bytes held against the shards', the residual stream's shapes by
+    stack, the sequence splits, the collectives, the partial leaves and
+    the leaves summed over the model ranks beside those whose gradient
+    differed across them before that sum.  A run tagged ``"control"``
+    leaves out one sum over the model ranks (``_ve_control``).  The first
+    run's state is saved (``ckve_<tag>``)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import dp_shard, model_axis, transport
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.models import stack as stk
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.models.lm import param_specs
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step, param_plan,
+                                              param_shapes)
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out, first = {}, None
+    real_sum = dp_shard.model_psum
+    for run in inp["ve_step_runs"][tag]:
+        name = run[0]
+        c = inp["ve_archs"][name]
+        tcfg = inp["step_config"]
+        cfg = port_config(c["arch"], c["overrides"])
+        batch = _batch_of(c)
+        seen = {}
+
+        def spy(grads, names, mesh_):
+            seen["summed"] = list(names)
+            seen["differ"] = _differ_over_model(grads, mesh_)
+            return real_sum(grads, names, mesh_)
+
+        residual, real_block = {}, stk.block
+
+        def block(p_, cfg_, x_, **kw):
+            key = "decoder" if kw.get("enc_out") is not None else "encoder"
+            if not cfg_.encoder_layers:
+                key = "decoder"
+            residual.setdefault(key, set()).add(tuple(x_.shape))
+            return real_block(p_, cfg_, x_, **kw)
+
+        with use_rules(mesh, rules_for("train")) as ctx:
+            plan = param_plan(cfg, ctx)
+            model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                    trainable=True, plan=plan)
+            state = init_train_state(model, None, tcfg, device="cpu")
+            held = _held_bytes(state)
+            shards = 4 * 3 * sum(int(np.prod(plan.local_shape(k, v)))
+                                 for k, v in param_shapes(cfg).items())
+            step = make_train_step(state.model, tcfg)
+            local = dp_shard.local_rows(mesh, batch)
+            with ctx.manual_region(dp_shard.manual_axes(mesh)):
+                sp = stk.sp_split(cfg, local["tokens"].shape[1])
+                enc_sp = stk.sp_split(cfg, local["frames"].shape[1]) \
+                    if "frames" in local else None
+                partial = ll.model_partial_leaves(
+                    cfg, param_specs(cfg), state.params, sp, enc_sp)
+            for counter in (dp_shard.collectives, model_axis.collectives,
+                            transport.moved, dp_shard.model_gathers):
+                counter.clear()
+            dp_shard.model_psum = spy
+            stk.block = block
+            try:
+                with (_ve_control(cfg) if "control" in run[1:]
+                      else contextlib.nullcontext()):
+                    state, m = step(state, local)
+            finally:
+                dp_shard.model_psum = real_sum
+                stk.block = real_block
+            out[run] = dict(
+                path=step.path, loss=float(m["loss"]),
+                grad_norm=float(m["grad_norm"]), held=held, shards=shards,
+                params={k: plan.full(k, p.detach()).numpy()
+                        for k, p in state.params.items()},
+                mu={k: plan.full(k, v).numpy()
+                    for k, v in state.opt.mu.items()},
+                plan=dict(plan.dims), partial=partial,
+                sp=None if sp is None else sp.size,
+                enc_sp=None if enc_sp is None else enc_sp.size,
+                residual={k: sorted(v) for k, v in residual.items()},
+                collectives=dict(dp_shard.collectives),
+                model_collectives=dict(model_axis.collectives),
+                model_gathers=dict(dp_shard.model_gathers),
+                moved=dict(transport.moved), **seen)
+        if first is None:
+            first = state
+    Checkpointer(os.path.join(workdir, f"ckve_{tag}")).save(
+        1, first, aux={"mesh": tag}, block=True)
+    return out
+
+
+def job_ve_restore(inp, tag, rank, workdir):
+    """Restore the other mesh's vlm / encdec checkpoint into a template
+    of its first run built on this mesh's storage plan: every leaf
+    gathered back."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models.convert import from_jax_params, to_jax_named
+    from repro_torch.train.train_step import init_train_state, param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    c = inp["ve_archs"][inp["ve_step_runs"][tag][0][0]]
+    cfg = port_config(c["arch"], c["overrides"])
+    src = inp["ve_restore_from"][tag]
+    with use_rules(mesh, rules_for("train")) as ctx:
+        plan = param_plan(cfg, ctx)
+        state = init_train_state(from_jax_params(
+            cfg, unflatten(c["tree"]), device="cpu", trainable=True,
+            plan=plan), None, inp["step_config"], device="cpu")
+        state, aux = Checkpointer(
+            os.path.join(workdir, f"ckve_{src}")).restore(
+                state, shardings=state.plan)
+        named = to_jax_named(state)
+    return dict(named=named, aux=aux, shapes={
+        k: tuple(p.shape) for k, p in state.params.items()})
+
+
+def job_ve_serve(inp, tag, rank, workdir):
+    """Prefill and greedy decode through ``_serve_wrap`` of each vlm /
+    encdec serve run of this mesh under the serving rules, the model on
+    their storage plan, the prefill's extra inputs (``patch_embeds``,
+    ``frames``) cut with the rows: this rank's rows' logits at every
+    step, its cache's leaves and cuts.  A run tagged ``"unweighted"``
+    combines the ranks' partial softmaxes without their lse weights."""
+    from repro_torch.distributed import dp_shard
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.kernels import ops
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import param_plan
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out = {}
+    for run in inp["ve_serve_runs"][tag]:
+        c = inp["ve_serve"][run[0]]
+        cfg = port_config(c["arch"], c["overrides"])
+        with use_rules(mesh, rules_for("prefill")) as ctx:
+            plan = param_plan(cfg, ctx)
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                plan=plan)
+        prompts = torch.from_numpy(c["prompts"])
+        extra = {k: torch.from_numpy(v) for k, v in c["extra"].items()}
+        rows = prompts.shape[0] // dp_shard.manual_size(mesh)
+        real = ops.combine_partial
+        if "unweighted" in run[1:]:
+            ops.combine_partial = _unweighted_combine
+        try:
+            logits, cache = _greedy(
+                model, lambda kind: use_rules(mesh, rules_for(kind)),
+                prompts, c["steps"], c["max_len"], rows, extra)
+        finally:
+            ops.combine_partial = real
+        out[run] = dict(logits=logits.numpy(), kv_shards=cache.kv_shards,
+                        cross_shards=cache.cross_shards,
+                        cache={k: v.numpy() for k, v in cache.items()})
+    return out
+
+
+def _unweighted_combine(out, lse, gather):
+    """The ranks' normalised partial outputs averaged over the ranks that
+    saw a key, without the weights exp(lse - max)."""
+    packed = gather(torch.cat([out, lse[..., None]], dim=-1))
+    seen = torch.isfinite(packed[..., -1:]).to(out.dtype)
+    return (seen * packed[..., :-1]).sum(0) / seen.sum(0).clamp_min(1.0)
+
+
 JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
         "serve": job_serve, "storage_step": job_storage_step,
         "storage_restore": job_storage_restore, "lookup": job_lookup,
         "serve_big": job_serve_big, "seq_step": job_seq_step,
         "kv_serve": job_kv_serve, "ssm_pieces": job_ssm_pieces,
         "ssm_step": job_ssm_step, "ssm_restore": job_ssm_restore,
-        "ssm_serve": job_ssm_serve}
+        "ssm_serve": job_ssm_serve, "ve_pieces": job_ve_pieces,
+        "ve_step": job_ve_step, "ve_restore": job_ve_restore,
+        "ve_serve": job_ve_serve}
 
 
 def main() -> None:

@@ -270,10 +270,10 @@ def test_torch_dp_step_takes_plain_path_when_not_divisible():
 
 
 def test_torch_model_axis_raises():
-    """Under a model axis of 2 a family the model axis does not cover (the
-    vlm) raises, naming itself; the dense, moe and ssm families run, and
-    outside the manual region of the batch axes no layer splits its work
-    (``model_axis.split_for`` is None), so their loss is the loss at a
+    """Under a model axis of 2 every family runs (the vlm too, since the
+    model axis covers it), and outside the manual region of the batch
+    axes no layer splits its work (``model_axis.split_for`` is None), so
+    the loss of the vlm, dense, moe and ssm families is the loss at a
     model axis of 1."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import model_axis
@@ -293,11 +293,7 @@ def test_torch_model_axis_raises():
             assert torch.isfinite(one)
         with use_rules(AbstractMesh((1, 2), ("data", "model")),
                        rules_for("train")):
-            if cfg.family == "vlm":
-                with pytest.raises(NotImplementedError, match="'vlm'"):
-                    model.loss(batch)
-            else:
-                assert float(model.loss(batch)[0]) == float(one)
+            assert float(model.loss(batch)[0]) == float(one)
             for logical in ("heads_act", "mlp_act", "experts_virt",
                             "vocab_act", "ssm_inner_act"):
                 assert model_axis.split_for(logical) is None

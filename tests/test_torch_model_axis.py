@@ -372,11 +372,10 @@ def test_torch_backend_rule():
     ("mamba2-780m", "ssm"), ("hymba-1.5b", "hybrid"),
     ("phi-3-vision-4.2b", "vlm"), ("whisper-large-v3", "encdec")])
 def test_torch_model_axis_refuses_family(arch, family):
-    """Under a model axis of 2 the families the model axis does not cover
-    (the vlm, encdec) raise, naming themselves, and those it covers (ssm,
-    hybrid) give the loss they give under a model axis of 1 (outside the
-    manual region every rank computes whole); under a model axis of 1
-    they all run."""
+    """Under a model axis of 2 every family (ssm, hybrid, and since the
+    model axis covers them the vlm and encdec too) gives the loss it
+    gives under a model axis of 1 (outside the manual region every rank
+    computes whole); under a model axis of 1 they all run."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.models.lm import build_model, param_specs
@@ -395,13 +394,8 @@ def test_torch_model_axis_refuses_family(arch, family):
         assert torch.isfinite(one)
     with use_rules(AbstractMesh((1, 2), ("data", "model")),
                    rules_for("train")):
-        if family in ("vlm", "encdec"):
-            with pytest.raises(NotImplementedError, match=f"'{family}'"):
-                model.loss(batch)
-        else:
-            two = model.loss(batch)[0]
-            assert abs(float(two) - float(one)) <= \
-                PIECE_RTOL * abs(float(one))
+        two = model.loss(batch)[0]
+        assert abs(float(two) - float(one)) <= PIECE_RTOL * abs(float(one))
 
 
 # ---- the pieces -------------------------------------------------------------

@@ -443,19 +443,21 @@ def test_torch_rmsnorm_split_matches_whole_row(parts):
 
 
 def test_torch_model_axis_covers_ssm_families():
-    """``check_model_axis`` lets the ssm and hybrid families run under a
-    model axis of 2 and still refuses the vlm and encdec, naming them."""
+    """``check_model_axis`` lets every family run under a model axis of 2
+    and 4: the ssm and hybrid families, and the vlm and encdec, which it
+    no longer refuses; ``MODEL_AXIS_FAMILIES`` names all six."""
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding_rules import rules_for, use_rules
     from repro_torch.models import stack as stk
     from jax.sharding import AbstractMesh
-    with use_rules(AbstractMesh((1, 2), ("data", "model")),
-                   rules_for("train")):
-        for arch in ("mamba2-780m", "hymba-1.5b", "qwen2-0.5b"):
-            stk.check_model_axis(get_config(arch))
-        for arch, family in (("phi-3-vision-4.2b", "vlm"),
-                             ("whisper-large-v3", "encdec")):
-            with pytest.raises(NotImplementedError, match=f"'{family}'"):
+    assert set(stk.MODEL_AXIS_FAMILIES) == {"dense", "moe", "ssm", "hybrid",
+                                            "vlm", "encdec"}
+    for n in (2, 4):
+        with use_rules(AbstractMesh((1, n), ("data", "model")),
+                       rules_for("train")):
+            for arch in ("mamba2-780m", "hymba-1.5b", "qwen2-0.5b",
+                         "granite-moe-3b-a800m", "phi-3-vision-4.2b",
+                         "whisper-large-v3"):
                 stk.check_model_axis(get_config(arch))
 
 
