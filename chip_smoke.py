@@ -378,11 +378,30 @@ Phases, each printing one JSON line:
    fp32 block within 1e-4 of the one-rank cache's largest entry after
    the prefill and after the steps; an equal-weight combine (whisper: of
    the cross cache alone) must fail.
-24. kernels: one line listing every ported kernel with its launches on the
+24. dryrun: the dry-run's count (``launch/dryrun.py``,
+   ``roofline/counter.py``) held against the card.  Phases 4, 7 and 18
+   each count one step on the model they built and warmed
+   (``card_count``: qwen2-0.5b's prefill of 8 x 512, mamba2-780m's train
+   step at 24 layers, the uncut qwen2-0.5b train step at 4 x 2048, remat
+   "none"), their launches taken back out of the paths' counts and
+   listed under ``dryrun``.  Here each is traced again on meta with the
+   dry-run's machinery: total FLOPs, total traffic and each kernel's
+   FLOPs, bytes and regions must be equal, each kernel's regions on the
+   card must equal its launches, the dense step's FLOPs outside the
+   kernels must equal its matrix products counted from the config, and
+   the train steps' counted peak must be within 15% of
+   ``max_memory_allocated``.  Each line prints the roofline terms from
+   the H100's peaks beside the measured median step,
+   ``roofline_fraction_measured`` and ``mfu``, with the card's name and
+   power limit.  Then qwen2-0.5b x train_4k x single, rank 0 of 256,
+   traced on meta under a fake process group (``dryrun_cell``).
+25. kernels: one line listing every ported kernel with its launches on the
    paths above, error and times; flash's row also carries the backward's
    launches by path, errors and times (``backward_*``); the split-row
    pair's two kernels each have their row, with ``F.rms_norm`` over the
-   whole row beside them (``whole_row_library_ms``).
+   whole row beside them (``whole_row_library_ms``).  Every
+   ``flops``, ``bytes`` and ``bound_ms`` of phase 3's rows comes from
+   ``roofline/costs.py``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises, and the script then exits non-zero without that line.  It exits
@@ -455,11 +474,6 @@ FAULTS = {"moe": (("flash_attention", 3), ("rmsnorm", 3)),
 # at the lowest of 12 sequences on an NVIDIA H100 80GB HBM3 at 700 W.  A
 # slot handed its neighbour's state must fall below it (checked).
 SSM_BF16_DECODE_MIN_COSINE = 0.998
-
-# H100 SXM published peaks (NVIDIA data sheet): dense bf16 tensor cores,
-# fp32 outside the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-PEAK_BYTES = 3.35e12
 
 # flash_attention, against the plain twin computed in fp32 from the same
 # inputs: fp32 to 2e-5 absolute and relative.  bf16: rtol 2^-8 (the
@@ -611,9 +625,14 @@ FLEET_EPOCH1_STEPS = 2
 FLEET_MAX_ROUNDS = 40
 FLEET_VOCAB = 4096
 # phase 16: qwen2-0.5b serving as a fleet host; its feature loader reads
-# ImageNet-crop-like images of 32 x 32 x 3 behind 2 ms storage, 8 a batch
+# ImageNet-crop-like images of 32 x 32 x 3 behind 10 ms storage, 16 a batch.
+# At 10 ms an item a second worker saves ~80 ms of a two-batch consensus
+# trial, well above the host's timing noise; at 2 ms it saved ~18 ms, and a
+# noisy host once measured the win under the coordinator's 5% anti-churn
+# margin, so no cell was pushed.
 FLEET_SERVE_WAVES = ((300, 4), (512, 8), (512, 8))   # (prompt, requests)
 FLEET_FEATURES, FLEET_FEATURE_RES, FLEET_FEATURE_BATCH = 256, 32, 16
+FLEET_FEATURE_LATENCY_S = 1e-2
 
 # phase 17: the data-parallel step (distributed/dp_shard.py) on one card,
 # a one-rank NCCL group: phase 7's masters and batch, DP_MICROBATCHES
@@ -897,9 +916,22 @@ VE_SERVE = {"tp_vlm": (520, (2, 512)), "tp_encdec": (232, (2, 224))}
 # distance of 1e-5, between the two
 VE_CROSS_MIN_COSINE = 1.0 - 1e-5
 RANK_TIMEOUT_S = 420
+# phase 24: the counted peak (the bytes live when the count starts plus
+# the counter's peak) against torch.cuda.max_memory_allocated() of the same
+# step; the counter leaves out the caching allocator's rounding and small
+# copies a kernel's wrapper makes (PERF.md section 7)
+DRYRUN_PEAK_REL = 0.15
+# one production cell traced on meta under a fake group of 256 ranks
+DRYRUN_CELL = ("qwen2-0.5b", "train_4k", "single")
+DRYRUN_PREFILLS = 3             # timed prefills for the serve row
 
 
 _T0 = time.perf_counter()
+
+
+# the kernels' work formulas (src/repro_torch/roofline/costs.py), imported by
+# main once the checkout's src is on the path
+costs = None
 
 
 def emit(phase: str, **fields) -> None:
@@ -1084,13 +1116,6 @@ def timings(torch, fns) -> dict:
     return out
 
 
-def bound(flops: float, nbytes: float, dtype: str):
-    t_ops = flops / PEAK_FLOPS[dtype]
-    t_bytes = nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops > t_bytes else "bytes")
-
-
 def atol_needed(out, ref, rtol: float) -> float:
     """The least absolute tolerance under which ``out`` passes against
     ``ref`` at relative tolerance ``rtol``."""
@@ -1156,18 +1181,6 @@ def dynamic_smem(_build) -> dict:
 # --------------------------------------------------------------------------
 # phase 3: kernel checks
 # --------------------------------------------------------------------------
-def flash_pairs(S: int, T: int, causal: bool, window: int,
-                q_offset: int) -> int:
-    """Visible (query, key) pairs of one (batch, head)."""
-    n = 0
-    for i in range(S):
-        p = i + q_offset
-        hi = min(T, p + 1) if causal else T
-        lo = max(0, p - window + 1) if window > 0 else 0
-        n += max(0, hi - lo)
-    return n
-
-
 def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
                 window=0, q_offset=0, strided=False):
     """``strided``: q, k, v are views one element into rows of D + 2, so
@@ -1217,10 +1230,10 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
             return F.scaled_dot_product_attention(qt, kt, vt,
                                                   enable_gqa=True, **sdpa_kw)
 
-        elem = q.element_size()
-        flops = 4.0 * B * H * D * flash_pairs(S, T, causal, window, q_offset)
-        nbytes = elem * (2 * B * S * H * D + 2 * B * T * K * D)
-        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        flops, nbytes = costs.flash_forward(
+            B, S, T, H, K, D, causal=causal, window=window,
+            q_offset=q_offset, elem=q.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, dtype)
         fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
                "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
                "library": library}
@@ -1277,10 +1290,9 @@ def check_flash_partial(torch, fa, ref, gen, name, B, S, T, H, K, D):
         def library():
             return eff(qt, kt, vt, None, True)
 
-        flops = 4.0 * B * H * D * S * T
-        elem = q.element_size()
-        nbytes = elem * (2 * B * S * H * D + 2 * B * T * K * D) + 4 * B * S * H
-        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        flops, nbytes = costs.flash_partial(B, S, T, H, K, D, causal=False,
+                                            elem=q.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, dtype)
         fns = {"kernel": lambda: fa.flash_attention_partial(q, k, v,
                                                             causal=False),
                "plain": lambda: ref.mha_partial(q, k, v, causal=False),
@@ -1427,10 +1439,8 @@ def check_flash_backward(torch, F, fa, gen, name, B, S, T, H, K, D, *,
         return torch.autograd.grad(sout, (qt, kt, vt), dot,
                                    retain_graph=True)
 
-    pairs = flash_pairs(S, T, causal, window, q_offset)
-    flops = 10.0 * B * H * D * pairs            # five products, 2 FLOP each
-    nbytes = 2 * (4 * B * S * H * D + 4 * B * T * K * D) + 4 * B * H * S
-    bound_ms, bound_by = bound(flops, nbytes, "bfloat16")
+    flops, nbytes = costs.flash_backward(B, S, T, H, K, D, **kw, elem=2)
+    bound_ms, bound_by = costs.bound(flops, nbytes, "bfloat16")
     fns = {"kernel": kernel(7), "preprocess": kernel(1), "dkdv": kernel(2),
            "dq": kernel(4),
            "plain": lambda: fa.flash_attention_backward_plain(
@@ -1467,8 +1477,9 @@ def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
         torch.cuda.synchronize()
         err = max_err(out, rn.rmsnorm_plain(x, scale, 1e-6), TOL_NORM[dtype])
         scale_t = scale.to(dt)
-        nbytes = 2 * x.numel() * x.element_size() + scale.numel() * 4
-        bound_ms, bound_by = bound(4.0 * x.numel(), nbytes, "float32")
+        flops, nbytes = costs.rmsnorm(rows_, d, elem=x.element_size(),
+                                      scale_elem=scale.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, "float32")
         row = dict(kernel="rmsnorm", case=name, dtype=dtype,
                    shape=dict(rows=rows_, d=d), max_abs_err=err,
                    tol=TOL_NORM[dtype],
@@ -1477,7 +1488,7 @@ def check_rmsnorm(torch, F, rn, gen, name, rows_, d):
                        "plain": lambda: rn.rmsnorm_plain(x, scale, 1e-6),
                        "library": lambda: F.rms_norm(x, (d,), scale_t, 1e-6)}),
                    bound_ms=bound_ms, bound_by=bound_by,
-                   flops=4.0 * x.numel(), bytes=nbytes)
+                   flops=flops, bytes=nbytes)
         emit("kernel_check", **row)
         out_rows.append(row)
     return out_rows
@@ -1516,21 +1527,21 @@ def check_rmsnorm_split(torch, F, rn, ref, gen, name, rows_, d_full, n):
         whole_err = max_err(got, rn.rmsnorm_plain(x, scale, 1e-6),
                             TOL_NORM[dtype])
         p0, w0 = parts[0], scales[0]
-        part_bytes = rows_ * d * x.element_size()
         whole = timings(torch, {"library": lambda: F.rms_norm(
             x, (d_full,), scale.to(dt), 1e-6)})
         for i, (kernel, fns, flops, nbytes) in enumerate((
                 ("row_sumsq", {
                     "kernel": lambda: rn.row_sumsq(p0),
                     "plain": lambda: ref.row_sumsq(p0)},
-                 2.0 * rows_ * d, part_bytes + 4 * rows_),
+                 *costs.row_sumsq(rows_, d, elem=x.element_size())),
                 ("rmsnorm_total", {
                     "kernel": lambda: rn.rmsnorm_total(p0, w0, total,
                                                        d_full, 1e-6),
                     "plain": lambda: ref.rmsnorm_total(p0, w0, total,
                                                        d_full, 1e-6)},
-                 3.0 * rows_ * d, 2 * part_bytes + 4 * d + 4 * rows_))):
-            bound_ms, bound_by = bound(flops, nbytes, "float32")
+                 *costs.rmsnorm_total(rows_, d, elem=x.element_size(),
+                                      scale_elem=w0.element_size())))):
+            bound_ms, bound_by = costs.bound(flops, nbytes, "float32")
             row = dict(kernel=kernel, case=name, dtype=dtype,
                        shape=dict(rows=rows_, d=d, d_full=d_full, ranks=n),
                        max_abs_err=sum_err if i == 0 else err,
@@ -1556,8 +1567,9 @@ def check_rmsnorm_residual(torch, rn, gen, name, rows_, d):
         y_ref, h_ref = rn.rmsnorm_residual_plain(x, res, scale, 1e-6)
         err = max(max_err(y, y_ref, TOL_NORM[dtype]),
                   max_err(h, h_ref, TOL_NORM[dtype]))
-        nbytes = 4 * x.numel() * x.element_size() + scale.numel() * 4
-        bound_ms, bound_by = bound(5.0 * x.numel(), nbytes, "float32")
+        flops, nbytes = costs.rmsnorm_residual(
+            rows_, d, elem=x.element_size(), scale_elem=scale.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, "float32")
         # no single PyTorch call adds and normalises with two outputs
         row = dict(kernel="rmsnorm_residual", case=name, dtype=dtype,
                    shape=dict(rows=rows_, d=d), max_abs_err=err,
@@ -1567,27 +1579,10 @@ def check_rmsnorm_residual(torch, rn, gen, name, rows_, d):
                        "plain": lambda: rn.rmsnorm_residual_plain(
                            x, res, scale, 1e-6)}),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                   flops=5.0 * x.numel(), bytes=nbytes)
+                   flops=flops, bytes=nbytes)
         emit("kernel_check", **row)
         out_rows.append(row)
     return out_rows
-
-
-def ssd_cost(b, s, h, p, g, n, chunk, elem):
-    """FLOPs the function needs over the ``s`` positions it is given, in
-    chunks of ``chunk`` and a last partial one (per chunk of c positions:
-    the causal triangle of C B^T and its product with x dt, c (c + 1) / 2
-    pairs of 2 (n + p) each, and the two state products), and the bytes of
-    x, dt, A, B, C and y.  The padding a wrapper adds is its own choice,
-    not work the function needs, so it is not counted."""
-    def per_chunk(c):
-        return 2 * (c * (c + 1) // 2) * (n + p) + 4 * c * n * p
-
-    flops = float(b * h * ((s // chunk) * per_chunk(chunk)
-                           + per_chunk(s % chunk)))
-    nbytes = float(elem * (2 * b * s * h * p + 2 * b * s * g * n)
-                   + 4 * (b * s * h + h))
-    return flops, nbytes
 
 
 def ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type, strided):
@@ -1627,8 +1622,9 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
         rtol, atol_of_max = TOL_SSD[dtype]
         y_max = float(ref.float().abs().max())
         err = max_err(out, ref, rtol, atol_of_max * y_max)
-        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk, x.element_size())
-        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        flops, nbytes = costs.ssd_scan(b, s, h, p, g, n, chunk,
+                                       elem=x.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, dtype)
 
         def plain():
             with plain_ctx():
@@ -1651,7 +1647,8 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
                    atol_of_max=atol_of_max,
                    **timings(torch, fns),
                    library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
-                   fp32_fma_floor_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                   fp32_fma_floor_ms=flops / costs.PEAK_FLOPS["float32"]
+                   * 1e3,
                    flops=flops, bytes=nbytes)
         emit("kernel_check", **row)
         rows.append(row)
@@ -1685,9 +1682,9 @@ def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
         s_max = float(state_ref.abs().max())
         err_y = max_err(y, y_ref, rtol, atol_of_max * y_max)
         err_s = max_err(state, state_ref, rtol, atol_of_max * s_max)
-        flops, nbytes = ssd_cost(b, s, h, p, g, n, chunk, x.element_size())
-        nbytes += 4.0 * b * h * p * n                  # the state written
-        bound_ms, bound_by = bound(flops, nbytes, dtype)
+        flops, nbytes = costs.ssd_scan(b, s, h, p, g, n, chunk,
+                                       elem=x.element_size(), state=True)
+        bound_ms, bound_by = costs.bound(flops, nbytes, dtype)
 
         def plain():
             with plain_ctx():
@@ -1981,7 +1978,7 @@ def hold_handoff(h32, h16, decode_min=MIN_COSINE, faulty=None):
 
 
 def serve_path(torch, np, F, modules, arch: str,
-               requests=REQUESTS) -> dict:
+               requests=REQUESTS, counted=None) -> dict:
     """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m), 6b (granite-moe), 6d
     (hymba-1.5b), 6f (phi-3-vision-4.2b) and 6g (whisper-large-v3) at
     full width: serve ``requests`` through the frontend with exact launch
@@ -1991,7 +1988,9 @@ def serve_path(torch, np, F, modules, arch: str,
     request carries seeded patch embeddings and a whisper request seeded
     frame embeddings: the frontend passes none (as ``repro``'s), so the
     engine here adds each prompt's to its ``generate`` call as
-    ``extra_inputs``.  Returns the launches of the serving run."""
+    ``extra_inputs``.  Given ``counted``, one prefill of a full batch is
+    also timed and counted there for phase 24.  Returns the launches of
+    the serving run."""
     from repro_torch.configs import get_config
     from repro_torch.serve.engine import BatchingFrontend, ServeEngine
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
@@ -2134,6 +2133,21 @@ def serve_path(torch, np, F, modules, arch: str,
         if family == "moe":
             row["moe_split"] = moe_split(torch, ll, fn)
         emit("profile", **row)
+    if counted is not None:
+        # phase 24's counted prefill of a full batch, and its time
+        prefill_s = []
+        for _ in range(DRYRUN_PREFILLS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prefill()
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t0)
+        del cache
+        cache = model.init_cache(MAX_BATCH, max_len)
+        card_count(torch, modules, counted, "serve", prefill,
+                   dict(model.named_parameters()), kind="prefill", cfg=cfg,
+                   rows=MAX_BATCH, seq=pt.shape[1], cache_len=max_len,
+                   specs=specs_of(pbatch), step_s=prefill_s)
     del cache
 
     # ---- the same prompts through the plain twins ---------------------------
@@ -2850,8 +2864,9 @@ def hybrid_window_path(torch, np, F, modules) -> dict:
     return launches
 
 
-def train_path(torch, np, F, modules):
-    """Phases 7-8 at full width, TRAIN_LAYERS deep.  Returns the launches of the timed steps,
+def train_path(torch, np, F, modules, counted: dict):
+    """Phases 7-8 at full width, TRAIN_LAYERS deep; one step counted into
+    ``counted`` for phase 24.  Returns the launches of the timed steps,
     the train state and the step function (phase 11 trains on), and the
     profiled step's idle share."""
     from repro_torch.train.optimizer import AdamWConfig
@@ -2924,6 +2939,11 @@ def train_path(torch, np, F, modules):
     check(launches == expect,
           f"train launches {launches}, the path implies {expect}")
     check(fa.flash_attention.launches == 0, "mamba2 launched attention")
+    from repro_torch.launch.dryrun import state_names
+    card_count(torch, modules, counted, "train", lambda: step(state, batch),
+               state_names(state), kind="train", cfg=cfg, scfg=tcfg,
+               rows=TRAIN_BATCH, seq=TRAIN_SEQ, specs=specs_of(batch),
+               step_s=step_s)
 
     prof = profile_phase(
         torch, "train step 4x2048", lambda: step(state, batch),
@@ -4025,7 +4045,8 @@ def fleet_serve_path(torch, np, tdata, modules) -> dict:
 
     def loader(h):
         return tdata.DataLoader(
-            edge_dataset(tdata, 2e-3, 1e9, raw), FLEET_FEATURE_BATCH,
+            edge_dataset(tdata, FLEET_FEATURE_LATENCY_S, 1e9, raw),
+            FLEET_FEATURE_BATCH,
             shuffle=True, seed=0, host_index=h, host_count=2, device="cuda",
             params=tdata.LoaderParams(num_workers=1, prefetch_factor=1))
     peer_loader = loader(1)
@@ -4040,6 +4061,17 @@ def fleet_serve_path(torch, np, tdata, modules) -> dict:
     frontend.mix_monitor = BatchMixMonitor(
         window=1, threshold=0.3, cooldown=2,
         on_drift=lambda mix: agent.notify_drift("batch-mix"))
+    trials = {"serve0": [], "host1": []}
+
+    def recording(host, evaluator):
+        # each consensus trial's (workers, prefetch, seconds), for the line
+        def measure(nworker, nprefetch, **kw):
+            stats = evaluator(nworker, nprefetch, **kw)
+            trials[host].append([nworker, nprefetch, stats.seconds])
+            return stats
+        return measure
+    agent.evaluator = recording("serve0", agent.evaluator)
+    peer.evaluator = recording("host1", peer.evaluator)
     stream = features.stream(to_device=True)
     peer_stream = peer_loader.stream(to_device=False)
     served, beats = [], [0]
@@ -4115,6 +4147,7 @@ def fleet_serve_path(torch, np, tdata, modules) -> dict:
          consensus=to_wire([{k: e[k] for k in ("reason", "params",
                                                 "cell_applied", "hosts")}
                             for e in consensus]),
+         consensus_trials=trials,
          cells_served=[s["cell"] for s in served],
          loader_cell=[features.params.num_workers,
                       features.params.prefetch_factor],
@@ -4139,7 +4172,7 @@ def fleet_serve_path(torch, np, tdata, modules) -> dict:
           f"heartbeats {beats[0]}, alive {coord.registry.alive_hosts()}")
     check(len(consensus) == 1 and consensus[0]["reason"] == "batch-mix"
           and consensus[0]["cell_applied"],
-          f"batch-mix consensus: {consensus}")
+          f"batch-mix consensus: {consensus}; trials {trials}")
     check(cell == list(agent.param_cell()) and served[0]["cell"] != cell
           and served[-1]["cell"] == cell,
           f"pushed cell {cell}; cells while serving "
@@ -4508,12 +4541,12 @@ def dense_expect(L: int, policy: str, steps: int = 1,
             "rmsnorm": ((1 + again) * per_layer * L + 1) * steps}
 
 
-def train_dense_path(torch, np, F, modules) -> dict:
+def train_dense_path(torch, np, F, modules, counted: dict) -> dict:
     """Phase 18: full-width, full-depth qwen2-0.5b, one step's loss and
     gradients through the flash forward and backward kernels against the
     plain twins, remat "none" and "dots", a coarse-backward control, then
-    timed steps and a profiled one.  Returns the launches of one step at
-    each policy."""
+    timed steps (one more counted into ``counted`` for phase 24) and a
+    profiled one.  Returns the launches of one step at each policy."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers as ll
     from repro_torch.train.optimizer import AdamWConfig
@@ -4656,6 +4689,12 @@ def train_dense_path(torch, np, F, modules) -> dict:
         losses.append(float(m["loss"]))
     step_launches = dense_launches(fa, rn)
     peak = torch.cuda.max_memory_allocated()
+    from repro_torch.launch.dryrun import state_names
+    card_count(torch, modules, counted, "train_dense",
+               lambda: step(state, batch),
+               state_names(state), kind="train", cfg=cfg, scfg=tcfg,
+               rows=TRAIN_BATCH, seq=TRAIN_SEQ, specs=specs_of(batch),
+               step_s=step_s)
     prof = profile_phase(torch, "dense train step 4x2048",
                          lambda: step(state, batch),
                          expect=("flash_mma_kernel",
@@ -7137,6 +7176,209 @@ def tp_vlm_encdec_path(torch, np, F, modules) -> dict:
     return launches
 
 
+def launch_counts(modules) -> dict:
+    """Every kernel launch counter, by kernel."""
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    return {"flash_attention": fa.flash_attention.launches,
+            "flash_attention_backward": fa.flash_attention.backward_launches,
+            "rmsnorm": rn.rmsnorm.launches,
+            "rmsnorm_residual": rn.rmsnorm_residual.launches,
+            "row_sumsq": rn.row_sumsq.launches,
+            "rmsnorm_total": rn.rmsnorm_total.launches,
+            "ssd_scan": ss.ssd_scan.launches}
+
+
+def set_launch_counts(modules, counts: dict) -> None:
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    fa.flash_attention.launches = counts["flash_attention"]
+    fa.flash_attention.backward_launches = counts["flash_attention_backward"]
+    rn.rmsnorm.launches = counts["rmsnorm"]
+    rn.rmsnorm_residual.launches = counts["rmsnorm_residual"]
+    rn.row_sumsq.launches = counts["row_sumsq"]
+    rn.rmsnorm_total.launches = counts["rmsnorm_total"]
+    ss.ssd_scan.launches = counts["ssd_scan"]
+
+
+def card_count(torch, modules, counted: dict, key: str, fn, names: dict,
+               **record) -> None:
+    """Phase 24's count of one step on the card, made inside the phase
+    that built and warmed its model: ``fn()`` under a
+    ``roofline.counter.Counter`` (``names``: the parameters that name an
+    op's scope), the bytes live before it, the card's peak over it
+    (``max_memory_allocated`` after a reset) and the kernels it launched.
+    Those launches are taken back out of the launch counters, so the
+    paths' counts stay the paths' own; the kernels line lists them under
+    ``dryrun``.  Stored in ``counted[key]`` with ``record`` (what phase 24
+    needs to trace the same step on meta)."""
+    from repro_torch.roofline.counter import Counter
+    before = launch_counts(modules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with Counter(names) as c:
+        fn()
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    measured = torch.cuda.max_memory_allocated()
+    after = launch_counts(modules)
+    set_launch_counts(modules, before)
+    counted[key] = dict(counter=c, base=base, measured_peak=measured,
+                       count_s=count_s,
+                       launches={k: after[k] - before[k] for k in after},
+                       **record)
+
+
+def specs_of(batch: dict) -> dict:
+    """A batch's {name: (shape, dtype)}, for the same batch on meta."""
+    return {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+
+
+def dense_matmul_flops(cfg, tokens: int) -> float:
+    """The dense train step's matrix-product FLOPs from its config alone:
+    2 x tokens x (each layer's q, k, v, o and SwiGLU weights, and the
+    logits' d x V) forward, and twice that backward (remat "none": no
+    recompute)."""
+    d, L = cfg.d_model, cfg.num_layers
+    attn = d * cfg.num_heads * cfg.head_dim * 2 \
+        + 2 * d * cfg.num_kv_heads * cfg.head_dim
+    return 6.0 * tokens * (L * (attn + 3 * d * cfg.d_ff)
+                           + d * cfg.vocab_size)
+
+
+def dryrun_path(torch, np, modules, counted: dict) -> dict:
+    """Phase 24: the dry-run's count held against the card.  Each step
+    counted in phases 4, 7 and 18 (``card_count`` into ``counted``) is
+    traced again on
+    meta with the dry-run's machinery (``launch/dryrun.py``: the same
+    config, step config and batch shapes, the kernels' shape functions):
+    total FLOPs, total traffic and each kernel's FLOPs, bytes and regions
+    must be equal, and each kernel's regions on the card its launches.
+    The dense step's FLOPs outside kernel regions must equal
+    ``dense_matmul_flops``.  The train steps' counted peak (bytes live at
+    the start plus the counter's peak) must be within DRYRUN_PEAK_REL of
+    ``max_memory_allocated``.  Each row prints the roofline terms from the
+    H100 constants (``roofline/analysis.py``) beside the measured median
+    step, ``roofline_fraction_measured`` = step_s / measured and ``mfu`` =
+    model FLOPs / (measured x 989e12), with the card's name and power
+    limit (no limit is set on these).  Then one production cell,
+    ``DRYRUN_CELL``, traced on meta under a fake group of 256 ranks.
+    Returns the counted steps' launches by step."""
+    import statistics
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.roofline.analysis import PEAK_FLOPS, build_report
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    launches = {}
+    for key, rec in counted.items():
+        card, cfg = rec["counter"], rec["cfg"]
+        B, S = rec["rows"], rec["seq"]
+        t0 = time.perf_counter()
+        if rec["kind"] == "train":
+            meta, held, _ = dr.count_train(cfg, rec["scfg"], B, S,
+                                           specs=rec["specs"])
+        else:
+            meta, held, _ = dr.count_serve(cfg, "prefill", B, S,
+                                           specs=rec["specs"],
+                                           cache_len=rec["cache_len"])
+        trace_s = time.perf_counter() - t0
+        cs, ms = card.summary(), meta.summary()
+        regions = {k: v["regions"] for k, v in cs["kernels"].items()}
+        launched = {k: v for k, v in rec["launches"].items() if v}
+        # the card's kernel regions against its launch counters: the
+        # partial forward is a launch of the forward kernel; the backwards
+        # of rmsnorm are plain PyTorch, no launch
+        by_launch = dict(regions)
+        by_launch["flash_attention"] = by_launch.get(
+            "flash_attention", 0) + by_launch.pop(
+            "flash_attention_partial", 0)
+        by_launch.pop("rmsnorm_backward", None)
+        by_launch = {k: v for k, v in by_launch.items() if v}
+        launches[key] = launched
+        shape = ShapeConfig(key, S, B, rec["kind"])
+        report = build_report(arch=cfg.name, shape=shape, mesh_name="card",
+                              chips=1, counter=card, cfg=cfg)
+        measured_s = statistics.median(rec["step_s"])
+        counted_peak = rec["base"] + card.peak
+        peak_rel = abs(counted_peak - rec["measured_peak"]) \
+            / rec["measured_peak"]
+        row = dict(
+            step=key, arch=cfg.name, layers=cfg.num_layers, kind=rec["kind"],
+            batch=[B, S], equal_flops=cs["flops"] == ms["flops"],
+            equal_traffic=cs["traffic"] == ms["traffic"],
+            equal_kernels=cs["kernels"] == ms["kernels"],
+            flops=cs["flops"], traffic=cs["traffic"],
+            meta_flops=ms["flops"], meta_traffic=ms["traffic"],
+            kernels=cs["kernels"], launches=launched,
+            regions_equal_launches=by_launch == launched,
+            **card.kernel_totals(),
+            counted_peak_bytes=counted_peak,
+            measured_peak_bytes=rec["measured_peak"], peak_rel=peak_rel,
+            meta_peak_bytes=sum(held.values()) + meta.peak,
+            counter_peak_bytes=card.peak, meta_counter_peak_bytes=meta.peak,
+            compute_s=report.compute_s, memory_s=report.memory_s,
+            step_s=report.step_s, dominant=report.dominant,
+            measured_step_s=measured_s,
+            roofline_fraction_measured=report.step_s / measured_s,
+            mfu=report.model_flops / (measured_s * PEAK_FLOPS["bfloat16"]),
+            model_flops=report.model_flops,
+            useful_flops_ratio=report.useful_flops_ratio,
+            count_s=rec["count_s"], meta_trace_s=trace_s, nvidia_smi=smi)
+        if key == "train_dense":
+            row["analytic_matmul_flops"] = dense_matmul_flops(cfg, B * S)
+        if not (row["equal_flops"] and row["equal_traffic"]):
+            # where the two counts part: the (caller, op) rows that differ
+            diff = sorted((k for k in set(card.ops) | set(meta.ops)
+                           if card.ops.get(k) != meta.ops.get(k)),
+                          key=lambda k: -abs(
+                              card.ops.get(k, [0, 0, 0])[2]
+                              - meta.ops.get(k, [0, 0, 0])[2]))
+            row["differing_ops"] = [
+                dict(path=k[0], op=k[1], card=card.ops.get(k),
+                     meta=meta.ops.get(k)) for k in diff[:20]]
+        emit("dryrun", **row)
+        check(row["equal_flops"] and row["equal_traffic"]
+              and row["equal_kernels"],
+              f"dryrun {key}: the card counted {cs['flops']} FLOPs, "
+              f"{cs['traffic']} bytes, kernels {cs['kernels']}; meta "
+              f"{ms['flops']}, {ms['traffic']}, {ms['kernels']}")
+        check(row["regions_equal_launches"],
+              f"dryrun {key}: kernel regions {by_launch}, launches "
+              f"{launched}")
+        if key == "train_dense":
+            check(row["other_flops"] == row["analytic_matmul_flops"],
+                  f"dryrun {key}: {row['other_flops']} FLOPs outside the "
+                  f"kernels, the config implies "
+                  f"{row['analytic_matmul_flops']}")
+        if rec["kind"] == "train":
+            check(peak_rel <= DRYRUN_PEAK_REL,
+                  f"dryrun {key}: counted peak {counted_peak} against "
+                  f"{rec['measured_peak']} measured ({peak_rel:.3f})")
+    check(set(counted) == {"serve", "train", "train_dense"},
+          f"dryrun: counted steps {sorted(counted)}")
+    # one production cell, rank 0 of 256 on meta under a fake group
+    t0 = time.perf_counter()
+    out = dr.trace_cell(*DRYRUN_CELL)
+    cell_s = time.perf_counter() - t0
+    emit("dryrun_cell", cell="/".join(DRYRUN_CELL), ok=out["ok"],
+         chips=out["chips"], path=out["path"], trace_s=cell_s,
+         peak_per_device=out["memory"]["peak_per_device"],
+         fits_hbm_80g=out["fits_hbm_80g"],
+         dominant=out["roofline"]["dominant"],
+         compute_s=out["roofline"]["compute_s"],
+         memory_s=out["roofline"]["memory_s"],
+         collective_s=out["roofline"]["collective_s"],
+         collective_counts=out["roofline"]["collective_counts"],
+         useful_flops_ratio=out["roofline"]["useful_flops_ratio"],
+         torch=torch.__version__)
+    check(out["ok"], f"dryrun cell {DRYRUN_CELL} failed")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7152,8 +7394,10 @@ def main() -> int:
     import numpy as np
     import torch.nn.functional as F
 
+    global costs
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.roofline import costs
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
     modules = dict(ops=ops, fa=fa, rn=rn, ss=ss)
@@ -7400,7 +7644,9 @@ def main() -> int:
                                        **kw)
 
     # ---- 4-6c. the serving paths at full width -----------------------------
-    serve_launches = serve_path(torch, np, F, modules, ARCH)
+    counted = {}                   # phase 24's counted steps
+    serve_launches = serve_path(torch, np, F, modules, ARCH,
+                                counted=counted)
     torch.cuda.empty_cache()
     serve_ssm_launches = serve_path(torch, np, F, modules, SSM_ARCH)
     torch.cuda.empty_cache()
@@ -7424,7 +7670,7 @@ def main() -> int:
 
     # ---- 7-8. the training path at full width ------------------------------
     train_launches, state, step, train_idle = train_path(torch, np, F,
-                                                         modules)
+                                                         modules, counted)
 
     # ---- 9-11. the data plane: device edge, DPT, a tuned stream -----------
     import repro_torch.core as core
@@ -7458,7 +7704,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 18-19. the dense LM trained at full width: flash's backward -------
-    dense_launches_ = train_dense_path(torch, np, F, modules)
+    dense_launches_ = train_dense_path(torch, np, F, modules, counted)
     trainer_dense_launches = trainer_dense_path(torch, np, tdata, modules)
     torch.cuda.empty_cache()
 
@@ -7478,7 +7724,10 @@ def main() -> int:
     ve_tp_launches = tp_vlm_encdec_path(torch, np, F, modules)
     torch.cuda.empty_cache()
 
-    # ---- 24. the kernels line ---------------------------------------------
+    # ---- 24. the dry-run's count against the card ---------------------------
+    dryrun_launches = dryrun_path(torch, np, modules, counted)
+
+    # ---- 25. the kernels line ---------------------------------------------
     later_paths = {"serve_hybrid": serve_hybrid_launches,
                     "hybrid_window": hybrid_window_launches,
                     "serve_vlm": serve_vlm_launches,
@@ -7541,6 +7790,11 @@ def main() -> int:
         "rmsnorm_total": {k: v["rmsnorm_total"]
                           for k, v in ssm_tp_launches.items()},
     }
+    # phase 24's counted steps, on a path of their own
+    for name, paths in by_path.items():
+        n = sum(v.get(name, 0) for v in dryrun_launches.values())
+        if n:
+            paths["dryrun"] = n
     main_case = {"flash_attention": "slice", "rmsnorm": "prefill",
                  "rmsnorm_residual": "slice", "ssd_scan": "slice",
                  "row_sumsq": "tp_hybrid", "rmsnorm_total": "tp_hybrid"}
@@ -7639,7 +7893,9 @@ def main() -> int:
         **{k: v["flash_attention_backward"]
            for k, v in ssm_tp_launches.items()},
         **{k: v["flash_attention_backward"]
-           for k, v in ve_tp_launches.items()}}
+           for k, v in ve_tp_launches.items()},
+        "dryrun": sum(v.get("flash_attention_backward", 0)
+                      for v in dryrun_launches.values())}
     train_row = next(r for r in backward_rows if r["case"] == "train")
     by_name["flash_attention"].update(
         backward_source="src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -17,7 +17,10 @@ Every collective issued adds one to ``moved`` under ``"staged"`` (through
 host memory) or ``"direct"``, so a run can show which way its tensors
 went, and, given ``tally``, one to ``tally[kind]`` under the collective's
 own kind: the caller's count by kind (``dp_shard.collectives``,
-``model_axis.collectives``).  One not issued adds to neither.
+``model_axis.collectives``).  One not issued adds to neither.  Each
+issued is also reported to a counting ``roofline.counter.Counter``, if
+one counts: its kind, its group (the counter names the mesh axis) and its
+bytes, the larger of its input and output.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import collections
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.roofline import counter as _counter
 
 # collectives by how they moved their tensors (read and zeroed by callers)
 moved: collections.Counter = collections.Counter()
@@ -52,6 +57,13 @@ def staged(t: torch.Tensor, group, tally=None, kind: str = "") -> bool:
     return s
 
 
+def _nbytes(shape, dtype) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n * dtype.itemsize
+
+
 def _pinned(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, pin_memory=True)
 
@@ -71,6 +83,7 @@ def all_reduce_(t: torch.Tensor, group, op=dist.ReduceOp.SUM, *,
     if single(group):
         return t
     kind = "all_reduce_max" if op == dist.ReduceOp.MAX else "all_reduce"
+    _counter.collective(kind, group, _nbytes(t.shape, t.dtype))
     if staged(t, group, tally, kind):
         h = _to_host(t)
         dist.all_reduce(h, op=op, group=group)
@@ -88,6 +101,7 @@ def all_gather(src: torch.Tensor, group, *, tally=None) -> torch.Tensor:
     if n == 1:
         return src.clone()
     out_shape = (n * src.shape[0],) + tuple(src.shape[1:])
+    _counter.collective("all_gather", group, _nbytes(out_shape, src.dtype))
     if staged(src, group, tally, "all_gather"):
         h = _pinned(out_shape, src.dtype)
         dist.all_gather_into_tensor(h, _to_host(src), group=group)
@@ -106,6 +120,8 @@ def reduce_scatter(src: torch.Tensor, group, *,
     if n == 1:
         return src
     out_shape = (src.shape[0] // n,) + tuple(src.shape[1:])
+    _counter.collective("reduce_scatter", group,
+                        _nbytes(src.shape, src.dtype))
     if staged(src, group, tally, "reduce_scatter"):
         h = _pinned(out_shape, src.dtype)
         dist.reduce_scatter_tensor(h, _to_host(src), op=dist.ReduceOp.SUM,
@@ -123,6 +139,7 @@ def send_recv(t: torch.Tensor, dst: int, src: int, group, *, tally=None):
     device (over one rank, ``t`` itself)."""
     if single(group):
         return lambda: t
+    _counter.collective("send_recv", group, _nbytes(t.shape, t.dtype))
     host = staged(t, group, tally, "send_recv")
     send = _to_host(t) if host else t.contiguous()
     recv = _pinned(send.shape, send.dtype) if host else torch.empty_like(send)

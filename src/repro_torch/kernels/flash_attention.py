@@ -46,6 +46,13 @@ to merge the ranks' blocks; its plain twin is ``flash_attention_plain_lse``.
 ``flash_attention.launches`` counts forward kernel launches (the partial
 form's too), ``flash_attention.backward_launches`` backward calls on the
 card (one a call, for its three launches).
+
+A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes the
+kernels' shape functions: empty outputs of the kernel's shapes and types
+(o, and lse where the kernel writes one; dq, dk, dv), no value computed.
+Meta carries no values, so this is no fallback; outside a count a meta
+tensor raises as any device without a kernel.  The backward is a kernel
+region of its own (``flash_attention_backward``), declaring its scratch.
 """
 from __future__ import annotations
 
@@ -58,6 +65,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import costs
+from repro_torch.roofline import counter as _counter
 
 HEAD_DIMS = (16, 24, 32, 64, 96, 128)
 # the backward's head dims (all on wgmma), its tile (queries or keys a
@@ -433,8 +442,12 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window, q_offset, scale):
         kw = dict(causal=causal, window=window, q_offset=q_offset,
                   scale=scale)
+        ctx.kw_mask = dict(causal=causal, window=window, q_offset=q_offset)
         if q.device.type == "cpu":
             out, lse = flash_attention_plain_lse(q, k, v, **kw)
+            out = out.contiguous()
+        elif q.device.type == "meta":
+            out, lse = _meta_forward(q)
         else:
             _check(q, k, v)
             _check_backward(q, k, v)
@@ -443,6 +456,7 @@ class _FlashAttention(torch.autograd.Function):
                               device=q.device)
             out = _forward_kernel(q, k, v, causal, window, q_offset, scale,
                                   lse)
+        _counter.keep(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
         return out
@@ -450,25 +464,57 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            grads = flash_attention_backward_plain(q, k, v, out, lse, do,
-                                                   **ctx.kw)
-        else:
-            grads = backward_kernel(q, k, v, out, lse, do, **ctx.kw)
-            with _count_lock:
-                flash_attention.backward_launches += 1
+        B, S, H, D = q.shape
+        T, K = k.shape[1], k.shape[2]
+        with _counter.region(
+                "flash_attention_backward",
+                lambda: costs.flash_backward(B, S, T, H, K, D,
+                                             elem=q.element_size(),
+                                             **ctx.kw_mask),
+                scratch=8 * B * H * (-(-S // BWD_TILE) * BWD_TILE)):
+            if q.device.type == "cpu":
+                # contiguous, as the kernels write them
+                grads = tuple(g.contiguous() for g in
+                              flash_attention_backward_plain(
+                                  q, k, v, out, lse, do, **ctx.kw))
+            elif q.device.type == "meta":
+                grads = tuple(torch.empty_like(
+                    t, memory_format=torch.contiguous_format)
+                    for t in (q, k, v))
+            else:
+                grads = backward_kernel(q, k, v, out, lse, do, **ctx.kw)
+                with _count_lock:
+                    flash_attention.backward_launches += 1
+            _counter.keep(*grads)
         return (*grads, None, None, None, None)
+
+
+def _device_ok(t) -> bool:
+    """A device with a route: the CPU, the card, or meta while a counter
+    counts."""
+    return t.device.type in ("cpu", "cuda") or (
+        t.device.type == "meta" and _counter.active() is not None)
+
+
+def _meta_forward(q):
+    """The forward's shape function: o (contiguous, q's type) and lse
+    (B, H, S) fp32, empty."""
+    B, S, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            torch.empty((B, H, S), dtype=torch.float32, device=q.device))
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: Optional[float] = None):
     """q: (B,S,H,D); k, v: (B,T,K,D), H % K == 0.  Returns (B,S,H,D) in
     q's type.  Query i sits at absolute position ``q_offset + i``."""
-    if q.device.type not in ("cpu", "cuda"):
+    if not _device_ok(q):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset,
                                      scale)
+    if q.device.type == "meta":
+        return _meta_forward(q)[0]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale)
@@ -487,7 +533,7 @@ def flash_attention_partial(q, k, v, *, causal: bool = True,
     sees none.  On CUDA tensors the forward kernel writes both; on CPU
     tensors the plain twin ``flash_attention_plain_lse``.  No gradient:
     decode only."""
-    if q.device.type not in ("cpu", "cuda"):
+    if not _device_ok(q):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("flash_attention_partial has no backward "
@@ -496,6 +542,8 @@ def flash_attention_partial(q, k, v, *, causal: bool = True,
         out, lse = flash_attention_plain_lse(q, k, v, causal=causal,
                                              window=window,
                                              q_offset=q_offset, scale=scale)
+    elif q.device.type == "meta":
+        out, lse = _meta_forward(q)
     else:
         _check(q, k, v)
         B, S, H, _ = q.shape

@@ -25,6 +25,15 @@
   on every device, as the JAX package computes it outside any Pallas
   kernel: a few elementwise ops and two small contractions per layer,
   bound by reading and writing the (b, h, p, n) fp32 state.
+
+Each entry point that reaches a kernel opens its kernel region
+(``roofline.counter.region``, a no-op unless a ``Counter`` counts) with
+the kernel's work formula from ``roofline/costs.py``, and keeps its
+outputs as live; the split-row pair opens one per kernel in
+``rmsnorm.py``.  While a counter counts, attention that is not ragged
+takes ``flash_attention`` on every device, so the CPU runs the kernel's
+plain twins forward and backward (``_FlashAttention``) as the card runs
+the kernels; a meta tensor takes the kernels' shape functions.
 """
 from __future__ import annotations
 
@@ -37,6 +46,9 @@ from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels.ssd_scan import scratch_bytes as _ssd_scratch
+from repro_torch.roofline import costs as _costs
+from repro_torch.roofline import counter as _counter
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -46,9 +58,15 @@ def attention(q, k, v, *, causal: bool = True, window: int = 0,
     """Multi-head (GQA) attention.  q: (B,S,H,D); k, v: (B,T,K,D)."""
     ragged = q_pos is not None or kv_pos is not None or kv_valid is not None \
         or softcap > 0.0 or num_sink > 0
-    if not ragged and q.device.type != "cpu":
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   q_offset=q_offset, scale=scale)
+    if not ragged and (q.device.type != "cpu" or _counter.active()):
+        B, S, H, D = q.shape
+        with _counter.region("flash_attention", lambda: _costs.flash_forward(
+                B, S, k.shape[1], H, k.shape[2], D, causal=causal,
+                window=window, q_offset=q_offset, elem=q.element_size())):
+            out = _fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, scale=scale)
+            _counter.keep(out)
+        return out
     if q_offset and q_pos is None:
         B, S = q.shape[:2]
         q_pos = (q_offset + torch.arange(S, device=q.device))[None].expand(B, S)
@@ -73,9 +91,16 @@ def attention_partial(q, k, v, *, causal: bool = True, window: int = 0,
     ``ref.mha_partial``."""
     ragged = q_pos is not None or kv_pos is not None or kv_valid is not None \
         or softcap > 0.0 or num_sink > 0
-    if not ragged and q.device.type != "cpu":
-        return _fa.flash_attention_partial(q, k, v, causal=causal,
-                                           window=window, scale=scale)
+    if not ragged and (q.device.type != "cpu" or _counter.active()):
+        B, S, H, D = q.shape
+        with _counter.region(
+                "flash_attention_partial", lambda: _costs.flash_partial(
+                    B, S, k.shape[1], H, k.shape[2], D, causal=causal,
+                    window=window, elem=q.element_size())):
+            out = _fa.flash_attention_partial(q, k, v, causal=causal,
+                                              window=window, scale=scale)
+            _counter.keep(*out)
+        return out
     return _ref.mha_partial(q, k, v, causal=causal, window=window,
                             q_pos=q_pos, kv_pos=kv_pos, kv_valid=kv_valid,
                             softcap=softcap, scale=scale, num_sink=num_sink)
@@ -88,7 +113,13 @@ def combine_partial(out, lse, gather):
 
 
 def rmsnorm(x, scale, *, eps: float = 1e-6):
-    return _rn.rmsnorm(x, scale, eps=eps)
+    d = x.shape[-1]
+    with _counter.region("rmsnorm", lambda: _costs.rmsnorm(
+            x.numel() // max(d, 1), d, elem=x.element_size(),
+            scale_elem=scale.element_size())):
+        out = _rn.rmsnorm(x, scale, eps=eps)
+        _counter.keep(out)
+    return out
 
 
 def rmsnorm_split(x, scale, *, d_full: int, reduce, eps: float = 1e-6):
@@ -100,7 +131,13 @@ def rmsnorm_split(x, scale, *, d_full: int, reduce, eps: float = 1e-6):
 
 def rmsnorm_residual(x, residual, scale, *, eps: float = 1e-6):
     """Returns (normed, new_residual) for a fused residual add + norm."""
-    return _rn.rmsnorm_residual(x, residual, scale, eps=eps)
+    d = x.shape[-1]
+    with _counter.region("rmsnorm_residual", lambda: _costs.rmsnorm_residual(
+            x.numel() // max(d, 1), d, elem=x.element_size(),
+            scale_elem=scale.element_size())):
+        out = _rn.rmsnorm_residual(x, residual, scale, eps=eps)
+        _counter.keep(*out)
+    return out
 
 
 def _pad_to_chunk(x, dt, B, C, chunk: int):
@@ -124,8 +161,24 @@ def ssd(x, dt, A, B, C, *, chunk: int = 256):
     sequence that is not a multiple of the chunk is padded
     (``_pad_to_chunk``) and the output cut back."""
     s = x.shape[1]
-    x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
-    return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)[:, :s]
+    with _ssd_region(x, B, chunk):
+        x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+        y = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)[:, :s]
+        _counter.keep(y)
+    return y
+
+
+def _ssd_region(x, B, chunk: int, state: bool = False):
+    """``ssd``'s and ``ssd_prefill``'s kernel region: the work of the
+    unpadded positions, the bf16 path's scratch at the padded length."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    c = min(chunk, s)
+    return _counter.region(
+        "ssd_scan", lambda: _costs.ssd_scan(b, s, h, p, g, n, c,
+                                            elem=x.element_size(),
+                                            state=state),
+        scratch=_ssd_scratch(b, s + (-s) % c, h, p, n, c, x.dtype))
 
 
 def ssd_prefill(x, dt, A, B, C, *, chunk: int = 256):
@@ -133,9 +186,12 @@ def ssd_prefill(x, dt, A, B, C, *, chunk: int = 256):
     (y (b,s,h,p), state (b,h,p,n) fp32), padded as ``ssd`` pads.  A CUDA
     tensor runs the kernel, which writes the state itself."""
     s = x.shape[1]
-    x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
-    y, state = _ssd.ssd_scan_state(x, dt, A, B, C, chunk=chunk)
-    return y[:, :s], state
+    with _ssd_region(x, B, chunk, state=True):
+        x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+        y, state = _ssd.ssd_scan_state(x, dt, A, B, C, chunk=chunk)
+        y = y[:, :s]
+        _counter.keep(y, state)
+    return y, state
 
 
 def ssd_step(state, x, dt, A, B, C):

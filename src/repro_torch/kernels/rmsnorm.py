@@ -49,6 +49,15 @@ The backward (``_RMSNormSplit``) is in closed form in plain PyTorch, fp32,
 with one more sum over the ranks, of each row's sum of dy * scale * x.
 The plain twins are ``ref.row_sumsq`` / ``ref.rmsnorm_total``; the counts
 ``row_sumsq.launches`` and ``rmsnorm_total.launches``.
+
+A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes
+each kernel's shape function (empty outputs of its shapes and types);
+meta carries no values, so this is no fallback, and outside a count it
+raises as any device without a kernel.  ``_RMSNorm``'s backward is a
+kernel region (``rmsnorm_backward``), as are ``row_sumsq`` and
+``rmsnorm_total`` (``ops.rmsnorm`` opens ``rmsnorm``'s);
+``_RMSNormSplit``'s backward, plain PyTorch with a sum over the ranks
+between, is counted op by op on every device.
 """
 from __future__ import annotations
 
@@ -58,6 +67,8 @@ import threading
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.roofline import costs
+from repro_torch.roofline import counter as _counter
 
 _SUPPORTED = (torch.float32, torch.bfloat16)
 _count_lock = threading.Lock()
@@ -176,9 +187,16 @@ def _rows(name: str, x: torch.Tensor) -> torch.Tensor:
                      f"stride in its last dimension")
 
 
+def _meta(x: torch.Tensor) -> bool:
+    """A meta tensor while a counter counts: the shape functions' route."""
+    return x.device.type == "meta" and _counter.active() is not None
+
+
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return rmsnorm_plain(x, scale, eps)
+    if _meta(x):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     _check_scale("rmsnorm", x, scale)
     return _launch(_rows("rmsnorm", x), scale, eps).view(x.shape)
 
@@ -205,13 +223,23 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
-        return (*rmsnorm_backward(x, scale, dy, ctx.eps), None)
+        d = x.shape[-1]
+        with _counter.region(
+                "rmsnorm_backward", lambda: costs.rmsnorm_backward(
+                    x.numel() // d, d, elem=x.element_size(),
+                    scale_elem=scale.element_size())):
+            if _meta(x):
+                grads = (torch.empty_like(x), torch.empty_like(scale))
+            else:
+                grads = rmsnorm_backward(x, scale, dy, ctx.eps)
+            _counter.keep(*grads)
+        return (*grads, None)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
             eps: float = 1e-6) -> torch.Tensor:
     """x: (..., d); scale: (d,).  Returns rmsnorm(x) * scale in x's type."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not _meta(x):
         raise ValueError(f"rmsnorm: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNorm.apply(x, scale, eps)
@@ -233,6 +261,9 @@ def rmsnorm_residual(x: torch.Tensor, residual: torch.Tensor,
     * scale, x + residual), both in x's type.  Forward only."""
     if x.device.type == "cpu":
         return rmsnorm_residual_plain(x, residual, scale, eps)
+    if _meta(x):
+        return (torch.empty_like(x, memory_format=torch.contiguous_format),
+                torch.empty_like(x, memory_format=torch.contiguous_format))
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_residual: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -263,8 +294,20 @@ rmsnorm_residual.launches = 0
 def row_sumsq(x: torch.Tensor) -> torch.Tensor:
     """x: (..., d).  Each row's sum of squares in fp32, x's leading
     shape: the kernel for a CUDA tensor, the plain twin on the CPU."""
+    d = x.shape[-1]
+    with _counter.region("row_sumsq", lambda: costs.row_sumsq(
+            x.numel() // max(d, 1), d, elem=x.element_size())):
+        out = _row_sumsq(x)
+        _counter.keep(out)
+    return out
+
+
+def _row_sumsq(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return ref.row_sumsq(x)
+    if _meta(x):
+        return torch.empty(x.shape[:-1], dtype=torch.float32,
+                           device=x.device)
     if x.device.type != "cuda" or x.dtype not in _SUPPORTED:
         raise ValueError(f"row_sumsq: no kernel for {x.dtype} on {x.device}")
     x2 = _rows("row_sumsq", x)
@@ -286,8 +329,20 @@ def rmsnorm_total(x: torch.Tensor, scale: torch.Tensor, total: torch.Tensor,
     (d,) columns; total: each whole row's sum of squares, fp32, x's
     leading shape.  Returns x * rsqrt(total / d_full + eps) * scale in
     x's type."""
+    d = x.shape[-1]
+    with _counter.region("rmsnorm_total", lambda: costs.rmsnorm_total(
+            x.numel() // max(d, 1), d, elem=x.element_size(),
+            scale_elem=scale.element_size())):
+        out = _rmsnorm_total(x, scale, total, d_full, eps)
+        _counter.keep(out)
+    return out
+
+
+def _rmsnorm_total(x, scale, total, d_full: int, eps: float):
     if x.device.type == "cpu":
         return ref.rmsnorm_total(x, scale, total, d_full, eps)
+    if _meta(x):
+        return torch.empty_like(x, memory_format=torch.contiguous_format)
     if x.device.type != "cuda":
         raise ValueError(f"rmsnorm_total: no kernel for device {x.device}")
     _check_scale("rmsnorm_total", x, scale)
@@ -351,7 +406,7 @@ def rmsnorm_split(x: torch.Tensor, scale: torch.Tensor, *, d_full: int,
     leading shape over the ranks (returning the sum).  ``row_sumsq``, the
     sum, then ``rmsnorm_total``; with a gradient through
     ``_RMSNormSplit``, whose backward sums once more."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not _meta(x):
         raise ValueError(f"rmsnorm_split: no kernel for device {x.device}")
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNormSplit.apply(x, scale, reduce, d_full, eps)

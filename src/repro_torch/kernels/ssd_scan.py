@@ -31,7 +31,12 @@ The gradient: when an input requires one, the call goes through
 ``ssd_scan_backward``, recomputes y through the masked chunked form under
 autograd from the saved inputs.  The TPU kernel has no backward (the JAX
 package differentiates its jnp reference), so there is no backward kernel
-yet.
+yet; the backward is counted op by op, on every device.
+
+A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes the
+kernel's shape function: empty y (and the fp32 final state) of the
+kernel's shapes; meta carries no values, so this is no fallback, and
+outside a count it raises as any device without a kernel.
 """
 from __future__ import annotations
 
@@ -42,6 +47,7 @@ import threading
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import counter as _counter
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,9 +207,34 @@ def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
             "chunk_scan": y}[stage]
 
 
+def _meta(x) -> bool:
+    """A meta tensor while a counter counts: the shape function's route."""
+    return x.device.type == "meta" and _counter.active() is not None
+
+
+def _meta_outputs(x, B):
+    """The shape function: y (b,s,h,p) in x's type, the final state
+    (b,h,p,n) fp32, empty."""
+    b, _, h, p = x.shape
+    return (torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty((b, h, p, B.shape[3]), dtype=torch.float32,
+                        device=x.device))
+
+
+def scratch_bytes(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                  dtype) -> int:
+    """The bytes of the bf16 path's fp32 scratch (``_scratch``) at a
+    (padded) length s; the fp32 path takes none."""
+    if dtype != torch.bfloat16:
+        return 0
+    return 4 * b * h * (s + (s // chunk) * p * n)
+
+
 def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, B, C, chunk=chunk)
+    if _meta(x):
+        return _meta_outputs(x, B)[0]
     return _launch(x, dt, A, B, C, chunk)
 
 
@@ -223,7 +254,7 @@ class _SSDScan(torch.autograd.Function):
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 256) -> torch.Tensor:
     """x: (b,s,h,p); dt: (b,s,h); A: (h,); B, C: (b,s,g,n), h % g == 0, s a
     multiple of ``chunk``.  Returns y: (b,s,h,p) in x's type."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not _meta(x):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, B, C)):
@@ -239,7 +270,7 @@ def ssd_scan_state(x, dt, A, B, C, *, chunk: int = 256):
     prefill: (y (b,s,h,p) in x's type, state (b,h,p,n) fp32).  The kernel
     writes both on CUDA (counted in ``ssd_scan.launches``); the plain twin
     computes them on the CPU.  No gradient: serving only."""
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not _meta(x):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (x, dt, A, B, C)):
@@ -247,4 +278,6 @@ def ssd_scan_state(x, dt, A, B, C, *, chunk: int = 256):
                                   "serves prefill only")
     if x.device.type == "cpu":
         return ssd_scan_state_plain(x, dt, A, B, C, chunk=chunk)
+    if _meta(x):
+        return _meta_outputs(x, B)
     return _launch(x, dt, A, B, C, chunk, with_state=True)

@@ -424,8 +424,9 @@ def _sinusoidal(positions, d: int):
     fp32, the angles in fp32."""
     half = d // 2
     freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=torch.float64)
-                      / max(half - 1, 1)).float().to(positions.device)
+                      * torch.arange(half, dtype=torch.float64,
+                                     device=positions.device)
+                      / max(half - 1, 1)).float()
     ang = positions[..., None].float() * freqs
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
