@@ -69,26 +69,27 @@ Phases, each printing one JSON line:
 5. plain: the same prompts teacher-forced through the kernels and through
    the plain twins on the card; cosine similarity of the logits and top-1
    agreement must clear the stated tolerances.
-6. serve_ssm: phases 4-5 for full-width mamba2-780m (48 layers, d_model
-   1536, 48 heads of 64, state 128): prefill runs the SSD scan kernel with
-   its final state, decode the recurrence over the conv-tail / SSD-state
-   cache; launches exactly 48 ssd_scan a batch and 97 rmsnorm a forward,
-   no flash; the prefill profile must show the scan's kernels.  Then
-   ``plain_ssm`` (phase 5 for this model) and ``prefill_vs_full``: the
-   prefill + decode logits against one full-sequence forward of the prompt
-   and the forced tokens, both through the kernels, to the same
-   tolerances, in fp32 and, at the prompt's last position and the first
-   decode step of every sequence, in bf16 on the served model.
-6b. serve_moe: phases 4-5 for full-width, full-depth granite-moe-3b-a800m
-   (32 layers, d_model 1536, 24 / 8 heads of 64, 40 experts of 512, top
-   8, capacity 1.25): exactly 32 flash launches a prefill batch and 65
-   rmsnorm a forward; each profile line also splits the MoE layers'
-   device time between routing and dispatch and the three batched expert
-   products (``moe_split``).  Then ``plain_moe``: the kernels against the
-   plain twins in fp32 compute to phase 5's bounds, in bf16 by distance
-   to an fp32 plain reference against the plain bf16 path's own (an
-   rmsnorm with a coarser output must fail that bound), and the route
-   agreement of the two paths, layer by layer.
+6. serve_ssm: phases 4-5 for full-width mamba2-780m (24 of its 48 layers,
+   ``SERVE_LAYERS``; d_model 1536, 48 heads of 64, state 128): prefill runs
+   the SSD scan kernel with its final state, decode the recurrence over the
+   conv-tail / SSD-state cache; launches exactly 24 ssd_scan a batch and 49
+   rmsnorm a forward, no flash; the prefill profile must show the scan's
+   kernels.  Then ``plain_ssm`` (phase 5 for this model) and
+   ``prefill_vs_full``: the prefill + decode logits against one
+   full-sequence forward of the prompt and the forced tokens, both through
+   the kernels, to the same tolerances, in fp32 and, at the prompt's last
+   position and the first decode step of every sequence, in bf16 on the
+   served model.
+6b. serve_moe: phases 4-5 for full-width granite-moe-3b-a800m (16 of its 32
+   layers; d_model 1536, 24 / 8 heads of 64, 40 experts of 512, top 8,
+   capacity 1.25): exactly 16 flash launches a prefill batch and 33 rmsnorm
+   a forward; each profile line also splits the MoE layers' device time
+   between routing and dispatch and the three batched expert products
+   (``moe_split``).  Then ``plain_moe``: the kernels against the plain
+   twins in fp32 compute to phase 5's bounds, in bf16 by distance to an
+   fp32 plain reference against the plain bf16 path's own (an rmsnorm with
+   a coarser output must fail that bound), and the route agreement of the
+   two paths, layer by layer.
 6c. serve_ring: mixtral-8x22b at published widths and depth 2, dropless
    (``RING_REDUCED`` says why), two prompts of 4,608 tokens through the
    frontend: flash with window 4,096 at head dim 128 (2 launches a
@@ -116,23 +117,24 @@ Phases, each printing one JSON line:
    layer's attention output at the prompt and at the last step against
    an independent masked SDPA, which a mask without the sinks or with
    half the window must fail.
-6f. serve_vlm: phases 4-5 for phi-3-vision-4.2b at its published config,
-   uncut (32 layers, d_model 3,072, 32 heads of 96, 576 patches of 1,024
+6f. serve_vlm: phases 4-5 for phi-3-vision-4.2b at its published widths and
+   16 of its 32 layers (d_model 3,072, 32 heads of 96, 576 patches of 1,024
    projected in front of the text), each request with seeded patch
    embeddings passed to ``ServeEngine.generate`` as ``extra_inputs``:
-   exactly 32 flash launches a prefill (8 x 1,088 positions), 65 rmsnorm
-   a forward; ``plain_vlm`` and ``handoff_vlm`` as for hymba.
-6g. serve_encdec: phases 4-5 for whisper-large-v3 at its published
-   config, uncut (32 encoder and 32 decoder layers, d_model 1,280, 20 / 20
-   heads of 64, gelu MLPs of 5,120, layernorms, 1,500 source positions),
-   batch 8, 16 prompts of 224 tokens and 4 of 96, each with seeded frame
-   embeddings passed to ``ServeEngine.generate`` as ``extra_inputs``:
-   exactly 96 flash launches a prefill (32 encoder, 32 decoder self, 32
-   cross) and 32 a decode step (the cross-attention over the cached cross
-   K/V), no rmsnorm.  ``plain_encdec`` as for hymba, its bf16 control a
-   coarse flash (the path has no rmsnorm), plus the encoder's output held
-   apart from the logits; ``handoff_encdec`` as for hymba, where a slot
-   handed its neighbour's cross K/V must fail the bf16 decode bound.
+   exactly 16 flash launches a prefill (8 x 1,088 positions), 33 rmsnorm a
+   forward; ``plain_vlm`` and ``handoff_vlm`` as for hymba.
+6g. serve_encdec: phases 4-5 for whisper-large-v3 at its published widths
+   and 16 of its 32 encoder and 16 of its 32 decoder layers (d_model 1,280,
+   20 / 20 heads of 64, gelu MLPs of 5,120, layernorms, 1,500 source
+   positions), batch 8, 16 prompts of 224 tokens and 4 of 96, each with
+   seeded frame embeddings passed to ``ServeEngine.generate`` as
+   ``extra_inputs``: exactly 48 flash launches a prefill (16 encoder, 16
+   decoder self, 16 cross) and 16 a decode step (the cross-attention over
+   the cached cross K/V), no rmsnorm.  ``plain_encdec`` as for hymba, its
+   bf16 control a coarse flash (the path has no rmsnorm), plus the
+   encoder's output held apart from the logits; ``handoff_encdec`` as for
+   hymba, where a slot handed its neighbour's cross K/V must fail the bf16
+   decode bound.
 7. train: mamba2-780m at its published widths and 24 of its 48 layers
    (cut to fit the time limit), bf16 compute with fp32 masters and
    AdamW moments drawn from a seeded CUDA generator, one batch of 4 x 2048
@@ -327,6 +329,20 @@ Phases, each printing one JSON line:
    17 rmsnorm a forward a rank in bf16 (one and two a layer, one for the
    final norm).  Decode runs on a ``kv_seq``
    cache: the 520 slots the prompt and steps write, 260 a rank.
+   In the same ranks, a batch the two data ranks do not divide
+   (``_serve_wrap``'s "serve_replicated" path: every rank all the rows, the
+   model still split): (a) the granite above, one request of 512 tokens and
+   4 teacher-forced decode steps and 3 rows prefilled, an expert's capacity
+   counting every row; (b) mixtral-8x22b at its published widths and 1 of
+   its 56 layers, one request of 4,608 tokens (its 4,096-slot ring wraps at
+   the prefill, 2,048 slots a rank) and 4 decode steps, its virtual experts
+   over "model" and gathered over "data".  Each against the one-rank port
+   over the same rows, as the phase holds its own run (fp32 to the first
+   decode step); the data ranks' logits bit-equal (under deterministic
+   algorithms: the MoE combine's ``index_add`` atomics differ run to run
+   otherwise); a ``kv_shards == 2`` cache; the bytes a rank holds equal to
+   its shards'; the first decode step over a rank's K/V block alone,
+   without the partial-softmax combine, must fail.
 22. tp_hybrid / tp_ssm: the families with an SSM under the model axis,
    two gloo ranks on (data 1, model 2) spawned once for both models:
    hymba-1.5b and mamba2-780m at their published widths and 2 layers each
@@ -519,7 +535,7 @@ TOL_SSD = {"bfloat16": (2e-2, 4e-3), "float32": (1e-3, 1e-4)}
 # phase 6: full-width SSM serving workload, the same REQUESTS
 SSM_ARCH = "mamba2-780m"
 
-# phase 6b: full-width, full-depth MoE serving workload, the same REQUESTS;
+# phase 6b: full-width MoE serving workload, the same REQUESTS;
 # its logit checks, and those of phases 6d and 6f, force the first
 # FORCED_STEPS answered tokens (decode is host-bound at ~0.15 s a step,
 # and eight forced runs of 32 steps would add ~30 s to the script)
@@ -532,15 +548,23 @@ FORCED_STEPS = 8
 HYBRID_ARCH = "hymba-1.5b"
 WINDOW_BATCH, WINDOW_PROMPT = 2, 1536
 
-# phase 6f: phi-3-vision-4.2b at its published config, uncut, the same
+# phase 6f: phi-3-vision-4.2b at its published widths, the same
 # REQUESTS, each prompt with seeded patch embeddings (576 x 1,024)
 VLM_ARCH = "phi-3-vision-4.2b"
 
-# phase 6g: whisper-large-v3 at its published config, uncut, each prompt
-# with seeded frame embeddings (1,500 x 1,280).  224 is whisper's prompt
+# phase 6g: whisper-large-v3 at its published widths, each prompt with
+# seeded frame embeddings (1,500 x 1,280).  224 is whisper's prompt
 # limit, half its 448-token text context, so prompt and answer fit in it
 ENCDEC_ARCH = "whisper-large-v3"
 ENCDEC_REQUESTS = ((224, 16), (96, 4))
+
+# the serve phases' depth cuts (phase 21's serve_replicated checks added
+# ~120 s to a script that ran ~930-970 s of its 1,200 s): mamba2 24
+# of 48 layers, granite 16 of 32, phi-3-vision 16 of 32, whisper 16 + 16
+# of 32 + 32.  Widths, requests and every check stay; the launch counts
+# follow the depth.  qwen2 serves uncut, hymba too (its global layers are
+# 0, 15 and 31), and so does fleet_serve's qwen2
+SERVE_LAYERS = {SSM_ARCH: 24, MOE_ARCH: 16, VLM_ARCH: 16, ENCDEC_ARCH: 16}
 
 # phase 6c: mixtral's ring cache at published widths, cut in depth; two
 # prompts longer than the 4,096-token window, so the ring wraps at prefill
@@ -842,6 +866,26 @@ BIG_LAYERS = 8
 EP_ARCH, EP_DATA, EP_MODEL, EP_LAYERS = MOE_ARCH, 2, 2, 8
 EP_BATCH, EP_PROMPT, EP_STEPS = 4, 512, 8
 EP_MIN_COSINE, EP_MIN_TOP1, EP_FLOOR_RATIO = 0.999, 0.99, 2.0
+# phase 21's serve_replicated checks, in its ranks after its own run, each
+# held by its rule and constants: (a) its granite, one request of
+# EP_PROMPT tokens and SOLO_STEPS teacher-forced decode steps, and
+# SOLO_ROWS rows prefilled alone; (b) mixtral-8x22b at its published
+# widths and SOLO_RING_LAYERS layers, one request of SOLO_RING_PROMPT
+# tokens and SOLO_STEPS steps.  Both caches hold the slots the prompt and
+# the steps write (516; mixtral's ring of its 4,096-token window), cut on
+# kv_seq into EP_MODEL blocks.  The fp32 runs stop after the first decode
+# step (SOLO_FP32_STEPS), the one whose partial softmaxes first combine a
+# new key with the prefill's blocks: each call stages its fp32 leaves
+# through the host (mixtral's layer of experts 2.4 GB a rank, ~10 s a
+# call on the card); the bf16 runs, the served dtype, take every step
+SOLO_STEPS, SOLO_ROWS = 4, 3
+SOLO_FP32_STEPS = 1
+SOLO_RING_LAYERS, SOLO_RING_PROMPT = 1, 4608
+SOLO_RING_REDUCED = {
+    "num_layers": "56 -> 1 (the one-rank reference holds the whole layer "
+                  "on the card beside the four ranks' shards, in fp32 "
+                  "too; the time of four ranks staging every call's "
+                  "data-sharded experts through the host)"}
 # phase 20's kv_seq serve check, inside its ranks after their step: its
 # qwen2-0.5b under SERVE_RULES on (data 1, model TP_MODEL), its K/V cache of
 # KV_MAX_LEN slots cut into blocks of KV_MAX_LEN / TP_MODEL a rank.  Each
@@ -1977,6 +2021,17 @@ def hold_handoff(h32, h16, decode_min=MIN_COSINE, faulty=None):
               f"{float(faulty.max())}")
 
 
+def serve_config(cfg):
+    """``cfg`` at the serve phases' depth (``SERVE_LAYERS``; an encdec's
+    encoder cut alike), or as it is."""
+    import dataclasses
+    n = SERVE_LAYERS.get(cfg.name)
+    if n is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_layers=n, encoder_layers=n if cfg.encoder_layers else 0)
+
+
 def serve_path(torch, np, F, modules, arch: str,
                requests=REQUESTS, counted=None) -> dict:
     """Phases 4-5 (qwen2-0.5b), 6 (mamba2-780m), 6b (granite-moe), 6d
@@ -1996,7 +2051,7 @@ def serve_path(torch, np, F, modules, arch: str,
     ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
 
     from repro_torch.models import layers as ll
-    cfg = get_config(arch)
+    cfg = serve_config(get_config(arch))
     family = cfg.family
     tag = "" if family == "dense" else "_" + family
     t0 = time.perf_counter()
@@ -2193,7 +2248,7 @@ def ssm_logit_checks(torch, F, modules, cfg, model, batches_, counts):
     """Phase 6's logit checks on the forced batches ``batches_`` [(prompts,
     forced tokens)], ``model`` being the served bf16 model.
 
-    ``plain_ssm``: random-weight mamba2 at 48 layers amplifies rounding, so
+    ``plain_ssm``: random-weight mamba2 at 24-48 layers amplifies rounding, so
     in bf16 compute the plain twins themselves sit far from an fp32
     reference (PERF.md section 6).  So the kernels are held against the
     plain twins in fp32 compute (the same weights; both paths fp32, they
@@ -6225,21 +6280,389 @@ def ep_serve_rank(torch, np, F, modules, workdir) -> dict:
             ll._moe_ep = real
         out["logits"] = logits.cpu().numpy()
         out["control"] = control.cpu().numpy()
+        # check (a): a batch the data ranks do not divide, on this model
+        t_solo = time.perf_counter()
+        solo = dict(held_bytes=out["held_bytes"],
+                    shard_bytes=shard_bytes(cfg, plan, torch.bfloat16),
+                    whole_bytes=out["whole_bytes"])
+        solo["bf16"] = solo_rank_runs(torch, np, modules, "a", model, ctx_of,
+                                      torch.bfloat16, control=True)
         del model
         torch.cuda.empty_cache()
         saved = ll.COMPUTE_DTYPE
         ll.COMPUTE_DTYPE = torch.float32
         try:
+            t0 = time.perf_counter()
             m32 = sharded_serving_model(torch, cfg, plan)
             out["logits32"] = ep_logits(torch, m32, prompts, forced, ctx_of,
                                         torch.float32, rows=rows,
                                         max_len=EP_PROMPT + EP_STEPS
                                         ).cpu().numpy()
+            out["fp32_s"] = time.perf_counter() - t0
+            solo["fp32"] = solo_rank_runs(torch, np, modules, "a", m32,
+                                          ctx_of, torch.float32,
+                                          control=False,
+                                          steps=SOLO_FP32_STEPS)
             del m32
         finally:
             ll.COMPUTE_DTYPE = saved
             torch.cuda.empty_cache()
+        solo["rank_s"] = time.perf_counter() - t_solo - out.get(
+            "fp32_s", 0.0)
+        # check (b): mixtral's ring at its published widths
+        t0 = time.perf_counter()
+        out["solo"] = {"a": solo, "b": solo_ring_rank(torch, np, modules,
+                                                      mesh)}
+        out["solo"]["b"]["rank_s"] = time.perf_counter() - t0
     return out
+
+
+def solo_config(key: str):
+    """The model of phase 21's serve_replicated check ``key``: "a" the
+    phase's granite (``ep_config``), "b" mixtral-8x22b at its published
+    widths and SOLO_RING_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    if key == "a":
+        return ep_config()
+    return dataclasses.replace(get_config(RING_ARCH),
+                               num_layers=SOLO_RING_LAYERS)
+
+
+def solo_requests(torch, np, key: str, cfg) -> list:
+    """[(prompts, forced tokens)] of check ``key``, seeded: (a) one
+    request of EP_PROMPT tokens with SOLO_STEPS + 1 forced tokens, and
+    SOLO_ROWS rows with one (prefill only); (b) one request of
+    SOLO_RING_PROMPT tokens with SOLO_STEPS + 1."""
+    S = EP_PROMPT if key == "a" else SOLO_RING_PROMPT
+    rows = SOLO_ROWS if key == "a" else 1
+    rng = np.random.default_rng(30 if key == "a" else 31)
+    seq = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (rows, S + SOLO_STEPS + 1)),
+                          dtype=torch.long, device="cuda")
+    out = [(seq[:1, :S], seq[:1, S:])]
+    if key == "a":
+        out.append((seq[:, :S], seq[:, S:S + 1]))
+    return out
+
+
+def solo_max_len(key: str) -> int:
+    """The positions check ``key``'s cache is made for: those the prompt
+    and the SOLO_STEPS decode steps write."""
+    return (EP_PROMPT if key == "a" else SOLO_RING_PROMPT) + SOLO_STEPS
+
+
+def solo_logits(torch, model, prompts, forced, ctx_of, max_len: int,
+                kv_dtype=None, keep_prefill: bool = False) -> dict:
+    """One request set through ``_serve_wrap`` under ``ctx_of(kind)``, all
+    its rows on every rank: the prefill, then ``forced.shape[1] - 1``
+    teacher-forced decode steps, over a cache of ``kv_dtype`` (bf16 if
+    None) made under the prefill rules for every row (``kv_seq`` blocks).
+    Returns the logits (B, steps, V) fp32, the wrapper's path at each
+    call, the cache's blocks and block slots, and with ``keep_prefill`` a
+    copy of the cache as the prefill left it (``solo_control``)."""
+    import copy
+
+    from repro_torch.launch.dryrun import _serve_wrap
+    B, S = prompts.shape
+    with ctx_of("prefill") as ctx:
+        cache = model.init_cache(B, max_len,
+                                 kv_dtype=kv_dtype or torch.bfloat16)
+        prefill = _serve_wrap(model, ctx, model.prefill)
+        logits, cache = prefill({"tokens": prompts}, cache)
+    out = dict(paths=[prefill.path])
+    if keep_prefill:
+        out["prefill_cache"] = copy.copy(cache)
+        for k in cache:
+            out["prefill_cache"][k] = cache[k].clone()
+    steps, cache = solo_decode(torch, model, cache, forced, ctx_of, S,
+                               out["paths"])
+    out.update(logits=torch.stack([logits[:, -1].float()] + steps, 1),
+               kv_shards=cache.kv_shards, kv_block=cache["k"].shape[2])
+    return out
+
+
+def solo_decode(torch, model, cache, forced, ctx_of, S: int, paths: list):
+    """``forced.shape[1] - 1`` teacher-forced decode steps from position
+    ``S`` through ``_serve_wrap`` (each call's path appended to
+    ``paths``): the fp32 logits of each step and the cache."""
+    from repro_torch.launch.dryrun import _serve_wrap
+    B = forced.shape[0]
+    pos = torch.full((B,), S, dtype=torch.long, device=forced.device)
+    outs = []
+    for j in range(forced.shape[1] - 1):
+        with ctx_of("decode") as ctx:
+            step = _serve_wrap(model, ctx, lambda b, c: model.decode_step(
+                c, b["tokens"], b["positions"]))
+            logits, cache = step({"tokens": forced[:, j:j + 1],
+                                  "positions": pos}, cache)
+        paths.append(step.path)
+        outs.append(logits[:, -1].float())
+        pos = pos + 1
+    return outs, cache
+
+
+def solo_control(torch, model, cache, forced, ctx_of, S: int):
+    """The control of the serve_replicated checks: the first decode step
+    from the prefill's cache with each rank's K/V block alone, its
+    partial softmax taken as the output (``ops.combine_partial`` left
+    out)."""
+    from repro_torch.kernels import ops
+    real = ops.combine_partial
+    ops.combine_partial = lambda part, lse, gather: part
+    try:
+        outs, _ = solo_decode(torch, model, cache, forced[:, :2], ctx_of, S,
+                              [])
+    finally:
+        ops.combine_partial = real
+    return torch.stack(outs, 1)
+
+
+def shard_bytes(cfg, plan, dtype) -> int:
+    """The bytes of a serving model's leaves on the storage plan: each
+    leaf's shard (``plan.local_shape``) in ``dtype``, the leaves the port
+    keeps in fp32 (``lm._FP32_LEAVES``) in fp32."""
+    from repro_torch.models import lm
+    from repro_torch.train.train_step import param_shapes
+    return sum(math.prod(plan.local_shape(k, s))
+               * (4 if k.rsplit(".", 1)[-1] in lm._FP32_LEAVES
+                  else dtype.itemsize)
+               for k, s in param_shapes(cfg).items())
+
+
+def solo_reference(torch, np, F, modules, key: str, model=None) -> dict:
+    """The one-rank port's logits of check ``key``'s requests over all
+    their rows, from seed 0, in the parent before the ranks: through the
+    kernels in bf16 (``model``, the phase's own where given), through the
+    plain twins, and in fp32 over an fp32 K/V cache; the bf16 noise floor
+    (the largest distance between the first two over the positions), the
+    launches of the kernels' run and its seconds.  Frees what it built."""
+    ops, fa, rn, ss = (modules[k] for k in ("ops", "fa", "rn", "ss"))
+    cfg = solo_config(key)
+    reqs = solo_requests(torch, np, key, cfg)
+    L = solo_max_len(key)
+    own = model is None
+    out = {}
+    t_all = time.perf_counter()
+    with torch.no_grad():
+        if own:
+            model = seeded_model(torch, cfg)
+        zero_launches(fa, rn, ss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["bf16"] = [ep_logits(torch, model, p, f, max_len=L)
+                       for p, f in reqs]
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["launches"] = dense_launches(fa, rn)
+        with plain_kernels(ops, fa, rn, ss):
+            plain = [ep_logits(torch, model, p, f, max_len=L)
+                     for p, f in reqs]
+        out["floor"] = max(float((1.0 - F.cosine_similarity(
+            a, b, dim=-1)).max()) for a, b in zip(plain, out["bf16"]))
+        out["plain_top1"] = [float((a.argmax(-1) == b.argmax(-1)).float()
+                                   .mean()) for a, b in zip(plain,
+                                                            out["bf16"])]
+        del plain
+        if own:
+            del model
+        model = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        with fp32_model(torch, cfg) as m32:
+            out["fp32"] = [ep_logits(torch, m32, p, f[:, :SOLO_FP32_STEPS + 1],
+                                     kv_dtype=torch.float32, max_len=L)
+                           for p, f in reqs]
+            del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["total_s"] = time.perf_counter() - t_all
+    return out
+
+
+def solo_rank_runs(torch, np, modules, key: str, model, ctx_of, dtype,
+                   control: bool, steps: int = SOLO_STEPS) -> dict:
+    """Check ``key``'s requests in one rank through ``solo_logits`` on
+    ``model`` (its shards of the storage plan, in ``dtype``), under
+    deterministic algorithms (the MoE combine's ``index_add`` adds in
+    any order through CUDA's atomics otherwise, so two runs of one rank
+    differ in the last bits, let alone two data ranks): each request's
+    logits, paths, blocks and the launches of these runs; with
+    ``control`` then ``solo_control``'s logits of each request that
+    decodes.  ``steps``: the decode steps a request takes at most.
+    Deterministic algorithms would also fill every new buffer, each
+    call's gathered leaves included (``fill_uninitialized_memory``): the
+    check turns that off, since no output here reads unwritten memory."""
+    import torch.utils.deterministic as det
+    fa, rn, ss = (modules[k] for k in ("fa", "rn", "ss"))
+    cfg = solo_config(key)
+    L = solo_max_len(key)
+    reqs = [(p, f[:, :steps + 1])
+            for p, f in solo_requests(torch, np, key, cfg)]
+    kv_dtype = torch.float32 if dtype == torch.float32 else None
+    zero_launches(fa, rn, ss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fill = det.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        runs = [solo_logits(torch, model, p, f, ctx_of, L, kv_dtype,
+                            keep_prefill=control and f.shape[1] > 1)
+                for p, f in reqs]
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        det.fill_uninitialized_memory = fill
+    out = dict(seconds=time.perf_counter() - t0,
+               launches=dense_launches(fa, rn),
+               logits=[r["logits"].cpu().numpy() for r in runs],
+               paths=[r["paths"] for r in runs],
+               blocks=[(r["kv_shards"], r["kv_block"]) for r in runs])
+    if control:
+        out["control"] = [
+            solo_control(torch, model, r.pop("prefill_cache"), f, ctx_of,
+                         p.shape[1]).cpu().numpy()
+            for r, (p, f) in zip(runs, reqs) if f.shape[1] > 1]
+    return out
+
+
+def solo_ring_rank(torch, np, modules, mesh) -> dict:
+    """Check (b) in one rank: mixtral (``solo_config("b")``) on the storage
+    plan of SERVE_RULES_BIG on ``mesh``, its shards drawn from seed 0, in
+    bf16 with the control, then in fp32; the bytes it holds beside its
+    shards' and the whole model's."""
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.models import layers as ll
+    from repro_torch.train.train_step import param_plan, param_shapes
+    cfg = solo_config("b")
+
+    def ctx_of(kind):
+        return use_rules(mesh, rules_for(kind, big_params=True))
+
+    with ctx_of("prefill") as ctx:
+        plan = param_plan(cfg, ctx)
+    t0 = time.perf_counter()
+    model = sharded_serving_model(torch, cfg, plan)
+    torch.cuda.synchronize()
+    out = dict(build_s=time.perf_counter() - t0,
+               held_bytes=sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+               shard_bytes=shard_bytes(cfg, plan, torch.bfloat16),
+               whole_bytes=sum(math.prod(s) * 2 for s in
+                               param_shapes(cfg).values()))
+    out["bf16"] = solo_rank_runs(torch, np, modules, "b", model, ctx_of,
+                                 torch.bfloat16, control=True)
+    del model
+    torch.cuda.empty_cache()
+    saved = ll.COMPUTE_DTYPE
+    ll.COMPUTE_DTYPE = torch.float32
+    try:
+        m32 = sharded_serving_model(torch, cfg, plan)
+        out["fp32"] = solo_rank_runs(torch, np, modules, "b", m32, ctx_of,
+                                     torch.float32, control=False,
+                                     steps=SOLO_FP32_STEPS)
+        del m32
+    finally:
+        ll.COMPUTE_DTYPE = saved
+        torch.cuda.empty_cache()
+    return out
+
+
+def solo_verdict(torch, np, F, key: str, res, ref) -> dict:
+    """Check ``key`` of phase 21's serve_replicated path against the
+    one-rank reference (``solo_reference``), by the phase's rule: fp32
+    cosine and top-1, bf16 distance within EP_MIN_COSINE or EP_FLOOR_RATIO
+    x the noise floor; the data ranks' logits bit-equal; every call on
+    ``serve_replicated``; each cache EP_MODEL blocks of its slots; the
+    bytes a rank holds its shards'; the control past the limit; the
+    launches exact.  Emits the check's line and returns the launches of
+    its bf16 runs summed over the ranks."""
+    cfg = solo_config(key)
+    L = cfg.num_layers
+    runs = [r["solo"][key] for r in res]
+    limit = max(1.0 - EP_MIN_COSINE, EP_FLOOR_RATIO * ref["floor"])
+
+    def agree(dtype, want, field="logits"):
+        cos, top1 = [], []
+        for r in runs:
+            for got, w in zip(r[dtype][field], want):
+                got = torch.from_numpy(got).to("cuda")
+                cos.append(F.cosine_similarity(got, w, dim=-1).ravel())
+                top1.append((got.argmax(-1) == w.argmax(-1)).float().ravel())
+        cos, top1 = torch.cat(cos), torch.cat(top1)
+        return float(cos.min()), float(cos.mean()), float(top1.mean())
+
+    cos16 = agree("bf16", ref["bf16"])
+    cos32 = agree("fp32", ref["fp32"])
+    decoding = [w[:, 1:2] for w in ref["bf16"] if w.shape[1] > 1]
+    c_cos = agree("bf16", decoding, "control")
+    same = all(np.array_equal(a, b)
+               for d in ("bf16", "fp32") for m in range(EP_MODEL)
+               for r in range(EP_MODEL, len(runs), EP_MODEL)
+               for a, b in zip(runs[m][d]["logits"], runs[r + m][d]["logits"]))
+    paths = {p for r in runs for d in ("bf16", "fp32")
+             for ps in r[d]["paths"] for p in ps}
+    slots = min(solo_max_len(key), cfg.sliding_window or solo_max_len(key))
+    blocks_ok = all(b == (EP_MODEL, slots // EP_MODEL)
+                    for r in runs for d in ("bf16", "fp32")
+                    for b in r[d]["blocks"])
+    held = [(r["held_bytes"], r["shard_bytes"]) for r in runs]
+    held_ok = all(h == w < r["whole_bytes"] / EP_DATA
+                  for (h, w), r in zip(held, runs))
+    reqs = [(int(w.shape[0]), int(w.shape[1])) for w in ref["bf16"]]
+    expect = {"flash_attention": L * len(reqs),
+              "flash_attention_backward": 0,
+              "rmsnorm": (2 * L + 1) * sum(n for _, n in reqs)}
+    emit("ep_serve_replicated", check=key, arch=cfg.name,
+         mesh={"data": EP_DATA, "model": EP_MODEL}, rules="SERVE_RULES_BIG",
+         layers=L, reduced=SOLO_RING_REDUCED if key == "b" else
+         {"num_layers": f"32 -> {L} (phase 21's depth)"},
+         requests=[dict(rows=b, prompt=(EP_PROMPT if key == "a"
+                                        else SOLO_RING_PROMPT),
+                        decode_steps=n - 1) for b, n in reqs],
+         paths=sorted(paths), kv_blocks=EP_MODEL,
+         kv_block_slots=slots // EP_MODEL, slots=slots,
+         held_and_shard_bytes_per_rank=held,
+         whole_bf16_bytes=runs[0]["whole_bytes"],
+         min_cosine=cos16[0], mean_cosine=cos16[1], top1=cos16[2],
+         plain_top1=ref["plain_top1"], floor=ref["floor"],
+         max_distance=limit, data_ranks_equal=same,
+         fp32=dict(min_cosine=cos32[0], mean_cosine=cos32[1],
+                   top1=cos32[2], decode_steps=SOLO_FP32_STEPS),
+         control=dict(what="each rank's K/V block alone at the first "
+                           "decode step, no partial-softmax combine",
+                      min_cosine=c_cos[0], mean_cosine=c_cos[1],
+                      top1=c_cos[2]),
+         launches_per_rank=[r["bf16"]["launches"] for r in runs],
+         expected_launches_per_rank=expect,
+         one_rank_launches=ref["launches"], one_rank_s=ref["seconds"],
+         seconds_per_rank=[r["bf16"]["seconds"] for r in runs],
+         fp32_seconds_per_rank=[r["fp32"]["seconds"] for r in runs],
+         check_s_per_rank=[r["rank_s"] for r in runs],
+         one_rank_reference_s=ref["total_s"],
+         timing_note="not a speed: the ranks share one card and every "
+                     "collective crosses the host")
+    tag = f"ep_serve_replicated ({key}, {cfg.name})"
+    check(paths == {"serve_replicated"}, f"{tag}: wrapper paths {paths}")
+    check(blocks_ok, f"{tag}: caches "
+          f"{[r[d]['blocks'] for r in runs for d in ('bf16', 'fp32')]}, "
+          f"not {EP_MODEL} blocks of {slots} slots")
+    check(held_ok, f"{tag}: held and shard bytes {held}")
+    check(cos32[0] >= EP_MIN_COSINE and cos32[2] >= EP_MIN_TOP1,
+          f"{tag} fp32 logits: min cosine {cos32[0]}, top-1 {cos32[2]}")
+    check(1.0 - cos16[0] <= limit, f"{tag} bf16 logits: min cosine "
+          f"{cos16[0]} (largest distance {limit})")
+    check(same, f"{tag}: the data ranks' logits differ")
+    check(1.0 - c_cos[0] > limit, f"{tag}'s control (a rank's K/V block "
+          f"alone) passed: min cosine {c_cos[0]}")
+    for r in runs:
+        check(r["bf16"]["launches"] == expect, f"{tag} rank launches "
+              f"{r['bf16']['launches']}, expected {expect}")
+    check(ref["launches"] == expect, f"{tag} one-rank launches "
+          f"{ref['launches']}, expected {expect}")
+    return {k: sum(r["bf16"]["launches"][k] for r in runs) for k in expect}
 
 
 def ep_serve_path(torch, np, F, modules) -> dict:
@@ -6285,12 +6708,15 @@ def ep_serve_path(torch, np, F, modules) -> dict:
         floor = float((1.0 - F.cosine_similarity(plain, ref, dim=-1)).max())
         floor_top1 = float((plain.argmax(-1) == ref.argmax(-1)).float()
                            .mean())
-        del model, plain
+        del plain
+        solo_ref = {"a": solo_reference(torch, np, F, modules, "a", model)}
+        del model
         with fp32_model(torch, cfg) as m32:
             ref32 = per_shard(m32, kv_dtype=torch.float32)
             del m32
     gc.collect()
     torch.cuda.empty_cache()
+    solo_ref["b"] = solo_reference(torch, np, F, modules, "b")
     workdir = tempfile.mkdtemp(prefix="ep_serve_")
     try:
         t0 = time.perf_counter()
@@ -6385,7 +6811,11 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     check(one_launches == {k: EP_DATA * v for k, v in expect.items()},
           f"ep_serve one-rank launches {one_launches} over {EP_DATA} "
           f"batches, expected {expect} a batch")
-    return {k: sum(r["launches"][k] for r in res) for k in expect}
+    launches = {k: sum(r["launches"][k] for r in res) for k in expect}
+    launches["serve_replicated"] = {
+        key: solo_verdict(torch, np, F, key, res, solo_ref[key])
+        for key in ("a", "b")}
+    return launches
 
 
 def ssm_tp_configs() -> dict:
@@ -7752,6 +8182,9 @@ def main() -> int:
                             "tp_train_big":
                                 tp_big_launches["flash_attention"],
                             "ep_serve": ep_launches["flash_attention"],
+                            **{f"ep_serve_replicated_{k}":
+                               v["flash_attention"] for k, v in
+                               ep_launches["serve_replicated"].items()},
                             **{k: v["flash_attention"]
                                for k, v in ssm_tp_launches.items()},
                             **{k: v["flash_attention"]
@@ -7774,6 +8207,8 @@ def main() -> int:
                     "tp_kv_serve": tp_launches["kv_serve"]["rmsnorm"],
                     "tp_train_big": tp_big_launches["rmsnorm"],
                     "ep_serve": ep_launches["rmsnorm"],
+                    **{f"ep_serve_replicated_{k}": v["rmsnorm"]
+                       for k, v in ep_launches["serve_replicated"].items()},
                     **{k: v["rmsnorm"] for k, v in ssm_tp_launches.items()},
                     **{k: v["rmsnorm"] for k, v in ve_tp_launches.items()}},
         "rmsnorm_residual": {},      # no model calls it

@@ -17,10 +17,14 @@ once on them: the ``dp_manual`` train step with AdamW, the prefill under
 ``_serve_wrap``, or one decode step under it, all inside a
 ``roofline.counter.Counter``.  The kernels take their shape functions and
 count their ``roofline/costs.py`` formulas.  ``repro`` decodes on its pjit
-path; the port has no such path, so a decode step runs under the serve
-wrapper too, or, where the wrapper does not apply (a batch the batch axes
-do not divide, as ``long_500k``'s one row), whole on the rank, as a
-prefill there does.
+path; the port's decode step runs under the serve wrapper too.  Where the
+batch axes do not divide the batch (``long_500k``'s one row) ``repro``
+serves on its pjit path, where GSPMD keeps the leaves and the cache's
+``kv_seq`` sharded and replicates the batch dim; the port's wrapper then
+hands every rank all the rows with the model still split
+(``"serve_replicated"``).  Only where the wrapper does not apply at all
+(no batch axes, or a planned dim that does not divide) does the rank
+compute the call whole, with no rules (``"whole"``).
 
 Each cell writes ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``
 with ``repro``'s keys: ``memory`` (``peak_per_device`` the rank's state
@@ -34,7 +38,8 @@ over the batch axes so that its manual paths (the expert-parallel MoE,
 the vocab-sharded logits, attention split by heads, the per-layer bf16
 gathers of the leaves ``SERVE_RULES_BIG`` shards over ``"data"``) are
 taken while serving.  Here the wrapper cuts this rank's rows of the batch
-and enters the same manual region around a call on them; inside it the
+(or, for a batch the batch axes do not divide, passes all of them) and
+enters the same manual region around a call on them; inside it the
 model's prefill and decode gather each layer's batch-sharded leaves
 (``lm._serve_params``) and the layers take their part of the
 model-sharded ones (``layers.work``).
@@ -190,16 +195,38 @@ def opt_state_shardings(model, ctx):
 # ---------------------------------------------------------------------------
 # the serve wrapper
 # ---------------------------------------------------------------------------
+def serve_path(mesh, batch_rows: int) -> str:
+    """The path ``_serve_wrap`` takes for a global batch of ``batch_rows``
+    rows on ``mesh``: ``"serve_wrap"`` where the batch axes divide it
+    (each rank its rows), else ``"serve_replicated"`` (every rank all of
+    them, ``repro``'s pjit path with the batch dim replicated)."""
+    return "serve_wrap" if batch_rows % dp_shard.manual_size(mesh) == 0 \
+        else "serve_replicated"
+
+
 def _serve_wrap(model, ctx, fn):
     """``fn(batch, cache)`` (``model``'s ``prefill``, or a decode step)
     wrapped to run inside ``ctx.manual_region`` of the mesh's batch axes,
     or None where ``repro`` returns None: no batch axes, or a planned dim
-    that does not divide.  The wrapped function takes the global batch,
-    of which it passes ``fn`` this rank's rows (``dp_shard.local_rows``),
-    and this rank's cache as it is: it holds those rows, and where the
-    rules cut its K/V slots over the model ranks (``kv_seq``, made by
-    ``init_cache`` under them) this rank's block of the slots; it returns
-    ``fn``'s result for them.
+    that does not divide.  The wrapped function takes the global batch and
+    this rank's cache as it is, and returns ``fn``'s result for the rows
+    it passed:
+
+    * where the batch axes divide the batch (``"serve_wrap"``) it passes
+      ``fn`` this rank's rows (``dp_shard.local_rows``), and the cache
+      holds those rows;
+    * else (``"serve_replicated"``, as ``long_500k``'s one row) every rank
+      passes ``fn`` all the rows and the cache holds all of them, as
+      ``repro``'s pjit path replicates a batch dim the guard drops: the
+      data ranks compute the same rows and each returns the whole batch's
+      result.  Nothing is padded: an expert's capacity counts every row's
+      tokens, as on that path.
+
+    On both paths the model stays split over ``"model"`` (the manual region
+    of the batch axes), and where the rules cut the cache's K/V slots over
+    the model ranks (``kv_seq``, made by ``init_cache`` under them) it
+    holds this rank's block of the slots.  The function's ``path`` says
+    which path its last call took (None before the first).
 
     ``model`` holds its leaves as ``ctx``'s rules store them: on the
     storage plan of its mesh (``build_model(..., plan=)``, as
@@ -231,10 +258,13 @@ def _serve_wrap(model, ctx, fn):
                          f"rules give this mesh")
 
     def wrapped(batch, cache):
-        rows = dp_shard.local_rows(mesh, batch)
+        wrapped.path = serve_path(mesh, batch["tokens"].shape[0])
+        if wrapped.path == "serve_wrap":
+            batch = dp_shard.local_rows(mesh, batch)
         with ctx.manual_region(set(manual)):
-            return fn(rows, cache)
+            return fn(batch, cache)
 
+    wrapped.path = None
     return wrapped
 
 
@@ -345,18 +375,21 @@ def count_serve(cfg: ModelConfig, kind: str, B: int, S: int, *, ctx=None,
                 cache_len: Optional[int] = None):
     """A prefill of ``B`` x ``S`` (``kind`` "prefill") or one decode step
     of ``B`` rows over a cache of ``S`` positions (``kind`` "decode") of
-    ``cfg`` on meta, counted; under ``ctx``, through ``_serve_wrap`` where
-    it applies (the model on the storage plan, ``B`` the global batch),
-    else whole.  Returns (counter, {"params", "cache", "batch": bytes},
-    whether the serve wrapper ran).  On another ``device`` the same call
-    runs on seeded values.  ``specs`` replaces the batch's
+    ``cfg`` on meta, counted.  Under ``ctx`` it runs through
+    ``_serve_wrap`` wherever the wrapper applies: the model on the storage
+    plan, ``B`` the global batch, the cache made under the rules (so
+    ``kv_seq`` and the SSM heads cut it) for this rank's rows, B / R where
+    the R batch shards divide B and all B where they do not; else whole,
+    with no rules.  Returns (counter, {"params", "cache", "batch": bytes},
+    the path: ``_serve_wrap``'s ``"serve_wrap"`` or
+    ``"serve_replicated"``, or ``"whole"``).  On another ``device`` the
+    same call runs on seeded values.  ``specs`` replaces the batch's
     ``input_specs``; ``cache_len`` the cache's positions (``S``)."""
     from repro_torch.roofline.counter import Counter
     from repro_torch.train.train_step import param_plan
-    wrap = ctx is not None and bool(dp_shard.manual_axes(ctx.mesh)) \
-        and B % dp_shard.manual_size(ctx.mesh) == 0
-    plan = param_plan(cfg, ctx) if wrap else None
-    model = meta_model(cfg, plan=plan, device=device)
+    sharded = ctx is not None and bool(dp_shard.manual_axes(ctx.mesh))
+    model = meta_model(cfg, plan=param_plan(cfg, ctx) if sharded else None,
+                       device=device)
     specs = specs or input_specs(cfg, ShapeConfig("cell", S, B, kind))
     batch = meta_batch(specs, device=device, vocab=cfg.vocab_size
                        if kind == "prefill" else S - 1)
@@ -366,10 +399,15 @@ def count_serve(cfg: ModelConfig, kind: str, B: int, S: int, *, ctx=None,
     else:
         def fn(b, cache):
             return model.decode_step(cache, b["tokens"], b["positions"])
-    wrapped = _serve_wrap(model, ctx, fn) if wrap else None
-    rows = B // dp_shard.manual_size(ctx.mesh) if wrapped is not None else B
-    if wrapped is None and plan is not None:
-        model = meta_model(cfg, device=device)
+    wrapped = _serve_wrap(model, ctx, fn) if sharded else None
+    if wrapped is None:
+        path, rows = "whole", B
+        if model.plan is not None:
+            model = meta_model(cfg, device=device)
+    else:
+        path = serve_path(ctx.mesh, B)
+        rows = B // dp_shard.manual_size(ctx.mesh) \
+            if path == "serve_wrap" else B
     # unwrapped, the rank computes the whole call: no rules cut its cache
     with contextlib.nullcontext() if wrapped is not None else _no_rules():
         cache = model.init_cache(rows, cache_len or S, kv_dtype=kv_dtype)
@@ -378,7 +416,7 @@ def count_serve(cfg: ModelConfig, kind: str, B: int, S: int, *, ctx=None,
                 "batch": _bytes(meta_batch(specs, rows).values())}
         with Counter(dict(model.named_parameters())) as c:
             (wrapped or fn)(batch, cache)
-    return c, held, wrapped is not None
+    return c, held, path
 
 
 @contextlib.contextmanager
@@ -438,10 +476,9 @@ def lower_cell(arch: str, shape: ShapeConfig, mesh, mesh_name: str, *,
                 cfg, scfg, shape.global_batch // R, shape.seq_len, ctx=ctx)
         else:
             kv_dtype = choose_kv_dtype(None, cfg, shape, chips)
-            counter, held, wrapped = count_serve(
+            counter, held, path = count_serve(
                 cfg, shape.kind, shape.global_batch, shape.seq_len, ctx=ctx,
                 kv_dtype=kv_dtype)
-            path = "serve_wrap" if wrapped else "whole"
             held["kv_dtype"] = str(kv_dtype).replace("torch.", "")
     trace_s = time.perf_counter() - t0
     dtype = str(ll.COMPUTE_DTYPE).replace("torch.", "")

@@ -8,8 +8,9 @@
 counts one ``dp_manual`` train step of reduced qwen2 on the CPU on its
 storage plan (``launch.dryrun.count_train(device="cpu")``) and writes the
 counter's collectives and the bytes it holds.  ``meta_main`` traces the
-same step for rank 0 of a 4-rank ``"fake"`` group on meta, and a reduced
-config's cells on the (16, 16) production mesh; it writes their results.
+same step for rank 0 of a 4-rank ``"fake"`` group on meta, and reduced
+configs' cells on the (16, 16) production mesh (qwen2's train, prefill
+and decode cells, mixtral's long_500k); it writes their results.
 Both write ``WORKDIR/res_<job>_w<MESH>_r<RANK>.pkl``.  This module imports
 torch and the port only.
 """
@@ -25,6 +26,7 @@ import torch.distributed as dist
 torch.set_num_threads(1)
 
 ARCH = "qwen2-0.5b"
+LONG_ARCH = "mixtral-8x22b"     # long_500k needs a subquadratic config
 ROWS, SEQ = 2, 16          # a rank's rows at (data 2, model 2)
 
 
@@ -75,7 +77,8 @@ def main() -> None:
 
 def meta_main() -> None:
     """Rank 0 of a 4-rank fake group at (data 2, model 2) on meta, then
-    reduced qwen2's three kinds of cell on the (16, 16) mesh."""
+    reduced qwen2's three kinds of cell and reduced mixtral's long_500k on
+    the (16, 16) mesh, with that cell's storage plan."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.launch import dryrun as dr
     from repro_torch.launch.mesh import make_local_mesh
@@ -84,10 +87,40 @@ def meta_main() -> None:
         _write(workdir, "collectives", "2x2", "meta",
                _count(make_local_mesh(model_axis=2, device="cpu"), "meta"))
     cells = {}
-    for shape in ("train_4k", "prefill_32k", "decode_32k"):
-        out = dr.trace_cell(ARCH, shape, "single",
-                            cfg=reduced(get_config(ARCH)))
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        arch = LONG_ARCH if shape == "long_500k" else ARCH
+        cfg = reduced(get_config(arch))
+        out = dr.trace_cell(arch, shape, "single", cfg=cfg)
         cells[shape] = {k: out[k] for k in ("ok", "chips", "path", "memory",
                                             "fits_hbm_80g")}
         cells[shape]["dominant"] = out["roofline"]["dominant"]
+    cells["long_500k"].update(_long_plan(reduced(get_config(LONG_ARCH))))
     _write(workdir, "cells", "16x16", "meta", cells)
+
+
+def _long_plan(cfg) -> dict:
+    """Rank 0's storage plan for serving ``cfg`` on the (16, 16) mesh: the
+    bytes of a meta model on it and of the whole model, and the elements
+    of its shards by the plan's own shapes."""
+    import math
+
+    from repro_torch.distributed.sharding_rules import rules_for, use_rules
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.train.train_step import param_plan, param_shapes
+    with dr.fake_group(256):
+        mesh = make_production_mesh(multi_pod=False, device="cpu")
+        with use_rules(mesh, rules_for("decode")) as ctx:
+            plan = param_plan(cfg, ctx)
+
+            def held(model):
+                return [sum(p.numel() * p.element_size()
+                            for p in model.parameters()),
+                        sum(p.numel() for p in model.parameters())]
+
+            planned_bytes, numel = held(dr.meta_model(cfg, plan=plan))
+            whole_bytes, _ = held(dr.meta_model(cfg))
+            shards = sum(math.prod(plan.local_shape(k, v))
+                         for k, v in param_shapes(cfg).items())
+    return dict(planned_bytes=planned_bytes, whole_bytes=whole_bytes,
+                planned_numel=numel, shard_numel=shards)

@@ -1,7 +1,8 @@
 """One rank of the port's model-axis CPU tests
 (``tests/test_torch_model_axis.py``, ``tests/test_torch_model_storage.py``,
 ``tests/test_torch_seq_axis.py``, ``tests/test_torch_ssm_axis.py``,
-``tests/test_torch_vlm_axis.py``, ``tests/test_torch_encdec_axis.py``).
+``tests/test_torch_vlm_axis.py``, ``tests/test_torch_encdec_axis.py``,
+``tests/test_torch_solo_serve.py``).
 
 Run by ``_torch_support.spawn_ranks(..., module="_torch_tp_ranks")`` as
 
@@ -556,19 +557,23 @@ def job_seq_step(inp, tag, rank, workdir):
     return out
 
 
-def _greedy(model, ctx_of, prompts, steps, max_len, rows, extra=None):
+def _greedy(model, ctx_of, prompts, steps, max_len, rows, extra=None,
+            paths=None):
     """Prefill and ``steps - 1`` greedy decode steps through ``_serve_wrap``
     (the prefill and decode rules of ``ctx_of(kind)``) over an fp32 K/V
     cache made under the prefill rules: this rank's rows' logits of each
     step (the prefill's last position first) and the cache.  ``extra``:
     more fields of the global prefill batch (a vlm's patches, whisper's
-    frames), cut with its rows."""
+    frames), cut with its rows.  ``paths``, a list, receives the path of
+    each wrapped call."""
     from repro_torch.launch.dryrun import _serve_wrap
     B, S = prompts.shape
+    paths = [] if paths is None else paths
     with ctx_of("prefill") as ctx:
         cache = model.init_cache(rows, max_len, kv_dtype=torch.float32)
-        logits, cache = _serve_wrap(model, ctx, model.prefill)(
-            {"tokens": prompts, **(extra or {})}, cache)
+        prefill = _serve_wrap(model, ctx, model.prefill)
+        logits, cache = prefill({"tokens": prompts, **(extra or {})}, cache)
+        paths.append(prefill.path)
     outs = [logits[:, -1].float()]
     for i in range(steps - 1):
         # every rank feeds the global batch: each rank's rows' tokens
@@ -577,11 +582,12 @@ def _greedy(model, ctx_of, prompts, steps, max_len, rows, extra=None):
                     for _ in range(dist.get_world_size())]
         dist.all_gather(gathered, local)
         with ctx_of("decode") as ctx:
-            logits, cache = _serve_wrap(
-                model, ctx, lambda b, c: model.decode_step(
-                    c, b["tokens"], b["positions"]))(
+            decode = _serve_wrap(model, ctx, lambda b, c: model.decode_step(
+                c, b["tokens"], b["positions"]))
+            logits, cache = decode(
                 {"tokens": _global_tokens(gathered, B, rows)[:, None],
                  "positions": torch.full((B,), S + i)}, cache)
+            paths.append(decode.path)
         outs.append(logits[:, -1].float())
     return torch.stack(outs, 1), cache
 
@@ -619,6 +625,51 @@ def job_kv_serve(inp, tag, rank, workdir):
                         k=cache["k"].numpy(), v=cache["v"].numpy(),
                         bytes=sum(cache[k].numel() * cache[k].element_size()
                                   for k in ("k", "v")))
+    return out
+
+
+def job_solo_serve(inp, tag, rank, workdir):
+    """Prefill and greedy decode through ``_serve_wrap`` of each run of a
+    batch the data ranks may not divide (1 or 3 rows over 2), the model on
+    the storage plan of the serving rules (``SERVE_RULES_BIG`` where the
+    run says ``big``): every rank's logits of all the rows at every step,
+    its cache's leaves and cuts, the wrapper's path at each call, and the
+    elements it holds against its plan's shards and the whole model's."""
+    from repro_torch.distributed.sharding_rules import (model_rank,
+                                                        rules_for, use_rules)
+    from repro_torch.models import layers as ll
+    from repro_torch.models.convert import from_jax_params
+    from repro_torch.train.train_step import param_plan, param_shapes
+    from _torch_dp_ranks import unflatten
+    mesh = make_mesh(tag)
+    out = {}
+    for run in inp["solo_runs"]:
+        c = inp["solo"][run]
+        cfg = port_config(c["arch"], c["overrides"])
+
+        def ctx_of(kind, big=c["big"]):
+            return use_rules(mesh, rules_for(kind, big_params=big))
+
+        with ctx_of("prefill") as ctx:
+            plan = param_plan(cfg, ctx)
+        model = from_jax_params(cfg, unflatten(c["tree"]), device="cpu",
+                                plan=plan)
+        prompts = torch.from_numpy(c["prompts"])
+        paths = []
+        logits, cache = _greedy(model, ctx_of, prompts, c["steps"],
+                                c["max_len"], prompts.shape[0], paths=paths)
+        shapes = param_shapes(cfg)
+        res = dict(logits=logits.numpy(), paths=paths,
+                   kv_shards=cache.kv_shards, ssm_shards=cache.ssm_shards,
+                   cache={k: v.float().numpy() for k, v in cache.items()},
+                   held=sum(p.numel() for p in model.parameters()),
+                   shards=sum(int(np.prod(plan.local_shape(k, v)))
+                              for k, v in shapes.items()),
+                   whole=sum(int(np.prod(v)) for v in shapes.values()))
+        if cfg.ssm_state_dim:
+            res["heads"] = ll.ssm_heads(cfg, cache.ssm_shards,
+                                        model_rank(mesh))
+        out[run] = res
     return out
 
 
@@ -1138,7 +1189,7 @@ JOBS = {"pieces": job_pieces, "step": job_step, "restore": job_restore,
         "ssm_step": job_ssm_step, "ssm_restore": job_ssm_restore,
         "ssm_serve": job_ssm_serve, "ve_pieces": job_ve_pieces,
         "ve_step": job_ve_step, "ve_restore": job_ve_restore,
-        "ve_serve": job_ve_serve}
+        "ve_serve": job_ve_serve, "solo_serve": job_solo_serve}
 
 
 def main() -> None:

@@ -197,12 +197,23 @@ def test_torch_meta_rank_holds_its_storage_plan(traces):
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k",
-                                   "decode_32k"])
+                                   "decode_32k", "long_500k"])
 def test_torch_reduced_cell_on_the_production_mesh(traces, shape):
+    """Reduced qwen2's train, prefill and decode cells and reduced
+    mixtral's long_500k (one row, which the 16 data ranks do not divide)
+    on the (16, 16) mesh: ok on their paths, within 80 GB; the long_500k
+    rank holds its storage plan's shards of the leaves, not the whole
+    model."""
     cell = traces["cells"][shape]
     assert cell["ok"] and cell["chips"] == 256
-    assert cell["path"] == ("dp_manual" if shape == "train_4k"
-                            else "serve_wrap")
+    assert cell["path"] == {"train_4k": "dp_manual",
+                            "long_500k": "serve_replicated"}.get(
+                                shape, "serve_wrap")
+    if shape == "long_500k":
+        mem = cell["memory"]
+        assert cell["planned_numel"] == cell["shard_numel"]
+        assert mem["params_bytes"] == cell["planned_bytes"] < \
+            cell["whole_bytes"]
     mem = cell["memory"]
     assert mem["peak_per_device"] == mem["argument_bytes"] + \
         mem["temp_bytes"] > 0
