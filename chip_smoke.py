@@ -25,7 +25,15 @@ Phases, each printing one JSON line:
    (``hymba_global``, ``phi3v``) and at whisper's serving shapes
    (``whisper_enc`` non-causal over 1,500 frames, ``whisper_cross`` and
    ``whisper_cross_decode`` a prompt of 224 and one query row over them,
-   ``whisper_self`` causal over 224); rmsnorm also at their widths
+   ``whisper_self`` causal over 224), and the forward that
+   ``_FlashAttention`` runs at the dense training shape (``train``: 4 x
+   2048, 14 / 2 of 64, causal, o and lse, beside PyTorch's
+   memory-efficient and cuDNN attention asked for their logsumexp); every
+   flash row names the forward kernel that served it (``variant``:
+   ``wgmma``, ``decode`` or ``scalar``, from ``forward_variant``), its
+   registers and resident blocks, and a second call on the same inputs
+   must give the same bits; the serving rows (``slice``, the decode rows)
+   carry one call's host time; rmsnorm also at their widths
    and, with the SSD scan, at the fleet phase's 6 x 2048; the SSD scan
    also with its final state through ``ops.ssd_prefill`` at the serving
    prefill shapes (8 x 512 and 4 x 300, padded, and hymba's 8 x 640 at
@@ -506,10 +514,13 @@ SSM_BF16_DECODE_MIN_COSINE = 0.998
 # H100 80GB HBM3 at 700 W the bf16 rows needed at most 1.16e-3 of
 # max |ref| (whisper_cross_decode) and the control 4.46e-3 (whisper_enc)
 # to 0.19 (d16_full), PERF.md section 6: 2e-3 sits between.  The fp32
-# rows go to the scalar flash_fwd_kernel, not the tensor-core kernel that
-# serves bf16
+# rows go to the scalar flash_fwd_kernel, not the tensor-core kernels that
+# serve bf16
 TOL = {"bfloat16": (2 ** -8, 2e-3), "float32": (2e-5, None)}   # attention
-FLASH_KEY_TILE = 64     # MMA_BK of csrc/flash_attention.cu
+# keys a K / V tile of both tensor-core forward kernels (FWD_BK of
+# csrc/flash_attention.cu): the zero-filled keys past T that a faulty last
+# tile would count
+FLASH_KEY_TILE = 64
 # the partial form's lse (fp32 from either dtype's inputs, summed in
 # another order than ref.mha_partial's): absolute and relative; 18 keys
 # counted at score 0 past T = 750 move it by ~1e-2 (checked)
@@ -1196,7 +1207,7 @@ def ptxas_report(log: str) -> dict:
                           name)
             if k:
                 args = (["float"] if k.group(2) == "IfE"
-                        else re.findall(r"Li(\d+)E", k.group(2) or ""))
+                        else re.findall(r"L[ib](\d+)E", k.group(2) or ""))
                 name = k.group(1) + (f"<{','.join(args)}>" if args else "")
         elif name and ("registers" in ln or "spill" in ln):
             out.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
@@ -1208,8 +1219,10 @@ def dynamic_smem(_build) -> dict:
     shapes of the main paths, from the libraries' own size functions
     (ptxas reports only static shared memory)."""
     fl, sl = _build.load("flash_attention"), _build.load("ssd_scan")
-    out = {f"flash_mma_kernel<{D}>": fl.flash_attention_smem_bytes(D)
-           for D in (64, 96, 128)}
+    out = {f"flash_fwd_wgmma_kernel<{D},*>":
+           fl.flash_attention_fwd_smem_bytes(1, D) for D in (64, 96, 128)}
+    out["flash_fwd_decode_kernel<64>"] = fl.flash_attention_fwd_smem_bytes(
+        2, 64)
     for D in (32, 64, 128):          # the backward's: d32, train, d128
         out[f"flash_bwd_dkdv_wgmma_kernel<{D}>"] = \
             fl.flash_attention_bwd_smem_bytes(2, D)
@@ -1225,6 +1238,48 @@ def dynamic_smem(_build) -> dict:
 # --------------------------------------------------------------------------
 # phase 3: kernel checks
 # --------------------------------------------------------------------------
+# the flash rows whose calls serve requests: one call's host time rides on
+# them (the decode rows and the serving prefill)
+FLASH_HOST_ROWS = ("slice", "whisper_cross_decode",
+                   "tp_whisper_cross_decode_rank")
+
+
+def launched_variant(fa, before: dict) -> str:
+    """The one forward kernel launched since ``before``, a copy of
+    ``flash_attention.launches_by_variant``."""
+    now = fa.flash_attention.launches_by_variant
+    used = [k for k in now if now[k] != before[k]]
+    check(len(used) == 1 and now[used[0]] == before[used[0]] + 1,
+          f"flash forward launches {before} -> {now}: not one kernel")
+    return used[0]
+
+
+def forward_form(fa, variant: str, D: int, lse: bool = False) -> dict:
+    """The forward kernel's name and what it asks of a multiprocessor
+    (``lse``: the wgmma kernel that writes lse)."""
+    name = {"wgmma": "flash_fwd_wgmma_kernel",
+            "decode": "flash_fwd_decode_kernel",
+            "scalar": "flash_fwd_kernel"}[variant]
+    args = f"{D},{int(lse)}" if variant == "wgmma" else f"{D}"
+    return dict(variant=variant, forward_kernel=f"{name}<{args}>",
+                attributes=(None if variant == "scalar"
+                            else fa.forward_attributes(variant, D, lse)))
+
+
+def host_us(torch, fn, calls: int = 200, runs: int = 5) -> float:
+    """One call's host time in microseconds: the least, over ``runs``, of
+    ``calls`` calls made without a sync, divided by ``calls``."""
+    best = float("inf")
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return best
+
+
 def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
                 window=0, q_offset=0, strided=False):
     """``strided``: q, k, v are views one element into rows of D + 2, so
@@ -1242,8 +1297,14 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         q, k, v = (rand(shape, dt) for shape in
                    ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
         kw = dict(causal=causal, window=window, q_offset=q_offset)
+        before = dict(fa.flash_attention.launches_by_variant)
         out = fa.flash_attention(q, k, v, **kw)
+        form = forward_form(fa, launched_variant(fa, before), D)
+        again = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        check(torch.equal(out, again), f"flash {name} {dtype}: two calls on "
+              f"the same inputs gave different bits")
+        del again
         ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
         rtol, atol_of_max = TOL[dtype]
         ref_max = float(ref.abs().max())
@@ -1281,10 +1342,13 @@ def check_flash(torch, F, fa, gen, name, B, S, T, H, K, D, *, causal=True,
         fns = {"kernel": lambda: fa.flash_attention(q, k, v, **kw),
                "plain": lambda: fa.flash_attention_plain(q, k, v, **kw),
                "library": library}
+        if name in FLASH_HOST_ROWS and dtype == "bfloat16":
+            form["host_us"] = host_us(torch, fns["kernel"])
         # the row names the backend SDPA took
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=causal,
                               window=window, q_offset=q_offset),
+                   **form, repeat_equal=True,
                    max_abs_err=err, rtol=rtol, atol=atol,
                    atol_needed_of_max=atol_needed(out, ref, rtol) / ref_max,
                    **control, **timings(torch, fns),
@@ -1310,8 +1374,15 @@ def check_flash_partial(torch, fa, ref, gen, name, B, S, T, H, K, D):
         dt = getattr(torch, dtype)
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
                    for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+        before = dict(fa.flash_attention.launches_by_variant)
         out, lse = fa.flash_attention_partial(q, k, v, causal=False)
+        form = forward_form(fa, launched_variant(fa, before), D, lse=True)
+        again = fa.flash_attention_partial(q, k, v, causal=False)
         torch.cuda.synchronize()
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"flash partial {name} {dtype}: two calls on the same inputs "
+              f"gave different bits")
+        del again
         want, want_lse = ref.mha_partial(q.float(), k.float(), v.float(),
                                          causal=False)
         rtol, atol_of_max = TOL[dtype]
@@ -1341,10 +1412,13 @@ def check_flash_partial(torch, fa, ref, gen, name, B, S, T, H, K, D):
                                                             causal=False),
                "plain": lambda: ref.mha_partial(q, k, v, causal=False),
                "library": library}
+        if name in FLASH_HOST_ROWS and dtype == "bfloat16":
+            form["host_us"] = host_us(torch, fns["kernel"])
         row = dict(kernel="flash_attention", case=name, dtype=dtype,
                    partial=True,
                    shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=False,
                               window=0, q_offset=0),
+                   **form, repeat_equal=True,
                    max_abs_err=err, lse_max_abs_err=lse_err, rtol=rtol,
                    atol=atol, lse_tol=TOL_LSE,
                    atol_needed_of_max=atol_needed(out, want, rtol) / ref_max,
@@ -1355,6 +1429,83 @@ def check_flash_partial(torch, fa, ref, gen, name, B, S, T, H, K, D):
         emit("kernel_check", **row)
         rows.append(row)
     return rows
+
+
+def check_flash_train(torch, fa, gen, name, B, S, T, H, K, D):
+    """The forward that ``_FlashAttention`` runs under a gradient (causal,
+    bf16, o and lse) at the dense training shape, against the plain twin
+    ``flash_attention_plain_lse`` on the same inputs in fp32: o to TOL,
+    lse to TOL_LSE; a second call must give the same bits.  The
+    yardsticks are one call of PyTorch's memory-efficient attention and
+    one of cuDNN attention, each asked for its logsumexp (the same
+    function, on (B, H, S, D) views with K and V repeated to H heads):
+    ``library_ms`` is the faster."""
+    dt = torch.bfloat16
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+               for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    lse = torch.empty((B, H, S), dtype=torch.float32, device="cuda")
+
+    def kernel():
+        return fa._forward_kernel(q, k, v, True, 0, 0, None, lse)
+
+    before = dict(fa.flash_attention.launches_by_variant)
+    out = kernel()
+    form = forward_form(fa, launched_variant(fa, before), D, lse=True)
+    first_lse = lse.clone()
+    again = kernel()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again) and torch.equal(lse, first_lse),
+          f"flash {name}: two calls on the same inputs gave different bits")
+    del again, first_lse
+    want, want_lse = fa.flash_attention_plain_lse(q.float(), k.float(),
+                                                  v.float(), causal=True)
+    rtol, atol_of_max = TOL["bfloat16"]
+    ref_max = float(want.abs().max())
+    atol = atol_of_max * ref_max
+    err = max_err(out, want, rtol, atol)
+    lse_err = max_err(lse, want_lse, TOL_LSE)
+    need = atol_needed(out, want, rtol) / ref_max
+    del want, want_lse
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(H // K, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    eff = torch.ops.aten._scaled_dot_product_efficient_attention
+    cudnn = torch.ops.aten._scaled_dot_product_cudnn_attention
+    fns = {"kernel": kernel,
+           "plain": lambda: fa.flash_attention_plain_lse(q, k, v,
+                                                         causal=True),
+           "efficient": lambda: eff(qt, kt, vt, None, True, is_causal=True)}
+    try:
+        cudnn(qt, kt, vt, None, True, 0.0, True, False)
+        fns["cudnn"] = lambda: cudnn(qt, kt, vt, None, True, 0.0, True,
+                                     False)
+    except RuntimeError as e:  # a yardstick the card's cuDNN lacks
+        print(f"chip_smoke: cuDNN attention with lse at {name}: {e}",
+              file=sys.stderr)
+    times = timings(torch, fns)
+    libs = {k: times[f"{k}_ms"] for k in ("efficient", "cudnn")
+            if f"{k}_ms" in times}
+    backend = min(libs, key=libs.get)
+    # the forward's FLOPs and bytes, and its fp32 lse written
+    flops, nbytes = costs.flash_forward(B, S, T, H, K, D, causal=True,
+                                        elem=2)
+    nbytes += 4.0 * B * H * S
+    bound_ms, bound_by = costs.bound(flops, nbytes, "bfloat16")
+    row = dict(kernel="flash_attention", case=name, dtype="bfloat16",
+               lse=True,
+               shape=dict(B=B, S=S, T=T, H=H, K=K, D=D, causal=True,
+                          window=0, q_offset=0),
+               **form, repeat_equal=True, max_abs_err=err,
+               lse_max_abs_err=lse_err, rtol=rtol, atol=atol,
+               lse_tol=TOL_LSE, atol_needed_of_max=need, **times,
+               library_ms=libs[backend],
+               library_backend=f"{backend} attention (with lse, K / V "
+                               f"repeated to {H} heads)",
+               bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+               bytes=nbytes)
+    emit("kernel_check", **row)
+    del q, k, v, qt, kt, vt
+    return [row]
 
 
 def sdpa_kwargs(torch, S, T, causal, window, q_offset):
@@ -2175,14 +2326,14 @@ def serve_path(torch, np, F, modules, arch: str,
         for j in range(8):
             model.decode_step(cache, tok, pos + j)
 
-    expect_prefill = (("flash_mma_kernel",) if flash_layers else ()) + (
+    expect_prefill = (("flash_fwd_wgmma_kernel",) if flash_layers else ()) + (
         ("ssd_scan_state_passing_kernel",) if cfg.ssm_state_dim else ())
     prefill_tokens = pt.shape[1] + model.prefix_len
     for window, fn, expect in (
             (f"{cfg.name} prefill 8x{prefill_tokens}", prefill,
              expect_prefill),
             (f"{cfg.name} 8 decode steps, batch 8", decode_steps,
-             ("flash_mma_kernel",) if flash_step
+             ("flash_fwd_decode_kernel",) if flash_step
              else ("rmsnorm",) if family != "dense" else ())):
         row = profile_phase(torch, window, fn, expect=expect)
         if family == "moe":
@@ -4752,7 +4903,7 @@ def train_dense_path(torch, np, F, modules, counted: dict) -> dict:
                step_s=step_s)
     prof = profile_phase(torch, "dense train step 4x2048",
                          lambda: step(state, batch),
-                         expect=("flash_mma_kernel",
+                         expect=("flash_fwd_wgmma_kernel",
                                  "flash_bwd_dkdv_wgmma_kernel",
                                  "flash_bwd_dq_wgmma_kernel",
                                  "flash_bwd_preprocess_kernel"))
@@ -7966,6 +8117,9 @@ def main() -> int:
     checks["flash_attention"] += check_flash_partial(
         torch, fa, ref, gen, "tp_whisper_cross_decode_rank", TP_BATCH, 1,
         1500 // VE_TP_MODEL, 10, 10, 64)
+    # the dense training shape through the forward _FlashAttention runs
+    checks["flash_attention"] += check_flash_train(
+        torch, fa, gen, "train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 14, 2, 64)
     checks["flash_attention_backward"] = []
     for name, (shape, kw) in BWD_CASES.items():
         checks["flash_attention_backward"] += check_flash_backward(
@@ -8292,13 +8446,22 @@ def main() -> int:
         and r["dtype"] == "bfloat16"}
     # flash at phi-3-vision's head dim, at the MoE and prefix paths'
     # prefills and at whisper's shapes
+    by_name["flash_attention"]["variant"] = next(
+        r["variant"] for r in checks["flash_attention"]
+        if r["case"] == "slice" and r["dtype"] == "bfloat16")
+    by_name["flash_attention"]["launches_by_variant_script"] = dict(
+        fa.flash_attention.launches_by_variant)
     by_name["flash_attention"]["cases"] = {
-        r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        r["case"]: dict(variant=r["variant"], ms=r["kernel_ms"],
+                        plain_ms=r["plain_ms"],
                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                         library_ms=r["library_ms"],
-                        library_backend=r["library_backend"])
+                        library_backend=r["library_backend"],
+                        **({"host_us": r["host_us"]} if "host_us" in r
+                           else {}))
         for r in checks["flash_attention"]
-        if r["case"] in ("d96", "granite", "mixtral_window", "hymba_global",
+        if r["case"] in ("train", "d96", "granite", "mixtral_window",
+                         "hymba_global",
                          "phi3v", "whisper_enc", "whisper_cross",
                          "whisper_cross_decode", "whisper_self", "tp_rank",
                          "ep_rank", "tp_big_rank", "tp_hybrid_rank",

@@ -7,50 +7,85 @@
 // masks on absolute positions (q_offset shifts the queries), keys past T
 // masked, and rows that see no key written as 0.
 //
-// What bounds it on an H100.  At the serving shapes (B=8, S=T=512, H=14,
-// K=2, D=64, causal, bf16) the work is ~3.8 GFLOP against ~17 MB of q, k,
-// v and o: about 225 FLOP per byte, just under the ~295 at which the bf16
-// tensor cores become the limit, so the bound is the bytes (~5 us at
-// 3.35 TB/s).  Reaching it needs the tensor cores and tiles that read each
-// K/V byte from device memory about once per query block.
-//
-// Two kernels, one function:
-//  * flash_mma_kernel, for bf16 with D a multiple of 16 and every row of
-//    q, k, v and o 16-byte aligned (the serving path), with
-//    FlashAttention-2's techniques on mma.sync m16n8k16 (bf16 in, fp32
-//    accumulate).  The first version of this kernel loaded K/V with
-//    plain loads between two barriers, transposed V by hand, read Q in
-//    2-byte pairs and fragments with 32-bit shared loads, masked every
-//    element of every tile, stored 2 bytes at a time and launched causal
-//    blocks lightest first: 0.0730 ms at the serving shape, 3.7x SDPA.
-//    What it does now, against each of those:
-//    - K/V tiles of 64 keys go through a ring of two shared-memory stages
-//      filled by cp.async.cg 16-byte copies (commit / wait groups): tile
-//      j + 1 is in flight while tile j is computed.  Q is staged once
-//      through the same copies.  Keys past T are zero-filled.
-//    - Shared tiles are stored as they arrive, rows XOR-swizzled by 16-byte
-//      chunk (mma_utils.cuh), no padding; fragments come from ldmatrix.x4
-//      for Q and K and ldmatrix.x4.trans for V, so V is never transposed.
-//    - Each warp owns 16 query rows; S = Q K^T stays in registers and is
-//      reused in place as the A operand of P V, so P never touches shared
-//      memory.
-//    - The KV loop is split per warp: a tile that no row of the warp masks
-//      runs with no mask code; only the tiles that cross the causal
-//      diagonal, the window's lower edge or T take it; a tile every row
-//      masks is skipped.
-//    - Causal grids launch the heaviest query blocks first (grid y counts
-//      down), so the longest blocks do not form the grid's tail.
-//    - O is normalised in registers, staged through the Q tile and written
-//      with 16-byte stores.
-//    BLOCK_Q is 64 (4 warps of 16 rows), measured against 128 (8 warps)
-//    at the serving shape, and the ring has two stages, measured against
-//    three (PERF.md section 6 has both readings).  At the serving shape on
-//    an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py): 0.0306 ms, against
-//    0.0730 ms before, SDPA's 0.0199 ms and a bound of 0.0050 ms.  Not done
-//    here: wgmma, TMA and warp specialisation (ROADMAP Queue 2).
-//  * flash_fwd_kernel, for fp32, for head dims the mma tiles do not cover
-//    (24), and for K/V rows not 16-byte aligned (strided views): scalar
-//    fp32 FMAs through shared memory, any strides.  GROUP threads
+// Forward.  Three kernels, one function; flash_attention.py ·
+// forward_variant chooses and the C entry launches what it is told.
+//  * flash_fwd_wgmma_kernel<D>, for bf16 runs of more than 16 queries with
+//    D 16, 32, 64, 96 or 128 and every row of q, k, v and o 16-byte
+//    aligned: prefill and training.
+//    What bounds it on an H100.  A run of queries against its keys is
+//    4 S T D FLOP against 2 (S + 2 T) D bytes a head: at whisper's encoder
+//    (8 x 1,500, 20 heads of 64, non-causal) ~9.2e10 FLOP and ~31 MB,
+//    ~3,000 FLOP a byte, ten times the ~295 at which the bf16 tensor cores
+//    become the limit, so the bound is the operations (0.0932 ms at 989
+//    TFLOP/s); at the dense training shape (4 x 2,048, 14 / 2 of 64,
+//    causal) 3.0e10 FLOP, 0.0304 ms.  Only wgmma reaches that rate, and
+//    only if the copies stay off the threads that issue it and the
+//    exponentials (one a score) run while the tensor cores do.
+//    The design: Hopper's warpgroup products and TMA, built from
+//    hopper_utils.cuh as the backward is.  A block of 160 threads: one
+//    consumer warpgroup of 64 query rows and a producer warp whose one
+//    thread issues every copy: the Q tile once, then 64-key K and V tiles
+//    into two rings of two stages, each stage guarded by a full and an
+//    empty mbarrier.  S = Q K^T by wgmma from shared memory (m64n64k16,
+//    both K-major), the online softmax in log2 units on the fp32
+//    accumulator, P rounded to bf16 in registers and fed back as the A
+//    operand of O += P V (m64nDk16, V MN-major): P never touches shared
+//    memory; O is divided by the sum of the rounded P, the weights P V
+//    used (lse by the fp32 sum).  Tile j + 1's S product is issued with
+//    tile j's P V product before tile j + 1's softmax, in two commit
+//    groups, so the tensor cores run P V while the exponentials run
+//    (FlashAttention-3's overlap
+//    within a warpgroup); a K tile goes back to the producer as soon as
+//    its S product has completed, so the next K tile is in flight a whole
+//    tile ahead.  Kept from the mma.sync kernel it replaces: tiles every
+//    row masks are never visited and only the tiles that cross the
+//    diagonal, a window's lower edge or T take the element mask (a row's
+//    keys are one interval: two compares a score, the masked ones held
+//    at -inf through the exponent); causal runs are launched heaviest
+//    first; O is normalised in registers, staged through the Q tile and
+//    written with 16-byte stores.  New: blocks run in bands of heads whose
+//    K / V fits 8 MB of the L2, so a head's K / V is read from device
+//    memory about once (launched heads first, ~400 resident blocks read
+//    every head's at once: 61 MB at whisper's encoder, 107 MB at
+//    phi-3-vision's prefill, and re-read it from device memory).
+//    Readings (tools/flash_fwd_compare.py, NVIDIA H100 80GB HBM3, 700.00
+//    W, device ms, the mma.sync kernel of PR 30 in turns on the same
+//    card): whisper_enc 0.3109 (0.5180; bound 0.0932), phi3v 0.2097
+//    (0.3849), train with lse 0.1094 (0.1684; bound 0.0304), slice 0.0215
+//    (0.0308), mixtral's window 1.1470 (2.3129).  What bounds it now: a
+//    warpgroup's softmax runs between its S product and its next one, and
+//    three blocks a multiprocessor do not hide it: with the softmax left
+//    out (a timing probe) train took 0.0439 and whisper_enc 0.1745.
+//    Measured and not kept: 128 rows a block (two consumer warpgroups
+//    sharing each K / V tile, one block a multiprocessor at their
+//    registers: slower in every row but a tie at whisper's encoder rank),
+//    a third ring stage (no faster; one block a multiprocessor at D 128),
+//    S issued two tiles ahead (a second S in registers: fewer blocks a
+//    multiprocessor, slower), the row max and sum split into four chains
+//    (no faster), P V on P as a bf16 pair (20-35% slower) (PERF.md
+//    section 6).
+//  * flash_fwd_decode_kernel<D>, the same inputs with at most 16 queries:
+//    decode over whisper's cross K/V and a kv_seq rank's block of it.
+//    What bounds it: one query row against T keys is 4 T D FLOP against
+//    4 T D bytes, so the bytes (8 x 1 over 1,500 keys, 20 heads of 64:
+//    ~61 MB, 0.0184 ms at 3.35 TB/s), and with one block a (b, head) only
+//    160 blocks for 132 multiprocessors, each must keep many bytes in
+//    flight.  The design: 128 threads (64 at D 96 and 128), each warp
+//    walking every fourth 64-key tile with its own m, l and accumulator on
+//    mma.sync m16n8k16 (one 16-row tile of queries, P V taking P as a
+//    bf16 pair, hi and the rest, free where the bytes bound) and its own
+//    K and V tile filled by cp.async, the next K tile in flight while P V
+//    runs and the next V tile while the next S does; then the warps'
+//    partial (m, l,
+//    acc) are combined in shared memory in warp order, the same bits on
+//    every call.  No tensor map: decode's host cost does not grow.
+//    Readings (as above): whisper_cross_decode 0.0240 (0.0341 with one
+//    warp of four live; bound 0.0184), a kv_seq rank's block with lse (2 x
+//    1 over 750, 20 blocks for 132 multiprocessors) 0.0114 (0.0197, bound
+//    0.0011: too few blocks; splitting the keys over blocks is not done).
+//  * flash_fwd_kernel, for fp32, for head dims the tensor-core tiles do not
+//    cover (24), and for K/V rows not 16-byte aligned (strided views):
+//    scalar fp32 FMAs through shared memory, any strides.  GROUP threads
 //    share a query row, each owning every GROUP-th dim of q and of the
 //    accumulator; a score is the sum of their partial dots (two xor
 //    shuffles), and for a given key all rows read the same shared words,
@@ -68,13 +103,13 @@
 //    wrapper's moveaxis and its padding of D to 128 and of S, T to block
 //    multiples have no counterpart.
 //  * m, l and the accumulator stay fp32; the output is stored in q's type.
-//  * Under a gradient the tensor-core kernel also writes each row's
-//    logsumexp of the scaled scores, lse = m ln 2 + ln l in natural-log
-//    units (m is kept in log2 units, scale_log2), fp32 (B, H, S), -inf for
-//    a row that sees no key.  Decode over one block of a cross K/V cache
-//    cut over the model ranks asks both kernels for it (lse = m + ln l in
-//    the fp32 kernel, whose m is in natural units), so the ranks' partial
-//    softmaxes can be combined; other serving passes no lse.
+//  * Under a gradient every form writes each row's logsumexp of the scaled
+//    scores, lse = m ln 2 + ln l in natural-log units (m is kept in log2
+//    units, scale_log2; in the fp32 kernel lse = m + ln l), fp32 (B, H,
+//    S), -inf for a row that sees no key.  Decode over one block of a
+//    cross K/V cache cut over the model ranks asks for it too, so the
+//    ranks' partial softmaxes can be combined; other serving passes no
+//    lse.
 //
 // Backward (flash_attention_bwd), bf16 on the tensor-core tiles only.
 // It replaces nothing on the TPU: the JAX package has no custom_vjp and
@@ -158,8 +193,11 @@
 //  needs atomics or ordered semaphores; ROADMAP Queue 2).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "hopper_utils.cuh"
 #include "mma_utils.cuh"
@@ -317,299 +355,6 @@ cudaError_t launch(const Params& p, int D, dim3 grid, cudaStream_t stream) {
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
-}
-
-
-// ---------------------------------------------------------------------------
-// tensor-core path (bf16, D % 16 == 0, every row of q, k, v, o 16-byte
-// aligned)
-// ---------------------------------------------------------------------------
-constexpr int MMA_BK = 64;      // keys per K / V tile
-// K / V tiles in flight.  A third stage lost to two at the serving shape
-// (PERF.md section 6): it costs shared memory and registers, and a block
-// of 64 rows visits at most 8 tiles.
-constexpr int MMA_STAGES = 2;
-// 4 warps of 16 query rows: BLOCK_Q 64.  8 warps (128 rows) lost at the
-// serving shape (PERF.md section 6): half as many blocks leave a ragged
-// last wave on 132 SMs, and a causal block carries twice the diagonal.
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_BQ = 16 * MMA_WARPS;    // query rows per block
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (MMA_BQ * D + MMA_STAGES * 2 * MMA_BK * D) * 2;
-}
-
-// One K / V tile for one warp's 16 query rows: S = Q K^T, mask (MASK only),
-// online softmax in log2 units, O += P V with P reused from registers as
-// the A operand.  Lane l holds rows g = l/4 and g + 8 of the warp.
-template <int D, bool MASK>
-__device__ __forceinline__ void flash_tile(
-    const Params& p, const __nv_bfloat16* ks, const __nv_bfloat16* vs,
-    const uint32_t (&qf)[D / 16][4], float (&acc)[D / 8][4], float (&m)[2],
-    float (&l)[2], int start, int row0, float scale_log2, int lane) {
-  constexpr int NB_S = MMA_BK / 8;  // 8-key column blocks of S
-  constexpr int NB_O = D / 8;       // 8-dim column blocks of O
-  const int g = lane >> 2, tig = lane & 3;
-  const int r8 = lane & 7, mi = lane >> 3;
-
-  float s[NB_S][4];
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb)
-    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int nb = 0; nb < NB_S; nb += 2) {
-      // keys nb*8 .. nb*8+15, dims kk*16 .. kk*16+15: two B fragments
-      uint32_t b[4];
-      mma::ldmatrix_x4(b, ks + mma::tile_off<D>(nb * 8 + r8 + (mi >> 1) * 8,
-                                                2 * kk + (mi & 1)));
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma::mma_16816(s[nb], qf[kk], b0);
-      mma::mma_16816(s[nb + 1], qf[kk], b1);
-    }
-  }
-
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float v = s[nb][i] * scale_log2;
-      if constexpr (MASK) {
-        const int t = start + nb * 8 + tig * 2 + (i & 1);
-        const int qp = row0 + g + (i >> 1) * 8 + p.q_offset;
-        bool ok = t < p.T;
-        if (p.causal) ok = ok && t <= qp;
-        if (p.window > 0) ok = ok && qp - t < p.window;
-        v = ok ? v : -INFINITY;
-      }
-      s[nb][i] = v;
-      mx[i >> 1] = fmaxf(mx[i >> 1], v);
-    }
-  }
-  float alpha[2], base[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r]);
-    base[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
-    alpha[r] = exp2f(m[r] - base[r]);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB_S; ++nb) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s[nb][i] = exp2f(s[nb][i] - base[i >> 1]);  // masked -> 0
-      l[i >> 1] += s[nb][i];
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb) {
-    acc[nb][0] *= alpha[0];
-    acc[nb][1] *= alpha[0];
-    acc[nb][2] *= alpha[1];
-    acc[nb][3] *= alpha[1];
-  }
-  // O += P V: two adjacent 8-key blocks of S are one A fragment; V is read
-  // as stored ([key][dim]) through ldmatrix.trans
-#pragma unroll
-  for (int kk = 0; kk < MMA_BK / 16; ++kk) {
-    const uint32_t af[4] = {mma::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                            mma::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                            mma::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                            mma::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int nb = 0; nb < NB_O; nb += 2) {
-      uint32_t b[4];
-      mma::ldmatrix_x4_trans(
-          b, vs + mma::tile_off<D>(kk * 16 + r8 + (mi & 1) * 8, nb + (mi >> 1)));
-      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-      mma::mma_16816(acc[nb], af, b0);
-      mma::mma_16816(acc[nb + 1], af, b1);
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS) flash_mma_kernel(const Params p) {
-  static_assert(D % 16 == 0, "tensor-core path needs D % 16 == 0");
-  constexpr int BQ = MMA_BQ;
-  constexpr int THREADS = MMA_THREADS;
-  constexpr int TILE = MMA_BK * D;  // elements of one K or V tile
-  constexpr int NB_O = D / 8;
-  constexpr int CPR = D / 8;        // 16-byte chunks per row
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // Q tile (BQ x D), reused for O; then MMA_STAGES x (K tile, V tile)
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* kvs = qs + BQ * D;
-
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k);
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v);
-  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
-
-  // causal: the heaviest query blocks (most KV tiles) are launched first
-  const int qb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
-  const int kvh = h / p.group;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int r8 = lane & 7, mi = lane >> 3, g = lane >> 2, tig = lane & 3;
-  const int q_block0 = qb * BQ;
-  const int row0 = q_block0 + warp * 16;  // this warp's first query row
-
-  const __nv_bfloat16* qg =
-      q + b * p.q_sb + (long long)q_block0 * p.q_ss + h * p.q_sh;
-  const __nv_bfloat16* kbase = k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = v + b * p.v_sb + kvh * p.v_sh;
-
-  // keys any row of this block can see, in whole tiles
-  const int first_pos = q_block0 + p.q_offset;
-  const int last_pos = min(q_block0 + BQ, p.S) - 1 + p.q_offset;
-  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
-  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
-  const int t_first = kv_lo / MMA_BK * MMA_BK;
-  const int ntiles =
-      kv_hi > t_first ? (kv_hi - t_first + MMA_BK - 1) / MMA_BK : 0;
-
-  // keys past T are zero-filled, never read
-  auto load_kv = [&](int tile, int stage) {
-    const int t0 = t_first + tile * MMA_BK;
-    __nv_bfloat16* ks = kvs + stage * 2 * TILE;
-    mma::load_tile<MMA_BK, D>(ks, kbase + (long long)t0 * p.k_st, p.k_st,
-                              p.T - t0, D, true, tid, THREADS);
-    mma::load_tile<MMA_BK, D>(ks + TILE, vbase + (long long)t0 * p.v_st,
-                              p.v_st, p.T - t0, D, true, tid, THREADS);
-  };
-
-  // groups in flight: Q, then K / V tiles 0 .. MMA_STAGES - 2; every step
-  // commits one group (empty past the last tile), so wait<MMA_STAGES - 1>
-  // always means "this tile landed"
-  mma::load_tile<BQ, D>(qs, qg, p.q_ss, p.S - q_block0, D, true, tid, THREADS);
-  mma::cp_async_commit();
-  for (int s = 0; s < MMA_STAGES - 1; ++s) {
-    if (s < ntiles) load_kv(s, s);
-    mma::cp_async_commit();
-  }
-  mma::cp_async_wait<MMA_STAGES - 1>();
-  __syncthreads();
-
-  uint32_t qf[D / 16][4];  // this warp's Q fragments, kept for every tile
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    mma::ldmatrix_x4(qf[kk], qs + mma::tile_off<D>(warp * 16 + r8 + (mi & 1) * 8,
-                                                   2 * kk + (mi >> 1)));
-
-  float acc[NB_O][4];
-#pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb)
-    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units)
-  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
-  const float scale_log2 = p.scale * 1.4426950408889634f;
-
-  const bool warp_live = row0 < p.S;
-  const int warp_first = row0 + p.q_offset;
-  const int warp_last = min(row0 + 15, p.S - 1) + p.q_offset;
-
-  for (int it = 0; it < ntiles; ++it) {
-    // tiles it + 1 .. are copied while tile it is computed
-    const int next = it + MMA_STAGES - 1;
-    if (next < ntiles) load_kv(next, next % MMA_STAGES);
-    mma::cp_async_commit();
-    mma::cp_async_wait<MMA_STAGES - 1>();
-    __syncthreads();
-    const int start = t_first + it * MMA_BK;
-    const __nv_bfloat16* ks = kvs + (it % MMA_STAGES) * 2 * TILE;
-    if (warp_live) {
-      // a tile every row of this warp masks contributes nothing; only the
-      // tiles that cross the diagonal, the window's lower edge or T take
-      // the mask
-      const bool skip =
-          (p.causal && start > warp_last) ||
-          (p.window > 0 && start + MMA_BK - 1 <= warp_first - p.window);
-      const bool full =
-          start + MMA_BK <= p.T &&
-          (!p.causal || start + MMA_BK - 1 <= warp_first) &&
-          (p.window <= 0 || warp_last - start < p.window);
-      if (!skip && full)
-        flash_tile<D, false>(p, ks, ks + TILE, qf, acc, m, l, start, row0,
-                             scale_log2, lane);
-      else if (!skip)
-        flash_tile<D, true>(p, ks, ks + TILE, qf, acc, m, l, start, row0,
-                            scale_log2, lane);
-    }
-    __syncthreads();  // this stage is refilled MMA_STAGES tiles on
-  }
-  mma::cp_async_wait<0>();
-
-  // normalise in registers, stage this warp's rows of O in its own rows of
-  // the Q tile (read by no other warp), then 16-byte stores of whole rows
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    inv[r] = l[r] == 0.f ? 0.f : 1.f / l[r];  // no visible key -> 0
-  }
-  // lse = ln sum_t exp(scale s_t) = m ln 2 + ln l, m kept in log2 units;
-  // -inf for a row that sees no key
-  if (p.lse != nullptr && tig == 0) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + g + 8 * r;
-      if (row < p.S)
-        p.lse[((long long)b * p.H + h) * p.S + row] =
-            l[r] == 0.f ? -INFINITY : m[r] * 0.6931471805599453f + logf(l[r]);
-    }
-  }
-#pragma unroll
-  for (int nb = 0; nb < NB_O; ++nb) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;
-      const int col = nb * 8 + tig * 2;
-      *reinterpret_cast<uint32_t*>(qs + mma::tile_off<D>(row, col / 8) +
-                                   col % 8) =
-          mma::pack_bf16(acc[nb][2 * r] * inv[r], acc[nb][2 * r + 1] * inv[r]);
-    }
-  }
-  __syncthreads();
-  __nv_bfloat16* og = o + b * p.o_sb + (long long)q_block0 * p.o_ss + h * p.o_sh;
-  for (int e = tid; e < BQ * CPR; e += THREADS) {
-    const int r = e / CPR, ch = e % CPR;
-    if (q_block0 + r < p.S)
-      *reinterpret_cast<uint4*>(og + r * p.o_ss + ch * 8) =
-          *reinterpret_cast<const uint4*>(qs + mma::tile_off<D>(r, ch));
-  }
-}
-
-template <int D>
-cudaError_t launch_mma_t(const Params& p, int B, cudaStream_t stream) {
-  constexpr int smem = mma_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * p.H, (p.S + MMA_BQ - 1) / MMA_BQ);
-  flash_mma_kernel<D><<<grid, MMA_THREADS, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_mma(const Params& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_mma_t<16>(p, B, stream);
-    case 32: return launch_mma_t<32>(p, B, stream);
-    case 64: return launch_mma_t<64>(p, B, stream);
-    case 96: return launch_mma_t<96>(p, B, stream);
-    case 128: return launch_mma_t<128>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1165,6 +910,712 @@ __global__ void __launch_bounds__(WG_THREADS, WgTile<D>::DQ_MIN_BLOCKS)
 }
 
 // ---------------------------------------------------------------------------
+// forward on the tensor cores (bf16, D 16, 32, 64, 96 or 128, every row of
+// q, k, v and o 16-byte aligned): flash_fwd_wgmma_kernel for runs of more
+// than DEC_ROWS queries, flash_fwd_decode_kernel for up to DEC_ROWS
+// ---------------------------------------------------------------------------
+constexpr int FWD_BK = 64;      // keys per K / V tile, both forms
+// stages of the K ring and of the V ring.  A K tile is free once its S
+// product has completed, early in its iteration, a V tile once its P V
+// product has; a third stage measured no faster (PERF.md section 6)
+constexpr int FWD_STAGES = 2;
+// consumer warpgroups of 64 query rows a wgmma block (160 threads with the
+// producer warp), measured against two (288 threads, 128 rows)
+constexpr int FWD_WG = 1;
+constexpr int FWD_ROWS = 64 * FWD_WG;            // query rows a block
+// K and V bytes of the heads whose blocks run together: a sixth of the
+// 50 MB L2, so a head's K / V is read from device memory about once
+constexpr long long FWD_BAND_BYTES = 8ll << 20;
+constexpr int FWD_THREADS = 128 * FWD_WG + 32;
+constexpr int DEC_ROWS = 16;    // query rows of a decode block: one m16 tile
+constexpr float LN2 = 0.6931471805599453f;
+
+// blocks a multiprocessor the wgmma kernel is compiled for: the consumer
+// holds O (D / 2 fp32), S (32) and P (16 bf16 pairs) in registers
+template <int D>
+constexpr int fwd_min_blocks() {
+  return FWD_WG == 1 ? (D <= 64 ? 3 : 2) : 1;
+}
+
+// Shared memory of the wgmma block: FWD_WG Q tiles, the K and V rings, 9
+// barriers in 128 bytes, 1 KB to align the base.  D 64: 42,112 bytes
+// (three blocks a multiprocessor); D 128: 83,072 (two).
+template <int D>
+constexpr int fwd_wgmma_smem_bytes() {
+  return (FWD_WG + 2 * FWD_STAGES) * WgTile<D>::BYTES + 128 + 1024;
+}
+
+// byte offset of the 2-byte column col (even) of row r in a 64-row tile as
+// TMA writes it (hopper_utils.cuh): its panel, the row, and the 16-byte
+// chunk swizzled by the panel's row length
+template <int D>
+__device__ __forceinline__ int swizzled(int r, int col) {
+  using W = WgTile<D>;
+  const int chunk = (col % W::PANEL) / 8;
+  const int sw = W::ROW_BYTES == 128  ? r % 8
+                 : W::ROW_BYTES == 64 ? (r / 2) % 4
+                                      : (r / 4) % 2;
+  return (col / W::PANEL) * W::PANEL_BYTES + r * W::ROW_BYTES +
+         (chunk ^ sw) * 16 + (col % 8) * 2;
+}
+
+// 2^x on the multi-function unit alone; a result below 2^-126 flushes to 0,
+// which the bf16 P it becomes would not hold either
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one 64-key tile of S in place, in log2 units: the rows'
+// running max m (and, LSE, their fp32 sum l) updated from the raw scores, s
+// leaves as P = 2^(s scale_log2 - m) (unnormalised), alpha the factor the
+// accumulator and the rounded sum take.  The scale enters once, in the
+// exponent's FMA, so the row's largest scaled score is its largest raw one
+// times scale_log2 (UP: scale_log2 > 0) or its smallest (a negative scale).
+// MASK: a row sees the keys of one interval (its window's lower edge, the
+// causal diagonal, T), two compares a score; a masked score is held at the far
+// end, which the exponent's FMA turns into -inf and 2^-inf into 0.  Thread
+// (warp w, lane l) of the warpgroup holds the rows at absolute positions qp[0]
+// and qp[1] and, in each 8-key block n, keys start + 8 n + 2 (l % 4) + {0, 1}.
+template <bool MASK, bool UP, bool LSE>
+__device__ __forceinline__ void fwd_softmax(const Params& p, float (&s)[32],
+                                            float (&m)[2], float (&l)[2],
+                                            float (&alpha)[2], int start,
+                                            const int (&qp)[2],
+                                            float scale_log2, int tig) {
+  constexpr float NONE = UP ? -INFINITY : INFINITY;  // no visible score
+  int lo[2], hi[2];  // MASK: the row's keys, from this thread's first key
+  if constexpr (MASK) {
+    const int t0 = start + 2 * tig;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      lo[r] = p.window > 0 ? qp[r] - p.window + 1 - t0 : -1;
+      hi[r] = (p.causal ? min(p.T, qp[r] + 1) : p.T) - t0;
+    }
+  }
+  float ext[2] = {NONE, NONE};
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int r = (j >> 1) & 1;
+    float v = s[j];
+    if constexpr (MASK) {
+      const int k = 8 * (j / 4) + (j & 1);
+      v = k >= lo[r] && k < hi[r] ? v : NONE;
+      s[j] = v;
+    }
+    ext[r] = UP ? fmaxf(ext[r], v) : fminf(ext[r], v);
+  }
+  float nbase[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int d = 1; d <= 2; d *= 2) {
+      const float o = __shfl_xor_sync(0xffffffffu, ext[r], d);
+      ext[r] = UP ? fmaxf(ext[r], o) : fminf(ext[r], o);
+    }
+    const float mx = ext[r] == NONE ? -INFINITY : ext[r] * scale_log2;
+    const float m_new = fmaxf(m[r], mx);
+    const float base = m_new == -INFINITY ? 0.f : m_new;  // none visible yet
+    alpha[r] = ex2(m[r] - base);
+    m[r] = m_new;
+    if constexpr (LSE) l[r] *= alpha[r];
+    nbase[r] = -base;
+  }
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int r = (j >> 1) & 1;
+    s[j] = ex2(fmaf(s[j], scale_log2, nbase[r]));
+    if constexpr (LSE) l[r] += s[j];
+  }
+}
+
+// P of one tile (fwd_softmax's s) rounded to bf16 as the A fragments of P V,
+// two scores a register (the accumulator's layout is the A fragment's), and the
+// rounded values added to the rows' sum lr: O is divided by lr, the sum of the
+// very weights P V used (lse takes the fp32 sum l, which only a launch that
+// writes lse keeps).  Divided by l, the served hymba's bf16 decode handoff
+// read 0.99891 in cosine, under chip_smoke.py's 0.999 (PERF.md section 6).
+__device__ __forceinline__ void pack_p(const float (&s)[32],
+                                       uint32_t (&pa)[4][4],
+                                       float (&lr)[2]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = 8 * kk + 2 * i;
+      const __nv_bfloat162 h = __floats2bfloat162_rn(s[j], s[j + 1]);
+      pa[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      const float2 hf = __bfloat1622float2(h);
+      lr[i & 1] += hf.x + hf.y;
+    }
+  }
+}
+
+// One block per (b, query head, run of FWD_ROWS query rows), in bands of
+// heads whose K / V the L2 holds, causal runs heaviest first in a band.
+// Warps 0 .. 4 FWD_WG - 1 are the consumer warpgroups, 64 rows each; one
+// thread of the last warp, the producer, issues every copy: the block's Q
+// tiles once, then K and V tiles by TMA into a K ring and a V ring of
+// FWD_STAGES each, each stage guarded by a full mbarrier (the copy engine
+// counted its bytes) and an empty one (every consumer is done with it).  A
+// warpgroup walks the tiles its rows see: S = Q K^T by wgmma from shared
+// memory, the online softmax on the fp32 accumulator, P rounded to bf16 in
+// registers (the accumulator's layout is the A fragment's), O += P V by
+// wgmma with P from registers and V MN-major.  Tile j + 1's S product and
+// tile j's P V product are issued together (two commit groups) before tile
+// j + 1's softmax, so the tensor cores run P V while the exponentials run.
+// A K tile is released once its S product has completed, a V tile once
+// its P V product has, so the producer brings tile j + 2's K while tile
+// j + 1 is computed.
+template <int D, bool LSE>
+__global__ void __launch_bounds__(FWD_THREADS, fwd_min_blocks<D>())
+    flash_fwd_wgmma_kernel(const Params p, int band,
+                           const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v) {
+  using W = WgTile<D>;
+  constexpr int ST = FWD_STAGES;
+  constexpr int KRING = FWD_WG * W::BYTES;
+  constexpr int VRING = KRING + ST * W::BYTES;
+  constexpr int BARS = VRING + ST * W::BYTES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  const uint32_t q_full = base + BARS;
+  const uint32_t k_full0 = q_full + 8, k_empty0 = k_full0 + 8 * ST;
+  const uint32_t v_full0 = k_empty0 + 8 * ST, v_empty0 = v_full0 + 8 * ST;
+
+  // blocks run band by band, `band` (b, head) pairs whose K / V the L2
+  // holds at once; within a band query blocks are launched in turn for
+  // each of its heads, causal ones heaviest (most KV tiles) first
+  const int nq = (p.S + FWD_ROWS - 1) / FWD_ROWS;
+  const int band0 = blockIdx.x / (nq * band) * band;
+  const int heads = min(band, gridDim.x / nq - band0);  // the last: fewer
+  const int r = blockIdx.x - band0 * nq;
+  const int qi = r / heads, bh = band0 + r % heads;
+  const int qb = p.causal ? nq - 1 - qi : qi;
+  const int b = bh / p.H, h = bh % p.H;
+  const int kvh = h / p.group;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int q_block0 = qb * FWD_ROWS;
+  // warpgroups with a row below S; only their Q tiles are brought
+  const int live = min(FWD_WG, (p.S - q_block0 + 63) / 64);
+
+  // keys any row of this block can see, in whole tiles
+  const int first_pos = q_block0 + p.q_offset;
+  const int last_pos = min(q_block0 + FWD_ROWS, p.S) - 1 + p.q_offset;
+  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
+  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
+  const int t_first = kv_lo / FWD_BK * FWD_BK;
+  const int ntiles =
+      kv_hi > t_first ? (kv_hi - t_first + FWD_BK - 1) / FWD_BK : 0;
+
+  if (tid == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hop::mbar_init(k_full0 + 8 * s, 1);
+      hop::mbar_init(k_empty0 + 8 * s, 128 * FWD_WG);
+      hop::mbar_init(v_full0 + 8 * s, 1);
+      hop::mbar_init(v_empty0 + 8 * s, 128 * FWD_WG);
+    }
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * FWD_WG) {  // producer
+    if (lane == 0) {
+      hop::prefetch_map(&tm_q);
+      hop::prefetch_map(&tm_k);
+      hop::prefetch_map(&tm_v);
+      hop::mbar_arrive_expect_tx(q_full, live * W::BYTES);
+      for (int w = 0; w < live; ++w)
+        tma_tile<D>(base + w * W::BYTES, &tm_q, h, q_block0 + 64 * w, b,
+                    q_full);
+      // keys past T arrive as zeros
+      for (int it = 0; it < ntiles; ++it) {
+        const int t0 = t_first + it * FWD_BK;
+        const int s = it % ST, parity = (it / ST - 1) & 1;
+        if (it >= ST) hop::mbar_wait(k_empty0 + 8 * s, parity);
+        hop::mbar_arrive_expect_tx(k_full0 + 8 * s, W::BYTES);
+        tma_tile<D>(base + KRING + s * W::BYTES, &tm_k, kvh, t0, b,
+                    k_full0 + 8 * s);
+        if (it >= ST) hop::mbar_wait(v_empty0 + 8 * s, parity);
+        hop::mbar_arrive_expect_tx(v_full0 + 8 * s, W::BYTES);
+        tma_tile<D>(base + VRING + s * W::BYTES, &tm_v, kvh, t0, b,
+                    v_full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp / 4, wl = warp % 4, g = lane >> 2, tig = lane & 3;
+  const int row0 = q_block0 + 64 * wg;  // this warpgroup's first query row
+  const uint32_t qs = base + wg * W::BYTES;
+  const bool wg_live = wg < live;
+  const int wg_first = row0 + p.q_offset;
+  const int wg_last = min(row0 + 63, p.S - 1) + p.q_offset;
+  // the tiles [it_lo, it_hi) of the block's that this warpgroup's rows see
+  int it_lo = 0, it_hi = 0;
+  if (wg_live) {
+    const int lo = p.window > 0 ? max(0, wg_first - p.window + 1) : 0;
+    const int hi = p.causal ? min(p.T, wg_last + 1) : p.T;
+    if (hi > lo) {
+      it_lo = (lo - t_first) / FWD_BK;
+      it_hi = (hi - 1 - t_first) / FWD_BK + 1;
+    }
+  }
+  const int qp[2] = {row0 + 16 * wl + g + p.q_offset,
+                     row0 + 16 * wl + g + 8 + p.q_offset};
+  // a zero scale weighs every visible score the same; so does the least
+  // normal one, which keeps a masked score's exponent at -inf
+  const float scale_log2 =
+      p.scale == 0.f ? FLT_MIN : p.scale * LOG2E;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[32];
+  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units)
+  float l[2] = {0.f, 0.f};   // LSE: this thread's part of the fp32 row sum
+  float lr[2] = {0.f, 0.f};  // this thread's part of the rounded row sum
+  float alpha[2];
+  uint32_t pa[4][4];         // P of the last tile as bf16 A fragments
+
+  auto wait_k = [&](int it) {
+    hop::mbar_wait(k_full0 + 8 * (it % ST), (it / ST) & 1);
+  };
+  auto wait_v = [&](int it) {
+    hop::mbar_wait(v_full0 + 8 * (it % ST), (it / ST) & 1);
+  };
+  auto release_k = [&](int it) { hop::mbar_arrive(k_empty0 + 8 * (it % ST)); };
+  auto release_v = [&](int it) { hop::mbar_arrive(v_empty0 + 8 * (it % ST)); };
+  // S = Q K^T of tile it, issued as one commit group
+  auto scores = [&](int it) {
+    const uint32_t ks = base + KRING + (it % ST) * W::BYTES;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hop::wgmma_ss(s, kmajor<D>(qs, kk), kmajor<D>(ks, kk), kk);
+    hop::wgmma_commit();
+  };
+  // O += P V of tile it, issued as one commit group
+  auto pv = [&](int it) {
+    const uint32_t vs = base + VRING + (it % ST) * W::BYTES;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hop::wgmma_rs_tb(acc, pa[kk], mnmajor<D>(vs, kk), 1);
+    hop::wgmma_commit();
+  };
+  // the softmax of tile it, the element mask only on a tile that some row
+  // of this warpgroup does not see whole (the diagonal, a window's lower
+  // edge, T)
+  const bool up = scale_log2 > 0.f;
+  auto softmax = [&](int it) {
+    const int start = t_first + it * FWD_BK;
+    const bool full = start + FWD_BK <= p.T &&
+                      (!p.causal || start + FWD_BK - 1 <= wg_first) &&
+                      (p.window <= 0 || wg_last - start < p.window);
+    if (full && up)
+      fwd_softmax<false, true, LSE>(p, s, m, l, alpha, start, qp,
+                                    scale_log2, tig);
+    else if (up)
+      fwd_softmax<true, true, LSE>(p, s, m, l, alpha, start, qp, scale_log2,
+                                   tig);
+    else if (full)
+      fwd_softmax<false, false, LSE>(p, s, m, l, alpha, start, qp,
+                                     scale_log2, tig);
+    else
+      fwd_softmax<true, false, LSE>(p, s, m, l, alpha, start, qp,
+                                    scale_log2, tig);
+  };
+
+  hop::mbar_wait(q_full, 0);
+  int it = 0;
+  for (; it < it_lo; ++it) {  // tiles no row of this warpgroup sees
+    wait_k(it), release_k(it), wait_v(it), release_v(it);
+  }
+  if (it_lo < it_hi) {
+    wait_k(it_lo);
+    hop::wgmma_fence();
+    scores(it_lo);
+    hop::wgmma_wait<0>();
+    hop::fence_operand(s);
+    release_k(it_lo);
+    softmax(it_lo);  // O is still 0: alpha is not needed
+    pack_p(s, pa, lr);
+    for (it = it_lo + 1; it < it_hi; ++it) {
+      wait_k(it);
+      wait_v(it - 1);
+      hop::fence_operand(acc);
+      hop::wgmma_fence();
+      scores(it);
+      pv(it - 1);
+      hop::wgmma_wait<1>();  // S of tile it (P V of tile it - 1 may run)
+      hop::fence_operand(s);
+      release_k(it);
+      softmax(it);
+      hop::wgmma_wait<0>();
+      hop::fence_operand(acc);
+      release_v(it - 1);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[4 * n] *= alpha[0];
+        acc[4 * n + 1] *= alpha[0];
+        acc[4 * n + 2] *= alpha[1];
+        acc[4 * n + 3] *= alpha[1];
+      }
+      lr[0] *= alpha[0];
+      lr[1] *= alpha[1];
+      pack_p(s, pa, lr);
+    }
+    wait_v(it_hi - 1);
+    hop::fence_operand(acc);
+    hop::wgmma_fence();
+    pv(it_hi - 1);
+    hop::wgmma_wait<0>();
+    hop::fence_operand(acc);
+    release_v(it_hi - 1);
+    it = it_hi;
+  }
+  for (; it < ntiles; ++it) {
+    wait_k(it), release_k(it), wait_v(it), release_v(it);
+  }
+  if (!wg_live) return;
+
+  // normalise in registers by the rounded sum; lse = m ln 2 + ln l (m in
+  // log2 units), -inf for a row that sees no key
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 1);
+    lr[r] += __shfl_xor_sync(0xffffffffu, lr[r], 2);
+    inv[r] = lr[r] == 0.f ? 0.f : 1.f / lr[r];  // no visible key -> 0
+  }
+  if constexpr (LSE) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      const int row = qp[r] - p.q_offset;
+      if (tig == 0 && row < p.S)
+        p.lse[((long long)b * p.H + h) * p.S + row] =
+            l[r] == 0.f ? -INFINITY : m[r] * LN2 + logf(l[r]);
+    }
+  }
+  // stage bf16 O in this warpgroup's Q tile (no product reads it any
+  // more), swizzled as the tile, then 16-byte stores of whole rows
+  unsigned char* ot = sbase + wg * W::BYTES;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<uint32_t*>(
+          ot + swizzled<D>(16 * wl + g + 8 * r, 8 * n + 2 * tig)) =
+          hop::pack_bf16(acc[4 * n + 2 * r] * inv[r],
+                         acc[4 * n + 2 * r + 1] * inv[r]);
+  }
+  hop::bar_sync(1 + wg, 128);
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb +
+                      (long long)row0 * p.o_ss + h * p.o_sh;
+  for (int e = tid - 128 * wg; e < 64 * CPR; e += 128) {
+    const int r = e / CPR, ch = e % CPR;
+    if (row0 + r < p.S)
+      *reinterpret_cast<uint4*>(og + r * p.o_ss + ch * 8) =
+          *reinterpret_cast<const uint4*>(ot + swizzled<D>(r, ch * 8));
+  }
+}
+
+// The decode form: one block per (b, query head), at most DEC_ROWS query
+// rows, one m16 tile of mma.sync (bf16 in, fp32 accumulate).  Warp w walks
+// key tiles w, w + WARPS, ..., with its own m, l and accumulator and its
+// own K tile and V tile, filled by cp.async: the K tile of its next key
+// tile is in flight while it runs P V on this one, and the V tile while it
+// runs the next S.  Then the warps' partial (m, l, acc) are combined in
+// shared memory in warp order: the same bits on every call.
+template <int D>
+struct DecTile {
+  // warps a block: each holds a K and a V tile of 64 keys, so the block's
+  // shared memory stays under 70 KB (three blocks a multiprocessor)
+  static constexpr int WARPS = D <= 64 ? 4 : 2;
+  static constexpr int TILE = FWD_BK * D;  // elements of one K or V tile
+  static constexpr int PITCH = D + 4;      // floats a staged accumulator row
+};
+
+// Shared memory of the decode block: the Q tile and each warp's K and V
+// tiles; the combine reuses it for the warps' accumulators, m and l.  D 64:
+// 67,584 bytes.
+template <int D>
+constexpr int fwd_decode_smem_bytes() {
+  using DT = DecTile<D>;
+  constexpr int tiles = (DEC_ROWS * D + DT::WARPS * 2 * DT::TILE) * 2;
+  constexpr int combine = DT::WARPS * DEC_ROWS * (DT::PITCH + 2) * 4;
+  return tiles > combine ? tiles : combine;
+}
+
+// S = Q K^T of one 64-key tile for the decode block's rows (one warp),
+// masked (MASK only), and the online softmax in log2 units: s leaves as
+// P, acc takes the factor of the new running max.  Lane l holds rows l / 4
+// and l / 4 + 8, keys 8 nb + 2 (l % 4) + {0, 1} of block nb.
+template <int D, bool MASK>
+__device__ __forceinline__ void dec_scores(
+    const Params& p, const __nv_bfloat16* ks, const uint32_t (&qf)[D / 16][4],
+    float (&s)[FWD_BK / 8][4], float (&acc)[D / 8][4], float (&m)[2],
+    float (&l)[2], int start, float scale_log2, int lane) {
+  constexpr int NB_S = FWD_BK / 8;  // 8-key column blocks of S
+  const int g = lane >> 2, tig = lane & 3;
+  const int r8 = lane & 7, mi = lane >> 3;
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb)
+    s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nb = 0; nb < NB_S; nb += 2) {
+      // keys nb*8 .. nb*8+15, dims kk*16 .. kk*16+15: two B fragments
+      uint32_t bf[4];
+      mma::ldmatrix_x4(bf, ks + mma::tile_off<D>(nb * 8 + r8 + (mi >> 1) * 8,
+                                                 2 * kk + (mi & 1)));
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma::mma_16816(s[nb], qf[kk], b0);
+      mma::mma_16816(s[nb + 1], qf[kk], b1);
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v = s[nb][i] * scale_log2;
+      if constexpr (MASK) {
+        const int t = start + nb * 8 + tig * 2 + (i & 1);
+        const int qp = g + (i >> 1) * 8 + p.q_offset;
+        bool ok = t < p.T;
+        if (p.causal) ok = ok && t <= qp;
+        if (p.window > 0) ok = ok && qp - t < p.window;
+        v = ok ? v : -INFINITY;
+      }
+      s[nb][i] = v;
+      mx[i >> 1] = fmaxf(mx[i >> 1], v);
+    }
+  }
+  float alpha[2], base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    base[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet
+    alpha[r] = exp2f(m[r] - base[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB_S; ++nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nb][i] = exp2f(s[nb][i] - base[i >> 1]);  // masked -> 0
+      l[i >> 1] += s[nb][i];
+    }
+  }
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+    acc[nb][0] *= alpha[0];
+    acc[nb][1] *= alpha[0];
+    acc[nb][2] *= alpha[1];
+    acc[nb][3] *= alpha[1];
+  }
+}
+
+// O += P V of one 64-key tile: two adjacent 8-key blocks of S are one A
+// fragment, taken as a bf16 pair (hi, and lo the rest: ~16 of P's
+// mantissa bits) as the wgmma form takes it; V is read as stored
+// ([key][dim]) through ldmatrix.trans
+template <int D>
+__device__ __forceinline__ void dec_pv(const __nv_bfloat16* vs,
+                                       const float (&s)[FWD_BK / 8][4],
+                                       float (&acc)[D / 8][4], int lane) {
+  const int r8 = lane & 7, mi = lane >> 3;
+#pragma unroll
+  for (int kk = 0; kk < FWD_BK / 16; ++kk) {
+    const float c[8] = {s[2 * kk][0],     s[2 * kk][1],
+                        s[2 * kk][2],     s[2 * kk][3],
+                        s[2 * kk + 1][0], s[2 * kk + 1][1],
+                        s[2 * kk + 1][2], s[2 * kk + 1][3]};
+    uint32_t hi[4], lo[4];
+    hop::accumulator_to_a_split(c, 0, hi, lo);
+#pragma unroll
+    for (int nb = 0; nb < D / 8; nb += 2) {
+      uint32_t bf[4];
+      mma::ldmatrix_x4_trans(
+          bf,
+          vs + mma::tile_off<D>(kk * 16 + r8 + (mi & 1) * 8, nb + (mi >> 1)));
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma::mma_16816(acc[nb], hi, b0);
+      mma::mma_16816(acc[nb + 1], hi, b1);
+      mma::mma_16816(acc[nb], lo, b0);
+      mma::mma_16816(acc[nb + 1], lo, b1);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * DecTile<D>::WARPS, 3)
+    flash_fwd_decode_kernel(const Params p) {
+  using DT = DecTile<D>;
+  constexpr int NW = DT::WARPS, CPR = D / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r8 = lane & 7, mi = lane >> 3, g = lane >> 2, tig = lane & 3;
+  __nv_bfloat16* ks = qs + DEC_ROWS * D + warp * 2 * DT::TILE;
+  __nv_bfloat16* vs = ks + DT::TILE;
+
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / p.group;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q);
+  const __nv_bfloat16* kbase =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const __nv_bfloat16* vbase =
+      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // keys any row can see, in whole tiles; warp w takes tiles w, w + NW, ..
+  const int first_pos = p.q_offset;
+  const int last_pos = p.S - 1 + p.q_offset;
+  const int kv_hi = p.causal ? min(p.T, last_pos + 1) : p.T;
+  const int kv_lo = p.window > 0 ? max(0, first_pos - p.window + 1) : 0;
+  const int t_first = kv_lo / FWD_BK * FWD_BK;
+  const int ntiles =
+      kv_hi > t_first ? (kv_hi - t_first + FWD_BK - 1) / FWD_BK : 0;
+  const int mine = warp < ntiles ? (ntiles - warp + NW - 1) / NW : 0;
+  auto tile_start = [&](int i) { return t_first + (warp + i * NW) * FWD_BK; };
+  // keys past T are zero-filled, never read
+  auto load = [&](__nv_bfloat16* dst, const __nv_bfloat16* src,
+                  long long stride, int i) {
+    const int t0 = tile_start(i);
+    mma::load_tile<FWD_BK, D>(dst, src + (long long)t0 * stride, stride,
+                              p.T - t0, D, true, lane, 32);
+  };
+
+  // commit groups: (Q, K tile 0), (V tile 0), then per tile the next K
+  // tile and the next V tile (empty past the last), so wait<1> always
+  // means "the tile about to be read landed"
+  mma::load_tile<DEC_ROWS, D>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, p.S,
+                              D, true, tid, 32 * NW);
+  if (mine > 0) load(ks, kbase, p.k_st, 0);
+  mma::cp_async_commit();
+  if (mine > 0) load(vs, vbase, p.v_st, 0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<1>();
+  __syncthreads();  // every thread's part of Q landed
+
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma::ldmatrix_x4(qf[kk], qs + mma::tile_off<D>(r8 + (mi & 1) * 8,
+                                                   2 * kk + (mi >> 1)));
+  float acc[D / 8][4];
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb)
+    acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max (log2 units)
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sum
+  const float scale_log2 = p.scale * LOG2E;
+
+  for (int i = 0; i < mine; ++i) {
+    if (i > 0) mma::cp_async_wait<1>();  // K tile i (V tile i may fly)
+    __syncwarp();
+    const int start = tile_start(i);
+    // the element mask only on a tile some row does not see whole
+    const bool full = start + FWD_BK <= p.T &&
+                      (!p.causal || start + FWD_BK - 1 <= first_pos) &&
+                      (p.window <= 0 || last_pos - start < p.window);
+    float s[FWD_BK / 8][4];
+    if (full)
+      dec_scores<D, false>(p, ks, qf, s, acc, m, l, start, scale_log2, lane);
+    else
+      dec_scores<D, true>(p, ks, qf, s, acc, m, l, start, scale_log2, lane);
+    __syncwarp();  // every lane is done with the K tile
+    if (i + 1 < mine) load(ks, kbase, p.k_st, i + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();  // V tile i
+    __syncwarp();
+    dec_pv<D>(vs, s, acc, lane);
+    __syncwarp();  // and with the V tile
+    if (i + 1 < mine) load(vs, vbase, p.v_st, i + 1);
+    mma::cp_async_commit();
+  }
+  mma::cp_async_wait<0>();
+
+  // the combine, over the tiles' shared memory once every warp is done
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(smem_raw);  // [NW][16][PITCH]
+  float* ms = part + NW * DEC_ROWS * DT::PITCH;      // [NW][16]
+  float* ls = ms + NW * DEC_ROWS;
+#pragma unroll
+  for (int nb = 0; nb < D / 8; ++nb) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(
+          part + (warp * DEC_ROWS + g + 8 * r) * DT::PITCH + nb * 8 +
+          2 * tig) = make_float2(acc[nb][2 * r], acc[nb][2 * r + 1]);
+  }
+  if (tig == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ms[warp * DEC_ROWS + g + 8 * r] = m[r];
+      ls[warp * DEC_ROWS + g + 8 * r] = l[r];
+    }
+  }
+  __syncthreads();
+  // row `row`, 8 columns a thread: O = sum_w 2^(m_w - M) acc_w / L with
+  // L = sum_w 2^(m_w - M) l_w, warps in order; lse = M ln 2 + ln L
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o);
+  for (int e = tid; e < p.S * CPR; e += 32 * NW) {
+    const int row = e / CPR, ch = e % CPR;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, ms[w * DEC_ROWS + row]);
+    float wt[NW], L = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float mw = ms[w * DEC_ROWS + row];
+      wt[w] = mw == -INFINITY ? 0.f : exp2f(mw - mx);
+      L += wt[w] * ls[w * DEC_ROWS + row];
+    }
+    const float inv = L == 0.f ? 0.f : 1.f / L;  // no visible key -> 0
+    float out[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float* src = part + (w * DEC_ROWS + row) * DT::PITCH + ch * 8;
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      out[0] += wt[w] * lo.x, out[1] += wt[w] * lo.y;
+      out[2] += wt[w] * lo.z, out[3] += wt[w] * lo.w;
+      out[4] += wt[w] * hi.x, out[5] += wt[w] * hi.y;
+      out[6] += wt[w] * hi.z, out[7] += wt[w] * hi.w;
+    }
+    *reinterpret_cast<uint4*>(o + b * p.o_sb + (long long)row * p.o_ss +
+                              h * p.o_sh + ch * 8) =
+        make_uint4(mma::pack_bf16(out[0] * inv, out[1] * inv),
+                   mma::pack_bf16(out[2] * inv, out[3] * inv),
+                   mma::pack_bf16(out[4] * inv, out[5] * inv),
+                   mma::pack_bf16(out[6] * inv, out[7] * inv));
+    if (p.lse != nullptr && ch == 0)
+      p.lse[((long long)b * p.H + h) * p.S + row] =
+          L == 0.f ? -INFINITY : mx * LN2 + logf(L);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 // what the C entry returns besides a CUDA error
@@ -1295,55 +1746,210 @@ int bwd_kernel(int pass, int D, const void** fn) {
   }
 }
 
+// the forward's kernels, by the codes of flash_attention.py ·
+// FORWARD_VARIANTS: flash_fwd_kernel (fp32, head dim 24, unaligned rows),
+// flash_fwd_wgmma_kernel (bf16, S > DEC_ROWS), flash_fwd_decode_kernel
+// (bf16, S <= DEC_ROWS)
+constexpr int FWD_SCALAR = 0;
+constexpr int FWD_WGMMA = 1;
+constexpr int FWD_DECODE = 2;
+
+// a kernel's dynamic shared memory limit, raised once per kernel
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int D>
+int launch_fwd_wgmma(const Params& p, int B, int K, cudaStream_t stream) {
+  using W = WgTile<D>;
+  // the maps are encoded at each call from the tensors' own strides; boxes
+  // of 64 rows (a warpgroup's queries, a tile's keys)
+  CUtensorMap mq, mk, mv;
+  if (!hop::bshd_map(&mq, p.q, B, p.S, p.H, D, p.q_sb, p.q_ss, p.q_sh,
+                     W::PANEL, 64) ||
+      !hop::bshd_map(&mk, p.k, B, p.T, K, D, p.k_sb, p.k_st, p.k_sh,
+                     W::PANEL, FWD_BK) ||
+      !hop::bshd_map(&mv, p.v, B, p.T, K, D, p.v_sb, p.v_st, p.v_sh,
+                     W::PANEL, FWD_BK))
+    return ERR_MAP;
+  // the kernel that keeps the fp32 row sum for lse, or the one that does
+  // not need it
+  constexpr int smem = fwd_wgmma_smem_bytes<D>();
+  const bool lse = p.lse != nullptr;
+  static bool ready[2] = {false, false};
+  const cudaError_t err =
+      lse ? allow_smem(flash_fwd_wgmma_kernel<D, true>, smem, ready[1])
+          : allow_smem(flash_fwd_wgmma_kernel<D, false>, smem, ready[0]);
+  if (err != cudaSuccess) return err;
+  // (b, head) pairs a band: as many as keep FWD_BAND_BYTES of K and V (a
+  // kv head's 4 T D bytes, shared by `group` query heads)
+  const long long kv_bytes = 4LL * p.T * D;
+  const long long fit = FWD_BAND_BYTES * p.group / kv_bytes;
+  const int band = static_cast<int>(
+      std::min<long long>(B * p.H, std::max<long long>(1, fit)));
+  const int nq = (p.S + FWD_ROWS - 1) / FWD_ROWS;
+  if (lse)
+    flash_fwd_wgmma_kernel<D, true><<<nq * B * p.H, FWD_THREADS, smem,
+                                      stream>>>(p, band, mq, mk, mv);
+  else
+    flash_fwd_wgmma_kernel<D, false><<<nq * B * p.H, FWD_THREADS, smem,
+                                       stream>>>(p, band, mq, mk, mv);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_fwd_decode(const Params& p, int B, cudaStream_t stream) {
+  constexpr int smem = fwd_decode_smem_bytes<D>();
+  static bool ready = false;
+  const cudaError_t err = allow_smem(flash_fwd_decode_kernel<D>, smem, ready);
+  if (err != cudaSuccess) return err;
+  flash_fwd_decode_kernel<D><<<B * p.H, 32 * DecTile<D>::WARPS, smem,
+                               stream>>>(p);
+  return cudaGetLastError();
+}
+
+// the tensor-core forward of `variant` at head dim D
+int launch_fwd(const Params& p, int B, int K, int D, int variant,
+               cudaStream_t stream) {
+  if (variant == FWD_WGMMA) {
+    switch (D) {
+      case 16: return launch_fwd_wgmma<16>(p, B, K, stream);
+      case 32: return launch_fwd_wgmma<32>(p, B, K, stream);
+      case 64: return launch_fwd_wgmma<64>(p, B, K, stream);
+      case 96: return launch_fwd_wgmma<96>(p, B, K, stream);
+      case 128: return launch_fwd_wgmma<128>(p, B, K, stream);
+    }
+  } else if (variant == FWD_DECODE) {
+    switch (D) {
+      case 16: return launch_fwd_decode<16>(p, B, stream);
+      case 32: return launch_fwd_decode<32>(p, B, stream);
+      case 64: return launch_fwd_decode<64>(p, B, stream);
+      case 96: return launch_fwd_decode<96>(p, B, stream);
+      case 128: return launch_fwd_decode<128>(p, B, stream);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+// dynamic shared memory, kernel and threads of a tensor-core forward form
+// at head dim D (lse: the wgmma kernel that writes it)
+int fwd_kernel(int variant, int D, bool lse, const void** fn, int* threads) {
+  switch (D * 4 + variant) {
+#define FWD_TC(d)                                                       \
+  case d * 4 + FWD_WGMMA:                                               \
+    *fn = lse ? reinterpret_cast<const void*>(                          \
+                    flash_fwd_wgmma_kernel<d, true>)                    \
+              : reinterpret_cast<const void*>(                          \
+                    flash_fwd_wgmma_kernel<d, false>);                  \
+    *threads = FWD_THREADS;                                             \
+    return fwd_wgmma_smem_bytes<d>();                                   \
+  case d * 4 + FWD_DECODE:                                              \
+    *fn = reinterpret_cast<const void*>(flash_fwd_decode_kernel<d>);    \
+    *threads = 32 * DecTile<d>::WARPS;                                  \
+    return fwd_decode_smem_bytes<d>();
+    FWD_TC(16) FWD_TC(32) FWD_TC(64) FWD_TC(96) FWD_TC(128)
+#undef FWD_TC
+    default:
+      *fn = nullptr;
+      return -1;
+  }
+}
+
 }  // namespace
 
 
-// Dynamic shared memory of one flash_mma_kernel<D> launch in bytes, -1 for
-// a head dim the tensor-core path does not take.
-extern "C" int flash_attention_smem_bytes(int D) {
-  switch (D) {
-    case 16: return mma_smem_bytes<16>();
-    case 32: return mma_smem_bytes<32>();
-    case 64: return mma_smem_bytes<64>();
-    case 96: return mma_smem_bytes<96>();
-    case 128: return mma_smem_bytes<128>();
-    default: return -1;
-  }
+// Dynamic shared memory of one launch of a tensor-core forward form at head
+// dim D in bytes (variant 1 flash_fwd_wgmma_kernel, 2
+// flash_fwd_decode_kernel), -1 for a form or head dim that has none.
+extern "C" int flash_attention_fwd_smem_bytes(int variant, int D) {
+  const void* fn;
+  int threads;
+  return fwd_kernel(variant, D, false, &fn, &threads);
+}
+
+// What the compiled kernel of a tensor-core forward form (variant 1, 2) at
+// head dim D (lse: the one that writes lse) asks of a multiprocessor,
+// from cudaFuncGetAttributes: out[0]
+// registers a thread, out[1] static shared memory, out[2] the dynamic
+// shared memory of its launch, out[3] local memory a thread (spills), and
+// out[4] how many of its blocks the card holds at once.  Returns the CUDA
+// error (0 on success).
+extern "C" int flash_attention_fwd_attributes(int variant, int D, int lse,
+                                              int* out) {
+  const void* fn;
+  int threads;
+  const int smem = fwd_kernel(variant, D, lse != 0, &fn, &threads);
+  if (smem < 0) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.sharedSizeBytes);
+  out[2] = smem;
+  out[3] = static_cast<int>(a.localSizeBytes);
+  int dev = 0, sms = 0, n = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads,
+                                                           smem)) !=
+          cudaSuccess)
+    return err;
+  out[4] = n * sms;
+  return cudaSuccess;
 }
 
 // q: (B,S,H,D), k and v: (B,T,K,D), o: (B,S,H,D), each with unit stride in
 // D and the other strides given in elements.  dtype: 0 = float32,
 // 1 = bfloat16.  lse: null, or a contiguous fp32 (B,H,S) that receives
 // each row's natural-log logsumexp of the scaled visible scores (-inf for
-// a row that sees no key).  Returns the CUDA error of the launch (0 on
-// success).
+// a row that sees no key).  variant: the kernel to launch, as
+// flash_attention.py · forward_variant chose it: 0 flash_fwd_kernel, 1
+// flash_fwd_wgmma_kernel, 2 flash_fwd_decode_kernel.  The tensor-core forms
+// take bf16, D 16, 32, 64, 96 or 128, T >= 1 and every row of q, k, v and
+// o 16-byte aligned, decode at most 16 query rows; a call its variant does
+// not take is refused, never sent to another kernel.  Returns the CUDA
+// error of the launch (0 on success), -3 if a tensor map cannot be
+// encoded.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int S, int T, int H, int K, int D, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_st, long long k_sh,
     long long v_sb, long long v_st, long long v_sh, long long o_sb,
     long long o_ss, long long o_sh, float scale, int causal, int window,
-    int q_offset, void* lse, void* stream) {
+    int q_offset, void* lse, int variant, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || K <= 0 || H % K != 0 || B * H > 65535)
     return cudaErrorInvalidValue;
   const Params p{q,    k,    v,    o,    S,     T,      H,      H / K,
                  q_sb, q_ss, q_sh, k_sb, k_st,  k_sh,   v_sb,   v_st,
                  v_sh, o_sb, o_ss, o_sh, scale, causal, window, q_offset,
                  static_cast<float*>(lse)};
-  const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  const bool tiles16 = D % 16 == 0 && mma::aligned16(q, q_sb, q_ss, q_sh) &&
+  if (variant == FWD_SCALAR) {
+    const dim3 grid((S + BLOCK_Q - 1) / BLOCK_Q, B * H);
+    cudaError_t err = cudaErrorInvalidValue;
+    if (dtype == 1)
+      err = launch<__nv_bfloat16>(p, D, grid, st);
+    else if (dtype == 0)
+      err = launch<float>(p, D, grid, st);
+    return static_cast<int>(err);
+  }
+  const bool aligned = mma::aligned16(q, q_sb, q_ss, q_sh) &&
                        mma::aligned16(k, k_sb, k_st, k_sh) &&
                        mma::aligned16(v, v_sb, v_st, v_sh) &&
                        mma::aligned16(o, o_sb, o_ss, o_sh);
-  if (dtype == 1 && tiles16)
-    err = launch_mma(p, B, D, st);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(p, D, grid, st);
-  else if (dtype == 0)
-    err = launch<float>(p, D, grid, st);
-  return static_cast<int>(err);
+  if (dtype != 1 || T <= 0 || !aligned ||
+      (variant == FWD_DECODE && S > DEC_ROWS))
+    return cudaErrorInvalidValue;
+  return launch_fwd(p, B, K, D, variant, st);
 }
 
 // Dynamic shared memory of one backward launch in bytes at head dim D: pass

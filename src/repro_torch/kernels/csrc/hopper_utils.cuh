@@ -305,6 +305,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 35)) __trap();
 }
 
+// brings a tensor map (a kernel parameter) into the cache its copies read
+// it from, so the first copy does not wait for it
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 // one box of a 4-D tensor map into shared memory at dst, completing on bar
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
                                             int c0, int c1, int c2, int c3,

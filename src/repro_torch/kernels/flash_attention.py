@@ -1,7 +1,7 @@
 """Flash attention: hand-written CUDA C++ kernels for Hopper, forward and
 backward, and their plain PyTorch twins.
 
-The forward kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU
+The forward kernels (``csrc/flash_attention.cu``) replace the Pallas TPU
 kernel ``repro/kernels/flash_attention.py`` · ``flash_attention``; the
 backward kernels replace nothing on the TPU (``repro`` differentiates its
 plain reference, ``ref.mha``).  The source's header says what bounds each
@@ -9,10 +9,24 @@ on an H100 and how the design answers that.  They are compiled by nvcc for
 ``sm_90a`` at first use (``_build.py``) and called through ctypes on
 PyTorch's current stream.
 
-``flash_attention`` launches the forward kernel for CUDA tensors and raises
-on anything the kernel does not take; it uses the plain twin only for
-tensors on the CPU.  When q, k or v needs a gradient it goes through
-``_FlashAttention``, an ``autograd.Function``:
+``flash_attention`` launches a forward kernel for CUDA tensors and raises
+on anything the kernels do not take; it uses the plain twin only for
+tensors on the CPU.  ``forward_variant`` names the forward kernel of a
+call, in one place, and the C entry launches what it is told:
+
+* ``"wgmma"`` (``flash_fwd_wgmma_kernel<D>``): bf16, head dim 16, 32, 64,
+  96 or 128, every row 16-byte aligned, more than ``DECODE_ROWS`` queries:
+  prefill and training, on Hopper's warpgroup products (wgmma) with Q, K
+  and V brought by TMA into mbarrier rings by a producer warp;
+* ``"decode"`` (``flash_fwd_decode_kernel<D>``): the same with at most
+  ``DECODE_ROWS`` queries (whisper's cross-attention decode, a ``kv_seq``
+  rank's block): the key tiles split over the block's warps, their partial
+  softmaxes combined in a fixed order;
+* ``"scalar"`` (``flash_fwd_kernel``): fp32, head dim 24 and unaligned
+  views.
+
+When q, k or v needs a gradient it goes through ``_FlashAttention``, an
+``autograd.Function``:
 
 * on CUDA tensors its forward launches the kernel with the per-row
   logsumexp (``lse``, fp32 (B, H, S)) and saves q, k, v, o and lse; its
@@ -41,10 +55,11 @@ heaviest first, built here from the masks so the CPU tests hold it.
 Without a gradient the forward writes no lse, except in
 ``flash_attention_partial``: decode over one block of a K/V cache cut
 over the model ranks (whisper's cross K/V on ``kv_seq``), where the
-forward kernel, fp32 or bf16, writes o and lse for ``ops.combine_partial``
-to merge the ranks' blocks; its plain twin is ``flash_attention_plain_lse``.
+forward kernel writes o and lse for ``ops.combine_partial`` to merge the
+ranks' blocks; its plain twin is ``flash_attention_plain_lse``.
 ``flash_attention.launches`` counts forward kernel launches (the partial
-form's too), ``flash_attention.backward_launches`` backward calls on the
+form's too) and ``flash_attention.launches_by_variant`` the same by
+kernel; ``flash_attention.backward_launches`` counts backward calls on the
 card (one a call, for its three launches).
 
 A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes the
@@ -75,6 +90,10 @@ HEAD_DIMS = (16, 24, 32, 64, 96, 128)
 WGMMA_HEAD_DIMS = (16, 32, 64, 96, 128)
 BWD_TILE = 64
 MAX_CLUSTER = 16
+# the forward's kernels, by the code the C entry takes, and the most query
+# rows the decode form takes (one 16-row tile)
+FORWARD_VARIANTS = {"scalar": 0, "wgmma": 1, "decode": 2}
+DECODE_ROWS = 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 
@@ -194,6 +213,20 @@ def backward_variant(D: int, group: int) -> str:
     return "wgmma"
 
 
+def forward_variant(S: int, T: int, H: int, K: int, D: int, dtype,
+                    aligned: bool) -> str:
+    """The forward kernel that serves a call on the card: ``"wgmma"`` for
+    bf16 at a tensor-core head dim with every row of q, k, v and o 16-byte
+    aligned (``aligned``) and more than ``DECODE_ROWS`` queries,
+    ``"decode"`` for the same with at most ``DECODE_ROWS``, ``"scalar"``
+    for anything else (fp32, head dim 24, unaligned views, no keys).  The
+    GQA shape (H, K) takes every form."""
+    if (dtype != torch.bfloat16 or D not in WGMMA_HEAD_DIMS or not aligned
+            or T < 1):
+        return "scalar"
+    return "decode" if S <= DECODE_ROWS else "wgmma"
+
+
 def _items(n_tiles: int, span) -> torch.Tensor:
     """Rows (tile, first tile, tiles) for tiles 0 .. n_tiles - 1, where
     ``span(tile)`` is the half-open range [lo, hi) of indices on the other
@@ -264,7 +297,7 @@ def _library() -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.flash_attention_fwd.argtypes = (
         [ptr] * 4 + [i32] * 7 + [i64] * 12
-        + [ctypes.c_float, i32, i32, i32, ptr, ptr])
+        + [ctypes.c_float, i32, i32, i32, ptr, i32, ptr])
     lib.flash_attention_fwd.restype = ctypes.c_int
     lib.flash_attention_bwd.argtypes = (
         [ptr] * 10 + [i32] * 6 + [i64] * 24
@@ -273,7 +306,24 @@ def _library() -> ctypes.CDLL:
     lib.flash_attention_bwd_attributes.argtypes = [i32, i32, i32,
                                                    ctypes.POINTER(i32)]
     lib.flash_attention_bwd_attributes.restype = ctypes.c_int
+    lib.flash_attention_fwd_attributes.argtypes = [i32, i32, i32,
+                                                   ctypes.POINTER(i32)]
+    lib.flash_attention_fwd_attributes.restype = ctypes.c_int
     return lib
+
+
+def forward_attributes(variant: str, D: int, lse: bool = False) -> dict:
+    """What the forward kernel of a tensor-core ``variant`` at head dim D
+    (``lse``: the one that writes lse) asks of a multiprocessor, as
+    ``backward_attributes`` reads it."""
+    vals = (ctypes.c_int * 5)()
+    err = _library().flash_attention_fwd_attributes(
+        FORWARD_VARIANTS[variant], D, int(lse), vals)
+    if err:
+        raise RuntimeError(f"flash_attention: attributes of the {variant} "
+                           f"forward at D {D}: CUDA error {err}")
+    return dict(registers=vals[0], static_smem=vals[1], dynamic_smem=vals[2],
+                local_bytes=vals[3], resident_blocks=vals[4])
 
 
 def backward_attributes(D: int, group: int = 1) -> dict:
@@ -322,8 +372,9 @@ def _check(q, k, v):
 
 def _aligned16(t) -> bool:
     """Every (.., D) row of t starts on a 16-byte boundary (bf16)."""
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0
-                                          for st in t.stride()[:3])
+    s = t.stride()
+    return (t.data_ptr() % 16 == 0 and s[0] % 8 == 0 and s[1] % 8 == 0
+            and s[2] % 8 == 0)
 
 
 def _check_backward(q, k, v):
@@ -349,14 +400,19 @@ def _check_backward(q, k, v):
 
 
 def _forward_kernel(q, k, v, causal, window, q_offset, scale, lse=None):
-    """Launch the forward kernel; ``lse`` (fp32 (B,H,S)) receives each
-    row's logsumexp when given.  Returns o (contiguous, q's type)."""
+    """Launch the forward kernel ``forward_variant`` names; ``lse`` (fp32
+    (B,H,S)) receives each row's logsumexp when given.  Returns o
+    (contiguous, q's type)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     scale = float(scale if scale is not None else D ** -0.5)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     if out.numel() == 0:
         return out
+    # o, new and contiguous, has aligned rows at every tensor-core head dim
+    aligned = (q.dtype == torch.bfloat16 and _aligned16(q) and _aligned16(k)
+               and _aligned16(v))
+    variant = forward_variant(S, T, H, K, D, q.dtype, aligned)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -365,12 +421,17 @@ def _forward_kernel(q, k, v, causal, window, q_offset, scale, lse=None):
             _DTYPES[q.dtype], B, S, T, H, K, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], scale, int(causal), int(window),
-            int(q_offset), None if lse is None else lse.data_ptr(), stream)
+            int(q_offset), None if lse is None else lse.data_ptr(),
+            FORWARD_VARIANTS[variant], stream)
+    if err == -3:
+        raise RuntimeError("flash_attention: a TMA tensor map of q, k or v "
+                           "could not be encoded")
     if err:
-        raise RuntimeError(f"flash_attention: kernel launch failed with "
-                           f"CUDA error {err}")
+        raise RuntimeError(f"flash_attention: {variant} kernel launch "
+                           f"failed with CUDA error {err}")
     with _count_lock:
         flash_attention.launches += 1
+        flash_attention.launches_by_variant[variant] += 1
     return out
 
 
@@ -553,4 +614,5 @@ def flash_attention_partial(q, k, v, *, causal: bool = True,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(FORWARD_VARIANTS, 0)
 flash_attention.backward_launches = 0

@@ -2,8 +2,8 @@
 
 * the flash kernel refused head dim 96, which phi-3-vision's attention
   uses: every head dim of a config whose family has attention must pass
-  the wrapper's checks, and the CUDA source must instantiate it on both
-  kernels and in the shared-memory size query;
+  the wrapper's checks, and the CUDA source must instantiate it on every
+  forward kernel and in the shared-memory size query;
 * ``machine_fingerprint()`` counted 0 devices on a host with no card where
   ``repro`` counts 1 (JAX's CPU device), so a ``DPTCache`` entry written
   by one package missed in the other.
@@ -31,13 +31,19 @@ def test_torch_flash_takes_every_attention_head_dim(arch):
 
 
 def test_torch_flash_source_instantiates_head_dim_96():
-    """96 = 6 x 16 runs on the tensor-core kernel: the scalar launch, the
-    tensor-core launch and the shared-memory query all name it."""
+    """96 = 6 x 16 runs on the tensor-core kernels: the scalar launch, the
+    wgmma and decode launches and the shared-memory and attribute queries
+    (FWD_TC) all name it, and a bf16 call at 96 is sent to them."""
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "flash_fwd_kernel<T, 96>" in src
-    assert "launch_mma_t<96>" in src
-    assert "mma_smem_bytes<96>()" in src
+    assert "launch_fwd_wgmma<96>" in src
+    assert "launch_fwd_decode<96>" in src
+    assert "FWD_TC(96)" in src
     assert 96 in fa.HEAD_DIMS and 40 not in fa.HEAD_DIMS
+    assert fa.forward_variant(1088, 1088, 32, 32, 96, torch.bfloat16,
+                              True) == "wgmma"
+    assert fa.forward_variant(1, 1088, 32, 32, 96, torch.bfloat16,
+                              True) == "decode"
 
 
 @pytest.mark.parametrize("causal,window", [(True, 0), (True, 24), (False, 0)])
