@@ -38,9 +38,15 @@ Phases, each printing one JSON line:
    also with its final state through ``ops.ssd_prefill`` at the serving
    prefill shapes (8 x 512 and 4 x 300, padded, and hymba's 8 x 640 at
    state n = 16), y and the state each held to its own tolerance and
-   timed against the y-only scan; and each bf16 stage kernel of the
-   SSD scan (chunk state, state passing with the final state, chunk scan)
-   against its plain stage function, timed alone (``ssd_stage`` lines).
+   timed against the y-only scan; every SSD row names the kernels that
+   served it (``variant``: ``wgmma`` at the models' shapes, ``mma`` at the
+   test shapes, ``scalar`` for fp32, from ``ssd_scan.variant``) and a
+   wgmma row's second call must give the same bits; and each bf16 kernel
+   of the SSD scan against its plain stage function, timed alone
+   (``ssd_stage`` lines): the wgmma state kernel (chunk state and state
+   passing, the final state) and chunk scan at the slice shape and
+   hymba's prefill, the mma kernels (chunk state, state passing, chunk
+   scan) at ``t4_chunk24``.
    Phase 22's per-rank shapes: flash at hymba's 15 / 15 heads of 64 over
    2 x 640 (``tp_hybrid_rank``), the SSD scan at 25 heads (n 16) and 24
    heads (n 128), and the split-row rmsnorm pair (``row_sumsq``,
@@ -1230,7 +1236,11 @@ def dynamic_smem(_build) -> dict:
             fl.flash_attention_bwd_smem_bytes(4, D)
     for stage, kernel in ((1, "ssd_scan_chunk_state_kernel"),
                           (3, "ssd_scan_chunk_scan_kernel")):
-        out[f"{kernel} (chunk 256)"] = sl.ssd_scan_smem_bytes(stage, 256)
+        out[f"{kernel} (chunk 256)"] = sl.ssd_scan_smem_bytes(stage, 256, 0)
+    for n in (16, 128):              # hymba's state width and mamba2's
+        for stage, kernel in ((4, "ssd_scan_state_wgmma_kernel"),
+                              (5, "ssd_scan_chunk_scan_wgmma_kernel")):
+            out[f"{kernel}<{n}>"] = sl.ssd_scan_smem_bytes(stage, 256, n)
     check(all(v > 0 for v in out.values()), f"shared memory sizes {out}")
     return out
 
@@ -1799,6 +1809,31 @@ def ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type, strided):
     return x, dt, A, B, C
 
 
+def launched_ssd_variant(ss, before: dict) -> str:
+    """The one SSD variant launched since ``before``, a copy of
+    ``ssd_scan.launches_by_variant``."""
+    now = ss.ssd_scan.launches_by_variant
+    used = [k for k in now if now[k] != before[k]]
+    check(len(used) == 1 and now[used[0]] == before[used[0]] + 1,
+          f"ssd_scan launches {before} -> {now}: not one variant")
+    return used[0]
+
+
+def ssd_second_call_equal(torch, variant: str, first, call):
+    """For the wgmma kernels, whether a second call gives the same bits
+    (they sum in a fixed order; a race would show here); None for the
+    others."""
+    if variant != "wgmma":
+        return None
+    second = call()
+    torch.cuda.synchronize()
+    firsts = first if isinstance(first, tuple) else (first,)
+    seconds = second if isinstance(second, tuple) else (second,)
+    same = all(bool(torch.equal(a, b)) for a, b in zip(firsts, seconds))
+    check(same, "ssd_scan: a second wgmma call differs from the first")
+    return same
+
+
 def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
               *, strided=False):
     """``ops.ssd`` (which pads a sequence that is not a multiple of the
@@ -1808,8 +1843,12 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
         dt_type = getattr(torch, dtype)
         x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type,
                                     strided)
+        before = dict(ss.ssd_scan.launches_by_variant)
         out = ops.ssd(x, dt, A, B, C, chunk=chunk)
         torch.cuda.synchronize()
+        variant = launched_ssd_variant(ss, before)
+        same = ssd_second_call_equal(
+            torch, variant, out, lambda: ops.ssd(x, dt, A, B, C, chunk=chunk))
         with plain_ctx():
             ref = ops.ssd(x, dt, A, B, C, chunk=chunk)
         check(out.shape == x.shape and out.dtype == x.dtype,
@@ -1834,6 +1873,7 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
                                                            chunk=chunk)
         # no PyTorch call computes a selective scan
         row = dict(kernel="ssd_scan", case=name, dtype=dtype,
+                   variant=variant, second_call_bit_equal=same,
                    shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
                               strided=strided),
                    max_abs_err=err, tol=rtol, atol=atol_of_max * y_max,
@@ -1850,7 +1890,7 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
     return rows
 
 
-def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
+def check_ssd_state(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n,
                     chunk, *, strided=True):
     """``ops.ssd_prefill`` (the scan kernel writing its final state too)
     against the same call routed to the plain twin: y to the scan's
@@ -1863,8 +1903,13 @@ def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
         dt_type = getattr(torch, dtype)
         x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type,
                                     strided)
+        before = dict(ss.ssd_scan.launches_by_variant)
         y, state = ops.ssd_prefill(x, dt, A, B, C, chunk=chunk)
         torch.cuda.synchronize()
+        variant = launched_ssd_variant(ss, before)
+        same = ssd_second_call_equal(
+            torch, variant, (y, state),
+            lambda: ops.ssd_prefill(x, dt, A, B, C, chunk=chunk))
         with plain_ctx():
             y_ref, state_ref = ops.ssd_prefill(x, dt, A, B, C, chunk=chunk)
         check(y.shape == x.shape and y.dtype == x.dtype
@@ -1886,6 +1931,7 @@ def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
                 return ops.ssd_prefill(x, dt, A, B, C, chunk=chunk)
 
         row = dict(kernel="ssd_scan", case=name, dtype=dtype, state=True,
+                   variant=variant, second_call_bit_equal=same,
                    shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
                               strided=strided),
                    max_abs_err=err_y, state_max_abs_err=err_s, tol=rtol,
@@ -1907,28 +1953,45 @@ def check_ssd_state(torch, ops, plain_ctx, gen, name, b, s, h, p, g, n,
     return rows
 
 
-def check_ssd_stages(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
-                     *, strided=False):
-    """Each bf16 stage kernel alone against its plain stage function, on
-    the same inputs: stage 2 and 3 take the plain stage before's outputs,
-    so a fault shows in the stage that has it.  cum and the state passing
-    (the entering states and the final state) are fp32 on both sides (the
-    fp32 tolerance); the states of stage 1 and
-    y of stage 3 round a product operand to bf16 (the bf16 one).  Each
-    stage's time is its C entry's alone, on buffers made once outside the
+# the SSD rows at test shapes (small p or n, chunks of 8 to 32, rows that
+# are not whole 16-byte chunks): the mma kernels serve them; every other
+# bf16 row is at a model's shapes and takes the wgmma kernels
+SSD_MMA_ROWS = ("t1", "t2_groups", "t3_g_eq_h", "t4_chunk24", "unaligned")
+# the CUDA kernel of each SSD stage entry, by variant (<n>: the state
+# width the wgmma kernels are built for)
+SSD_STAGE_KERNELS = {
+    "mma": {"chunk_state": "ssd_scan_chunk_state_kernel",
+            "state_passing": "ssd_scan_state_passing_kernel",
+            "chunk_scan": "ssd_scan_chunk_scan_kernel"},
+    "wgmma": {"state": "ssd_scan_state_wgmma_kernel<{n}>",
+              "chunk_scan": "ssd_scan_chunk_scan_wgmma_kernel<{n}>"},
+}
+
+
+def check_ssd_stages(torch, ops, ss, ref, gen, name, b, s, h, p, g, n,
+                     chunk, *, strided=False):
+    """Each bf16 kernel of the variant serving these inputs
+    (``ssd_scan.variant``; padded to the chunk as ``ops.ssd`` pads) alone
+    against its plain stage function, on the same inputs: a later kernel
+    takes the plain stages' outputs before it, so a fault shows in the
+    kernel that has it.  The mma kernels: cum and the state passing (the
+    entering states and the final state) are fp32 on both sides (the fp32
+    tolerance); the states of stage 1 and y of stage 3 round a product
+    operand to bf16 (the bf16 one).  The wgmma kernels: the state kernel's
+    cum (fp32) and its entering states as pairs (``ref.ssd_state_join``)
+    and final state (bf16: it rounds x dt exp(total - cum) to bf16 as stage
+    1 does) against ``ref.ssd_chunk_state`` then
+    ``ref.ssd_state_passing``; the chunk scan's y (bf16) from the plain
+    cum and the plain states as pairs (``ref.ssd_state_split``).  Each
+    kernel's time is its C entry's alone, on buffers made once outside the
     timed calls (state passing works in place, which changes the values
     but not the work)."""
     x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, torch.bfloat16,
                                 strided)
+    x, dt, B, C, chunk = ops._pad_to_chunk(x, dt, B, C, chunk)
+    variant = ss._variant_of(x, B, C, chunk)
     cum, states = ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)
     entering, final = ref.ssd_state_passing(states, cum)
-    y = ref.ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk)
-    k_cum, k_states = ss.run_stage("chunk_state", x, dt, A, B, C, chunk=chunk)
-    k_entering, k_final = ss.run_stage("state_passing", x, dt, A, B, C,
-                                       chunk=chunk, cum=cum, states=states)
-    k_y = ss.run_stage("chunk_scan", x, dt, A, B, C, chunk=chunk, cum=cum,
-                       states=entering)
-    torch.cuda.synchronize()
 
     def err(out, ref_, dtype):
         rtol, atol_of_max = TOL_SSD[dtype]
@@ -1936,36 +1999,78 @@ def check_ssd_stages(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
         return (max_err(out, ref_, rtol, atol_of_max * y_max), rtol,
                 atol_needed(out, ref_, rtol) / y_max)
 
-    # the C entries alone: scratch, a copy of stage 1's states for the
-    # in-place stage 2, and contiguous cum / entering states, made once
+    # the C entries alone on buffers made once: scratch, a copy of stage
+    # 1's states for the in-place stage 2, contiguous cum / entering states
     y_buf = torch.empty(x.shape, dtype=x.dtype, device=x.device)
-    cum_buf, states_buf = ss._scratch(x, B, chunk)
-    cum_c, entering_c = cum.contiguous(), entering.contiguous()
-    passing_buf = states.contiguous().clone()
+    cum_buf, states_buf = ss._scratch(x, B, chunk, variant)
+    cum_c = cum.contiguous()
 
     def entry(stage, cum_, states_):
-        return lambda: ss._call(ss.STAGES[stage], x, dt, A, B, C, y_buf,
-                                cum_, states_, chunk)
+        return lambda: ss._call(ss.STAGES[variant][stage], x, dt, A, B, C,
+                                y_buf, cum_, states_, chunk)
 
-    cases = {
-        "chunk_state": (
-            [err(k_cum, cum, "float32"), err(k_states, states, "bfloat16")],
-            entry("chunk_state", cum_buf, states_buf),
-            lambda: ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)),
-        "state_passing": (
-            [err(k_entering, entering, "float32"),
-             err(k_final, final, "float32")],
-            entry("state_passing", cum_c, passing_buf),
-            lambda: ref.ssd_state_passing(states, cum)),
-        "chunk_scan": (
-            [err(k_y, y, "bfloat16")],
-            entry("chunk_scan", cum_c, entering_c),
-            lambda: ref.ssd_chunk_scan(x, dt, B, C, cum, entering,
-                                       chunk=chunk)),
-    }
+    if variant == "wgmma":
+        pairs = ref.ssd_state_split(entering)
+        y = ref.ssd_chunk_scan(x, dt, B, C, cum, ref.ssd_state_join(pairs),
+                               chunk=chunk)
+        k_cum, k_pairs, k_final = ss.run_stage("state", x, dt, A, B, C,
+                                               chunk=chunk)
+        k_y = ss.run_stage("chunk_scan", x, dt, A, B, C, chunk=chunk,
+                           cum=cum, states=pairs)
+        torch.cuda.synchronize()
+
+        def plain_state():
+            c_, s_ = ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)
+            return ref.ssd_state_split(ref.ssd_state_passing(s_, c_)[0])
+
+        pairs_c = pairs.contiguous()
+        cases = {
+            "state": (
+                [err(k_cum, cum, "float32"),
+                 err(ref.ssd_state_join(k_pairs), entering, "bfloat16"),
+                 err(k_final, final, "bfloat16")],
+                entry("state", cum_buf, states_buf), plain_state),
+            "chunk_scan": (
+                [err(k_y, y, "bfloat16")],
+                entry("chunk_scan", cum_c, pairs_c),
+                lambda: ref.ssd_chunk_scan(x, dt, B, C, cum,
+                                           ref.ssd_state_join(pairs),
+                                           chunk=chunk)),
+        }
+    else:
+        y = ref.ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk)
+        k_cum, k_states = ss.run_stage("chunk_state", x, dt, A, B, C,
+                                       chunk=chunk)
+        k_entering, k_final = ss.run_stage("state_passing", x, dt, A, B, C,
+                                           chunk=chunk, cum=cum,
+                                           states=states)
+        k_y = ss.run_stage("chunk_scan", x, dt, A, B, C, chunk=chunk,
+                           cum=cum, states=entering)
+        torch.cuda.synchronize()
+        entering_c = entering.contiguous()
+        passing_buf = states.contiguous().clone()
+        cases = {
+            "chunk_state": (
+                [err(k_cum, cum, "float32"),
+                 err(k_states, states, "bfloat16")],
+                entry("chunk_state", cum_buf, states_buf),
+                lambda: ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)),
+            "state_passing": (
+                [err(k_entering, entering, "float32"),
+                 err(k_final, final, "float32")],
+                entry("state_passing", cum_c, passing_buf),
+                lambda: ref.ssd_state_passing(states, cum)),
+            "chunk_scan": (
+                [err(k_y, y, "bfloat16")],
+                entry("chunk_scan", cum_c, entering_c),
+                lambda: ref.ssd_chunk_scan(x, dt, B, C, cum, entering,
+                                           chunk=chunk)),
+        }
     rows = []
     for stage, (errs, kernel, plain) in cases.items():
         row = dict(kernel="ssd_scan", stage=stage, case=name,
+                   variant=variant,
+                   cuda_kernel=SSD_STAGE_KERNELS[variant][stage].format(n=n),
                    dtype="bfloat16",
                    shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
                               strided=strided),
@@ -2002,7 +2107,8 @@ def plain_kernels(ops, fa, rn, ss):
         rmsnorm_residual=lambda x, r, scale, *, eps:
             rn.rmsnorm_residual_plain(x, r, scale, eps))
     ops._ssd = types.SimpleNamespace(ssd_scan=ss.ssd_scan_plain,
-                                     ssd_scan_state=ss.ssd_scan_state_plain)
+                                     ssd_scan_state=ss.ssd_scan_state_plain,
+                                     takes_ragged=lambda *a: False)
     try:
         yield
     finally:
@@ -2327,7 +2433,8 @@ def serve_path(torch, np, F, modules, arch: str,
             model.decode_step(cache, tok, pos + j)
 
     expect_prefill = (("flash_fwd_wgmma_kernel",) if flash_layers else ()) + (
-        ("ssd_scan_state_passing_kernel",) if cfg.ssm_state_dim else ())
+        ("ssd_scan_state_wgmma_kernel", "ssd_scan_chunk_scan_wgmma_kernel")
+        if cfg.ssm_state_dim else ())
     prefill_tokens = pt.shape[1] + model.prefix_len
     for window, fn, expect in (
             (f"{cfg.name} prefill 8x{prefill_tokens}", prefill,
@@ -3153,9 +3260,8 @@ def train_path(torch, np, F, modules, counted: dict):
 
     prof = profile_phase(
         torch, "train step 4x2048", lambda: step(state, batch),
-        expect=("ssd_scan_chunk_state_kernel",
-                "ssd_scan_state_passing_kernel",
-                "ssd_scan_chunk_scan_kernel"))
+        expect=("ssd_scan_state_wgmma_kernel",
+                "ssd_scan_chunk_scan_wgmma_kernel"))
     emit("profile", **prof)
 
     # remat "full": the same loss as a plain forward on these parameters,
@@ -3425,7 +3531,7 @@ def train_stream_path(torch, np, tdata, core, modules, state, step,
                   "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
         prof = profile_phase(torch, "streamed train step 4x2048",
                              lambda: step(state, next(stream)),
-                             expect=("ssd_scan_chunk_scan_kernel",))
+                             expect=("ssd_scan_chunk_scan_wgmma_kernel",))
     finally:
         stream.close()
     emit("profile", **prof)
@@ -4581,7 +4687,7 @@ def dp_train_path(torch, np, modules) -> dict:
                   f"dp launches {launches}, the path implies {expect}")
             prof = profile_phase(
                 torch, "dp step 4x2048", lambda: dp_step(dp, batch),
-                expect=("ssd_scan_chunk_scan_kernel",))
+                expect=("ssd_scan_chunk_scan_wgmma_kernel",))
             emit("profile", **prof)
 
             psum_exact, psum_leaves = True, 0
@@ -7042,7 +7148,8 @@ def plain_ssd(ops, ss):
     own fp32 path is run beside it and recorded (``fp32_kernels``)."""
     saved = ops._ssd
     ops._ssd = types.SimpleNamespace(ssd_scan=ss.ssd_scan_plain,
-                                     ssd_scan_state=ss.ssd_scan_state_plain)
+                                     ssd_scan_state=ss.ssd_scan_state_plain,
+                                     takes_ragged=lambda *a: False)
     try:
         yield
     finally:
@@ -8194,8 +8301,11 @@ def main() -> int:
             ("t3_g_eq_h", (2, 64, 4, 16, 4, 8, 32), {}),
             ("t4_chunk24", (1, 96, 6, 8, 2, 16, 24), {}),
             ("padded300", (2, 300, 48, 64, 1, 128, 256), {}),
+            # the wgmma kernels at p 32 (x's columns past p read as zeros),
+            # two groups and n 64
+            ("p32_groups", (2, 512, 8, 32, 2, 64, 256), dict(strided=True)),
             # rows that are not whole 16-byte chunks (p = 12, n = 10): the
-            # bf16 kernels' element-by-element loads and stores
+            # mma kernels' element-by-element loads and stores
             ("unaligned", (1, 64, 3, 12, 1, 10, 32), {})):
         checks["ssd_scan"] += check_ssd(torch, ops, ss, plain_ctx, gen, name,
                                         *shape, **kw)
@@ -8203,12 +8313,12 @@ def main() -> int:
     # the 4 prompts of 300 that ops.ssd_prefill pads to 512, as strided
     # views of one conv output like the model's
     # and hymba's prefill: 8 x (128 + 512) positions, padded to 768, 50
-    # heads of 64 and state n = 16, which the bf16 stage kernels pad to
-    # their 128-wide tiles
+    # heads of 64 and state n = 16, which the wgmma kernels take at its own
+    # width
     for name, shape in (("serve_prefill", (8, 512, 48, 64, 1, 128, 256)),
                         ("serve_prefill300", (4, 300, 48, 64, 1, 128, 256)),
                         ("hymba_prefill", (8, 640, 50, 64, 1, 16, 256))):
-        checks["ssd_scan"] += check_ssd_state(torch, ops, plain_ctx, gen,
+        checks["ssd_scan"] += check_ssd_state(torch, ops, ss, plain_ctx, gen,
                                               name, *shape)
     # phase 22's per-rank scans at model 2: hymba's 25 of 50 heads (n 16)
     # over its 2 x (128 + 512) positions, padded to 768, and mamba2's 24 of
@@ -8219,15 +8329,33 @@ def main() -> int:
                                          256))):
         checks["ssd_scan"] += check_ssd(torch, ops, ss, plain_ctx, gen, name,
                                         *shape, strided=True)
+    # the model-shape rows on the wgmma kernels, the test shapes on mma
+    served = {r["case"]: r["variant"] for r in checks["ssd_scan"]
+              if r["dtype"] == "bfloat16"}
+    check(all(v == ("mma" if k in SSD_MMA_ROWS else "wgmma")
+              for k, v in served.items())
+          and all(r["variant"] == "scalar" for r in checks["ssd_scan"]
+                  if r["dtype"] == "float32"),
+          f"SSD variants {served}")
+    # each kernel alone: the wgmma kernels at the slice shape and hymba's
+    # prefill (n = 16), the mma kernels at t4_chunk24
     stage_rows = []
     for name, shape, kw in (
             ("slice", (TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256),
              dict(strided=True)),
+            ("hymba_prefill", (8, 640, 50, 64, 1, 16, 256),
+             dict(strided=True)),
             ("t4_chunk24", (1, 96, 6, 8, 2, 16, 24), {})):
-        stage_rows += check_ssd_stages(torch, ss, ref, gen, name, *shape,
-                                       **kw)
+        stage_rows += check_ssd_stages(torch, ops, ss, ref, gen, name,
+                                       *shape, **kw)
+    check([r["variant"] for r in stage_rows] ==
+          ["wgmma"] * 4 + ["mma"] * 3,
+          f"SSD stage kernels {[r['variant'] for r in stage_rows]}")
 
     # ---- 4-6c. the serving paths at full width -----------------------------
+    # the SSD scan's launches by variant from here on: the main paths'
+    # phases, their warm-ups, profile windows and checks
+    ssd_by_variant0 = dict(ss.ssd_scan.launches_by_variant)
     counted = {}                   # phase 24's counted steps
     serve_launches = serve_path(torch, np, F, modules, ARCH,
                                 counted=counted)
@@ -8426,9 +8554,20 @@ def main() -> int:
     # the SSD scan's three stage kernels, each timed alone (the slice
     # shape); the scan with its final state at the serving prefill shape
     by_name = {k["name"]: k for k in kernels}
-    by_name["ssd_scan"]["stages_ms"] = {r["stage"]: r["kernel_ms"]
-                                        for r in stage_rows
-                                        if r["case"] == "slice"}
+    by_name["ssd_scan"]["variant"] = next(
+        r["variant"] for r in checks["ssd_scan"]
+        if r["case"] == "slice" and r["dtype"] == "bfloat16")
+    now = ss.ssd_scan.launches_by_variant
+    by_name["ssd_scan"]["launches_by_variant"] = {
+        k: now[k] - ssd_by_variant0[k] for k in now}
+    by_name["ssd_scan"]["launches_by_variant_script"] = dict(now)
+    # each kernel alone, by case: {case: {stage: ms}} with its variant
+    by_name["ssd_scan"]["stages_ms"] = {
+        case: {"variant": next(r["variant"] for r in stage_rows
+                               if r["case"] == case),
+               **{r["stage"]: r["kernel_ms"] for r in stage_rows
+                  if r["case"] == case}}
+        for case in dict.fromkeys(r["case"] for r in stage_rows)}
     state_row = next(r for r in checks["ssd_scan"]
                      if r["case"] == "serve_prefill"
                      and r["dtype"] == "bfloat16")
@@ -8437,12 +8576,14 @@ def main() -> int:
     # the scan with its final state at hymba's prefill (n = 16), and the
     # fleet phase's 6 x 2048 training shape
     by_name["ssd_scan"]["cases"] = {
-        r["case"]: dict(ms=r["kernel_ms"], plain_ms=r["plain_ms"],
+        r["case"]: dict(variant=r["variant"], ms=r["kernel_ms"],
+                        plain_ms=r["plain_ms"],
                         y_only_ms=r.get("y_only_ms"), bound_ms=r["bound_ms"],
                         bound_by=r["bound_by"], library_ms=None)
         for r in checks["ssd_scan"]
-        if r["case"] in ("hymba_prefill", "fleet6", "dp_mb",
-                         "tp_hybrid_rank", "tp_ssm_rank")
+        if r["case"] in ("hymba_prefill", "fleet6", "dp_mb", "padded300",
+                         "serve_prefill", "serve_prefill300",
+                         "tp_hybrid_rank", "tp_ssm_rank", "p32_groups")
         and r["dtype"] == "bfloat16"}
     # flash at phi-3-vision's head dim, at the MoE and prefix paths'
     # prefills and at whisper's shapes

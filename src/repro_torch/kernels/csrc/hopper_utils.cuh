@@ -1,5 +1,6 @@
-// Hopper building blocks for the flash-attention backward
-// (flash_attention.cu), in hand-written PTX so the library builds in
+// Hopper building blocks for the flash-attention kernels
+// (flash_attention.cu) and the SSD scan's (ssd_scan.cu), in hand-written
+// PTX so the libraries build in
 // seconds: wgmma (the warpgroup's asynchronous tensor-core product) with
 // shared-memory matrix descriptors, TMA tensor loads and bulk copies that
 // complete on mbarriers, thread-block cluster barriers and distributed
@@ -82,9 +83,25 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// the same for the A fragments of a wgmma that reads them from registers:
+// placed after the wait, it keeps them live until the product has read
+// them, so no other value takes their registers while it runs
+template <int R>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x on the multi-function unit alone; a result below 2^-126 flushes to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // the A fragment of K step kk from accumulator columns 16 kk .. 16 kk + 15
@@ -324,6 +341,32 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "r"(c3), "r"(bar)
       : "memory");
 }
+// one box of shared memory at src into a 4-D map, as a bulk group of this
+// thread (bulk_commit, bulk_wait_read); the threads that wrote src fence
+// their writes for the async proxy first (fence_proxy_async)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// wait until this thread's bulk groups but the newest N have read their
+// shared memory (it may be written again)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// makes this thread's writes to shared memory visible to the async proxy
+// (a TMA store or a wgmma that reads them next)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 // `bytes` (a multiple of 16) from 16-byte-aligned global memory, completing
 // on bar
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -334,6 +377,56 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// 64-row tiles of COLS bf16 columns, as a TMA box of each panel writes them
+// (the layout described at the top); the SSD scan's kernels (ssd_scan.cu)
+// read theirs through these
+// ---------------------------------------------------------------------------
+template <int COLS>
+struct Tile64 {
+  static_assert(COLS % 16 == 0 && COLS <= 256, "16 to 256 columns, by 16");
+  static constexpr int PANEL = COLS % 64 == 0 ? 64 : COLS % 32 == 0 ? 32 : 16;
+  static constexpr int ROW_BYTES = 2 * PANEL;  // 128, 64 or 32
+  static constexpr int PANEL_BYTES = 64 * ROW_BYTES;
+  static constexpr int BYTES = 64 * COLS * 2;
+  // the descriptors' swizzle: 1 128-byte, 2 64-byte, 3 32-byte
+  static constexpr int LAYOUT = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+
+  // descriptor of K step kk (16 columns) of the tile read K-major
+  __device__ __forceinline__ static uint64_t kmajor(uint32_t tile, int kk) {
+    constexpr int STEPS = PANEL / 16;  // K steps a panel
+    return smem_desc(tile + (kk / STEPS) * PANEL_BYTES + (kk % STEPS) * 32, 16,
+                     8 * ROW_BYTES, LAYOUT);
+  }
+  // descriptor of K step kk (16 rows, every column) of the tile read
+  // MN-major
+  __device__ __forceinline__ static uint64_t mnmajor(uint32_t tile, int kk) {
+    return smem_desc(tile + kk * 16 * ROW_BYTES, PANEL_BYTES, 8 * ROW_BYTES,
+                     LAYOUT);
+  }
+  // byte offset of the 2-byte column col (even) of row r: its panel, the
+  // row, and the 16-byte chunk swizzled by the panel's row length
+  __device__ __forceinline__ static int offset(int r, int col) {
+    const int chunk = (col % PANEL) / 8;
+    const int sw = ROW_BYTES == 128  ? r % 8
+                   : ROW_BYTES == 64 ? (r / 2) % 4
+                                     : (r / 4) % 2;
+    return (col / PANEL) * PANEL_BYTES + r * ROW_BYTES + (chunk ^ sw) * 16 +
+           (col % 8) * 2;
+  }
+  // rows [row0, row0 + 64) of one (b, head) of a 4-D map (bshd_map, its box
+  // PANEL x 64) into the tile at dst, a box a panel, completing on bar
+  __device__ __forceinline__ static void load(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              int head, int row0, int b,
+                                              uint32_t bar) {
+#pragma unroll
+    for (int pn = 0; pn < COLS / PANEL; ++pn)
+      tma_load_4d(dst + pn * PANEL_BYTES, map, pn * PANEL, head, row0, b,
+                  bar);
+  }
+};
 
 // ---------------------------------------------------------------------------
 // thread-block clusters, named barriers

@@ -156,13 +156,23 @@ def _pad_to_chunk(x, dt, B, C, chunk: int):
     return x, dt, B, C, chunk
 
 
+def _scan_input(x, dt, B, C, chunk: int):
+    """(x, dt, B, C, chunk) as the scan takes them: padded to a multiple of
+    the chunk (``_pad_to_chunk``), unless the kernels read the ragged end
+    as zeros themselves (``ssd_scan.takes_ragged``: the wgmma kernels)."""
+    c = min(chunk, x.shape[1])
+    if _ssd.takes_ragged(x, B, C, c):
+        return x, dt, B, C, c
+    return _pad_to_chunk(x, dt, B, C, chunk)
+
+
 def ssd(x, dt, A, B, C, *, chunk: int = 256):
     """Chunked SSD scan (training / prefill); shapes as ``ssd_scan``.  A
     sequence that is not a multiple of the chunk is padded
-    (``_pad_to_chunk``) and the output cut back."""
+    (``_scan_input``) and the output cut back."""
     s = x.shape[1]
     with _ssd_region(x, B, chunk):
-        x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+        x, dt, B, C, chunk = _scan_input(x, dt, B, C, chunk)
         y = _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)[:, :s]
         _counter.keep(y)
     return y
@@ -187,7 +197,7 @@ def ssd_prefill(x, dt, A, B, C, *, chunk: int = 256):
     tensor runs the kernel, which writes the state itself."""
     s = x.shape[1]
     with _ssd_region(x, B, chunk, state=True):
-        x, dt, B, C, chunk = _pad_to_chunk(x, dt, B, C, chunk)
+        x, dt, B, C, chunk = _scan_input(x, dt, B, C, chunk)
         y, state = _ssd.ssd_scan_state(x, dt, A, B, C, chunk=chunk)
         y = y[:, :s]
         _counter.keep(y, state)

@@ -254,6 +254,21 @@ def ssd_state_passing(states, cum, *, initial_state=None):
     return torch.stack(entering, dim=2), state
 
 
+def ssd_state_split(entering):
+    """The fp32 states entering each chunk (b, h, chunks, p, n) as the
+    wgmma chunk scan reads them: bf16 pairs (b, h, chunks, p, 2, n), hi
+    the state rounded to bf16 and lo what hi leaves over, rounded to bf16,
+    so hi + lo carries ~16 of fp32's mantissa bits."""
+    hi = entering.to(torch.bfloat16)
+    lo = (entering - hi.float()).to(torch.bfloat16)
+    return torch.stack((hi, lo), dim=-2)
+
+
+def ssd_state_join(pairs):
+    """``ssd_state_split``'s pairs back as fp32 states, hi + lo."""
+    return pairs[..., 0, :].float() + pairs[..., 1, :].float()
+
+
 def ssd_chunk_scan(x, dt, B, C, cum, entering, *, chunk: int):
     """Stage 3: y_i = exp(cum_i) C_i in_z^T
     + sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j within each chunk.

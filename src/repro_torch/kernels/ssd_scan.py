@@ -1,29 +1,51 @@
-"""Mamba2 SSD chunked scan: a hand-written CUDA C++ kernel for Hopper, its
-plain PyTorch twin, and its gradient.
+"""Mamba2 SSD chunked scan: hand-written CUDA C++ kernels for Hopper, their
+plain PyTorch twin, and the gradient.
 
 The kernels (``csrc/ssd_scan.cu``) replace the Pallas TPU kernel
 ``repro/kernels/ssd_scan.py`` · ``ssd_scan``; the source's header says what
 bounds them on an H100 and how the design answers that.  They are compiled
 by nvcc for ``sm_90a`` at first use (``_build.py``) and called through
-ctypes on PyTorch's current stream.  In bf16 one ``ssd_scan_fwd`` call
-launches the three stages of the Mamba2 chunked algorithm (chunk state,
-state passing, chunk scan, the plain ``ref.ssd_chunk_state`` /
-``ssd_state_passing`` / ``ssd_chunk_scan``) on tensor cores, through fp32
-scratch the wrapper allocates; fp32 inputs take the first, scalar kernel.
+ctypes on PyTorch's current stream.  Three variants, chosen in one place,
+``variant``, and launched by the C entry as told (a call its variant does
+not take is refused, never sent to another kernel):
+
+* ``"wgmma"``: bf16 at the model's shapes (p a multiple of 16 up to 64, n
+  16, 32, 64 or 128, a chunk a multiple of 64, every base and stride of x,
+  B and C 16-byte aligned, as the conv output's slices are).  Two kernels
+  on Hopper's warpgroup products, fed by TMA: the state kernel
+  (``ref.ssd_chunk_state`` and ``ref.ssd_state_passing`` in one, each
+  (b, h) walking its chunks with the fp32 state in its accumulator; it
+  writes the entering states as the bf16 pairs of ``ref.ssd_state_split``)
+  and the chunk scan (``ref.ssd_chunk_scan``, C B^T computed once for
+  ``WQ_HEADS`` heads of a group).  Tiles are as wide as the state: hymba's
+  n = 16 is not padded; nor is a sequence that is not a multiple of the
+  chunk (``takes_ragged``: the kernels read its end as zeros).  What
+  bounds them: the products need wgmma to reach the card's rate, and the
+  mma kernels moved the state scratch three times; now the chunk scan's
+  alternation of decays and products holds them.  At mamba2-780m's
+  training shape (4 x 2048) they take 0.1467-0.1509 ms against 0.3305 ms
+  for the mma kernels, and at hymba's prefill 0.0747 against 0.3014, in
+  turns on an NVIDIA H100 80GB HBM3 at 700 W (``tools/kernel_compare.py``;
+  PERF.md section 6).
+* ``"mma"``: the other bf16 shapes (small p or n, a chunk of 24,
+  unaligned views): three ``mma.sync`` stage kernels, chunk state, state
+  passing and chunk scan, tiles padded to p 64 and n 128.
+* ``"scalar"``: fp32, the first, scalar kernel.
 
 Why CUDA C++ and not Triton: per chunk the scan is four small matrix
 products with a state carried from one chunk to the next inside the
 program, not a fused elementwise pass or a reduction.
 
-``ssd_scan`` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take; it uses the plain twin (``ref.ssd_chunked``) only
-for tensors on the CPU.  ``ssd_scan_state`` is the same for prefill: it
-also returns the state after the last chunk, which the kernel writes into
-a buffer the wrapper allocates (the TPU kernel returns y only; the JAX
+``ssd_scan`` launches the kernels for CUDA tensors and raises on anything
+no kernel takes; it uses the plain twin (``ref.ssd_chunked``) only for
+tensors on the CPU.  ``ssd_scan_state`` is the same for prefill: it also
+returns the state after the last chunk, which the kernels write into a
+buffer the wrapper allocates (the TPU kernel returns y only; the JAX
 package's prefill takes its jnp chunked path instead).  No gradient flows
 through it: serving only.  ``ssd_scan.launches`` counts the
-``ssd_scan_fwd`` calls of both, one per forward, bf16 or fp32; the CPU
-path counts none.  ``run_stage`` launches one bf16 stage alone, to hold it
+``ssd_scan_fwd`` calls of both, one per forward, bf16 or fp32, and
+``ssd_scan.launches_by_variant`` the same by variant; the CPU path counts
+none.  ``run_stage`` launches one kernel of a variant alone, to hold it
 against its stage function; it is not counted.
 
 The gradient: when an input requires one, the call goes through
@@ -45,6 +67,7 @@ import functools
 import threading
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
 from repro_torch.roofline import counter as _counter
@@ -52,10 +75,19 @@ from repro_torch.roofline import counter as _counter
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
-# the bf16 stage kernels' C entries, in the order ssd_scan_fwd runs them
-STAGES = {"chunk_state": "ssd_scan_chunk_state_fwd",
-          "state_passing": "ssd_scan_state_passing_fwd",
-          "chunk_scan": "ssd_scan_chunk_scan_fwd"}
+# the variants, by the code the C entry takes; the state widths n the wgmma
+# kernels are built for and the rows of their sub-blocks (the chunk is a
+# multiple)
+VARIANTS = {"scalar": 0, "mma": 1, "wgmma": 2}
+WGMMA_WIDTHS = (16, 32, 64, 128)
+WGMMA_TILE = 64
+# each bf16 variant's kernels alone: {stage: C entry}, in the order
+# ssd_scan_fwd runs them
+STAGES = {"mma": {"chunk_state": "ssd_scan_chunk_state_fwd",
+                  "state_passing": "ssd_scan_state_passing_fwd",
+                  "chunk_scan": "ssd_scan_chunk_scan_fwd"},
+          "wgmma": {"state": "ssd_scan_state_wgmma_fwd",
+                    "chunk_scan": "ssd_scan_chunk_scan_wgmma_fwd"}}
 
 
 def ssd_scan_plain(x, dt, A, B, C, *, chunk: int = 256):
@@ -71,22 +103,70 @@ def ssd_scan_state_plain(x, dt, A, B, C, *, chunk: int = 256):
 def ssd_scan_backward(x, dt, A, B, C, dy, *, chunk: int):
     """Gradients of ``sum(y * dy)`` for x, dt, A, B and C, by recomputing y
     through ``ref.ssd_chunked`` (masked before its exp, so finite at any
-    chunk) under autograd."""
+    chunk) under autograd.  A sequence that is not a multiple of the chunk
+    (the wgmma kernels' forward takes it as it is) is padded with zeros,
+    dt 0, inside the recompute: the padding's arithmetic, and the gradients
+    of the unpadded inputs."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
-        y, _ = ref.ssd_chunked(*leaves, chunk=chunk)
-        return torch.autograd.grad(y, leaves, dy)
+        lx, ldt, lA, lB, lC = leaves
+        s = x.shape[1]
+        pad = (-s) % chunk
+        if pad:
+            lx, lB, lC = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (lx, lB, lC))
+            ldt = F.pad(ldt, (0, 0, 0, pad))
+        y, _ = ref.ssd_chunked(lx, ldt, lA, lB, lC, chunk=chunk)
+        return torch.autograd.grad(y[:, :s], leaves, dy)
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for entry in ("ssd_scan_fwd", *STAGES.values()):
+    args = [ptr] * 9 + [i32] * 8 + [i64] * 15 + [ptr]
+    for entry in ("ssd_scan_fwd",
+                  *(e for stages in STAGES.values() for e in stages.values())):
         fn = getattr(lib, entry)
-        fn.argtypes = [ptr] * 9 + [i32] * 8 + [i64] * 15 + [ptr]
+        fn.argtypes = args + [i32] if entry == "ssd_scan_fwd" else args
         fn.restype = ctypes.c_int
+    lib.ssd_scan_smem_bytes.argtypes = [i32] * 3
+    lib.ssd_scan_smem_bytes.restype = ctypes.c_int
     return lib
+
+
+def _aligned16(t) -> bool:
+    """t starts on a 16-byte boundary and every stride but the last is a
+    whole number of 16-byte chunks (bf16): what a TMA tensor map takes."""
+    return (t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:-1]))
+
+
+def variant(p: int, n: int, chunk: int, dtype, aligned: bool) -> str:
+    """The kernels that serve a call on the card: ``"wgmma"`` for bf16 with
+    p a multiple of 16 (up to ``MAX_P``), n one of ``WGMMA_WIDTHS``, a
+    chunk a multiple of ``WGMMA_TILE`` and x, B and C 16-byte aligned
+    (``aligned``: ``_aligned16`` of each); ``"mma"`` for any other bf16
+    call; ``"scalar"`` for fp32."""
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if (aligned and p % 16 == 0 and p <= MAX_P and n in WGMMA_WIDTHS
+            and chunk % WGMMA_TILE == 0 and chunk <= MAX_CHUNK):
+        return "wgmma"
+    return "mma"
+
+
+def _variant_of(x, B, C, chunk: int) -> str:
+    """``variant`` of these tensors."""
+    return variant(x.shape[3], B.shape[3], chunk, x.dtype,
+                   _aligned16(x) and _aligned16(B) and _aligned16(C))
+
+
+def takes_ragged(x, B, C, chunk: int) -> bool:
+    """Whether a sequence that is not a multiple of ``chunk`` goes to the
+    kernels as it is: the wgmma kernels read the rows past it as zeros and
+    dt there as 0, the arithmetic of ``ops``' padding without its copies.
+    Every other path is padded by ``ops``."""
+    return x.device.type == "cuda" and _variant_of(x, B, C, chunk) == "wgmma"
 
 
 def _check(x, dt, A, B, C, chunk: int) -> None:
@@ -104,7 +184,8 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
         raise ValueError(f"ssd_scan: h={h} not a multiple of g={g}")
     if p > MAX_P or n > MAX_N:
         raise ValueError(f"ssd_scan: p={p} > {MAX_P} or n={n} > {MAX_N}")
-    if not 0 < chunk <= MAX_CHUNK or s % chunk:
+    if not 0 < chunk <= MAX_CHUNK or (s % chunk and not takes_ragged(
+            x, B, C, chunk)):
         raise ValueError(f"ssd_scan: chunk {chunk} must be in 1..{MAX_CHUNK} "
                          f"and divide s={s} (ops.ssd pads)")
     if x.dtype not in _DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
@@ -117,23 +198,35 @@ def _check(x, dt, A, B, C, chunk: int) -> None:
                          "stride")
 
 
-def _scratch(x, B, chunk: int):
-    """The bf16 path's fp32 scratch: cum (b, h, chunks, chunk) and the
-    states (b, h, chunks, p, n)."""
+def _scratch(x, B, chunk: int, which: str = "mma"):
+    """A bf16 variant's scratch: cum (b, h, chunks, chunk) fp32 and the
+    states, for ``"mma"`` each chunk's (b, h, chunks, p, n) fp32, for
+    ``"wgmma"`` the state entering each chunk as bf16 pairs (b, h, chunks,
+    p, 2, n), hi then lo (``ref.ssd_state_split``).  The same bytes."""
     b, s, h, p = x.shape
     n = B.shape[3]
-    kw = dict(dtype=torch.float32, device=x.device)
-    return (torch.empty((b, h, s // chunk, chunk), **kw),
-            torch.empty((b, h, s // chunk, p, n), **kw))
+    nc = -(-s // chunk)     # a ragged end (the wgmma kernels) is a chunk
+    cum = torch.empty((b, h, nc, chunk), dtype=torch.float32,
+                      device=x.device)
+    if which == "wgmma":
+        states = torch.empty((b, h, nc, p, 2, n), dtype=torch.bfloat16,
+                             device=x.device)
+    else:
+        states = torch.empty((b, h, nc, p, n), dtype=torch.float32,
+                             device=x.device)
+    return cum, states
 
 
 def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int,
           final=None) -> None:
     """One C entry.  ``final``: a contiguous fp32 (b, h, p, n) buffer for
-    the state after the last chunk, or None."""
+    the state after the last chunk, or None.  ``ssd_scan_fwd`` is told the
+    variant of these tensors (``variant``)."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     lib = _library()
+    extra = ((VARIANTS[_variant_of(x, B, C, chunk)],)
+             if entry == "ssd_scan_fwd" else ())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(lib, entry)(
@@ -144,7 +237,7 @@ def _call(entry: str, x, dt, A, B, C, y, cum, states, chunk: int,
             None if final is None else final.data_ptr(),
             _DTYPES[x.dtype], b, s, h, p, g, n, chunk, *x.stride()[:3],
             *dt.stride(), *B.stride()[:3], *C.stride()[:3], *y.stride()[:3],
-            stream)
+            stream, *extra)
     if err:
         raise RuntimeError(f"ssd_scan: {entry} failed with CUDA error {err}")
 
@@ -165,46 +258,58 @@ def _launch(x, dt, A, B, C, chunk: int, *, with_state: bool = False):
         if final is not None:
             final.zero_()
         return (y, final) if with_state else y
+    which = _variant_of(x, B, C, chunk)
     cum = states = None
-    if x.dtype == torch.bfloat16:
-        cum, states = _scratch(x, B, chunk)
+    if which != "scalar":
+        cum, states = _scratch(x, B, chunk, which)
     _call("ssd_scan_fwd", x, dt, A, B, C, y, cum, states, chunk, final)
     with _count_lock:
         ssd_scan.launches += 1
+        ssd_scan.launches_by_variant[which] += 1
     return (y, final) if with_state else y
 
 
 def run_stage(stage: str, x, dt, A, B, C, *, chunk: int, cum=None,
               states=None):
-    """One bf16 stage kernel alone on CUDA tensors, to hold it against its
-    plain stage function in ``ref``; not counted in ``ssd_scan.launches``.
+    """One bf16 kernel alone on CUDA tensors, of the variant of these
+    inputs (``variant``), to hold it against its plain stage function in
+    ``ref``; not counted in ``ssd_scan.launches``.
 
-    ``chunk_state`` returns new (cum, states) like ``ref.ssd_chunk_state``;
-    ``state_passing`` returns (the states entering each chunk, computed in
-    place on a copy of ``states`` (from stage 1) with ``cum``, and the
-    final state);
-    ``chunk_scan`` returns y from ``cum`` and the entering ``states``."""
-    if stage not in STAGES:
+    The mma variant: ``chunk_state`` returns new (cum, states) like
+    ``ref.ssd_chunk_state``; ``state_passing`` returns (the states
+    entering each chunk, computed in place on a copy of ``states`` (from
+    stage 1) with ``cum``, and the final state); ``chunk_scan`` returns y
+    from ``cum`` and the entering ``states``.  The wgmma variant:
+    ``state`` returns (cum, the entering states as (hi, lo) bf16 pairs
+    (b, h, chunks, p, 2, n), the final state) like ``ref.ssd_chunk_state``,
+    ``ref.ssd_state_passing`` and ``ref.ssd_state_split`` together;
+    ``chunk_scan`` returns y from ``cum`` and the pairs ``states``."""
+    if not any(stage in stages for stages in STAGES.values()):
         raise ValueError(f"ssd_scan: no stage {stage!r}; one of "
-                         f"{list(STAGES)}")
+                         f"{ {k: list(v) for k, v in STAGES.items()} }")
     if x.device.type != "cuda" or x.dtype != torch.bfloat16:
         raise ValueError("ssd_scan: the stage kernels take bf16 CUDA tensors")
     _check(x, dt, A, B, C, chunk)
+    which = _variant_of(x, B, C, chunk)
+    if stage not in STAGES[which]:
+        raise ValueError(f"ssd_scan: the {which} variant serves these "
+                         f"inputs and has no stage {stage!r}")
     dt = dt.float()
     A = A.float().contiguous()
+    b, _, h, p = x.shape
     y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     final = None
-    if stage == "chunk_state":
-        cum, states = _scratch(x, B, chunk)
-    elif stage == "state_passing":
-        states = states.contiguous().clone()
-        b, _, h, p = x.shape
+    if stage in ("chunk_state", "state"):
+        cum, states = _scratch(x, B, chunk, which)
+    if stage in ("state_passing", "state"):
+        if stage == "state_passing":
+            states = states.contiguous().clone()
         final = torch.empty((b, h, p, B.shape[3]), dtype=torch.float32,
                             device=x.device)
-    _call(STAGES[stage], x, dt, A, B, C, y, cum.contiguous(),
+    _call(STAGES[which][stage], x, dt, A, B, C, y, cum.contiguous(),
           states.contiguous(), chunk, final)
     return {"chunk_state": (cum, states), "state_passing": (states, final),
-            "chunk_scan": y}[stage]
+            "state": (cum, states, final), "chunk_scan": y}[stage]
 
 
 def _meta(x) -> bool:
@@ -223,11 +328,14 @@ def _meta_outputs(x, B):
 
 def scratch_bytes(b: int, s: int, h: int, p: int, n: int, chunk: int,
                   dtype) -> int:
-    """The bytes of the bf16 path's fp32 scratch (``_scratch``) at a
-    (padded) length s; the fp32 path takes none."""
+    """The bytes of a bf16 variant's scratch (``_scratch``) at a length s
+    padded to the chunk (the wgmma kernels' ragged end takes a whole
+    chunk's too), the same for both: fp32 cum, and fp32 states or as many
+    bytes of bf16 pairs; the fp32 path takes none."""
     if dtype != torch.bfloat16:
         return 0
-    return 4 * b * h * (s + (s // chunk) * p * n)
+    nc = -(-s // chunk)
+    return 4 * b * h * nc * (chunk + p * n)
 
 
 def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
@@ -263,6 +371,7 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256) -> torch.Tensor:
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 def ssd_scan_state(x, dt, A, B, C, *, chunk: int = 256):

@@ -8,7 +8,9 @@ Mamba2 paper's chunked algorithm (arXiv:2405.21060), as the CUDA kernels do:
 ``ssd_chunk_scan`` (y from C, B, x and the entering state).  These hold
 their composition against ``repro.kernels.ref.ssd_naive`` and the Pallas
 ``ssd_scan`` in interpret mode, and the state entering every chunk against
-the sequential recurrence run up to that chunk.  Inputs are made with numpy
+the sequential recurrence run up to that chunk; the entering states as the
+wgmma chunk scan reads them (``ref.ssd_state_split``, bf16 pairs) carry the
+state and give the same y.  Inputs are made with numpy
 from a seed and handed to both packages.  Tolerance: fp32, 1e-4 absolute and
 1e-3 relative (``_close`` of test_torch_ssm.py): the chunked and sequential
 forms sum in different orders.  The stage kernels run only on the card,
@@ -167,3 +169,43 @@ def test_torch_kernel_library_hash_covers_shared_headers(tmp_path,
     assert all(before[n] != after[n] for n in before)
     assert '#include "mma_utils.cuh"' in (
         tmp_path / "flash_attention.cu").read_text()
+
+
+@pytest.mark.parametrize("b,s,h,p,g,n,chunk", STAGE_SHAPES)
+def test_torch_ssd_state_split_carries_the_entering_state(b, s, h, p, g, n,
+                                                          chunk):
+    """The entering states as the wgmma chunk scan reads them
+    (``ref.ssd_state_split``, the state kernel's output): bf16 pairs
+    (b, h, chunks, p, 2, n) whose sum (``ref.ssd_state_join``) is each
+    fp32 state to within 2^-16 of itself, and so the JAX recurrence's
+    state at each chunk's start; the chunk scan from the joined pairs
+    gives ``repro``'s y, from the recurrence and from the Pallas kernel in
+    interpret mode."""
+    jin, tin = ssd_inputs(b, s, h, p, g, n)
+    x, dt, A, B, C = tin
+    cum, states = ref.ssd_chunk_state(x, dt, A, B, chunk=chunk)
+    entering, _ = ref.ssd_state_passing(states, cum)
+    pairs = ref.ssd_state_split(entering)
+    assert pairs.shape == (b, h, s // chunk, p, 2, n)
+    assert pairs.dtype == torch.bfloat16
+    joined = ref.ssd_state_join(pairs)
+    assert joined.dtype == torch.float32
+    assert bool(((joined - entering).abs()
+                 <= 2.0 ** -16 * entering.abs()).all())
+    jx, jdt, jA, jB, jC = jin
+    for z in range(1, s // chunk):
+        t = z * chunk
+        _, expect = jref.ssd_naive(jx[:, :t], jdt[:, :t], jA, jB[:, :t],
+                                   jC[:, :t])
+        _close(joined[:, :, z], expect)
+    y = ref.ssd_chunk_scan(x, dt, B, C, cum, joined, chunk=chunk)
+    _close(y, jref.ssd_naive(*jin)[0])
+    _close(y, jssd_scan(*jin, chunk=chunk, interpret=True))
+
+
+def test_torch_ssd_state_split_is_exact_for_bf16_states():
+    """A state that bf16 holds exactly splits into itself and zeros."""
+    e = torch.tensor([[1.0, -0.5, 3.0, 0.0]]).reshape(1, 1, 1, 1, 4)
+    pairs = ref.ssd_state_split(e)
+    assert torch.equal(pairs[..., 0, :].float(), e)
+    assert torch.equal(pairs[..., 1, :].float(), torch.zeros_like(e))

@@ -126,6 +126,22 @@ def test_torch_ssd_backward_matches_jax_grad():
             _close(gt, ge, atol=1e-5 * scale, rtol=1e-4)
 
 
+def test_torch_ssd_backward_of_a_ragged_sequence():
+    """The wgmma kernels' forward takes a sequence that is not a multiple
+    of the chunk as it is (``ssd_scan.takes_ragged``); its backward pads
+    inside the recompute and gives the gradients of the unpadded inputs:
+    ``jax.grad`` of the sequential ``ref.ssd_naive``."""
+    b, s, h, p, g, n, chunk = 2, 40, 4, 8, 2, 4, 16
+    jin, tin = ssd_inputs(b, s, h, p, g, n)
+    jdy, tdy = rand(5, (b, s, h, p))
+    expect = _jax_grads(jref.ssd_naive, jin, jdy)
+    got = ss.ssd_scan_backward(*tin, tdy, chunk=chunk)
+    for gt, ge, t in zip(got, expect, tin):
+        assert gt.shape == t.shape
+        scale = float(np.abs(np.asarray(ge)).max())
+        _close(gt, ge, atol=1e-5 * scale, rtol=1e-4)
+
+
 def test_torch_ssd_gradient_is_finite_at_chunk_256():
     """At the published chunk of 256 with real dt (softplus of N(0,1)) and
     A = -1, the reference's chunked form has a NaN gradient (it masks after
