@@ -8,8 +8,9 @@ Phases, each printing one JSON line:
 
 1. device: the card, its power limit, torch and CUDA versions; TF32 off.
 2. build: compile every kernel from the checkout's sources (one nvcc per
-   CUDA C++ source, flash attention and the SSD scan, all started
-   together; Triton's JIT for rmsnorm and rmsnorm_residual meanwhile),
+   CUDA C++ source, flash attention, the SSD scan and its backward, all
+   started together; Triton's JIT for rmsnorm and rmsnorm_residual
+   meanwhile),
    with ptxas' registers, static shared memory and spills for every CUDA
    kernel and the dynamic shared memory the launches ask for, as the
    kernels' own launch code computes it.
@@ -70,6 +71,23 @@ Phases, each printing one JSON line:
    registers and shared memory; the three launches timed together and
    each alone, beside the plain backward, SDPA's backward and the bound;
    an fp32 or unaligned input that needs a gradient must raise.
+   The SSD scan's backward (``ssd_scan_backward`` rows, through
+   ``_SSDScan`` as the models call it; ``SSD_BWD_CASES``) at ``slice``,
+   ``fleet6``, ``dp_mb``, ``tp_ssm_rank``, ``tp_hybrid_rank`` (ragged),
+   ``p32_groups``, ``t4_chunk24``, ``unaligned`` and ``slice`` in fp32:
+   dx, ddt, dA, dB, dC against the fp32 autograd recompute
+   (``ssd_scan_backward``), each within 2x the staged twin's own distance
+   plus its own ``SSD_BWD_ATOL_OF_MAX`` of its largest entry (bf16: dx,
+   dB, dC 4e-3, the fp32 ddt and dA 5e-4), a 4-bit control that must
+   fail for each, a second call bit-equal, the variant (mma for bf16,
+   scalar for fp32), each kernel's time alone, the kernels' time beside
+   the plain recompute's and the bound; calls no variant takes must
+   raise.  rmsnorm's backward (``rmsnorm_backward`` rows, through
+   ``_RMSNorm``) at 8,192 rows of 896, 1,536 and 3,072 against its plain
+   twin, a second call bit-equal, timed beside the twin, ``F.rms_norm``'s
+   autograd backward and the bound.  From here on the plain backward
+   twins raise on CUDA tensors (``plain_backward_refused``, in the
+   model-axis ranks too): every training path runs the kernels.
 4. serve: full-width qwen2-0.5b in bf16, weights drawn from a seeded CUDA
    generator, 16 requests of 512 prompt tokens and 4 of 300, 32 new tokens
    each, through ``BatchingFrontend`` -> ``ServeEngine`` ->
@@ -155,10 +173,12 @@ Phases, each printing one JSON line:
    tokens made from the seed, through ``init_train_state`` ->
    ``make_train_step`` -> ``DecoderLM.loss``.  A warm-up step, then four
    timed steps with the launch counters zeroed before and read after
-   (exactly 24 ssd_scan and 49 rmsnorm launches per forward); finite,
+   (exactly 24 ssd_scan and 49 rmsnorm launches per forward, and as many
+   of their backward kernels per step; every training phase below counts
+   its backward launches so); finite,
    falling losses starting near ln(vocab); step time, tokens/s and peak
    memory; one step under the profiler, which must show the SSD stage
-   kernels; one step with remat "full", whose
+   kernels and the backward kernels; one step with remat "full", whose
    loss must equal the forward's and whose recompute launches are counted.
 8. train_plain: one loss and gradient on the same parameters and batch
    through the kernels and through the plain twins, in bf16 compute (the
@@ -548,6 +568,29 @@ TOL_NORM = {"bfloat16": 2e-2, "float32": 1e-5}     # rmsnorm, rmsnorm_residual
 # hold, and 4e-3 stands 3.5x above the worst.  The stage checks hold cum
 # and the state passing, fp32 on both sides, to the fp32 pair.
 TOL_SSD = {"bfloat16": (2e-2, 4e-3), "float32": (1e-3, 1e-4)}
+# phase 3: the SSD scan's backward kernels (through ``_SSDScan``, as the
+# models call them) against the autograd recompute in fp32
+# (``ssd_scan.ssd_scan_backward`` on the same inputs): each of dx, ddt, dA,
+# dB, dC within BWD_TWIN_RATIO x the staged twin's own largest distance
+# from it (``ref.ssd_chunked_backward``: fp32 inside, its outputs rounded
+# to the input's type) plus its own SSD_BWD_ATOL_OF_MAX of its largest
+# entry.  The bf16 kernels round the scores dCB to bf16 once (the states,
+# the walks' scaled rows and CB o L enter as hi / lo pairs), where the
+# twin keeps them fp32, so dB and dC near 0 are off by about one bf16
+# rounding of the terms they sum: 4e-3 of the largest entry, the
+# forward's own atol (TOL_SSD), for them and for dx; on an NVIDIA H100
+# 80GB HBM3 at 700 W they read up to 4.5e-3 against limits of 7.3e-3 to
+# 1.1e-2.  ddt and dA are fp32 outputs, and the twin's are fp32 too (its
+# distance ~0): they read 2.6e-6 to 2.7e-5 of their largest entry there,
+# and 5e-4 sits 18x above the worst; a form that rounded du's scores to
+# bf16 once read ddt 8.5e-4 to 2.2e-3 (PERF.md section 6), past it.
+# fp32 runs every product in fp32: 1e-4 for each.
+# The kernels' gradients rounded to BWD_CONTROL_BITS mantissa bits must
+# fail each limit.
+SSD_BWD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+SSD_BWD_ATOL_OF_MAX = {
+    "bfloat16": dict(dx=4e-3, ddt=5e-4, dA=5e-4, dB=4e-3, dC=4e-3),
+    "float32": dict.fromkeys(SSD_BWD_GRADS, 1e-4)}
 
 # phase 6: full-width SSM serving workload, the same REQUESTS
 SSM_ARCH = "mamba2-780m"
@@ -877,6 +920,32 @@ TP_FLOOR_RATIO = 2.0
 SCATTER_CONTROL = "every scatter_seq slicing without its sum"
 # a rank's peak with every leaf whole, at 24 layers (PERF.md)
 TP_WHOLE_PEAK_GB = 14.4
+# phase 3's SSD backward cases (SSD_BWD_ATOL_OF_MAX), name -> ((b, s, h,
+# p, g, n, chunk), strided, dtype): the training shape, the fleet's and
+# the dp phase's, phase 22's two ranks (hymba's 640 positions at chunk
+# 256: a ragged end), p 32 with two groups, the test shapes (chunk 24; p
+# 12, n 10), and the training shape in fp32 (the scalar kernels)
+SSD_BWD_CASES = {
+    "slice": ((TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256), True,
+              "bfloat16"),
+    "fleet6": ((6, TRAIN_SEQ, 48, 64, 1, 128, 256), True, "bfloat16"),
+    "dp_mb": ((TRAIN_BATCH // DP_MICROBATCHES, TRAIN_SEQ, 48, 64, 1, 128,
+               256), True, "bfloat16"),
+    "tp_ssm_rank": ((TP_BATCH, TP_SEQ, 24, 64, 1, 128, 256), True,
+                    "bfloat16"),
+    "tp_hybrid_rank": ((TP_BATCH, TP_SEQ + 128, 25, 64, 1, 16, 256), True,
+                       "bfloat16"),
+    "p32_groups": ((2, 512, 8, 32, 2, 64, 256), True, "bfloat16"),
+    "t4_chunk24": ((1, 96, 6, 8, 2, 16, 24), False, "bfloat16"),
+    "unaligned": ((1, 64, 3, 12, 1, 10, 32), False, "bfloat16"),
+    "slice_fp32": ((TRAIN_BATCH, TRAIN_SEQ, 48, 64, 1, 128, 256), True,
+                   "float32"),
+}
+# the norms' backward rows: (rows, d) of the train path's norms (qwen2's
+# d_model, mamba2's d_model and its gate norm over d_inner)
+RMSNORM_BWD_CASES = {"d896": (TRAIN_BATCH * TRAIN_SEQ, 896),
+                     "d1536": (TRAIN_BATCH * TRAIN_SEQ, 1536),
+                     "d3072": (TRAIN_BATCH * TRAIN_SEQ, 3072)}
 RING_SHAPE = (4096, 896, 4864)          # (m, k, f) of ring_weight_matmul
 BIG_ARCH, BIG_MODEL, BIG_BATCH, BIG_SEQ = "qwen3-1.7b", 4, 2, 512
 BIG_LAYERS = 8
@@ -1063,6 +1132,7 @@ def device_ms(torch, fn, iters: int = 20):
 # device-time groups of a profile window, by kernel name: the first
 # pattern a name contains decides its group
 KERNEL_GROUPS = (
+    ("ssd_scan backward", ("ssd_bwd",)),
     ("ssd_scan", ("ssd_scan",)),
     ("flash_attention", ("flash_",)),
     ("rmsnorm (Triton)", ("rmsnorm",)),
@@ -1866,11 +1936,6 @@ def check_ssd(torch, ops, ss, plain_ctx, gen, name, b, s, h, p, g, n, chunk,
 
         fns = {"kernel": lambda: ops.ssd(x, dt, A, B, C, chunk=chunk),
                "plain": plain}
-        if name == "slice":
-            # the train step's backward: the plain recompute, per layer
-            dy = torch.randn(x.shape, generator=gen, device="cuda").to(dt_type)
-            fns["backward"] = lambda: ss.ssd_scan_backward(x, dt, A, B, C, dy,
-                                                           chunk=chunk)
         # no PyTorch call computes a selective scan
         row = dict(kernel="ssd_scan", case=name, dtype=dtype,
                    variant=variant, second_call_bit_equal=same,
@@ -2081,6 +2146,214 @@ def check_ssd_stages(torch, ops, ss, ref, gen, name, b, s, h, p, g, n,
         emit("ssd_stage", **row)
         rows.append(row)
     return rows
+
+
+def launched_bwd_variant(ss, before: dict) -> str:
+    """The one SSD backward variant launched since ``before``, a copy of
+    ``ssd_scan.backward_launches_by_variant``."""
+    now = ss.ssd_scan.backward_launches_by_variant
+    used = [k for k in now if now[k] != before[k]]
+    check(len(used) == 1 and now[used[0]] == before[used[0]] + 1,
+          f"ssd_scan backward launches {before} -> {now}: not one variant")
+    return used[0]
+
+
+def check_ssd_backward(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
+                       *, strided, dtype):
+    """The SSD scan's backward kernels through ``_SSDScan`` (as the models
+    call them) against the fp32 autograd recompute on the same inputs,
+    each gradient to the staged twin's own distance from it
+    (SSD_BWD_ATOL_OF_MAX, its own for each), a control at
+    BWD_CONTROL_BITS mantissa bits that must fail, a second call that must
+    give the same bits, and the variant ``backward_variant`` names
+    (``mma`` for bf16, ``scalar`` for fp32).  Times the kernels (the
+    backward's own fp32 walk for the entering states, then its d-state
+    walk, chunk kernel and reduction) on inputs made once, each kernel of
+    one call alone from the profiler, and the plain recompute
+    (``ssd_scan_backward``); no PyTorch call computes a selective scan."""
+    dt_type = getattr(torch, dtype)
+    x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, dt_type,
+                                strided)
+    dy = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dt_type)
+
+    def through():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
+        return torch.autograd.grad(ss.ssd_scan(*leaves, chunk=chunk), leaves,
+                                   dy)
+
+    before = dict(ss.ssd_scan.backward_launches_by_variant)
+    got = through()
+    torch.cuda.synchronize()
+    variant = launched_bwd_variant(ss, before)
+    check(variant == ("mma" if dtype == "bfloat16" else "scalar"),
+          f"ssd backward {name} {dtype}: served by {variant}")
+    again = through()
+    torch.cuda.synchronize()
+    repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    check(repeat_equal, f"ssd backward {name}: two calls on the same inputs "
+          f"gave different bits")
+    del again
+    oracle = ss.ssd_scan_backward(x.float(), dt, A, B.float(), C.float(),
+                                  dy.float(), chunk=chunk)
+    twin = ref.ssd_chunked_backward(x, dt, A, B, C, dy, chunk=chunk)
+    grads = {}
+    for gname, g_, r, t in zip(SSD_BWD_GRADS, got, oracle, twin):
+        check(g_.shape == r.shape and g_.dtype == t.dtype,
+              f"ssd backward {name}: {gname} {tuple(g_.shape)} {g_.dtype}")
+        check(bool(torch.isfinite(g_.float()).all()),
+              f"ssd backward {name}: {gname} is not finite")
+        ref_max = float(r.abs().max())
+        err = float((g_.float() - r).abs().max())
+        twin_err = float((t.float() - r).abs().max())
+        limit = (BWD_TWIN_RATIO * twin_err
+                 + SSD_BWD_ATOL_OF_MAX[dtype][gname] * ref_max)
+        control = float((coarsen(torch, g_, BWD_CONTROL_BITS).float()
+                         - r).abs().max())
+        grads[gname] = dict(max_abs_err=err, twin_err=twin_err, limit=limit,
+                            atol_of_max=SSD_BWD_ATOL_OF_MAX[dtype][gname],
+                            ref_max=ref_max, control_err=control,
+                            err_of_max=err / max(ref_max, 1e-30),
+                            vs_twin=float((g_.float() - t.float()).abs()
+                                          .max()))
+        check(err <= limit, f"ssd backward {name} {dtype}: {gname} off by "
+              f"{err}, limit {limit} (twin {twin_err}, max |ref| "
+              f"{ref_max})")
+        check(control > limit,
+              f"ssd backward {name}: {gname} at {BWD_CONTROL_BITS} "
+              f"mantissa bits ({control}) passes the limit {limit}")
+    del got, oracle, twin
+    refused = {}
+    if name == "slice":
+        # what no variant takes raises, and nothing falls back
+        refused = dict(
+            float16=raises(lambda: ss.backward_variant(p, n, chunk,
+                                                       torch.float16),
+                           NotImplementedError),
+            wide_p=raises(lambda: ss.backward_variant(p + 16, n, chunk,
+                                                      dt_type),
+                          NotImplementedError))
+        check(all(refused.values()),
+              f"ssd backward: a call no variant takes did not raise: "
+              f"{refused}")
+
+    def kernel():
+        return ss.backward_kernel(x, dt, A, B, C, dy, chunk=chunk)
+
+    _, _, avgs = device_busy(torch, lambda: [kernel() for _ in range(5)])
+    stages_ms = {e.key[:60]: e.self_device_time_total / 1e3 / 5
+                 for e in avgs if e.self_device_time_total > 0}
+    flops, nbytes = costs.ssd_scan_backward(b, s, h, p, g, n, chunk,
+                                            elem=x.element_size())
+    bound_ms, bound_by = costs.bound(flops, nbytes, dtype)
+    row = dict(kernel="ssd_scan_backward", case=name, dtype=dtype,
+               variant=variant,
+               forward_variant=ss._variant_of(x, B, C, chunk),
+               shape=dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk,
+                          strided=strided),
+               max_abs_err=max(v["max_abs_err"] for v in grads.values()),
+               grads=grads, control_bits=BWD_CONTROL_BITS, refused=refused,
+               repeat_equal=repeat_equal, stages_ms=stages_ms,
+               **timings(torch, {
+                   "kernel": kernel,
+                   "plain": lambda: ss.ssd_scan_backward(x, dt, A, B, C, dy,
+                                                         chunk=chunk)}),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               flops=flops, bytes=nbytes)
+    emit("kernel_check", **row)
+    del x, dt, A, B, C, dy
+    torch.cuda.empty_cache()
+    return [row]
+
+
+def check_rmsnorm_backward(torch, F, rn, gen, name, rows_, d):
+    """rmsnorm's backward kernels through ``_RMSNorm`` (as the models call
+    them) against the plain twin ``rmsnorm_backward`` on the same inputs:
+    dx to TOL_NORM of the input's type and dscale, fp32 whatever that
+    type (both sides sum it over every row in fp32, in another order), to
+    TOL_NORM["float32"] and that of its largest entry; a second call must
+    give the same bits.  Times the kernels, the twin and F.rms_norm's
+    autograd backward alone (its forward made once), and the bound."""
+    out_rows = []
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        x = torch.randn((rows_, d), generator=gen, device="cuda").to(dt)
+        scale = torch.randn((d,), generator=gen, device="cuda")
+        dy = torch.randn((rows_, d), generator=gen, device="cuda").to(dt)
+
+        def through():
+            xl = x.detach().requires_grad_()
+            sl = scale.detach().requires_grad_()
+            return torch.autograd.grad(rn.rmsnorm(xl, sl, eps=1e-6),
+                                       (xl, sl), dy)
+
+        before = rn.rmsnorm.backward_launches
+        got = through()
+        torch.cuda.synchronize()
+        check(rn.rmsnorm.backward_launches == before + 1,
+              f"rmsnorm backward {name}: the kernels did not launch once")
+        repeat_equal = all(torch.equal(a, b) for a, b in zip(got, through()))
+        check(repeat_equal, f"rmsnorm backward {name}: two calls on the "
+              f"same inputs gave different bits")
+        twin = rn.rmsnorm_backward(x, scale, dy, 1e-6)
+        tol = TOL_NORM[dtype]
+        err_dx = max_err(got[0], twin[0], tol)
+        tol_ds = TOL_NORM["float32"]
+        ds_max = float(twin[1].float().abs().max())
+        err_ds = max_err(got[1], twin[1], tol_ds, tol_ds * ds_max)
+        xl = x.detach().requires_grad_()
+        sl = scale.to(dt).detach().requires_grad_()
+        yl = F.rms_norm(xl, (d,), sl, 1e-6)
+        flops, nbytes = costs.rmsnorm_backward(
+            rows_, d, elem=x.element_size(), scale_elem=scale.element_size())
+        bound_ms, bound_by = costs.bound(flops, nbytes, "float32")
+        row = dict(kernel="rmsnorm_backward", case=name, dtype=dtype,
+                   shape=dict(rows=rows_, d=d),
+                   max_abs_err=max(err_dx, err_ds), dx_err=err_dx,
+                   dscale_err=err_ds, dscale_err_of_max=err_ds / ds_max,
+                   tol=tol, dscale_tol=tol_ds, repeat_equal=repeat_equal,
+                   blocks=rn.backward_blocks(rows_),
+                   **timings(torch, {
+                       "kernel": lambda: rn.backward_kernel(x, scale, dy,
+                                                            1e-6),
+                       "plain": lambda: rn.rmsnorm_backward(x, scale, dy,
+                                                            1e-6),
+                       "library": lambda: torch.autograd.grad(
+                           yl, (xl, sl), dy, retain_graph=True)}),
+                   bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                   bytes=nbytes)
+        emit("kernel_check", **row)
+        out_rows.append(row)
+        del x, dy, xl, sl, yl, got, twin
+    return out_rows
+
+
+@contextlib.contextmanager
+def plain_backward_refused(modules, ref):
+    """The plain backward twins and the autograd recompute raise on CUDA
+    tensors for the block: a training path on the card runs the backward
+    kernels or fails, and no route quietly gives way to a twin.  (The plain
+    runs that hold the kernels against the twins, ``plain_kernels``,
+    differentiate the plain forwards themselves and call none of these.)"""
+    rn, ss = modules["rn"], modules["ss"]
+    targets = ((rn, "rmsnorm_backward"), (ss, "ssd_scan_backward"),
+               (ref, "ssd_chunked_backward"))
+    saved = [getattr(mod, attr) for mod, attr in targets]
+
+    def refuse(fn, what):
+        def guarded(*args, **kwargs):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise RuntimeError(f"chip_smoke: the plain {what} ran on "
+                                   f"CUDA tensors on a training path")
+            return fn(*args, **kwargs)
+        return guarded
+
+    for (mod, attr), fn in zip(targets, saved):
+        setattr(mod, attr, refuse(fn, attr))
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in zip(targets, saved):
+            setattr(mod, attr, fn)
 
 
 # --------------------------------------------------------------------------
@@ -3208,12 +3481,10 @@ def train_path(torch, np, F, modules, counted: dict):
     tokens = TRAIN_BATCH * TRAIN_SEQ
 
     def counts():
-        return {"ssd_scan": ss.ssd_scan.launches,
-                "rmsnorm": rn.rmsnorm.launches}
+        return ssm_train_counts(ss, rn)
 
     def zero():
-        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
-        fa.flash_attention.launches = 0
+        zero_ssm_train(fa, rn, ss)
 
     t0 = time.perf_counter()
     state, m = step(state, batch)                      # warm-up, step 1
@@ -3233,8 +3504,7 @@ def train_path(torch, np, F, modules, counted: dict):
         grad_norms.append(float(m["grad_norm"]))
     launches = counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    expect = {"ssd_scan": L * TRAIN_STEPS,
-              "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+    expect = ssm_train_expect(L, TRAIN_STEPS)
     ln_v = float(np.log(cfg.vocab_size))
     emit("train", arch=cfg.name, params=cfg.param_count(),
          batch=[TRAIN_BATCH, TRAIN_SEQ], remat_policy=tcfg.remat_policy,
@@ -3261,7 +3531,9 @@ def train_path(torch, np, F, modules, counted: dict):
     prof = profile_phase(
         torch, "train step 4x2048", lambda: step(state, batch),
         expect=("ssd_scan_state_wgmma_kernel",
-                "ssd_scan_chunk_scan_wgmma_kernel"))
+                "ssd_scan_chunk_scan_wgmma_kernel",
+                "ssd_bwd_chunk_mma_kernel", "ssd_bwd_own_mma_kernel",
+                "rmsnorm_bwd_kernel"))
     emit("profile", **prof)
 
     # remat "full": the same loss as a plain forward on these parameters,
@@ -3277,7 +3549,9 @@ def train_path(torch, np, F, modules, counted: dict):
     torch.cuda.synchronize()
     full_s = time.perf_counter() - t0
     full_launches = counts()
-    full_expect = {"ssd_scan": 2 * L, "rmsnorm": (2 * L + 1) + 2 * L}
+    # the norms' and the scan's backward kernels still once each
+    full_expect = dict(ssm_train_expect(L, 1), ssd_scan=2 * L,
+                       rmsnorm=(2 * L + 1) + 2 * L)
     full_loss = float(m["loss"])
     emit("train_remat", remat_policy="full", loss=full_loss,
          forward_loss=fwd_loss, step_s=full_s,
@@ -3513,8 +3787,7 @@ def train_stream_path(torch, np, tdata, core, modules, state, step,
             batch[k].cpu().numpy().tobytes() == first_expect[k].tobytes()
             for k in first_expect)
         check(same, "the first streamed batch differs from the host batch")
-        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
-        fa.flash_attention.launches = 0
+        zero_ssm_train(fa, rn, ss)
         losses, step_s = [], []
         for i in range(TRAIN_STEPS):
             if i:
@@ -3524,14 +3797,13 @@ def train_stream_path(torch, np, tdata, core, modules, state, step,
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             losses.append(float(m["loss"]))
-        launches = {"ssd_scan": ss.ssd_scan.launches,
-                    "rmsnorm": rn.rmsnorm.launches}
+        launches = ssm_train_counts(ss, rn)
         flash = fa.flash_attention.launches
-        expect = {"ssd_scan": L * TRAIN_STEPS,
-                  "rmsnorm": (2 * L + 1) * TRAIN_STEPS}
+        expect = ssm_train_expect(L, TRAIN_STEPS)
         prof = profile_phase(torch, "streamed train step 4x2048",
                              lambda: step(state, next(stream)),
-                             expect=("ssd_scan_chunk_scan_wgmma_kernel",))
+                             expect=("ssd_scan_chunk_scan_wgmma_kernel",
+                                     "ssd_bwd_chunk_mma_kernel"))
     finally:
         stream.close()
     emit("profile", **prof)
@@ -3757,8 +4029,7 @@ def trainer_path(torch, np, tdata, modules) -> dict:
                     retune_history=ot.history,
                     straggler_medians=tr.straggler.medians())
 
-    ss.ssd_scan.launches = rn.rmsnorm.launches = 0
-    fa.flash_attention.launches = 0
+    zero_ssm_train(fa, rn, ss)
     try:
         # ---- A: straight, no checkpoint; DPT runs and fills the cache ----
         tr = make(TRAINER_STEPS)
@@ -3819,12 +4090,11 @@ def trainer_path(torch, np, tdata, modules) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    launches = {"ssd_scan": ss.ssd_scan.launches,
-                "rmsnorm": rn.rmsnorm.launches}
+    launches = ssm_train_counts(ss, rn)
     flash = fa.flash_attention.launches
     L = cfg.num_layers
     n_steps = 2 * TRAINER_STEPS           # A, then B1 and B2 between them
-    expect = {"ssd_scan": L * n_steps, "rmsnorm": (2 * L + 1) * n_steps}
+    expect = ssm_train_expect(L, n_steps)
     loss_diff = [abs(x - y) for x, y in
                  zip(a["losses"][TRAINER_STEPS // 2:], b2_sum["losses"])]
     emit("trainer", arch=cfg.name, batch=[TRAIN_BATCH, TRAIN_SEQ],
@@ -4113,8 +4383,7 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
 
     mem_before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    ss.ssd_scan.launches = rn.rmsnorm.launches = 0
-    fa.flash_attention.launches = 0
+    zero_ssm_train(fa, rn, ss)
     trainer_mod.make_train_step = make_timed
     t0 = time.perf_counter()
     try:
@@ -4124,8 +4393,7 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
         for s in streams:
             s.close()
     run_s = time.perf_counter() - t0
-    launches = {"ssd_scan": ss.ssd_scan.launches,
-                "rmsnorm": rn.rmsnorm.launches}
+    launches = ssm_train_counts(ss, rn)
     flash = fa.flash_attention.launches
     peak = torch.cuda.max_memory_allocated()
     device_ms = [a.elapsed_time(b) for a, b in step_events]
@@ -4218,9 +4486,8 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
          bytes_unequal=unequal, staging=staging,
          mem_before_run_bytes=mem_before, peak_mem_bytes=peak, run_s=run_s,
          phase_s=time.perf_counter() - t_phase, transport=stats,
-         launches=launches, expected_launches={
-             "ssd_scan": L * len(losses),
-             "rmsnorm": (2 * L + 1) * len(losses)},
+         launches=launches,
+         expected_launches=ssm_train_expect(L, len(losses)),
          flash_attention_launches=flash)
 
     # ---- the checks ------------------------------------------------------
@@ -4279,8 +4546,7 @@ def fleet_train_path(torch, np, tdata, modules) -> dict:
     check(agent.steps == st["round"] == len(losses) == len(taken),
           f"steps {agent.steps}, rounds {st['round']}, losses "
           f"{len(losses)}, batches {len(taken)}")
-    check(launches == {"ssd_scan": L * len(losses),
-                       "rmsnorm": (2 * L + 1) * len(losses)},
+    check(launches == ssm_train_expect(L, len(losses)),
           f"fleet_train launches {launches} over {len(losses)} steps")
     check(flash == 0, "mamba2 launched attention")
     tr.state = tr.step_fn = None         # the next phase needs the memory
@@ -4561,21 +4827,17 @@ def dp_train_path(torch, np, modules) -> dict:
             device="cuda")
 
     def counts():
-        return {"ssd_scan": ss.ssd_scan.launches,
-                "rmsnorm": rn.rmsnorm.launches,
-                "flash_attention": fa.flash_attention.launches}
+        return dict(ssm_train_counts(ss, rn),
+                    flash_attention=fa.flash_attention.launches)
 
     def zero():
-        ss.ssd_scan.launches = rn.rmsnorm.launches = 0
-        fa.flash_attention.launches = 0
+        zero_ssm_train(fa, rn, ss)
 
     def cosine(a, b):
         return float(torch.nn.functional.cosine_similarity(
             a.flatten().double(), b.flatten().double(), dim=0, eps=1e-30))
 
-    per_step = {"ssd_scan": L * DP_MICROBATCHES,
-                "rmsnorm": (2 * L + 1) * DP_MICROBATCHES,
-                "flash_attention": 0}
+    per_step = dict(ssm_train_expect(L, DP_MICROBATCHES), flash_attention=0)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     t0 = time.perf_counter()
     dist.init_process_group(
@@ -4687,7 +4949,8 @@ def dp_train_path(torch, np, modules) -> dict:
                   f"dp launches {launches}, the path implies {expect}")
             prof = profile_phase(
                 torch, "dp step 4x2048", lambda: dp_step(dp, batch),
-                expect=("ssd_scan_chunk_scan_wgmma_kernel",))
+                expect=("ssd_scan_chunk_scan_wgmma_kernel",
+                        "ssd_bwd_chunk_mma_kernel"))
             emit("profile", **prof)
 
             psum_exact, psum_leaves = True, 0
@@ -4823,34 +5086,63 @@ def coarse_backward(fa, torch, bits: int):
 def dense_launches(fa, rn) -> dict:
     return {"flash_attention": fa.flash_attention.launches,
             "flash_attention_backward": fa.flash_attention.backward_launches,
-            "rmsnorm": rn.rmsnorm.launches}
+            "rmsnorm": rn.rmsnorm.launches,
+            "rmsnorm_backward": rn.rmsnorm.backward_launches}
 
 
 def zero_launches(fa, rn, ss) -> None:
     fa.flash_attention.launches = fa.flash_attention.backward_launches = 0
     rn.rmsnorm.launches = ss.ssd_scan.launches = 0
+    rn.rmsnorm.backward_launches = ss.ssd_scan.backward_launches = 0
     rn.row_sumsq.launches = rn.rmsnorm_total.launches = 0
 
 
 def ssm_launches(fa, rn, ss) -> dict:
-    """``dense_launches`` with the SSD scan's and the split-row rmsnorm
-    pair's."""
+    """``dense_launches`` with the SSD scan's (forward and backward) and
+    the split-row rmsnorm pair's."""
     return dict(dense_launches(fa, rn), ssd_scan=ss.ssd_scan.launches,
+                ssd_scan_backward=ss.ssd_scan.backward_launches,
                 row_sumsq=rn.row_sumsq.launches,
                 rmsnorm_total=rn.rmsnorm_total.launches)
+
+
+def ssm_train_counts(ss, rn) -> dict:
+    """The mamba2 phases' launches: the scan and the whole-row norm, each
+    forward and backward."""
+    return {"ssd_scan": ss.ssd_scan.launches,
+            "rmsnorm": rn.rmsnorm.launches,
+            "ssd_scan_backward": ss.ssd_scan.backward_launches,
+            "rmsnorm_backward": rn.rmsnorm.backward_launches}
+
+
+def ssm_train_expect(L: int, steps: int) -> dict:
+    """``ssm_train_counts`` of ``steps`` mamba2 steps of L layers at remat
+    "none": a scan and 2 norms a layer and the final norm, each with its
+    backward kernel once."""
+    return {"ssd_scan": L * steps, "rmsnorm": (2 * L + 1) * steps,
+            "ssd_scan_backward": L * steps,
+            "rmsnorm_backward": (2 * L + 1) * steps}
+
+
+def zero_ssm_train(fa, rn, ss) -> None:
+    ss.ssd_scan.launches = rn.rmsnorm.launches = 0
+    ss.ssd_scan.backward_launches = rn.rmsnorm.backward_launches = 0
+    fa.flash_attention.launches = 0
 
 
 def dense_expect(L: int, policy: str, steps: int = 1,
                  qk_norm: bool = False) -> dict:
     """Launches of ``steps`` steps of a dense LM of L layers: one flash
     forward a layer and one backward, 2L + 1 norms (4L + 1 with qk-norm's
-    two a layer); a remat policy other than "none" runs each layer's
-    forward again in the backward."""
+    two a layer) and a norm backward each; a remat policy other than
+    "none" runs each layer's forward again in the backward (the norms'
+    backward still once each)."""
     again = 0 if policy == "none" else 1
     per_layer = 4 if qk_norm else 2
     return {"flash_attention": (1 + again) * L * steps,
             "flash_attention_backward": L * steps,
-            "rmsnorm": ((1 + again) * per_layer * L + 1) * steps}
+            "rmsnorm": ((1 + again) * per_layer * L + 1) * steps,
+            "rmsnorm_backward": (per_layer * L + 1) * steps}
 
 
 def train_dense_path(torch, np, F, modules, counted: dict) -> dict:
@@ -5012,7 +5304,8 @@ def train_dense_path(torch, np, F, modules, counted: dict) -> dict:
                          expect=("flash_fwd_wgmma_kernel",
                                  "flash_bwd_dkdv_wgmma_kernel",
                                  "flash_bwd_dq_wgmma_kernel",
-                                 "flash_bwd_preprocess_kernel"))
+                                 "flash_bwd_preprocess_kernel",
+                                 "rmsnorm_bwd_kernel"))
     emit("profile", **prof)
     dots_step = make_train_step(model, TrainStepConfig(remat_policy="dots",
                                                        optimizer=opt))
@@ -5254,6 +5547,7 @@ def rank_main(args) -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.kernels import ref
     modules = dict(ops=ops, fa=fa, rn=rn, ss=ss)
     store = dist.FileStore(os.path.join(workdir, f"store_{phase}"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
@@ -5261,7 +5555,8 @@ def rank_main(args) -> int:
         fn = {"tp_train": tp_train_rank, "tp_train_big": tp_train_big_rank,
               "ep_serve": ep_serve_rank, "tp_ssm": tp_ssm_rank,
               "tp_vlm_encdec": tp_vlm_encdec_rank}[phase]
-        res = fn(torch, np, F, modules, workdir)
+        with plain_backward_refused(modules, ref):
+            res = fn(torch, np, F, modules, workdir)
         res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     finally:
         dist.destroy_process_group()
@@ -6129,7 +6424,7 @@ def kv_verdict(res, ref, cfg) -> None:
     serve_verdict(
         "tp", kv, ref, runs=("fp32", "control", "bf16"),
         expect={"flash_attention": L * len(KV_PROMPTS),
-                "flash_attention_backward": 0,
+                "flash_attention_backward": 0, "rmsnorm_backward": 0,
                 "rmsnorm": (2 * L + 1) * KV_STEPS * len(KV_PROMPTS)},
         control_what="partial softmaxes averaged without their lse weights",
         checks=[(cache_err <= KV_CACHE_OF_MAX, f"a rank's fp32 K/V block "
@@ -6870,7 +7165,7 @@ def solo_verdict(torch, np, F, key: str, res, ref) -> dict:
                   for (h, w), r in zip(held, runs))
     reqs = [(int(w.shape[0]), int(w.shape[1])) for w in ref["bf16"]]
     expect = {"flash_attention": L * len(reqs),
-              "flash_attention_backward": 0,
+              "flash_attention_backward": 0, "rmsnorm_backward": 0,
               "rmsnorm": (2 * L + 1) * sum(n for _, n in reqs)}
     emit("ep_serve_replicated", check=key, arch=cfg.name,
          mesh={"data": EP_DATA, "model": EP_MODEL}, rules="SERVE_RULES_BIG",
@@ -7000,7 +7295,7 @@ def ep_serve_path(torch, np, F, modules) -> dict:
     order = [r["data_rank"] for r in res] == [i // EP_MODEL
                                              for i in range(len(res))]
     expect = {"flash_attention": L, "flash_attention_backward": 0,
-              "rmsnorm": (2 * L + 1) * (1 + EP_STEPS)}
+              "rmsnorm": (2 * L + 1) * (1 + EP_STEPS), "rmsnorm_backward": 0}
     r0 = res[0]
     emit("ep_serve_backend", backend=r0["backend"], ranks=len(res),
          moved_per_rank=[r["moved"] for r in res],
@@ -7099,10 +7394,12 @@ def ssm_expect(cfg, split: bool = True, steps: int = 1) -> dict:
     launch each a layer."""
     L = cfg.num_layers
     per_layer = 4 if cfg.uses_attention else 1
+    norms = (per_layer + (not split)) * L + 1
     return {"flash_attention": len(cfg.global_attn_layers),
             "flash_attention_backward": len(cfg.global_attn_layers),
-            "rmsnorm": ((per_layer + (not split)) * L + 1) * steps,
-            "ssd_scan": L, "row_sumsq": L * steps * split,
+            "rmsnorm": norms * steps, "rmsnorm_backward": norms,
+            "ssd_scan": L, "ssd_scan_backward": L,
+            "row_sumsq": L * steps * split,
             "rmsnorm_total": L * steps * split}
 
 
@@ -7411,7 +7708,9 @@ def ssm_kv_verdict(key, cfg, res, ref) -> dict:
         for r in kv for row in r["fp32"]["rows"])
     per_set = ssm_expect(cfg, steps=KV_STEPS)
     expect = {k: v * len(sets) for k, v in per_set.items()}
-    expect["flash_attention_backward"] = 0
+    for k in ("flash_attention_backward", "rmsnorm_backward",
+              "ssd_scan_backward"):
+        expect[k] = 0
     serve_verdict(
         key, kv, ref, runs=("fp32", "fp32_kernels", "control", "bf16"),
         expect=expect,
@@ -7555,7 +7854,8 @@ def ve_expect(cfg, steps: int = 0) -> dict:
         flash += cfg.num_layers * (steps - 1)
     return {"flash_attention": flash,
             "flash_attention_backward": 0 if steps else flash,
-            "rmsnorm": norms * max(steps, 1)}
+            "rmsnorm": norms * max(steps, 1),
+            "rmsnorm_backward": 0 if steps else norms}
 
 
 def ve_collective_plan(cfg, r) -> dict:
@@ -7873,7 +8173,9 @@ def launch_counts(modules) -> dict:
             "rmsnorm_residual": rn.rmsnorm_residual.launches,
             "row_sumsq": rn.row_sumsq.launches,
             "rmsnorm_total": rn.rmsnorm_total.launches,
-            "ssd_scan": ss.ssd_scan.launches}
+            "ssd_scan": ss.ssd_scan.launches,
+            "rmsnorm_backward": rn.rmsnorm.backward_launches,
+            "ssd_scan_backward": ss.ssd_scan.backward_launches}
 
 
 def set_launch_counts(modules, counts: dict) -> None:
@@ -7885,6 +8187,8 @@ def set_launch_counts(modules, counts: dict) -> None:
     rn.row_sumsq.launches = counts["row_sumsq"]
     rn.rmsnorm_total.launches = counts["rmsnorm_total"]
     ss.ssd_scan.launches = counts["ssd_scan"]
+    rn.rmsnorm.backward_launches = counts["rmsnorm_backward"]
+    ss.ssd_scan.backward_launches = counts["ssd_scan_backward"]
 
 
 def card_count(torch, modules, counted: dict, key: str, fn, names: dict,
@@ -7978,13 +8282,12 @@ def dryrun_path(torch, np, modules, counted: dict) -> dict:
         regions = {k: v["regions"] for k, v in cs["kernels"].items()}
         launched = {k: v for k, v in rec["launches"].items() if v}
         # the card's kernel regions against its launch counters: the
-        # partial forward is a launch of the forward kernel; the backwards
-        # of rmsnorm are plain PyTorch, no launch
+        # partial forward is a launch of the forward kernel; each backward
+        # region (flash, the SSD scan, rmsnorm) one launch of its kernels
         by_launch = dict(regions)
         by_launch["flash_attention"] = by_launch.get(
             "flash_attention", 0) + by_launch.pop(
             "flash_attention_partial", 0)
-        by_launch.pop("rmsnorm_backward", None)
         by_launch = {k: v for k, v in by_launch.items() if v}
         launches[key] = launched
         shape = ShapeConfig(key, S, B, rec["kind"])
@@ -8105,7 +8408,7 @@ def main() -> int:
          allow_tf32=False)
 
     # ---- 2. build: nvcc in the background while Triton compiles ------------
-    cuda_sources = ("flash_attention", "ssd_scan")
+    cuda_sources = ("flash_attention", "ssd_scan", "ssd_scan_bwd")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
         nvcc_job = pool.submit(_build.build, *cuda_sources)
@@ -8351,6 +8654,20 @@ def main() -> int:
     check([r["variant"] for r in stage_rows] ==
           ["wgmma"] * 4 + ["mma"] * 3,
           f"SSD stage kernels {[r['variant'] for r in stage_rows]}")
+    # the backward kernels of the SSD scan and of rmsnorm, each against
+    # its plain twin and the fp32 reference
+    checks["ssd_scan_backward"] = []
+    for name, (shape, strided, dtype) in SSD_BWD_CASES.items():
+        checks["ssd_scan_backward"] += check_ssd_backward(
+            torch, ss, ref, gen, name, *shape, strided=strided, dtype=dtype)
+    checks["rmsnorm_backward"] = []
+    for name, (rows_, d) in RMSNORM_BWD_CASES.items():
+        checks["rmsnorm_backward"] += check_rmsnorm_backward(
+            torch, F, rn, gen, name, rows_, d)
+
+    # from here on a plain backward twin on CUDA tensors is an error
+    refuse_plain = contextlib.ExitStack()
+    refuse_plain.enter_context(plain_backward_refused(modules, ref))
 
     # ---- 4-6c. the serving paths at full width -----------------------------
     # the SSD scan's launches by variant from here on: the main paths'
@@ -8539,6 +8856,8 @@ def main() -> int:
             replaces="src/repro/kernels/rmsnorm.py:44"),
     }
     backward_rows = checks.pop("flash_attention_backward")
+    ssd_bwd_rows = checks.pop("ssd_scan_backward")
+    rms_bwd_rows = checks.pop("rmsnorm_backward")
     kernels = []
     for name, rows_ in checks.items():
         row = next(r for r in rows_ if r["case"] == main_case[name]
@@ -8671,6 +8990,68 @@ def main() -> int:
                             library_ms=None,
                             whole_row_library_ms=r["whole_row_library_ms"])
             for r in checks[name] if r["dtype"] == "bfloat16"}
+    # the two backward kernels of the training paths, each a line entry of
+    # its own: neither replaces a TPU kernel (repro differentiates its jnp
+    # references: the SSD scan's src/repro/kernels/ref.py:172 ssd_chunked,
+    # rmsnorm's src/repro/kernels/ref.py rmsnorm)
+    train_paths = {"train": train_launches, "train_stream": stream_launches,
+                   "trainer": trainer_launches,
+                   "fleet_train": fleet_train_launches,
+                   "dp_train": dp_train_launches}
+    bwd_paths = {
+        "ssd_scan_backward": {
+            **{k: v["ssd_scan_backward"] for k, v in train_paths.items()},
+            **{k: v["ssd_scan_backward"]
+               for k, v in ssm_tp_launches.items()}},
+        "rmsnorm_backward": {
+            **{k: v["rmsnorm_backward"] for k, v in train_paths.items()},
+            "train_dense": sum(v["rmsnorm_backward"]
+                               for v in dense_launches_.values()),
+            "trainer_dense": trainer_dense_launches["rmsnorm_backward"],
+            "tp_train": tp_launches["rmsnorm_backward"],
+            "tp_train_big": tp_big_launches["rmsnorm_backward"],
+            **{k: v["rmsnorm_backward"] for k, v in ssm_tp_launches.items()},
+            **{k: v["rmsnorm_backward"] for k, v in ve_tp_launches.items()}}}
+    for name, paths in bwd_paths.items():
+        n = sum(v.get(name, 0) for v in dryrun_launches.values())
+        if n:
+            paths["dryrun"] = n
+    bwd_meta = {
+        "ssd_scan_backward": dict(
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            replaces="none: src/repro/kernels/ssd_scan.py:77 has no "
+                     "backward (repro differentiates "
+                     "src/repro/kernels/ref.py:172 ssd_chunked)"),
+        "rmsnorm_backward": dict(
+            route="triton", source="src/repro_torch/kernels/rmsnorm.py",
+            replaces="none: src/repro/kernels/rmsnorm.py:44 has no "
+                     "backward (repro differentiates its jnp reference)")}
+    for name, rows_, main in (("ssd_scan_backward", ssd_bwd_rows, "slice"),
+                              ("rmsnorm_backward", rms_bwd_rows, "d1536")):
+        row = next(r for r in rows_ if r["case"] == main
+                   and r["dtype"] == "bfloat16")
+        paths = bwd_paths[name]
+        check(sum(paths.values()) > 0 and paths["train"] > 0,
+              f"{name} did not launch on the main paths: {paths}")
+        kernels.append(dict(
+            name=name, **bwd_meta[name], launches=sum(paths.values()),
+            launches_by_path=paths,
+            max_abs_err=max(r["max_abs_err"] for r in rows_
+                            if r["dtype"] == "bfloat16"),
+            ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms"),
+            cases={f"{r['case']}/{r['dtype']}": dict(
+                variant=r.get("variant"), ms=r["kernel_ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r.get("library_ms"),
+                **({"stages_ms": r["stages_ms"]} if "stages_ms" in r
+                   else {}))
+                for r in rows_}))
+    by_name["ssd_scan_backward"] = kernels[-2]
+    by_name["ssd_scan_backward"]["launches_by_variant_script"] = dict(
+        ss.ssd_scan.backward_launches_by_variant)
     print(json.dumps({"kernels": kernels}), flush=True)
 
     print(json.dumps({"ok": True, "device": {

@@ -309,6 +309,132 @@ def ssd_chunked(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
     return ssd_chunk_scan(x, dt, B, C, cum, entering, chunk=chunk), state
 
 
+# --------------------------------------------------------------------------
+# the SSD scan's backward in closed form, staged as its kernels are
+# --------------------------------------------------------------------------
+# Per (b, h) and chunk z, with cum the in-chunk inclusive cumsum of dt A,
+# total = cum[-1], u = x dt, in_z the state entering the chunk and
+# L_ij = exp(cum_i - cum_j) for j <= i (masked before the exp):
+#   y_i      = sum_j (C_i . B_j) L_ij u_j + exp(cum_i) in_z C_i
+#   in_{z+1} = exp(total) in_z + sum_j exp(total - cum_j) u_j (x) B_j
+# The backward walks the chunks in reverse for dS_z, the gradient of
+# in_{z+1}, then differentiates each chunk on its own, then each chunk's
+# cumsum.
+
+def ssd_state_passing_bwd(dy, C, cum, *, chunk: int):
+    """The d-state stage, in reverse chunk order: ``dS_z``, the gradient
+    reaching the state after chunk z, is d in_{z+1}: dS_{last} = 0 and
+    ``d in_z = exp(total_z) d in_{z+1} + sum_i exp(cum_i) dy_i (x) C_i``.
+
+    dy: (b, s, h, p); C: (b, s, g, n); cum: (b, h, chunks, chunk).
+    Returns dS (b, h, chunks, p, n) fp32."""
+    h = dy.shape[2]
+    dyf = _chunked(dy, chunk)                              # (b,z,c,h,p)
+    Ch = _chunked(_per_head(C, h), chunk)                  # (b,z,c,h,n)
+    cz = cum.permute(0, 2, 3, 1)                           # (b,z,c,h)
+    own = torch.einsum("bzihp,bzihn->bhzpn", dyf * torch.exp(cz)[..., None],
+                       Ch)
+    decay = torch.exp(cum[..., -1])                        # (b,h,z)
+    d_in = torch.zeros_like(own[:, :, 0])
+    out = []
+    for z in range(own.shape[2] - 1, -1, -1):
+        out.append(d_in)
+        d_in = d_in * decay[:, :, z, None, None] + own[:, :, z]
+    return torch.stack(out[::-1], dim=2)
+
+
+def ssd_chunk_bwd(x, dt, B, C, dy, cum, entering, dS, *, chunk: int):
+    """The chunk stage: each chunk's gradients from its entering state and
+    its ``dS_z`` (``ssd_state_passing_bwd``).  With CB = C B^T,
+    G = dy u^T, dCB = G o L and M = dCB o CB:
+
+    * du = (CB o L)^T dy + exp(total - cum) o (B dS^T); dx = du dt, and
+      dt's direct part du . x;
+    * dC = dCB B + exp(cum) o (dy in_z); dB = dCB^T C + exp(total - cum)
+      o (u dS), each summed over the heads of a group;
+    * d cum = rowsum(M) - colsum(M) + C . (exp(cum) dy in_z)
+      - B . (exp(total - cum) u dS), and d total (added to the last row)
+      = sum_j B_j . (exp(total - cum_j) u_j dS) + exp(total) <in_z, dS>.
+
+    x, dy: (b, s, h, p); dt: (b, s, h); B, C: (b, s, g, n); cum: (b, h,
+    chunks, chunk); entering, dS: (b, h, chunks, p, n).  Returns (dx (b,
+    s, h, p), ddt's direct part (b, s, h), dB, dC (b, s, g, n), d cum (b,
+    h, chunks, chunk)), all fp32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    xf, dtf, dyf = _chunked(x, chunk), _chunked(dt, chunk), _chunked(dy,
+                                                                     chunk)
+    Bh = _chunked(_per_head(B, h), chunk)                  # (b,z,c,h,n)
+    Ch = _chunked(_per_head(C, h), chunk)
+    u = xf * dtf[..., None]
+    cz = cum.permute(0, 2, 3, 1)                           # (b,z,c,h)
+    total = cz[:, :, -1:, :]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool,
+                        device=x.device).tril()
+    diff = cz[:, :, :, None, :] - cz[:, :, None, :, :]     # (b,z,i,j,h)
+    L = torch.exp(diff.masked_fill(~causal[None, None, :, :, None],
+                                   float("-inf")))
+    CB = torch.einsum("bzihn,bzjhn->bzijh", Ch, Bh)
+    dCB = torch.einsum("bzihp,bzjhp->bzijh", dyf, u) * L
+    M = dCB * CB
+    w = torch.exp(total - cz)                              # (b,z,c,h)
+    du = (torch.einsum("bzijh,bzihp->bzjhp", CB * L, dyf)
+          + w[..., None] * torch.einsum("bzjhn,bhzpn->bzjhp", Bh, dS))
+    dB_state = w[..., None] * torch.einsum("bzjhp,bhzpn->bzjhn", u, dS)
+    dC_inter = torch.exp(cz)[..., None] * torch.einsum(
+        "bzihp,bhzpn->bzihn", dyf, entering)
+    dCh = torch.einsum("bzijh,bzjhn->bzihn", dCB, Bh) + dC_inter
+    dBh = torch.einsum("bzijh,bzihn->bzjhn", dCB, Ch) + dB_state
+    b_state = (Bh * dB_state).sum(-1)                      # (b,z,c,h)
+    dcum = (M.sum(3) - M.sum(2) + (Ch * dC_inter).sum(-1) - b_state)
+    passing = torch.exp(total[:, :, 0]) * torch.einsum(
+        "bhzpn,bhzpn->bzh", entering, dS)
+    dcum[:, :, -1] += b_state.sum(2) + passing
+    dx = (du * dtf[..., None]).reshape(b, s, h, p)
+    ddt = (du * xf).sum(-1).reshape(b, s, h)
+
+    def group_sum(t):                                      # heads -> groups
+        return t.reshape(b, s, g, h // g, n).sum(3)
+
+    return (dx, ddt, group_sum(dBh.reshape(b, s, h, n)),
+            group_sum(dCh.reshape(b, s, h, n)), dcum.permute(0, 3, 1, 2))
+
+
+def ssd_cum_bwd(dcum, dt, A, *, chunk: int):
+    """The cumsum stage: d a, the in-chunk reverse cumsum of d cum, for
+    a = dt A: returns (ddt's part A d a (b, s, h), dA = sum dt d a (h,)),
+    fp32.  dcum: (b, h, chunks, chunk)."""
+    b, s, h = dt.shape
+    da = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    da = da.permute(0, 2, 3, 1).reshape(b, s, h)
+    return da * A.float(), (da * dt.float()).sum((0, 1))
+
+
+def ssd_chunked_backward(x, dt, A, B, C, dy, *, chunk: int):
+    """Gradients of ``sum(y * dy)`` of ``ssd_chunked`` (zero initial state)
+    for x, dt, A, B and C, in closed form through the three stages: the
+    entering states (``ssd_chunk_state``, ``ssd_state_passing``), then
+    ``ssd_state_passing_bwd``, ``ssd_chunk_bwd`` and ``ssd_cum_bwd``.  A
+    sequence that is not a multiple of the chunk is padded with zeros (dt
+    0), the arithmetic of the kernels' ragged end, and its gradients cut
+    back.  Each gradient in its input's type."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+    xp, dtp, Bp, Cp, dyp = x, dt, B, C, dy
+    if pad:
+        xp, Bp, Cp, dyp = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (x, B, C, dy))
+        dtp = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+    cum, states = ssd_chunk_state(xp, dtp, A, Bp, chunk=chunk)
+    entering, _ = ssd_state_passing(states, cum)
+    dS = ssd_state_passing_bwd(dyp, Cp, cum, chunk=chunk)
+    dx, ddt, dB, dC, dcum = ssd_chunk_bwd(xp, dtp, Bp, Cp, dyp, cum,
+                                          entering, dS, chunk=chunk)
+    ddt_a, dA = ssd_cum_bwd(dcum, dtp, A, chunk=chunk)
+    return (dx[:, :s].to(x.dtype), (ddt + ddt_a)[:, :s].to(dt.dtype),
+            dA.to(A.dtype), dB[:, :s].to(B.dtype), dC[:, :s].to(C.dtype))
+
+
 def ssd_step(state, x, dt, A, B, C):
     """One token of the SSD recurrence (decode).  state: (b, h, p, n) fp32;
     x: (b, h, p); dt: (b, h); A: (h,); B, C: (b, g, n).  Returns (y (b, h,

@@ -22,8 +22,18 @@ PERF.md).
 does not take; it uses the plain twin only for a tensor on the CPU.
 ``rmsnorm.launches`` counts kernel launches.  When x or the scale requires
 a gradient the call goes through ``_RMSNorm``: the same forward, and a
-closed-form backward in fp32 (``rmsnorm_backward``, plain PyTorch: the TPU
-kernel has no backward to port).
+closed-form backward in fp32 whose plain twin is ``rmsnorm_backward`` (the
+TPU kernel has no backward to port).  On CUDA tensors the backward is two
+Triton kernels (``backward_kernel``): one pass over blocks of
+``BWD_ROWS`` rows writes dx, each row from its x, dy and the scale
+(r = rsqrt(mean(x²) + eps), u = dy scale, dx = r (u - x r² mean(u x)),
+the twin's arithmetic op for op), and the block's fp32 partial of dscale
+= sum dy x r; a second pass sums the partials, in tiles of 64 summed as a
+tree and the tiles in order.  Bound by bytes like the forward (x and dy
+read, dx written, the partials about 1/BWD_ROWS of a row each); no
+atomics, so a second call gives the same bits.  ``rmsnorm.backward_launches``
+counts the backward's calls, one per ``_RMSNorm`` backward; the CPU takes
+the twin and counts none.
 
 ``rmsnorm_residual`` replaces ``repro/kernels/rmsnorm.py`` ·
 ``rmsnorm_residual`` (body ``_kernel_residual``): h = x + residual in fp32,
@@ -54,7 +64,8 @@ A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes
 each kernel's shape function (empty outputs of its shapes and types);
 meta carries no values, so this is no fallback, and outside a count it
 raises as any device without a kernel.  ``_RMSNorm``'s backward is a
-kernel region (``rmsnorm_backward``), as are ``row_sumsq`` and
+kernel region (``rmsnorm_backward``), empty gradients on meta, as are
+``row_sumsq`` and
 ``rmsnorm_total`` (``ops.rmsnorm`` opens ``rmsnorm``'s);
 ``_RMSNormSplit``'s backward, plain PyTorch with a sum over the ranks
 between, is counted op by op on every device.
@@ -148,6 +159,103 @@ def _kernel():
             row_sumsq_kernel, rmsnorm_total_kernel)
 
 
+# rows of a block of the backward's first pass: fewer blocks mean fewer
+# dscale partials to write and sum; BWD_MIN_BLOCKS keeps the card full
+BWD_ROWS, BWD_MIN_BLOCKS = 32, 264
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_kernels():
+    """The backward's two Triton kernels, defined on first use."""
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def rmsnorm_bwd_kernel(x_ptr, dy_ptr, w_ptr, dx_ptr, part_ptr, rows,
+                           x_row_stride, dy_row_stride, dx_row_stride, d,
+                           eps, rows_per, BLOCK_D: tl.constexpr):
+        pid = tl.program_id(0)
+        cols = tl.arange(0, BLOCK_D)
+        mask = cols < d
+        w = tl.load(w_ptr + cols, mask=mask, other=0.0).to(tl.float32)
+        dw = tl.zeros((BLOCK_D,), dtype=tl.float32)
+        first = pid * rows_per
+        for i in range(0, rows_per):
+            row = (first + i).to(tl.int64)
+            if row < rows:
+                x = tl.load(x_ptr + row * x_row_stride + cols, mask=mask,
+                            other=0.0).to(tl.float32)
+                dy = tl.load(dy_ptr + row * dy_row_stride + cols, mask=mask,
+                             other=0.0).to(tl.float32)
+                # the twin's arithmetic, op for op: rsqrt of the mean
+                r = tl.math.rsqrt(tl.sum(x * x, axis=0) / d + eps)
+                u = dy * w
+                mux = tl.sum(u * x, axis=0) / d
+                dx = r * (u - x * (r * r) * mux)
+                tl.store(dx_ptr + row * dx_row_stride + cols,
+                         dx.to(dx_ptr.dtype.element_ty), mask=mask)
+                dw += dy * x * r
+        tl.store(part_ptr + pid.to(tl.int64) * d + cols, dw, mask=mask)
+
+    @triton.jit
+    def rmsnorm_dscale_kernel(part_ptr, dw_ptr, blocks, d,
+                              BLOCK_C: tl.constexpr, BLOCK_P: tl.constexpr):
+        # the partials in tiles of BLOCK_P, each summed as a tree, the
+        # tiles' sums in order: fixed, and near a pairwise sum's error
+        cols = tl.program_id(0) * BLOCK_C + tl.arange(0, BLOCK_C)
+        mask = cols < d
+        acc = tl.zeros((BLOCK_C,), dtype=tl.float32)
+        for i0 in range(0, blocks, BLOCK_P):
+            rows = i0 + tl.arange(0, BLOCK_P)
+            tile = tl.load(part_ptr + rows[:, None].to(tl.int64) * d
+                           + cols[None, :],
+                           mask=(rows[:, None] < blocks) & mask[None, :],
+                           other=0.0)
+            acc += tl.sum(tile, axis=0)
+        tl.store(dw_ptr + cols, acc.to(dw_ptr.dtype.element_ty), mask=mask)
+
+    return rmsnorm_bwd_kernel, rmsnorm_dscale_kernel
+
+
+def backward_blocks(rows: int) -> tuple:
+    """(rows a block, blocks) of the backward's first pass for ``rows``:
+    ``BWD_ROWS`` a block, fewer where that would leave fewer than
+    ``BWD_MIN_BLOCKS`` blocks."""
+    per = max(1, min(BWD_ROWS, rows // BWD_MIN_BLOCKS))
+    return per, -(-rows // per)
+
+
+def backward_kernel(x, scale, dy, eps: float):
+    """``_RMSNorm``'s backward on CUDA tensors: (dx in x's type and shape,
+    dscale in the scale's type), by the two Triton kernels."""
+    _check_scale("rmsnorm", x, scale)
+    x2 = _rows("rmsnorm", x)
+    dy2 = _rows("rmsnorm", dy.to(x.dtype).contiguous())
+    rows, d = x2.shape
+    dx = torch.empty((rows, d), dtype=x.dtype, device=x.device)
+    dscale = torch.empty_like(scale)
+    if rows == 0:
+        dscale.zero_()
+        return dx.view(x.shape), dscale
+    per, blocks = backward_blocks(rows)
+    part = torch.empty((blocks, d), dtype=torch.float32, device=x.device)
+    first, second = _backward_kernels()
+    grid = _grid(d)
+    first[(blocks,)](x2, dy2, scale, dx, part, rows, x2.stride(0),
+                     dy2.stride(0), dx.stride(0), d, float(eps), per,
+                     **grid)
+    second[(-(-d // 64),)](part, dscale, blocks, d, BLOCK_C=64, BLOCK_P=64,
+                           num_warps=4)
+    with _count_lock:
+        rmsnorm.backward_launches += 1
+    return dx.view(x.shape), dscale
+
+
+def backward_scratch_bytes(rows: int, d: int) -> int:
+    """The fp32 dscale partials ``backward_kernel`` allocates."""
+    return 4 * d * backward_blocks(rows)[1] if rows else 0
+
+
 def _grid(d: int):
     """BLOCK_D and num_warps for rows of d."""
     block_d = _kernel()[2](d)
@@ -224,14 +332,18 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, dy):
         x, scale = ctx.saved_tensors
         d = x.shape[-1]
+        rows = x.numel() // d
         with _counter.region(
                 "rmsnorm_backward", lambda: costs.rmsnorm_backward(
-                    x.numel() // d, d, elem=x.element_size(),
-                    scale_elem=scale.element_size())):
+                    rows, d, elem=x.element_size(),
+                    scale_elem=scale.element_size()),
+                scratch=backward_scratch_bytes(rows, d)):
             if _meta(x):
                 grads = (torch.empty_like(x), torch.empty_like(scale))
-            else:
+            elif x.device.type == "cpu":
                 grads = rmsnorm_backward(x, scale, dy, ctx.eps)
+            else:
+                grads = backward_kernel(x, scale, dy, ctx.eps)
             _counter.keep(*grads)
         return (*grads, None)
 
@@ -247,6 +359,7 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,
 
 
 rmsnorm.launches = 0
+rmsnorm.backward_launches = 0
 
 
 def rmsnorm_residual_plain(x, residual, scale, eps: float = 1e-6):

@@ -49,11 +49,20 @@ none.  ``run_stage`` launches one kernel of a variant alone, to hold it
 against its stage function; it is not counted.
 
 The gradient: when an input requires one, the call goes through
-``_SSDScan``, whose forward is the kernel and whose backward,
-``ssd_scan_backward``, recomputes y through the masked chunked form under
-autograd from the saved inputs.  The TPU kernel has no backward (the JAX
-package differentiates its jnp reference), so there is no backward kernel
-yet; the backward is counted op by op, on every device.
+``_SSDScan``, whose forward is the kernel and whose backward routes by
+device, as ``_FlashAttention``'s does.  On CUDA tensors it launches the
+backward kernels (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the TPU
+kernel has no backward and the JAX package differentiates its jnp
+reference): the entering states again in fp32, the d-states, the chunk
+kernel and a reduction, of the variant ``backward_variant`` chooses
+(``backward_kernel``).  On CPU tensors it takes the staged twin
+``ref.ssd_chunked_backward`` (the same stages in closed form); on meta,
+while a counter counts, empty gradients of the inputs' shapes.  It is one
+counter region, ``ssd_scan_backward``.  ``ssd_scan.backward_launches``
+counts the backward kernel calls (one per backward, by variant in
+``backward_launches_by_variant``); the CPU path counts none.
+``ssd_scan_backward`` (autograd through ``ref.ssd_chunked``) is kept as an
+independent oracle for checks; no route calls it.
 
 A ``meta`` tensor, while a ``roofline.counter.Counter`` counts, takes the
 kernel's shape function: empty y (and the fp32 final state) of the
@@ -70,6 +79,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ref
+from repro_torch.roofline import costs
 from repro_torch.roofline import counter as _counter
 
 MAX_P, MAX_N, MAX_CHUNK = 64, 128, 512
@@ -103,10 +113,12 @@ def ssd_scan_state_plain(x, dt, A, B, C, *, chunk: int = 256):
 def ssd_scan_backward(x, dt, A, B, C, dy, *, chunk: int):
     """Gradients of ``sum(y * dy)`` for x, dt, A, B and C, by recomputing y
     through ``ref.ssd_chunked`` (masked before its exp, so finite at any
-    chunk) under autograd.  A sequence that is not a multiple of the chunk
-    (the wgmma kernels' forward takes it as it is) is padded with zeros,
-    dt 0, inside the recompute: the padding's arithmetic, and the gradients
-    of the unpadded inputs."""
+    chunk) under autograd: an oracle independent of the staged twin
+    (``ref.ssd_chunked_backward``) and of the kernels; no route calls it.
+    A sequence that is not a multiple of the chunk (the wgmma kernels'
+    forward takes it as it is) is padded with zeros, dt 0, inside the
+    recompute: the padding's arithmetic, and the gradients of the unpadded
+    inputs."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_() for t in (x, dt, A, B, C)]
         lx, ldt, lA, lB, lC = leaves
@@ -346,6 +358,102 @@ def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
     return _launch(x, dt, A, B, C, chunk)
 
 
+# the backward's variants, by the code its C entry takes, and the state
+# widths the mma chunk kernel is built for (n is padded up to one)
+BACKWARD_VARIANTS = {"scalar": 0, "mma": 1}
+BACKWARD_MMA_WIDTHS = (16, 32, 64, 128)
+
+
+def backward_variant(p: int, n: int, chunk: int, dtype) -> str:
+    """The backward kernels that serve a call on the card: ``"mma"`` for
+    bf16 (the chunk kernel on mma.sync, p padded to 64 and n to the next
+    of ``BACKWARD_MMA_WIDTHS``), ``"scalar"`` (register-tiled fp32 FMAs)
+    for fp32, at every shape the forward takes (p <= ``MAX_P``, n <=
+    ``MAX_N``, a chunk up to ``MAX_CHUNK``).  Anything else raises: no
+    call is sent to another kernel or the twin."""
+    if dtype not in _DTYPES or not (0 < p <= MAX_P and 0 < n <= MAX_N
+                                    and 0 < chunk <= MAX_CHUNK):
+        raise NotImplementedError(
+            f"ssd_scan backward: no kernel for p={p}, n={n}, chunk={chunk}, "
+            f"{dtype}")
+    return "mma" if dtype == torch.bfloat16 else "scalar"
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssd_scan_bwd.argtypes = ([ptr] * 17 + [i32] * 8
+                                 + [i64] * 15 + [ptr, i32])
+    lib.ssd_scan_bwd.restype = ctypes.c_int
+    return lib
+
+
+def backward_scratch_bytes(b: int, s: int, h: int, p: int, n: int,
+                           chunk: int, dtype) -> int:
+    """The bytes ``backward_kernel`` allocates beside the gradients, all
+    fp32: the entering states and the d-states (b, h, chunks, p, n), the
+    per-head dB / dC (b, s, h, n), the (b, chunks, h) dA partials and,
+    for bf16, each chunk's exp(total)."""
+    nc = -(-s // chunk)
+    return (8 * b * h * nc * p * n + 8 * b * s * h * n
+            + 4 * b * nc * h * (2 if dtype == torch.bfloat16 else 1))
+
+
+def backward_kernel(x, dt, A, B, C, dy, *, chunk: int):
+    """The backward kernels on CUDA tensors: (dx, ddt, dA, dB, dC), each in
+    its input's type and contiguous.  The kernels compute the entering
+    states again themselves, in fp32 (dA's sums need more than the
+    forward's bf16 operands give: PERF.md section 6)."""
+    _check(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError("ssd_scan backward: the kernels take CUDA tensors")
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    which = backward_variant(p, n, chunk, x.dtype)
+    dtf = dt.float()
+    Af = A.float().contiguous()
+    dy = dy.to(x.dtype)
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    nc = -(-s // chunk)
+    dev = x.device
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = torch.empty((b, h, nc, p, n), **f32)
+    dS = torch.empty((b, h, nc, p, n), **f32)
+    ddt = torch.empty((b, s, h), **f32)
+    dB_part = torch.empty((b, s, h, n), **f32)
+    dC_part = torch.empty((b, s, h, n), **f32)
+    dA_part = torch.empty((b, nc, h), **f32)
+    tot = torch.empty((b, h, nc), **f32) if which == "mma" else None
+    dA = torch.empty((h,), **f32)
+    dB = torch.empty((b, s, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, s, g, n), dtype=C.dtype, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_library().ssd_scan_bwd(
+            x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), states.data_ptr(), dS.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(),
+            dC_part.data_ptr(), dA_part.data_ptr(), ptr(tot), dB.data_ptr(),
+            dC.data_ptr(), dA.data_ptr(), _DTYPES[x.dtype], b, s, h, p, g, n,
+            chunk, *x.stride()[:3], *dtf.stride(), *B.stride()[:3],
+            *C.stride()[:3], *dy.stride()[:3], stream,
+            BACKWARD_VARIANTS[which])
+    if err:
+        raise RuntimeError(f"ssd_scan: ssd_scan_bwd failed with CUDA error "
+                           f"{err}")
+    with _count_lock:
+        ssd_scan.backward_launches += 1
+        ssd_scan.backward_launches_by_variant[which] += 1
+    return dx, ddt.to(dt.dtype), dA.to(A.dtype), dB, dC
+
+
 class _SSDScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, A, B, C, chunk):
@@ -355,7 +463,27 @@ class _SSDScan(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        grads = ssd_scan_backward(*ctx.saved_tensors, dy, chunk=ctx.chunk)
+        x, dt, A, B, C = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, s, h, p = x.shape
+        g, n = B.shape[2], B.shape[3]
+        with _counter.region(
+                "ssd_scan_backward",
+                lambda: costs.ssd_scan_backward(b, s, h, p, g, n, chunk,
+                                                elem=x.element_size()),
+                scratch=backward_scratch_bytes(b, s, h, p, n, chunk,
+                                               x.dtype)):
+            if x.device.type == "cpu":
+                grads = tuple(t.contiguous() for t in
+                              ref.ssd_chunked_backward(x, dt, A, B, C, dy,
+                                                       chunk=chunk))
+            elif x.device.type == "meta":
+                grads = tuple(torch.empty_like(
+                    t, memory_format=torch.contiguous_format)
+                    for t in (x, dt, A, B, C))
+            else:
+                grads = backward_kernel(x, dt, A, B, C, dy, chunk=chunk)
+            _counter.keep(*grads)
         return (*grads, None)
 
 
@@ -372,6 +500,8 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 256) -> torch.Tensor:
 
 ssd_scan.launches = 0
 ssd_scan.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+ssd_scan.backward_launches = 0
+ssd_scan.backward_launches_by_variant = dict.fromkeys(BACKWARD_VARIANTS, 0)
 
 
 def ssd_scan_state(x, dt, A, B, C, *, chunk: int = 256):

@@ -150,6 +150,33 @@ def ssd_scan(b: int, s: int, h: int, p: int, g: int, n: int, chunk: int, *,
     return flops, nbytes
 
 
+def ssd_scan_backward(b: int, s: int, h: int, p: int, g: int, n: int,
+                      chunk: int, *, elem: int = 2) -> Cost:
+    """The SSD scan's gradient (``ref.ssd_chunked_backward``) over the
+    ``s`` positions it is given, stated as ``ssd_scan``: per chunk of c
+    positions, over the c (c + 1) / 2 causal pairs, for each head G = dy
+    u^T and (C B^T o L)^T dy (2p each), and for each group, whose heads
+    share B and C, C B^T, dCB B and dCB^T C (2n each: dC and dB are sums
+    over the group's heads, so the products run once on the heads' summed
+    dCB); and per head five state products of 2 c n p (the entering
+    states again, the d-state, dy in_z, B dS^T and u dS); the bytes of x,
+    dt, A, B, C and dy read and dx, ddt, dA, dB and dC written (dt, A and
+    their gradients fp32)."""
+    def per_head(c):
+        return 2 * (c * (c + 1) // 2) * 2 * p + 10 * c * n * p
+
+    def per_group(c):
+        return 2 * (c * (c + 1) // 2) * 3 * n
+
+    def over_chunks(f):
+        return (s // chunk) * f(chunk) + f(s % chunk)
+
+    flops = float(b * (h * over_chunks(per_head) + g * over_chunks(per_group)))
+    nbytes = float(elem * (3 * b * s * h * p + 4 * b * s * g * n)
+                   + 4 * (2 * b * s * h + 2 * h))
+    return flops, nbytes
+
+
 def bound(flops: float, nbytes: float, dtype: str) -> Tuple[float, str]:
     """The least time in ms an H100 takes for the work, the larger of the
     bytes over HBM's rate and the FLOPs over the peak of ``dtype``

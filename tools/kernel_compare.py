@@ -1,7 +1,7 @@
 """Time a kernel family of this checkout against variants of its source and
 against another checkout, on one card.
 
-    python3 tools/kernel_compare.py --kernel flash|ssd [--parent DIR]
+    python3 tools/kernel_compare.py --kernel flash|ssd|ssd_bwd [--parent DIR]
         [--variant LABEL:NAME=VALUE[,NAME=VALUE...]]... [--order LABELS]
         [--cases NAME,...]
 
@@ -30,6 +30,15 @@ over 20 calls, L2-warm:
   ``ops.ssd_prefill`` (which pads to the chunk): ``ms``; ``variant``, the
   kernels that served it; ``stages_ms``, each kernel of that variant
   alone through its C entry on buffers made once (``stages`` rows).
+* ``ssd_bwd``: the SSD scan's backward (``csrc/ssd_scan_bwd.cu``, which
+  walks the entering states again itself) through
+  ``ssd_scan.backward_kernel`` at ``chip_smoke.py``'s bf16 backward rows
+  at the models' shapes (its ``SSD_BWD_CASES``): ``ms``; ``variant``;
+  ``stages_ms``, each kernel's device time in one call; ``err_of_max``,
+  the largest distance of a gradient from the fp32 autograd recompute
+  over its largest entry.  A checkout without backward kernels (``parent``
+  before them) times its backward, the plain recompute
+  ``ssd_scan_backward``, and says so (``variant`` "plain").
 
 ``atol_needed_of_max`` is the least absolute tolerance the output needs
 against the plain twin in fp32 at rtol 2^-8 (flash) or 2e-2 (ssd, as
@@ -40,6 +49,7 @@ name and power limit are printed first, and the last line is {case:
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import re
 import shutil
@@ -87,7 +97,26 @@ SSD_CASES = {
 }
 # the rows whose kernels are also timed alone
 SSD_STAGE_CASES = ("slice", "hymba_prefill")
-SOURCES = {"flash": "flash_attention", "ssd": "ssd_scan"}
+
+
+def smoke_bwd_cases() -> dict:
+    """name -> (b, s, h, p, g, n, chunk, strided): the rows of
+    ``chip_smoke.SSD_BWD_CASES`` at the models' shapes (bf16, x, B and C
+    views of one conv output; tp_hybrid_rank's 640 positions a ragged
+    end), read from that script so the two lists cannot drift apart."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return {name: (*shape, strided)
+            for name, (shape, strided, dtype) in cs.SSD_BWD_CASES.items()
+            if dtype == "bfloat16" and strided}
+
+
+SSD_BWD_CASES = smoke_bwd_cases()
+SOURCES = {"flash": "flash_attention", "ssd": "ssd_scan",
+           "ssd_bwd": "ssd_scan_bwd"}
+CASES = {"flash": FLASH_CASES, "ssd": SSD_CASES, "ssd_bwd": SSD_BWD_CASES}
 
 
 def variant_dir(label: str) -> Path:
@@ -269,11 +298,50 @@ def ssd_worker(label: str, torch, cases) -> None:
         print(json.dumps(row), flush=True)
 
 
+def ssd_bwd_worker(label: str, torch, cases) -> None:
+    from repro_torch.kernels import ssd_scan as ss
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kernels = hasattr(ss, "backward_kernel")
+    for name in cases:
+        b, s, h, p, g, n, chunk, strided = SSD_BWD_CASES[name]
+        x, dt, A, B, C = ssd_inputs(torch, gen, b, s, h, p, g, n, strided)
+        dy = torch.randn((b, s, h, p), generator=gen,
+                         device="cuda").bfloat16()
+
+        def call():
+            if kernels:
+                return ss.backward_kernel(x, dt, A, B, C, dy, chunk=chunk)
+            return ss.ssd_scan_backward(x, dt, A, B, C, dy, chunk=chunk)
+
+        got = call()
+        oracle = ss.ssd_scan_backward(x.float(), dt, A, B.float(),
+                                      C.float(), dy.float(), chunk=chunk)
+        err = max(float((a.float() - r).abs().max() / r.abs().max())
+                  for a, r in zip(got, oracle))
+        del got, oracle
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        stages = {e.key[:60]: e.self_device_time_total / 1e3
+                  for e in prof.key_averages()
+                  if e.self_device_time_total > 0}
+        row = dict(label=label, case=name,
+                   variant=(ss.backward_variant(p, n, chunk, x.dtype)
+                            if kernels else "plain"),
+                   ms=device_ms(torch, call), err_of_max=err)
+        if kernels:
+            row["stages_ms"] = stages
+        print(json.dumps(row), flush=True)
+
+
 def worker(kernel: str, label: str, parent, cases) -> None:
     setup(label, parent)
     import torch
     device_ms(torch, lambda: torch.ones(1, device="cuda").add_(1))
-    {"flash": flash_worker, "ssd": ssd_worker}[kernel](label, torch, cases)
+    {"flash": flash_worker, "ssd": ssd_worker,
+     "ssd_bwd": ssd_bwd_worker}[kernel](label, torch, cases)
 
 
 def main() -> int:
@@ -286,7 +354,7 @@ def main() -> int:
     ap.add_argument("--worker")
     ap.add_argument("--build")
     args = ap.parse_args()
-    all_cases = FLASH_CASES if args.kernel == "flash" else SSD_CASES
+    all_cases = CASES[args.kernel]
     cases = args.cases.split(",") if args.cases else list(all_cases)
     unknown = [c for c in cases if c not in all_cases]
     if unknown:
@@ -296,7 +364,10 @@ def main() -> int:
         return 0
     if args.build:
         _build = setup(args.build, args.parent)
-        _build.build(SOURCES[args.kernel])
+        name = SOURCES[args.kernel]
+        # a parent from before the backward kernels has no source to build
+        if args.build != "parent" or (_build.CSRC / f"{name}.cu").exists():
+            _build.build(name)
         return 0
     variants = {}
     for v in args.variant:
