@@ -79,8 +79,10 @@ Phases, each printing one JSON line:
    (``ssd_scan_backward``), each within 2x the staged twin's own distance
    plus its own ``SSD_BWD_ATOL_OF_MAX`` of its largest entry (bf16: dx,
    dB, dC 4e-3, the fp32 ddt and dA 5e-4), a 4-bit control that must
-   fail for each, a second call bit-equal, the variant (mma for bf16,
-   scalar for fp32), each kernel's time alone, the kernels' time beside
+   fail for each, a second call bit-equal, the variant
+   ``backward_variant`` names (wgmma, the band form, at the models'
+   shapes; mma at ``t4_chunk24`` and ``unaligned``; scalar for fp32),
+   each kernel's time alone, the kernels' time beside
    the plain recompute's and the bound; calls no variant takes must
    raise.  rmsnorm's backward (``rmsnorm_backward`` rows, through
    ``_RMSNorm``) at 8,192 rows of 896, 1,536 and 3,072 against its plain
@@ -1156,15 +1158,18 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_phase(torch, name: str, fn, expect=()) -> dict:
+def profile_phase(torch, name: str, fn, expect=(), absent=()) -> dict:
     """Wall time, device busy time and idle share of one window, device
     time by kernel group, and the eight kernels that took the most device
     time in it.  Each name in ``expect`` must be part of a kernel that ran
     in the window (the main path went through it); its launches there are
-    returned."""
+    returned.  No kernel named in ``absent`` may run in it."""
     wall, busy, avgs = device_busy(torch, fn)
     seen = {k: sum(e.count for e in avgs if k in e.key) for k in expect}
     check(all(seen.values()), f"profile {name!r}: kernels {seen} expected")
+    gone = {k: sum(e.count for e in avgs if k in e.key) for k in absent}
+    check(not any(gone.values()),
+          f"profile {name!r}: kernels {gone} ran, none expected")
     groups = {}
     for e in avgs:
         g = kernel_group(e.key)
@@ -1279,8 +1284,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             name = m.group(1)
-            k = re.search(r"\d+((?:flash|ssd_scan)\w*?_kernel)(I\w+?E)?E",
-                          name)
+            k = re.search(
+                r"\d+((?:flash|ssd_scan|ssd_bwd)\w*?_kernel)(I\w+?E)?E", name)
             if k:
                 args = (["float"] if k.group(2) == "IfE"
                         else re.findall(r"L[ib](\d+)E", k.group(2) or ""))
@@ -1307,10 +1312,12 @@ def dynamic_smem(_build) -> dict:
     for stage, kernel in ((1, "ssd_scan_chunk_state_kernel"),
                           (3, "ssd_scan_chunk_scan_kernel")):
         out[f"{kernel} (chunk 256)"] = sl.ssd_scan_smem_bytes(stage, 256, 0)
+    bl = _build.load("ssd_scan_bwd")
     for n in (16, 128):              # hymba's state width and mamba2's
         for stage, kernel in ((4, "ssd_scan_state_wgmma_kernel"),
                               (5, "ssd_scan_chunk_scan_wgmma_kernel")):
             out[f"{kernel}<{n}>"] = sl.ssd_scan_smem_bytes(stage, 256, n)
+        out[f"ssd_bwd_chunk_wgmma_kernel<{n}>"] = bl.ssd_scan_bwd_smem_bytes(n)
     check(all(v > 0 for v in out.values()), f"shared memory sizes {out}")
     return out
 
@@ -2166,7 +2173,8 @@ def check_ssd_backward(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
     (SSD_BWD_ATOL_OF_MAX, its own for each), a control at
     BWD_CONTROL_BITS mantissa bits that must fail, a second call that must
     give the same bits, and the variant ``backward_variant`` names
-    (``mma`` for bf16, ``scalar`` for fp32).  Times the kernels (the
+    (``wgmma`` at the models' shapes, ``mma`` at the narrow and unaligned
+    ones, ``scalar`` for fp32).  Times the kernels (the
     backward's own fp32 walk for the entering states, then its d-state
     walk, chunk kernel and reduction) on inputs made once, each kernel of
     one call alone from the profiler, and the plain recompute
@@ -2185,8 +2193,10 @@ def check_ssd_backward(torch, ss, ref, gen, name, b, s, h, p, g, n, chunk,
     got = through()
     torch.cuda.synchronize()
     variant = launched_bwd_variant(ss, before)
-    check(variant == ("mma" if dtype == "bfloat16" else "scalar"),
-          f"ssd backward {name} {dtype}: served by {variant}")
+    named = ss._backward_variant_of(x, B, C, dy, chunk)
+    check(variant == named,
+          f"ssd backward {name} {dtype}: served by {variant}, "
+          f"backward_variant names {named}")
     again = through()
     torch.cuda.synchronize()
     repeat_equal = all(torch.equal(a, b_) for a, b_ in zip(got, again))
@@ -3532,8 +3542,9 @@ def train_path(torch, np, F, modules, counted: dict):
         torch, "train step 4x2048", lambda: step(state, batch),
         expect=("ssd_scan_state_wgmma_kernel",
                 "ssd_scan_chunk_scan_wgmma_kernel",
-                "ssd_bwd_chunk_mma_kernel", "ssd_bwd_own_mma_kernel",
-                "rmsnorm_bwd_kernel"))
+                "ssd_bwd_chunk_wgmma_kernel", "ssd_bwd_own_mma_kernel",
+                "rmsnorm_bwd_kernel"),
+        absent=("ssd_bwd_chunk_mma_kernel",))
     emit("profile", **prof)
 
     # remat "full": the same loss as a plain forward on these parameters,
@@ -3803,7 +3814,8 @@ def train_stream_path(torch, np, tdata, core, modules, state, step,
         prof = profile_phase(torch, "streamed train step 4x2048",
                              lambda: step(state, next(stream)),
                              expect=("ssd_scan_chunk_scan_wgmma_kernel",
-                                     "ssd_bwd_chunk_mma_kernel"))
+                                     "ssd_bwd_chunk_wgmma_kernel"),
+                             absent=("ssd_bwd_chunk_mma_kernel",))
     finally:
         stream.close()
     emit("profile", **prof)
@@ -4950,7 +4962,8 @@ def dp_train_path(torch, np, modules) -> dict:
             prof = profile_phase(
                 torch, "dp step 4x2048", lambda: dp_step(dp, batch),
                 expect=("ssd_scan_chunk_scan_wgmma_kernel",
-                        "ssd_bwd_chunk_mma_kernel"))
+                        "ssd_bwd_chunk_wgmma_kernel"),
+                absent=("ssd_bwd_chunk_mma_kernel",))
             emit("profile", **prof)
 
             psum_exact, psum_leaves = True, 0
@@ -8421,6 +8434,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = {name: ptxas_report(lib.with_suffix(".log").read_text())
              for name, lib in libs.items()}
+    # the SSD backward's band kernel holds its accumulators in registers:
+    # ptxas must spill none of them
+    band = {k: v for k, v in ptxas["ssd_scan_bwd"].items()
+            if k.startswith("ssd_bwd_chunk_wgmma_kernel")}
+    check(len(band) == 4 and all(
+        re.search(r"\b0 bytes spill stores, 0 bytes spill loads", v)
+        for v in band.values()), f"ssd_bwd_chunk_wgmma_kernel spills: {band}")
     emit("build", seconds=build_s, triton_s=triton_s,
          libraries={k: v.name for k, v in libs.items()}, ptxas=ptxas,
          dynamic_smem_bytes=dynamic_smem(_build))

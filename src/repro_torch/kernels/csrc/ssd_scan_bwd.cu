@@ -23,12 +23,39 @@
 //   d a   = the reverse in-chunk cumsum of d cum; ddt = du . x + A d a;
 //           dA = sum dt d a
 //
-// Two variants, one entry (ssd_scan_bwd); ssd_scan.py · backward_variant
+// Three variants, one entry (ssd_scan_bwd); ssd_scan.py · backward_variant
 // chooses and the entry launches what it is told, refusing what the
 // variant does not take (never another kernel, never the twin):
 //
-// bf16 (variant 1, "mma", every shape the forward takes; p padded to 64
-// and n to NT, the narrowest of 16, 32, 64, 128 at least n):
+// bf16 at the models' shapes (variant 2, "wgmma": p a multiple of 16, n
+// 16, 32, 64 or 128 unpadded, a chunk a multiple of 64 up to 256, x, dy,
+// B and C 16-byte aligned):
+//  * the two state walks of the mma variant (below), whose passes write
+//    the states in place as hi / lo bf16 pairs, the layout TMA reads;
+//  * ssd_bwd_chunk_wgmma_kernel<n>, the chunk stage in band form: one
+//    block per (b, chunk, band of W heads of one group; ssd_scan.py ·
+//    backward_band: W 4, 2 or 1, whichever leaves the fewest waves of head
+//    work on the card, 4 at mamba2-780m's 4 x 2048; a ragged last band
+//    where W does not divide the group's heads, no band across groups), a
+//    consumer warpgroup on wgmma
+//    and a producer warp bringing C, B, x, dy and the state pairs by TMA
+//    into mbarrier rings (hopper_utils.cuh).  A row side per 64-row query
+//    block I and a column side per key block J, each computing C B^T once
+//    for the band at each block pair, each head's G = dy x^T and dCB = G
+//    o L in fp32 registers, and the band's sum of dCB in fp32 before it
+//    meets B (dC_I) or C (dB_J), rounded to bf16 once: per causal pair and
+//    head 8p + 8n / W FLOP units (G twice, du's product as a hi / lo pair,
+//    C B^T twice, dC and dB once, each of the last three a band's), half
+//    of the mma kernel's 8p + 8n at W = 4.  The column side keeps its
+//    chunk column of C B^T in shared memory for du's products, head by
+//    head.  dB and dC leave as one fp32 partial a band, (b, s, bands, n);
+//  * ssd_bwd_reduce_kernel: the bands of each group summed in order.
+//
+// bf16 at the other shapes (variant 1, "mma": the test shapes' chunk of
+// 24 and p 12 / n 10, unaligned views, chunks above 256; wgmma takes
+// 64-row tiles and 16-element K steps, TMA 16-byte rows and bases, and
+// the band kernel's shared memory a chunk column of C B^T up to 256; p
+// padded to 64 and n to NT, the narrowest of 16, 32, 64, 128 at least n):
 //  * the two state walks, each ssd_bwd_own_mma_kernel<NT, FWD>, one block
 //    per (b, h, chunk) of four warps, then ssd_bwd_pass_kernel<FWD>, one
 //    thread per (b, h, p, n): the forward walk's own additions (x o dt
@@ -80,21 +107,23 @@
 // the heads' summed dCB, five state products per head) against 0.163 GB
 // of inputs and gradients: bytes, 0.0485 ms at HBM's rate (the FLOPs
 // 0.046 ms on the tensor cores).  Measured (tools/kernel_compare.py
-// --kernel ssd_bwd and chip_smoke.py's ssd_scan_backward rows, device ms,
-// NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6): 1.433-1.438,
-// about 30x that bound, of it the chunk kernel 0.968, the two walks 0.118
-// + 0.117 with their passes 0.048 + 0.039, the reduction of the per-head
-// partials (402 MB of fp32, at HBM's rate) 0.146; the plain recompute it
-// replaces took 17.43-17.47.  fleet6 2.12 (25.90), dp_mb 0.729 (8.99),
-// hymba's tp_hybrid_rank 0.096 (1.41).  What bounds it now: the chunk
-// kernel holds 255 registers a thread at n 128 (60 bytes spilled), so two
-// blocks of four warps share a multiprocessor, too few to hide its
-// mma.sync chains and ldmatrix loads; it computes C B^T and G once per
-// side and dCB B, dCB^T C per head: 8n + 8p FLOPs a causal pair and head
-// (du's product a hi / lo pair) against the 4p + 6n / h the cost counts;
-// and it writes dB and dC per head for the reduction to sum.  The fp32
-// kernels take 9.16 ms (FMA units: 0.686 ms bound; the plain recompute in
-// fp32 16.63).
+// --kernel ssd_bwd, device ms in turns against the mma kernels, the
+// previous form of these shapes' backward, in parentheses, on one
+// NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6): slice 1.048 and
+// 1.068 (1.446, 1.438): the band chunk kernel 0.671-0.675 (0.977-0.982),
+// the reduction of the band partials 0.040 (0.142-0.143), the walks 0.117
+// + 0.118 with their pair-writing passes 0.053 + 0.041; fleet6 1.655
+// (2.117), dp_mb 0.552 (0.729), tp_ssm_rank 0.136 (0.177), tp_hybrid_rank
+// 0.096-0.098 (0.096), p32_groups 0.079 (0.095).  What bounds the band
+// kernel now: one consumer warpgroup a multiprocessor (230,576 bytes of
+// shared memory at n 128, 248 registers, no spills) that waits on each
+// head's products before their decays run, so its time follows the heads
+// a block, not the band: at slice bands of 4, 2 and 1 take 0.674, 0.705
+// and 0.665 ms (the band's gain is the reduction: 0.040 against 0.142).
+// A second G accumulator, to overlap the next head's product with this
+// head's decays, made ptxas spill at n 128 and ran slower: not kept.  The
+// mma kernels keep their readings (chip_smoke.py: t4_chunk24 0.025 ms,
+// unaligned 0.026).
 //
 // Precision.  The entering states are computed again here, in fp32 (a
 // first version read the forward's, whose bf16 operands left dA off by
@@ -102,13 +131,14 @@
 // dy exp(cum) and du's scores enter as hi / lo pairs (ddt, a difference
 // of large sums, was off by up to 3e-3 of its largest entry with the
 // scores rounded once; 5e-5 now).  dB and dC keep the scores dCB rounded
-// to bf16 once: 2.3e-3 to 4.6e-3 of their largest entry, about twice
-// their own rounding to bf16.
+// to bf16 once (the wgmma kernel the band's sum of them): 2.3e-3 to 4.6e-3
+// of their largest entry, about twice their own rounding to bf16.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_utils.cuh"
 #include "mma_utils.cuh"
 
 namespace {
@@ -121,6 +151,7 @@ constexpr int MAX_CHUNK = 512;
 constexpr int SP = TILE + 1;   // row stride of a 64 x 64 fp32 tile
 constexpr int BWD_SCALAR = 0;
 constexpr int BWD_MMA = 1;
+constexpr int BWD_WGMMA = 2;
 
 struct BwdParams {
   const void* x;
@@ -133,14 +164,16 @@ struct BwdParams {
   float* dS;             // (b, h, chunks, P, N)
   void* dx;              // (b, S, H, P) contiguous, x's type
   float* ddt;            // (b, S, H) contiguous
-  float* dB_part;        // (b, S, H, N) fp32
-  float* dC_part;
+  float* dB_part;        // (b, S, parts, N) fp32: a head's (scalar, mma) or
+  float* dC_part;        // a band's (wgmma)
   float* dA_part;        // (b, chunks, H)
   float* tot;            // (b, H, chunks): exp(total) (bf16 d-state)
   void* dB;              // (b, S, G, N) contiguous, B's type
   void* dC;
   float* dA;             // (H,)
   int Bn, S, H, P, G, N, chunk, nc;
+  int band;              // heads of a band (wgmma), 1 otherwise
+  int parts;             // dB / dC partials of a (b, t): H, or G x bands
   long long x_sb, x_ss, x_sh;
   long long dt_sb, dt_ss, dt_sh;
   long long B_sb, B_ss, B_sg;
@@ -1297,14 +1330,24 @@ __global__ void __launch_bounds__(MT_THREADS)
   if (FWD && tid == 0) p.tot[(long long)bh * p.nc + z] = expf(total);
 }
 
-template <bool FWD>
+// PAIRS (the wgmma variant): each chunk's state is written in place as a
+// hi / lo bf16 pair, (P, 2, N) in the bytes of its (P, N) fp32, the layout
+// the chunk kernel's TMA map reads.  Row r of the pair spans the bytes of
+// row r of the fp32 state, and a block holds whole rows (P N is a multiple
+// of THREADS there), so the block reads a batch's chunks before it writes
+// their pairs.
+template <bool FWD, bool PAIRS>
 __global__ void __launch_bounds__(THREADS)
     ssd_bwd_pass_kernel(BwdParams p) {
   const long long pn = (long long)p.P * p.N;
   const long long e = blockIdx.x * (long long)THREADS + threadIdx.x;
-  if (e >= (long long)p.Bn * p.H * pn) return;
-  const long long bh = e / pn, k = e - bh * pn;
+  const bool live = e < (long long)p.Bn * p.H * pn;
+  if (!PAIRS && !live) return;
+  const long long bh = live ? e / pn : 0, k = live ? e - bh * pn : 0;
   float* __restrict__ st = (FWD ? p.states : p.dS) + bh * p.nc * pn + k;
+  __nv_bfloat16* __restrict__ pr =
+      reinterpret_cast<__nv_bfloat16*>(FWD ? p.states : p.dS) +
+      bh * p.nc * pn * 2 + (k / p.N) * 2 * p.N + k % p.N;
   const float* __restrict__ tot = p.tot + bh * p.nc;
   constexpr int BATCH = 8;   // chunks whose loads are in flight together
   float carry = 0.f;
@@ -1313,35 +1356,43 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
       const int z = FWD ? i0 + i : p.nc - 1 - i0 - i;
-      const bool ok = i0 + i < p.nc;
+      const bool ok = live && i0 + i < p.nc;
       own[i] = ok ? st[z * pn] : 0.f;
       t[i] = ok ? tot[z] : 0.f;
     }
+    if (PAIRS) __syncthreads();
 #pragma unroll
     for (int i = 0; i < BATCH; ++i) {
       const int z = FWD ? i0 + i : p.nc - 1 - i0 - i;
-      if (i0 + i < p.nc) {
-        st[z * pn] = carry;
+      if (live && i0 + i < p.nc) {
+        if (PAIRS) {
+          const __nv_bfloat16 hi = __float2bfloat16(carry);
+          pr[z * pn * 2] = hi;
+          pr[z * pn * 2 + p.N] = __float2bfloat16(carry - __bfloat162float(hi));
+        } else {
+          st[z * pn] = carry;
+        }
         carry = fmaf(carry, t[i], own[i]);
       }
     }
   }
 }
 
-// dB and dC: the heads of each group summed in head order, in B's type;
-// dA: the (b, chunk) partials summed in order.  One thread an element.
+// dB and dC: the partials of each group (its heads, or its bands) summed
+// in order, in B's type; dA: the (b, chunk) partials summed in order.  One
+// thread an element.
 template <typename T>
 __global__ void __launch_bounds__(THREADS) ssd_bwd_reduce_kernel(BwdParams p) {
   const long long total = (long long)p.Bn * p.S * p.G * p.N;
-  const int rep = p.H / p.G;
+  const int rep = p.parts / p.G;
   for (long long e = blockIdx.x * (long long)THREADS + threadIdx.x;
        e < total; e += (long long)gridDim.x * THREADS) {
     const int k = e % p.N;
     const long long rest = e / p.N;
     const int g = rest % p.G;
     const long long bt = rest / p.G;        // b * S + t
-    const float* sb = p.dB_part + (bt * p.H + g * rep) * p.N + k;
-    const float* sc = p.dC_part + (bt * p.H + g * rep) * p.N + k;
+    const float* sb = p.dB_part + (bt * p.parts + g * rep) * p.N + k;
+    const float* sc = p.dC_part + (bt * p.parts + g * rep) * p.N + k;
     float vb = 0.f, vc = 0.f;
     for (int r = 0; r < rep; ++r) {
       vb += sb[(long long)r * p.N];
@@ -1358,6 +1409,694 @@ __global__ void __launch_bounds__(THREADS) ssd_bwd_reduce_kernel(BwdParams p) {
       p.dA[hh] = v;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at the models' shapes (variant 2, "wgmma"): the chunk stage in band
+// form, on wgmma fed by TMA (the header says why and how).
+
+constexpr int WB_TILE = 64;        // rows of a query or key block
+constexpr int WB_THREADS = 160;    // one consumer warpgroup, one producer warp
+// heads a block takes at most (ssd_scan.py · backward_band chooses the band)
+constexpr int WB_MAX_BAND = 4;
+// the column side keeps a chunk column of C B^T in fp32 (64 KB at 256)
+constexpr int WB_MAX_CHUNK = 256;
+// n the kernels are built for (hymba's 16, mamba2's 128), never padded
+constexpr int WB_WIDTHS[] = {16, 32, 64, 128};
+constexpr int ERR_MAP = -3;   // a TMA tensor map could not be encoded
+
+constexpr int round1k(int a) { return (a + 1023) / 1024 * 1024; }
+constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// Shared memory of a block: the home rows (C_I or B_J, then the band's dy
+// or x tiles of the same 64 rows), a ring of two stages (a 64-row block of
+// the other side, a head's state pair, or a head's dy tiles of a chunk
+// column), the column side's
+// C B^T cache (fp32, each thread's accumulator fragment in order, so its
+// reads and writes are conflict free), cum, dt, d cum and du . x of the
+// band's heads, the barriers, 1 KB to align the base to the 128-byte
+// swizzle's period.  n 128: 230,576 bytes, one block a multiprocessor.
+template <int N>
+struct WbLayout {
+  using Ct = hop::Tile64<N>;
+  using Xt = hop::Tile64<64>;
+  static constexpr int ROWS = round1k(Ct::BYTES + WB_MAX_BAND * Xt::BYTES);
+  static constexpr int STAGE = round1k(imax(ROWS, 2 * Ct::BYTES));
+  static constexpr int RING = ROWS;
+  static constexpr int CACHE = RING + 2 * STAGE;
+  static constexpr int ARRAYS =
+      CACHE + (WB_MAX_CHUNK / WB_TILE) * 32 * 128 * 4;
+  static constexpr int BARS =
+      ARRAYS + 4 * (4 * WB_MAX_BAND * WB_MAX_CHUNK + 32);
+  static constexpr int SMEM = BARS + 8 * 6 + 1024;
+};
+
+__device__ __forceinline__ float2 tile_pair(const unsigned char* tile,
+                                            int off) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + off));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The chunk stage of the wgmma variant: one block per (b, chunk, band of
+// `band` heads of one group), 160 threads, one consumer warpgroup (rows 16
+// w + l / 4 and + 8 of every 64-row product) and a producer warp whose one
+// thread brings every tile by TMA: the home rows through their own full /
+// empty barriers, the rest through a ring of two stages, in the order the
+// consumer takes them.  Rows past S read as zeros and dt there is 0.
+//
+// Row side, per query block I (home: C_I and the band's dy_I):
+//   per head, dC_I += 2^cum_i (dy in)          (in as a hi / lo pair)
+//             d cum_i += C_i . that
+//   per key block J <= I (B_J and the band's x_J from the ring):
+//     CB = C_I B_J^T once; per head G = dy_I x_J^T, dCB = G dt_j L (masked
+//     on the diagonal), d cum_i += rowsum(dCB o CB), SdCB += dCB (fp32);
+//     then dC_I += bf16(SdCB) B_J (A from registers).
+// Column side, per key block J (home: B_J and the band's x_J):
+//   per query block I >= J: CB^T = B_J C_I^T once, kept in the cache; per
+//     head G^T = x_J dy_I^T, dCB^T, d cum_j -= colsum, SdCB^T += dCB^T;
+//     dB_J += bf16(SdCB^T) C_I;
+//   per head: dB_J += (2^(total - cum_j) dt_j) o (x_J dS), du = 2^(total -
+//     cum_j) B_J dS^T (dS as a pair), d cum_j -= B_j . (2^(..) dt x dS) =
+//     dt_j x_j . du_j; then per I >= J du += (CB^T o L^T) dy_I, the cached
+//     scores decayed for the head as a hi / lo pair; dx = du dt, du . x.
+// Then per head (a warp each) the reverse cumsum of d cum, ddt and the dA
+// partial, as finish_chunk.  dB and dC leave as the band's fp32 partials.
+// Every product waits for its result before its registers are read or
+// written again, and every A fragment is packed before its product issues.
+template <int N>
+__global__ void __launch_bounds__(WB_THREADS, 1)
+    ssd_bwd_chunk_wgmma_kernel(const BwdParams p,
+                               const __grid_constant__ CUtensorMap tm_x,
+                               const __grid_constant__ CUtensorMap tm_dy,
+                               const __grid_constant__ CUtensorMap tm_b,
+                               const __grid_constant__ CUtensorMap tm_c,
+                               const __grid_constant__ CUtensorMap tm_in,
+                               const __grid_constant__ CUtensorMap tm_ds) {
+  using L = WbLayout<N>;
+  using Ct = hop::Tile64<N>;
+  using Xt = hop::Tile64<64>;
+  constexpr int MB = WB_MAX_BAND, MC = WB_MAX_CHUNK, XB = Xt::BYTES;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t raw = hop::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  float* s_cache = reinterpret_cast<float*>(sbase + L::CACHE);
+  float* s_cum = reinterpret_cast<float*>(sbase + L::ARRAYS);  // log2 units
+  float* s_dt = s_cum + MB * MC;
+  float* s_dcum = s_dt + MB * MC;
+  float* s_ddt = s_dcum + MB * MC;   // du . x
+  float* s_red = s_ddt + MB * MC;    // 32
+  const uint32_t hfull = base + L::BARS, hempty = hfull + 8,
+                 full0 = hfull + 16, empty0 = full0 + 16;
+
+  const int c = p.chunk, nq = c / WB_TILE;
+  const int hpg = p.H / p.G, bpg = (hpg + p.band - 1) / p.band;
+  long long rest = blockIdx.x;
+  const int band = static_cast<int>(rest % bpg);
+  rest /= bpg;
+  const int grp = static_cast<int>(rest % p.G);
+  rest /= p.G;
+  const int z = static_cast<int>(rest % p.nc);
+  const int b = static_cast<int>(rest / p.nc);
+  const int h0 = grp * hpg + band * p.band;
+  const int kh = min(p.band, hpg - band * p.band);
+  const int part = grp * bpg + band, parts = p.G * bpg;
+  const int t0 = z * c;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const uint32_t rows_bytes = Ct::BYTES + kh * XB;
+
+  if (tid == 0) {
+    hop::mbar_init(hfull, 1);
+    hop::mbar_init(hempty, 128);
+    for (int s = 0; s < 2; ++s) {
+      hop::mbar_init(full0 + 8 * s, 1);
+      hop::mbar_init(empty0 + 8 * s, 128);
+    }
+    hop::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // producer
+    if (lane == 0) {
+      hop::prefetch_map(&tm_x);
+      hop::prefetch_map(&tm_dy);
+      hop::prefetch_map(&tm_b);
+      hop::prefetch_map(&tm_c);
+      hop::prefetch_map(&tm_in);
+      hop::prefetch_map(&tm_ds);
+      int it = 0, hu = 0;
+      uint32_t bar = 0;
+      auto ring = [&](uint32_t bytes) {
+        const int s = it & 1;
+        if (it >= 2) hop::mbar_wait(empty0 + 8 * s, ((it >> 1) - 1) & 1);
+        ++it;
+        bar = full0 + 8 * s;
+        hop::mbar_arrive_expect_tx(bar, bytes);
+        return base + L::RING + s * L::STAGE;
+      };
+      auto home = [&]() {
+        if (hu >= 1) hop::mbar_wait(hempty, (hu - 1) & 1);
+        ++hu;
+        bar = hfull;
+        hop::mbar_arrive_expect_tx(bar, rows_bytes);
+        return base;
+      };
+      // block blk's rows: the group's tile of mg, the band's tiles of mh
+      auto rows = [&](uint32_t dst, const CUtensorMap* mg,
+                      const CUtensorMap* mh, int blk) {
+        const int row = t0 + blk * WB_TILE;
+        Ct::load(dst, mg, grp, row, b, bar);
+        for (int k = 0; k < kh; ++k)
+          Xt::load(dst + Ct::BYTES + k * XB, mh, h0 + k, row, b, bar);
+      };
+      // head k's state pair (hi, lo) of this chunk
+      auto pair = [&](uint32_t dst, const CUtensorMap* m, int k) {
+        const int pr = (b * p.H + h0 + k) * p.nc + z;
+        Ct::load(dst, m, 0, 0, pr, bar);
+        Ct::load(dst + Ct::BYTES, m, 1, 0, pr, bar);
+      };
+      for (int I = 0; I < nq; ++I) {
+        rows(home(), &tm_c, &tm_dy, I);
+        for (int k = 0; k < kh; ++k) pair(ring(2 * Ct::BYTES), &tm_in, k);
+        for (int J = 0; J <= I; ++J) rows(ring(rows_bytes), &tm_b, &tm_x, J);
+      }
+      for (int J = 0; J < nq; ++J) {
+        rows(home(), &tm_b, &tm_x, J);
+        for (int I = J; I < nq; ++I) rows(ring(rows_bytes), &tm_c, &tm_dy, I);
+        for (int k = 0; k < kh; ++k) {
+          pair(ring(2 * Ct::BYTES), &tm_ds, k);
+          if (J == 0) pair(ring(2 * Ct::BYTES), &tm_in, k);
+          // head k's dy of every query block I >= J, one item
+          const uint32_t d = ring((nq - J) * XB);
+          for (int I = J; I < nq; ++I)
+            Xt::load(d + (I - J) * XB, &tm_dy, h0 + k, t0 + I * WB_TILE, b,
+                     bar);
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, tig = lane & 3;
+  const int il[2] = {16 * warp + g, 16 * warp + g + 8};
+
+  // cum (log2 units) and dt of the band's heads: warp k scans head k's
+  // chunk as chunk_cum does, so the walks' cum and this one agree
+  if (warp < kh) {
+    const int hd = h0 + warp;
+    const float a_h = p.A[hd];
+    const float* dtg = p.dt + b * p.dt_sb + hd * p.dt_sh;
+    float* cum = s_cum + warp * MC;
+    float* dtk = s_dt + warp * MC;
+    const int per = c / 32, lo = lane * per;
+    float run = 0.f;
+    for (int r = lo; r < lo + per; ++r) {
+      const float d = t0 + r < p.S ? dtg[(long long)(t0 + r) * p.dt_ss] : 0.f;
+      dtk[r] = d;
+      if (t0 + r < p.S) run += d * a_h;
+      cum[r] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    float before = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lane == 0) before = 0.f;
+    for (int r = lo; r < lo + per; ++r) cum[r] = (cum[r] + before) * LOG2E;
+  }
+  hop::bar_sync(1, 128);
+
+  int cit = 0, chu = 0;
+  auto acquire = [&]() {
+    const int s = cit & 1;
+    hop::mbar_wait(full0 + 8 * s, (cit >> 1) & 1);
+    return cit++;
+  };
+  auto stage_of = [&](int it) {
+    return base + L::RING + (it & 1) * L::STAGE;
+  };
+  auto release = [&](int it) { hop::mbar_arrive(empty0 + 8 * (it & 1)); };
+  auto home_wait = [&]() {
+    hop::mbar_wait(hfull, chu & 1);
+    ++chu;
+  };
+
+  float dtot[MB], pass[MB];   // per head: sum of B_j . (..), <in, dS>
+#pragma unroll
+  for (int k = 0; k < MB; ++k) dtot[k] = pass[k] = 0.f;
+
+  // ---- the row side --------------------------------------------------------
+  for (int I = 0; I < nq; ++I) {
+    home_wait();
+    const uint32_t hC = base, hD = base + Ct::BYTES;
+    float dC[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) dC[e] = 0.f;
+    float rm[MB][2];
+#pragma unroll
+    for (int k = 0; k < MB; ++k) rm[k][0] = rm[k][1] = 0.f;
+
+    // the entering states' terms, head by head
+#pragma unroll
+    for (int k = 0; k < MB; ++k) {
+      if (k >= kh) continue;
+      const int it = acquire();
+      const uint32_t st = stage_of(it);
+      float tt[N / 2];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_ss_tb(tt, Xt::kmajor(hD + k * XB, kk), Ct::mnmajor(st, kk),
+                         kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_ss_tb(tt, Xt::kmajor(hD + k * XB, kk),
+                         Ct::mnmajor(st + Ct::BYTES, kk), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_operand(tt);
+      release(it);
+      const float* cum = s_cum + k * MC + I * WB_TILE;
+      const float e2[2] = {hop::ex2(cum[il[0]]), hop::ex2(cum[il[1]])};
+#pragma unroll
+      for (int nb = 0; nb < N / 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 cv =
+              tile_pair(sbase, Ct::offset(il[r], 8 * nb + 2 * tig));
+          const float v0 = tt[4 * nb + 2 * r] * e2[r];
+          const float v1 = tt[4 * nb + 2 * r + 1] * e2[r];
+          rm[k][r] += v0 * cv.x + v1 * cv.y;
+          dC[4 * nb + 2 * r] += v0;
+          dC[4 * nb + 2 * r + 1] += v1;
+        }
+    }
+
+    for (int J = 0; J <= I; ++J) {
+      const int it = acquire();
+      const uint32_t vs = stage_of(it);   // B_J, then the band's x_J
+      const bool diag = J == I;
+      float cb[32], sd[32], gg[32];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hop::wgmma_ss(cb, Ct::kmajor(hC, kk), Ct::kmajor(vs, kk), kk);
+      hop::wgmma_commit();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sd[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < MB; ++k) {
+        if (k >= kh) continue;
+        // G = dy_I x_J^T of head k (with C B^T, for the first)
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss(gg, Xt::kmajor(hD + k * XB, kk),
+                        Xt::kmajor(vs + Ct::BYTES + k * XB, kk), kk);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_operand(cb);
+        hop::fence_operand(gg);
+        const float* cum = s_cum + k * MC;
+        const float* cj_ = cum + J * WB_TILE;
+        const float* dj_ = s_dt + k * MC + J * WB_TILE;
+        const float ci[2] = {cum[I * WB_TILE + il[0]],
+                             cum[I * WB_TILE + il[1]]};
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int jl = 8 * nb + 2 * tig;
+          const float2 cj = *reinterpret_cast<const float2*>(cj_ + jl);
+          const float2 dj = *reinterpret_cast<const float2*>(dj_ + jl);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float v0 = gg[4 * nb + 2 * r] * dj.x * hop::ex2(ci[r] - cj.x);
+            float v1 = gg[4 * nb + 2 * r + 1] * dj.y * hop::ex2(ci[r] - cj.y);
+            if (diag) {
+              v0 = jl <= il[r] ? v0 : 0.f;
+              v1 = jl + 1 <= il[r] ? v1 : 0.f;
+            }
+            rm[k][r] += v0 * cb[4 * nb + 2 * r] + v1 * cb[4 * nb + 2 * r + 1];
+            sd[4 * nb + 2 * r] += v0;
+            sd[4 * nb + 2 * r + 1] += v1;
+          }
+        }
+      }
+      // dC_I += bf16(the band's dCB) B_J
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::accumulator_to_a(sd, kk, a[kk]);
+      hop::fence_operand(dC);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs_tb(dC, a[kk], Ct::mnmajor(vs, kk), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_operand(dC);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::fence_operand(a[kk]);
+      release(it);
+    }
+
+#pragma unroll
+    for (int k = 0; k < MB; ++k)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float v = quad_sum(rm[k][r]);
+        if (k < kh && tig == 0) s_dcum[k * MC + I * WB_TILE + il[r]] = v;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + I * WB_TILE + il[r];
+      if (t < p.S) {
+        float* o = p.dC_part + (((long long)b * p.S + t) * parts + part) * N;
+#pragma unroll
+        for (int nb = 0; nb < N / 8; ++nb)
+          *reinterpret_cast<float2*>(o + 8 * nb + 2 * tig) =
+              make_float2(dC[4 * nb + 2 * r], dC[4 * nb + 2 * r + 1]);
+      }
+    }
+    hop::mbar_arrive(hempty);
+  }
+
+  // ---- the column side -----------------------------------------------------
+  for (int J = 0; J < nq; ++J) {
+    home_wait();
+    const uint32_t hB = base, hX = base + Ct::BYTES;
+    const unsigned char* sX = sbase + Ct::BYTES;
+    float dB[N / 2];
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) dB[e] = 0.f;
+    float cm[MB][2];
+#pragma unroll
+    for (int k = 0; k < MB; ++k) cm[k][0] = cm[k][1] = 0.f;
+
+    for (int I = J; I < nq; ++I) {
+      const int it = acquire();
+      const uint32_t vs = stage_of(it);   // C_I, then the band's dy_I
+      const bool diag = I == J;
+      float cb[32], sd[32], gg[32];
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hop::wgmma_ss(cb, Ct::kmajor(hB, kk), Ct::kmajor(vs, kk), kk);
+      hop::wgmma_commit();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sd[e] = 0.f;
+#pragma unroll
+      for (int k = 0; k < MB; ++k) {
+        if (k >= kh) continue;
+        // G^T = x_J dy_I^T of head k (with C B^T, for the first)
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss(gg, Xt::kmajor(hX + k * XB, kk),
+                        Xt::kmajor(vs + Ct::BYTES + k * XB, kk), kk);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_operand(cb);
+        hop::fence_operand(gg);
+        if (k == 0) {
+          float* cache = s_cache + (I - J) * 32 * 128 + tid;
+#pragma unroll
+          for (int e = 0; e < 32; ++e) cache[e * 128] = cb[e];
+        }
+        const float* cum = s_cum + k * MC;
+        const float* ci_ = cum + I * WB_TILE;
+        const float cj[2] = {cum[J * WB_TILE + il[0]],
+                             cum[J * WB_TILE + il[1]]};
+        const float dj[2] = {s_dt[k * MC + J * WB_TILE + il[0]],
+                             s_dt[k * MC + J * WB_TILE + il[1]]};
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const int jl = 8 * nb + 2 * tig;   // query rows i of the columns
+          const float2 ci = *reinterpret_cast<const float2*>(ci_ + jl);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float v0 = gg[4 * nb + 2 * r] * dj[r] * hop::ex2(ci.x - cj[r]);
+            float v1 = gg[4 * nb + 2 * r + 1] * dj[r] * hop::ex2(ci.y - cj[r]);
+            if (diag) {
+              v0 = jl >= il[r] ? v0 : 0.f;
+              v1 = jl + 1 >= il[r] ? v1 : 0.f;
+            }
+            cm[k][r] += v0 * cb[4 * nb + 2 * r] + v1 * cb[4 * nb + 2 * r + 1];
+            sd[4 * nb + 2 * r] += v0;
+            sd[4 * nb + 2 * r + 1] += v1;
+          }
+        }
+      }
+
+      // dB_J += bf16(the band's dCB^T) C_I
+      uint32_t a[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::accumulator_to_a(sd, kk, a[kk]);
+      hop::fence_operand(dB);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hop::wgmma_rs_tb(dB, a[kk], Ct::mnmajor(vs, kk), 1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_operand(dB);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) hop::fence_operand(a[kk]);
+      release(it);
+    }
+
+    // head by head: the state terms, then du over the query blocks
+#pragma unroll
+    for (int k = 0; k < MB; ++k) {
+      if (k >= kh) continue;
+      const int hd = h0 + k;
+      const uint32_t hXk = hX + k * XB;
+      const unsigned char* xk = sX + k * XB;
+      const float* cum = s_cum + k * MC;
+      const float cj[2] = {cum[J * WB_TILE + il[0]], cum[J * WB_TILE + il[1]]};
+      const float dj[2] = {s_dt[k * MC + J * WB_TILE + il[0]],
+                           s_dt[k * MC + J * WB_TILE + il[1]]};
+      const float total = cum[c - 1];
+      const float w[2] = {hop::ex2(total - cj[0]), hop::ex2(total - cj[1])};
+      const int its = acquire();
+      const uint32_t st = stage_of(its);   // dS_z of head k, hi then lo
+      if (J == 0) {
+        // <in_z, dS_z>, from both pairs
+        const int iti = acquire();
+        const unsigned char* si = sbase + (stage_of(iti) - base);
+        const unsigned char* sd_ = sbase + (st - base);
+        float acc = 0.f;
+        for (int e = tid; e < WB_TILE * N / 2; e += 128) {
+          const int r = e / (N / 2), col = 2 * (e % (N / 2));
+          const int off = Ct::offset(r, col);
+          const float2 ih = tile_pair(si, off);
+          const float2 il2 = tile_pair(si, off + Ct::BYTES);
+          const float2 dh = tile_pair(sd_, off);
+          const float2 dl = tile_pair(sd_, off + Ct::BYTES);
+          acc += (ih.x + il2.x) * (dh.x + dl.x) + (ih.y + il2.y) * (dh.y + dl.y);
+        }
+        pass[k] = acc;
+        release(iti);
+      }
+      {
+        float tt[N / 2];   // x_J dS
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss_tb(tt, Xt::kmajor(hXk, kk), Ct::mnmajor(st, kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hop::wgmma_ss_tb(tt, Xt::kmajor(hXk, kk),
+                           Ct::mnmajor(st + Ct::BYTES, kk), 1);
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_operand(tt);
+#pragma unroll
+        for (int nb = 0; nb < N / 8; ++nb)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float wd = w[r] * dj[r];
+            dB[4 * nb + 2 * r] += wd * tt[4 * nb + 2 * r];
+            dB[4 * nb + 2 * r + 1] += wd * tt[4 * nb + 2 * r + 1];
+          }
+      }
+      float du[32];   // rows j, columns p
+      hop::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hop::wgmma_ss(du, Ct::kmajor(hB, kk), Ct::kmajor(st, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < N / 16; ++kk)
+        hop::wgmma_ss(du, Ct::kmajor(hB, kk), Ct::kmajor(st + Ct::BYTES, kk),
+                      1);
+      hop::wgmma_commit();
+      hop::wgmma_wait<0>();
+      hop::fence_operand(du);
+      release(its);
+      float sb[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 xv = tile_pair(xk, Xt::offset(il[r], 8 * nb + 2 * tig));
+          du[4 * nb + 2 * r] *= w[r];
+          du[4 * nb + 2 * r + 1] *= w[r];
+          sb[r] += du[4 * nb + 2 * r] * xv.x + du[4 * nb + 2 * r + 1] * xv.y;
+        }
+      sb[0] *= dj[0];
+      sb[1] *= dj[1];
+      dtot[k] += sb[0] + sb[1];
+
+      const int ity = acquire();   // head k's dy_I for I >= J
+      for (int I = J; I < nq; ++I) {
+        const uint32_t ys = stage_of(ity) + (I - J) * XB;
+        const float* cache = s_cache + (I - J) * 32 * 128 + tid;
+        const float* ci_ = cum + I * WB_TILE;
+        const bool diag = I == J;
+        uint32_t ah[4][4], al[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int nb = 2 * kk + (q >> 1), r = q & 1, e = 4 * nb + 2 * r;
+            const int jl = 8 * nb + 2 * tig;
+            const float2 ci = *reinterpret_cast<const float2*>(ci_ + jl);
+            float v0 = cache[e * 128] * hop::ex2(ci.x - cj[r]);
+            float v1 = cache[(e + 1) * 128] * hop::ex2(ci.y - cj[r]);
+            if (diag) {
+              v0 = jl >= il[r] ? v0 : 0.f;
+              v1 = jl + 1 >= il[r] ? v1 : 0.f;
+            }
+            const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+            const float2 hf = __bfloat1622float2(hv);
+            ah[kk][q] = *reinterpret_cast<const uint32_t*>(&hv);
+            al[kk][q] = hop::pack_bf16(v0 - hf.x, v1 - hf.y);
+          }
+        hop::fence_operand(du);
+        hop::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hop::wgmma_rs_tb(du, ah[kk], Xt::mnmajor(ys, kk), 1);
+          hop::wgmma_rs_tb(du, al[kk], Xt::mnmajor(ys, kk), 1);
+        }
+        hop::wgmma_commit();
+        hop::wgmma_wait<0>();
+        hop::fence_operand(du);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          hop::fence_operand(ah[kk]);
+          hop::fence_operand(al[kk]);
+        }
+      }
+      release(ity);
+
+      // the head's key rows: dx = du dt, du . x, d cum's column terms
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int jl = J * WB_TILE + il[r];
+        const int t = t0 + jl;
+        float dxx = 0.f;
+#pragma unroll
+        for (int nb = 0; nb < 8; ++nb) {
+          const float2 xv = tile_pair(xk, Xt::offset(il[r], 8 * nb + 2 * tig));
+          dxx += du[4 * nb + 2 * r] * xv.x + du[4 * nb + 2 * r + 1] * xv.y;
+        }
+        if (t < p.S) {
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.dx) +
+                             (((long long)b * p.S + t) * p.H + hd) * p.P;
+#pragma unroll
+          for (int nb = 0; nb < 8; ++nb) {
+            const int col = 8 * nb + 2 * tig;
+            if (col < p.P)
+              *reinterpret_cast<uint32_t*>(o + col) =
+                  hop::pack_bf16(du[4 * nb + 2 * r] * dj[r],
+                                 du[4 * nb + 2 * r + 1] * dj[r]);
+          }
+        }
+        dxx = quad_sum(dxx);
+        const float sbs = quad_sum(sb[r]), cms = quad_sum(cm[k][r]);
+        if (tig == 0) {
+          s_dcum[k * MC + jl] -= sbs + cms;
+          s_ddt[k * MC + jl] = dxx;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = t0 + J * WB_TILE + il[r];
+      if (t < p.S) {
+        float* o = p.dB_part + (((long long)b * p.S + t) * parts + part) * N;
+#pragma unroll
+        for (int nb = 0; nb < N / 8; ++nb)
+          *reinterpret_cast<float2*>(o + 8 * nb + 2 * tig) =
+              make_float2(dB[4 * nb + 2 * r], dB[4 * nb + 2 * r + 1]);
+      }
+    }
+    hop::mbar_arrive(hempty);
+  }
+
+  // ---- per head: d total, the reverse cumsum, ddt and the dA partial ------
+#pragma unroll
+  for (int k = 0; k < MB; ++k) {
+    float v = dtot[k], q = pass[k];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      v += __shfl_xor_sync(0xffffffffu, v, off);
+      q += __shfl_xor_sync(0xffffffffu, q, off);
+    }
+    if (lane == 0) {
+      s_red[k * 4 + warp] = v;
+      s_red[16 + k * 4 + warp] = q;
+    }
+  }
+  hop::bar_sync(1, 128);
+  if (warp >= kh) return;
+  const int k = warp, hd = h0 + k;
+  float* dc = s_dcum + k * MC;
+  const float* dtk = s_dt + k * MC;
+  const float* ddk = s_ddt + k * MC;
+  if (lane == 0) {
+    const float* rv = s_red + k * 4;
+    const float passing =
+        hop::ex2(s_cum[k * MC + c - 1]) * (rv[16] + rv[17] + rv[18] + rv[19]);
+    dc[c - 1] += (rv[0] + rv[1] + rv[2] + rv[3]) + passing;
+  }
+  __syncwarp();
+  const int per = c / 32, lo = lane * per;
+  float run = 0.f;
+  for (int r = lo + per - 1; r >= lo; --r) {
+    run += dc[r];
+    dc[r] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float v = __shfl_down_sync(0xffffffffu, incl, off);
+    if (lane + off < 32) incl += v;
+  }
+  float after = __shfl_down_sync(0xffffffffu, incl, 1);
+  if (lane == 31) after = 0.f;
+  for (int r = lo; r < lo + per; ++r) dc[r] += after;
+  __syncwarp();
+  const float a_h = p.A[hd];
+  float da = 0.f;
+  for (int r = lane; r < c; r += 32) {
+    const int t = t0 + r;
+    if (t < p.S) {
+      p.ddt[((long long)b * p.S + t) * p.H + hd] = ddk[r] + a_h * dc[r];
+      da = fmaf(dtk[r], dc[r], da);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    da += __shfl_xor_sync(0xffffffffu, da, off);
+  if (lane == 0) p.dA_part[((long long)b * p.nc + z) * p.H + hd] = da;
 }
 
 template <typename Kernel>
@@ -1398,10 +2137,9 @@ cudaError_t launch_scalar(const BwdParams& p, cudaStream_t st) {
   return launch_reduce<T>(p, st);
 }
 
-// the mma variant (bf16): the mma d-state and chunk kernels of the
-// narrowest width NT >= n, the reduction
-// one walk of the mma variant: each chunk's own addition, then the pass
-template <int NT, bool FWD>
+// one walk of the bf16 variants: each chunk's own addition, then the pass
+// (the wgmma variant's writes the states as bf16 pairs: PAIRS)
+template <int NT, bool FWD, bool PAIRS>
 cudaError_t launch_walk(const BwdParams& p, cudaStream_t st) {
   const size_t s1 = own_mma_smem<NT>(p.chunk);
   cudaError_t err = set_smem(ssd_bwd_own_mma_kernel<NT, FWD>, s1);
@@ -1411,17 +2149,19 @@ cudaError_t launch_walk(const BwdParams& p, cudaStream_t st) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long states = (long long)p.Bn * p.H * p.P * p.N;
-  ssd_bwd_pass_kernel<FWD>
+  ssd_bwd_pass_kernel<FWD, PAIRS>
       <<<static_cast<int>((states + THREADS - 1) / THREADS), THREADS, 0,
          st>>>(p);
   return cudaGetLastError();
 }
 
+// the mma variant (bf16): the mma walks and chunk kernel of the narrowest
+// width NT >= n
 template <int NT>
 cudaError_t launch_mma_n(const BwdParams& p, cudaStream_t st) {
-  cudaError_t err = launch_walk<NT, true>(p, st);
+  cudaError_t err = launch_walk<NT, true, false>(p, st);
   if (err != cudaSuccess) return err;
-  err = launch_walk<NT, false>(p, st);
+  err = launch_walk<NT, false, false>(p, st);
   if (err != cudaSuccess) return err;
   const size_t smem = chunk_mma_smem<NT>(p.chunk);
   err = set_smem(ssd_bwd_chunk_mma_kernel<NT>, smem);
@@ -1440,6 +2180,76 @@ cudaError_t launch_mma(const BwdParams& p, cudaStream_t st) {
   return launch_reduce<__nv_bfloat16>(p, st);
 }
 
+// the wgmma variant (bf16 at the models' shapes): the walks with their
+// states as bf16 pairs, the band chunk kernel, the reduction of the bands.
+// The tensor maps are encoded at each call from the tensors' own strides,
+// boxes of 64 rows: x and dy (b, s, h, p) one 64-column box (columns past p
+// read as zeros), B and C (b, s, g, n) by the panels of n, the pairs (b h
+// chunks, p, {hi, lo}, n) as (pair, p, hi or lo, n), rows past p zeros.
+template <int N>
+int launch_wgmma_n(const BwdParams& p, cudaStream_t st) {
+  using Ct = hop::Tile64<N>;
+  const int hpg = p.H / p.G, bpg = (hpg + p.band - 1) / p.band;
+  const long long pairs = (long long)p.Bn * p.H * p.nc;
+  const long long blocks = (long long)p.Bn * p.nc * p.G * bpg;
+  if (pairs > 0x7fffffffLL || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  CUtensorMap mx, mdy, mb, mc, mi, ms;
+  if (!hop::bshd_map(&mx, p.x, p.Bn, p.S, p.H, p.P, p.x_sb, p.x_ss, p.x_sh,
+                     64, WB_TILE) ||
+      !hop::bshd_map(&mdy, p.dy, p.Bn, p.S, p.H, p.P, p.dy_sb, p.dy_ss,
+                     p.dy_sh, 64, WB_TILE) ||
+      !hop::bshd_map(&mb, p.B, p.Bn, p.S, p.G, N, p.B_sb, p.B_ss, p.B_sg,
+                     Ct::PANEL, WB_TILE) ||
+      !hop::bshd_map(&mc, p.C, p.Bn, p.S, p.G, N, p.C_sb, p.C_ss, p.C_sg,
+                     Ct::PANEL, WB_TILE) ||
+      !hop::bshd_map(&mi, p.states, static_cast<int>(pairs), p.P, 2, N,
+                     2LL * p.P * N, 2LL * N, N, Ct::PANEL, WB_TILE) ||
+      !hop::bshd_map(&ms, p.dS, static_cast<int>(pairs), p.P, 2, N,
+                     2LL * p.P * N, 2LL * N, N, Ct::PANEL, WB_TILE))
+    return ERR_MAP;
+  cudaError_t err = launch_walk<N, true, true>(p, st);
+  if (err != cudaSuccess) return err;
+  err = launch_walk<N, false, true>(p, st);
+  if (err != cudaSuccess) return err;
+  constexpr int smem = WbLayout<N>::SMEM;
+  static bool ready = false;
+  if (!ready) {
+    if ((err = set_smem(ssd_bwd_chunk_wgmma_kernel<N>, smem)) != cudaSuccess)
+      return err;
+    ready = true;
+  }
+  ssd_bwd_chunk_wgmma_kernel<N><<<static_cast<unsigned>(blocks), WB_THREADS,
+                                  smem, st>>>(p, mx, mdy, mb, mc, mi, ms);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  return launch_reduce<__nv_bfloat16>(p, st);
+}
+
+// what the wgmma variant takes: bf16 (checked by the caller), p a multiple
+// of 16 up to 64, n one of WB_WIDTHS, a chunk a multiple of WB_TILE up to
+// WB_MAX_CHUNK, a band of 1 to WB_MAX_BAND heads of one group, and every
+// base and stride of x, dy, B and C 16-byte aligned (TMA's rule)
+bool wgmma_takes(const BwdParams& p) {
+  bool width = false;
+  for (int w : WB_WIDTHS) width = width || p.N == w;
+  return width && p.P % 16 == 0 && p.chunk % WB_TILE == 0 &&
+         p.chunk <= WB_MAX_CHUNK && p.band >= 1 && p.band <= WB_MAX_BAND &&
+         p.band <= p.H / p.G && p.vec_x && p.vec_dy && p.vec_bc &&
+         reinterpret_cast<uintptr_t>(p.states) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.dS) % 16 == 0;
+}
+
+int launch_wgmma(const BwdParams& p, cudaStream_t st) {
+  if (!wgmma_takes(p)) return cudaErrorInvalidValue;
+  switch (p.N) {
+    case 16: return launch_wgmma_n<16>(p, st);
+    case 32: return launch_wgmma_n<32>(p, st);
+    case 64: return launch_wgmma_n<64>(p, st);
+    case 128: return launch_wgmma_n<128>(p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x, B, C, dy, dx, dB, dC); dt, A and
@@ -1447,11 +2257,18 @@ cudaError_t launch_mma(const BwdParams& p, cudaStream_t st) {
 // B, C and dy is contiguous; the outputs dx (b, S, H, P), ddt (b, S, H),
 // dB, dC (b, S, G, N) are contiguous.  variant: as ssd_scan.py ·
 // backward_variant chose it; 0 the scalar kernels (fp32), 1 the mma
-// kernels (bf16).  Scratch the caller allocates, fp32: states and dS
-// (b, h, chunks, P, N), dB_part and dC_part (b, S, H, N), dA_part (b,
-// chunks, H), and for the mma kernels tot (b, h, chunks).  S need not be
+// kernels (bf16), 2 the wgmma kernels (bf16; p a multiple of 16, n 16, 32,
+// 64 or 128, a chunk a multiple of 64 up to 256, x, dy, B and C 16-byte
+// aligned), whose chunk kernel takes bands of `band` heads of a group
+// (ssd_scan.py · backward_band; the other variants take 1).  Scratch the
+// caller allocates, fp32: states and dS (b, h, chunks, P, N; the wgmma
+// variant's walks leave them as bf16 pairs in the same bytes), dB_part and
+// dC_part (b, S, parts, N), parts H for the scalar and mma kernels (a
+// partial a head) and G x ceil(H / G / band) for wgmma (a partial a band),
+// dA_part (b, chunks, H), and for bf16 tot (b, h, chunks).  S need not be
 // a multiple of the chunk: chunks = ceil(S / chunk), and the rows past S
-// read as zeros.  Returns a cudaError_t (0 on success).
+// read as zeros.  Returns a cudaError_t (0 on success), -3 if a tensor map
+// cannot be encoded.
 extern "C" int ssd_scan_bwd(
     const void* x, const void* dt, const void* A, const void* Bm,
     const void* Cm, const void* dy,
@@ -1462,23 +2279,27 @@ extern "C" int ssd_scan_bwd(
     long long x_ss, long long x_sh, long long dt_sb, long long dt_ss,
     long long dt_sh, long long B_sb, long long B_ss, long long B_sg,
     long long C_sb, long long C_ss, long long C_sg, long long dy_sb,
-    long long dy_ss, long long dy_sh, void* stream, int variant) {
-  if ((variant != BWD_SCALAR && variant != BWD_MMA) ||
-      (variant == BWD_MMA && (dtype != 1 || tot == nullptr)) ||
+    long long dy_ss, long long dy_sh, void* stream, int variant, int band) {
+  const bool bf16 = variant == BWD_MMA || variant == BWD_WGMMA;
+  if ((variant != BWD_SCALAR && variant != BWD_MMA && variant != BWD_WGMMA) ||
+      (bf16 && (dtype != 1 || tot == nullptr)) ||
       (variant == BWD_SCALAR && dtype != 0) ||
+      (variant != BWD_WGMMA && band != 1) ||
       states == nullptr || dS == nullptr ||
-      B <= 0 || S <= 0 || H <= 0 || G <= 0 ||
+      B <= 0 || S <= 0 || H <= 0 || G <= 0 || band <= 0 ||
       H % G != 0 || P <= 0 || P > MAX_P || N <= 0 || N > MAX_N ||
       chunk <= 0 || chunk > MAX_CHUNK || (dtype != 0 && dtype != 1) ||
       (long long)B * H > 0x7fffffffLL || (S + chunk - 1) / chunk > 65535)
     return cudaErrorInvalidValue;
+  const int parts = variant == BWD_WGMMA
+                        ? G * ((H / G + band - 1) / band) : H;
   BwdParams p{x, static_cast<const float*>(dt), static_cast<const float*>(A),
               Bm, Cm, dy, static_cast<float*>(states),
               static_cast<float*>(dS), dx, static_cast<float*>(ddt),
               static_cast<float*>(dB_part), static_cast<float*>(dC_part),
               static_cast<float*>(dA_part), static_cast<float*>(tot), dB, dC,
               static_cast<float*>(dA),
-              B, S, H, P, G, N, chunk, (S + chunk - 1) / chunk,
+              B, S, H, P, G, N, chunk, (S + chunk - 1) / chunk, band, parts,
               x_sb, x_ss, x_sh, dt_sb, dt_ss, dt_sh, B_sb, B_ss, B_sg,
               C_sb, C_ss, C_sg, dy_sb, dy_ss, dy_sh,
               dtype == 1 && mma::aligned16(x, x_sb, x_ss, x_sh) && P % 8 == 0,
@@ -1487,7 +2308,20 @@ extern "C" int ssd_scan_bwd(
               dtype == 1 && mma::aligned16(Bm, B_sb, B_ss, B_sg) &&
                   mma::aligned16(Cm, C_sb, C_ss, C_sg) && N % 8 == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == BWD_WGMMA) return launch_wgmma(p, st);
   const cudaError_t err =
       variant == BWD_MMA ? launch_mma(p, st) : launch_scalar<float>(p, st);
   return static_cast<int>(err);
+}
+
+// Dynamic shared memory in bytes of one block of the wgmma variant's chunk
+// kernel, ssd_bwd_chunk_wgmma_kernel<n>; -1 for an n it is not built for.
+extern "C" int ssd_scan_bwd_smem_bytes(int n) {
+  switch (n) {
+    case 16: return WbLayout<16>::SMEM;
+    case 32: return WbLayout<32>::SMEM;
+    case 64: return WbLayout<64>::SMEM;
+    case 128: return WbLayout<128>::SMEM;
+    default: return -1;
+  }
 }

@@ -55,7 +55,11 @@ backward kernels (``csrc/ssd_scan_bwd.cu``, no TPU counterpart: the TPU
 kernel has no backward and the JAX package differentiates its jnp
 reference): the entering states again in fp32, the d-states, the chunk
 kernel and a reduction, of the variant ``backward_variant`` chooses
-(``backward_kernel``).  On CPU tensors it takes the staged twin
+(``backward_kernel``): ``"wgmma"`` at the models' shapes (the chunk stage
+in band form: a block per (b, chunk, band of ``backward_band`` heads), C
+B^T once a band, dCB summed over the band before its products with B and
+C, wgmma fed by TMA, one dB / dC partial a band), ``"mma"`` at the other
+bf16 shapes, ``"scalar"`` for fp32.  On CPU tensors it takes the staged twin
 ``ref.ssd_chunked_backward`` (the same stages in closed form); on meta,
 while a counter counts, empty gradients of the inputs' shapes.  It is one
 counter region, ``ssd_scan_backward``.  ``ssd_scan.backward_launches``
@@ -360,23 +364,86 @@ def _forward(x, dt, A, B, C, chunk: int) -> torch.Tensor:
 
 # the backward's variants, by the code its C entry takes, and the state
 # widths the mma chunk kernel is built for (n is padded up to one)
-BACKWARD_VARIANTS = {"scalar": 0, "mma": 1}
+BACKWARD_VARIANTS = {"scalar": 0, "mma": 1, "wgmma": 2}
 BACKWARD_MMA_WIDTHS = (16, 32, 64, 128)
+# the wgmma chunk kernel: heads a band takes at most (a block per (b,
+# chunk, band)), the longest chunk its shared memory holds a column of C
+# B^T for, and the multiprocessors of the card it is sized for (an H100
+# SXM: one block each)
+BACKWARD_BAND = 4
+BACKWARD_WGMMA_MAX_CHUNK = 256
+BACKWARD_SMS = 132
 
 
-def backward_variant(p: int, n: int, chunk: int, dtype) -> str:
-    """The backward kernels that serve a call on the card: ``"mma"`` for
-    bf16 (the chunk kernel on mma.sync, p padded to 64 and n to the next
-    of ``BACKWARD_MMA_WIDTHS``), ``"scalar"`` (register-tiled fp32 FMAs)
-    for fp32, at every shape the forward takes (p <= ``MAX_P``, n <=
-    ``MAX_N``, a chunk up to ``MAX_CHUNK``).  Anything else raises: no
-    call is sent to another kernel or the twin."""
+def backward_variant(p: int, n: int, chunk: int, dtype,
+                     aligned: bool = True) -> str:
+    """The backward kernels that serve a call on the card, chosen here and
+    nowhere else: ``"wgmma"`` for bf16 at the models' shapes (p a multiple
+    of 16 up to ``MAX_P``, n one of ``WGMMA_WIDTHS``, a chunk a multiple of
+    ``WGMMA_TILE`` up to ``BACKWARD_WGMMA_MAX_CHUNK``, and x, B, C and dy
+    16-byte aligned: ``aligned``, ``_aligned16`` of each): the chunk stage
+    in band form on wgmma fed by TMA; ``"mma"`` for the other bf16 shapes
+    (the test shapes' chunk of 24, p 12 or n 10, unaligned views: the
+    mma.sync chunk kernel, p padded to 64 and n to the next of
+    ``BACKWARD_MMA_WIDTHS``; TMA needs 16-byte rows and wgmma 64-row
+    tiles); ``"scalar"`` (register-tiled fp32 FMAs) for fp32.  Every shape
+    the forward takes (p <= ``MAX_P``, n <= ``MAX_N``, a chunk up to
+    ``MAX_CHUNK``) has a kernel; anything else raises: no call is sent to
+    another kernel or the twin."""
     if dtype not in _DTYPES or not (0 < p <= MAX_P and 0 < n <= MAX_N
                                     and 0 < chunk <= MAX_CHUNK):
         raise NotImplementedError(
             f"ssd_scan backward: no kernel for p={p}, n={n}, chunk={chunk}, "
             f"{dtype}")
-    return "mma" if dtype == torch.bfloat16 else "scalar"
+    if dtype != torch.bfloat16:
+        return "scalar"
+    if (aligned and p % 16 == 0 and n in WGMMA_WIDTHS
+            and chunk % WGMMA_TILE == 0
+            and chunk <= BACKWARD_WGMMA_MAX_CHUNK):
+        return "wgmma"
+    return "mma"
+
+
+def backward_band(b: int, s: int, h: int, g: int, chunk: int,
+                  which: str) -> int:
+    """Heads a block of the backward's chunk stage takes.  For
+    ``"wgmma"`` a band of W heads of one group, so C B^T is computed once
+    a band and dCB is summed over the band before its products with B and
+    C, and dB / dC leave as one partial a band; a group whose head count W
+    does not divide ends in a ragged band (hymba's 25 heads a rank at W 2:
+    twelve bands of 2 and one of 1), and no band takes two groups.  W is
+    the one of 4, 2, 1 (at most the group's heads) whose blocks, one a
+    multiprocessor, need the fewest waves of head work (waves x W), the
+    widest on a tie: a block's time grows with its heads (the kernel waits
+    on each head's products), so at mamba2-780m's 4 x 2048 the three take
+    the same chunk time and 4 leaves the fewest partials, while a grid of
+    a few dozen blocks (a model-axis rank, 2 x 2048) runs faster in more,
+    narrower bands (PERF.md section 6).  The other variants take one head
+    a block."""
+    if which != "wgmma":
+        return 1
+    hpg, nc = h // g, -(-s // chunk)
+
+    def waves(w):
+        blocks = b * nc * g * -(-hpg // w)
+        return -(-blocks // BACKWARD_SMS) * w
+
+    return min((w for w in (BACKWARD_BAND, 2, 1) if w <= hpg),
+               key=waves)
+
+
+def _backward_dy(x, dy):
+    """dy as the backward kernels read it: in x's type, the last dimension
+    contiguous."""
+    dy = dy.to(x.dtype)
+    return dy if dy.stride(3) == 1 else dy.contiguous()
+
+
+def _backward_variant_of(x, B, C, dy, chunk: int) -> str:
+    """``backward_variant`` of these tensors (dy as ``_backward_dy``)."""
+    return backward_variant(
+        x.shape[3], B.shape[3], chunk, x.dtype,
+        all(_aligned16(t) for t in (x, B, C, dy)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,49 +451,83 @@ def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("ssd_scan_bwd")
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssd_scan_bwd.argtypes = ([ptr] * 17 + [i32] * 8
-                                 + [i64] * 15 + [ptr, i32])
+                                 + [i64] * 15 + [ptr, i32, i32])
     lib.ssd_scan_bwd.restype = ctypes.c_int
+    lib.ssd_scan_bwd_smem_bytes.argtypes = [i32]
+    lib.ssd_scan_bwd_smem_bytes.restype = ctypes.c_int
     return lib
 
 
-def backward_scratch_bytes(b: int, s: int, h: int, p: int, n: int,
-                           chunk: int, dtype) -> int:
-    """The bytes ``backward_kernel`` allocates beside the gradients, all
-    fp32: the entering states and the d-states (b, h, chunks, p, n), the
-    per-head dB / dC (b, s, h, n), the (b, chunks, h) dA partials and,
-    for bf16, each chunk's exp(total)."""
+def _backward_parts(b: int, s: int, h: int, g: int, chunk: int,
+                    which: str) -> int:
+    """The dB / dC partials of a (b, t): one a head, or for ``"wgmma"``
+    one a band (``backward_band``), each group's bands side by side."""
+    band = backward_band(b, s, h, g, chunk, which)
+    return g * -(-(h // g) // band)
+
+
+def _backward_scratch(b: int, s: int, h: int, p: int, g: int, n: int,
+                      chunk: int, which: str, device) -> dict:
+    """The scratch ``backward_kernel`` allocates for a variant, fp32: the
+    entering states and the d-states (b, h, chunks, p, n; the wgmma walks
+    leave them as bf16 pairs in the same bytes), the dB / dC partials (b,
+    s, parts, n: a head's, or a band's for ``"wgmma"``), the (b, chunks,
+    h) dA partials and, for bf16, each chunk's exp(total)."""
     nc = -(-s // chunk)
-    return (8 * b * h * nc * p * n + 8 * b * s * h * n
-            + 4 * b * nc * h * (2 if dtype == torch.bfloat16 else 1))
+    parts = _backward_parts(b, s, h, g, chunk, which)
+    f32 = dict(dtype=torch.float32, device=device)
+    out = dict(states=torch.empty((b, h, nc, p, n), **f32),
+               dS=torch.empty((b, h, nc, p, n), **f32),
+               dB_part=torch.empty((b, s, parts, n), **f32),
+               dC_part=torch.empty((b, s, parts, n), **f32),
+               dA_part=torch.empty((b, nc, h), **f32),
+               tot=None)
+    if which != "scalar":
+        out["tot"] = torch.empty((b, h, nc), **f32)
+    return out
+
+
+def backward_scratch_bytes(b: int, s: int, h: int, p: int, n: int,
+                           chunk: int, dtype, *, g: int = 1,
+                           which: str | None = None) -> int:
+    """The bytes ``backward_kernel`` allocates beside the gradients
+    (``_backward_scratch``) for the variant ``which`` (by default the one
+    an aligned call of this shape takes, ``backward_variant``): the fp32
+    entering states and d-states, the dB / dC partials (a head's, or a
+    band's for ``"wgmma"``: 1 / band of them), the dA partials and, for
+    bf16, each chunk's exp(total)."""
+    if which is None:
+        which = backward_variant(p, n, chunk, dtype)
+    nc = -(-s // chunk)
+    parts = _backward_parts(b, s, h, g, chunk, which)
+    return (8 * b * h * nc * p * n + 8 * b * s * parts * n
+            + 4 * b * nc * h * (1 if which == "scalar" else 2))
 
 
 def backward_kernel(x, dt, A, B, C, dy, *, chunk: int):
     """The backward kernels on CUDA tensors: (dx, ddt, dA, dB, dC), each in
-    its input's type and contiguous.  The kernels compute the entering
-    states again themselves, in fp32 (dA's sums need more than the
-    forward's bf16 operands give: PERF.md section 6)."""
+    its input's type and contiguous, of the variant ``backward_variant``
+    names for these tensors.  The kernels compute the entering states
+    again themselves, in fp32 (dA's sums need more than the forward's bf16
+    operands give: PERF.md section 6).  For ``"wgmma"`` the chunk stage
+    takes bands of ``backward_band`` heads and leaves dB and dC as one
+    fp32 partial a band, which the reduction sums in band order (the other
+    variants leave one a head); ``backward_scratch_bytes`` counts what is
+    allocated here."""
     _check(x, dt, A, B, C, chunk)
     if x.device.type != "cuda":
         raise ValueError("ssd_scan backward: the kernels take CUDA tensors")
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    which = backward_variant(p, n, chunk, x.dtype)
+    dy = _backward_dy(x, dy)
+    which = _backward_variant_of(x, B, C, dy, chunk)
     dtf = dt.float()
     Af = A.float().contiguous()
-    dy = dy.to(x.dtype)
-    if dy.stride(3) != 1:
-        dy = dy.contiguous()
-    nc = -(-s // chunk)
     dev = x.device
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
-    states = torch.empty((b, h, nc, p, n), **f32)
-    dS = torch.empty((b, h, nc, p, n), **f32)
+    scratch = _backward_scratch(b, s, h, p, g, n, chunk, which, dev)
     ddt = torch.empty((b, s, h), **f32)
-    dB_part = torch.empty((b, s, h, n), **f32)
-    dC_part = torch.empty((b, s, h, n), **f32)
-    dA_part = torch.empty((b, nc, h), **f32)
-    tot = torch.empty((b, h, nc), **f32) if which == "mma" else None
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, g, n), dtype=B.dtype, device=dev)
     dC = torch.empty((b, s, g, n), dtype=C.dtype, device=dev)
@@ -438,13 +539,15 @@ def backward_kernel(x, dt, A, B, C, dy, *, chunk: int):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_library().ssd_scan_bwd(
             x.data_ptr(), dtf.data_ptr(), Af.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(), states.data_ptr(), dS.data_ptr(),
-            dx.data_ptr(), ddt.data_ptr(), dB_part.data_ptr(),
-            dC_part.data_ptr(), dA_part.data_ptr(), ptr(tot), dB.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), ptr(scratch["states"]),
+            ptr(scratch["dS"]), dx.data_ptr(), ddt.data_ptr(),
+            ptr(scratch["dB_part"]), ptr(scratch["dC_part"]),
+            ptr(scratch["dA_part"]), ptr(scratch["tot"]), dB.data_ptr(),
             dC.data_ptr(), dA.data_ptr(), _DTYPES[x.dtype], b, s, h, p, g, n,
             chunk, *x.stride()[:3], *dtf.stride(), *B.stride()[:3],
             *C.stride()[:3], *dy.stride()[:3], stream,
-            BACKWARD_VARIANTS[which])
+            BACKWARD_VARIANTS[which],
+            backward_band(b, s, h, g, chunk, which))
     if err:
         raise RuntimeError(f"ssd_scan: ssd_scan_bwd failed with CUDA error "
                            f"{err}")
@@ -467,12 +570,13 @@ class _SSDScan(torch.autograd.Function):
         chunk = ctx.chunk
         b, s, h, p = x.shape
         g, n = B.shape[2], B.shape[3]
+        which = _backward_variant_of(x, B, C, _backward_dy(x, dy), chunk)
         with _counter.region(
                 "ssd_scan_backward",
                 lambda: costs.ssd_scan_backward(b, s, h, p, g, n, chunk,
                                                 elem=x.element_size()),
                 scratch=backward_scratch_bytes(b, s, h, p, n, chunk,
-                                               x.dtype)):
+                                               x.dtype, g=g, which=which)):
             if x.device.type == "cpu":
                 grads = tuple(t.contiguous() for t in
                               ref.ssd_chunked_backward(x, dt, A, B, C, dy,

@@ -226,11 +226,21 @@ def test_torch_ssd_backward_cost_against_a_hand_count():
 
 def test_torch_ssd_backward_variant_and_entry_agree_with_the_source():
     """``backward_variant`` is chosen in Python in one place: bf16 on the
-    mma kernels at every shape the forward takes, fp32 on the scalar
-    kernels, anything else refused; its codes, the widths the mma kernels
-    are built for and the C entry's arguments agree with the source."""
+    wgmma band kernels at the models' shapes (p a multiple of 16, n one of
+    the wgmma widths, a chunk a multiple of 64 up to 256, x, B, C and dy
+    aligned), on the mma kernels at every other shape the forward takes
+    and whenever a view is unaligned, fp32 on the scalar kernels, anything
+    else refused; its codes, the widths and limits the kernels are built
+    for and the C entry's arguments agree with the source."""
     for p, n, chunk in ((64, 128, 256), (64, 16, 256), (32, 64, 256),
-                        (8, 16, 24), (12, 10, 32), (8, 4, 8)):
+                        (16, 32, 64), (48, 128, 128)):
+        assert ss.backward_variant(p, n, chunk, torch.bfloat16) == "wgmma"
+        assert ss.backward_variant(p, n, chunk, torch.bfloat16,
+                                   aligned=False) == "mma"
+        assert ss.backward_variant(p, n, chunk, torch.float32) == "scalar"
+    for p, n, chunk in ((8, 16, 24), (12, 10, 32), (8, 4, 8), (64, 128, 512),
+                        (64, 128, 96), (24, 128, 256), (64, 48, 256),
+                        (64, 8, 256)):
         assert ss.backward_variant(p, n, chunk, torch.bfloat16) == "mma"
         assert ss.backward_variant(p, n, chunk, torch.float32) == "scalar"
     for args in ((64, 128, 256, torch.float16), (72, 128, 256, torch.bfloat16),
@@ -238,18 +248,30 @@ def test_torch_ssd_backward_variant_and_entry_agree_with_the_source():
                  (64, 128, 1024, torch.float32)):
         with pytest.raises(NotImplementedError):
             ss.backward_variant(*args)
+    assert list(ss.BACKWARD_VARIANTS) == ["scalar", "mma", "wgmma"]
     for name, code in ss.BACKWARD_VARIANTS.items():
         assert f"constexpr int BWD_{name.upper()} = {code};" in SOURCE
     assert [int(w) for w in re.findall(r"p\.N <= (\d+)", SOURCE)] == \
         list(ss.BACKWARD_MMA_WIDTHS[:-1])
     assert "launch_mma_n<128>" in SOURCE
+    widths = re.search(r"constexpr int WB_WIDTHS\[\] = \{([^}]*)\};",
+                       SOURCE).group(1)
+    assert tuple(int(w) for w in widths.split(",")) == ss.WGMMA_WIDTHS
+    for const, value in (("WB_TILE", ss.WGMMA_TILE),
+                         ("WB_MAX_BAND", ss.BACKWARD_BAND),
+                         ("WB_MAX_CHUNK", ss.BACKWARD_WGMMA_MAX_CHUNK)):
+        assert re.search(rf"constexpr int {const} = (\d+);",
+                         SOURCE).group(1) == str(value), const
+    for w in ss.WGMMA_WIDTHS:
+        assert f"case {w}: return launch_wgmma_n<{w}>(p, st);" in SOURCE
     entry = re.search(r'extern "C" int ssd_scan_bwd\((.*?)\) \{', SOURCE,
                       re.S).group(1)
     params = [a.strip() for a in entry.split(",")]
     kinds = ["ptr" if "*" in a else "i64" if "long long" in a else "i32"
              for a in params]
-    expect = ["ptr"] * 17 + ["i32"] * 8 + ["i64"] * 15 + ["ptr", "i32"]
+    expect = ["ptr"] * 17 + ["i32"] * 8 + ["i64"] * 15 + ["ptr", "i32", "i32"]
     assert kinds == expect
+    assert params[-2:] == ["int variant", "int band"]
     assert ss._bwd_library.__wrapped__ is not None
     lib = _build.library_path("ssd_scan_bwd")
     assert lib.parent == _build.library_path("ssd_scan").parent
@@ -276,6 +298,74 @@ def test_torch_ssd_backward_scratch_is_what_the_wrapper_allocates(dtype):
               + 4 * b * nc * h + (4 * b * h * nc if dtype == torch.bfloat16
                                   else 0))
     assert ss.backward_scratch_bytes(b, s, h, p, n, chunk, dtype) == expect
+
+
+# (b, s, h, g, chunk) -> the wgmma band: mamba2-780m's training shape
+# (bands of 4), hymba's rank (25 heads: bands of 2 and a ragged one),
+# two groups of 8 heads at a ragged length (bands of 4), one head a group
+BAND_SHAPES = {"mamba2": ((4, 2048, 48, 1, 256), 4),
+               "ragged_band": ((2, 640, 25, 1, 256), 2),
+               "two_groups": ((8, 2000, 16, 2, 256), 4),
+               "g_eq_h": ((2, 300, 8, 8, 64), 1)}
+
+
+@pytest.mark.parametrize("which", ["scalar", "mma", "wgmma"])
+@pytest.mark.parametrize("case", list(BAND_SHAPES))
+def test_torch_ssd_backward_scratch_bytes_by_variant(which, case):
+    """``backward_scratch_bytes`` for each variant equals what
+    ``backward_kernel`` allocates (``_backward_scratch``, here on meta):
+    the wgmma variant's dB / dC partials are one a band (25 heads in bands
+    of 2: 13, the last of one head; two groups of 8 in bands of 4: 4; g =
+    h: one a head), the others' one a head."""
+    (b, s, h, g, chunk), band = BAND_SHAPES[case]
+    p, n = 16, 32
+    dtype = torch.float32 if which == "scalar" else torch.bfloat16
+    bufs = ss._backward_scratch(b, s, h, p, g, n, chunk, which, "meta")
+    allocated = sum(t.numel() * t.element_size() for t in bufs.values()
+                    if t is not None)
+    assert ss.backward_scratch_bytes(b, s, h, p, n, chunk, dtype, g=g,
+                                     which=which) == allocated
+    parts = g * -(-(h // g) // band) if which == "wgmma" else h
+    assert tuple(bufs["dB_part"].shape) == (b, s, parts, n)
+    assert (bufs["tot"] is None) == (which == "scalar")
+
+
+def test_torch_ssd_backward_band_rule():
+    """The band of the wgmma chunk kernel: the widest of 4, 2, 1 heads of
+    one group with the fewest waves of head work on ``BACKWARD_SMS``
+    blocks (4 at mamba2-780m's 4 x 2048, 2 at 6 x 2048 and 2 x 2048 and at
+    hymba's rank, 1 at the small model-axis grids), a ragged last band
+    when the group's head count is not a multiple, never more than the
+    group's heads and never a band across two groups; the other variants
+    take one head a block.  The bands tile each group's heads once, in
+    order."""
+    assert (ss.BACKWARD_BAND, ss.BACKWARD_SMS) == (4, 132)
+    cases = [(shape, band) for shape, band in BAND_SHAPES.values()] + [
+        ((6, 2048, 48, 1, 256), 2), ((2, 2048, 48, 1, 256), 2),
+        ((2, 512, 24, 1, 256), 1), ((2, 512, 8, 2, 256), 1),
+        ((4, 2048, 2, 1, 256), 1), ((64, 2048, 2, 1, 256), 2)]
+    for (b, s, h, g, chunk), band in cases:
+        assert ss.backward_band(b, s, h, g, chunk, "wgmma") == band, (
+            b, s, h, g)
+        hpg, bands = h // g, -(-(h // g) // band)
+        assert ss._backward_parts(b, s, h, g, chunk, "wgmma") == g * bands
+        for which in ("mma", "scalar"):
+            assert ss.backward_band(b, s, h, g, chunk, which) == 1
+            assert ss._backward_parts(b, s, h, g, chunk, which) == h
+        # the kernel's blocks: band k of group q takes heads q h / g + k W
+        # up to the group's end
+        covered = []
+        for q in range(g):
+            for k in range(bands):
+                kh = min(band, hpg - k * band)
+                assert kh > 0
+                heads = list(range(q * hpg + k * band,
+                                   q * hpg + k * band + kh))
+                assert {hd // hpg for hd in heads} == {q}
+                covered += heads
+        assert covered == list(range(h))
+    # hymba's rank ends in a band of one head
+    assert 25 % ss.backward_band(2, 640, 25, 1, 256, "wgmma") == 1
 
 
 def test_torch_meta_counts_the_mamba2_step_with_its_backward_regions():
@@ -335,11 +425,28 @@ def test_torch_chip_smoke_backward_rows_name_their_variants():
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    for name, (shape, _, dtype) in cs.SSD_BWD_CASES.items():
+    expect = {"slice": "wgmma", "fleet6": "wgmma", "dp_mb": "wgmma",
+              "tp_ssm_rank": "wgmma", "tp_hybrid_rank": "wgmma",
+              "p32_groups": "wgmma", "t4_chunk24": "mma", "unaligned": "mma",
+              "slice_fp32": "scalar"}
+    assert set(cs.SSD_BWD_CASES) == set(expect)
+    for name, (shape, strided, dtype) in cs.SSD_BWD_CASES.items():
         b, s, h, p, g, n, chunk = shape
-        expect = "mma" if dtype == "bfloat16" else "scalar"
-        assert ss.backward_variant(p, n, chunk,
-                                   getattr(torch, dtype)) == expect, name
+        # the script's inputs: x, B and C slices of one conv output when
+        # strided, dy contiguous
+        u = torch.empty((b, s, h * p + 2 * g * n), dtype=torch.bfloat16,
+                        device="meta")
+        x = (u[..., :h * p].reshape(b, s, h, p) if strided
+             else torch.empty((b, s, h, p), device="meta"))
+        Bm = u[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        aligned = strided and all(ss._aligned16(t) for t in (x, Bm))
+        assert ss.backward_variant(p, n, chunk, getattr(torch, dtype),
+                                   aligned) == expect[name], name
     assert cs.SSD_BWD_CASES["tp_hybrid_rank"][0][1] % 256
+    # hymba's rank: 25 heads in bands of 2 and a ragged last band of 1
+    shape = cs.SSD_BWD_CASES["tp_hybrid_rank"][0]
+    b, s, h, p, g, n, chunk = shape
+    assert ss.backward_band(b, s, h, g, chunk, "wgmma") == 2
+    assert ss._backward_parts(b, s, h, g, chunk, "wgmma") == 13
     assert {v[0] for v in cs.RMSNORM_BWD_CASES.values()} == \
         {cs.TRAIN_BATCH * cs.TRAIN_SEQ}

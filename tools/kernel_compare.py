@@ -3,7 +3,7 @@ against another checkout, on one card.
 
     python3 tools/kernel_compare.py --kernel flash|ssd|ssd_bwd [--parent DIR]
         [--variant LABEL:NAME=VALUE[,NAME=VALUE...]]... [--order LABELS]
-        [--cases NAME,...]
+        [--cases NAME,...] [--bands W,...]
 
 Each label runs in a process of its own, in the order given (by default
 ``parent,change,<variants>,change,parent``, so a drift of the card shows
@@ -33,12 +33,16 @@ over 20 calls, L2-warm:
 * ``ssd_bwd``: the SSD scan's backward (``csrc/ssd_scan_bwd.cu``, which
   walks the entering states again itself) through
   ``ssd_scan.backward_kernel`` at ``chip_smoke.py``'s bf16 backward rows
-  at the models' shapes (its ``SSD_BWD_CASES``): ``ms``; ``variant``;
+  at the models' shapes (its ``SSD_BWD_CASES``): ``ms``; ``variant``, the
+  kernels that served it (``backward_launches_by_variant``);
   ``stages_ms``, each kernel's device time in one call; ``err_of_max``,
   the largest distance of a gradient from the fp32 autograd recompute
   over its largest entry.  A checkout without backward kernels (``parent``
   before them) times its backward, the plain recompute
-  ``ssd_scan_backward``, and says so (``variant`` "plain").
+  ``ssd_scan_backward``, and says so (``variant`` "plain").  ``--bands
+  4,2,1`` also times a checkout's wgmma kernels with the band of heads
+  forced to each width (``ssd_scan.backward_band``, capped at the group's
+  heads): ``band_ms``, and ``band_stages_ms`` each kernel's time.
 
 ``atol_needed_of_max`` is the least absolute tolerance the output needs
 against the plain twin in fp32 at rtol 2^-8 (flash) or 2e-2 (ssd, as
@@ -298,7 +302,7 @@ def ssd_worker(label: str, torch, cases) -> None:
         print(json.dumps(row), flush=True)
 
 
-def ssd_bwd_worker(label: str, torch, cases) -> None:
+def ssd_bwd_worker(label: str, torch, cases, bands=()) -> None:
     from repro_torch.kernels import ssd_scan as ss
     from torch.profiler import ProfilerActivity, profile
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -314,7 +318,11 @@ def ssd_bwd_worker(label: str, torch, cases) -> None:
                 return ss.backward_kernel(x, dt, A, B, C, dy, chunk=chunk)
             return ss.ssd_scan_backward(x, dt, A, B, C, dy, chunk=chunk)
 
+        before = dict(getattr(ss.ssd_scan, "backward_launches_by_variant",
+                              {}))
         got = call()
+        after = getattr(ss.ssd_scan, "backward_launches_by_variant", {})
+        used = [k for k in after if after[k] != before.get(k)]
         oracle = ss.ssd_scan_backward(x.float(), dt, A, B.float(),
                                       C.float(), dy.float(), chunk=chunk)
         err = max(float((a.float() - r).abs().max() / r.abs().max())
@@ -328,20 +336,40 @@ def ssd_bwd_worker(label: str, torch, cases) -> None:
                   for e in prof.key_averages()
                   if e.self_device_time_total > 0}
         row = dict(label=label, case=name,
-                   variant=(ss.backward_variant(p, n, chunk, x.dtype)
-                            if kernels else "plain"),
+                   variant=used[0] if kernels and len(used) == 1 else "plain",
                    ms=device_ms(torch, call), err_of_max=err)
         if kernels:
             row["stages_ms"] = stages
+        if bands and hasattr(ss, "backward_band") and row["variant"] == "wgmma":
+            chosen = ss.backward_band
+            row["band"] = chosen(b, s, h, g, chunk, "wgmma")
+            row["band_ms"], row["band_stages_ms"] = {}, {}
+            for w in bands:
+                ss.backward_band = (lambda b_, s_, h_, g_, c_, which, w=w:
+                                    min(w, h_ // g_) if which == "wgmma"
+                                    else 1)
+                try:
+                    row["band_ms"][w] = device_ms(torch, call)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        call()
+                        torch.cuda.synchronize()
+                    row["band_stages_ms"][w] = {
+                        e.key[:60]: e.self_device_time_total / 1e3
+                        for e in prof.key_averages()
+                        if e.self_device_time_total > 0}
+                finally:
+                    ss.backward_band = chosen
         print(json.dumps(row), flush=True)
 
 
-def worker(kernel: str, label: str, parent, cases) -> None:
+def worker(kernel: str, label: str, parent, cases, bands=()) -> None:
     setup(label, parent)
     import torch
     device_ms(torch, lambda: torch.ones(1, device="cuda").add_(1))
-    {"flash": flash_worker, "ssd": ssd_worker,
-     "ssd_bwd": ssd_bwd_worker}[kernel](label, torch, cases)
+    if kernel == "ssd_bwd":
+        ssd_bwd_worker(label, torch, cases, bands)
+        return
+    {"flash": flash_worker, "ssd": ssd_worker}[kernel](label, torch, cases)
 
 
 def main() -> int:
@@ -351,6 +379,7 @@ def main() -> int:
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--order")
     ap.add_argument("--cases")
+    ap.add_argument("--bands")
     ap.add_argument("--worker")
     ap.add_argument("--build")
     args = ap.parse_args()
@@ -359,8 +388,9 @@ def main() -> int:
     unknown = [c for c in cases if c not in all_cases]
     if unknown:
         raise SystemExit(f"no {args.kernel} case {unknown}")
+    bands = [int(w) for w in args.bands.split(",")] if args.bands else []
     if args.worker:
-        worker(args.kernel, args.worker, args.parent, cases)
+        worker(args.kernel, args.worker, args.parent, cases, bands)
         return 0
     if args.build:
         _build = setup(args.build, args.parent)
@@ -384,7 +414,8 @@ def main() -> int:
     print(smi, flush=True)
     me = [sys.executable, __file__, "--kernel", args.kernel,
           "--cases", ",".join(cases)] + (["--parent", args.parent]
-                                         if args.parent else [])
+                                         if args.parent else []) + (
+        ["--bands", args.bands] if args.bands else [])
     t0 = time.perf_counter()
     builds = [subprocess.Popen(me + ["--build", label]) for label in labels]
     if any(p.wait() for p in builds):
